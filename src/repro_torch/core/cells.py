@@ -1,0 +1,79 @@
+"""LSTM cell with the paper's per-gate MCD mask views — port of
+``repro.core.cells`` (LSTM only in this slice).
+
+Weights are stored as ``[4, in, hidden]`` stacks (gate axis first), the
+reference's layout; :func:`gate_stacked` gives the kernel layout
+``[in, 4, hidden]``.  The cell state ``c`` is accumulated in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import mcd
+
+
+class LSTMParams(NamedTuple):
+    wx: torch.Tensor  # [4, in_dim, hidden]
+    wh: torch.Tensor  # [4, hidden, hidden]
+    b: torch.Tensor   # [4, hidden]
+
+
+def _uniform(generator, shape, bound, dtype):
+    u = torch.rand(shape, generator=generator, dtype=dtype)
+    return u * (2 * bound) - bound
+
+
+def init_lstm(generator: torch.Generator, in_dim: int, hidden: int,
+              dtype=torch.float32, device=None) -> LSTMParams:
+    sx = (6.0 / (in_dim + hidden)) ** 0.5
+    sh = (6.0 / (2 * hidden)) ** 0.5
+    wx = _uniform(generator, (4, in_dim, hidden), sx, dtype)
+    wh = _uniform(generator, (4, hidden, hidden), sh, dtype)
+    b = torch.zeros((4, hidden), dtype=dtype)
+    b[1] = 1.0    # forget-gate bias 1.0 (standard recurrent practice)
+    return LSTMParams(wx.to(device), wh.to(device), b.to(device))
+
+
+def freeze_rows(t: int, lengths: torch.Tensor, h_new, c_new, h_old, c_old):
+    """Per-row streaming freeze: keep the old carry once ``t >= lengths``."""
+    live = (t < lengths)[:, None]
+    return torch.where(live, h_new, h_old), torch.where(live, c_new, c_old)
+
+
+def gate_stacked(params: LSTMParams):
+    """Kernel weight layout: ``[4, in, H] → ([in, 4, H], [H, 4, H], b)``."""
+    return (params.wx.transpose(0, 1).contiguous(),
+            params.wh.transpose(0, 1).contiguous(), params.b.contiguous())
+
+
+def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
+              x: torch.Tensor, zx: torch.Tensor | None,
+              zh: torch.Tensor | None, p: float,
+              det: torch.Tensor | None = None):
+    """One LSTM time step with per-gate MCD masks.
+
+    h, c: [B, H] carry; x: [B, I]; zx: [B, 4, I] / zh: [B, 4, H] keep-masks
+    or None; det: [B] bool — True rows run deterministic (no mask·scale).
+    Returns (h_new, c_new); c accumulates in fp32 and returns in c's dtype.
+    """
+    wx, wh, b = params
+    xr = x[:, None, :].expand(x.shape[0], 4, x.shape[1])
+    hr = h[:, None, :].expand(h.shape[0], 4, h.shape[1])
+    xg = mcd.apply_mask(xr, zx, p)
+    hg = mcd.apply_mask(hr, zh, p)
+    if det is not None:
+        xg = torch.where(det[:, None, None], xr, xg)
+        hg = torch.where(det[:, None, None], hr, hg)
+    gates = (torch.einsum("bgi,gih->bgh", xg, wx.to(xg.dtype)).float()
+             + torch.einsum("bgh,ghk->bgk", hg, wh.to(hg.dtype)).float()
+             + b.float())
+    i = torch.sigmoid(gates[:, 0])
+    f = torch.sigmoid(gates[:, 1])
+    g = torch.tanh(gates[:, 2])
+    o = torch.sigmoid(gates[:, 3])
+    c_new = f * c.float() + i * g
+    h_new = (o * torch.tanh(c_new)).to(h.dtype)
+    return h_new, c_new.to(c.dtype)

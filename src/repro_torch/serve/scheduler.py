@@ -1,0 +1,140 @@
+"""Adaptive tick scheduling and per-tick metrics — port of
+``repro.serve.scheduler``.
+
+The scheduler picks each tick's launch T from a small ladder of capacities
+tracking the observed ragged chunk lengths.  On the GPU a rung is no
+compiled graph (PyTorch runs eagerly), but the ladder still bounds the
+launch shapes and the pad waste.  :class:`TickMetrics` counts kernel
+launches where the reference counted jit compiles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import deque
+from typing import Iterable, Sequence
+
+
+def pow2_ladder(max_capacity: int, *, first: int = 8) -> tuple[int, ...]:
+    """Power-of-two rungs up to a top rung of exactly ``max_capacity``."""
+    if max_capacity < 1:
+        raise ValueError(f"max_capacity must be >= 1, got {max_capacity}")
+    rungs, c = [], min(max(1, first), max_capacity)
+    while c < max_capacity:
+        rungs.append(c)
+        c *= 2
+    rungs.append(max_capacity)
+    return tuple(rungs)
+
+
+@dataclasses.dataclass
+class TickMetrics:
+    """Per-tick control-plane observables."""
+
+    tick: int
+    capacity: int          # launch T this tick (ladder rung / fixed / max len)
+    n_chunks: int          # sessions served this tick
+    live_rows: int         # session-chain rows carrying real data
+    batch_rows: int        # launch rows incl. idle-slot padding
+    queue_depth: int       # admissions still waiting after the drain
+    live_steps: int        # sum of chunk lengths (signal timesteps served)
+    live_chain_steps: int  # live_steps x S MC chains (chain-timesteps)
+    padded_steps: int      # batch_rows * capacity (chain-timesteps launched)
+    pad_waste: float       # 1 - live_chain_steps/padded_steps
+    duration_s: float      # wall clock of the tick, ended by a device sync
+    tokens_per_sec: float  # live chain-timesteps / duration
+    queue_wait_s: float = 0.0  # oldest-pending admission age at the drain
+    launches: int = 0      # layer-kernel launches this tick (one per layer
+                           # on the kernel backend; 0 on the reference)
+    dropped: int = 0       # admissions the store refused this tick
+    active_chains: int = 0     # live MC chains across the store at tick end
+
+
+class AdaptiveTickScheduler:
+    """Pick ``chunk_capacity`` online from the ragged-chunk distribution.
+
+    Args:
+      ladder: ascending candidate capacities.
+      window: how many recent chunk lengths inform the choice.
+      percentile: the rung must cover this percentile of the window (100 =
+        the windowed max); the current tick's own max is always covered.
+    """
+
+    def __init__(self, ladder: Sequence[int] | None = None, *,
+                 max_capacity: int = 512, window: int = 64,
+                 percentile: float = 100.0):
+        self.ladder = tuple(sorted(ladder)) if ladder \
+            else pow2_ladder(max_capacity)
+        if not self.ladder or any(c < 1 for c in self.ladder):
+            raise ValueError(f"bad capacity ladder {self.ladder}")
+        if not 0.0 < percentile <= 100.0:
+            raise ValueError(f"percentile must be in (0, 100], "
+                             f"got {percentile}")
+        self.percentile = float(percentile)
+        self._window: deque[int] = deque(maxlen=int(window))
+
+    def plan(self, lens: Iterable[int]) -> int:
+        """Record this tick's chunk lengths; return the capacity to launch."""
+        lens = [int(n) for n in lens]
+        if not lens:
+            return self.ladder[0]
+        need = max(lens)
+        if need > self.ladder[-1]:
+            raise ValueError(
+                f"chunk of {need} steps exceeds the capacity ladder "
+                f"(top rung {self.ladder[-1]}); split the chunk or extend "
+                "the ladder")
+        self._window.extend(lens)
+        target = max(need, self._percentile_target())
+        for rung in self.ladder:
+            if rung >= target:
+                return rung
+        return self.ladder[-1]
+
+    def _percentile_target(self) -> int:
+        win = sorted(self._window)
+        if not win:
+            return self.ladder[0]
+        k = max(0, min(len(win) - 1,
+                       int(round(self.percentile / 100.0 * len(win))) - 1))
+        return win[k]
+
+
+def percentile(values: Sequence[float], p: float) -> float:
+    """Nearest-rank percentile (p in (0, 100]); 0.0 on an empty sequence."""
+    vals = sorted(values)
+    if not vals:
+        return 0.0
+    k = max(0, min(len(vals) - 1, math.ceil(p / 100.0 * len(vals)) - 1))
+    return vals[k]
+
+
+def summarize(metrics: Sequence[TickMetrics]) -> dict:
+    """Aggregate control-plane observables over recorded ticks."""
+    if not metrics:
+        return {"ticks": 0}
+    live = sum(m.live_chain_steps for m in metrics)
+    padded = sum(m.padded_steps for m in metrics)
+    dur = sum(m.duration_s for m in metrics)
+    durs = [m.duration_s for m in metrics]
+    tps = [m.tokens_per_sec for m in metrics]
+    return {
+        "ticks": len(metrics),
+        "capacities_used": sorted({m.capacity for m in metrics}),
+        "live_chain_steps": live,
+        "padded_steps": padded,
+        "pad_waste": 1.0 - live / padded if padded else 0.0,
+        "mean_queue_depth": (sum(m.queue_depth for m in metrics)
+                             / len(metrics)),
+        "tokens_per_sec": live / dur if dur > 0 else 0.0,
+        "duration_s_p50": percentile(durs, 50),
+        "duration_s_p95": percentile(durs, 95),
+        "tokens_per_sec_p50": percentile(tps, 50),
+        "tokens_per_sec_p95": percentile(tps, 95),
+        "queue_wait_s_p95": percentile([m.queue_wait_s for m in metrics], 95),
+        "launches": sum(m.launches for m in metrics),
+        "dropped": sum(m.dropped for m in metrics),
+        "active_chains_mean": (sum(m.active_chains for m in metrics)
+                               / len(metrics)),
+    }

@@ -1,0 +1,153 @@
+"""Per-session carried state for streaming serving — port of
+``repro.serve.sessions``.
+
+A session owns two things: its per-layer, per-chain ``(h, c)`` carry
+(tensors on the serving device; ``c`` fp32 on the kernel backend, so a
+chunk boundary round-trips it losslessly) and its ``(seed, rows)``
+mask-stream coordinates, allocated once at admission from a monotone
+allocator and never reused, so every chunk redraws the same masks.
+
+Rows are host numpy uint32 arrays, allocated exactly as the reference
+allocates them.  Chain regrowth/retirement (``grow``/``retire``) and student
+sessions are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core import mcd as _mcd
+
+MODES = ("mc",)
+
+
+class CapacityError(RuntimeError):
+    """Admission refused: the store already holds ``max_sessions`` sessions."""
+
+
+@dataclasses.dataclass
+class Session:
+    """One monitored stream: mask coordinates + carried recurrent state."""
+
+    sid: str
+    rows: np.ndarray           # [s] uint32 mask-stream row ids, for life
+    seed: Any                  # counter-PRNG base seed (engine-wide)
+    state: list | None = None  # per-layer [(h [s,H], c [s,H]), ...] or fresh
+    steps: int = 0             # timesteps consumed so far
+    chunks: int = 0            # chunks served so far
+    mode: str = "mc"
+
+    @property
+    def fresh(self) -> bool:
+        return self.state is None
+
+
+class SessionStore:
+    """Capacity-bounded registry of live streaming sessions.
+
+    ``n_samples`` is the chain ceiling: the default and maximum number of
+    MC chains per session; ``admit`` may open a session with fewer.
+    """
+
+    def __init__(self, n_samples: int, seed=0, *, max_sessions: int = 64,
+                 first_row: int = 0):
+        if n_samples < 1:
+            raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+        self.n_samples = int(n_samples)
+        self.seed = seed
+        self.max_sessions = int(max_sessions)
+        self._next_row = int(first_row)
+        self._sessions: dict[str, Session] = {}
+
+    def admit(self, sid: str, *, n_samples: int | None = None,
+              mode: str = "mc") -> Session:
+        """Register a new stream; allocates its mask rows for life."""
+        if sid in self._sessions:
+            raise ValueError(f"session {sid!r} already admitted")
+        if len(self._sessions) >= self.max_sessions:
+            raise CapacityError(
+                f"store full ({self.max_sessions} sessions); evict first")
+        if mode not in MODES:
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet (student sessions are "
+                "queued in ROADMAP.md)")
+        s = self.n_samples if n_samples is None else int(n_samples)
+        if not 1 <= s <= self.n_samples:
+            raise ValueError(
+                f"session {sid!r} wants {s} MC chains, store ceiling is "
+                f"{self.n_samples} (floor 1)")
+        self._check_allocator(s)
+        rows = np.arange(self._next_row, self._next_row + s, dtype=np.uint32)
+        self._next_row += s
+        sess = Session(sid=sid, rows=rows, seed=self.seed)
+        self._sessions[sid] = sess
+        return sess
+
+    def _check_allocator(self, count: int) -> None:
+        # Base row ids stay below the student-flag bit.
+        if self._next_row + count > _mcd.STUDENT_ROW_FLAG:
+            raise RuntimeError(
+                f"row allocator exhausted ({self._next_row} ids burned; "
+                f"ceiling {_mcd.STUDENT_ROW_FLAG})")
+
+    def attach(self, session: Session) -> Session:
+        """Re-admit a previously evicted :class:`Session` (same draw)."""
+        if session.sid in self._sessions:
+            raise ValueError(f"session {session.sid!r} already admitted")
+        if len(self._sessions) >= self.max_sessions:
+            raise CapacityError(
+                f"store full ({self.max_sessions} sessions); evict first")
+        if session.seed != self.seed:
+            raise ValueError(
+                f"session {session.sid!r} was drawn under seed "
+                f"{session.seed!r}, store uses {self.seed!r} — reattaching "
+                "would silently change its masks")
+        if int(session.rows.shape[0]) > self.n_samples:
+            raise ValueError(
+                f"session {session.sid!r} carries "
+                f"{int(session.rows.shape[0])} MC chains, store ceiling is "
+                f"{self.n_samples}")
+        attached = {int(r) for r in session.rows}
+        for live in self._sessions.values():
+            if attached & {int(r) for r in live.rows}:
+                raise ValueError(
+                    f"session {session.sid!r} rows collide with live "
+                    f"session {live.sid!r} — same (seed, rows) would "
+                    "correlate their Bayesian draws")
+        self._next_row = max(self._next_row,
+                             max(_mcd.base_row(r) for r in attached) + 1)
+        self._sessions[session.sid] = session
+        return session
+
+    def get(self, sid: str) -> Session:
+        try:
+            return self._sessions[sid]
+        except KeyError:
+            raise KeyError(f"unknown session {sid!r} (admitted: "
+                           f"{sorted(self._sessions)})") from None
+
+    def evict(self, sid: str) -> Session:
+        """Remove a finished stream; returns it (final carry + coordinates)."""
+        self.get(sid)
+        return self._sessions.pop(sid)
+
+    @property
+    def active(self) -> list[str]:
+        return list(self._sessions)
+
+    @property
+    def active_chains(self) -> int:
+        return sum(int(s.rows.shape[0]) for s in self._sessions.values())
+
+    @property
+    def next_row(self) -> int:
+        return self._next_row
+
+    def __len__(self) -> int:
+        return len(self._sessions)
+
+    def __contains__(self, sid: str) -> bool:
+        return sid in self._sessions

@@ -1,0 +1,414 @@
+"""Streaming engine: unbounded signals, chunk by chunk, one batched pass per
+tick — port of ``repro.serve.stream`` for the ECG classifier.
+
+Per tick the engine collects every submitted chunk, pads them to a common
+T, folds each session's S MC chains into the batch axis, resumes each row's
+carried ``(h, c)`` through the stack (on the ``"cuda_seq"`` backend: one
+kernel launch per layer, with per-row ``lengths`` freezing ragged rows at
+their own chunk end), emits per-session uncertainty and stores the new
+carry.  Streaming passes always supply ``lengths``, so a session's results
+do not depend on how its signal was chunked or on which sessions shared the
+batch: chunked == unchunked, bit for bit.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md): the
+autoencoder, ``mesh`` sharding, serving precisions other than fp32, early
+exit, distilled students, and snapshot/restore.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from collections import deque
+from typing import Any, Mapping, Protocol, Sequence, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import classifier as _clf
+from repro_torch.core.uncertainty import (ClassificationSummary,
+                                          classification_summary)
+from repro_torch.kernels import mcd_lstm_seq as _seq
+from repro_torch.kernels import ops as _ops
+from repro_torch.serve.admission import AdmissionQueue, DrainRejected
+from repro_torch.serve.scheduler import AdaptiveTickScheduler, TickMetrics
+from repro_torch.serve.sessions import Session, SessionStore
+
+
+def stack_launch_count() -> int:
+    """Layer-kernel launches so far in this process.
+
+    The delta across a tick is ``TickMetrics.launches``: on the kernel
+    backend every tick launches the layer kernel once per layer.
+    """
+    return _seq.mcd_lstm_seq.launches
+
+
+@dataclasses.dataclass
+class ChunkResult:
+    """Per-chunk Bayesian output for one session."""
+
+    sid: str
+    length: int                # timesteps in this chunk
+    steps_total: int           # timesteps consumed by the session so far
+    summary: Any               # ClassificationSummary (batch axis squeezed)
+
+
+@runtime_checkable
+class MetricsSink(Protocol):
+    """Where the engine's per-tick :class:`TickMetrics` go."""
+
+    def emit(self, m: TickMetrics) -> None: ...
+
+    def window(self) -> Sequence[TickMetrics]: ...
+
+    def last(self) -> TickMetrics | None: ...
+
+    def close(self) -> None: ...
+
+
+class RingBufferSink:
+    """Default sink: a bounded in-memory ring (the last ``window`` ticks)."""
+
+    def __init__(self, window: int = 4096):
+        self._ring: deque[TickMetrics] = deque(maxlen=int(window))
+
+    def emit(self, m: TickMetrics) -> None:
+        self._ring.append(m)
+
+    def window(self) -> list[TickMetrics]:
+        return list(self._ring)
+
+    def last(self) -> TickMetrics | None:
+        return self._ring[-1] if self._ring else None
+
+    def close(self) -> None:
+        pass
+
+
+class JsonlSink(RingBufferSink):
+    """Append every tick as one JSON line (flushed); keeps the ring too."""
+
+    def __init__(self, path, *, window: int = 4096):
+        super().__init__(window)
+        self.path = path
+        self._fh = open(path, "a")
+
+    def emit(self, m) -> None:
+        super().emit(m)
+        self._fh.write(json.dumps(dataclasses.asdict(m)) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        self._fh.close()
+
+
+def _unported(feature: str):
+    return NotImplementedError(
+        f"StreamingEngine: {feature} is not ported to repro_torch yet; "
+        "see ROADMAP.md")
+
+
+class StreamingEngine:
+    """Stateful session serving for the ECG classifier.
+
+    Args:
+      params: classifier parameters (``classifier.init`` or the bridge),
+        on ``device``.
+      cfg: the matching ``ClassifierConfig``; its ``mcd`` block fixes S
+        (chains per session), p, placement and seed.
+      backend: ``"cuda_seq"`` (the serving path: one kernel launch per
+        layer per tick) or ``"reference"``.
+      max_sessions: admission bound on concurrently open sessions.
+      chunk_capacity: an int launches every tick at a fixed shape (chunks
+        padded to this T, the batch to ``max_sessions`` slots); ``"auto"``
+        lets an :class:`AdaptiveTickScheduler` pick T from ``ladder``;
+        ``None`` pads each tick to its own longest chunk.
+      max_pending: admission-queue bound (``admit`` backpressure).
+      metrics_sink: where per-tick :class:`TickMetrics` go (default: a
+        ring of the last 4096 ticks).
+      device: where the engine serves (default CUDA; ``"cpu"`` runs the
+        plain-PyTorch paths).
+    """
+
+    def __init__(self, params, cfg, *, backend: str = "cuda_seq",
+                 max_sessions: int = 64,
+                 chunk_capacity: int | str | None = None,
+                 max_pending: int = 256, ladder=None,
+                 metrics_sink: MetricsSink | None = None,
+                 device=None, mesh=None, precision: str | None = None,
+                 early_exit_threshold: float | None = None,
+                 student=None):
+        if not isinstance(cfg, _clf.ClassifierConfig):
+            raise _unported(f"config {type(cfg).__name__} (only the "
+                            "classifier is served; the autoencoder waits)")
+        if mesh is not None:
+            raise _unported("mesh sharding")
+        if early_exit_threshold is not None:
+            raise _unported("early exit")
+        if student is not None:
+            raise _unported("distilled student heads")
+        _ops.check_precision(precision)
+        if backend not in _ops.LSTM_BACKENDS:
+            raise ValueError(f"backend must be one of {_ops.LSTM_BACKENDS}, "
+                             f"got {backend!r}")
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.backend = backend
+        self.precision = precision
+        self.chunk_capacity = chunk_capacity
+        self.max_sessions = max_sessions
+        self._scheduler = None
+        if chunk_capacity == "auto":
+            self._scheduler = AdaptiveTickScheduler(ladder)
+        elif isinstance(chunk_capacity, str):
+            raise ValueError(f"chunk_capacity must be an int, None or "
+                             f"'auto', got {chunk_capacity!r}")
+        self._fixed = chunk_capacity is not None
+        s = cfg.mcd.n_samples if cfg.mcd.any_bayesian else 1
+        self.n_samples = max(1, s)
+        self.store = SessionStore(self.n_samples, cfg.mcd.seed,
+                                  max_sessions=max_sessions)
+        self.queue = AdmissionQueue(max_pending)
+        self.tick = 0
+        self.metrics_sink: MetricsSink = metrics_sink or RingBufferSink()
+        self.dropped_admissions: deque = deque(maxlen=4096)
+        self._dropped_unreported = 0
+
+    # -- session lifecycle ---------------------------------------------------
+    def open_session(self, sid: str, *, n_samples: int | None = None,
+                     mode: str = "mc"):
+        """Admit a stream *now* or fail fast with ``CapacityError``."""
+        return self.store.admit(sid, n_samples=n_samples, mode=mode)
+
+    def admit(self, sid: str, *, priority: int = 0,
+              session: Session | None = None,
+              n_samples: int | None = None, mode: str | None = None):
+        """Queue a stream for admission; drain it into any free row now.
+
+        Returns the live :class:`Session` if admitted at once, else None
+        (it waits in the queue; see ``queued_sessions``).
+        """
+        if mode not in (None, "mc"):
+            raise _unported(f"mode={mode!r} sessions")
+        if sid in self.store:
+            raise ValueError(f"session {sid!r} already admitted")
+        if session is not None:
+            if session.seed != self.store.seed:
+                raise ValueError(
+                    f"session {sid!r} was drawn under seed "
+                    f"{session.seed!r}, engine uses {self.store.seed!r}")
+            if int(session.rows.shape[0]) > self.n_samples:
+                raise ValueError(
+                    f"session {sid!r} carries {int(session.rows.shape[0])} "
+                    f"MC chains, engine ceiling is {self.n_samples}")
+        self.queue.submit(sid, priority=priority, session=session,
+                          n_samples=n_samples)
+        try:
+            self.queue.drain(self.store)
+        except DrainRejected as err:
+            mine = next((e for t, e in err.rejected if t.sid == sid), None)
+            others = [(t, e) for t, e in err.rejected if t.sid != sid]
+            self.dropped_admissions.extend(others)
+            self._dropped_unreported += len(others)
+            if mine is not None:
+                raise mine from err
+        return self.store.get(sid) if sid in self.store else None
+
+    def close_session(self, sid: str):
+        """Evict a finished stream; returns the Session (final carry).
+
+        The freed row is offered to the admission queue at once.
+        """
+        sess = self.store.evict(sid)
+        self._drain()
+        return sess
+
+    def _drain(self):
+        # A rejected ticket belongs to another caller: record it, keep going.
+        try:
+            return self.queue.drain(self.store)
+        except DrainRejected as err:
+            self.dropped_admissions.extend(err.rejected)
+            self._dropped_unreported += len(err.rejected)
+            return err.admitted
+
+    @property
+    def active_sessions(self) -> list[str]:
+        return self.store.active
+
+    @property
+    def queued_sessions(self) -> list[str]:
+        return [t.sid for t in self.queue.waiting()]
+
+    @property
+    def metrics(self) -> Sequence[TickMetrics]:
+        return self.metrics_sink.window()
+
+    @property
+    def last_metrics(self) -> TickMetrics | None:
+        return self.metrics_sink.last()
+
+    def snapshot(self, *args, **kw):
+        raise _unported("snapshot")
+
+    def restore(self, *args, **kw):
+        raise _unported("restore")
+
+    # -- serving -------------------------------------------------------------
+    def step(self, chunks: Mapping[str, Any]) -> dict[str, ChunkResult]:
+        """Serve one chunk per submitting session, in one batched pass.
+
+        ``chunks`` maps session id → ``[t, input_dim]`` (or ``[t]`` when
+        ``input_dim == 1``) signal slices, numpy arrays or tensors; ``t``
+        may differ per session and must be >= 1.
+        """
+        self._drain()
+        if not chunks:
+            return {}
+        queue_wait_s = self.queue.oldest_wait_s()
+        launches_before = stack_launch_count()
+        t_start = time.perf_counter()
+        sessions, xs, lens = [], [], []
+        for sid, chunk in chunks.items():
+            sess = self.store.get(sid)
+            x = (chunk.detach().cpu().numpy()
+                 if isinstance(chunk, torch.Tensor) else np.asarray(chunk))
+            if x.ndim == 1:
+                x = x[:, None]
+            if x.ndim != 2 or x.shape[0] < 1:
+                raise ValueError(f"chunk for {sid!r} must be [t>=1, "
+                                 f"input_dim], got shape {tuple(x.shape)}")
+            sessions.append(sess)
+            xs.append(x)
+            lens.append(x.shape[0])
+        s_list = [int(sess.rows.shape[0]) for sess in sessions]
+
+        if self._scheduler is not None:
+            t_max = self._scheduler.plan(lens)
+        elif self.chunk_capacity is not None:
+            if max(lens) > self.chunk_capacity:
+                raise ValueError(f"chunk of {max(lens)} steps exceeds "
+                                 f"chunk_capacity={self.chunk_capacity}")
+            t_max = self.chunk_capacity
+        else:
+            t_max = max(lens)
+        dtype = xs[0].dtype
+        slots = self.max_sessions if self._fixed else len(sessions)
+        live_chains = sum(s_list)
+        nb = slots * self.n_samples if self._fixed else live_chains
+        n_pad = nb - live_chains
+        # Session-major, chain-minor batch assembled on the host; one
+        # transfer per operand per tick.
+        x_host = np.zeros((nb, t_max, xs[0].shape[1]), dtype)
+        rows_host = np.zeros((nb,), np.int64)
+        lens_host = np.ones((nb,), np.int32)
+        offsets, off = [], 0
+        for x, L, sess, si in zip(xs, lens, sessions, s_list):
+            sl = slice(off, off + si)
+            offsets.append(off)
+            x_host[sl, :L] = x[None]
+            rows_host[sl] = sess.rows
+            lens_host[sl] = L
+            off += si
+        dev = self.device
+        x_batch = torch.from_numpy(x_host).to(dev)
+        rows = torch.from_numpy(rows_host).to(dev)
+        lengths = torch.from_numpy(lens_host).to(dev)
+        initial_state = self._gather_states(sessions, x_batch.dtype, n_pad)
+
+        logits, states = self._apply(x_batch, rows, lengths, initial_state)
+
+        k_n = len(sessions)
+        summaries: list = [None] * k_n
+        groups = ([(s_list[0], list(range(k_n)))] if len(set(s_list)) == 1
+                  else sorted({si: [k for k in range(k_n) if s_list[k] == si]
+                               for si in set(s_list)}.items()))
+        for si, ks in groups:
+            if len(ks) == k_n:
+                lg = logits[:k_n * si].reshape(k_n, si, -1)
+            else:
+                idx = torch.as_tensor(np.concatenate(
+                    [np.arange(offsets[k], offsets[k] + si) for k in ks]),
+                    device=dev)
+                lg = logits[idx].reshape(len(ks), si, -1)
+            batched = classification_summary(lg.transpose(0, 1).float())
+            for j, k in enumerate(ks):
+                summaries[k] = ClassificationSummary(*(v[j] for v in batched))
+
+        results: dict[str, ChunkResult] = {}
+        for k, (sess, L) in enumerate(zip(sessions, lens)):
+            sl = slice(offsets[k], offsets[k] + s_list[k])
+            sess.state = [tuple(part[sl] for part in layer)
+                          for layer in states]
+            sess.steps += L
+            sess.chunks += 1
+            results[sess.sid] = ChunkResult(sid=sess.sid, length=L,
+                                            steps_total=sess.steps,
+                                            summary=summaries[k])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dur = time.perf_counter() - t_start
+        live_chain_steps = int(sum(L * si for L, si in zip(lens, s_list)))
+        m = TickMetrics(
+            tick=self.tick, capacity=int(t_max), n_chunks=k_n,
+            live_rows=live_chains, batch_rows=nb,
+            queue_depth=len(self.queue), live_steps=int(sum(lens)),
+            live_chain_steps=live_chain_steps,
+            padded_steps=nb * int(t_max),
+            pad_waste=1.0 - live_chain_steps / (nb * int(t_max)),
+            duration_s=dur,
+            tokens_per_sec=live_chain_steps / dur if dur > 0 else 0.0,
+            queue_wait_s=queue_wait_s,
+            launches=stack_launch_count() - launches_before,
+            dropped=self._take_dropped(),
+            active_chains=self.store.active_chains)
+        self.metrics_sink.emit(m)
+        self.tick += 1
+        return results
+
+    def _take_dropped(self) -> int:
+        n, self._dropped_unreported = self._dropped_unreported, 0
+        return n
+
+    def _apply(self, x_batch, rows, lengths, initial_state):
+        """One batched model pass — the tick hot path."""
+        return _clf.apply(self.params, x_batch, rows, self.cfg,
+                          backend=self.backend, initial_state=initial_state,
+                          lengths=lengths, return_state=True,
+                          precision=self.precision, device=self.device)
+
+    def _gather_states(self, sessions, dtype, n_pad: int = 0):
+        """Concatenate per-session carries into batch-aligned layer states.
+
+        Fresh sessions and pad slots contribute zeros in the backend's own
+        carry dtypes (h in the activation dtype; c in fp32 on the kernel
+        backend, the activation dtype on the reference).
+        """
+        if all(sess.fresh for sess in sessions) and not self._fixed:
+            return None
+        c_dtype = dtype if self.backend == "reference" else torch.float32
+        part_dtypes = (dtype, c_dtype)
+        dev = self.device
+        layers = []
+        for li in range(self.cfg.num_layers):
+            hid = self.cfg.hidden
+            parts = [[] for _ in part_dtypes]
+            for sess in sessions:
+                if sess.fresh:
+                    for acc, dt in zip(parts, part_dtypes):
+                        acc.append(torch.zeros(
+                            (int(sess.rows.shape[0]), hid), dtype=dt,
+                            device=dev))
+                else:
+                    for acc, part in zip(parts, sess.state[li]):
+                        acc.append(part)
+            if n_pad:
+                for acc, dt in zip(parts, part_dtypes):
+                    acc.append(torch.zeros((n_pad, hid), dtype=dt,
+                                           device=dev))
+            layers.append(tuple(torch.cat(acc) for acc in parts))
+        return layers

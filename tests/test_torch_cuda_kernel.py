@@ -1,0 +1,120 @@
+"""The CUDA ``mcd_lstm_seq`` kernel against its plain PyTorch version, on the
+card.  Marked ``cuda``: each test skips (in a fixture, at run time) where
+there is no GPU; run them on a GPU machine with
+``PYTHONPATH=src python -m pytest --noconftest -m cuda
+tests/test_torch_cuda_kernel.py`` (``--noconftest``: the suite's conftest
+releases JAX caches, and a GPU machine need not have JAX).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.core import classifier as clf, mcd  # noqa: E402
+from repro_torch.kernels import mcd_lstm, mcd_lstm_seq as seq  # noqa: E402
+from repro_torch.serve import StreamingEngine  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-5     # fp32; the kernel fuses multiply-adds the plain version
+                # rounds twice
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _layer(dev, B, T, I, H, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, k=1.0):
+        return (torch.randn(shape, generator=g) * k).to(dev)
+
+    rows = torch.arange(B, dtype=torch.int64) * 3 + 5
+    rows[::7] |= mcd.STUDENT_ROW_FLAG
+    lens = torch.randint(1, T + 1, (B,), generator=g).to(torch.int32)
+    return dict(x=r(B, T, I), wx=r(I, 4, H, k=0.4), wh=r(H, 4, H, k=0.4),
+                b=r(4, H, k=0.1), rows=rows.to(dev), h0=r(B, H, k=0.5),
+                c0=r(B, H, k=0.5), lengths=lens.to(dev))
+
+
+@pytest.mark.parametrize("B,T,I,H", [(33, 17, 1, 8), (20, 9, 8, 8),
+                                     (5, 6, 40, 24)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_kernel_matches_plain(dev, B, T, I, H, p):
+    d = _layer(dev, B, T, I, H)
+    keys = mcd_lstm.gate_keys(3, 1)
+    args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
+    kw = dict(h0=d["h0"], c0=d["c0"], lengths=d["lengths"])
+    before = seq.mcd_lstm_seq.launches
+    got = seq.mcd_lstm_seq(*args, **kw)
+    torch.cuda.synchronize()
+    assert seq.mcd_lstm_seq.launches == before + 1
+    ref = seq.mcd_lstm_seq_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("I,H", [(1, 8), (8, 8), (128, 128)])
+def test_kernel_mask_bits_equal(dev, I, H):
+    rows = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31 + 3, 2 ** 30 + 5, 77],
+                        device=dev)
+    keys = mcd_lstm.gate_keys(9, 2)
+    kx, kh = seq.kernel_mask_factors(keys, rows, I, H, 0.125)
+    px, ph = seq.gate_mask_factors(keys, rows, I, H, 0.125)
+    assert torch.equal(kx, px) and torch.equal(kh, ph)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    d = _layer(dev, 4, 3, 2, 8)
+    keys = mcd_lstm.gate_keys(0, 0)
+    with pytest.raises(TypeError):
+        seq.mcd_lstm_seq(d["x"].double(), d["wx"], d["wh"], d["b"],
+                         d["rows"], keys, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        seq.mcd_lstm_seq(d["x"].transpose(0, 1).contiguous().transpose(0, 1),
+                         d["wx"], d["wh"], d["b"], d["rows"], keys, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        seq.mcd_lstm_seq(d["x"], d["wx"][:1], d["wh"], d["b"], d["rows"],
+                         keys, 0.1)
+
+
+def test_engine_serves_through_the_kernel(dev):
+    cfg = clf.ClassifierConfig(mcd=mcd.MCDConfig(placement="YNY",
+                                                 n_samples=4, seed=2))
+    params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    sig = {f"s{k}": rng.standard_normal((24, 1)).astype(np.float32)
+           for k in range(3)}
+    eng = StreamingEngine(params, cfg, chunk_capacity=8, max_sessions=3,
+                          device=dev)
+    for sid in sig:
+        eng.open_session(sid)
+    while any(eng.store.get(s).steps < 24 for s in sig):
+        chunks = {}
+        for sid in sig:
+            pos = eng.store.get(sid).steps
+            if pos < 24:
+                chunks[sid] = sig[sid][pos:pos + int(rng.integers(1, 9))]
+        eng.step(chunks)
+        assert eng.last_metrics.launches == cfg.num_layers
+    x = torch.from_numpy(np.concatenate([np.repeat(sig[s][None], 4, 0)
+                                         for s in sig])).to(dev)
+    rows = torch.from_numpy(np.concatenate(
+        [eng.store.get(s).rows for s in sig]).astype(np.int64)).to(dev)
+    _, states = clf.apply(params, x, rows, cfg, backend="cuda_seq",
+                          lengths=torch.full((12,), 24, device=dev),
+                          return_state=True, device=dev)
+    for li, (h, c) in enumerate(states):
+        for k, sid in enumerate(sig):
+            sh, sc = eng.store.get(sid).state[li]
+            assert torch.equal(sh, h[4 * k:4 * k + 4])
+            assert torch.equal(sc, c[4 * k:4 * k + 4])

@@ -1,0 +1,177 @@
+"""Rules the port keeps: it never imports JAX or the reference package, its
+entry points run on CUDA unless the caller asks for the CPU (and raise
+without a GPU instead of falling back), and what is not ported yet raises.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+import repro_torch  # noqa: E402
+from repro_torch.core import classifier as clf, mcd, rnn  # noqa: E402
+from repro_torch.launch import stream as launch_stream  # noqa: E402
+from repro_torch.serve import StreamingEngine  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+_IMPORT_EACH_FIRST = """
+import importlib, sys
+for mod in sys.argv[1:]:
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    importlib.import_module(mod)
+"""
+
+
+def test_each_module_imports_first():
+    """Each port module imports with no other port module loaded before it:
+    no import cycle depends on which module a caller happens to import
+    first (one interpreter; the port's modules are dropped between tries).
+    """
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST,
+                          *PORT_MODULES], capture_output=True, text=True,
+                         timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax", "triton"), \
+            f"{path.name} imports {mod}"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _cpu_model():
+    cfg = clf.ClassifierConfig(mcd=mcd.MCDConfig(placement="YNY",
+                                                 n_samples=2))
+    return cfg, clf.init(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    cfg, params = _cpu_model()
+    x = torch.zeros((2, 3, 1))
+    rows = torch.arange(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        clf.init(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        clf.apply(params, x, rows, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rnn.run_stack(params["encoder"], x, rnn.stack_mask_plan(cfg.mcd, 3),
+                      0.125, backend="cuda_seq", rows=rows)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_stream.main(["--sessions", "1"])
+
+
+def test_cpu_when_asked(no_gpu):
+    cfg, params = _cpu_model()
+    logits = clf.apply(params, torch.zeros((2, 3, 1)), torch.arange(2), cfg,
+                       backend="cuda_seq", device="cpu")
+    assert logits.shape == (2, 4) and torch.isfinite(logits).all()
+
+
+def test_only_cpu_and_cuda_devices():
+    cfg, params = _cpu_model()
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnn.run_stack(params["encoder"], torch.zeros((2, 3, 1)),
+                      rnn.stack_mask_plan(cfg.mcd, 3), 0.125,
+                      backend="cuda_seq", rows=torch.arange(2),
+                      device="meta")
+
+
+@pytest.mark.parametrize("kw", [
+    {"mesh": object()}, {"precision": "bf16"}, {"precision": "int8"},
+    {"early_exit_threshold": 0.1}, {"student": object()}])
+def test_engine_unported_options_raise(kw):
+    cfg, params = _cpu_model()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StreamingEngine(params, cfg, device="cpu", **kw)
+
+
+def test_engine_unported_calls_raise():
+    cfg, params = _cpu_model()
+    eng = StreamingEngine(params, cfg, device="cpu")
+    for call in (lambda: eng.snapshot("x"), lambda: eng.restore("x"),
+                 lambda: eng.open_session("s", mode="student"),
+                 lambda: eng.admit("s", mode="student")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StreamingEngine(params, object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rnn.init_stack(torch.Generator(), 1, (8,), cell="gru", device="cpu")
+
+
+def test_cli_serves_on_cpu(tmp_path):
+    out = tmp_path / "ticks.jsonl"
+    agg = launch_stream.main(["--device", "cpu", "--sessions", "2",
+                              "--samples", "2", "--beats", "1",
+                              "--chunk-len", "70", "--ragged",
+                              "--capacity", "auto",
+                              "--metrics-out", str(out)])
+    assert agg["ticks"] >= 2 and agg["launches"] == 0
+    lines = out.read_text().splitlines()
+    assert len(lines) == agg["ticks"]
+
+
+def test_evicted_session_reattaches_with_its_draw():
+    cfg, params = _cpu_model()
+    eng = StreamingEngine(params, cfg, max_sessions=1, device="cpu")
+    eng.open_session("a")
+    eng.step({"a": np.ones((3, 1), np.float32)})
+    sess = eng.close_session("a")
+    assert eng.admit("b") is not None
+    assert eng.admit("a", session=sess) is None        # waits for a row
+    assert eng.queued_sessions == ["a"]
+    eng.close_session("b")                             # frees it: a resumes
+    assert eng.active_sessions == ["a"]
+    assert eng.store.get("a") is sess and sess.steps == 3
+    assert np.array_equal(sess.rows, [0, 1])
+    assert eng.store.next_row == 4
+
+
+def test_init_is_seeded():
+    cfg = clf.ClassifierConfig()
+    a = clf.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    b = clf.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    for la, lb in zip(a["encoder"], b["encoder"]):
+        assert all(torch.equal(u, v) for u, v in zip(la, lb))
+        assert np.array_equal(la.b[1].numpy(), np.ones(cfg.hidden))
