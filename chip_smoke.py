@@ -4,26 +4,45 @@
 Phases (each raises on failure; the exit code is then non-zero):
 
 1. Device: print the card's name and power limit; build every CUDA kernel
-   of the serving path from ``src/repro_torch/kernels/csrc`` with ``nvcc``
-   for ``sm_90a`` (one ``nvcc`` per source, all started together).
-2. Kernels: hold ``mcd_lstm_seq`` (CUDA) against ``mcd_lstm_seq_plain`` on
-   the card, at the classifier's layer shapes (B = 64 sessions x 30 chains
-   = 1920 rows, T = 140, I = 1 / 8, H = 8) and one wide layer (B = 256,
+   of the serving paths from ``src/repro_torch/kernels/csrc`` with ``nvcc``
+   for ``sm_90a`` (one ``nvcc`` per source, all started together):
+   ``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``.
+2. Kernels: hold each kernel against its plain PyTorch version on the card
+   at the shapes the serving paths give it -- B = 64 sessions x 30 chains =
+   1920 rows; the classifier's layers (I, H) = (1, 8), (8, 8) and the
+   autoencoder's (1, 16), (16, 8), (8, 16), (16, 16); the sequence kernels
+   at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B = 256,
    T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student rows,
-   p = 0.125 and p = 0: fp32 max abs error on ys, h_T, c_T within 1e-5,
-   and the kernel's mask bits equal to the plain stream's.  Times the
-   kernel, its plain version and, where one PyTorch call computes the same
-   function (p = 0, no student rows, full lengths: cuDNN's LSTM through
-   ``torch.nn.LSTM``), that call.
-3. Serving: ``StreamingEngine`` on the card serves the ECG classifier at
-   full width (I = 1, H = 8, NL = 3, placement YNY, p = 0.125, S = 30) for
-   64 sessions over whole 140-step beats in ragged chunks of up to 20
-   steps.  Checks that every tick launched the kernel once per layer, that
-   chunked serving equals one unchunked pass (carried state bit for bit),
-   and that the summaries agree with the port's "reference" backend.
+   p = 0.125 and p = 0: fp32 max abs error on every output within 1e-5, and
+   each kernel's mask bits equal to the plain stream's.  Times the kernel,
+   its plain version and, where one PyTorch call computes the same function
+   (p = 0, no student rows, full lengths: cuDNN through ``torch.nn.LSTM`` /
+   ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call.  A float64 witness
+   shows why the wide layer's weights shrink with fan-in: at the unshrunk
+   scale the GRU's fp32 evaluations part over T, and the kernel must stay
+   as close to float64 as the plain version.
+3. Serving, the classifier (LSTM, ``cuda_seq``): ``StreamingEngine`` serves
+   the ECG classifier at full width (I = 1, H = 8, NL = 3, YNY, p = 0.125,
+   S = 30) for 64 sessions over whole 140-step beats in ragged chunks of up
+   to 20 steps: one kernel launch per layer per tick, chunked == unchunked
+   (carried state bit for bit), summaries within 1e-5 of the port's
+   "reference" backend.
+4. Serving, the anomaly autoencoder (I = 1, H = 16, NL = 2, YNYN,
+   p = 0.125, S = 30, heteroscedastic), LSTM and then GRU, the same load:
+   2 encoder + 2 decoder launches per tick, chunked == unchunked bit for bit
+   on the carried encoder state and on the reconstruction (the regression
+   summary of the last chunk), summaries within 1e-5 of the "reference"
+   backend, and a profile of a few ticks.
+5. Serving, the GRU classifier and the step backend: a few ticks of the
+   GRU classifier on ``cuda_seq``, then the same streams on ``cuda_step``
+   for the GRU and the LSTM classifier: within 1e-5 of ``cuda_seq`` (and
+   whether they are bit-equal), and the step kernel launched once per layer
+   per time step.
 
-Prints the ``kernels`` JSON line, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``.
+Every count of kernel launches is set to 0 just before a serving phase and
+read just after it; each kernel's ``launches`` is the sum over the serving
+phases that run it.  Prints the ``kernels`` JSON line, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 """
@@ -31,6 +50,7 @@ Usage:  python3 chip_smoke.py [--out results.json]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,14 +61,32 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
-# kernel computes in fp32 on the CUDA cores.
+# kernels compute in fp32 on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-TOL = 1e-5          # fp32: the kernel fuses multiply-adds the plain
-                    # version rounds twice; the error stays ~1e-6 over T
+TOL = 1e-5          # fp32: the kernels fuse multiply-adds the plain
+                    # versions round twice; the error stays ~1e-6 over T
 SUMMARY_TOL = 1e-5  # engine (kernel) vs the reference backend (cuBLAS)
 
 S, SESSIONS, T_BEAT, CHUNK = 30, 64, 140, 20
+AE_TICKS = 12       # autoencoder load: every beat in 12 ragged chunks
+STEP_TICKS = 5      # step-backend phase: a few ticks
+
+KERNELS = {
+    # name: (gates, sequence kernel?, csrc file, TPU kernel it replaces)
+    "mcd_lstm_seq": (4, True, "mcd_lstm_seq.cu",
+                     "src/repro/kernels/mcd_lstm_seq.py:133"),
+    "mcd_gru_seq": (3, True, "mcd_gru_seq.cu",
+                    "src/repro/kernels/mcd_gru_seq.py:92"),
+    "mcd_lstm_step": (4, False, "mcd_lstm_step.cu",
+                      "src/repro/kernels/mcd_lstm.py:82"),
+    "mcd_gru_step": (3, False, "mcd_gru_step.cu",
+                     "src/repro/kernels/mcd_gru.py:96"),
+}
+
+# Layer shapes (I, H, p) of one pass of each model; YNY / YNYN placement.
+CLF_LAYERS = [(1, 8, 0.125), (8, 8, 0.0), (8, 8, 0.125)]
+AE_LAYERS = [(1, 16, 0.125), (16, 8, 0.0), (8, 16, 0.125), (16, 16, 0.0)]
 
 
 def card_line() -> str:
@@ -75,35 +113,91 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _device_us(prof, match=None) -> float:
-    """Device-kernel time (us) in a profile; only kernels whose name holds
-    ``match`` when given.  CPU ops are skipped: they would count their
-    kernels twice."""
-    total = 0.0
+def _device_events(prof, match=None) -> tuple[float, int]:
+    """Device-kernel time (us) and number of kernel records in a profile;
+    only kernels whose name holds ``match`` when given.  CPU ops are
+    skipped: they would count their kernels twice."""
+    total, count = 0.0, 0
     for ev in prof.key_averages():
         if "CUDA" not in str(ev.device_type):
             continue
         if match is None or match in ev.key:
             total += getattr(ev, "self_device_time_total",
                              getattr(ev, "self_cuda_time_total", 0.0))
-    return total
+            count += ev.count
+    return total, count
+
+
+PROFILE_ATTEMPTS = 6
+
+
+def profiled_us(prepare, matches, calls=None):
+    """Profile one call under torch.profiler (CUDA activity): ``prepare()``
+    runs outside the profile and returns the call, which makes ``calls``
+    repeats of one function when given.  Returns the device time (us) of
+    the kernels matching each entry of ``matches`` (None: every kernel) and
+    the call's return value.
+
+    The profiler now and then loses kernel records -- a whole profile's, or
+    some of them -- and a lost record reads as time that did not pass.  So
+    a profile counts only when every entry of ``matches`` has records, a
+    number of them divisible by ``calls``, and the same numbers as the
+    profile taken just before it with a fresh profiler; the profile is
+    taken again until two agree, and after ``PROFILE_ATTEMPTS`` profiles
+    this raises.  A time that was not measured is never reported.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    last = None
+    for attempt in range(PROFILE_ATTEMPTS):
+        call = prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        got = [_device_events(prof, m) for m in matches]
+        counts = [n for _, n in got]
+        whole = all(n > 0 and (calls is None or n % calls == 0)
+                    for n in counts)
+        if whole and counts == last:
+            return [us for us, _ in got], out
+        if last is not None or not whole:
+            print(f"profile {attempt + 1} of {PROFILE_ATTEMPTS} for "
+                  f"{matches}: kernel records {counts} (previous {last}); "
+                  "taking it again", flush=True)
+        last = counts if whole else None
+    raise RuntimeError(f"torch.profiler gave no two whole, agreeing profiles "
+                       f"of the kernels matching {matches} in "
+                       f"{PROFILE_ATTEMPTS} attempts")
 
 
 def device_ms(fn, iters: int, match=None) -> float:
     """Device time per call (torch.profiler, CUDA activity)."""
+
+    def prepare():
+        fn()
+
+        def run():
+            for _ in range(iters):
+                fn()
+        return run
+
+    (us,), _ = profiled_us(prepare, [match], calls=iters)
+    return us / iters / 1e3
+
+
+def max_abs_diff(a, b, what: str) -> float:
+    """max |a - b|, raising if either side holds a non-finite value (a NaN
+    would otherwise slip through every ``max`` and tolerance check)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return _device_us(prof, match) / iters / 1e3
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise RuntimeError(f"non-finite values in {what}")
+    return (a - b).abs().max().item()
 
 
-def layer_inputs(B, T, I, H, *, seed, students=True, ragged=True):
+def layer_inputs(B, T, I, H, *, seed, gates=4, students=True, ragged=True,
+                 weight_scale=None):
     import torch
     from repro_torch.core import mcd
     g = torch.Generator().manual_seed(seed)
@@ -116,136 +210,277 @@ def layer_inputs(B, T, I, H, *, seed, students=True, ragged=True):
         rows[::16] |= mcd.STUDENT_ROW_FLAG
     lens = (torch.randint(1, T + 1, (B,), generator=g) if ragged
             else torch.full((B,), T)).to(torch.int32)
-    return dict(x=r(B, T, I), wx=r(I, 4, H, k=0.4), wh=r(H, 4, H, k=0.4),
-                b=r(4, H, k=0.1), rows=rows.cuda(), h0=r(B, H, k=0.5),
-                c0=r(B, H, k=0.5), lengths=lens.cuda())
+    # Weight scale 0.4 up to the models' widest fan-in (I + H = 32), then
+    # shrinking with 1/sqrt(fan-in) as the models' own init does.  At 0.4
+    # with a fan-in of 256 the GRU recurrence amplifies fp32 rounding
+    # step over step: the kernel and the plain version then drift apart by
+    # more than TOL, each as far from a float64 evaluation as from the
+    # other, which measures the inputs and not the kernel
+    # (gru_f64_witness shows it on every run).
+    kw = (0.4 * min(1.0, (32 / (I + H)) ** 0.5) if weight_scale is None
+          else weight_scale)
+    return dict(x=r(B, T, I), wx=r(I, gates, H, k=kw),
+                wh=r(H, gates, H, k=kw), b=r(gates, H, k=0.1),
+                rows=rows.cuda(), h0=r(B, H, k=0.5), c0=r(B, H, k=0.5),
+                lengths=lens.cuda())
 
 
-def bound(d, p) -> tuple[float, str]:
+def _module(name):
+    from repro_torch.kernels import mcd_gru, mcd_gru_seq, mcd_lstm, \
+        mcd_lstm_seq
+    return {"mcd_lstm_seq": mcd_lstm_seq, "mcd_gru_seq": mcd_gru_seq,
+            "mcd_lstm_step": mcd_lstm, "mcd_gru_step": mcd_gru}[name]
+
+
+def _keys(name, n):
+    from repro_torch.kernels import mcd_gru, mcd_lstm
+    return (mcd_lstm if KERNELS[name][0] == 4 else mcd_gru).gate_keys(7, n)
+
+
+def kernel_calls(name, d, keys, p):
+    """(kernel call, plain call) on the inputs ``d``; outputs as tuples."""
+    mod = _module(name)
+    gates, seq, _, _ = KERNELS[name]
+    lstm = gates == 4
+    fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    if seq:
+        args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
+        kw = dict(h0=d["h0"], lengths=d["lengths"])
+        if lstm:
+            kw["c0"] = d["c0"]
+        return (lambda: fn(*args, **kw)), (lambda: plain(*args, **kw))
+    carry = (d["h0"], d["c0"]) if lstm else (d["h0"],)
+    args = (d["x"][:, 0].contiguous(), *carry, d["wx"], d["wh"], d["b"],
+            d["rows"], keys, p)
+    if lstm:
+        return (lambda: fn(*args)), (lambda: plain(*args))
+    return (lambda: (fn(*args),)), (lambda: (plain(*args),))
+
+
+def bound(name, d, p) -> tuple[float, str]:
     """Least time (ms) for one launch on these inputs: bytes each input read
     once and each output written once, over HBM; operations over the fp32
-    peak.  Only the live steps (t < length) need x and compute."""
+    peak.  A sequence kernel needs x and compute only for the live steps
+    (t < length)."""
+    gates, seq, _, _ = KERNELS[name]
     B, T, I = d["x"].shape
     H = d["wh"].shape[0]
-    live = int(d["lengths"].clamp(max=T).sum())
-    nbytes = 4 * (live * I + 4 * H * (I + H) + 4 * H + 2 * B
-                  + 2 * B * H + B * T * H + 2 * B * H)
-    per_step = H * (8 * (I + H) + 4 + 15)      # gate products, bias, tail
+    carries = 2 if gates == 4 else 1
+    weights = gates * H * (I + H) + gates * H
+    if seq:
+        live = int(d["lengths"].clamp(max=T).sum())
+        nbytes = 4 * (live * I + weights + 2 * B + carries * B * H
+                      + B * T * H + carries * B * H)
+    else:
+        live = B
+        nbytes = 4 * (B * I + weights + B + 2 * carries * B * H)
+    tail = 15 if gates == 4 else 12            # activations and update
+    per_step = H * (2 * gates * (I + H) + gates + tail)
     if p > 0:
-        per_step += 4 * (I + H)                # the masked views
+        per_step += gates * (I + H)            # the masked views
     flops = live * per_step
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_ms(d) -> tuple[float, float, float]:
-    """cuDNN's LSTM (one torch.nn.LSTM call) on the same inputs at p = 0,
-    full lengths, no student rows; returns (call ms, device ms, max abs
-    diff to the kernel)."""
+def library_ms(name, d) -> tuple[float, float, float]:
+    """One cuDNN call (torch.nn.LSTM / GRU / LSTMCell / GRUCell) on the same
+    inputs at p = 0, full lengths, no student rows; returns (call ms,
+    device ms, max abs diff to the kernel).  PyTorch's GRU adds b_hn inside
+    the reset product, so b_hn = 0 and b_in = b[2] give the reference's
+    bias placement; the gate orders (i, f, g, o) and (r, z, n) match."""
     import torch
-    from repro_torch.kernels import mcd_lstm, mcd_lstm_seq as seq
+    gates, seq, _, _ = KERNELS[name]
     B, T, I = d["x"].shape
     H = d["wh"].shape[0]
-    lstm = torch.nn.LSTM(I, H, batch_first=True).cuda()
+    lstm = gates == 4
+    cls = ({True: torch.nn.LSTM, False: torch.nn.GRU} if seq else
+           {True: torch.nn.LSTMCell, False: torch.nn.GRUCell})[lstm]
+    kw = dict(batch_first=True) if seq else {}
+    mod = cls(I, H, **kw).cuda()
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(d["wx"].permute(1, 2, 0).reshape(4 * H, I))
-        lstm.weight_hh_l0.copy_(d["wh"].permute(1, 2, 0).reshape(4 * H, H))
-        lstm.bias_ih_l0.copy_(d["b"].reshape(-1))
-        lstm.bias_hh_l0.zero_()
-    state = (d["h0"][None].contiguous(), d["c0"][None].contiguous())
+        wih = mod.weight_ih_l0 if seq else mod.weight_ih
+        whh = mod.weight_hh_l0 if seq else mod.weight_hh
+        bih = mod.bias_ih_l0 if seq else mod.bias_ih
+        bhh = mod.bias_hh_l0 if seq else mod.bias_hh
+        wih.copy_(d["wx"].permute(1, 2, 0).reshape(gates * H, I))
+        whh.copy_(d["wh"].permute(1, 2, 0).reshape(gates * H, H))
+        bih.copy_(d["b"].reshape(-1))
+        bhh.zero_()
+    if seq:
+        h0 = d["h0"][None].contiguous()
+        state = (h0, d["c0"][None].contiguous()) if lstm else h0
+        x = d["x"]
+    else:
+        state = (d["h0"], d["c0"]) if lstm else d["h0"]
+        x = d["x"][:, 0].contiguous()
 
     def call():
         with torch.no_grad():
-            return lstm(d["x"], state)
+            return mod(x, state)
 
-    ys_lib, _ = call()
-    ys, _, _ = seq.mcd_lstm_seq(d["x"], d["wx"], d["wh"], d["b"], d["rows"],
-                                mcd_lstm.gate_keys(0, 0), 0.0, h0=d["h0"],
-                                c0=d["c0"])
-    diff = (ys_lib - ys).abs().max().item()
+    out = call()
+    if seq:
+        lib_out = out[0]
+    else:
+        lib_out = out[0] if lstm else out
+    keys = _keys(name, 0)
+    ours = kernel_calls(name, d, keys, 0.0)[0]()[0]
+    diff = max_abs_diff(lib_out, ours, f"{name} vs its library call")
     return cuda_time_ms(call, iters=20), device_ms(call, 10), diff
+
+
+def kernel_cases():
+    """(kernel, B, T, I, H, p) of the kernel phase."""
+    cases = [("mcd_lstm_seq", 1920, T_BEAT, I, H, p) for I, H, p in
+             CLF_LAYERS + [(1, 8, 0.0)]]
+    cases += [("mcd_lstm_seq", 1920, CHUNK, I, H, p) for I, H, p in
+              [(1, 8, 0.125), (8, 8, 0.0), (8, 8, 0.125)]]
+    cases += [("mcd_lstm_seq", 256, 64, 128, 128, p) for p in (0.125, 0.0)]
+    cases += [("mcd_lstm_seq", 1920, T_BEAT, I, H, p)
+              for I, H, p in AE_LAYERS]
+    shapes = [(I, H) for I, H, _ in AE_LAYERS] + [(1, 8), (8, 8)]
+    for name in ("mcd_gru_seq", "mcd_lstm_step", "mcd_gru_step"):
+        T = T_BEAT if KERNELS[name][1] else 1
+        cases += [(name, 1920, T, I, H, p) for I, H in shapes
+                  for p in (0.125, 0.0)]
+        cases += [(name, 256, 64 if T > 1 else 1, 128, 128, p)
+                  for p in (0.125, 0.0)]
+    return cases
 
 
 def kernel_phase(report):
     import torch
-    from repro_torch.kernels import mcd_lstm, mcd_lstm_seq as seq
-    # (B, T, I, H, p) — the classifier's three layers (YNY: layer 1 runs
-    # unmasked), then both p for each, then the wide coverage layer.
-    main = [(1920, T_BEAT, 1, 8, 0.125), (1920, T_BEAT, 8, 8, 0.0),
-            (1920, T_BEAT, 8, 8, 0.125)]
-    cases = main + [(1920, T_BEAT, 1, 8, 0.0), (1920, CHUNK, 1, 8, 0.125),
-                    (1920, CHUNK, 8, 8, 0.0), (1920, CHUNK, 8, 8, 0.125),
-                    (256, 64, 128, 128, 0.125), (256, 64, 128, 128, 0.0)]
-    rows_out, worst = [], 0.0
-    for n, (B, T, I, H, p) in enumerate(cases):
-        d = layer_inputs(B, T, I, H, seed=n)
-        keys = mcd_lstm.gate_keys(7, n)
-        args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
-        kw = dict(h0=d["h0"], c0=d["c0"], lengths=d["lengths"])
-        got = seq.mcd_lstm_seq(*args, **kw)
+    from repro_torch.kernels import common
+    records, library = [], {}
+    for n, (name, B, T, I, H, p) in enumerate(kernel_cases()):
+        gates, seq, _, _ = KERNELS[name]
+        d = layer_inputs(B, T, I, H, seed=n, gates=gates, ragged=seq)
+        keys = _keys(name, n)
+        launch, plain = kernel_calls(name, d, keys, p)
+        got = launch()
         torch.cuda.synchronize()
-        ref = seq.mcd_lstm_seq_plain(*args, **kw)
-        errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
-        if not all(torch.isfinite(g).all() for g in got):
-            raise RuntimeError(f"non-finite kernel output at {B,T,I,H,p}")
+        ref = plain()
+        errs = [max_abs_diff(g, r, f"{name} at {B, T, I, H, p}")
+                for g, r in zip(got, ref)]
         err = max(errs)
         if err > TOL:
-            raise RuntimeError(f"mcd_lstm_seq disagrees with its plain "
-                               f"version at B={B} T={T} I={I} H={H} p={p}: "
-                               f"max abs err {errs} > {TOL}")
-        worst = max(worst, err)
-        kx, kh = seq.kernel_mask_factors(keys, d["rows"], I, H, p)
-        px, ph = seq.gate_mask_factors(keys, d["rows"], I, H, p)
+            raise RuntimeError(f"{name} disagrees with its plain version at "
+                               f"B={B} T={T} I={I} H={H} p={p}: max abs "
+                               f"err {errs} > {TOL}")
+        kx, kh = common.kernel_mask_factors(keys, d["rows"], I, H, p)
+        px, ph = common.gate_mask_factors(keys, d["rows"], I, H, p)
         if not (torch.equal(kx, px) and torch.equal(kh, ph)):
-            raise RuntimeError(f"kernel mask bits differ from the plain "
+            raise RuntimeError(f"{name} mask bits differ from the plain "
                                f"stream at B={B} I={I} H={H} p={p}")
-        rec = dict(B=B, T=T, I=I, H=H, p=p, max_abs_err=err,
+        rec = dict(kernel=name, B=B, T=T, I=I, H=H, p=p, max_abs_err=err,
                    mask_bits_equal=True)
         # Timed as the stack calls it: int32 rows and lengths converted
-        # once per stack, the 8 keys as host ints.
-        kargs = (d["x"], d["wx"], d["wh"], d["b"],
-                 seq.rows_to_int32(d["rows"]),
-                 tuple(keys.reshape(-1).tolist()), p)
-
-        def launch():
-            return seq.mcd_lstm_seq(*kargs, **kw)
-
-        rec["kernel_ms"] = cuda_time_ms(launch, iters=20, warmup=2)
-        rec["kernel_device_ms"] = device_ms(launch, 10,
-                                            "mcd_lstm_seq_kernel")
-        rec["plain_ms"] = cuda_time_ms(
-            lambda: seq.mcd_lstm_seq_plain(*args, **kw), iters=2, warmup=0)
-        rec["bound_ms"], rec["bound_by"] = bound(d, p)
-        if p == 0.0:
-            dl = layer_inputs(B, T, I, H, seed=n, students=False,
-                              ragged=False)
-            (rec["library_ms"], rec["library_device_ms"],
-             rec["library_max_abs_diff"]) = library_ms(dl)
-        rows_out.append(rec)
+        # once per stack, the keys as host ints.
+        d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
+        timed, _ = kernel_calls(name, d32,
+                                tuple(keys.reshape(-1).tolist()), p)
+        rec["kernel_ms"] = cuda_time_ms(timed, iters=20, warmup=2)
+        rec["kernel_device_ms"] = device_ms(timed, 10, name + "_kernel")
+        rec["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=0)
+        rec["bound_ms"], rec["bound_by"] = bound(name, d, p)
+        shape = (name, B, T, I, H)
+        if shape not in library:
+            dl = layer_inputs(B, T, I, H, seed=n, gates=gates,
+                              students=False, ragged=False)
+            library[shape] = library_ms(name, dl)
+        (rec["library_ms"], rec["library_device_ms"],
+         rec["library_max_abs_diff"]) = library[shape]
+        records.append(rec)
         print("kernel case " + json.dumps(rec), flush=True)
-    report["kernel_cases"] = rows_out
-    # One full-beat classifier pass: the three main-path layer launches.
-    main_recs = rows_out[:3]
-    lib3, lib3_device = classifier_library_ms()
-    entry = {
-        "name": "mcd_lstm_seq", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mcd_lstm_seq.cu",
-        "replaces": "src/repro/kernels/mcd_lstm_seq.py:133",
-        "shape": "classifier pass: 3 layers, B=1920 (64 sessions x S=30), "
-                 "T=140, I=1/8/8, H=8, p=0.125/0/0.125, ragged lengths",
+    report["kernel_cases"] = records
+    report["gru_f64_witness"] = gru_f64_witness()
+    return records
+
+
+WITNESS_T = (0, 1, 2, 4, 8, 16, 32, 63)
+
+
+def gru_f64_witness() -> list[dict]:
+    """Why the wide layer's weights shrink with fan-in: ``mcd_gru_seq`` at
+    B = 256, T = 64, I = H = 128 with the unshrunk weight scale 0.4, held
+    against the plain version and against a float64 evaluation of the same
+    function (the plain GRU body on float64 operands, the same fp32 mask
+    factors).  Per step t: max |kernel - plain|, |kernel - f64| and
+    |plain - f64| over the outputs ys[:, t].  Raises if the kernel is
+    further from float64 than twice the plain version (plus TOL) at any
+    step: where the two fp32 evaluations part, the kernel must not be the
+    one that drifts."""
+    import torch
+    from repro_torch.kernels import common, mcd_gru
+    B, T, I, H = 256, 64, 128, 128
+    out = []
+    for p in (0.125, 0.0):
+        d = layer_inputs(B, T, I, H, seed=101, gates=3, weight_scale=0.4)
+        keys = _keys("mcd_gru_seq", 5)
+        launch, plain = kernel_calls("mcd_gru_seq", d, keys, p)
+        ys_k = launch()[0]
+        torch.cuda.synchronize()
+        ys_p = plain()[0]
+        fx, fh = (f.double() for f in
+                  common.gate_mask_factors(keys, d["rows"], I, H, p))
+        x, wx, wh, b = (d[k].double() for k in ("x", "wx", "wh", "b"))
+        h = d["h0"].double()
+        ys_f = []
+        for t in range(T):
+            h_new = mcd_gru.gru_update_plain(x[:, t], h, h, fx, fh, wx, wh, b)
+            h = torch.where((t < d["lengths"])[:, None], h_new, h)
+            ys_f.append(h)
+        ys_f = torch.stack(ys_f, dim=1)
+
+        def per_t(a, b):
+            return [max_abs_diff(a[:, t].double(), b[:, t].double(),
+                                 "the float64 witness") for t in WITNESS_T]
+
+        rec = {"B": B, "T": T, "I": I, "H": H, "p": p, "weight_scale": 0.4,
+               "t": list(WITNESS_T), "kernel_vs_plain": per_t(ys_k, ys_p),
+               "kernel_vs_f64": per_t(ys_k, ys_f),
+               "plain_vs_f64": per_t(ys_p, ys_f)}
+        print("gru f64 witness " + json.dumps(rec), flush=True)
+        if any(k > 2 * q + TOL for k, q in zip(rec["kernel_vs_f64"],
+                                               rec["plain_vs_f64"])):
+            raise RuntimeError(f"mcd_gru_seq is further from float64 than "
+                               f"its plain version: {rec}")
+        out.append(rec)
+    return out
+
+
+def _pass(records, name, T, layers, B=1920):
+    """The records of one model pass: one launch per layer (I, H, p)."""
+    out = []
+    for I, H, p in layers:
+        out += [r for r in records if r["kernel"] == name and r["B"] == B
+                and r["T"] == T and (r["I"], r["H"], r["p"]) == (I, H, p)]
+    if len(out) != len(layers):
+        raise RuntimeError(f"missing kernel cases for a {name} pass")
+    return out
+
+
+def kernel_entry(name, recs, shape_note, library=None):
+    """The ``kernels`` JSON entry of one kernel: the sums over one pass."""
+    _, _, src, replaces = KERNELS[name]
+    lib = library or (sum(r["library_ms"] for r in recs),
+                      sum(r["library_device_ms"] for r in recs))
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": replaces, "shape": shape_note,
         "launches": None,
-        "max_abs_err": worst,
-        "ms": sum(r["kernel_ms"] for r in main_recs),
-        "device_ms": sum(r["kernel_device_ms"] for r in main_recs),
-        "plain_ms": sum(r["plain_ms"] for r in main_recs),
-        "bound_ms": sum(r["bound_ms"] for r in main_recs),
-        "bound_by": main_recs[0]["bound_by"],
-        "library_ms": lib3,
-        "library_device_ms": lib3_device,
+        "max_abs_err": None,
+        "ms": sum(r["kernel_ms"] for r in recs),
+        "device_ms": sum(r["kernel_device_ms"] for r in recs),
+        "plain_ms": sum(r["plain_ms"] for r in recs),
+        "bound_ms": sum(r["bound_ms"] for r in recs),
+        "bound_by": recs[0]["bound_by"],
+        "library_ms": lib[0],
+        "library_device_ms": lib[1],
     }
-    entry["kernel_ms"] = entry["ms"]
-    return entry
 
 
 def classifier_library_ms() -> tuple[float, float]:
@@ -262,22 +497,107 @@ def classifier_library_ms() -> tuple[float, float]:
     return cuda_time_ms(call, iters=20, warmup=2), device_ms(call, 10)
 
 
+def kernel_entries(records):
+    entries = [
+        kernel_entry("mcd_lstm_seq", _pass(records, "mcd_lstm_seq", T_BEAT,
+                                           CLF_LAYERS),
+                     "classifier pass: 3 layers, B=1920 (64 sessions x "
+                     "S=30), T=140, I=1/8/8, H=8, p=0.125/0/0.125, ragged "
+                     "lengths", library=classifier_library_ms()),
+        kernel_entry("mcd_gru_seq", _pass(records, "mcd_gru_seq", T_BEAT,
+                                          AE_LAYERS),
+                     "autoencoder pass: 4 layers, B=1920, T=140, "
+                     "(I,H)=(1,16)/(16,8)/(8,16)/(16,16), p=0.125/0/0.125/0, "
+                     "ragged lengths"),
+    ]
+    for name in ("mcd_lstm_step", "mcd_gru_step"):
+        entries.append(kernel_entry(
+            name, _pass(records, name, 1, CLF_LAYERS),
+            "one classifier time step: 3 launches, B=1920, I=1/8/8, H=8, "
+            "p=0.125/0/0.125"))
+    for e in entries:
+        e["max_abs_err"] = max(r["max_abs_err"] for r in records
+                               if r["kernel"] == e["name"])
+        e["kernel_ms"] = e["ms"]
+    return entries
+
+
+# -- serving --------------------------------------------------------------
+
+def reset_launches():
+    for name in KERNELS:
+        getattr(_module(name), name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: getattr(_module(name), name).launches for name in KERNELS}
+
+
+def _check_launches(phase, counts, metrics, kernel, per_tick):
+    bad = [m.tick for m in metrics if m.launches != per_tick(m)]
+    want = sum(per_tick(m) for m in metrics)
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if bad or counts[kernel] != want or others:
+        raise RuntimeError(f"{phase}: ticks {bad} did not launch {kernel} "
+                           f"as expected ({counts}, {len(metrics)} ticks, "
+                           f"{want} wanted)")
+
+
+def _serve_stats(metrics, card) -> dict:
+    from repro_torch.serve import summarize
+    agg = summarize(metrics)
+    return {"card": card, "sessions": SESSIONS, "chains": S,
+            "rows": SESSIONS * S, "ticks": agg["ticks"],
+            "launches": agg["launches"],
+            "tick_ms_p50": agg["duration_s_p50"] * 1e3,
+            "tick_ms_p95": agg["duration_s_p95"] * 1e3,
+            "chain_steps_per_s": agg["tokens_per_sec"],
+            "pad_waste": agg["pad_waste"]}
+
+
+def _beats():
+    from repro_torch.data import ecg
+    from repro_torch.launch.stream import build_streams
+    streams, _ = build_streams(SESSIONS, 1, seed=0)
+    if any(len(s) != T_BEAT for s in streams) or ecg.T_STEPS != T_BEAT:
+        raise RuntimeError("ECG beats are not 140 steps long")
+    return streams
+
+
+def _unchunked(streams, sids, eng, dev):
+    """Every whole beat S times (session-major), its rows and lengths."""
+    import numpy as np
+    import torch
+    x = torch.from_numpy(np.concatenate(
+        [np.repeat(s[None], S, 0) for s in streams])).to(dev)
+    rows = torch.from_numpy(np.concatenate(
+        [eng.store.get(sid).rows for sid in sids]).astype(np.int64)).to(dev)
+    return x, rows, torch.full((len(rows),), T_BEAT, device=dev)
+
+
+def _check_states(eng, sids, states, phase):
+    import torch
+    for li, layer in enumerate(states):
+        for k, sid in enumerate(sids):
+            for part, whole in zip(eng.store.get(sid).state[li], layer):
+                if not torch.equal(part, whole[k * S:(k + 1) * S]):
+                    raise RuntimeError(f"{phase}: chunked != unchunked for "
+                                       f"{sid} at layer {li}")
+
+
 def serving_phase(report, dev):
+    """The LSTM classifier on ``cuda_seq`` (random ragged chunks)."""
     import numpy as np
     import torch
     from repro_torch.core import classifier as clf, mcd
-    from repro_torch.data import ecg
-    from repro_torch.kernels import mcd_lstm_seq as seq
-    from repro_torch.launch.stream import build_streams
-    from repro_torch.serve import StreamingEngine, summarize
+    from repro_torch.core.uncertainty import classification_summary
+    from repro_torch.serve import StreamingEngine
 
     cfg = clf.ClassifierConfig(
         input_dim=1, hidden=8, num_layers=3, num_classes=4,
         mcd=mcd.MCDConfig(p=0.125, placement="YNY", n_samples=S, seed=0))
     params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
-    streams, _ = build_streams(SESSIONS, 1, seed=0)
-    if any(len(s) != T_BEAT for s in streams) or ecg.T_STEPS != T_BEAT:
-        raise RuntimeError("ECG beats are not 140 steps long")
+    streams = _beats()
     eng = StreamingEngine(params, cfg, backend="cuda_seq",
                           max_sessions=SESSIONS, chunk_capacity=CHUNK,
                           device=dev)
@@ -286,7 +606,7 @@ def serving_phase(report, dev):
         eng.open_session(sid)
     rng = np.random.default_rng(1)
     final = {}
-    seq.mcd_lstm_seq.launches = 0            # count the main path only
+    reset_launches()                          # count the main path only
     while len(final) < SESSIONS:
         chunks = {}
         for k, sid in enumerate(sids):
@@ -297,42 +617,26 @@ def serving_phase(report, dev):
         for sid, res in eng.step(chunks).items():
             if res.steps_total == T_BEAT:
                 final[sid] = res.summary
-    launches = seq.mcd_lstm_seq.launches
+    counts = read_launches()
     metrics = eng.metrics
-    bad = [m.tick for m in metrics if m.launches != cfg.num_layers]
-    if bad or launches != cfg.num_layers * len(metrics):
-        raise RuntimeError(f"ticks {bad} did not launch the kernel once per "
-                           f"layer ({launches} launches, {len(metrics)} "
-                           "ticks)")
+    _check_launches("classifier", counts, metrics, "mcd_lstm_seq",
+                    lambda m: cfg.num_layers)
 
-    # One unchunked pass over the whole beats, same rows, kernel backend.
-    x = torch.from_numpy(np.concatenate(
-        [np.repeat(s[None], S, 0) for s in streams])).to(dev)
-    rows = torch.from_numpy(np.concatenate(
-        [eng.store.get(sid).rows for sid in sids]).astype(np.int64)).to(dev)
-    full = torch.full((len(rows),), T_BEAT, device=dev)
+    x, rows, full = _unchunked(streams, sids, eng, dev)
     logits, states = clf.apply(params, x, rows, cfg, backend="cuda_seq",
                                lengths=full, return_state=True, device=dev)
-    for li, (h, c) in enumerate(states):
-        for k, sid in enumerate(sids):
-            sh, sc = eng.store.get(sid).state[li]
-            if not (torch.equal(sh, h[k * S:(k + 1) * S])
-                    and torch.equal(sc, c[k * S:(k + 1) * S])):
-                raise RuntimeError(f"chunked != unchunked for {sid} at "
-                                   f"layer {li}")
+    _check_states(eng, sids, states, "classifier")
     ref_logits = clf.apply(params, x, rows, cfg, backend="reference",
                            lengths=full, device=dev)
-    from repro_torch.core.uncertainty import classification_summary
     per = lambda lg: classification_summary(  # noqa: E731
         lg.reshape(SESSIONS, S, -1).transpose(0, 1))
     unchunked, reference = per(logits), per(ref_logits)
     d_unchunked = d_ref = 0.0
     for k, sid in enumerate(sids):
         for v, u, r in zip(final[sid], unchunked, reference):
-            if not torch.isfinite(v).all():
-                raise RuntimeError(f"non-finite summary for {sid}")
-            d_unchunked = max(d_unchunked, (v - u[k]).abs().max().item())
-            d_ref = max(d_ref, (v - r[k]).abs().max().item())
+            d_unchunked = max(d_unchunked,
+                              max_abs_diff(v, u[k], f"summary of {sid}"))
+            d_ref = max(d_ref, max_abs_diff(v, r[k], f"summary of {sid}"))
     if d_ref > SUMMARY_TOL or d_unchunked > SUMMARY_TOL:
         raise RuntimeError(f"summaries disagree: vs reference {d_ref}, "
                            f"vs unchunked {d_unchunked} (tol {SUMMARY_TOL})")
@@ -340,60 +644,220 @@ def serving_phase(report, dev):
     if probs.shape != (SESSIONS, 4) or \
             (probs.sum(-1) - 1).abs().max().item() > 1e-5:
         raise RuntimeError(f"bad class probabilities {probs.shape}")
-    agg = summarize(metrics)
-    serve = {
-        "card": report["card"], "sessions": SESSIONS, "chains": S,
-        "rows": SESSIONS * S,
-        "ticks": agg["ticks"], "launches": launches,
-        "tick_ms_p50": agg["duration_s_p50"] * 1e3,
-        "tick_ms_p95": agg["duration_s_p95"] * 1e3,
-        "chain_steps_per_s": agg["tokens_per_sec"],
-        "pad_waste": agg["pad_waste"],
-        "summary_diff_vs_reference": d_ref,
-        "summary_diff_vs_unchunked": d_unchunked,
-    }
-    serve.update(profile_ticks(params, cfg, streams, dev))
+    serve = _serve_stats(metrics, report["card"])
+    serve.update(launches_by_kernel=counts,
+                 summary_diff_vs_reference=d_ref,
+                 summary_diff_vs_unchunked=d_unchunked)
+    serve.update(profile_ticks(params, cfg, streams, dev,
+                               "mcd_lstm_seq_kernel"))
     report["serving"] = serve
     print("serving " + json.dumps(serve), flush=True)
-    return launches
+    return counts
 
 
-def profile_ticks(params, cfg, streams, dev, n_ticks: int = 5) -> dict:
+def chunk_plans(rng, n_sessions, ticks):
+    """Per session, ``ticks`` ragged chunk lengths in [1, CHUNK] that sum to
+    a whole beat: every session ends on the last tick."""
+    import numpy as np
+    plans = []
+    while len(plans) < n_sessions:
+        lens = rng.multinomial(T_BEAT - ticks, [1.0 / ticks] * ticks) + 1
+        if lens.max() <= CHUNK:
+            plans.append([int(v) for v in lens])
+    return np.asarray(plans)
+
+
+def _per_session(a):
+    """[sessions*S, ...] -> [S, sessions, ...], the engine's layout."""
+    return a.reshape((SESSIONS, S) + a.shape[1:]).transpose(0, 1).float()
+
+
+def autoencoder_phase(report, dev, cell):
+    """The anomaly autoencoder on ``cuda_seq``: 64 sessions x 30 chains,
+    whole beats in AE_TICKS ragged chunks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autoencoder as ae, mcd
+    from repro_torch.core.uncertainty import regression_summary
+    from repro_torch.serve import StreamingEngine
+
+    cfg = ae.AutoencoderConfig(
+        input_dim=1, hidden=16, num_layers=2, cell=cell,
+        heteroscedastic=True,
+        mcd=mcd.MCDConfig(p=0.125, placement="YNYN", n_samples=S, seed=0))
+    params = ae.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    streams = _beats()
+    plans = chunk_plans(np.random.default_rng(3), SESSIONS, AE_TICKS)
+    eng = StreamingEngine(params, cfg, backend="cuda_seq",
+                          max_sessions=SESSIONS, chunk_capacity=CHUNK,
+                          device=dev)
+    sids = [f"ae-{k}" for k in range(SESSIONS)]
+    for sid in sids:
+        eng.open_session(sid)
+    kernel = f"mcd_{cell}_seq"
+    reset_launches()                          # count the main path only
+    for t in range(AE_TICKS):
+        res = eng.step({sid: streams[k][eng.store.get(sid).steps:][
+            :plans[k, t]] for k, sid in enumerate(sids)})
+    counts = read_launches()
+    metrics = eng.metrics
+    _check_launches(f"autoencoder {cell}", counts, metrics, kernel,
+                    lambda m: 2 * cfg.num_layers)
+    if any(eng.store.get(sid).steps != T_BEAT for sid in sids):
+        raise RuntimeError("autoencoder sessions did not end on one tick")
+
+    # One unchunked pass, decoded over the last tick's launch width: the
+    # decoder replays the final bottleneck, so the last chunk's positions
+    # are the same computation (the windowed decode is bit-equal to the
+    # full replay's first positions).
+    x, rows, full = _unchunked(streams, sids, eng, dev)
+    ref_cfg = dataclasses.replace(cfg, decode_window=CHUNK)
+    mean, log_var, states = ae.apply(params, x, rows, ref_cfg,
+                                     backend="cuda_seq", lengths=full,
+                                     return_state=True, device=dev)
+    _check_states(eng, sids, states, f"autoencoder {cell}")
+    unchunked = regression_summary(_per_session(mean),
+                                   _per_session(log_var))
+    ref_mean, ref_lv = ae.apply(params, x, rows, ref_cfg,
+                                backend="reference", lengths=full,
+                                device=dev)
+    reference = regression_summary(_per_session(ref_mean),
+                                   _per_session(ref_lv))
+    d_ref = 0.0
+    for k, sid in enumerate(sids):
+        L = int(plans[k, -1])
+        summ = res[sid].summary
+        if summ.mean.shape != (L, 1):
+            raise RuntimeError(f"{sid}: summary shape {summ.mean.shape}, "
+                               f"expected ({L}, 1)")
+        for field, v, u, r in zip(summ._fields, summ, unchunked, reference):
+            d_ref = max(d_ref, max_abs_diff(v, r[k][:L],
+                                            f"{field} of {sid}"))
+            if not torch.equal(v, u[k][:L]):
+                raise RuntimeError(f"autoencoder {cell}: chunked != "
+                                   f"unchunked {field} for {sid}")
+    if d_ref > SUMMARY_TOL:
+        raise RuntimeError(f"autoencoder {cell}: summaries vs reference "
+                           f"{d_ref} > {SUMMARY_TOL}")
+    serve = _serve_stats(metrics, report["card"])
+    serve.update(cell=cell, launches_by_kernel=counts,
+                 summary_diff_vs_reference=d_ref,
+                 chunked_equals_unchunked=True)
+    serve.update(profile_ticks(params, cfg, streams, dev,
+                               f"{kernel}_kernel"))
+    report[f"serving_autoencoder_{cell}"] = serve
+    print(f"serving autoencoder {cell} " + json.dumps(serve), flush=True)
+    return counts
+
+
+def step_backend_phase(report, dev):
+    """The GRU classifier on ``cuda_seq``, then the same streams on
+    ``cuda_step`` for both cells, each compared with ``cuda_seq``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import classifier as clf, mcd
+    from repro_torch.serve import StreamingEngine
+
+    streams = _beats()
+    plan = np.random.default_rng(4).integers(1, CHUNK + 1,
+                                             (STEP_TICKS, SESSIONS))
+    sids = [f"st-{k}" for k in range(SESSIONS)]
+    out, all_counts = {}, {}
+    for cell in ("gru", "lstm"):
+        cfg = clf.ClassifierConfig(
+            input_dim=1, hidden=8, num_layers=3, num_classes=4, cell=cell,
+            mcd=mcd.MCDConfig(p=0.125, placement="YNY", n_samples=S,
+                              seed=0))
+        params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+        runs = {}
+        for backend in ("cuda_seq", "cuda_step"):
+            eng = StreamingEngine(params, cfg, backend=backend,
+                                  max_sessions=SESSIONS,
+                                  chunk_capacity=CHUNK, device=dev)
+            for sid in sids:
+                eng.open_session(sid)
+            reset_launches()                  # count the main path only
+            for t in range(STEP_TICKS):
+                res = eng.step({sid: streams[k][eng.store.get(sid).steps:][
+                    :plan[t, k]] for k, sid in enumerate(sids)})
+            counts = read_launches()
+            seq = backend == "cuda_seq"
+            kernel = f"mcd_{cell}_{'seq' if seq else 'step'}"
+            _check_launches(f"{cell} classifier {backend}", counts,
+                            eng.metrics, kernel,
+                            (lambda m: cfg.num_layers) if seq else
+                            (lambda m: cfg.num_layers * m.capacity))
+            all_counts[f"{cell}/{backend}"] = counts
+            runs[backend] = (eng, res, _serve_stats(eng.metrics,
+                                                    report["card"]))
+        (seq_eng, seq_res, seq_stats), (st_eng, st_res, st_stats) = \
+            runs["cuda_seq"], runs["cuda_step"]
+        diff, bit_equal = 0.0, True
+        for sid in sids:
+            pairs = [(a, b) for la, lb in zip(st_eng.store.get(sid).state,
+                                              seq_eng.store.get(sid).state)
+                     for a, b in zip(la, lb)]
+            pairs += list(zip(st_res[sid].summary, seq_res[sid].summary))
+            for a, b in pairs:
+                diff = max(diff, max_abs_diff(
+                    a, b, f"{cell} cuda_step vs cuda_seq, {sid}"))
+                bit_equal = bit_equal and torch.equal(a, b)
+        if diff > TOL:
+            raise RuntimeError(f"{cell} classifier: cuda_step vs cuda_seq "
+                               f"{diff} > {TOL}")
+        out[cell] = {"cuda_seq": seq_stats, "cuda_step": st_stats,
+                     "max_abs_diff_step_vs_seq": diff,
+                     "bit_equal_step_vs_seq": bit_equal}
+    out["launches_by_run"] = all_counts
+    report["serving_step_backend"] = out
+    print("serving step backend " + json.dumps(out), flush=True)
+    total = {name: 0 for name in KERNELS}
+    for counts in all_counts.values():
+        for name, v in counts.items():
+            total[name] += v
+    return total
+
+
+def profile_ticks(params, cfg, streams, dev, kernel_match,
+                  n_ticks: int = 5) -> dict:
     """Device time inside a few serving ticks (torch.profiler, CUDA
     activity): the kernel's share and the device's idle share of the
-    tick's wall time.  Runs a fresh engine; not part of the launch count.
+    tick's wall time.  Runs a fresh engine (a fresh one for each profile
+    taken again); not part of the launch count.
     """
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import StreamingEngine
-    eng = StreamingEngine(params, cfg, max_sessions=SESSIONS,
-                          chunk_capacity=CHUNK, device=dev)
-    sids = [f"p{k}" for k in range(SESSIONS)]
-    for sid in sids:
-        eng.open_session(sid)
-    rng = np.random.default_rng(2)
 
-    def tick():
-        eng.step({sid: streams[k][eng.store.get(sid).steps:][
-            :int(rng.integers(1, CHUNK + 1))] for k, sid in enumerate(sids)})
+    def prepare():
+        eng = StreamingEngine(params, cfg, max_sessions=SESSIONS,
+                              chunk_capacity=CHUNK, device=dev)
+        sids = [f"p{k}" for k in range(SESSIONS)]
+        for sid in sids:
+            eng.open_session(sid)
+        rng = np.random.default_rng(2)
 
-    tick()                                   # warm: allocator, cuBLAS
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            tick()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = _device_us(prof)
-    kern_us = _device_us(prof, "mcd_lstm_seq_kernel")
+        def tick():
+            eng.step({sid: streams[k][eng.store.get(sid).steps:][
+                :int(rng.integers(1, CHUNK + 1))]
+                for k, sid in enumerate(sids)})
+
+        tick()                               # warm: allocator, cuBLAS
+
+        def run():
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                tick()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+        return run
+
+    (dev_us, kern_us), wall_us = profiled_us(prepare, [None, kernel_match])
     return {"profiled_ticks": n_ticks,
             "profiled_tick_ms": wall_us / n_ticks / 1e3,
             "device_busy_ms_per_tick": dev_us / n_ticks / 1e3,
             "kernel_ms_per_tick": kern_us / n_ticks / 1e3,
-            "device_idle_share": (1.0 - dev_us / wall_us) if dev_us else None}
+            "device_idle_share": 1.0 - dev_us / wall_us}
 
 
 def main(argv=None) -> int:
@@ -414,20 +878,33 @@ def main(argv=None) -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = build.build_all(["mcd_lstm_seq"])
+    logs = build.build_all(list(KERNELS))
     report["build_s"] = time.perf_counter() - t0
     for name, log in logs.items():
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
-    entry = kernel_phase(report)
-    entry["launches"] = serving_phase(report, torch.device("cuda"))
-    report["kernels"] = [entry]
+    entries = kernel_entries(kernel_phase(report))
+    dev = torch.device("cuda")
+    launches = {name: 0 for name in KERNELS}
+    for counts in (serving_phase(report, dev),
+                   autoencoder_phase(report, dev, "lstm"),
+                   autoencoder_phase(report, dev, "gru"),
+                   step_backend_phase(report, dev)):
+        for name, v in counts.items():
+            launches[name] += v
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+        if not e["launches"]:
+            raise RuntimeError(f"{e['name']} was never launched on a "
+                               "serving path")
+    report["kernels"] = entries
+    report["seconds"] = time.perf_counter() - t0
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

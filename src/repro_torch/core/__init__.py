@@ -1,3 +1,4 @@
-"""Core library: MC-dropout masks (``prng``, ``mcd``), LSTM cells and
-stacks (``cells``, ``rnn``, ``linear``), the ECG classifier and its
-chain-axis uncertainty (``classifier``, ``uncertainty``)."""
+"""Core library: MC-dropout masks (``prng``, ``mcd``), LSTM / GRU cells and
+stacks (``cells``, ``rnn``, ``linear``), the ECG classifier and anomaly
+autoencoder and their chain-axis uncertainty (``classifier``,
+``autoencoder``, ``uncertainty``)."""

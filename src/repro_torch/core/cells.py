@@ -1,9 +1,11 @@
-"""LSTM cell with the paper's per-gate MCD mask views — port of
-``repro.core.cells`` (LSTM only in this slice).
+"""LSTM / GRU cells with the paper's per-gate MCD mask views — port of
+``repro.core.cells``.
 
-Weights are stored as ``[4, in, hidden]`` stacks (gate axis first), the
-reference's layout; :func:`gate_stacked` gives the kernel layout
-``[in, 4, hidden]``.  The cell state ``c`` is accumulated in fp32.
+Weights are stored as ``[G, in, hidden]`` stacks (gate axis first; G=4 for
+the LSTM, 3 for the GRU), the reference's layout; :func:`gate_stacked`
+gives the kernel layout ``[in, G, hidden]``.  The LSTM cell state ``c`` is
+accumulated in fp32; the GRU's whole carry is ``h``, in the activation
+dtype, rounded at every step.
 """
 
 from __future__ import annotations
@@ -43,8 +45,14 @@ def freeze_rows(t: int, lengths: torch.Tensor, h_new, c_new, h_old, c_old):
     return torch.where(live, h_new, h_old), torch.where(live, c_new, c_old)
 
 
-def gate_stacked(params: LSTMParams):
-    """Kernel weight layout: ``[4, in, H] → ([in, 4, H], [H, 4, H], b)``."""
+def freeze_rows_h(t: int, lengths: torch.Tensor, h_new, h_old):
+    """:func:`freeze_rows` for cells whose carry is ``h`` alone (GRU)."""
+    return torch.where((t < lengths)[:, None], h_new, h_old)
+
+
+def gate_stacked(params):
+    """Kernel weight layout: ``[G, in, H] → ([in, G, H], [H, G, H], b)``,
+    for :class:`LSTMParams` (G=4) and :class:`GRUParams` (G=3) alike."""
     return (params.wx.transpose(0, 1).contiguous(),
             params.wh.transpose(0, 1).contiguous(), params.b.contiguous())
 
@@ -77,3 +85,47 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
     c_new = f * c.float() + i * g
     h_new = (o * torch.tanh(c_new)).to(h.dtype)
     return h_new, c_new.to(c.dtype)
+
+
+class GRUParams(NamedTuple):
+    wx: torch.Tensor  # [3, in_dim, hidden]
+    wh: torch.Tensor  # [3, hidden, hidden]
+    b: torch.Tensor   # [3, hidden]
+
+
+def init_gru(generator: torch.Generator, in_dim: int, hidden: int,
+             dtype=torch.float32, device=None) -> GRUParams:
+    sx = (6.0 / (in_dim + hidden)) ** 0.5
+    sh = (6.0 / (2 * hidden)) ** 0.5
+    wx = _uniform(generator, (3, in_dim, hidden), sx, dtype)
+    wh = _uniform(generator, (3, hidden, hidden), sh, dtype)
+    return GRUParams(wx.to(device), wh.to(device),
+                     torch.zeros((3, hidden), dtype=dtype, device=device))
+
+
+def gru_step(params: GRUParams, h: torch.Tensor, x: torch.Tensor,
+             zx: torch.Tensor | None, zh: torch.Tensor | None, p: float,
+             det: torch.Tensor | None = None) -> torch.Tensor:
+    """One GRU time step with per-gate MCD masks (gate order r, z, n).
+
+    h: [B, H] carry (the GRU's whole recurrent state); x: [B, I];
+    zx: [B, 3, I] / zh: [B, 3, H] keep-masks or None; det: [B] bool — True
+    rows run deterministic.  The reset gate scales the recurrent candidate
+    sum before the candidate bias is added.  Returns h_new in h's dtype.
+    """
+    wx, wh, b = params
+    xr = x[:, None, :].expand(x.shape[0], 3, x.shape[1])
+    hr = h[:, None, :].expand(h.shape[0], 3, h.shape[1])
+    xg = mcd.apply_mask(xr, zx, p)
+    hg = mcd.apply_mask(hr, zh, p)
+    if det is not None:
+        xg = torch.where(det[:, None, None], xr, xg)
+        hg = torch.where(det[:, None, None], hr, hg)
+    gx = torch.einsum("bgi,gih->bgh", xg, wx.to(xg.dtype)).float()
+    gh = torch.einsum("bgh,ghk->bgk", hg, wh.to(hg.dtype)).float()
+    bf = b.float()
+    r = torch.sigmoid(gx[:, 0] + gh[:, 0] + bf[0])
+    zt = torch.sigmoid(gx[:, 1] + gh[:, 1] + bf[1])
+    n = torch.tanh(gx[:, 2] + r * gh[:, 2] + bf[2])
+    h_new = (1.0 - zt) * n + zt * h.float()
+    return h_new.to(h.dtype)

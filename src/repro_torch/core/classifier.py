@@ -18,7 +18,7 @@ class ClassifierConfig:
     hidden: int = 8           # H
     num_layers: int = 3       # NL
     num_classes: int = 4
-    cell: str = "lstm"
+    cell: str = "lstm"        # recurrent unit (rnn.CELLS)
     mcd: mcd.MCDConfig = dataclasses.field(
         default_factory=lambda: mcd.MCDConfig(placement="YNY"))
 
@@ -43,8 +43,9 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: ClassifierConfig, *,
           device=None, mesh=None):
     """Logits [B, num_classes] for one set of MCD masks.
 
-    ``backend`` selects the encoder path (``"reference"`` | ``"cuda_seq"``);
-    both draw the same masks.  ``initial_state`` / ``lengths`` /
+    ``backend`` selects the encoder path (``"reference"`` | ``"cuda_step"``
+    | ``"cuda_seq"``); all draw the same masks.  ``cfg.cell`` picks the
+    recurrent unit (``"lstm"`` | ``"gru"``).  ``initial_state`` / ``lengths`` /
     ``return_state`` stream a signal chunk by chunk, as in the reference.
     Runs on ``device`` (default CUDA).
     """

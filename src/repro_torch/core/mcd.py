@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.core import prng
 
-KIND_X = 0        # LSTM input-side gate masks
-KIND_H = 1        # LSTM hidden-side gate masks
+KIND_X = 0        # LSTM/GRU input-side gate masks
+KIND_H = 1        # LSTM/GRU hidden-side gate masks
 KIND_FEAT = 2     # generic per-site feature mask
 
 GATES = ("i", "f", "g", "o")
@@ -97,6 +97,23 @@ def lstm_gate_masks(seed, layer: int, rows: torch.Tensor, in_dim: int,
     zh = torch.stack([feature_mask(seed, layer, rows, hidden_dim, p,
                                    kind=KIND_H, gate=g, dtype=dtype)
                       for g in range(4)], dim=-2)
+    return zx, zh
+
+
+def gru_gate_masks(seed, layer: int, rows: torch.Tensor, in_dim: int,
+                   hidden_dim: int, p: float, dtype=torch.float32):
+    """The paper's six per-gate masks for one GRU layer (gates r, z, n).
+
+    Returns ``(z_x, z_h)`` with shapes ``rows.shape + (3, in_dim)`` and
+    ``rows.shape + (3, hidden_dim)``, from the same ``(kind, gate)`` stream
+    namespace as the LSTM masks.
+    """
+    zx = torch.stack([feature_mask(seed, layer, rows, in_dim, p, kind=KIND_X,
+                                   gate=g, dtype=dtype) for g in range(3)],
+                     dim=-2)
+    zh = torch.stack([feature_mask(seed, layer, rows, hidden_dim, p,
+                                   kind=KIND_H, gate=g, dtype=dtype)
+                      for g in range(3)], dim=-2)
     return zx, zh
 
 

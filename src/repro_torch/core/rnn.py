@@ -1,11 +1,14 @@
-"""Cascaded LSTM stacks with MCD mask pre-sampling — port of
-``repro.core.rnn`` (LSTM, unsharded).
+"""Cascaded LSTM / GRU stacks with MCD mask pre-sampling — port of
+``repro.core.rnn`` (unsharded).
 
-``run_stack`` has two backends (:data:`repro_torch.kernels.ops.LSTM_BACKENDS`):
+``run_stack`` has three backends (:data:`repro_torch.kernels.ops.LSTM_BACKENDS`):
 ``"reference"`` runs plain PyTorch cells over pre-sampled masks in the
 reference's wavefront order (all layers advance one step per iteration);
-``"cuda_seq"`` runs each layer whole through the sequence-fused kernel, one
-launch per layer, with masks rebuilt in-kernel from ``(seed, rows)``.
+``"cuda_step"`` runs each layer through the fused step kernel, one launch
+per time step; ``"cuda_seq"`` runs each layer whole through the
+sequence-fused kernel, one launch per layer.  The kernel backends rebuild
+the masks in-kernel from ``(seed, rows)``.  Both cells run on every
+backend: LSTM layers carry ``(h, c)``, GRU layers ``(h,)``.
 """
 
 from __future__ import annotations
@@ -16,24 +19,25 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import cells, mcd
-from repro_torch.kernels import mcd_lstm_seq, ops
+from repro_torch.kernels import common, ops
 
-CELLS = ("lstm",)
+#: Recurrent cell types ``run_stack`` (and everything above it) dispatches
+#: on; the GRU drops into the same per-gate MCD design (paper §III-A).
+CELLS = ("lstm", "gru")
 
 
 def _check_cell(cell: str) -> None:
     if cell not in CELLS:
-        raise NotImplementedError(
-            f"cell={cell!r} is not ported yet (this slice serves the LSTM); "
-            "the GRU and its mcd_gru_seq kernel are queued in ROADMAP.md")
+        raise ValueError(f"cell must be one of {CELLS}, got {cell!r}")
 
 
 def init_stack(generator: torch.Generator, in_dim: int,
                hiddens: Sequence[int], dtype=torch.float32, *,
                cell: str = "lstm", device=None) -> list:
     _check_cell(cell)
+    init = cells.init_gru if cell == "gru" else cells.init_lstm
     dims = [in_dim, *hiddens]
-    return [cells.init_lstm(generator, d_in, d_h, dtype, device=device)
+    return [init(generator, d_in, d_h, dtype, device=device)
             for d_in, d_h in zip(dims[:-1], dims[1:])]
 
 
@@ -42,13 +46,14 @@ def sample_stack_masks(cfg: mcd.MCDConfig, rows: torch.Tensor, in_dim: int,
                        dtype=torch.float32, cell: str = "lstm"):
     """Pre-sample (z_x, z_h) per layer; None where the layer is pointwise."""
     _check_cell(cell)
+    gate_masks = mcd.gru_gate_masks if cell == "gru" else mcd.lstm_gate_masks
     masks = []
     dims = [in_dim, *hiddens]
     for i, (d_in, d_h) in enumerate(zip(dims[:-1], dims[1:])):
         layer = layer_offset + i
         if cfg.any_bayesian and cfg.bayesian(layer) and cfg.p > 0.0:
-            masks.append(mcd.lstm_gate_masks(cfg.seed, layer, rows, d_in,
-                                             d_h, cfg.p, dtype=dtype))
+            masks.append(gate_masks(cfg.seed, layer, rows, d_in, d_h, cfg.p,
+                                    dtype=dtype))
         else:
             masks.append((None, None))
     return masks
@@ -75,16 +80,18 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
               initial_state=None, lengths=None,
               return_all_states: bool = False, cell: str = "lstm",
               precision: str | None = None, device=None, mesh=None):
-    """Run a cascaded LSTM stack over a [B, T, I] sequence.
+    """Run a cascaded LSTM / GRU stack over a [B, T, I] sequence.
 
     Same contract as the reference's ``run_stack``: ``masks`` from
     :func:`sample_stack_masks` (reference backend) or
     :func:`stack_mask_plan` (kernel backend); ``rows``/``seed``/
     ``layer_offset`` are the mask-stream coordinates; ``initial_state``
-    resumes a per-layer ``[(h, c), ...]`` carry; ``lengths`` freezes each
-    row at its own length; ``return_all_states`` returns every layer's
-    state.  Carry dtypes follow the reference: the kernel backend hands back
-    ``c`` in fp32.
+    resumes a per-layer carry (``(h, c)`` for the LSTM, ``(h,)`` for the
+    GRU); ``lengths`` freezes each row at its own length;
+    ``return_all_states`` returns every layer's state, else the last
+    layer's.  Carry dtypes follow the reference: the kernel backends hand
+    back the LSTM's ``c`` in fp32 with every layer's state, and in the input
+    dtype as the last layer's state.
 
     ``device`` (default CUDA) is where the stack runs: inputs are moved
     there, and ``params`` must already live there.
@@ -111,30 +118,42 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
         initial_state = [None if s is None else tuple(
             torch.as_tensor(part, device=dev) for part in s)
             for s in initial_state]
-    if backend == "cuda_seq":
-        return _run_stack_kernel(params, x_seq, masks, p,
+    if backend != "reference":
+        return _run_stack_kernel(params, x_seq, masks, p, backend=backend,
                                  return_sequence=return_sequence, rows=rows,
                                  seed=seed, layer_offset=layer_offset,
                                  initial_state=initial_state,
                                  lengths=lengths,
-                                 return_all_states=return_all_states)
+                                 return_all_states=return_all_states,
+                                 cell=cell)
     if any(zx is IN_KERNEL_MASKS for zx, _ in masks):
         raise ValueError("stack_mask_plan() entries carry no mask values; "
                          "the reference backend needs sample_stack_masks()")
     batch = x_seq.shape[0]
     dtype = x_seq.dtype
-    carries = _seed_carries(params, initial_state, batch, dtype, dev)
+    carries = _seed_carries(params, initial_state, batch, dtype, dev, cell)
     lens = lengths.to(torch.int64) if lengths is not None else None
     det = mcd.det_row_mask(rows) if rows is not None else None
+    gru = cell == "gru"
     ys = []
     for t in range(x_seq.shape[1]):
         inp = x_seq[:, t]
         new = []
-        for (h, c), lp, (zx, zh) in zip(carries, params, masks):
-            h_new, c_new = cells.lstm_step(lp, h, c, inp, zx, zh, p, det=det)
-            if lens is not None:
-                h_new, c_new = cells.freeze_rows(t, lens, h_new, c_new, h, c)
-            new.append((h_new, c_new))
+        for state, lp, (zx, zh) in zip(carries, params, masks):
+            if gru:
+                (h,) = state
+                h_new = cells.gru_step(lp, h, inp, zx, zh, p, det=det)
+                if lens is not None:
+                    h_new = cells.freeze_rows_h(t, lens, h_new, h)
+                new.append((h_new,))
+            else:
+                h, c = state
+                h_new, c_new = cells.lstm_step(lp, h, c, inp, zx, zh, p,
+                                               det=det)
+                if lens is not None:
+                    h_new, c_new = cells.freeze_rows(t, lens, h_new, c_new,
+                                                     h, c)
+                new.append((h_new, c_new))
             inp = h_new
         carries = new
         if return_sequence:
@@ -143,42 +162,51 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
     return out, (carries if return_all_states else carries[-1])
 
 
-def _seed_carries(params, initial_state, batch, dtype, device):
-    """Per-layer ``(h, c)`` carries: zeros, or the resumed state as-is."""
+def _seed_carries(params, initial_state, batch, dtype, device, cell="lstm"):
+    """Per-layer carries — ``(h, c)`` for the LSTM, ``(h,)`` for the GRU:
+    zeros, or the resumed state as-is."""
+    parts = 1 if cell == "gru" else 2
     carries = []
     for i, lp in enumerate(params):
         hidden = lp.wh.shape[-1]
         state = initial_state[i] if initial_state is not None else None
         if state is None:
             state = tuple(torch.zeros((batch, hidden), dtype=dtype,
-                                      device=device) for _ in range(2))
+                                      device=device) for _ in range(parts))
         carries.append(tuple(state))
     return carries
 
 
-def _run_stack_kernel(params, x_seq, masks, p, *, return_sequence, rows,
-                      seed, layer_offset, initial_state, lengths,
-                      return_all_states):
-    """Kernel-backed stack: layers run whole-sequence, one after another."""
+def _run_stack_kernel(params, x_seq, masks, p, *, backend, return_sequence,
+                      rows, seed, layer_offset, initial_state, lengths,
+                      return_all_states, cell):
+    """Kernel-backed stack: layers run whole-sequence, one after another
+    (the sequence kernel once per layer, or the step kernel once per step).
+    """
     if rows is None:
-        raise ValueError("backend='cuda_seq' needs the mask-stream `rows` "
+        raise ValueError(f"backend={backend!r} needs the mask-stream `rows` "
                          "(the same ids passed to sample_stack_masks)")
-    # The kernel's operand types, converted once for every layer.
-    rows = mcd_lstm_seq.rows_to_int32(rows)
+    # The kernels' operand types, converted once for every layer.
+    rows = common.rows_to_int32(rows)
     if lengths is not None:
         lengths = lengths.to(torch.int32)
+    gru = cell == "gru"
+    stack_layer = ops.gru_stack_layer if gru else ops.lstm_stack_layer
     inp = x_seq
     states = []
     for i, (lp, (zx, _)) in enumerate(zip(params, masks)):
         p_eff = p if zx is not None else 0.0
         state0 = initial_state[i] if initial_state is not None else None
-        inp, carry = ops.lstm_stack_layer(*lp, inp, rows, seed,
-                                          layer_offset + i, p_eff,
-                                          initial_state=state0,
-                                          lengths=lengths)
+        inp, carry = stack_layer(*lp, inp, rows, seed, layer_offset + i,
+                                 p_eff, seq=backend == "cuda_seq",
+                                 initial_state=state0, lengths=lengths)
         states.append(carry)
     out = inp if return_sequence else None
     if return_all_states:
+        # Session-resume form: LSTM c stays fp32 (the kernels' carry dtype),
+        # so a chunk boundary round-trips the cell state losslessly.
         return out, states
+    if gru:
+        return out, states[-1]                  # (h_T,)
     hT, cT = states[-1]
     return out, (hT, cT.to(x_seq.dtype))

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` at the repository root (a
-directory ``.gitignore`` lists), then loaded with ``ctypes``.  The library
-name carries a hash of the source and flags, so an edited source rebuilds
-and an unchanged one loads at once.  Nothing here runs at import time: a
+directory ``.gitignore`` lists), then loaded with ``ctypes``.  The sources
+share the mask stream and the cell bodies through the headers
+``csrc/*.cuh``.  The library name carries a hash of the source, the headers
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  Nothing here runs at import time: a
 build starts on the first launch, or when a caller asks for it with
 :func:`build_all` (which starts one ``nvcc`` per source, all together).
 """
@@ -33,9 +35,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every shared header (``csrc/*.cuh``) and of the flags, so an
+    edited header rebuilds every kernel too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,0 +1,252 @@
+"""Host side shared by the port's recurrent kernels (``mcd_lstm_seq``,
+``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``).
+
+* The mask rule (:func:`gate_mask`) and the mask factors each gate view is
+  multiplied by (:func:`gate_mask_factors`): the plain stream the kernels'
+  own factors are held against.  A cell of G gates takes 2G keys (x side,
+  then h side): 8 for the LSTM, 6 for the GRU.
+* The kernels' operand forms: int32 rows (:func:`rows_to_int32`), keys and
+  mask constants as launch arguments, the row tile (:func:`tile_rows`).
+* Operand checks and the launch rule (:func:`launch`): a CUDA tensor
+  launches the kernel or raises, nothing falls back, and each launch is
+  counted on its wrapper.
+* The card's mask factors (:func:`kernel_mask_factors`), for holding the
+  kernels' bits against the plain stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels import build
+
+_THREADS = 128          # target threads per block: R rows x H units
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_MAX = 227 * 1024
+
+
+def gate_mask(key: int, rows: torch.Tensor, feat_dim: int,
+              p_drop: float) -> torch.Tensor:
+    """Keep bits ``[B, feat_dim]``: ``mix32(key ^ mix32(row·F + col)) >= t``.
+
+    ``rows`` holds uint32 row ids (int64 or int32 tensors; an int32 student
+    row is its uint32 bit pattern).
+    """
+    rows = prng.as_u32(rows)
+    cols = torch.arange(feat_dim, dtype=torch.int64, device=rows.device)
+    idx = (prng.mul_u32(rows[:, None], feat_dim) + cols) & prng.MASK32
+    bits = prng._mix32(prng.as_u32(key, rows.device) ^ prng._mix32(idx))
+    return bits >= prng.bernoulli_keep_threshold(p_drop)
+
+
+def rowwise(fn, v: torch.Tensor) -> torch.Tensor:
+    """``fn(v)`` for an elementwise ``fn``, evaluated row by row.
+
+    PyTorch's CPU kernels run a flat tensor through a vector loop and its
+    tail through a scalar loop, and their ``exp``/``tanh`` differ in the
+    last bit between the two; which elements land in the tail depends on
+    the batch size.  Copied into rows that cannot merge (a row stride one
+    longer than the row), every row of ``v`` [B, ...] takes the same path
+    whatever B, so a row's result does not depend on the rows around it —
+    the CUDA kernels' property (one thread per row and unit).
+    """
+    B = v.shape[0]
+    flat = v.reshape(B, -1)
+    buf = torch.empty((B, flat.shape[1] + 1), dtype=v.dtype,
+                      device=v.device)[:, :-1]
+    buf.copy_(flat)
+    return fn(buf).reshape(v.shape)
+
+
+def rows_to_int32(rows: torch.Tensor) -> torch.Tensor:
+    """uint32 row ids (any int dtype) as the kernels' int32 view, where the
+    student flag (the uint32 high bit) is the sign bit."""
+    r = prng.as_u32(rows)
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
+
+
+def key_list(keys, n: int | None = None) -> list[int]:
+    """The gate keys (a tensor or a sequence) as uint32 ints; ``n`` checks
+    their count."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys.reshape(-1).tolist()
+    ks = [int(k) & prng.MASK32 for k in keys]
+    if len(ks) % 2 or (n is not None and len(ks) != n):
+        raise ValueError(f"keys must hold the {n or 'x-side and h-side'} "
+                         f"gate keys, got {len(ks)}")
+    return ks
+
+
+def keys_arg(keys, n: int):
+    return (ctypes.c_uint32 * n)(*key_list(keys, n))
+
+
+def scale(p_drop: float) -> torch.Tensor:
+    # float32(1/(1-p)) computed in double then rounded — the reference's
+    # jnp.asarray(1.0 / (1.0 - p), float32).
+    return torch.tensor(1.0 / (1.0 - p_drop), dtype=torch.float32)
+
+
+def mask_args(p_drop: float) -> tuple[int, float, int]:
+    """``(threshold, scale, masked)`` as the kernels take them."""
+    masked = p_drop > 0.0
+    return (prng.bernoulli_keep_threshold(p_drop),
+            float(scale(p_drop)) if masked else 1.0, int(masked))
+
+
+def gate_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
+                      p_drop: float):
+    """The factors each gate view is multiplied by: ``[B,G,I]``, ``[B,G,H]``
+    for a cell of G gates (``len(keys) == 2G``).
+
+    ``1/(1-p)`` where the keep bit is set, 0 where it is not, and 1 for
+    student rows or ``p_drop == 0`` — so ``x * factor`` is the reference's
+    ``where(det, x, where(mask, x * scale, 0))``.
+    """
+    ks = key_list(keys)
+    G = len(ks) // 2
+    dev = rows.device
+    B = rows.shape[0]
+    if p_drop <= 0.0:
+        return (torch.ones((B, G, in_dim), device=dev),
+                torch.ones((B, G, hidden), device=dev))
+    sc = scale(p_drop).to(dev)
+    det = (prng.as_u32(rows) >= 2 ** 31)[:, None, None]
+
+    def factors(offset, feat):
+        keep = torch.stack([gate_mask(ks[offset + g], rows, feat, p_drop)
+                            for g in range(G)], dim=1)
+        f = torch.where(keep, sc, torch.zeros((), device=dev))
+        return torch.where(det, torch.ones((), device=dev), f)
+
+    return factors(0, in_dim), factors(G, hidden)
+
+
+def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
+    """Batch rows per block: ~128 threads, shrunk to fit shared memory."""
+    if hidden > 1024:
+        raise NotImplementedError(
+            f"hidden={hidden} > 1024: one block holds whole rows (one thread "
+            "per hidden unit); a cluster split of H is a later PR's")
+    rows = max(1, _THREADS // hidden)
+    per_row = (gates * (in_dim + hidden) + in_dim + hidden) * 4
+    while rows > 1 and rows * per_row > _SMEM_DEFAULT:
+        rows -= 1
+    if rows * per_row > _SMEM_MAX:
+        raise NotImplementedError(
+            f"I={in_dim}, H={hidden}: one row's mask factors and operands "
+            f"need {per_row} bytes of shared memory, above the block's limit")
+    return rows
+
+
+def check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_device(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (run the plain version), False for CUDA
+    (launch the kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {t.device}")
+    return False
+
+
+def check_p(p_drop: float) -> None:
+    if not 0.0 <= p_drop < 1.0:
+        raise ValueError(f"p_drop must be in [0, 1), got {p_drop}")
+
+
+def rows_arg(rows: torch.Tensor, B: int, device) -> torch.Tensor:
+    """``rows`` [B] as a contiguous int32 tensor on ``device``."""
+    if rows.device != device or tuple(rows.shape) != (B,):
+        raise ValueError(f"rows must be [{B}] on {device}")
+    return (rows if rows.dtype == torch.int32
+            else rows_to_int32(rows)).contiguous()
+
+
+def lengths_arg(lengths, B: int, T: int, device) -> torch.Tensor:
+    """Per-row lengths [B] as a contiguous int32 tensor (``T`` for all rows
+    when omitted)."""
+    if lengths is None:
+        return torch.full((B,), T, dtype=torch.int32, device=device)
+    if lengths.device != device or tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [{B}] on {device}")
+    return lengths.to(torch.int32).contiguous()
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def _entry(lib: str, symbol: str, n_ptr: int, n_int: int):
+    """``symbol`` of the library built from ``csrc/<lib>.cu`` (first use
+    builds it), declared as every entry of the port's kernels is: ``n_ptr``
+    device pointers, ``n_int`` ints, then the keys, the keep threshold, the
+    scale, the masked flag and the stream."""
+    fn = getattr(build.load(lib), symbol)
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * n_ptr + [I32] * n_int + [
+        P, ctypes.c_uint32, ctypes.c_float, I32, P]
+    fn.restype = I32
+    return fn
+
+
+def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
+           what: str) -> None:
+    """Launch the kernel of ``wrapper`` (``csrc/<wrapper.__name__>.cu``'s
+    ``*_launch`` entry) on the current stream of the tensors' device, raise
+    on a launch error, and count one launch in ``wrapper.launches``."""
+    name = wrapper.__name__
+    fn = _entry(name, f"{name}_launch", len(tensors), len(ints))
+    thr, scale, masked = mask_args(p_drop)
+    err = fn(*[t.data_ptr() for t in tensors], *ints, keys_arg(keys, n_keys),
+             thr, scale, masked, stream(tensors[0].device))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+
+
+# The mask-export entry of each cell's gate count: the layer kernels of one
+# gate count fill their factors with the same header code
+# (``csrc/mcd_mask.cuh``), so one export per gate count shows the bits.
+_MASK_EXPORT = {4: "mcd_lstm_seq", 3: "mcd_gru_seq"}
+
+
+def kernel_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
+                        p_drop: float):
+    """The mask factors the CUDA kernels compute, exported from the card:
+    ``[B,G,I]``, ``[B,G,H]`` for ``len(keys) == 2G``, to hold against
+    :func:`gate_mask_factors`.  CUDA tensors only; not a layer launch."""
+    if rows.device.type != "cuda":
+        raise ValueError("kernel_mask_factors needs rows on a CUDA device")
+    ks = key_list(keys)
+    G = len(ks) // 2
+    lib = _MASK_EXPORT[G]
+    dev = rows.device
+    B = rows.shape[0]
+    rows32 = rows_to_int32(rows)
+    fx = torch.empty((B, G, in_dim), device=dev)
+    fh = torch.empty((B, G, hidden), device=dev)
+    thr, sc, masked = mask_args(p_drop)
+    err = _entry(lib, f"{lib}_masks_launch", 3, 3)(
+        rows32.data_ptr(), fx.data_ptr(), fh.data_ptr(), B, in_dim, hidden,
+        keys_arg(ks, 2 * G), thr, sc, masked, stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mask export kernel launch failed: CUDA error "
+                           f"{err}")
+    return fx, fh

@@ -31,66 +31,18 @@
 // on tensor cores (mma / wgmma) for large H, and a thread-block-cluster
 // split of H with h exchanged through distributed shared memory.
 //
-// The keep bit of mask (kind, gate g, row, col) is
-//   mix32(key ^ mix32(row * feat_dim + col)) >= threshold      (uint32)
-// with key = keys[g] (x side) or keys[4 + g] (h side), exactly the
-// reference's stream, so the card reproduces its bits.
+// The mask stream (mcd_mask.cuh) and the cell body (mcd_cells.cuh) are
+// shared with the GRU and step kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mcd_cells.cuh"
+#include "mcd_mask.cuh"
+
 namespace {
 
 constexpr int kGates = 4;
-
-struct GateKeys {
-  uint32_t k[8];
-};
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// Mask factors of rows [row0, row0 + R) into fx [R][4][I] and fh [R][4][H]:
-// scale where the keep bit is set, 0 where it is not, 1 for unmasked rows
-// (student rows, rows past B, or masked == 0).  Shared by the layer kernel
-// (into shared memory) and the mask-export kernel (into global memory), so
-// the exported bits are the ones the layer uses.
-__device__ void fill_mask_factors(float* fx, float* fh, const int32_t* rows,
-                                  int row0, int R, int B, int I, int H,
-                                  const GateKeys& keys, uint32_t thr,
-                                  float scale, int masked) {
-  const int nx = R * kGates * I;
-  const int nh = R * kGates * H;
-  for (int e = threadIdx.x; e < nx + nh; e += blockDim.x) {
-    const bool xside = e < nx;
-    const int feat = xside ? I : H;
-    const int local = xside ? e : e - nx;
-    const int r = local / (kGates * feat);
-    const int g = (local / feat) % kGates;
-    const int col = local % feat;
-    const int br = row0 + r;
-    float f = 1.0f;
-    if (masked && br < B) {
-      const int32_t row = rows[br];
-      if (row >= 0) {
-        const uint32_t idx = (uint32_t)row * (uint32_t)feat + (uint32_t)col;
-        const uint32_t key = keys.k[xside ? g : kGates + g];
-        f = mix32(key ^ mix32(idx)) >= thr ? scale : 0.0f;
-      }
-    }
-    (xside ? fx : fh)[local] = f;
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
 
 __global__ void mcd_lstm_seq_kernel(
     const float* __restrict__ x,      // [B, T, I]
@@ -104,7 +56,7 @@ __global__ void mcd_lstm_seq_kernel(
     float* __restrict__ ys,           // [B, T, H]
     float* __restrict__ hT,           // [B, H]
     float* __restrict__ cT,           // [B, H]
-    int B, int T, int I, int H, int R, GateKeys keys, uint32_t thr,
+    int B, int T, int I, int H, int R, mcd::GateKeys keys, uint32_t thr,
     float scale, int masked) {
   extern __shared__ float smem[];
   float* fx = smem;                     // [R][4][I]
@@ -113,7 +65,8 @@ __global__ void mcd_lstm_seq_kernel(
   float* hs = xs + R * I;               // [R][H]   h_{t-1} of the tile
 
   const int row0 = blockIdx.x * R;
-  fill_mask_factors(fx, fh, rows, row0, R, B, I, H, keys, thr, scale, masked);
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
 
   const int r = threadIdx.x / H;        // blockDim.x == R * H
   const int j = threadIdx.x % H;
@@ -126,8 +79,8 @@ __global__ void mcd_lstm_seq_kernel(
     c = c0[(size_t)br * H + j];
     len = lens[br];
   }
-  const float b0 = bias[j], b1 = bias[H + j];
-  const float b2 = bias[2 * H + j], b3 = bias[3 * H + j];
+  float bj[kGates];
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + j];
   const float* fxr = fx + r * kGates * I;
   const float* fhr = fh + r * kGates * H;
   const float* xr = xs + r * I;
@@ -141,29 +94,8 @@ __global__ void mcd_lstm_seq_kernel(
     }
     __syncthreads();
     if (active) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      for (int i = 0; i < I; ++i) {
-        const float xv = xr[i];
-        const float* w = wx + (size_t)i * kGates * H + j;
-        a0 += (xv * fxr[i]) * __ldg(w);
-        a1 += (xv * fxr[I + i]) * __ldg(w + H);
-        a2 += (xv * fxr[2 * I + i]) * __ldg(w + 2 * H);
-        a3 += (xv * fxr[3 * I + i]) * __ldg(w + 3 * H);
-      }
-      for (int k = 0; k < H; ++k) {
-        const float hv = hr[k];
-        const float* w = wh + (size_t)k * kGates * H + j;
-        a0 += (hv * fhr[k]) * __ldg(w);
-        a1 += (hv * fhr[H + k]) * __ldg(w + H);
-        a2 += (hv * fhr[2 * H + k]) * __ldg(w + 2 * H);
-        a3 += (hv * fhr[3 * H + k]) * __ldg(w + 3 * H);
-      }
-      const float ig = sigmoid(a0 + b0);
-      const float fg = sigmoid(a1 + b1);
-      const float gg = tanhf(a2 + b2);
-      const float og = sigmoid(a3 + b3);
-      const float c_new = fg * c + ig * gg;
-      const float h_new = og * tanhf(c_new);
+      float h_new = h, c_new = c;
+      mcd::lstm_unit(xr, hr, fxr, fhr, wx, wh, bj, I, H, j, h_new, c_new);
       if (t < len) {
         c = c_new;
         h = h_new;
@@ -176,23 +108,6 @@ __global__ void mcd_lstm_seq_kernel(
     hT[(size_t)br * H + j] = h;
     cT[(size_t)br * H + j] = c;
   }
-}
-
-__global__ void mcd_lstm_seq_masks_kernel(const int32_t* __restrict__ rows,
-                                          float* __restrict__ fx,
-                                          float* __restrict__ fh, int B,
-                                          int I, int H, GateKeys keys,
-                                          uint32_t thr, float scale,
-                                          int masked) {
-  const int r0 = blockIdx.x;
-  fill_mask_factors(fx + (size_t)r0 * kGates * I, fh + (size_t)r0 * kGates * H,
-                    rows, r0, 1, B, I, H, keys, thr, scale, masked);
-}
-
-GateKeys to_keys(const uint32_t* keys8) {
-  GateKeys k;
-  for (int i = 0; i < 8; ++i) k.k[i] = keys8[i];
-  return k;
 }
 
 }  // namespace
@@ -221,19 +136,20 @@ int mcd_lstm_seq_launch(const float* x, const float* wx, const float* wh,
   const int blocks = (B + R - 1) / R;
   mcd_lstm_seq_kernel<<<blocks, R * H, smem, (cudaStream_t)stream>>>(
       x, wx, wh, bias, rows, lens, h0, c0, ys, hT, cT, B, T, I, H, R,
-      to_keys(keys8), thr, scale, masked);
+      mcd::to_keys(keys8, 2 * kGates), thr, scale, masked);
   return (int)cudaGetLastError();
 }
 
-// Writes the layer kernel's mask factors for every row: fx [B,4,I],
-// fh [B,4,H].  Used to hold the card's mask bits against the reference.
+// Writes the mask factors of every row: fx [B,4,I], fh [B,4,H].  Every
+// LSTM kernel (sequence and step) fills its factors with the same
+// mcd::fill_mask_factors<4>, so this one export holds the card's LSTM mask
+// bits against the reference.
 int mcd_lstm_seq_masks_launch(const int32_t* rows, float* fx, float* fh,
                               int B, int I, int H, const uint32_t* keys8,
                               uint32_t thr, float scale, int masked,
                               void* stream) {
-  mcd_lstm_seq_masks_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
-      rows, fx, fh, B, I, H, to_keys(keys8), thr, scale, masked);
-  return (int)cudaGetLastError();
+  return mcd::launch_mask_factors<kGates>(rows, fx, fh, B, I, H, keys8, thr,
+                                          scale, masked, stream);
 }
 
 }  // extern "C"

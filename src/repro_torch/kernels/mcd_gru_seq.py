@@ -1,0 +1,89 @@
+"""Sequence-fused Bayesian GRU layer — port of ``repro.kernels.mcd_gru_seq``.
+
+:func:`mcd_gru_seq` launches the hand-written CUDA kernel
+``csrc/mcd_gru_seq.cu`` (built for ``sm_90a`` by :mod:`.build`, bound with
+``ctypes``) for CUDA tensors, and runs :func:`mcd_gru_seq_plain`, the plain
+PyTorch version of the same function, for CPU tensors.  A CUDA tensor never
+reaches the plain version: it launches the kernel or raises.
+
+The GRU's whole recurrent state is ``h``: one carried operand in, one out.
+The kernel's design notes are at the top of the ``.cu`` source.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.common import gate_mask_factors
+from repro_torch.kernels.mcd_gru import GATES, gru_update_plain
+
+
+def mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
+                      h0=None, lengths=None):
+    """Plain PyTorch version of the kernel: a Python loop over T.
+
+    Same contract as :func:`mcd_gru_seq`, with the kernel's per-row
+    summation order (:func:`repro_torch.kernels.mcd_gru.gru_update_plain`),
+    so chunked == unchunked holds bit for bit here too.
+    """
+    B, T, I = x_seq.shape
+    H = wh.shape[0]
+    dev = x_seq.device
+    x_seq = x_seq.float()
+    fx, fh = gate_mask_factors(keys, rows, I, H, p_drop)
+    h = (torch.zeros((B, H), device=dev) if h0 is None else h0.float())
+    lens = (torch.full((B,), T, device=dev) if lengths is None
+            else lengths.to(dev))
+    wx, wh, b = wx.float(), wh.float(), b.float()
+    ys = []
+    for t in range(T):
+        h_new = gru_update_plain(x_seq[:, t], h, h, fx, fh, wx, wh, b)
+        h = torch.where((t < lens)[:, None], h_new, h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
+                lengths=None):
+    """Sequence-fused Bayesian GRU layer, optionally resuming carried state.
+
+    x_seq: [B, T, I] fp32; wx: [I, 3, H]; wh: [H, 3, H]; b: [3, H];
+    rows: [B] uint32 mask row ids (int64 or int32 tensor; the student flag
+    marks unmasked rows); keys: the 6 gate keys from
+    :func:`repro_torch.kernels.mcd_gru.gate_keys`.  h0 [B, H] seeds the
+    carry (zeros when omitted); lengths [B] freezes a row at its own chunk
+    length.  Returns (ys [B, T, H], h_T [B, H]), fp32;
+    ``ys[:, t >= lengths[row]]`` repeats the frozen h.
+
+    CPU tensors run :func:`mcd_gru_seq_plain`; CUDA tensors launch the
+    kernel on the current stream (counted in ``mcd_gru_seq.launches``).
+    """
+    if common.check_device("mcd_gru_seq", x_seq):
+        return mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop,
+                                 h0=h0, lengths=lengths)
+    common.check_p(p_drop)
+    if x_seq.ndim != 3 or x_seq.shape[0] < 1 or x_seq.shape[1] < 1:
+        raise ValueError(f"x_seq must be [B>=1, T>=1, I], "
+                         f"got {tuple(x_seq.shape)}")
+    B, T, I = x_seq.shape
+    H = wh.shape[0]
+    dev = x_seq.device
+    h0 = torch.zeros((B, H), device=dev) if h0 is None else h0
+    for name, t, shape in (("x_seq", x_seq, (B, T, I)),
+                           ("wx", wx, (I, 3, H)), ("wh", wh, (H, 3, H)),
+                           ("b", b, (3, H)), ("h0", h0, (B, H))):
+        common.check(name, t, dev, torch.float32, shape)
+    rows32 = common.rows_arg(rows, B, dev)
+    lens = common.lengths_arg(lengths, B, T, dev)
+    R = common.tile_rows(GATES, I, H)
+    ys = torch.empty((B, T, H), device=dev)
+    hT = torch.empty((B, H), device=dev)
+    common.launch(mcd_gru_seq, (x_seq, wx, wh, b, rows32, lens, h0, ys, hT),
+                  (B, T, I, H, R), keys, 6, p_drop,
+                  f"mcd_gru_seq (B={B}, T={T}, I={I}, H={H}, R={R})")
+    return ys, hT
+
+
+mcd_gru_seq.launches = 0
+

@@ -1,9 +1,14 @@
-"""Per-gate mask streams of the fused LSTM kernels — port of the parts of
-``repro.kernels.mcd_lstm`` that the sequence kernel shares: the 8 stream keys
-(:func:`gate_keys`) and the mask rule (:func:`_gate_mask`).
+"""Fused Bayesian LSTM step — port of ``repro.kernels.mcd_lstm``.
 
-The per-step kernel ``mcd_lstm_step`` itself is not ported yet (see
-ROADMAP.md, queue B).
+:func:`mcd_lstm_step` launches the hand-written CUDA kernel
+``csrc/mcd_lstm_step.cu`` (built for ``sm_90a`` by :mod:`.build`, bound
+with ``ctypes``) for CUDA tensors, and runs :func:`mcd_lstm_step_plain`,
+the plain PyTorch version of the same function, for CPU tensors.  A CUDA
+tensor never reaches the plain version: it launches the kernel or raises.
+
+Also here, shared with the sequence kernel: the 8 stream keys
+(:func:`gate_keys`), the mask rule (:func:`_gate_mask`) and the plain cell
+body (:func:`lstm_cell_plain`).
 """
 
 from __future__ import annotations
@@ -11,20 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import mcd, prng
+from repro_torch.kernels import common
+from repro_torch.kernels.common import gate_mask as _gate_mask  # noqa: F401
 
-
-def _gate_mask(key: int, rows: torch.Tensor, feat_dim: int,
-               p_drop: float) -> torch.Tensor:
-    """Keep bits ``[B, feat_dim]``: ``mix32(key ^ mix32(row·F + col)) >= t``.
-
-    ``rows`` holds uint32 row ids (int64 or int32 tensors; an int32 student
-    row is its uint32 bit pattern).
-    """
-    rows = prng.as_u32(rows)
-    cols = torch.arange(feat_dim, dtype=torch.int64, device=rows.device)
-    idx = (prng.mul_u32(rows[:, None], feat_dim) + cols) & prng.MASK32
-    bits = prng._mix32(prng.as_u32(key, rows.device) ^ prng._mix32(idx))
-    return bits >= prng.bernoulli_keep_threshold(p_drop)
+GATES = 4
 
 
 def gate_keys(seed, layer) -> torch.Tensor:
@@ -33,3 +28,79 @@ def gate_keys(seed, layer) -> torch.Tensor:
     ks = [mcd.mask_key(seed, layer, mcd.KIND_X, g) for g in range(4)] + \
          [mcd.mask_key(seed, layer, mcd.KIND_H, g) for g in range(4)]
     return torch.stack([prng.as_u32(k) for k in ks]).reshape(1, 8)
+
+
+def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b):
+    """One step of the kernels' LSTM body on mask factors, in plain PyTorch.
+
+    x [B, I]; h, c [B, H]; fx [B, 4, I], fh [B, 4, H] from
+    :func:`repro_torch.kernels.common.gate_mask_factors`; wx [I, 4, H];
+    wh [H, 4, H]; b [4, H].  The gate products are a loop of elementwise
+    multiply-adds over the contraction index (x side, then h side, then the
+    bias), the kernels' order, and the activations run row by row
+    (:func:`repro_torch.kernels.common.rowwise`), so every row's result is
+    the same whatever the batch around it.  Returns (h_new, c_new), fp32.
+    """
+    xg = x[:, None, :] * fx                     # [B, 4, I]
+    hg = h[:, None, :] * fh                     # [B, 4, H]
+    acc = torch.zeros((x.shape[0], 4, wh.shape[0]), device=x.device)
+    for i in range(wx.shape[0]):
+        acc = acc + xg[:, :, i, None] * wx[i]
+    for k in range(wh.shape[0]):
+        acc = acc + hg[:, :, k, None] * wh[k]
+    gates = acc + b
+    ig = common.rowwise(torch.sigmoid, gates[:, 0])
+    fg = common.rowwise(torch.sigmoid, gates[:, 1])
+    gg = common.rowwise(torch.tanh, gates[:, 2])
+    og = common.rowwise(torch.sigmoid, gates[:, 3])
+    c_new = fg * c + ig * gg
+    return og * common.rowwise(torch.tanh, c_new), c_new
+
+
+def mcd_lstm_step_plain(x, h, c, wx, wh, b, rows, keys, p_drop: float):
+    """Plain PyTorch version of the step kernel; same contract as
+    :func:`mcd_lstm_step`."""
+    fx, fh = common.gate_mask_factors(keys, rows, x.shape[1], wh.shape[0],
+                                      p_drop)
+    return lstm_cell_plain(x.float(), h.float(), c.float(), fx, fh,
+                           wx.float(), wh.float(), b.float())
+
+
+def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
+    """Fused Bayesian LSTM step.
+
+    x: [B, I]; h, c: [B, H]; wx: [I, 4, H]; wh: [H, 4, H]; b: [4, H], all
+    fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor; the student
+    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`.
+    Masks are rebuilt from the keys at every call.  Returns (h_new [B, H],
+    c_new [B, H]), fp32.
+
+    CPU tensors run :func:`mcd_lstm_step_plain`; CUDA tensors launch the
+    kernel on the current stream (counted in ``mcd_lstm_step.launches``).
+    """
+    if common.check_device("mcd_lstm_step", x):
+        return mcd_lstm_step_plain(x, h, c, wx, wh, b, rows, keys, p_drop)
+    common.check_p(p_drop)
+    if x.ndim != 2 or x.shape[0] < 1:
+        raise ValueError(f"x must be [B>=1, I], got {tuple(x.shape)}")
+    B, I = x.shape
+    H = wh.shape[0]
+    dev = x.device
+    f32 = torch.float32
+    for name, t, shape in (("x", x, (B, I)), ("h", h, (B, H)),
+                           ("c", c, (B, H)), ("wx", wx, (I, 4, H)),
+                           ("wh", wh, (H, 4, H)), ("b", b, (4, H))):
+        common.check(name, t, dev, f32, shape)
+    rows32 = common.rows_arg(rows, B, dev)
+    R = common.tile_rows(GATES, I, H)
+    h_out = torch.empty((B, H), device=dev)
+    c_out = torch.empty((B, H), device=dev)
+    common.launch(mcd_lstm_step,
+                  (x, h, c, wx, wh, b, rows32, h_out, c_out), (B, I, H, R),
+                  keys, 8, p_drop,
+                  f"mcd_lstm_step (B={B}, I={I}, H={H}, R={R})")
+    return h_out, c_out
+
+
+mcd_lstm_step.launches = 0
+

@@ -1,18 +1,22 @@
-"""High-level wrappers around the port's kernels — port of the LSTM part of
-``repro.kernels.ops``.
+"""High-level wrappers around the port's recurrent kernels — port of the
+LSTM/GRU part of ``repro.kernels.ops``.
 
 Stack-layer execution paths of :func:`repro_torch.core.rnn.run_stack`, and
 how they map to the reference's ``LSTM_BACKENDS`` (``repro/kernels/ops.py``):
 
 * ``"reference"`` — plain PyTorch cells on pre-sampled masks; the
   reference's ``"reference"``.
+* ``"cuda_step"`` — the fused step kernel
+  (:func:`repro_torch.kernels.mcd_lstm.mcd_lstm_step`,
+  :func:`repro_torch.kernels.mcd_gru.mcd_gru_step`) launched once per time
+  step from a Python loop, ragged rows frozen outside the kernel; the
+  reference's ``"pallas_step"`` (the per-step baseline).
 * ``"cuda_seq"`` — the sequence-fused layer kernel
-  (:func:`repro_torch.kernels.mcd_lstm_seq.mcd_lstm_seq`), one launch per
+  (:func:`repro_torch.kernels.mcd_lstm_seq.mcd_lstm_seq`,
+  :func:`repro_torch.kernels.mcd_gru_seq.mcd_gru_seq`), one launch per
   layer with the masks rebuilt in-kernel; the reference's ``"pallas_seq"``.
-  On CPU tensors it runs the kernel's plain version.
 
-The reference's ``"pallas_step"`` (per-step kernel scanned over T) has no
-counterpart yet; see ROADMAP.md.
+On CPU tensors both kernel backends run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -22,9 +26,9 @@ import functools
 import torch
 
 from repro_torch.core import cells
-from repro_torch.kernels import mcd_lstm, mcd_lstm_seq
+from repro_torch.kernels import mcd_gru, mcd_gru_seq, mcd_lstm, mcd_lstm_seq
 
-LSTM_BACKENDS = ("reference", "cuda_seq")
+LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
 
 #: Serving precisions this slice supports (``None`` = native fp32).
 PRECISIONS = (None, "fp32")
@@ -38,38 +42,128 @@ def check_precision(precision) -> None:
 
 
 @functools.lru_cache(maxsize=1024)
-def _gate_keys(seed: int, layer: int) -> tuple[int, ...]:
+def _gate_keys(cell: str, seed: int, layer: int) -> tuple[int, ...]:
     # The hash is ~200 tiny host ops per layer; a stream's keys never change.
-    return tuple(mcd_lstm.gate_keys(seed, layer).reshape(-1).tolist())
+    mod = mcd_gru if cell == "gru" else mcd_lstm
+    return tuple(mod.gate_keys(seed, layer).reshape(-1).tolist())
+
+
+def _carry(t):
+    return None if t is None else t.float().contiguous()
+
+
+def fused_lstm_layer(wx4, wh4, b, x_seq, rows, seed, layer: int,
+                     p_drop: float, h0=None, c0=None, lengths=None):
+    """The step kernel looped over T from Python (the per-step baseline).
+
+    wx4: [I, 4, H]; wh4: [H, 4, H]; b: [4, H]; x_seq: [B, T, I].
+    ``h0``/``c0`` resume carried state (zeros when omitted); ``lengths``
+    freezes each row's state at its own chunk length, outside the kernel.
+    Returns (outputs [B, T, H], (h_T, c_T fp32)).
+    """
+    B, T, _ = x_seq.shape
+    H = wh4.shape[0]
+    keys = _gate_keys("lstm", int(seed), int(layer))
+    dev = x_seq.device
+    h = torch.zeros((B, H), device=dev) if h0 is None else _carry(h0)
+    c = torch.zeros((B, H), device=dev) if c0 is None else _carry(c0)
+    xs = x_seq.transpose(0, 1).contiguous()            # [T, B, I]
+    ys = []
+    for t in range(T):
+        h_new, c_new = mcd_lstm.mcd_lstm_step(xs[t], h, c, wx4, wh4, b, rows,
+                                              keys, p_drop)
+        if lengths is not None:
+            h_new, c_new = cells.freeze_rows(t, lengths, h_new, c_new, h, c)
+        h, c = h_new, c_new
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h, c)
 
 
 def fused_lstm_seq(wx4, wh4, b, x_seq, rows, seed, layer: int,
                    p_drop: float, h0=None, c0=None, lengths=None):
     """One kernel launch for the whole sequence.
 
-    wx4: [I, 4, H]; wh4: [H, 4, H]; b: [4, H]; x_seq: [B, T, I].
+    Same contract as :func:`fused_lstm_layer`.
     Returns (outputs [B, T, H], (h_T, c_T fp32)).
     """
-    keys = _gate_keys(int(seed), int(layer))
+    keys = _gate_keys("lstm", int(seed), int(layer))
     ys, hT, cT = mcd_lstm_seq.mcd_lstm_seq(
-        x_seq, wx4, wh4, b, rows, keys, p_drop,
-        h0=None if h0 is None else h0.float().contiguous(),
-        c0=None if c0 is None else c0.float().contiguous(),
-        lengths=lengths)
+        x_seq, wx4, wh4, b, rows, keys, p_drop, h0=_carry(h0),
+        c0=_carry(c0), lengths=lengths)
     return ys, (hT, cT)
 
 
 def lstm_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
-                     initial_state=None, lengths=None, precision=None):
-    """Core-layout entry for ``run_stack``'s kernel backend.
+                     seq: bool = True, initial_state=None, lengths=None,
+                     precision=None):
+    """Core-layout entry for ``run_stack``'s kernel backends.
 
     Takes :class:`repro_torch.core.cells.LSTMParams` layout (wx: [4, I, H];
     wh: [4, H, H]) and transposes to the kernel's gate-stacked layout
-    ``[I, 4, H]`` / ``[H, 4, H]``.  ``initial_state`` is an optional
-    ``(h0, c0)`` pair resuming a streaming session's carried state.
+    ``[I, 4, H]`` / ``[H, 4, H]``.  ``seq`` picks the sequence kernel
+    (``cuda_seq``) or the step kernel (``cuda_step``).  ``initial_state`` is
+    an optional ``(h0, c0)`` pair resuming a streaming session's state.
     """
     check_precision(precision)
     wx4, wh4, b = cells.gate_stacked(cells.LSTMParams(wx, wh, b))
     h0, c0 = initial_state if initial_state is not None else (None, None)
-    return fused_lstm_seq(wx4, wh4, b, x_seq.float().contiguous(), rows,
-                          seed, layer, p_drop, h0=h0, c0=c0, lengths=lengths)
+    fn = fused_lstm_seq if seq else fused_lstm_layer
+    return fn(wx4, wh4, b, x_seq.float().contiguous(), rows, seed, layer,
+              p_drop, h0=h0, c0=c0, lengths=lengths)
+
+
+def fused_gru_layer(wx3, wh3, b, x_seq, rows, seed, layer: int,
+                    p_drop: float, h0=None, lengths=None):
+    """The GRU step kernel looped over T from Python (per-step baseline).
+
+    wx3: [I, 3, H]; wh3: [H, 3, H]; b: [3, H]; x_seq: [B, T, I].
+    ``h0`` resumes carried state (zeros when omitted); ``lengths`` freezes
+    each row's state at its own chunk length, outside the kernel.
+    Returns (outputs [B, T, H], (h_T,)) — the GRU's whole carry is ``h``.
+    """
+    B, T, _ = x_seq.shape
+    H = wh3.shape[0]
+    keys = _gate_keys("gru", int(seed), int(layer))
+    h = (torch.zeros((B, H), device=x_seq.device) if h0 is None
+         else _carry(h0))
+    xs = x_seq.transpose(0, 1).contiguous()            # [T, B, I]
+    ys = []
+    for t in range(T):
+        h_new = mcd_gru.mcd_gru_step(xs[t], h, wx3, wh3, b, rows, keys,
+                                     p_drop)
+        if lengths is not None:
+            h_new = cells.freeze_rows_h(t, lengths, h_new, h)
+        h = h_new
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h,)
+
+
+def fused_gru_seq(wx3, wh3, b, x_seq, rows, seed, layer: int,
+                  p_drop: float, h0=None, lengths=None):
+    """One kernel launch for the whole GRU sequence.
+
+    Same contract as :func:`fused_gru_layer`.
+    Returns (outputs [B, T, H], (h_T,)).
+    """
+    keys = _gate_keys("gru", int(seed), int(layer))
+    ys, hT = mcd_gru_seq.mcd_gru_seq(x_seq, wx3, wh3, b, rows, keys, p_drop,
+                                     h0=_carry(h0), lengths=lengths)
+    return ys, (hT,)
+
+
+def gru_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
+                    seq: bool = True, initial_state=None, lengths=None,
+                    precision=None):
+    """Core-layout GRU entry for ``run_stack``'s kernel backends.
+
+    Mirrors :func:`lstm_stack_layer` for
+    :class:`repro_torch.core.cells.GRUParams` (wx: [3, I, H]; wh:
+    [3, H, H]); ``initial_state`` is the 1-tuple ``(h0,)`` a streaming
+    session stores for a GRU layer.
+    """
+    check_precision(precision)
+    wx3, wh3, b = cells.gate_stacked(cells.GRUParams(wx, wh, b))
+    (h0,) = initial_state if initial_state is not None else (None,)
+    fn = fused_gru_seq if seq else fused_gru_layer
+    return fn(wx3, wh3, b, x_seq.float().contiguous(), rows, seed, layer,
+              p_drop, h0=h0, lengths=lengths)

@@ -3,11 +3,14 @@
 Opens concurrent sessions, each a synthetic-ECG signal (ECG5000-compatible
 beats back to back), and serves them chunk by chunk through the
 ``StreamingEngine`` with carried per-session state: per-chunk Bayesian
-uncertainty over the signal so far.  Single tenant, LSTM classifier.
+uncertainty over the signal so far.  Single tenant, the ECG classifier,
+LSTM or GRU (``--cell``), on any stack backend (``--backend``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
       --chunk-len 20 --samples 8 --beats 2
+  PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
+      --cell gru --backend cuda_step
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --sessions 2 --samples 4 --beats 1 --ragged --capacity auto
 """
@@ -46,6 +49,11 @@ def main(argv=None):
     ap.add_argument("--beats", type=int, default=2,
                     help="ECG beats (T=140 each) per session stream")
     ap.add_argument("--samples", type=int, default=8, help="S MC chains")
+    ap.add_argument("--backend", default="cuda_seq",
+                    choices=("reference", "cuda_step", "cuda_seq"))
+    ap.add_argument("--cell", default="lstm", choices=("lstm", "gru"),
+                    help="recurrent unit (paper §III-A: the GRU drops into "
+                    "the same per-gate MCD design; h-only carried state)")
     ap.add_argument("--hidden", type=int, default=8)
     ap.add_argument("--layers", type=int, default=3)
     ap.add_argument("--placement", default="YNY")
@@ -65,7 +73,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = clf.ClassifierConfig(
-        hidden=args.hidden, num_layers=args.layers,
+        hidden=args.hidden, num_layers=args.layers, cell=args.cell,
         mcd=mcd.MCDConfig(p=args.p, placement=args.placement,
                           n_samples=args.samples, seed=args.seed))
     params = clf.init(torch.Generator().manual_seed(args.seed), cfg,
@@ -74,7 +82,8 @@ def main(argv=None):
                 "dynamic": None}[args.capacity]
     ladder = pow2_ladder(args.chunk_len) if capacity == "auto" else None
     sink = JsonlSink(args.metrics_out) if args.metrics_out else None
-    eng = StreamingEngine(params, cfg, max_sessions=args.sessions,
+    eng = StreamingEngine(params, cfg, backend=args.backend,
+                          max_sessions=args.sessions,
                           chunk_capacity=capacity, ladder=ladder,
                           metrics_sink=sink, device=device)
     streams, labels = build_streams(args.sessions, args.beats, args.seed)
@@ -82,7 +91,8 @@ def main(argv=None):
         eng.open_session(f"ecg-{k}")
     print(f"streaming {args.sessions} sessions x {args.beats} beats "
           f"(T={ecg.T_STEPS} each) | S={args.samples} p={cfg.mcd.p} "
-          f"B={mcd.placement_str(cfg.mcd.placement)} device={device} "
+          f"B={mcd.placement_str(cfg.mcd.placement)} cell={args.cell} "
+          f"backend={args.backend} device={device} "
           f"capacity={args.capacity}")
 
     rng = np.random.default_rng(args.seed + 1)

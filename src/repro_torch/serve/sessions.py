@@ -1,9 +1,10 @@
 """Per-session carried state for streaming serving — port of
 ``repro.serve.sessions``.
 
-A session owns two things: its per-layer, per-chain ``(h, c)`` carry
-(tensors on the serving device; ``c`` fp32 on the kernel backend, so a
-chunk boundary round-trips it losslessly) and its ``(seed, rows)``
+A session owns two things: its per-layer, per-chain carry — ``(h, c)``
+for an LSTM layer, ``(h,)`` for a GRU layer — (tensors on the serving
+device; ``c`` fp32 on the kernel backends, so a chunk boundary round-trips
+it losslessly) and its ``(seed, rows)``
 mask-stream coordinates, allocated once at admission from a monotone
 allocator and never reused, so every chunk redraws the same masks.
 
@@ -35,7 +36,8 @@ class Session:
     sid: str
     rows: np.ndarray           # [s] uint32 mask-stream row ids, for life
     seed: Any                  # counter-PRNG base seed (engine-wide)
-    state: list | None = None  # per-layer [(h [s,H], c [s,H]), ...] or fresh
+    state: list | None = None  # per-layer [(h [s,H], c [s,H]) | (h,), ...]
+                               # or None while fresh
     steps: int = 0             # timesteps consumed so far
     chunks: int = 0            # chunks served so far
     mode: str = "mc"

@@ -1,18 +1,21 @@
 """Streaming engine: unbounded signals, chunk by chunk, one batched pass per
-tick — port of ``repro.serve.stream`` for the ECG classifier.
+tick — port of ``repro.serve.stream`` for the ECG classifier and the ECG
+anomaly autoencoder, LSTM or GRU.
 
 Per tick the engine collects every submitted chunk, pads them to a common
 T, folds each session's S MC chains into the batch axis, resumes each row's
-carried ``(h, c)`` through the stack (on the ``"cuda_seq"`` backend: one
-kernel launch per layer, with per-row ``lengths`` freezing ragged rows at
-their own chunk end), emits per-session uncertainty and stores the new
-carry.  Streaming passes always supply ``lengths``, so a session's results
-do not depend on how its signal was chunked or on which sessions shared the
-batch: chunked == unchunked, bit for bit.
+carried state (``(h, c)`` per LSTM layer, ``(h,)`` per GRU layer) through
+the model, emits per-session uncertainty (a classification summary, or a
+regression summary over the reconstructed positions) and stores the new
+carry.  On the ``"cuda_seq"`` backend a tick launches the layer kernel once
+per layer; on ``"cuda_step"`` the step kernel once per layer per time step.
+Streaming passes always supply ``lengths``, so a session's results do not
+depend on how its signal was chunked or on which sessions shared the batch:
+chunked == unchunked, bit for bit.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md): the
-autoencoder, ``mesh`` sharding, serving precisions other than fp32, early
-exit, distilled students, and snapshot/restore.
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+``mesh`` sharding, serving precisions other than fp32, early exit,
+distilled students, and snapshot/restore.
 """
 
 from __future__ import annotations
@@ -27,23 +30,31 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import classifier as _clf
+from repro_torch.core import autoencoder as _ae, classifier as _clf
 from repro_torch.core.uncertainty import (ClassificationSummary,
-                                          classification_summary)
-from repro_torch.kernels import mcd_lstm_seq as _seq
+                                          RegressionSummary,
+                                          classification_summary,
+                                          regression_summary)
+from repro_torch.kernels import (mcd_gru, mcd_gru_seq, mcd_lstm,
+                                 mcd_lstm_seq)
 from repro_torch.kernels import ops as _ops
 from repro_torch.serve.admission import AdmissionQueue, DrainRejected
 from repro_torch.serve.scheduler import AdaptiveTickScheduler, TickMetrics
 from repro_torch.serve.sessions import Session, SessionStore
 
+#: Every recurrent kernel wrapper a tick can launch.
+_STACK_KERNELS = (mcd_lstm_seq.mcd_lstm_seq, mcd_gru_seq.mcd_gru_seq,
+                  mcd_lstm.mcd_lstm_step, mcd_gru.mcd_gru_step)
+
 
 def stack_launch_count() -> int:
-    """Layer-kernel launches so far in this process.
+    """Recurrent-kernel launches so far in this process.
 
-    The delta across a tick is ``TickMetrics.launches``: on the kernel
-    backend every tick launches the layer kernel once per layer.
+    The delta across a tick is ``TickMetrics.launches``: on the
+    ``cuda_seq`` backend every tick launches the layer kernel once per
+    layer; on ``cuda_step`` the step kernel once per layer per time step.
     """
-    return _seq.mcd_lstm_seq.launches
+    return sum(k.launches for k in _STACK_KERNELS)
 
 
 @dataclasses.dataclass
@@ -53,7 +64,9 @@ class ChunkResult:
     sid: str
     length: int                # timesteps in this chunk
     steps_total: int           # timesteps consumed by the session so far
-    summary: Any               # ClassificationSummary (batch axis squeezed)
+    summary: Any               # Classification- or RegressionSummary
+                               # (batch axis squeezed; regression: the
+                               # chunk's valid positions)
 
 
 @runtime_checkable
@@ -112,15 +125,17 @@ def _unported(feature: str):
 
 
 class StreamingEngine:
-    """Stateful session serving for the ECG classifier.
+    """Stateful session serving for the ECG classifier / autoencoder.
 
     Args:
-      params: classifier parameters (``classifier.init`` or the bridge),
-        on ``device``.
-      cfg: the matching ``ClassifierConfig``; its ``mcd`` block fixes S
-        (chains per session), p, placement and seed.
+      params: model parameters (``classifier.init``, ``autoencoder.init``
+        or the bridge), on ``device``.
+      cfg: the matching ``ClassifierConfig`` or ``AutoencoderConfig``; its
+        ``mcd`` block fixes S (chains per session), p, placement and seed,
+        its ``cell`` the recurrent unit.
       backend: ``"cuda_seq"`` (the serving path: one kernel launch per
-        layer per tick) or ``"reference"``.
+        layer per tick), ``"cuda_step"`` (one step-kernel launch per layer
+        per time step) or ``"reference"``.
       max_sessions: admission bound on concurrently open sessions.
       chunk_capacity: an int launches every tick at a fixed shape (chunks
         padded to this T, the batch to ``max_sessions`` slots); ``"auto"``
@@ -141,9 +156,13 @@ class StreamingEngine:
                  device=None, mesh=None, precision: str | None = None,
                  early_exit_threshold: float | None = None,
                  student=None):
-        if not isinstance(cfg, _clf.ClassifierConfig):
-            raise _unported(f"config {type(cfg).__name__} (only the "
-                            "classifier is served; the autoencoder waits)")
+        if isinstance(cfg, _clf.ClassifierConfig):
+            self.kind = "classifier"
+        elif isinstance(cfg, _ae.AutoencoderConfig):
+            self.kind = "autoencoder"
+        else:
+            raise _unported(f"config {type(cfg).__name__} (the classifier "
+                            "and the autoencoder are served)")
         if mesh is not None:
             raise _unported("mesh sharding")
         if early_exit_threshold is not None:
@@ -157,6 +176,7 @@ class StreamingEngine:
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
+        self.cell = cfg.cell
         self.backend = backend
         self.precision = precision
         self.chunk_capacity = chunk_capacity
@@ -320,8 +340,11 @@ class StreamingEngine:
         lengths = torch.from_numpy(lens_host).to(dev)
         initial_state = self._gather_states(sessions, x_batch.dtype, n_pad)
 
-        logits, states = self._apply(x_batch, rows, lengths, initial_state)
+        outs, states = self._apply(x_batch, rows, lengths, initial_state)
 
+        # Batched summaries over [s, group, ...]: sessions grouped by chain
+        # count, each group's rows gathered once, per-session results
+        # indexed out.
         k_n = len(sessions)
         summaries: list = [None] * k_n
         groups = ([(s_list[0], list(range(k_n)))] if len(set(s_list)) == 1
@@ -329,26 +352,46 @@ class StreamingEngine:
                                for si in set(s_list)}.items()))
         for si, ks in groups:
             if len(ks) == k_n:
-                lg = logits[:k_n * si].reshape(k_n, si, -1)
+                def sel(a, si=si):
+                    return a[:k_n * si].reshape((k_n, si) + a.shape[1:])
             else:
                 idx = torch.as_tensor(np.concatenate(
                     [np.arange(offsets[k], offsets[k] + si) for k in ks]),
                     device=dev)
-                lg = logits[idx].reshape(len(ks), si, -1)
-            batched = classification_summary(lg.transpose(0, 1).float())
-            for j, k in enumerate(ks):
-                summaries[k] = ClassificationSummary(*(v[j] for v in batched))
 
+                def sel(a, idx=idx, n=len(ks), si=si):
+                    return a[idx].reshape((n, si) + a.shape[1:])
+            if self.kind == "classifier":
+                (logits,) = outs
+                batched = classification_summary(
+                    sel(logits).transpose(0, 1).float())
+                per = ClassificationSummary
+            else:
+                mean, log_var, _ = outs
+                batched = regression_summary(
+                    sel(mean).transpose(0, 1).float(),
+                    None if log_var is None
+                    else sel(log_var).transpose(0, 1).float())
+                per = RegressionSummary
+            for j, k in enumerate(ks):
+                summaries[k] = per(*(v[j] for v in batched))
+
+        # A windowed decoder reconstructs min(L, W) positions per chunk.
+        win = getattr(self.cfg, "decode_window", None)
         results: dict[str, ChunkResult] = {}
         for k, (sess, L) in enumerate(zip(sessions, lens)):
             sl = slice(offsets[k], offsets[k] + s_list[k])
+            summary = summaries[k]
+            if self.kind == "autoencoder":
+                valid = L if win is None else min(L, win)
+                summary = RegressionSummary(*(v[:valid] for v in summary))
             sess.state = [tuple(part[sl] for part in layer)
                           for layer in states]
             sess.steps += L
             sess.chunks += 1
             results[sess.sid] = ChunkResult(sid=sess.sid, length=L,
                                             steps_total=sess.steps,
-                                            summary=summaries[k])
+                                            summary=summary)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dur = time.perf_counter() - t_start
@@ -375,27 +418,39 @@ class StreamingEngine:
         return n
 
     def _apply(self, x_batch, rows, lengths, initial_state):
-        """One batched model pass — the tick hot path."""
-        return _clf.apply(self.params, x_batch, rows, self.cfg,
-                          backend=self.backend, initial_state=initial_state,
-                          lengths=lengths, return_state=True,
-                          precision=self.precision, device=self.device)
+        """One batched model pass — the tick hot path.
+
+        Returns ``(model outputs tuple, per-layer encoder states)``: the
+        outputs are ``(logits,)`` for the classifier and ``(mean, log_var,
+        dec_out)`` for the autoencoder.
+        """
+        kw = dict(backend=self.backend, initial_state=initial_state,
+                  lengths=lengths, return_state=True,
+                  precision=self.precision, device=self.device)
+        if self.kind == "classifier":
+            logits, states = _clf.apply(self.params, x_batch, rows, self.cfg,
+                                        **kw)
+            return (logits,), states
+        mean, log_var, dec_out, states = _ae.apply(
+            self.params, x_batch, rows, self.cfg, return_decoded=True, **kw)
+        return (mean, log_var, dec_out), states
 
     def _gather_states(self, sessions, dtype, n_pad: int = 0):
         """Concatenate per-session carries into batch-aligned layer states.
 
         Fresh sessions and pad slots contribute zeros in the backend's own
-        carry dtypes (h in the activation dtype; c in fp32 on the kernel
-        backend, the activation dtype on the reference).
+        carry dtypes (h in the activation dtype; LSTM c in fp32 on the
+        kernel backends, the activation dtype on the reference), sized per
+        encoder layer; the parts follow the cell: ``(h, c)`` for the LSTM,
+        ``(h,)`` for the GRU.
         """
         if all(sess.fresh for sess in sessions) and not self._fixed:
             return None
         c_dtype = dtype if self.backend == "reference" else torch.float32
-        part_dtypes = (dtype, c_dtype)
+        part_dtypes = (dtype,) if self.cell == "gru" else (dtype, c_dtype)
         dev = self.device
         layers = []
-        for li in range(self.cfg.num_layers):
-            hid = self.cfg.hidden
+        for li, hid in enumerate(self._encoder_hiddens()):
             parts = [[] for _ in part_dtypes]
             for sess in sessions:
                 if sess.fresh:
@@ -412,3 +467,8 @@ class StreamingEngine:
                                            device=dev))
             layers.append(tuple(torch.cat(acc) for acc in parts))
         return layers
+
+    def _encoder_hiddens(self):
+        if self.kind == "classifier":
+            return (self.cfg.hidden,) * self.cfg.num_layers
+        return self.cfg.encoder_hiddens

@@ -69,23 +69,37 @@ def test_bridge_keeps_layouts(models):
                           tparams["head"].w.numpy())
 
 
-@pytest.mark.parametrize("backend", tops.LSTM_BACKENDS)
-def test_classifier_apply_matches_jax(models, backend):
-    jcfg, jparams, tcfg, tparams = models
+def _apply_inputs():
     n, T = 3, 16
     rng = np.random.default_rng(1)
     x = rng.standard_normal((n * S, T, 1)).astype(np.float32)
     rows = np.arange(n * S, dtype=np.uint32) + 7
     rows[2] |= jmcd.STUDENT_ROW_FLAG
     lens = rng.integers(1, T + 1, size=n * S).astype(np.int32)
+    return x, rows, lens
+
+
+@pytest.fixture(scope="module")
+def jax_apply_ref(models):
+    """One JAX pass, shared by every port backend."""
+    jcfg, jparams, _, _ = models
+    x, rows, lens = _apply_inputs()
     ref, ref_states = jclf.apply(jparams, jnp.asarray(x), jnp.asarray(rows),
                                  jcfg, lengths=jnp.asarray(lens),
                                  return_state=True)
+    return jax.tree.map(np.asarray, (ref, ref_states))
+
+
+@pytest.mark.parametrize("backend", tops.LSTM_BACKENDS)
+def test_classifier_apply_matches_jax(models, jax_apply_ref, backend):
+    _, _, tcfg, tparams = models
+    x, rows, lens = _apply_inputs()
+    ref, ref_states = jax_apply_ref
     got, states = tclf.apply(tparams, torch.from_numpy(x),
                              torch.from_numpy(rows.astype(np.int64)), tcfg,
                              backend=backend, lengths=torch.from_numpy(lens),
                              return_state=True, device="cpu")
-    assert got.shape == (n * S, C)
+    assert got.shape == (len(rows), C)
     _close(ref, got)
     for (rh, rc), (h, c) in zip(ref_states, states):
         _close(rh, h)

@@ -1,5 +1,5 @@
-"""The CUDA ``mcd_lstm_seq`` kernel against its plain PyTorch version, on the
-card.  Marked ``cuda``: each test skips (in a fixture, at run time) where
+"""The CUDA kernels (``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``,
+``mcd_gru_step``) against their plain PyTorch versions, on the card.  Marked ``cuda``: each test skips (in a fixture, at run time) where
 there is no GPU; run them on a GPU machine with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda
 tests/test_torch_cuda_kernel.py`` (``--noconftest``: the suite's conftest
@@ -12,7 +12,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import classifier as clf, mcd  # noqa: E402
+from repro_torch.core import autoencoder as ae  # noqa: E402
+from repro_torch.core import classifier as clf, mcd, rnn  # noqa: E402
+from repro_torch.kernels import common, mcd_gru  # noqa: E402
+from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
 from repro_torch.kernels import mcd_lstm, mcd_lstm_seq as seq  # noqa: E402
 from repro_torch.serve import StreamingEngine  # noqa: E402
 
@@ -63,13 +66,15 @@ def test_kernel_matches_plain(dev, B, T, I, H, p):
         assert (g - r).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize("I,H", [(1, 8), (8, 8), (128, 128)])
-def test_kernel_mask_bits_equal(dev, I, H):
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("I,H", [(1, 8), (8, 8), (1, 16), (16, 8),
+                                 (128, 128)])
+def test_kernel_mask_bits_equal(dev, cell, I, H):
     rows = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31 + 3, 2 ** 30 + 5, 77],
                         device=dev)
-    keys = mcd_lstm.gate_keys(9, 2)
-    kx, kh = seq.kernel_mask_factors(keys, rows, I, H, 0.125)
-    px, ph = seq.gate_mask_factors(keys, rows, I, H, 0.125)
+    keys = (mcd_lstm if cell == "lstm" else mcd_gru).gate_keys(9, 2)
+    kx, kh = common.kernel_mask_factors(keys, rows, I, H, 0.125)
+    px, ph = common.gate_mask_factors(keys, rows, I, H, 0.125)
     assert torch.equal(kx, px) and torch.equal(kh, ph)
 
 
@@ -118,3 +123,112 @@ def test_engine_serves_through_the_kernel(dev):
             sh, sc = eng.store.get(sid).state[li]
             assert torch.equal(sh, h[4 * k:4 * k + 4])
             assert torch.equal(sc, c[4 * k:4 * k + 4])
+
+
+# -- the GRU sequence kernel and the two step kernels ----------------------
+
+def _gru_layer(dev, B, T, I, H, seed=0):
+    d = _layer(dev, B, T, I, H, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    return dict(d, wx=(torch.randn((I, 3, H), generator=g) * 0.4).to(dev),
+                wh=(torch.randn((H, 3, H), generator=g) * 0.4).to(dev),
+                b=(torch.randn((3, H), generator=g) * 0.1).to(dev))
+
+
+@pytest.mark.parametrize("B,T,I,H", [(33, 17, 1, 16), (20, 9, 16, 8),
+                                     (5, 6, 40, 24)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_gru_seq_kernel_matches_plain(dev, B, T, I, H, p):
+    d = _gru_layer(dev, B, T, I, H)
+    keys = mcd_gru.gate_keys(3, 1)
+    args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
+    kw = dict(h0=d["h0"], lengths=d["lengths"])
+    before = gseq.mcd_gru_seq.launches
+    got = gseq.mcd_gru_seq(*args, **kw)
+    torch.cuda.synchronize()
+    assert gseq.mcd_gru_seq.launches == before + 1
+    ref = gseq.mcd_gru_seq_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("B,I,H", [(33, 1, 16), (20, 16, 8), (5, 40, 24)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_step_kernel_matches_plain(dev, cell, B, I, H, p):
+    if cell == "lstm":
+        d = _layer(dev, B, 1, I, H)
+        mod, step, plain = mcd_lstm, mcd_lstm.mcd_lstm_step, \
+            mcd_lstm.mcd_lstm_step_plain
+        args = (d["x"][:, 0].contiguous(), d["h0"], d["c0"], d["wx"],
+                d["wh"], d["b"], d["rows"], mod.gate_keys(3, 1), p)
+    else:
+        d = _gru_layer(dev, B, 1, I, H)
+        mod, step, plain = mcd_gru, mcd_gru.mcd_gru_step, \
+            mcd_gru.mcd_gru_step_plain
+        args = (d["x"][:, 0].contiguous(), d["h0"], d["wx"], d["wh"],
+                d["b"], d["rows"], mod.gate_keys(3, 1), p)
+    before = step.launches
+    got = step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    ref = plain(*args)
+    got, ref = (got, ref) if cell == "lstm" else ((got,), (ref,))
+    for g, r in zip(got, ref):
+        assert g.is_cuda and torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_step_backend_agrees_with_seq_backend(dev, cell):
+    hiddens = (16, 8)
+    params = rnn.init_stack(torch.Generator().manual_seed(1), 1, hiddens,
+                            cell=cell, device=dev)
+    cfg = mcd.MCDConfig(p=0.125, placement="YN", seed=4)
+    d = _layer(dev, 40, 12, 1, 16)
+    outs = {}
+    for backend in ("cuda_step", "cuda_seq"):
+        outs[backend] = rnn.run_stack(
+            params, d["x"], rnn.stack_mask_plan(cfg, 2), cfg.p,
+            backend=backend, rows=d["rows"], seed=cfg.seed,
+            lengths=d["lengths"], return_all_states=True, cell=cell,
+            device=dev)
+    (ys, st), (yq, sq) = outs["cuda_step"], outs["cuda_seq"]
+    assert (ys - yq).abs().max().item() <= ATOL
+    for a, b in zip(st, sq):
+        for u, v in zip(a, b):
+            assert (u - v).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_engine_serves_autoencoder_through_the_kernels(dev, cell):
+    cfg = ae.AutoencoderConfig(cell=cell, mcd=mcd.MCDConfig(
+        placement="YNYN", n_samples=4, seed=2))
+    params = ae.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    sig = {f"s{k}": rng.standard_normal((24, 1)).astype(np.float32)
+           for k in range(3)}
+    eng = StreamingEngine(params, cfg, chunk_capacity=8, max_sessions=3,
+                          device=dev)
+    for sid in sig:
+        eng.open_session(sid)
+    while any(eng.store.get(s).steps < 24 for s in sig):
+        chunks = {}
+        for sid in sig:
+            pos = eng.store.get(sid).steps
+            if pos < 24:
+                chunks[sid] = sig[sid][pos:pos + int(rng.integers(1, 9))]
+        eng.step(chunks)
+        assert eng.last_metrics.launches == 2 * cfg.num_layers
+    x = torch.from_numpy(np.concatenate([np.repeat(sig[s][None], 4, 0)
+                                         for s in sig])).to(dev)
+    rows = torch.from_numpy(np.concatenate(
+        [eng.store.get(s).rows for s in sig]).astype(np.int64)).to(dev)
+    *_, states = ae.apply(params, x, rows, cfg, backend="cuda_seq",
+                          lengths=torch.full((12,), 24, device=dev),
+                          return_state=True, device=dev)
+    for li, layer in enumerate(states):
+        for k, sid in enumerate(sig):
+            for part, full in zip(eng.store.get(sid).state[li], layer):
+                assert torch.equal(part, full[4 * k:4 * k + 4])

@@ -17,6 +17,7 @@ import numpy as np  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch.core import classifier as clf, mcd, rnn  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import stream as launch_stream  # noqa: E402
 from repro_torch.serve import StreamingEngine  # noqa: E402
 
@@ -136,8 +137,15 @@ def test_engine_unported_calls_raise():
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rnn.init_stack(torch.Generator(), 1, (8,), cell="gru", device="cpu")
+    # The GRU is ported; its stack still refuses what is not.
+    gru = rnn.init_stack(torch.Generator(), 1, (8,), cell="gru",
+                         device="cpu")
+    plan = rnn.stack_mask_plan(cfg.mcd, 1)
+    for kw in ({"mesh": object()}, {"precision": "bf16"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rnn.run_stack(gru, torch.zeros((2, 3, 1)), plan, 0.125,
+                          backend="cuda_seq", rows=torch.arange(2),
+                          cell="gru", device="cpu", **kw)
 
 
 def test_cli_serves_on_cpu(tmp_path):
@@ -150,6 +158,19 @@ def test_cli_serves_on_cpu(tmp_path):
     assert agg["ticks"] >= 2 and agg["launches"] == 0
     lines = out.read_text().splitlines()
     assert len(lines) == agg["ticks"]
+
+
+@pytest.mark.parametrize("cell,backend", [("gru", "cuda_step"),
+                                          ("gru", "reference"),
+                                          ("lstm", "cuda_step")])
+def test_cli_cell_and_backend_flags(cell, backend):
+    agg = launch_stream.main(["--device", "cpu", "--sessions", "2",
+                              "--samples", "2", "--beats", "1",
+                              "--chunk-len", "70", "--cell", cell,
+                              "--backend", backend])
+    assert agg["ticks"] == 2 and agg["launches"] == 0
+    with pytest.raises(SystemExit):
+        launch_stream.main(["--device", "cpu", "--backend", "pallas_seq"])
 
 
 def test_evicted_session_reattaches_with_its_draw():
@@ -175,3 +196,21 @@ def test_init_is_seeded():
     for la, lb in zip(a["encoder"], b["encoder"]):
         assert all(torch.equal(u, v) for u, v in zip(la, lb))
         assert np.array_equal(la.b[1].numpy(), np.ones(cfg.hidden))
+
+
+def test_library_name_tracks_sources_and_shared_headers(tmp_path,
+                                                        monkeypatch):
+    """An edited .cu or shared .cuh names a new library: no stale load."""
+    (tmp_path / "k.cu").write_text('#include "m.cuh"\n')
+    (tmp_path / "m.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "m.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "m.cuh"\n// edit\n')
+    assert build.library_path("k") not in (first, second)
+    real = pathlib.Path(build.__file__).parent / "csrc"
+    assert {p.stem for p in real.glob("*.cu")} == {
+        "mcd_lstm_seq", "mcd_gru_seq", "mcd_lstm_step", "mcd_gru_step"}
