@@ -6,21 +6,22 @@ Phases (each raises on failure; the exit code is then non-zero):
 1. Device: print the card's name and power limit; build every CUDA kernel
    of the serving paths from ``src/repro_torch/kernels/csrc`` with ``nvcc``
    for ``sm_90a`` (one ``nvcc`` per source, all started together):
-   ``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``.
-2. Kernels: hold each kernel against its plain PyTorch version on the card
-   at the shapes the serving paths give it -- B = 64 sessions x 30 chains =
-   1920 rows; the classifier's layers (I, H) = (1, 8), (8, 8) and the
-   autoencoder's (1, 16), (16, 8), (8, 16), (16, 16); the sequence kernels
-   at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B = 256,
-   T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student rows,
-   p = 0.125 and p = 0: fp32 max abs error on every output within 1e-5, and
-   each kernel's mask bits equal to the plain stream's.  Times the kernel,
-   its plain version and, where one PyTorch call computes the same function
-   (p = 0, no student rows, full lengths: cuDNN through ``torch.nn.LSTM`` /
-   ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call.  A float64 witness
-   shows why the wide layer's weights shrink with fan-in: at the unshrunk
-   scale the GRU's fp32 evaluations part over T, and the kernel must stay
-   as close to float64 as the plain version.
+   ``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``,
+   ``masked_activation``, ``mcd_matmul``, ``decode_attn``.
+2. Kernels: hold each recurrent kernel against its plain PyTorch version on
+   the card at the shapes the serving paths give it -- B = 64 sessions x 30
+   chains = 1920 rows; the classifier's layers (I, H) = (1, 8), (8, 8) and
+   the autoencoder's (1, 16), (16, 8), (8, 16), (16, 16); the sequence
+   kernels at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B
+   = 256, T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student
+   rows, p = 0.125 and p = 0: fp32 max abs error on every output within
+   1e-5, and each kernel's mask bits equal to the plain stream's. Times the
+   kernel, its plain version and, where one PyTorch call computes the same
+   function (p = 0, no student rows, full lengths: cuDNN through
+   ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call. A
+   float64 witness shows why the wide layer's weights shrink with fan-in: at
+   the unshrunk scale the GRU's fp32 evaluations part over T, and the kernel
+   must stay as close to float64 as the plain version.
 3. Serving, the classifier (LSTM, ``cuda_seq``): ``StreamingEngine`` serves
    the ECG classifier at full width (I = 1, H = 8, NL = 3, YNY, p = 0.125,
    S = 30) for 64 sessions over whole 140-step beats in ragged chunks of up
@@ -38,6 +39,22 @@ Phases (each raises on failure; the exit code is then non-zero):
    for the GRU and the LSTM classifier: within 1e-5 of ``cuda_seq`` (and
    whether they are bit-equal), and the step kernel launched once per layer
    per time step.
+6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
+   ``decode_attention`` against their plain versions on the card at the
+   shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
+   2048, 2 x d_ff = 12288, 16 query / 8 KV heads of 128, a 160-position
+   cache; prefill 64 x 128 rows): the mask bit-equal to the plain stream
+   (a row with bit 31 set included), ``mcd_matmul`` within MM_TOL and
+   ``decode_attention`` within ATTN_TOL.  Times the kernel, its plain
+   version and the library call (cuBLAS on the masked x; scaled dot-product
+   attention over the live positions).
+7. LM serving: ``BayesianEngine.generate`` on qwen3-1.7b at full width
+   (28 layers, random fp32 weights from seed 0), 8 prompts of 128 tokens x
+   8 chains (p = 0.1, placement Y), 32 new tokens: the launch counts of the
+   three kernels, the same tokens again when fed its own tokens, the
+   "reference" backend teacher-forced on those tokens within LOGIT_TOL /
+   UNC_TOL, prefill and per-token times, profiles of the prefill and of 5
+   decode steps, and the peak device memory.
 
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
@@ -83,6 +100,29 @@ KERNELS = {
     "mcd_gru_step": (3, False, "mcd_gru_step.cu",
                      "src/repro/kernels/mcd_gru.py:96"),
 }
+
+# The LM decode path's kernels: name -> (module, csrc file, TPU kernel).
+LM_KERNELS = {
+    "masked_activation": ("bernoulli_mask", "masked_activation.cu",
+                          "src/repro/kernels/bernoulli_mask.py:41"),
+    "mcd_matmul": ("mcd_matmul", "mcd_matmul.cu",
+                   "src/repro/kernels/mcd_matmul.py:52"),
+    "decode_attention": ("decode_attn", "decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:63"),
+}
+ALL_KERNELS = list(KERNELS) + list(LM_KERNELS)
+# qwen3-1.7b decode serving: 8 prompts x 8 chains, 128-token prompts, 32
+# new tokens (the configuration's own S = 8, p = 0.1, placement Y).
+LM_B, LM_S, LM_PROMPT, LM_NEW = 8, 8, 128, 32
+MM_TOL = 1e-4       # mcd_matmul vs cuBLAS: K = 2048 fp32 products summed
+                    # in another order; on unit-scale outputs the spread is
+                    # ~3e-6 and its max over 1e8 outputs ~2e-5
+ATTN_TOL = 1e-5     # decode_attention: 128-long dot products and a <= 160
+                    # position softmax in another order; outputs are
+                    # weighted means of unit-scale V
+LOGIT_TOL = 1e-3    # the engine on the kernels vs on the reference backend
+UNC_TOL = 1e-4      # (cuBLAS), 28 layers deep: per-step logits and the
+                    # entropy / mutual information (nats)
 
 # Layer shapes (I, H, p) of one pass of each model; YNY / YNYN placement.
 CLF_LAYERS = [(1, 8, 0.125), (8, 8, 0.0), (8, 8, 0.125)]
@@ -131,7 +171,10 @@ def _device_events(prof, match=None) -> tuple[float, int]:
 PROFILE_ATTEMPTS = 6
 
 
-def profiled_us(prepare, matches, calls=None):
+LOOSE_RECORDS = 0.002   # share of records a "loose" match may lose
+
+
+def profiled_us(prepare, matches, calls=None, loose=()):
     """Profile one call under torch.profiler (CUDA activity): ``prepare()``
     runs outside the profile and returns the call, which makes ``calls``
     repeats of one function when given.  Returns the device time (us) of
@@ -145,6 +188,11 @@ def profiled_us(prepare, matches, calls=None):
     profile taken just before it with a fresh profiler; the profile is
     taken again until two agree, and after ``PROFILE_ATTEMPTS`` profiles
     this raises.  A time that was not measured is never reported.
+
+    The entries whose indices are in ``loose`` (every kernel of an LM
+    decode step: ~2,200 records a step, of which the profiler drops a few
+    in most profiles) need only records, and a count within LOOSE_RECORDS
+    of the previous profile's: their time may lack that share of records.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -158,9 +206,13 @@ def profiled_us(prepare, matches, calls=None):
             torch.cuda.synchronize()
         got = [_device_events(prof, m) for m in matches]
         counts = [n for _, n in got]
-        whole = all(n > 0 and (calls is None or n % calls == 0)
-                    for n in counts)
-        if whole and counts == last:
+        whole = all(n > 0 and (calls is None or i in loose
+                               or n % calls == 0)
+                    for i, n in enumerate(counts))
+        agree = last is not None and all(
+            abs(n - m) <= LOOSE_RECORDS * m if i in loose else n == m
+            for i, (n, m) in enumerate(zip(counts, last)))
+        if whole and agree:
             return [us for us, _ in got], out
         if last is not None or not whole:
             print(f"profile {attempt + 1} of {PROFILE_ATTEMPTS} for "
@@ -226,8 +278,12 @@ def layer_inputs(B, T, I, H, *, seed, gates=4, students=True, ragged=True,
 
 
 def _module(name):
+    import importlib
     from repro_torch.kernels import mcd_gru, mcd_gru_seq, mcd_lstm, \
         mcd_lstm_seq
+    if name in LM_KERNELS:
+        return importlib.import_module(
+            f"repro_torch.kernels.{LM_KERNELS[name][0]}")
     return {"mcd_lstm_seq": mcd_lstm_seq, "mcd_gru_seq": mcd_gru_seq,
             "mcd_lstm_step": mcd_lstm, "mcd_gru_step": mcd_gru}[name]
 
@@ -525,12 +581,13 @@ def kernel_entries(records):
 # -- serving --------------------------------------------------------------
 
 def reset_launches():
-    for name in KERNELS:
+    for name in ALL_KERNELS:
         getattr(_module(name), name).launches = 0
 
 
 def read_launches() -> dict:
-    return {name: getattr(_module(name), name).launches for name in KERNELS}
+    return {name: getattr(_module(name), name).launches
+            for name in ALL_KERNELS}
 
 
 def _check_launches(phase, counts, metrics, kernel, per_tick):
@@ -811,11 +868,342 @@ def step_backend_phase(report, dev):
     out["launches_by_run"] = all_counts
     report["serving_step_backend"] = out
     print("serving step backend " + json.dumps(out), flush=True)
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in ALL_KERNELS}
     for counts in all_counts.values():
         for name, v in counts.items():
             total[name] += v
     return total
+
+
+# -- the LM decode path -----------------------------------------------------
+
+def _lm_rows(dev, n_rows, positions=1):
+    """Chain row ids 0..n_rows-1 with bit 31 set on every 16th row (these
+    kernels mask such rows too), repeated per position as a prefill
+    flattens them; int64 uint32 values."""
+    import torch
+    rows = torch.arange(n_rows, dtype=torch.int64)
+    rows[5::16] |= 1 << 31
+    return rows.repeat_interleave(positions).to(dev)
+
+
+def _lm_record(name, case, err, call, plain, nbytes, ops, library=None):
+    """One case: call and device time of the kernel, the plain version's
+    time, the bound and the library call's times (or None)."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
+    rec = dict(kernel=name, **case, max_abs_err=err,
+               kernel_ms=cuda_time_ms(call, iters=10, warmup=2),
+               kernel_device_ms=device_ms(call, 3, name + "_kernel"),
+               plain_ms=cuda_time_ms(plain, iters=3, warmup=1),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        rec["library_ms"] = cuda_time_ms(library, iters=10, warmup=2)
+        rec["library_device_ms"] = device_ms(library, 3)
+    print("lm kernel case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def lm_kernel_phase(report) -> list[dict]:
+    """The three LM kernels against their plain versions at qwen3-1.7b's
+    serving shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
+                                     mcd_matmul)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows_n = LM_B * LM_S                     # 8 prompts x 8 chains
+    D, N = 2048, 2 * 6144
+    key = 0x2545F491
+    records = []
+
+    # masked_activation: decode [64, 2048] and prefill [64 x 128, 2048].
+    for M, p in ((rows_n, 0.1), (rows_n * LM_PROMPT, 0.1), (rows_n, 0.0)):
+        rows = _lm_rows(dev, rows_n, M // rows_n)
+        x = torch.randn((M, D), generator=g, device=dev)
+        ones = torch.ones_like(x)
+        got = bernoulli_mask.masked_activation(x, rows, key, p)
+        bits = bernoulli_mask.masked_activation(ones, rows, key, p) != 0
+        torch.cuda.synchronize()
+        want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
+        keep = (common.gate_mask(key, rows, D, p) if p else
+                torch.ones_like(bits))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise RuntimeError(f"masked_activation differs from its plain "
+                               f"version at M={M} p={p}")
+        if not torch.equal(bits, keep):
+            raise RuntimeError(f"masked_activation mask bits differ from the "
+                               f"plain stream at M={M} p={p}")
+        hi = (rows >= 2 ** 31)
+        if p and bits[hi].all():
+            raise RuntimeError("masked_activation exempted the bit-31 rows")
+        r32 = common.rows_to_int32(rows)      # as the layers pass them
+        records.append(_lm_record(
+            "masked_activation", dict(M=M, F=D, p=p, bit_equal=True,
+                                      mask_bits_equal=True),
+            max_abs_diff(got, want, "masked_activation"),
+            lambda: bernoulli_mask.masked_activation(x, r32, key, p),
+            lambda: bernoulli_mask.masked_activation_plain(x, rows, key, p),
+            # ~22 integer operations an element for the hash and select,
+            # counted at the CUDA cores' fp32 rate: far under the bytes.
+            nbytes=4 * (2 * M * D + M), ops=22 * M * D))
+
+    # mcd_matmul: the SwiGLU gate/up product, fp32 out.
+    w = torch.randn((D, N), generator=g, device=dev) * D ** -0.5
+    for M, p in ((rows_n, 0.1), (rows_n, 0.0), (rows_n * LM_PROMPT, 0.1),
+                 (rows_n * LM_PROMPT, 0.0)):
+        rows = _lm_rows(dev, rows_n, M // rows_n)
+        x = torch.randn((M, D), generator=g, device=dev)
+        got = mcd_matmul.mcd_matmul(x, w, rows, key, p, torch.float32)
+        torch.cuda.synchronize()
+        want = mcd_matmul.mcd_matmul_plain(x, w, rows, key, p, torch.float32)
+        err = max_abs_diff(got, want, "mcd_matmul")
+        if err > MM_TOL:
+            raise RuntimeError(f"mcd_matmul disagrees with its plain version "
+                               f"at M={M} p={p}: {err} > {MM_TOL}")
+        xm = bernoulli_mask.masked_activation_plain(x, rows, key, p)
+        r32 = common.rows_to_int32(rows)
+        records.append(_lm_record(
+            "mcd_matmul", dict(M=M, K=D, N=N, p=p), err,
+            lambda: mcd_matmul.mcd_matmul(x, w, r32, key, p, torch.float32),
+            lambda: mcd_matmul.mcd_matmul_plain(x, w, rows, key, p,
+                                                torch.float32),
+            nbytes=4 * (M * D + D * N + M * N + M), ops=2 * M * D * N,
+            library=lambda: torch.matmul(xm, w)))
+        del got, want, xm
+
+    # decode_attention: 64 rows, 16 q / 8 KV heads of 128, 160 positions.
+    B, H, KV, hd, S = rows_n, 16, 8, 128, LM_PROMPT + LM_NEW
+    q = torch.randn((B, H, hd), generator=g, device=dev)
+    kc = torch.randn((B, S, KV, hd), generator=g, device=dev)
+    vc = torch.randn((B, S, KV, hd), generator=g, device=dev)
+    for pos in (0, 127, S - 1):
+        got = decode_attn.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        want = decode_attn.decode_attention_plain(q, kc, vc, pos)
+        err = max_abs_diff(got, want, "decode_attention")
+        if err > ATTN_TOL:
+            raise RuntimeError(f"decode_attention disagrees with its plain "
+                               f"version at pos={pos}: {err} > {ATTN_TOL}")
+        n = pos + 1
+        q4 = q[:, :, None]                                 # [B, H, 1, hd]
+        k4 = kc[:, :n].permute(0, 2, 1, 3)                 # [B, KV, n, hd]
+        v4 = vc[:, :n].permute(0, 2, 1, 3)
+
+        def library(q4=q4, k4=k4, v4=v4):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  enable_gqa=True)
+
+        lib_err = max_abs_diff(library()[:, :, 0], got,
+                               "decode_attention vs SDPA")
+        rec = _lm_record(
+            "decode_attention", dict(B=B, H=H, KV=KV, hd=hd, S=S, pos=pos,
+                                     library_max_abs_diff=lib_err), err,
+            lambda pos=pos: decode_attn.decode_attention(q, kc, vc, pos),
+            lambda pos=pos: decode_attn.decode_attention_plain(q, kc, vc,
+                                                               pos),
+            nbytes=4 * (2 * B * H * hd + 2 * B * n * KV * hd),
+            ops=B * H * n * (4 * hd + 5), library=library)
+        records.append(rec)
+    report["lm_kernel_cases"] = records
+    return records
+
+
+def lm_kernel_entries(records) -> list[dict]:
+    """The ``kernels`` entries of the three LM kernels, each at its decode
+    step shape (the launch the main path repeats most)."""
+    picks = {
+        "masked_activation": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
+                              "attention-site mask at decode: [64, 2048] "
+                              "fp32, p=0.1 (prefill [8192, 2048] in the "
+                              "report)"),
+        "mcd_matmul": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
+                       "SwiGLU gate/up at decode: [64, 2048] @ [2048, "
+                       "12288] fp32, p=0.1 (prefill M=8192 in the report)"),
+        "decode_attention": (lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
+                             "B=64, H=16, KV=8, hd=128, cache 160, pos=159 "
+                             "(pos 0 and 127 in the report)"),
+    }
+    entries = []
+    for name, (pick, note) in picks.items():
+        (rec,) = [r for r in records if r["kernel"] == name and pick(r)]
+        _, src, replaces = LM_KERNELS[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "shape": note, "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in records
+                               if r["kernel"] == name),
+            "ms": rec["kernel_ms"], "device_ms": rec["kernel_device_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_device_ms": rec["library_device_ms"],
+            "kernel_ms": rec["kernel_ms"]})
+    return entries
+
+
+def lm_serving_phase(report, dev):
+    """qwen3-1.7b at full width through ``BayesianEngine.generate``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.serve.engine import BayesianEngine
+
+    cfg = get_config("qwen3-1.7b")
+    S_LM = cfg.mcd.n_samples
+    if S_LM != LM_S:
+        raise RuntimeError(f"qwen3-1.7b serves {S_LM} chains, not {LM_S}")
+    torch.cuda.reset_peak_memory_stats()
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT), dtype=np.int32)
+    max_len = LM_PROMPT + LM_NEW
+    eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
+    L = cfg.num_layers
+    want = {"masked_activation": L * (1 + LM_NEW),
+            "mcd_matmul": L * (1 + LM_NEW), "decode_attention": L * LM_NEW}
+    reset_launches()                          # count the main path only
+    res = eng.generate(prompts, LM_NEW)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if {k: v for k, v in counts.items() if v} != want:
+        raise RuntimeError(f"LM serving launched {counts}, expected {want}")
+    ent, mi = res.predictive_entropy, res.mutual_information
+    if res.tokens.shape != (LM_B, LM_NEW) or not (
+            torch.isfinite(ent).all() and torch.isfinite(mi).all()):
+        raise RuntimeError("LM serving gave malformed outputs")
+    if (ent.min() < -1e-5 or ent.max() > np.log(cfg.vocab_size) + 1e-4
+            or mi.min() < -1e-4 or (mi > ent + 1e-4).any()):
+        raise RuntimeError("entropy / mutual information out of range")
+
+    # The same inputs again (teacher-forced on this run's tokens): the
+    # kernels repeat the run; the reference backend agrees within tolerance.
+    again = eng.generate(prompts, LM_NEW, teacher_tokens=res.tokens,
+                         keep_logits=True)
+    if not torch.equal(again.tokens, res.tokens):
+        raise RuntimeError("the kernel run did not repeat its own tokens")
+    ref = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev,
+                         backend="reference").generate(
+        prompts, LM_NEW, teacher_tokens=res.tokens, keep_logits=True)
+    d_logits = max_abs_diff(again.logits, ref.logits, "LM logits")
+    d_ent = max_abs_diff(again.predictive_entropy, ref.predictive_entropy,
+                         "LM entropy")
+    d_mi = max_abs_diff(again.mutual_information, ref.mutual_information,
+                        "LM mutual information")
+    if d_logits > LOGIT_TOL or max(d_ent, d_mi) > UNC_TOL:
+        raise RuntimeError(f"LM serving vs reference: logits {d_logits}, "
+                           f"entropy {d_ent}, MI {d_mi} (tol {LOGIT_TOL}, "
+                           f"{UNC_TOL})")
+    flips = int((ref.tokens != res.tokens).sum())
+    del again, ref
+
+    steps_ms = np.asarray(res.decode_s) * 1e3
+    decode_s = float(np.sum(res.decode_s))
+    out = {"card": report["card"], "arch": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size,
+           "dtype": "float32", "requests": LM_B, "chains": S_LM,
+           "rows": LM_B * S_LM, "prompt_len": LM_PROMPT,
+           "new_tokens": LM_NEW, "p": cfg.mcd.p,
+           "launches_by_kernel": counts,
+           "prefill_ms": res.prefill_s * 1e3,
+           "decode_ms_per_token_p50": float(np.percentile(steps_ms, 50)),
+           "decode_ms_per_token_p95": float(np.percentile(steps_ms, 95)),
+           "decode_tokens_per_s": LM_B * LM_NEW / decode_s,
+           "decode_chain_tokens_per_s": LM_B * S_LM * LM_NEW / decode_s,
+           "tokens_per_s_with_prefill":
+               LM_B * LM_NEW / (decode_s + res.prefill_s),
+           "max_memory_allocated_gb": peak / 1e9,
+           "max_abs_diff_vs_reference": {"logits": d_logits,
+                                         "entropy": d_ent, "mi": d_mi},
+           "greedy_tokens_differing_in_reference": flips,
+           "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean())}
+    report["serving_lm"] = out
+    print("serving lm " + json.dumps(out), flush=True)
+    out.update(profile_lm(eng, prompts))
+    print("serving lm profile " + json.dumps(out), flush=True)
+    return counts
+
+
+def _leaves(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def profile_lm(eng, prompts, n_steps: int = 5) -> dict:
+    """Device time inside one prefill, then inside ``n_steps`` decode steps
+    as ``generate`` makes them (summary, argmax, the decode call, a device
+    sync): the device's idle share and each LM kernel's time.  Each decode
+    profile taken again continues from the last position; not part of the
+    launch count."""
+    import torch
+    from repro_torch.core import mcd
+    from repro_torch.core.uncertainty import classification_summary
+    from repro_torch.models import backbone, layers
+
+    cfg = eng.cfg
+    B, S_LM = prompts.shape[0], cfg.mcd.n_samples
+    ctx = layers.Ctx(mcd.sample_rows(B, S_LM, device=eng.device), eng.seed,
+                     cfg.mcd)
+    p = torch.as_tensor(prompts, device=eng.device)
+    tiled = p[None].expand(S_LM, *p.shape).reshape(S_LM * B, -1)
+    live = {}
+
+    def prefill():
+        live.clear()
+
+        def run():
+            t0 = time.perf_counter()
+            live["logits"], live["state"] = backbone.prefill(
+                eng.params, cfg, tiled, ctx, eng.max_len)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+        return run
+
+    def decode():
+        if live["state"].pos + n_steps > eng.max_len:
+            raise RuntimeError("no cache positions left to profile")
+
+        def run():
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                summ = classification_summary(
+                    live["logits"][:, 0].reshape(S_LM, B, -1).float())
+                tok = torch.argmax(summ.probs, dim=-1).to(p.dtype)
+                live["logits"], live["state"] = backbone.decode_step(
+                    eng.params, cfg, tok[None].expand(S_LM, B).reshape(
+                        S_LM * B, 1), live["state"], ctx)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+        return run
+
+    out = {}
+    decode_kernels = list(LM_KERNELS)
+    prefill_kernels = [n for n in decode_kernels if n != "decode_attention"]
+    for what, prepare, calls, kernels in (
+            ("prefill", prefill, 1, prefill_kernels),
+            ("decode_step", decode, n_steps, decode_kernels)):
+        matches = [None] + [n + "_kernel" for n in kernels]
+        us, wall_us = profiled_us(prepare, matches, calls=calls, loose=(0,))
+        out[f"profiled_{what}"] = {
+            "calls": calls, "wall_ms": wall_us / calls / 1e3,
+            "device_busy_ms": us[0] / calls / 1e3,
+            "kernel_device_ms": {n: v / calls / 1e3
+                                 for n, v in zip(kernels, us[1:])},
+            "device_idle_share": 1.0 - us[0] / wall_us}
+    return out
 
 
 def profile_ticks(params, cfg, streams, dev, kernel_match,
@@ -878,18 +1266,21 @@ def main(argv=None) -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = build.build_all(list(KERNELS))
+    logs = build.build_all(list(KERNELS) + [src.removesuffix(".cu") for
+                                            _, src, _ in LM_KERNELS.values()])
     report["build_s"] = time.perf_counter() - t0
     for name, log in logs.items():
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
-    entries = kernel_entries(kernel_phase(report))
     dev = torch.device("cuda")
-    launches = {name: 0 for name in KERNELS}
+    entries = kernel_entries(kernel_phase(report))
+    entries += lm_kernel_entries(lm_kernel_phase(report))
+    launches = {name: 0 for name in ALL_KERNELS}
     for counts in (serving_phase(report, dev),
                    autoencoder_phase(report, dev, "lstm"),
                    autoencoder_phase(report, dev, "gru"),
-                   step_backend_phase(report, dev)):
+                   step_backend_phase(report, dev),
+                   lm_serving_phase(report, dev)):
         for name, v in counts.items():
             launches[name] += v
     for e in entries:

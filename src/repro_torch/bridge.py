@@ -1,14 +1,22 @@
 """Weight bridge: the reference package's model parameters, already
 converted to numpy by the caller, as the port's tensors.
 
-Two trees: the classifier's ``{"encoder": [...], "head": DenseParams(w [H,C],
-b [C])}`` and the autoencoder's ``{"encoder": [...], "decoder": [...],
-"head": DenseParams}``.  Each recurrent layer is a ``(wx [G,I,H], wh
+Recurrent models (:func:`from_numpy_params`) take two trees: the
+classifier's ``{"encoder": [...], "head": DenseParams(w [H,C], b [C])}``
+and the autoencoder's ``{"encoder": [...], "decoder": [...], "head":
+DenseParams}``.  Each recurrent layer is a ``(wx [G,I,H], wh
 [G,H,H], b [G,H])`` triple with numpy leaves (any NamedTuple or plain tuple
 in that field order): ``GRUParams`` when the gate axis G is 3,
 ``LSTMParams`` when it is 4.  Layouts are unchanged: the port's public
-functions take the reference's layouts.  Nothing here imports jax; the
-caller does the ``np.asarray`` on its side.
+functions take the reference's layouts.
+
+The LM backbone (:func:`from_numpy_backbone`) takes the reference's
+``backbone.init_params`` tree, whose stage leaves are stacked over repeats,
+and unstacks it into the port's per-layer blocks.
+
+Nothing here imports jax; the caller does the ``np.asarray`` on its side
+(``jax.tree.map(np.asarray, params)`` keeps the NamedTuples and the
+``None`` leaves).
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.cells import GRUParams, LSTMParams
 from repro_torch.core.linear import DenseParams
+from repro_torch.models import backbone
+from repro_torch.models.layers import AttnParams, EmbedParams, MLPParams
 
 _CELL_PARAMS = {3: GRUParams, 4: LSTMParams}
 
@@ -46,3 +56,34 @@ def from_numpy_params(tree, device=None) -> dict:
     w, b = tree["head"]
     out["head"] = DenseParams(_tensor(w, dev), _tensor(b, dev))
     return out
+
+
+def _leaves(kind, leaves, device, r=None):
+    """A NamedTuple ``kind`` of port tensors from numpy leaves (``None``
+    stays ``None``), taking repeat ``r`` of stacked leaves when given."""
+    return kind(*(None if a is None else
+                  _tensor(a if r is None else np.asarray(a)[r], device)
+                  for a in leaves))
+
+
+def from_numpy_backbone(tree, cfg, device=None) -> dict:
+    """The reference's LM parameters as the port's ``backbone`` params.
+
+    ``tree``: ``{"embed": (table, head, final_norm), "stages": [per stage, a
+    tuple over pattern positions of {"mixer": AttnParams fields, "ffn":
+    MLPParams fields}, each leaf stacked [repeat, ...]]}`` with numpy
+    leaves.  Returns ``{"embed": EmbedParams, "stages": [[tuple over
+    pattern positions of block dicts] per repeat] per stage}`` on
+    ``device`` (default CUDA), fp32.
+    """
+    backbone.check_cfg(cfg)
+    dev = resolve_device(device)
+    stages = []
+    for st, per_pos in zip(cfg.stages, tree["stages"]):
+        stages.append([tuple(
+            {"mixer": _leaves(AttnParams, block["mixer"], dev, r),
+             **({"ffn": _leaves(MLPParams, block["ffn"], dev, r)}
+                if "ffn" in block else {})}
+            for block in per_pos) for r in range(st.repeat)])
+    return {"embed": _leaves(EmbedParams, tree["embed"], dev),
+            "stages": stages}

@@ -4,7 +4,15 @@
   mcd_gru_seq   sequence-fused MC-dropout GRU layer (csrc/mcd_gru_seq.cu)
   mcd_lstm      fused LSTM step (csrc/mcd_lstm_step.cu), the 8 stream keys
   mcd_gru       fused GRU step (csrc/mcd_gru_step.cu), the 6 stream keys
-  common        mask factors, operand forms and checks the kernels share
-  ops           the stack-layer wrappers ``run_stack`` dispatches to
+  bernoulli_mask  masked_activation: the LM's attention-site mask
+                (csrc/masked_activation.cu)
+  mcd_matmul    the masked SwiGLU gate/up product (csrc/mcd_matmul.cu)
+  decode_attn   one-token GQA attention over a KV cache
+                (csrc/decode_attn.cu)
+  common        mask factors, operand forms, checks and the launch rule
+                the kernels share
+  ops           the stack-layer wrappers ``run_stack`` dispatches to, and
+                the LM's three (``mcd_dense``, ``mcd_mask_apply``,
+                ``flash_decode_attention``)
   build         nvcc build (sm_90a) and ctypes loading, at first use
 """

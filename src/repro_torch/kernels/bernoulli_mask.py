@@ -1,0 +1,79 @@
+"""Fused MC-dropout mask generation and application — port of
+``repro.kernels.bernoulli_mask``.
+
+:func:`masked_activation` launches the hand-written CUDA kernel
+``csrc/masked_activation.cu`` (built for ``sm_90a`` by :mod:`.build`, bound
+with ``ctypes``) for CUDA tensors, and runs :func:`masked_activation_plain`,
+the plain PyTorch version of the same function (a mirror of
+``repro/kernels/ref.py::masked_activation``), for CPU tensors.  A CUDA tensor
+never reaches the plain version: it launches the kernel or raises.
+
+Element (b, f) keeps with the bit ``mix32(key ^ mix32(rows[b]·F + f)) >= t``
+(uint32), the reference's stream.  Every row is masked, one whose id has
+the high bit set too: unlike the recurrent kernels, the reference's
+``ref._mask`` has no student exemption.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels import common
+
+
+def masked_activation_plain(x: torch.Tensor, rows: torch.Tensor, key: int,
+                            p_drop: float) -> torch.Tensor:
+    """Plain PyTorch version: ``where(keep, x · scale, 0)`` with the scale in
+    x's dtype; ``x`` itself when ``p_drop == 0``."""
+    if p_drop == 0.0:
+        return x
+    keep = common.gate_mask(key, rows.to(x.device), x.shape[1], p_drop)
+    scale = torch.tensor(1.0 / (1.0 - p_drop), dtype=x.dtype,
+                         device=x.device)
+    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p)
+
+
+def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
+                      p_drop: float) -> torch.Tensor:
+    """x: [B, F] → ``x ⊙ z / (1-p)`` with ``z ~ Bern(1-p)`` per (row, f).
+
+    ``rows``: [B] uint32 row ids (int64, or the int32 view of
+    :func:`repro_torch.kernels.common.rows_to_int32`); ``key``: the uint32
+    site key.  CPU tensors run :func:`masked_activation_plain`; CUDA tensors
+    launch the kernel on the current stream (counted in
+    ``masked_activation.launches``), fp32 only.
+    """
+    if common.check_device("masked_activation", x):
+        return masked_activation_plain(x, rows, key, p_drop)
+    common.check_p(p_drop)
+    if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be [B>=1, F>=1], got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"masked_activation takes fp32 on the card, got {x.dtype}; "
+            "bf16 is queued with the serving precisions (ROADMAP.md)")
+    B, F = x.shape
+    dev = x.device
+    common.check("x", x, dev, torch.float32, (B, F))
+    rows32 = common.rows_arg(rows, B, dev)
+    out = torch.empty_like(x)
+    vec4 = int(F % 4 == 0 and x.data_ptr() % 16 == 0)
+    thr, scale, masked = common.mask_args(p_drop)
+    common.launch_c(masked_activation, "masked_activation", _ARGTYPES,
+                    (x.data_ptr(), rows32.data_ptr(), out.data_ptr(), B, F,
+                     vec4, int(key) & prng.MASK32, thr, scale, masked,
+                     common.stream(dev)),
+                    f"masked_activation (B={B}, F={F})")
+    return out
+
+
+masked_activation.launches = 0

@@ -1,5 +1,7 @@
-"""Host side shared by the port's recurrent kernels (``mcd_lstm_seq``,
-``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``).
+"""Host side shared by the port's kernels: the recurrent ones
+(``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``)
+and, for the mask rule, the checks and :func:`launch_c`, the LM's
+(``masked_activation``, ``mcd_matmul``, ``decode_attention``).
 
 * The mask rule (:func:`gate_mask`) and the mask factors each gate view is
   multiplied by (:func:`gate_mask_factors`): the plain stream the kernels'
@@ -34,7 +36,9 @@ def gate_mask(key: int, rows: torch.Tensor, feat_dim: int,
     """Keep bits ``[B, feat_dim]``: ``mix32(key ^ mix32(row·F + col)) >= t``.
 
     ``rows`` holds uint32 row ids (int64 or int32 tensors; an int32 student
-    row is its uint32 bit pattern).
+    row is its uint32 bit pattern).  Every row draws its bits: the student
+    exemption of the recurrent kernels is :func:`gate_mask_factors`'s, and
+    the LM kernels (the reference's ``ref._mask``) have none.
     """
     rows = prng.as_u32(rows)
     cols = torch.arange(feat_dim, dtype=torch.int64, device=rows.device)
@@ -193,17 +197,32 @@ def stream(device) -> int:
 
 
 @functools.cache
-def _entry(lib: str, symbol: str, n_ptr: int, n_int: int):
+def c_entry(lib: str, symbol: str, argtypes: tuple):
     """``symbol`` of the library built from ``csrc/<lib>.cu`` (first use
-    builds it), declared as every entry of the port's kernels is: ``n_ptr``
+    builds it), declared with ``argtypes`` and an int (CUDA error) result."""
+    fn = getattr(build.load(lib), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rnn_argtypes(n_ptr: int, n_int: int) -> tuple:
+    """How every entry of the recurrent kernels is declared: ``n_ptr``
     device pointers, ``n_int`` ints, then the keys, the keep threshold, the
     scale, the masked flag and the stream."""
-    fn = getattr(build.load(lib), symbol)
     P, I32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * n_ptr + [I32] * n_int + [
-        P, ctypes.c_uint32, ctypes.c_float, I32, P]
-    fn.restype = I32
-    return fn
+    return (P,) * n_ptr + (I32,) * n_int + (P, ctypes.c_uint32,
+                                            ctypes.c_float, I32, P)
+
+
+def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str) -> None:
+    """Launch ``csrc/<lib>.cu``'s ``<wrapper name>_launch`` entry with
+    ``args`` (declared ``argtypes``), raise on a launch error, and count one
+    launch in ``wrapper.launches``."""
+    err = c_entry(lib, f"{wrapper.__name__}_launch", argtypes)(*args)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
 
 
 def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
@@ -212,13 +231,10 @@ def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
     ``*_launch`` entry) on the current stream of the tensors' device, raise
     on a launch error, and count one launch in ``wrapper.launches``."""
     name = wrapper.__name__
-    fn = _entry(name, f"{name}_launch", len(tensors), len(ints))
     thr, scale, masked = mask_args(p_drop)
-    err = fn(*[t.data_ptr() for t in tensors], *ints, keys_arg(keys, n_keys),
-             thr, scale, masked, stream(tensors[0].device))
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
+    launch_c(wrapper, name, _rnn_argtypes(len(tensors), len(ints)),
+             (*[t.data_ptr() for t in tensors], *ints, keys_arg(keys, n_keys),
+              thr, scale, masked, stream(tensors[0].device)), what)
 
 
 # The mask-export entry of each cell's gate count: the layer kernels of one
@@ -243,7 +259,7 @@ def kernel_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
     fx = torch.empty((B, G, in_dim), device=dev)
     fh = torch.empty((B, G, hidden), device=dev)
     thr, sc, masked = mask_args(p_drop)
-    err = _entry(lib, f"{lib}_masks_launch", 3, 3)(
+    err = c_entry(lib, f"{lib}_masks_launch", _rnn_argtypes(3, 3))(
         rows32.data_ptr(), fx.data_ptr(), fh.data_ptr(), B, in_dim, hidden,
         keys_arg(ks, 2 * G), thr, sc, masked, stream(dev))
     if err != 0:

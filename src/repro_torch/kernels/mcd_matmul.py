@@ -1,0 +1,80 @@
+"""Fused MC-dropout mask and matrix product — port of
+``repro.kernels.mcd_matmul``.
+
+:func:`mcd_matmul` launches the hand-written CUDA kernel
+``csrc/mcd_matmul.cu`` (built for ``sm_90a`` by :mod:`.build`, bound with
+``ctypes``) for CUDA tensors, and runs :func:`mcd_matmul_plain`, the plain
+PyTorch version of the same function (a mirror of
+``repro/kernels/ref.py::mcd_matmul``), for CPU tensors.  A CUDA tensor never
+reaches the plain version: it launches the kernel or raises.
+
+``y = (x ⊙ z/(1-p)) @ W`` accumulated in fp32, with the mask of
+:func:`repro_torch.kernels.bernoulli_mask.masked_activation` drawn at the
+global column of x (every row masked, no student exemption).  The result
+is cast to ``out_dtype``: ``x.dtype`` by default, as the TPU kernel writes
+it; the LM's SwiGLU asks for fp32 (``preferred_element_type``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels import common
+from repro_torch.kernels.bernoulli_mask import masked_activation_plain
+
+
+def mcd_matmul_plain(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
+                     key: int, p_drop: float,
+                     out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version: the masked x, then an fp32 product."""
+    xm = masked_activation_plain(x, rows, key, p_drop)
+    y = torch.matmul(xm.float(), w.float())
+    return y.to(x.dtype if out_dtype is None else out_dtype)
+
+
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p)
+
+
+def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
+               key: int, p_drop: float, out_dtype=None) -> torch.Tensor:
+    """x: [M, K], w: [K, N], rows: [M] uint32 row ids → [M, N].
+
+    ``key`` is the uint32 site key; ``p_drop == 0`` is the plain product.
+    CPU tensors run :func:`mcd_matmul_plain`; CUDA tensors launch the kernel
+    on the current stream (counted in ``mcd_matmul.launches``): fp32
+    operands, fp32 out.
+    """
+    if common.check_device("mcd_matmul", x):
+        return mcd_matmul_plain(x, w, rows, key, p_drop, out_dtype)
+    common.check_p(p_drop)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.dtype != torch.float32 or out_dtype != torch.float32:
+        raise NotImplementedError(
+            f"mcd_matmul takes fp32 in and out on the card, got {x.dtype} "
+            f"-> {out_dtype}; bf16 is queued with the serving precisions "
+            "(ROADMAP.md)")
+    if x.ndim != 2 or w.ndim != 2 or min(*x.shape, w.shape[1]) < 1:
+        raise ValueError(f"x must be [M, K] and w [K, N], non-empty; got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    M, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    common.check("x", x, dev, torch.float32, (M, K))
+    common.check("w", w, dev, torch.float32, (K, N))
+    rows32 = common.rows_arg(rows, M, dev)
+    out = torch.empty((M, N), device=dev)
+    thr, scale, masked = common.mask_args(p_drop)
+    common.launch_c(mcd_matmul, "mcd_matmul", _ARGTYPES,
+                    (x.data_ptr(), w.data_ptr(), rows32.data_ptr(),
+                     out.data_ptr(), M, N, K, int(key) & prng.MASK32, thr,
+                     scale, masked, common.stream(dev)),
+                    f"mcd_matmul (M={M}, N={N}, K={K})")
+    return out
+
+
+mcd_matmul.launches = 0

@@ -1,5 +1,12 @@
-"""High-level wrappers around the port's recurrent kernels — port of the
-LSTM/GRU part of ``repro.kernels.ops``.
+"""High-level wrappers around the port's kernels — port of
+``repro.kernels.ops``.
+
+The LM decode path's three (the reference's hot-path entry points, which
+its model code mirrors in jnp; here ``repro_torch.models.layers`` calls them
+on its ``cuda`` backend): :func:`flash_decode_attention`,
+:func:`mcd_dense` and :func:`mcd_mask_apply`, each taking the site's stream
+key ``mcd.mask_key(seed, layer, KIND_FEAT, site)`` as the reference derives
+it.
 
 Stack-layer execution paths of :func:`repro_torch.core.rnn.run_stack`, and
 how they map to the reference's ``LSTM_BACKENDS`` (``repro/kernels/ops.py``):
@@ -16,7 +23,8 @@ how they map to the reference's ``LSTM_BACKENDS`` (``repro/kernels/ops.py``):
   :func:`repro_torch.kernels.mcd_gru_seq.mcd_gru_seq`), one launch per
   layer with the masks rebuilt in-kernel; the reference's ``"pallas_seq"``.
 
-On CPU tensors both kernel backends run the kernels' plain versions.
+On CPU tensors both kernel backends, and the three LM wrappers, run the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -25,12 +33,14 @@ import functools
 
 import torch
 
-from repro_torch.core import cells
-from repro_torch.kernels import mcd_gru, mcd_gru_seq, mcd_lstm, mcd_lstm_seq
+from repro_torch.core import cells, mcd
+from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_gru,
+                                 mcd_gru_seq, mcd_lstm, mcd_lstm_seq,
+                                 mcd_matmul)
 
 LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
 
-#: Serving precisions this slice supports (``None`` = native fp32).
+#: Serving precisions the recurrent stack supports (``None`` = native fp32).
 PRECISIONS = (None, "fp32")
 
 
@@ -46,6 +56,34 @@ def _gate_keys(cell: str, seed: int, layer: int) -> tuple[int, ...]:
     # The hash is ~200 tiny host ops per layer; a stream's keys never change.
     mod = mcd_gru if cell == "gru" else mcd_lstm
     return tuple(mod.gate_keys(seed, layer).reshape(-1).tolist())
+
+
+@functools.lru_cache(maxsize=4096)
+def site_key(seed: int, layer: int, site: int) -> int:
+    """The uint32 stream key of one MC-dropout site,
+    ``mcd.mask_key(seed, layer, KIND_FEAT, site)`` (cached: the hash is
+    ~50 tiny host ops and a site's key never changes)."""
+    return int(mcd.mask_key(seed, layer, mcd.KIND_FEAT, site))
+
+
+def flash_decode_attention(q, k_cache, v_cache, pos):
+    """Fused decode attention: q [B, H, hd] over the caches [B, S, KV, hd],
+    positions ``<= pos``."""
+    return decode_attn.decode_attention(q, k_cache, v_cache, pos)
+
+
+def mcd_dense(x, w, rows, seed, layer: int, site: int, p_drop: float,
+              out_dtype=None):
+    """Fused masked dense: ``y = (x ⊙ z/(1-p)) @ W`` with the site-keyed
+    stream; x [M, K], w [K, N], rows [M]."""
+    key = site_key(int(seed), int(layer), int(site))
+    return mcd_matmul.mcd_matmul(x, w, rows, key, p_drop, out_dtype)
+
+
+def mcd_mask_apply(x, rows, seed, layer: int, site: int, p_drop: float):
+    """``x ⊙ z/(1-p)`` with the site-keyed stream; x [B, F], rows [B]."""
+    key = site_key(int(seed), int(layer), int(site))
+    return bernoulli_mask.masked_activation(x, rows, key, p_drop)
 
 
 def _carry(t):

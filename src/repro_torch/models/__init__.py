@@ -1,0 +1,8 @@
+"""LM backbone — port of the dense subset of ``repro.models``: ``config``
+(architecture dataclasses, copied verbatim), ``layers`` (attention, SwiGLU,
+RoPE, norms with MC-dropout sites) and ``backbone`` (forward, prefill,
+decode_step over the stages)."""
+
+from repro_torch.models.config import (SHAPES, ArchConfig,  # noqa: F401
+                                       ShapeCell, Stage, shape_applicable,
+                                       uniform_stages)

@@ -1,0 +1,266 @@
+"""The LM backbone over its stages — port of the dense ``attn.mlp`` subset
+of ``repro.models.backbone``.
+
+A model is an embedding and a sequence of stages; each stage repeats a
+period of blocks (``config.Stage``).  The reference scans stacked
+parameters; here each stage is a Python loop over its repeats and pattern
+positions, with the same layer ids (``offset + r·period + j``) and the same
+Bayesian placement per *pattern position* (:func:`_stage_bayes`: a placement
+string indexes the pattern, not the layer, so ``"NY"`` over a one-block
+pattern makes no layer Bayesian, as in the reference).
+
+Parameters are unstacked: ``params["stages"][i][r][j]`` is the block dict
+(``{"mixer": AttnParams, "ffn": MLPParams}``) of stage i, repeat r, pattern
+position j, and decode caches nest the same way.  Entry points:
+
+  forward      full sequence (``collect_caches``, ``return_hidden``)
+  prefill      forward + the decode state (caches padded to ``max_len``)
+  decode_step  one token through the caches, updated in place
+
+Other mixers and FFNs (``mla``, ``mamba``, ``moe``, cross-attention,
+encoders, patch or frame inputs) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.config import ArchConfig, Stage
+
+_NOT_PORTED = {
+    "mamba": "the Mamba2 mixer is next in ROADMAP.md ('Still to port' "
+             "item 1: the mamba2_370m path with ssd_chunk_scan)",
+    "mla": "multi-head latent attention is queued (ROADMAP.md queue A "
+           "item 14)",
+    "moe": "the MoE FFN is queued (ROADMAP.md queue A item 14)",
+    "cross": "cross-attention and encoders are queued (ROADMAP.md queue A "
+             "item 14)",
+}
+
+
+def _parse(kind: str) -> tuple[str, bool, str | None]:
+    """kind string → (mixer, has_cross, ffn|None)."""
+    parts = kind.split(".")
+    mixer = parts[0]
+    has_cross = "cross" in parts[1:]
+    ffn = parts[-1] if parts[-1] in ("mlp", "moe") else None
+    return mixer, has_cross, ffn
+
+
+def _check_kind(kind: str) -> None:
+    """Raise for a block this port does not run (only ``attn[.mlp]``)."""
+    mixer, has_cross, ffn = _parse(kind)
+    if mixer != "attn":
+        reason = _NOT_PORTED.get(mixer, _NOT_PORTED["cross"])
+        raise NotImplementedError(f"block {kind!r}: {reason}")
+    if has_cross:
+        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['cross']}")
+    if ffn == "moe":
+        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['moe']}")
+
+
+def check_cfg(cfg: ArchConfig) -> None:
+    """Raise unless every block of ``cfg`` is one this port runs (no
+    encoder stages: frame and patch inputs are not ported either)."""
+    for st in cfg.stages:
+        for kind in st.pattern:
+            _check_kind(kind)
+    if cfg.encoder_stages or cfg.num_patches:
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['cross']}")
+
+
+def init_block(gen, kind: str, cfg: ArchConfig, dtype,
+               device) -> dict[str, Any]:
+    _check_kind(kind)
+    p: dict[str, Any] = {"mixer": layers.init_attn(
+        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        cfg.qk_norm, dtype, device)}
+    if _parse(kind)[2] == "mlp":
+        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
+                dtype=torch.float32) -> dict[str, Any]:
+    """Random parameters at the reference's init scales (``layers.py``
+    init_attn / init_mlp / init_embed), drawn from ``generator`` on its own
+    device (a CUDA generator draws a full-width model on the card) and
+    placed on ``device`` (default CUDA).  Not the reference's numbers: its
+    ``jax.random`` stream differs; :func:`repro_torch.bridge.
+    from_numpy_backbone` carries its parameters over."""
+    check_cfg(cfg)
+    dev = resolve_device(device)
+    return {
+        "embed": layers.init_embed(generator, cfg.vocab_size, cfg.d_model,
+                                   cfg.tie_embeddings, dtype, dev),
+        "stages": [[tuple(init_block(generator, kind, cfg, dtype, dev)
+                          for kind in st.pattern)
+                    for _ in range(st.repeat)] for st in cfg.stages],
+    }
+
+
+def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
+                   ctx: layers.Ctx, layer_id: int, bayes: bool,
+                   return_cache: bool = False, backend: str = "cuda"):
+    """One block, full sequence.  Returns (x, aux, cache|None)."""
+    _check_kind(kind)
+    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+    res = layers.attention_forward(p["mixer"], x, positions, cfg.rope_theta,
+                                   causal=True, mask_in=m, p_drop=ctx.cfg.p,
+                                   return_kv=return_cache, backend=backend)
+    cache = None
+    if return_cache:
+        res, cache = res
+    x = x + res
+    if "ffn" in p:
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MLP)
+        x = x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend)
+    return x, 0.0, cache
+
+
+def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos: int,
+                  ctx: layers.Ctx, layer_id: int, bayes: bool,
+                  backend: str = "cuda"):
+    """One block, one token.  Returns (x, cache), the cache updated in
+    place."""
+    _check_kind(kind)
+    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+    res, cache = layers.attention_decode(p["mixer"], x, cache, pos,
+                                         cfg.rope_theta, m, ctx.cfg.p,
+                                         backend)
+    x = x + res
+    if "ffn" in p:
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MLP)
+        x = x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend)
+    return x, cache
+
+
+def _stage_bayes(cfg: ArchConfig, layer_offset: int,
+                 stage: Stage) -> tuple[bool, ...]:
+    """Bayesian on/off per pattern position (not per layer), as the
+    reference: position j takes ``cfg.mcd.bayesian(layer_offset + j)``."""
+    return tuple(cfg.mcd.bayesian(layer_offset + j)
+                 for j in range(len(stage.pattern)))
+
+
+def _stage_layers(stage: Stage, layer_offset: int):
+    """(repeat r, position j, kind, layer id) in the reference's scan
+    order."""
+    period = len(stage.pattern)
+    for r in range(stage.repeat):
+        for j, kind in enumerate(stage.pattern):
+            yield r, j, kind, layer_offset + r * period + j
+
+
+class DecodeState(NamedTuple):
+    pos: int          # next position to write
+    caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd]
+    cross: Any = None
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
+            *, collect_caches: bool = False, return_hidden: bool = False,
+            backend: str = "cuda"):
+    """Full-sequence forward.  tokens: [B, S].  Returns (logits [B, S, V]
+    or the hidden state [B, S, D], aux, caches|None)."""
+    layers.check_backend(backend)
+    check_cfg(cfg)
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = 0.0
+    offset = 0
+    all_caches = []
+    for sp, st in zip(params["stages"], cfg.stages):
+        bayes = _stage_bayes(cfg, offset, st)
+        caches = [[None] * len(st.pattern) for _ in range(st.repeat)]
+        for r, j, kind, layer_id in _stage_layers(st, offset):
+            x, a, caches[r][j] = _block_forward(
+                sp[r][j], kind, cfg, x, positions, ctx, layer_id, bayes[j],
+                return_cache=collect_caches, backend=backend)
+            aux = aux + a
+        offset += st.num_layers
+        all_caches.append(caches)
+    out = x if return_hidden else layers.logits(params["embed"], x)
+    if collect_caches:
+        return out, aux, (all_caches, None)
+    return out, aux, None
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.float32, kv_quant: bool = False,
+                      device=None) -> DecodeState:
+    """Zero decode state: one (k, v) pair of [B, max_len, KV, hd] per
+    layer."""
+    if kv_quant:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet; it is queued with the "
+            "serving precisions (ROADMAP.md, 'Still to port' item 2)")
+    check_cfg(cfg)
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def kv():
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+    return DecodeState(pos=0, caches=[
+        [[kv() for _ in st.pattern] for _ in range(st.repeat)]
+        for st in cfg.stages])
+
+
+def _pad_cache_to(cache, max_len: int):
+    """Pad a (k, v) cache [B, S, ...] with zeros up to max_len positions."""
+
+    def pad(a):
+        out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
+        out[:, :a.shape[1]] = a
+        return out
+
+    return (pad(cache[0]), pad(cache[1]))
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
+            max_len: int, *, backend: str = "cuda"):
+    """Process the prompt; return (last-position logits [B, 1, V],
+    DecodeState).  The masks drawn here are the ones every later
+    decode_step draws again (tied across the whole request)."""
+    if tokens.shape[1] > max_len:
+        raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
+                         f"max_len={max_len}")
+    hidden, _, (caches, _) = forward(params, cfg, tokens, ctx,
+                                     collect_caches=True, return_hidden=True,
+                                     backend=backend)
+    lg = layers.logits(params["embed"], hidden[:, -1:])
+    padded = [[[_pad_cache_to(c, max_len) for c in rep] for rep in stage]
+              for stage in caches]
+    return lg, DecodeState(pos=tokens.shape[1], caches=padded)
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
+                state: DecodeState, ctx: layers.Ctx, backend: str = "cuda"):
+    """One decode step.  token: [B, 1] → (logits [B, 1, V], the state one
+    position on).  The caches are updated in place."""
+    layers.check_backend(backend)
+    pos = int(state.pos)
+    smax = state.caches[0][0][0][0].shape[1]
+    if pos >= smax:
+        raise ValueError(f"decode position {pos} is past the cache's "
+                         f"{smax} positions")
+    x = layers.embed(params["embed"], token)
+    offset = 0
+    for sp, st, stage_caches in zip(params["stages"], cfg.stages,
+                                    state.caches):
+        bayes = _stage_bayes(cfg, offset, st)
+        for r, j, kind, layer_id in _stage_layers(st, offset):
+            x, stage_caches[r][j] = _block_decode(
+                sp[r][j], kind, cfg, x, stage_caches[r][j], pos, ctx,
+                layer_id, bayes[j], backend)
+        offset += st.num_layers
+    lg = layers.logits(params["embed"], x)
+    return lg, DecodeState(pos=pos + 1, caches=state.caches,
+                           cross=state.cross)

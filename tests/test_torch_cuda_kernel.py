@@ -1,6 +1,8 @@
 """The CUDA kernels (``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``,
-``mcd_gru_step``) against their plain PyTorch versions, on the card.  Marked ``cuda``: each test skips (in a fixture, at run time) where
-there is no GPU; run them on a GPU machine with
+``mcd_gru_step``, and the LM's ``masked_activation``, ``mcd_matmul``,
+``decode_attention``) against their plain PyTorch versions, on the card.
+Marked ``cuda``: each test skips (in a fixture, at run time) where there
+is no GPU; run them on a GPU machine with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda
 tests/test_torch_cuda_kernel.py`` (``--noconftest``: the suite's conftest
 releases JAX caches, and a GPU machine need not have JAX).
@@ -18,6 +20,11 @@ from repro_torch.kernels import common, mcd_gru  # noqa: E402
 from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
 from repro_torch.kernels import mcd_lstm, mcd_lstm_seq as seq  # noqa: E402
 from repro_torch.serve import StreamingEngine  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import bernoulli_mask, decode_attn  # noqa: E402
+from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
+from repro_torch.models import backbone  # noqa: E402
+from repro_torch.serve.engine import BayesianEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +239,94 @@ def test_engine_serves_autoencoder_through_the_kernels(dev, cell):
         for k, sid in enumerate(sig):
             for part, full in zip(eng.store.get(sid).state[li], layer):
                 assert torch.equal(part, full[4 * k:4 * k + 4])
+
+
+# -- the LM kernels ----------------------------------------------------------
+
+LM_ROWS = [0, 1, 2 ** 31 + 3, 77, 2 ** 31 - 1, 2 ** 32 - 1, 5, 9]
+MM_ATOL = 1e-4   # K-long fp32 sums in another order than cuBLAS's
+
+
+def _lm_rows(dev, n):
+    return torch.tensor((LM_ROWS * n)[:n], dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("B,F", [(8, 64), (8, 2048), (6, 37)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_masked_activation_kernel_bit_equal(dev, B, F, p):
+    x = torch.randn((B, F), generator=torch.Generator().manual_seed(F)).to(dev)
+    rows = _lm_rows(dev, B)
+    before = bernoulli_mask.masked_activation.launches
+    got = bernoulli_mask.masked_activation(x, rows, 0x9E3779B9, p)
+    torch.cuda.synchronize()
+    assert bernoulli_mask.masked_activation.launches == before + 1
+    want = bernoulli_mask.masked_activation_plain(x, rows, 0x9E3779B9, p)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 37, 70), (64, 2048, 256),
+                                   (130, 96, 65)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_mcd_matmul_kernel_matches_plain(dev, M, K, N, p):
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g).to(dev)
+    w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dev)
+    rows = _lm_rows(dev, M)
+    before = mm.mcd_matmul.launches
+    got = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mm.mcd_matmul.launches == before + 1
+    want = mm.mcd_matmul_plain(x, w, rows, 12345, p, torch.float32)
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MM_ATOL
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40),
+                                         (2, 16, 8, 128, 160),
+                                         (1, 8, 1, 256, 70)])
+def test_decode_attention_kernel_matches_plain(dev, B, H, KV, hd, S):
+    g = torch.Generator().manual_seed(hd + S)
+    q, kc, vc = (torch.randn(shape, generator=g).to(dev) for shape in
+                 [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)])
+    for pos in (0, S // 2, S - 1):
+        got = decode_attn.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        want = decode_attn.decode_attention_plain(q, kc, vc, pos)
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_lm_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((2, 4, 16), device=dev)
+    kc = torch.zeros((2, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="pos"):
+        decode_attn.decode_attention(q, kc, kc, 8)
+    with pytest.raises(NotImplementedError, match="precision"):
+        decode_attn.decode_attention(q.double(), kc.double(), kc.double(), 0)
+    with pytest.raises(NotImplementedError, match="precision"):
+        bernoulli_mask.masked_activation(q[0].bfloat16(), _lm_rows(dev, 4),
+                                         1, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        mm.mcd_matmul(q[0], torch.zeros((15, 3), device=dev),
+                      _lm_rows(dev, 4), 1, 0.1)
+
+
+def test_lm_engine_serves_through_the_kernels(dev):
+    cfg = configs.get_config("qwen3-1.7b", reduced=True)
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=4))
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))
+    names = (bernoulli_mask.masked_activation, mm.mcd_matmul,
+             decode_attn.decode_attention)
+    for fn in names:
+        fn.launches = 0
+    res = BayesianEngine(params, cfg, max_len=12, seed=1,
+                         device=dev).generate(prompts, 4, keep_logits=True)
+    L = cfg.num_layers
+    assert [fn.launches for fn in names] == [L * 5, L * 5, L * 4]
+    ref = BayesianEngine(params, cfg, max_len=12, seed=1, device=dev,
+                         backend="reference").generate(
+        prompts, 4, teacher_tokens=res.tokens, keep_logits=True)
+    assert (res.logits - ref.logits).abs().max().item() <= 1e-4
+    assert (res.mutual_information - ref.mutual_information).abs().max() \
+        .item() <= 1e-4
