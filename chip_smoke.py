@@ -7,7 +7,7 @@ Phases (each raises on failure; the exit code is then non-zero):
    of the serving paths from ``src/repro_torch/kernels/csrc`` with ``nvcc``
    for ``sm_90a`` (one ``nvcc`` per source, all started together):
    ``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``,
-   ``masked_activation``, ``mcd_matmul``, ``decode_attn``.
+   ``masked_activation``, ``mcd_matmul``, ``decode_attn``, ``ssd_chunk``.
 2. Kernels: hold each recurrent kernel against its plain PyTorch version on
    the card at the shapes the serving paths give it -- B = 64 sessions x 30
    chains = 1920 rows; the classifier's layers (I, H) = (1, 8), (8, 8) and
@@ -55,6 +55,19 @@ Phases (each raises on failure; the exit code is then non-zero):
    "reference" backend teacher-forced on those tokens within LOGIT_TOL /
    UNC_TOL, prefill and per-token times, profiles of the prefill and of 5
    decode steps, and the peak device memory.
+8. The SSD kernel: ``ssd_chunk_scan`` against ``ssd_chunk_scan_plain`` on
+   the card at mamba2-370m's serving shape (B = 64, L = 512, H = 32,
+   P = 64, N = 128, Q = 256), at a length Q does not divide (L = 320: Q
+   shrinks to 160) and at a small odd shape, within SSD_TOL with no NaN or
+   inf, and a float64 witness: the kernel no further from a float64
+   evaluation of the plain version than (twice) the fp32 plain version.
+   Times the kernel and its plain version; no PyTorch call computes the
+   scan (no library time).
+9. Mamba serving: ``BayesianEngine.generate`` on mamba2-370m at full width
+   (48 ``mamba`` layers, random fp32 weights from seed 0), 8 prompts of
+   512 tokens (two chunks) x 8 chains, 32 new tokens: ``ssd_chunk_scan``
+   48 launches a prefill and ``masked_activation`` 48 a prefill and 48 a
+   decode step, the same checks, times and profiles as phase 7.
 
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
@@ -109,6 +122,8 @@ LM_KERNELS = {
                    "src/repro/kernels/mcd_matmul.py:52"),
     "decode_attention": ("decode_attn", "decode_attn.cu",
                          "src/repro/kernels/decode_attn.py:63"),
+    "ssd_chunk_scan": ("ssd_chunk", "ssd_chunk.cu",
+                       "src/repro/kernels/ssd_chunk.py:73"),
 }
 ALL_KERNELS = list(KERNELS) + list(LM_KERNELS)
 # qwen3-1.7b decode serving: 8 prompts x 8 chains, 128-token prompts, 32
@@ -121,8 +136,21 @@ ATTN_TOL = 1e-5     # decode_attention: 128-long dot products and a <= 160
                     # position softmax in another order; outputs are
                     # weighted means of unit-scale V
 LOGIT_TOL = 1e-3    # the engine on the kernels vs on the reference backend
-UNC_TOL = 1e-4      # (cuBLAS), 28 layers deep: per-step logits and the
-                    # entropy / mutual information (nats)
+UNC_TOL = 1e-4      # (cuBLAS), 28 (48) layers deep: per-step logits and
+                    # the entropy / mutual information (nats)
+# mamba2-370m serving: 8 prompts x 8 chains, 512-token prompts (two chunks
+# of 256), 32 new tokens.
+MB_PROMPT = 512
+SSD_CASES = [       # (B, L, H, P, N, q_chunk)
+    (LM_B * LM_S, MB_PROMPT, 32, 64, 128, 256),   # serving: 2 chunks
+    (8, 320, 32, 64, 128, 256),                   # Q shrinks to 160
+    (3, 40, 2, 8, 16, 16),                        # small, odd: Q = 10
+]
+SSD_TOL = 1e-4      # ssd_chunk_scan vs its plain version, fp32: log-decay
+                    # sums of ~10^2 taken in another order (the plain
+                    # version's torch.cumsum is a parallel scan, the
+                    # kernel's is sequential) and 256-long sums; outputs of
+                    # a few units
 
 # Layer shapes (I, H, p) of one pass of each model; YNY / YNYN placement.
 CLF_LAYERS = [(1, 8, 0.125), (8, 8, 0.0), (8, 8, 0.125)]
@@ -1044,35 +1072,179 @@ def lm_kernel_entries(records) -> list[dict]:
     return entries
 
 
+# -- the Mamba2 SSD scan ------------------------------------------------------
+
+def ssd_cost(B, L, H, P, N, Q) -> tuple[float, float]:
+    """(operations, bytes) the SSD scan needs, the least any kernel does.
+
+    Operations: C . B once per (b, chunk) over the causal pairs (it does
+    not depend on the head); per (b, h, chunk) the decay weights (one
+    product a pair), the intra sum over the causal pairs, the inter term
+    (C . state, scaled), the state update (decay of the state, the
+    weighted dtx, the outer-product sum), dt * x, D * x + y, the cumulative
+    sum, and one operation an exp.  Bytes: x, dt, B, C, a, D read once; y
+    and the final state written once."""
+    nc = L // Q
+    pairs = Q * (Q + 1) // 2
+    per_bhc = (pairs + 2 * pairs * P               # weights, intra
+               + 2 * Q * N * P + Q * P             # inter
+               + 2 * Q * P * N + P * N + Q * P     # state update
+               + Q * P + 2 * Q * P                 # dt * x, + D * x
+               + 2 * Q + pairs + 2 * Q)            # cumsum, exps
+    ops = B * nc * (2 * pairs * N + H * per_bhc)
+    nbytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N + 2 * H
+                  + B * H * P * N)
+    return float(ops), float(nbytes)
+
+
+def ssd_inputs(B, L, H, P, N, *, seed):
+    """Inputs at the model's scales: a = -linspace(1, 16, H) (the init's
+    a_log), dt = softplus(N(0, 1) + dt_bias) with the init's dt_bias (dt
+    ~0.001-0.6; the fast heads' log-decay reaches ~-10^2 within a chunk),
+    x unit-scale, B and C at 0.3."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=g, device=dev) * k
+
+    dt_bias = torch.log(torch.expm1(torch.linspace(1e-3, 0.1, H,
+                                                   device=dev)))
+    dt = torch.nn.functional.softplus(r(B, L, H) + dt_bias)
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+    return [r(B, L, H, P), dt, a, r(B, L, N, k=0.3), r(B, L, N, k=0.3),
+            torch.ones(H, device=dev)]
+
+
+def ssd_kernel_phase(report) -> list[dict]:
+    """``ssd_chunk_scan`` against its plain version at SSD_CASES, with a
+    float64 witness; times, bound (no library call computes the scan)."""
+    import torch
+    from repro_torch.kernels import common, ssd_chunk
+    records = []
+    for B, L, H, P, N, q in SSD_CASES:
+        ins = ssd_inputs(B, L, H, P, N, seed=L + H)
+        Q = common.largest_divisor(L, q)
+        y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+        torch.cuda.synchronize()
+        wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
+        err_y = max_abs_diff(y, wy, "ssd_chunk_scan y")
+        err_h = max_abs_diff(h, wh, "ssd_chunk_scan h_final")
+        fy, fh = ssd_chunk.ssd_chunk_scan_plain(
+            *(t.double() for t in ins), q_chunk=q)
+        witness = {
+            "kernel_vs_f64": [max_abs_diff(y.double(), fy, "f64 witness"),
+                              max_abs_diff(h.double(), fh, "f64 witness")],
+            "plain_vs_f64": [max_abs_diff(wy.double(), fy, "f64 witness"),
+                             max_abs_diff(wh.double(), fh, "f64 witness")]}
+        cs_min = float(torch.cumsum(
+            (ins[1] * ins[2]).reshape(B, L // Q, Q, H), dim=2).min())
+        del fy, fh, wy, wh
+        case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=Q,
+                    max_abs_err_y=err_y, max_abs_err_h=err_h,
+                    max_abs_y=float(y.abs().max()),
+                    max_abs_h=float(h.abs().max()),
+                    min_log_decay_in_a_chunk=cs_min, f64_witness=witness)
+        print("ssd kernel check " + json.dumps(case), flush=True)
+        if max(err_y, err_h) > SSD_TOL:
+            raise RuntimeError(f"ssd_chunk_scan disagrees with its plain "
+                               f"version: {case}")
+        if any(k > 2 * w + 1e-6 for k, w in zip(witness["kernel_vs_f64"],
+                                                witness["plain_vs_f64"])):
+            raise RuntimeError(f"ssd_chunk_scan is further from float64 "
+                               f"than its plain version: {case}")
+        ops, nbytes = ssd_cost(B, L, H, P, N, Q)
+        del y, h
+        records.append(_lm_record(
+            "ssd_chunk_scan", case, max(err_y, err_h),
+            lambda ins=ins, q=q: ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q),
+            lambda ins=ins, q=q: ssd_chunk.ssd_chunk_scan_plain(*ins,
+                                                                q_chunk=q),
+            nbytes=nbytes, ops=ops))
+    report["ssd_kernel_cases"] = records
+    return records
+
+
+def ssd_kernel_entry(records) -> dict:
+    """The ``kernels`` entry of ``ssd_chunk_scan`` at the serving shape."""
+    (rec,) = [r for r in records if (r["B"], r["L"]) == (LM_B * LM_S,
+                                                         MB_PROMPT)]
+    _, src, replaces = LM_KERNELS["ssd_chunk_scan"]
+    return {
+        "name": "ssd_chunk_scan", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": replaces,
+        "shape": "mamba2-370m prefill: [64, 512, 32, 64], N=128, Q=256 "
+                 "(two chunks) fp32; L=320 (Q=160) and a small odd shape "
+                 "in the report",
+        "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in records),
+        "ms": rec["kernel_ms"], "device_ms": rec["kernel_device_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+        "library_device_ms": None, "kernel_ms": rec["kernel_ms"]}
+
+
 def lm_serving_phase(report, dev):
-    """qwen3-1.7b at full width through ``BayesianEngine.generate``."""
+    """qwen3-1.7b at full width through ``BayesianEngine.generate``: the
+    attention-site mask and the SwiGLU gate/up product a layer at prefill
+    and at each decode step, the decode attention a layer a decode step."""
+    def want(L):
+        return {"masked_activation": L * (1 + LM_NEW),
+                "mcd_matmul": L * (1 + LM_NEW),
+                "decode_attention": L * LM_NEW}
+    return serve_lm(report, dev, "qwen3-1.7b", LM_PROMPT, want,
+                    ["masked_activation", "mcd_matmul"],
+                    ["masked_activation", "mcd_matmul", "decode_attention"],
+                    "serving_lm")
+
+
+def mamba_serving_phase(report, dev):
+    """mamba2-370m at full width through ``BayesianEngine.generate``: the
+    mixer-site mask a layer at prefill and at each decode step, the SSD
+    scan a layer at prefill (decode is the plain recurrent update)."""
+    def want(L):
+        return {"masked_activation": L * (1 + LM_NEW),
+                "ssd_chunk_scan": L}
+    return serve_lm(report, dev, "mamba2-370m", MB_PROMPT, want,
+                    ["masked_activation", "ssd_chunk_scan"],
+                    ["masked_activation"], "serving_mamba")
+
+
+def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
+             decode_kernels, key):
+    """One LM at full width through ``BayesianEngine.generate``: 8 prompts
+    of ``prompt_len`` tokens x the config's chains, LM_NEW new tokens, the
+    launch counts ``want_of(layers)``, the run repeated on its own tokens,
+    the reference backend teacher-forced within LOGIT_TOL / UNC_TOL, times,
+    peak memory and profiles."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import backbone
     from repro_torch.serve.engine import BayesianEngine
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     S_LM = cfg.mcd.n_samples
     if S_LM != LM_S:
-        raise RuntimeError(f"qwen3-1.7b serves {S_LM} chains, not {LM_S}")
+        raise RuntimeError(f"{arch} serves {S_LM} chains, not {LM_S}")
     torch.cuda.reset_peak_memory_stats()
     params = backbone.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (LM_B, LM_PROMPT), dtype=np.int32)
-    max_len = LM_PROMPT + LM_NEW
+        0, cfg.vocab_size, (LM_B, prompt_len), dtype=np.int32)
+    max_len = prompt_len + LM_NEW
     eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
-    L = cfg.num_layers
-    want = {"masked_activation": L * (1 + LM_NEW),
-            "mcd_matmul": L * (1 + LM_NEW), "decode_attention": L * LM_NEW}
+    want = want_of(cfg.num_layers)
     reset_launches()                          # count the main path only
     res = eng.generate(prompts, LM_NEW)
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
     if {k: v for k, v in counts.items() if v} != want:
-        raise RuntimeError(f"LM serving launched {counts}, expected {want}")
+        raise RuntimeError(f"{arch} serving launched {counts}, expected "
+                           f"{want}")
     ent, mi = res.predictive_entropy, res.mutual_information
     if res.tokens.shape != (LM_B, LM_NEW) or not (
             torch.isfinite(ent).all() and torch.isfinite(mi).all()):
@@ -1108,7 +1280,7 @@ def lm_serving_phase(report, dev):
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size,
            "dtype": "float32", "requests": LM_B, "chains": S_LM,
-           "rows": LM_B * S_LM, "prompt_len": LM_PROMPT,
+           "rows": LM_B * S_LM, "prompt_len": prompt_len,
            "new_tokens": LM_NEW, "p": cfg.mcd.p,
            "launches_by_kernel": counts,
            "prefill_ms": res.prefill_s * 1e3,
@@ -1123,10 +1295,10 @@ def lm_serving_phase(report, dev):
                                          "entropy": d_ent, "mi": d_mi},
            "greedy_tokens_differing_in_reference": flips,
            "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean())}
-    report["serving_lm"] = out
-    print("serving lm " + json.dumps(out), flush=True)
-    out.update(profile_lm(eng, prompts))
-    print("serving lm profile " + json.dumps(out), flush=True)
+    report[key] = out
+    print(f"{key} " + json.dumps(out), flush=True)
+    out.update(profile_lm(eng, prompts, prefill_kernels, decode_kernels))
+    print(f"{key} profile " + json.dumps(out), flush=True)
     return counts
 
 
@@ -1142,12 +1314,15 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def profile_lm(eng, prompts, n_steps: int = 5) -> dict:
+def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
+               n_steps: int = 5) -> dict:
     """Device time inside one prefill, then inside ``n_steps`` decode steps
     as ``generate`` makes them (summary, argmax, the decode call, a device
-    sync): the device's idle share and each LM kernel's time.  Each decode
-    profile taken again continues from the last position; not part of the
-    launch count."""
+    sync): the device's idle share and the time of each kernel the model
+    launches there (``prefill_kernels``, ``decode_kernels``: a kernel that
+    a span does not launch has no records, and a profile without records
+    of a named kernel is refused).  Each decode profile taken again
+    continues from the last position; not part of the launch count."""
     import torch
     from repro_torch.core import mcd
     from repro_torch.core.uncertainty import classification_summary
@@ -1190,8 +1365,6 @@ def profile_lm(eng, prompts, n_steps: int = 5) -> dict:
         return run
 
     out = {}
-    decode_kernels = list(LM_KERNELS)
-    prefill_kernels = [n for n in decode_kernels if n != "decode_attention"]
     for what, prepare, calls, kernels in (
             ("prefill", prefill, 1, prefill_kernels),
             ("decode_step", decode, n_steps, decode_kernels)):
@@ -1275,12 +1448,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     entries = kernel_entries(kernel_phase(report))
     entries += lm_kernel_entries(lm_kernel_phase(report))
+    entries.append(ssd_kernel_entry(ssd_kernel_phase(report)))
     launches = {name: 0 for name in ALL_KERNELS}
     for counts in (serving_phase(report, dev),
                    autoencoder_phase(report, dev, "lstm"),
                    autoencoder_phase(report, dev, "gru"),
                    step_backend_phase(report, dev),
-                   lm_serving_phase(report, dev)):
+                   lm_serving_phase(report, dev),
+                   mamba_serving_phase(report, dev)):
         for name, v in counts.items():
             launches[name] += v
     for e in entries:

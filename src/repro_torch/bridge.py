@@ -29,6 +29,7 @@ from repro_torch.core.cells import GRUParams, LSTMParams
 from repro_torch.core.linear import DenseParams
 from repro_torch.models import backbone
 from repro_torch.models.layers import AttnParams, EmbedParams, MLPParams
+from repro_torch.models.mamba2 import MambaParams
 
 _CELL_PARAMS = {3: GRUParams, 4: LSTMParams}
 
@@ -71,19 +72,23 @@ def from_numpy_backbone(tree, cfg, device=None) -> dict:
 
     ``tree``: ``{"embed": (table, head, final_norm), "stages": [per stage, a
     tuple over pattern positions of {"mixer": AttnParams fields, "ffn":
-    MLPParams fields}, each leaf stacked [repeat, ...]]}`` with numpy
-    leaves.  Returns ``{"embed": EmbedParams, "stages": [[tuple over
-    pattern positions of block dicts] per repeat] per stage}`` on
-    ``device`` (default CUDA), fp32.
+    MLPParams fields} (``{"mixer": MambaParams fields}`` for a ``mamba``
+    block), each leaf stacked [repeat, ...]]}`` with numpy leaves.
+    Returns ``{"embed": EmbedParams, "stages": [[tuple over pattern
+    positions of block dicts] per repeat] per stage}`` on ``device``
+    (default CUDA), fp32.
     """
     backbone.check_cfg(cfg)
     dev = resolve_device(device)
     stages = []
     for st, per_pos in zip(cfg.stages, tree["stages"]):
+        mixers = [MambaParams if kind.split(".")[0] == "mamba"
+                  else AttnParams for kind in st.pattern]
         stages.append([tuple(
-            {"mixer": _leaves(AttnParams, block["mixer"], dev, r),
+            {"mixer": _leaves(mixer, block["mixer"], dev, r),
              **({"ffn": _leaves(MLPParams, block["ffn"], dev, r)}
                 if "ffn" in block else {})}
-            for block in per_pos) for r in range(st.repeat)])
+            for mixer, block in zip(mixers, per_pos))
+            for r in range(st.repeat)])
     return {"embed": _leaves(EmbedParams, tree["embed"], dev),
             "stages": stages}

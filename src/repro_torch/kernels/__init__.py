@@ -9,10 +9,11 @@
   mcd_matmul    the masked SwiGLU gate/up product (csrc/mcd_matmul.cu)
   decode_attn   one-token GQA attention over a KV cache
                 (csrc/decode_attn.cu)
+  ssd_chunk     the Mamba2 / SSD chunked scan (csrc/ssd_chunk.cu)
   common        mask factors, operand forms, checks and the launch rule
                 the kernels share
   ops           the stack-layer wrappers ``run_stack`` dispatches to, and
-                the LM's three (``mcd_dense``, ``mcd_mask_apply``,
-                ``flash_decode_attention``)
+                the LM's (``mcd_dense``, ``mcd_mask_apply``,
+                ``flash_decode_attention``, ``ssd_scan``)
   build         nvcc build (sm_90a) and ctypes loading, at first use
 """

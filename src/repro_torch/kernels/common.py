@@ -1,7 +1,8 @@
 """Host side shared by the port's kernels: the recurrent ones
 (``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``, ``mcd_gru_step``)
 and, for the mask rule, the checks and :func:`launch_c`, the LM's
-(``masked_activation``, ``mcd_matmul``, ``decode_attention``).
+(``masked_activation``, ``mcd_matmul``, ``decode_attention``,
+``ssd_chunk_scan``).
 
 * The mask rule (:func:`gate_mask`) and the mask factors each gate view is
   multiplied by (:func:`gate_mask_factors`): the plain stream the kernels'
@@ -45,6 +46,15 @@ def gate_mask(key: int, rows: torch.Tensor, feat_dim: int,
     idx = (prng.mul_u32(rows[:, None], feat_dim) + cols) & prng.MASK32
     bits = prng._mix32(prng.as_u32(key, rows.device) ^ prng._mix32(idx))
     return bits >= prng.bernoulli_keep_threshold(p_drop)
+
+
+def largest_divisor(n: int, at_most: int) -> int:
+    """The largest divisor of ``n`` that is ``<= at_most``: the TPU
+    kernels' block fit (attention blocks, SSD chunks)."""
+    d = min(at_most, n)
+    while n % d:
+        d -= 1
+    return d
 
 
 def rowwise(fn, v: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ its model code mirrors in jnp; here ``repro_torch.models.layers`` calls them
 on its ``cuda`` backend): :func:`flash_decode_attention`,
 :func:`mcd_dense` and :func:`mcd_mask_apply`, each taking the site's stream
 key ``mcd.mask_key(seed, layer, KIND_FEAT, site)`` as the reference derives
-it.
+it.  The Mamba2 mixer's prefill scan, :func:`ssd_scan`
+(``repro_torch.models.mamba2`` on its ``cuda`` backend).
 
 Stack-layer execution paths of :func:`repro_torch.core.rnn.run_stack`, and
 how they map to the reference's ``LSTM_BACKENDS`` (``repro/kernels/ops.py``):
@@ -36,7 +37,7 @@ import torch
 from repro_torch.core import cells, mcd
 from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_gru,
                                  mcd_gru_seq, mcd_lstm, mcd_lstm_seq,
-                                 mcd_matmul)
+                                 mcd_matmul, ssd_chunk)
 
 LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
 
@@ -84,6 +85,34 @@ def mcd_mask_apply(x, rows, seed, layer: int, site: int, p_drop: float):
     """``x ⊙ z/(1-p)`` with the site-keyed stream; x [B, F], rows [B]."""
     key = site_key(int(seed), int(layer), int(site))
     return bernoulli_mask.masked_activation(x, rows, key, p_drop)
+
+
+def ssd_scan(x, dt, a, bm, cm, d_skip, chunk: int):
+    """The model's chunked SSD scan through :func:`ssd_chunk.ssd_chunk_scan`.
+
+    x: [B, L, H, P]; dt: [B, L, H] (after softplus); a, d_skip: [H]; bm, cm:
+    [B, L, G, N] with G = 1.  As the model's ``_ssd_chunked``: chunks of
+    ``Q = min(chunk, L)`` steps, L padded with zeros to a multiple of Q (dt
+    = 0 on the padded steps leaves ``y[:, :L]`` and the final state as they
+    are).  Returns (y [B, L, H, P] in x's dtype, h_final [B, H, P, N] fp32).
+    """
+    B, L, H, P = x.shape
+    if bm.shape[2] != 1:
+        raise NotImplementedError(
+            f"ssd_scan takes n_groups = 1, got {bm.shape[2]}; the grouped "
+            "scan comes with jamba (ROADMAP.md queue A item 14)")
+    Q = min(chunk, L)
+    pad = (-L) % Q
+
+    def padded(t):
+        if pad:
+            t = torch.cat([t, t.new_zeros((B, pad, *t.shape[2:]))], dim=1)
+        return t.contiguous()
+
+    y, h_final = ssd_chunk.ssd_chunk_scan(
+        padded(x), padded(dt), a.contiguous(), padded(bm[:, :, 0]),
+        padded(cm[:, :, 0]), d_skip.contiguous(), q_chunk=Q)
+    return y[:, :L].to(x.dtype), h_final
 
 
 def _carry(t):

@@ -1,0 +1,124 @@
+"""Mamba2 / SSD chunked scan (n_groups = 1) — port of
+``repro.kernels.ssd_chunk``.
+
+:func:`ssd_chunk_scan` launches the hand-written CUDA kernel
+``csrc/ssd_chunk.cu`` (built for ``sm_90a`` by :mod:`.build`, bound with
+``ctypes``) for CUDA tensors, and runs :func:`ssd_chunk_scan_plain`, the
+plain PyTorch version of the same function (a mirror of the TPU kernel's
+body, ``_kernel``: chunk by chunk, the state carried), for CPU tensors.  A
+CUDA tensor never reaches the plain version: it launches the kernel or
+raises.
+
+x: [B, L, H, P]; dt: [B, L, H] (after softplus); a: [H] (negative); bm, cm:
+[B, L, N]; d_skip: [H].  Returns (y [B, L, H, P] in x's dtype, h_final
+[B, H, P, N] fp32).  The chunk length is the largest divisor of L that is
+at most ``q_chunk`` (:func:`common.largest_divisor`), as in the TPU kernel:
+it is part of the function (the rounding depends on it).  The TPU kernel's
+``block_h`` tiles VMEM and changes nothing computed; it is not carried
+over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+
+# The kernel's register tiles: P <= 64 (4 x 16 columns of y), N <= 128
+# (4 x 32 columns of the state).
+_MAX_P, _MAX_N = 64, 128
+_SMEM_MAX = 227 * 1024
+
+
+def ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
+    """Plain PyTorch version: the TPU kernel's body chunk by chunk, all
+    (b, h) at once.  Computes in fp32 (float64 for float64 inputs, which
+    makes a float64 witness of the same function)."""
+    B, L, H, P = x.shape
+    q = common.largest_divisor(L, q_chunk)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    a = a.to(ct)
+    d = d_skip.to(ct)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((B, H, P, bm.shape[-1]), dtype=ct, device=x.device)
+    ys = []
+    for c0 in range(0, L, q):
+        xc = x[:, c0:c0 + q].to(ct)                      # [B, Q, H, P]
+        dtc = dt[:, c0:c0 + q].to(ct)                    # [B, Q, H]
+        bc = bm[:, c0:c0 + q].to(ct)                     # [B, Q, N]
+        cc = cm[:, c0:c0 + q].to(ct)
+        cs = torch.cumsum(dtc * a, dim=1)                # inclusive
+        dtx = dtc[..., None] * xc
+        # intra-chunk quadratic term; where(), not a 0/1 product: the
+        # decay overflows above the diagonal
+        scores = torch.einsum("bqn,bkn->bqk", cc, bc)
+        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])
+        gate = torch.where(tri[None, :, :, None], decay,
+                           torch.zeros((), dtype=ct, device=x.device))
+        y = torch.einsum("bqk,bqkh,bkhp->bqhp", scores, gate, dtx)
+        # inter-chunk term from the carried state
+        y = y + torch.einsum("bqn,bqh,bhpn->bqhp", cc, torch.exp(cs), state)
+        # state update
+        dec_end = torch.exp(cs[:, -1:, :] - cs)
+        state = state * torch.exp(cs[:, -1])[..., None, None] + torch.einsum(
+            "bkn,bkh,bkhp->bhpn", bc, dec_end, dtx)
+        ys.append((y + d[None, None, :, None] * xc).to(x.dtype))
+    return torch.cat(ys, dim=1), state
+
+
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+
+def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
+    """The SSD chunked scan; see the module docstring for the shapes.
+
+    CPU tensors run :func:`ssd_chunk_scan_plain`; CUDA tensors launch the
+    kernel on the current stream (counted in ``ssd_chunk_scan.launches``):
+    fp32, contiguous, P <= 64, N <= 128, and a chunk whose tiles fit in
+    shared memory (Q <= 256 at P = 64, N = 128).
+    """
+    if common.check_device("ssd_chunk_scan", x):
+        return ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip,
+                                    q_chunk=q_chunk)
+    if x.ndim != 4 or bm.ndim != 3:
+        raise ValueError(f"x must be [B, L, H, P] and bm, cm [B, L, N]; got "
+                         f"{tuple(x.shape)}, {tuple(bm.shape)}")
+    B, L, H, P = x.shape
+    N = bm.shape[-1]
+    if min(B, L, H, P, N, q_chunk) < 1:
+        raise ValueError(f"empty shape: x {tuple(x.shape)}, N={N}, "
+                         f"q_chunk={q_chunk}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"ssd_chunk_scan takes fp32 on the card, got {x.dtype}; bf16 is "
+            "queued with the serving precisions (ROADMAP.md)")
+    if P > _MAX_P or N > _MAX_N:
+        raise ValueError(f"P={P} must be <= {_MAX_P} and N={N} <= {_MAX_N}")
+    Q = common.largest_divisor(L, q_chunk)
+    smem = common.c_entry("ssd_chunk", "ssd_chunk_scan_smem",
+                          (ctypes.c_int,) * 3)(P, N, Q)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"a chunk of {Q} steps at P={P}, N={N} needs {smem} "
+                         f"bytes of shared memory, above {_SMEM_MAX}")
+    dev = x.device
+    common.check("x", x, dev, torch.float32, (B, L, H, P))
+    common.check("dt", dt, dev, torch.float32, (B, L, H))
+    common.check("a", a, dev, torch.float32, (H,))
+    common.check("bm", bm, dev, torch.float32, (B, L, N))
+    common.check("cm", cm, dev, torch.float32, (B, L, N))
+    common.check("d_skip", d_skip, dev, torch.float32, (H,))
+    y = torch.empty_like(x)
+    h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    common.launch_c(ssd_chunk_scan, "ssd_chunk", _ARGTYPES,
+                    (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                     cm.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
+                     h_final.data_ptr(), B, L, H, P, N, Q,
+                     common.stream(dev)),
+                    f"ssd_chunk_scan (B={B}, L={L}, H={H}, P={P}, N={N}, "
+                    f"Q={Q})")
+    return y, h_final
+
+
+ssd_chunk_scan.launches = 0

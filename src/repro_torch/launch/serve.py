@@ -5,6 +5,8 @@ Usage (the reduced rehearsal on the CPU, then full width on a GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
       --batch 8 --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --no-reduced --batch 8 --prompt-len 512 --new-tokens 32
 
 The flags are the reference launcher's, plus ``--device``.  ``--reduced``
 is on by default and ``--no-reduced`` reaches the published config (the

@@ -1,5 +1,5 @@
-"""The LM backbone over its stages — port of the dense ``attn.mlp`` subset
-of ``repro.models.backbone``.
+"""The LM backbone over its stages — port of the ``attn.mlp`` and
+``mamba`` subset of ``repro.models.backbone``.
 
 A model is an embedding and a sequence of stages; each stage repeats a
 period of blocks (``config.Stage``).  The reference scans stacked
@@ -10,16 +10,19 @@ string indexes the pattern, not the layer, so ``"NY"`` over a one-block
 pattern makes no layer Bayesian, as in the reference).
 
 Parameters are unstacked: ``params["stages"][i][r][j]`` is the block dict
-(``{"mixer": AttnParams, "ffn": MLPParams}``) of stage i, repeat r, pattern
-position j, and decode caches nest the same way.  Entry points:
+(``{"mixer": AttnParams, "ffn": MLPParams}``, or ``{"mixer":
+MambaParams}`` for a ``mamba`` block) of stage i, repeat r, pattern
+position j, and decode caches nest the same way: a (k, v) pair for
+attention, a ``mamba2.MambaState`` for a mamba block.  Entry points:
 
   forward      full sequence (``collect_caches``, ``return_hidden``)
-  prefill      forward + the decode state (caches padded to ``max_len``)
+  prefill      forward + the decode state (KV caches padded to
+               ``max_len``; a Mamba state has no sequence axis)
   decode_step  one token through the caches, updated in place
 
-Other mixers and FFNs (``mla``, ``mamba``, ``moe``, cross-attention,
-encoders, patch or frame inputs) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Other mixers and FFNs (``mla``, ``moe``, a mamba block with an FFN,
+cross-attention, encoders, patch or frame inputs) are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,12 +32,13 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2
 from repro_torch.models.config import ArchConfig, Stage
 
+_MIXERS = ("attn", "mamba")
 _NOT_PORTED = {
-    "mamba": "the Mamba2 mixer is next in ROADMAP.md ('Still to port' "
-             "item 1: the mamba2_370m path with ssd_chunk_scan)",
+    "mamba_ffn": "a mamba block with an FFN (jamba's blocks) is queued with "
+                 "the hybrid (ROADMAP.md queue A item 14)",
     "mla": "multi-head latent attention is queued (ROADMAP.md queue A "
            "item 14)",
     "moe": "the MoE FFN is queued (ROADMAP.md queue A item 14)",
@@ -53,15 +57,19 @@ def _parse(kind: str) -> tuple[str, bool, str | None]:
 
 
 def _check_kind(kind: str) -> None:
-    """Raise for a block this port does not run (only ``attn[.mlp]``)."""
+    """Raise for a block this port does not run (only ``attn[.mlp]`` and a
+    bare ``mamba``)."""
     mixer, has_cross, ffn = _parse(kind)
-    if mixer != "attn":
+    if mixer not in _MIXERS:
         reason = _NOT_PORTED.get(mixer, _NOT_PORTED["cross"])
         raise NotImplementedError(f"block {kind!r}: {reason}")
     if has_cross:
         raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['cross']}")
     if ffn == "moe":
         raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['moe']}")
+    if mixer == "mamba" and ffn is not None:
+        raise NotImplementedError(
+            f"block {kind!r}: {_NOT_PORTED['mamba_ffn']}")
 
 
 def check_cfg(cfg: ArchConfig) -> None:
@@ -77,6 +85,9 @@ def check_cfg(cfg: ArchConfig) -> None:
 def init_block(gen, kind: str, cfg: ArchConfig, dtype,
                device) -> dict[str, Any]:
     _check_kind(kind)
+    if _parse(kind)[0] == "mamba":
+        return {"mixer": mamba2.init_mamba(gen, cfg.d_model, cfg.ssm, dtype,
+                                           device)}
     p: dict[str, Any] = {"mixer": layers.init_attn(
         gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         cfg.qk_norm, dtype, device)}
@@ -88,11 +99,12 @@ def init_block(gen, kind: str, cfg: ArchConfig, dtype,
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
                 dtype=torch.float32) -> dict[str, Any]:
     """Random parameters at the reference's init scales (``layers.py``
-    init_attn / init_mlp / init_embed), drawn from ``generator`` on its own
-    device (a CUDA generator draws a full-width model on the card) and
-    placed on ``device`` (default CUDA).  Not the reference's numbers: its
-    ``jax.random`` stream differs; :func:`repro_torch.bridge.
-    from_numpy_backbone` carries its parameters over."""
+    init_attn / init_mlp / init_embed, ``mamba2.py`` init_mamba), drawn
+    from ``generator`` on its own device (a CUDA generator draws a
+    full-width model on the card) and placed on ``device`` (default CUDA).
+    Not the reference's numbers: its ``jax.random`` stream differs;
+    :func:`repro_torch.bridge.from_numpy_backbone` carries its parameters
+    over."""
     check_cfg(cfg)
     dev = resolve_device(device)
     return {
@@ -109,6 +121,15 @@ def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
                    return_cache: bool = False, backend: str = "cuda"):
     """One block, full sequence.  Returns (x, aux, cache|None)."""
     _check_kind(kind)
+    if _parse(kind)[0] == "mamba":
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MIXER)
+        res = mamba2.mamba_forward(p["mixer"], x, cfg.ssm, m, ctx.cfg.p,
+                                   cfg.d_model, return_state=return_cache,
+                                   backend=backend)
+        cache = None
+        if return_cache:
+            res, cache = res
+        return x + res, 0.0, cache
     m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
     res = layers.attention_forward(p["mixer"], x, positions, cfg.rope_theta,
                                    causal=True, mask_in=m, p_drop=ctx.cfg.p,
@@ -129,6 +150,11 @@ def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos: int,
     """One block, one token.  Returns (x, cache), the cache updated in
     place."""
     _check_kind(kind)
+    if _parse(kind)[0] == "mamba":
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MIXER)
+        res, cache = mamba2.mamba_decode(p["mixer"], x, cache, cfg.ssm, m,
+                                         ctx.cfg.p, cfg.d_model, backend)
+        return x + res, cache
     m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
     res, cache = layers.attention_decode(p["mixer"], x, cache, pos,
                                          cfg.rope_theta, m, ctx.cfg.p,
@@ -159,7 +185,8 @@ def _stage_layers(stage: Stage, layer_offset: int):
 
 class DecodeState(NamedTuple):
     pos: int          # next position to write
-    caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd]
+    caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd],
+                      # or a mamba2.MambaState
     cross: Any = None
 
 
@@ -195,7 +222,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.float32, kv_quant: bool = False,
                       device=None) -> DecodeState:
     """Zero decode state: one (k, v) pair of [B, max_len, KV, hd] per
-    layer."""
+    attention layer, a zero ``MambaState`` per mamba layer."""
     if kv_quant:
         raise NotImplementedError(
             "the int8 KV cache is not ported yet; it is queued with the "
@@ -204,17 +231,22 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
 
-    def kv():
+    def cache(kind):
+        if _parse(kind)[0] == "mamba":
+            return mamba2.init_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
     return DecodeState(pos=0, caches=[
-        [[kv() for _ in st.pattern] for _ in range(st.repeat)]
+        [[cache(kind) for kind in st.pattern] for _ in range(st.repeat)]
         for st in cfg.stages])
 
 
-def _pad_cache_to(cache, max_len: int):
-    """Pad a (k, v) cache [B, S, ...] with zeros up to max_len positions."""
+def _pad_cache_to(cache, kind: str, max_len: int):
+    """Pad a (k, v) cache [B, S, ...] with zeros up to max_len positions; a
+    Mamba state (no sequence axis) stays as it is."""
+    if _parse(kind)[0] == "mamba":
+        return cache
 
     def pad(a):
         out = a.new_zeros((a.shape[0], max_len, *a.shape[2:]))
@@ -236,9 +268,20 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
                                      collect_caches=True, return_hidden=True,
                                      backend=backend)
     lg = layers.logits(params["embed"], hidden[:, -1:])
-    padded = [[[_pad_cache_to(c, max_len) for c in rep] for rep in stage]
-              for stage in caches]
+    padded = [[[_pad_cache_to(c, kind, max_len)
+                for c, kind in zip(rep, st.pattern)] for rep in stage]
+              for st, stage in zip(cfg.stages, caches)]
     return lg, DecodeState(pos=tokens.shape[1], caches=padded)
+
+
+def _cache_positions(cfg: ArchConfig, caches) -> int | None:
+    """Positions of the attention caches; None for a model without one (a
+    Mamba state has no position limit, as in the reference)."""
+    for st, stage in zip(cfg.stages, caches):
+        for j, kind in enumerate(st.pattern):
+            if _parse(kind)[0] == "attn":
+                return stage[0][j][0].shape[1]
+    return None
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
@@ -247,8 +290,8 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     position on).  The caches are updated in place."""
     layers.check_backend(backend)
     pos = int(state.pos)
-    smax = state.caches[0][0][0][0].shape[1]
-    if pos >= smax:
+    smax = _cache_positions(cfg, state.caches)
+    if smax is not None and pos >= smax:
         raise ValueError(f"decode position {pos} is past the cache's "
                          f"{smax} positions")
     x = layers.embed(params["embed"], token)

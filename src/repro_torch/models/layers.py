@@ -209,14 +209,6 @@ def _qk_normalize(q, k, p: AttnParams):
     return q, k
 
 
-def _fit(size: int, want: int) -> int:
-    """Largest divisor of ``size`` that is ``<= want``."""
-    b = min(want, size)
-    while size % b:
-        b -= 1
-    return b
-
-
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, q_block: int = 512,
                         kv_block: int = 1024) -> torch.Tensor:
@@ -229,7 +221,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
     rep = H // KV
-    qb, kb = _fit(Sq, q_block), _fit(Skv, kv_block)
+    qb = common.largest_divisor(Sq, q_block)
+    kb = common.largest_divisor(Skv, kv_block)
     scale = hd ** -0.5
     qr = q.reshape(B, Sq // qb, qb, KV, rep, hd)
     kr = k.reshape(B, Skv // kb, kb, KV, hd)

@@ -9,10 +9,11 @@ logits are aggregated into the predictive distribution; its mean picks the
 next token (greedy), the same token is fed back to every chain, and the
 per-token predictive entropy and mutual information are emitted with it.
 
-``backend="cuda"`` runs the LM's three kernels (the attention-site mask,
-the masked SwiGLU gate/up product, the decode attention; on CPU tensors
-their plain versions); ``backend="reference"`` runs the plain mirrors of
-the reference's jnp code (``repro_torch.models.layers``).
+``backend="cuda"`` runs the LM's kernels (the site mask, the masked
+SwiGLU gate/up product, the decode attention, the Mamba2 prefill scan; on
+CPU tensors their plain versions); ``backend="reference"`` runs the plain
+mirrors of the reference's jnp code (``repro_torch.models.layers``,
+``repro_torch.models.mamba2``).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ class GenerationResult:
 
 
 class BayesianEngine:
-    """Static-batch S-sample serving engine for the dense archs."""
+    """Static-batch S-sample serving engine for the dense and the mamba
+    archs."""
 
     def __init__(self, params, cfg: ArchConfig, *, max_len: int = 512,
                  seed: int = 0, device=None, backend: str = "cuda"):

@@ -1,6 +1,7 @@
 """The CUDA kernels (``mcd_lstm_seq``, ``mcd_gru_seq``, ``mcd_lstm_step``,
-``mcd_gru_step``, and the LM's ``masked_activation``, ``mcd_matmul``,
-``decode_attention``) against their plain PyTorch versions, on the card.
+``mcd_gru_step``, the LM's ``masked_activation``, ``mcd_matmul``,
+``decode_attention``, and the Mamba2 scan ``ssd_chunk_scan``) against their
+plain PyTorch versions, on the card.
 Marked ``cuda``: each test skips (in a fixture, at run time) where there
 is no GPU; run them on a GPU machine with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda
@@ -23,6 +24,7 @@ from repro_torch.serve import StreamingEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import bernoulli_mask, decode_attn  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import backbone  # noqa: E402
 from repro_torch.serve.engine import BayesianEngine  # noqa: E402
 
@@ -325,6 +327,76 @@ def test_lm_engine_serves_through_the_kernels(dev):
     L = cfg.num_layers
     assert [fn.launches for fn in names] == [L * 5, L * 5, L * 4]
     ref = BayesianEngine(params, cfg, max_len=12, seed=1, device=dev,
+                         backend="reference").generate(
+        prompts, 4, teacher_tokens=res.tokens, keep_logits=True)
+    assert (res.logits - ref.logits).abs().max().item() <= 1e-4
+    assert (res.mutual_information - ref.mutual_information).abs().max() \
+        .item() <= 1e-4
+
+
+# -- the Mamba2 scan --------------------------------------------------------
+
+SSD_ATOL = 1e-4  # fp32: cumulative log-decays of ~10^2 summed in another
+                 # order than torch's scan; outputs of a few units
+
+
+def _ssd_inputs(dev, B, L, H, P, N, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=g) * k
+
+    dt = torch.nn.functional.softplus(r(B, L, H, k=0.5) - 3.0)
+    a = -torch.linspace(1.0, 16.0, H)
+    return [t.to(dev) for t in (r(B, L, H, P), dt, a, r(B, L, N, k=0.3),
+                                r(B, L, N, k=0.3), torch.linspace(0.5, 1.5,
+                                                                  H))]
+
+
+@pytest.mark.parametrize("B,L,H,P,N,q", [(3, 40, 2, 8, 16, 16),
+                                         (2, 320, 4, 64, 128, 256)])
+def test_ssd_chunk_scan_kernel_matches_plain(dev, B, L, H, P, N, q):
+    ins = _ssd_inputs(dev, B, L, H, P, N, seed=L)
+    before = ssd_chunk.ssd_chunk_scan.launches
+    y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_chunk.ssd_chunk_scan.launches == before + 1
+    wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert (y - wy).abs().max().item() <= SSD_ATOL
+    assert (h - wh).abs().max().item() <= SSD_ATOL
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ins = _ssd_inputs(dev, 1, 16, 2, 8, 16)
+    with pytest.raises(NotImplementedError, match="precision"):
+        ssd_chunk.ssd_chunk_scan(ins[0].bfloat16(), *ins[1:])
+    with pytest.raises(ValueError, match="P="):
+        ssd_chunk.ssd_chunk_scan(torch.zeros((1, 16, 2, 72), device=dev),
+                                 *ins[1:])
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ssd_inputs(dev, 1, 512, 1, 64, 128)
+        ssd_chunk.ssd_chunk_scan(*big, q_chunk=512)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk.ssd_chunk_scan(
+            torch.zeros((1, 16, 4, 8), device=dev)[:, :, :2], *ins[1:])
+
+
+def test_mamba_engine_serves_through_the_kernels(dev):
+    cfg = configs.get_config("mamba2-370m", reduced=True)
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=4))
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    names = (bernoulli_mask.masked_activation, ssd_chunk.ssd_chunk_scan,
+             mm.mcd_matmul, decode_attn.decode_attention)
+    for fn in names:
+        fn.launches = 0
+    res = BayesianEngine(params, cfg, max_len=44, seed=1,
+                         device=dev).generate(prompts, 4, keep_logits=True)
+    L = cfg.num_layers
+    assert [fn.launches for fn in names] == [L * 5, L, 0, 0]
+    ref = BayesianEngine(params, cfg, max_len=44, seed=1, device=dev,
                          backend="reference").generate(
         prompts, 4, teacher_tokens=res.tokens, keep_logits=True)
     assert (res.logits - ref.logits).abs().max().item() <= 1e-4

@@ -36,6 +36,7 @@ from repro.models import backbone as jbb, layers as jlayers  # noqa: E402
 from repro_torch import bridge, configs as tconfigs  # noqa: E402
 from repro_torch.core import mcd as tmcd  # noqa: E402
 from repro_torch.models import backbone as tbb, layers as tlayers  # noqa: E402
+from repro_torch.models.config import Stage  # noqa: E402
 
 ATOL = 1e-5
 CFG = jconfigs.get_config("qwen3-1.7b", reduced=True)
@@ -174,11 +175,15 @@ def test_configs_equal_the_reference(arch):
             dataclasses.asdict(jconfigs.get_config(arch, reduced))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "olmoe-1b-7b",
+@pytest.mark.parametrize("arch", ["mamba.mlp", "olmoe-1b-7b",
                                   "deepseek-v2-lite-16b",
                                   "jamba-1.5-large-398b"])
 def test_unported_blocks_raise(arch):
-    cfg = tconfigs.get_config(arch, reduced=True)
+    if arch == "mamba.mlp":         # a mamba block with an FFN (jamba's)
+        cfg = tconfigs.get_config("mamba2-370m", reduced=True).replace(
+            stages=(Stage(("mamba.mlp",), 1),), d_ff=128)
+    else:
+        cfg = tconfigs.get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbb.init_params(cfg, torch.Generator(), device="cpu")
 

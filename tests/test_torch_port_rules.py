@@ -214,4 +214,4 @@ def test_library_name_tracks_sources_and_shared_headers(tmp_path,
     real = pathlib.Path(build.__file__).parent / "csrc"
     assert {p.stem for p in real.glob("*.cu")} == {
         "mcd_lstm_seq", "mcd_gru_seq", "mcd_lstm_step", "mcd_gru_step",
-        "masked_activation", "mcd_matmul", "decode_attn"}
+        "masked_activation", "mcd_matmul", "decode_attn", "ssd_chunk"}
