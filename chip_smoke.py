@@ -15,7 +15,9 @@ Phases (each raises on failure; the exit code is then non-zero):
    kernels at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B
    = 256, T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student
    rows, p = 0.125 and p = 0: fp32 max abs error on every output within
-   1e-5, and each kernel's mask bits equal to the plain stream's. Times the
+   1e-5 (``mcd_gru_seq`` bit-equal, on its warp path or its block path, as
+   each case records), and each kernel's mask bits equal to the plain
+   stream's. Times the
    kernel, its plain version and, where one PyTorch call computes the same
    function (p = 0, no student rows, full lengths: cuDNN through
    ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call. A
@@ -36,15 +38,17 @@ Phases (each raises on failure; the exit code is then non-zero):
    backend, and a profile of a few ticks.
 5. Serving, the GRU classifier and the step backend: a few ticks of the
    GRU classifier on ``cuda_seq``, then the same streams on ``cuda_step``
-   for the GRU and the LSTM classifier: within 1e-5 of ``cuda_seq`` (and
-   whether they are bit-equal), and the step kernel launched once per layer
-   per time step.
+   for the GRU and the LSTM classifier: bit-equal to ``cuda_seq`` (both
+   run the cell body of ``mcd_cells.cuh``), and the step kernel launched
+   once per layer per time step.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
    2048, 2 x d_ff = 12288, 16 query / 8 KV heads of 128, a 160-position
    cache; prefill 64 x 128 rows): the mask bit-equal to the plain stream
-   (a row with bit 31 set included), ``mcd_matmul`` within MM_TOL and
+   (a row with bit 31 set included), ``mcd_matmul`` within MM_TOL (also at
+   M = 65, K = 2050, N = 12290, off its 16-byte path; whether each case is
+   bit-equal to cuBLAS, and two calls bitwise equal) and
    ``decode_attention`` within ATTN_TOL.  Times the kernel, its plain
    version and the library call (cuBLAS on the masked x; scaled dot-product
    attention over the live positions).
@@ -436,7 +440,7 @@ def kernel_cases():
 
 def kernel_phase(report):
     import torch
-    from repro_torch.kernels import common
+    from repro_torch.kernels import common, mcd_gru_seq
     records, library = [], {}
     for n, (name, B, T, I, H, p) in enumerate(kernel_cases()):
         gates, seq, _, _ = KERNELS[name]
@@ -458,8 +462,15 @@ def kernel_phase(report):
         if not (torch.equal(kx, px) and torch.equal(kh, ph)):
             raise RuntimeError(f"{name} mask bits differ from the plain "
                                f"stream at B={B} I={I} H={H} p={p}")
+        bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        if name == "mcd_gru_seq" and not bit_equal:
+            raise RuntimeError(f"mcd_gru_seq is not bit-equal to its plain "
+                               f"version at B={B} T={T} I={I} H={H} p={p}: "
+                               f"max abs err {errs}")
         rec = dict(kernel=name, B=B, T=T, I=I, H=H, p=p, max_abs_err=err,
-                   mask_bits_equal=True)
+                   bit_equal=bit_equal, mask_bits_equal=True)
+        if name == "mcd_gru_seq":
+            rec["path"] = mcd_gru_seq.gru_seq_plan(B, I, H)["path"]
         # Timed as the stack calls it: int32 rows and lengths converted
         # once per stack, the keys as host ints.
         d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
@@ -637,7 +648,8 @@ def _serve_stats(metrics, card) -> dict:
             "tick_ms_p50": agg["duration_s_p50"] * 1e3,
             "tick_ms_p95": agg["duration_s_p95"] * 1e3,
             "chain_steps_per_s": agg["tokens_per_sec"],
-            "pad_waste": agg["pad_waste"]}
+            "pad_waste": agg["pad_waste"],
+            "tick_ms": [m.duration_s * 1e3 for m in metrics]}
 
 
 def _beats():
@@ -887,9 +899,10 @@ def step_backend_phase(report, dev):
                 diff = max(diff, max_abs_diff(
                     a, b, f"{cell} cuda_step vs cuda_seq, {sid}"))
                 bit_equal = bit_equal and torch.equal(a, b)
-        if diff > TOL:
+        if diff > TOL or not bit_equal:
             raise RuntimeError(f"{cell} classifier: cuda_step vs cuda_seq "
-                               f"{diff} > {TOL}")
+                               f"differ ({diff}; tol {TOL}, bitwise "
+                               f"required: both run mcd_cells.cuh)")
         out[cell] = {"cuda_seq": seq_stats, "cuda_step": st_stats,
                      "max_abs_diff_step_vs_seq": diff,
                      "bit_equal_step_vs_seq": bit_equal}
@@ -905,14 +918,18 @@ def step_backend_phase(report, dev):
 
 # -- the LM decode path -----------------------------------------------------
 
-def _lm_rows(dev, n_rows, positions=1):
-    """Chain row ids 0..n_rows-1 with bit 31 set on every 16th row (these
-    kernels mask such rows too), repeated per position as a prefill
-    flattens them; int64 uint32 values."""
+def _lm_rows(dev, n):
+    """Row ids of ``n`` rows: chain rows 0..63 with bit 31 set on every
+    16th (these kernels mask such rows too), each repeated per position as
+    a prefill flattens them (n // 64 positions; n < 64 or not a multiple:
+    the rows in turn); int64 uint32 values."""
     import torch
-    rows = torch.arange(n_rows, dtype=torch.int64)
+    chains = LM_B * LM_S
+    rows = torch.arange(chains, dtype=torch.int64)
     rows[5::16] |= 1 << 31
-    return rows.repeat_interleave(positions).to(dev)
+    if n % chains == 0:
+        return rows.repeat_interleave(n // chains).to(dev)
+    return rows.repeat(-(-n // chains))[:n].to(dev)
 
 
 def _lm_record(name, case, err, call, plain, nbytes, ops, library=None):
@@ -949,7 +966,7 @@ def lm_kernel_phase(report) -> list[dict]:
 
     # masked_activation: decode [64, 2048] and prefill [64 x 128, 2048].
     for M, p in ((rows_n, 0.1), (rows_n * LM_PROMPT, 0.1), (rows_n, 0.0)):
-        rows = _lm_rows(dev, rows_n, M // rows_n)
+        rows = _lm_rows(dev, M)
         x = torch.randn((M, D), generator=g, device=dev)
         ones = torch.ones_like(x)
         got = bernoulli_mask.masked_activation(x, rows, key, p)
@@ -978,29 +995,43 @@ def lm_kernel_phase(report) -> list[dict]:
             # counted at the CUDA cores' fp32 rate: far under the bytes.
             nbytes=4 * (2 * M * D + M), ops=22 * M * D))
 
-    # mcd_matmul: the SwiGLU gate/up product, fp32 out.
+    # mcd_matmul: the SwiGLU gate/up product, fp32 out, at decode and
+    # prefill, and once with K and N off the 16-byte path (4-byte copies,
+    # ragged tiles on every edge).  Each case: within MM_TOL of the cuBLAS
+    # plain version (bit-equal where cuBLAS also sums in order), and two
+    # calls bitwise equal (no split of K, no atomics).
     w = torch.randn((D, N), generator=g, device=dev) * D ** -0.5
-    for M, p in ((rows_n, 0.1), (rows_n, 0.0), (rows_n * LM_PROMPT, 0.1),
-                 (rows_n * LM_PROMPT, 0.0)):
-        rows = _lm_rows(dev, rows_n, M // rows_n)
-        x = torch.randn((M, D), generator=g, device=dev)
-        got = mcd_matmul.mcd_matmul(x, w, rows, key, p, torch.float32)
+    w_odd = torch.randn((D + 2, N + 2), generator=g, device=dev) * D ** -0.5
+    for M, p, wm in ((rows_n, 0.1, w), (rows_n, 0.0, w),
+                     (rows_n * LM_PROMPT, 0.1, w), (rows_n * LM_PROMPT, 0.0, w),
+                     (rows_n + 1, 0.1, w_odd)):
+        K_, N_ = wm.shape
+        rows = _lm_rows(dev, M)
+        x = torch.randn((M, K_), generator=g, device=dev)
+        got = mcd_matmul.mcd_matmul(x, wm, rows, key, p, torch.float32)
+        again = mcd_matmul.mcd_matmul(x, wm, rows, key, p, torch.float32)
         torch.cuda.synchronize()
-        want = mcd_matmul.mcd_matmul_plain(x, w, rows, key, p, torch.float32)
+        want = mcd_matmul.mcd_matmul_plain(x, wm, rows, key, p,
+                                           torch.float32)
         err = max_abs_diff(got, want, "mcd_matmul")
-        if err > MM_TOL:
-            raise RuntimeError(f"mcd_matmul disagrees with its plain version "
-                               f"at M={M} p={p}: {err} > {MM_TOL}")
+        if err > MM_TOL or not torch.equal(got, again):
+            raise RuntimeError(f"mcd_matmul at M={M} K={K_} N={N_} p={p}: "
+                               f"{err} from its plain version (tol "
+                               f"{MM_TOL}); two calls bitwise equal: "
+                               f"{torch.equal(got, again)}")
         xm = bernoulli_mask.masked_activation_plain(x, rows, key, p)
         r32 = common.rows_to_int32(rows)
+        plan = mcd_matmul.matmul_plan(M, N_, K_)
         records.append(_lm_record(
-            "mcd_matmul", dict(M=M, K=D, N=N, p=p), err,
-            lambda: mcd_matmul.mcd_matmul(x, w, r32, key, p, torch.float32),
-            lambda: mcd_matmul.mcd_matmul_plain(x, w, rows, key, p,
+            "mcd_matmul", dict(M=M, K=K_, N=N_, p=p, tile=plan["tile"],
+                               bit_equal=bool(torch.equal(got, want)),
+                               repeat_bit_equal=True), err,
+            lambda: mcd_matmul.mcd_matmul(x, wm, r32, key, p, torch.float32),
+            lambda: mcd_matmul.mcd_matmul_plain(x, wm, rows, key, p,
                                                 torch.float32),
-            nbytes=4 * (M * D + D * N + M * N + M), ops=2 * M * D * N,
-            library=lambda: torch.matmul(xm, w)))
-        del got, want, xm
+            nbytes=4 * (M * K_ + K_ * N_ + M * N_ + M), ops=2 * M * K_ * N_,
+            library=lambda: torch.matmul(xm, wm)))
+        del got, again, want, xm
 
     # decode_attention: 64 rows, 16 q / 8 KV heads of 128, 160 positions.
     B, H, KV, hd, S = rows_n, 16, 8, 128, LM_PROMPT + LM_NEW

@@ -9,7 +9,9 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   own factors are held against.  A cell of G gates takes 2G keys (x side,
   then h side): 8 for the LSTM, 6 for the GRU.
 * The kernels' operand forms: int32 rows (:func:`rows_to_int32`), keys and
-  mask constants as launch arguments, the row tile (:func:`tile_rows`).
+  mask constants as launch arguments, the row tile of the block-per-rows
+  kernels (:func:`tile_rows`), and the card's limits the launch plans
+  respect (``SMEM_MAX``, ``SMS``).
 * Operand checks and the launch rule (:func:`launch`): a CUDA tensor
   launches the kernel or raises, nothing falls back, and each launch is
   counted on its wrapper.
@@ -29,7 +31,8 @@ from repro_torch.kernels import build
 
 _THREADS = 128          # target threads per block: R rows x H units
 _SMEM_DEFAULT = 48 * 1024
-_SMEM_MAX = 227 * 1024
+SMEM_MAX = 227 * 1024   # dynamic shared memory a block may take (H100)
+SMS = 132               # streaming multiprocessors of an H100 SXM
 
 
 def gate_mask(key: int, rows: torch.Tensor, feat_dim: int,
@@ -145,15 +148,17 @@ def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
     if hidden > 1024:
         raise NotImplementedError(
             f"hidden={hidden} > 1024: one block holds whole rows (one thread "
-            "per hidden unit); a cluster split of H is a later PR's")
+            "per hidden unit); a cluster split of H is queued (ROADMAP.md, "
+            "wide recurrent layers)")
     rows = max(1, _THREADS // hidden)
     per_row = (gates * (in_dim + hidden) + in_dim + hidden) * 4
     while rows > 1 and rows * per_row > _SMEM_DEFAULT:
         rows -= 1
-    if rows * per_row > _SMEM_MAX:
+    if rows * per_row > SMEM_MAX:
         raise NotImplementedError(
             f"I={in_dim}, H={hidden}: one row's mask factors and operands "
-            f"need {per_row} bytes of shared memory, above the block's limit")
+            f"need {per_row} bytes of shared memory, above the block's limit "
+            "(ROADMAP.md, wide recurrent layers)")
     return rows
 
 

@@ -100,8 +100,9 @@ int launch_mask_factors(const int32_t* rows, float* fx, float* fh, int B,
   return (int)cudaGetLastError();
 }
 
+// 1 / (1 + exp(-v)), each operation rounded, as torch.sigmoid computes it.
 __device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
 }
 
 }  // namespace mcd

@@ -35,9 +35,42 @@ def mcd_matmul_plain(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     return y.to(x.dtype if out_dtype is None else out_dtype)
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
-    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p)
+# The kernel's two tiles (csrc/mcd_matmul.cu, ``tile`` argument): name ->
+# (tile id, rows, columns, threads, K step, ring stages).
+TILES = {"wide": (1, 128, 128, 256, 32, 2), "narrow": (0, 64, 96, 256, 32, 3)}
+
+
+def matmul_plan(M: int, N: int, K: int) -> dict:
+    """How the kernel covers ``[M, K] @ [K, N]``: the tile, its grid, the
+    shared memory a block needs and the keep-bit scratch (uint32 words).
+
+    The 128 x 128 tile when it fills every SM twice over (a prefill), else
+    the 64 x 96 one (a decode step: M = 64, N = 12288 makes 128 blocks, one
+    wave on 132 SMs).  No split of K on either: each output's sum runs in
+    index order.  The shared memory is ``csrc/mcd_matmul.cu``'s
+    ``Tile::kSmem``: the ring of raw x, W and a keep-bit word a thread, and
+    the double-buffered transposed x tile; the entry refuses less.
+    """
+    if min(M, N, K) < 1:
+        raise ValueError(f"empty product: M={M}, N={N}, K={K}")
+    wide = TILES["wide"]
+    wide_blocks = -(-M // wide[1]) * -(-N // wide[2])
+    name = "wide" if wide_blocks >= 2 * common.SMS else "narrow"
+    tile, bm, bn, threads, bk, stages = TILES[name]
+    grid = (-(-N // bn), -(-M // bm))
+    if grid[1] > 65535:
+        raise NotImplementedError(
+            f"mcd_matmul: M={M} needs {grid[1]} row blocks, above the "
+            "grid's 65535; split the rows (ROADMAP.md)")
+    smem = 4 * (stages * (bm * bk + bk * bn + threads) + 2 * bk * (bm + 4))
+    return {"tile": name, "tile_id": tile, "block": (bm, bn),
+            "threads": threads, "grid": grid, "smem": smem,
+            "scratch_words": M * -(-K // 32)}
+
+
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float) + (ctypes.c_int,) * 3 \
+    + (ctypes.c_void_p,)
 
 
 def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
@@ -47,7 +80,8 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     ``key`` is the uint32 site key; ``p_drop == 0`` is the plain product.
     CPU tensors run :func:`mcd_matmul_plain`; CUDA tensors launch the kernel
     on the current stream (counted in ``mcd_matmul.launches``): fp32
-    operands, fp32 out.
+    operands, fp32 out.  The kernel's keep-bit pass writes a scratch of
+    ``M * ceil(K/32)`` words, allocated here.
     """
     if common.check_device("mcd_matmul", x):
         return mcd_matmul_plain(x, w, rows, key, p_drop, out_dtype)
@@ -67,13 +101,17 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     common.check("x", x, dev, torch.float32, (M, K))
     common.check("w", w, dev, torch.float32, (K, N))
     rows32 = common.rows_arg(rows, M, dev)
+    plan = matmul_plan(M, N, K)
     out = torch.empty((M, N), device=dev)
     thr, scale, masked = common.mask_args(p_drop)
+    bits = (torch.empty(plan["scratch_words"], dtype=torch.int32, device=dev)
+            if masked else None)
     common.launch_c(mcd_matmul, "mcd_matmul", _ARGTYPES,
                     (x.data_ptr(), w.data_ptr(), rows32.data_ptr(),
-                     out.data_ptr(), M, N, K, int(key) & prng.MASK32, thr,
-                     scale, masked, common.stream(dev)),
-                    f"mcd_matmul (M={M}, N={N}, K={K})")
+                     0 if bits is None else bits.data_ptr(), out.data_ptr(),
+                     M, N, K, int(key) & prng.MASK32, thr, scale, masked,
+                     plan["tile_id"], plan["smem"], common.stream(dev)),
+                    f"mcd_matmul (M={M}, N={N}, K={K}, {plan['tile']})")
     return out
 
 

@@ -29,7 +29,6 @@ from repro_torch.kernels import common
 # The kernel's register tiles: P <= 64 (4 x 16 columns of y), N <= 128
 # (4 x 32 columns of the state).
 _MAX_P, _MAX_N = 64, 128
-_SMEM_MAX = 227 * 1024
 
 
 def ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
@@ -99,9 +98,9 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
     Q = common.largest_divisor(L, q_chunk)
     smem = common.c_entry("ssd_chunk", "ssd_chunk_scan_smem",
                           (ctypes.c_int,) * 3)(P, N, Q)
-    if smem > _SMEM_MAX:
+    if smem > common.SMEM_MAX:
         raise ValueError(f"a chunk of {Q} steps at P={P}, N={N} needs {smem} "
-                         f"bytes of shared memory, above {_SMEM_MAX}")
+                         f"bytes of shared memory, above {common.SMEM_MAX}")
     dev = x.device
     common.check("x", x, dev, torch.float32, (B, L, H, P))
     common.check("dt", dt, dev, torch.float32, (B, L, H))

@@ -144,10 +144,17 @@ def _gru_layer(dev, B, T, I, H, seed=0):
                 b=(torch.randn((3, H), generator=g) * 0.1).to(dev))
 
 
-@pytest.mark.parametrize("B,T,I,H", [(33, 17, 1, 16), (20, 9, 16, 8),
-                                     (5, 6, 40, 24)])
+@pytest.mark.parametrize("B,T,I,H,path", [
+    (33, 17, 1, 16, "warp"), (20, 9, 16, 8, "warp"), (21, 9, 1, 8, "warp"),
+    (37, 11, 16, 32, "warp"), (9, 5, 40, 32, "warp"), (33, 7, 8, 16, "warp"),
+    (5, 6, 40, 24, "block"), (7, 4, 128, 128, "block")])
 @pytest.mark.parametrize("p", [0.0, 0.125])
-def test_gru_seq_kernel_matches_plain(dev, B, T, I, H, p):
+def test_gru_seq_kernel_matches_plain(dev, B, T, I, H, path, p):
+    """Both paths bit-equal to the plain version: every product and sum of
+    the cell is rounded alone, in the plain version's order
+    (csrc/mcd_cells.cuh); B not a multiple of the rows a warp or block,
+    ragged lengths, student rows, a non-zero h0."""
+    assert gseq.gru_seq_plan(B, I, H)["path"] == path
     d = _gru_layer(dev, B, T, I, H)
     keys = mcd_gru.gate_keys(3, 1)
     args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
@@ -159,7 +166,7 @@ def test_gru_seq_kernel_matches_plain(dev, B, T, I, H, p):
     ref = gseq.mcd_gru_seq_plain(*args, **kw)
     for g, r in zip(got, ref):
         assert g.is_cuda and torch.isfinite(g).all()
-        assert (g - r).abs().max().item() <= ATOL
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -191,6 +198,8 @@ def test_step_kernel_matches_plain(dev, cell, B, I, H, p):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_step_backend_agrees_with_seq_backend(dev, cell):
+    """Bitwise: the step and sequence kernels (the GRU's on its warp path
+    at H = 16 and 8) run the one cell body of csrc/mcd_cells.cuh."""
     hiddens = (16, 8)
     params = rnn.init_stack(torch.Generator().manual_seed(1), 1, hiddens,
                             cell=cell, device=dev)
@@ -204,10 +213,10 @@ def test_step_backend_agrees_with_seq_backend(dev, cell):
             lengths=d["lengths"], return_all_states=True, cell=cell,
             device=dev)
     (ys, st), (yq, sq) = outs["cuda_step"], outs["cuda_seq"]
-    assert (ys - yq).abs().max().item() <= ATOL
+    assert torch.equal(ys, yq)
     for a, b in zip(st, sq):
         for u, v in zip(a, b):
-            assert (u - v).abs().max().item() <= ATOL
+            assert torch.equal(u, v)
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -266,21 +275,33 @@ def test_masked_activation_kernel_bit_equal(dev, B, F, p):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+_MM_EDGES = [(M, K, N) for M in (1, 63, 65, 129) for K in (37, 2049)
+             for N in (1, 47, 12288)]
+
+
 @pytest.mark.parametrize("M,K,N", [(5, 37, 70), (64, 2048, 256),
-                                   (130, 96, 65)])
+                                   (130, 96, 65), (8192, 64, 1000),
+                                   (4100, 37, 1001)]
+                         + _MM_EDGES)
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_mcd_matmul_kernel_matches_plain(dev, M, K, N, p):
+    """Across both tiles' ragged edges (K and N off the 16-byte path
+    included), rows with bit 31 set: within MM_ATOL of the cuBLAS plain
+    version, whose own order of summation varies with the shape, and two
+    calls bitwise equal (the kernel sums K in order, no atomics)."""
     g = torch.Generator().manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g).to(dev)
     w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dev)
     rows = _lm_rows(dev, M)
     before = mm.mcd_matmul.launches
     got = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=torch.float32)
+    again = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.mcd_matmul.launches == before + 1
+    assert mm.mcd_matmul.launches == before + 2
     want = mm.mcd_matmul_plain(x, w, rows, 12345, p, torch.float32)
     assert got.shape == (M, N) and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= MM_ATOL
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40),
