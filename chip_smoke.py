@@ -15,9 +15,9 @@ Phases (each raises on failure; the exit code is then non-zero):
    kernels at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B
    = 256, T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student
    rows, p = 0.125 and p = 0: fp32 max abs error on every output within
-   1e-5 (``mcd_gru_seq`` bit-equal, on its warp path or its block path, as
-   each case records), and each kernel's mask bits equal to the plain
-   stream's. Times the
+   1e-5 (``mcd_lstm_seq`` and ``mcd_gru_seq`` bit-equal, on the warp path
+   or the block path, as each case records), and each kernel's mask bits
+   equal to the plain stream's. Times the
    kernel, its plain version and, where one PyTorch call computes the same
    function (p = 0, no student rows, full lengths: cuDNN through
    ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call. A
@@ -64,7 +64,10 @@ Phases (each raises on failure; the exit code is then non-zero):
    P = 64, N = 128, Q = 256), at a length Q does not divide (L = 320: Q
    shrinks to 160) and at a small odd shape, within SSD_TOL with no NaN or
    inf, and a float64 witness: the kernel no further from a float64
-   evaluation of the plain version than (twice) the fp32 plain version.
+   evaluation of the plain version than (twice) the fp32 plain version;
+   each case records whether it is bit-equal to the plain version, the
+   device times of the launch's cumsum and C . B pre-pass kernels, and the
+   head kernel's resident blocks an SM.
    Times the kernel and its plain version; no PyTorch call computes the
    scan (no library time).
 9. Mamba serving: ``BayesianEngine.generate`` on mamba2-370m at full width
@@ -75,8 +78,10 @@ Phases (each raises on failure; the exit code is then non-zero):
 
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
-phases that run it.  Prints the ``kernels`` JSON line, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
+``mcd_lstm_seq`` has two, the classifier pass and the autoencoder pass), the
+card's name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
 """
@@ -98,8 +103,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # kernels compute in fp32 on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-TOL = 1e-5          # fp32: the kernels fuse multiply-adds the plain
-                    # versions round twice; the error stays ~1e-6 over T
+TOL = 1e-5          # fp32 gate of every recurrent case.  The cell rounds
+                    # every product and sum alone, in the plain versions'
+                    # order (csrc/mcd_cells.cuh), so the recurrent kernels
+                    # are bit-equal to them; phase 2 requires it of the
+                    # sequence kernels
 SUMMARY_TOL = 1e-5  # engine (kernel) vs the reference backend (cuBLAS)
 
 S, SESSIONS, T_BEAT, CHUNK = 30, 64, 140, 20
@@ -150,11 +158,11 @@ SSD_CASES = [       # (B, L, H, P, N, q_chunk)
     (8, 320, 32, 64, 128, 256),                   # Q shrinks to 160
     (3, 40, 2, 8, 16, 16),                        # small, odd: Q = 10
 ]
-SSD_TOL = 1e-4      # ssd_chunk_scan vs its plain version, fp32: log-decay
-                    # sums of ~10^2 taken in another order (the plain
-                    # version's torch.cumsum is a parallel scan, the
-                    # kernel's is sequential) and 256-long sums; outputs of
-                    # a few units
+SSD_TOL = 1e-4      # ssd_chunk_scan vs its plain version, fp32: outputs
+                    # of a few units, log-decays of ~10^2 (both sum them in
+                    # order: torch.cumsum along the chunk axis runs each
+                    # column in order on the card), 128- and 256-long sums
+                    # in another order
 
 # Layer shapes (I, H, p) of one pass of each model; YNY / YNYN placement.
 CLF_LAYERS = [(1, 8, 0.125), (8, 8, 0.0), (8, 8, 0.125)]
@@ -440,7 +448,7 @@ def kernel_cases():
 
 def kernel_phase(report):
     import torch
-    from repro_torch.kernels import common, mcd_gru_seq
+    from repro_torch.kernels import common
     records, library = [], {}
     for n, (name, B, T, I, H, p) in enumerate(kernel_cases()):
         gates, seq, _, _ = KERNELS[name]
@@ -463,14 +471,14 @@ def kernel_phase(report):
             raise RuntimeError(f"{name} mask bits differ from the plain "
                                f"stream at B={B} I={I} H={H} p={p}")
         bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
-        if name == "mcd_gru_seq" and not bit_equal:
-            raise RuntimeError(f"mcd_gru_seq is not bit-equal to its plain "
+        if seq and not bit_equal:
+            raise RuntimeError(f"{name} is not bit-equal to its plain "
                                f"version at B={B} T={T} I={I} H={H} p={p}: "
                                f"max abs err {errs}")
         rec = dict(kernel=name, B=B, T=T, I=I, H=H, p=p, max_abs_err=err,
                    bit_equal=bit_equal, mask_bits_equal=True)
-        if name == "mcd_gru_seq":
-            rec["path"] = mcd_gru_seq.gru_seq_plan(B, I, H)["path"]
+        if seq:
+            rec["path"] = common.seq_plan(gates, B, I, H)["path"]
         # Timed as the stack calls it: int32 rows and lengths converted
         # once per stack, the keys as host ints.
         d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
@@ -599,6 +607,11 @@ def kernel_entries(records):
                      "classifier pass: 3 layers, B=1920 (64 sessions x "
                      "S=30), T=140, I=1/8/8, H=8, p=0.125/0/0.125, ragged "
                      "lengths", library=classifier_library_ms()),
+        kernel_entry("mcd_lstm_seq", _pass(records, "mcd_lstm_seq", T_BEAT,
+                                           AE_LAYERS),
+                     "autoencoder pass: 4 layers, B=1920, T=140, "
+                     "(I,H)=(1,16)/(16,8)/(8,16)/(16,16), p=0.125/0/0.125/0, "
+                     "ragged lengths; library: 4 nn.LSTM calls"),
         kernel_entry("mcd_gru_seq", _pass(records, "mcd_gru_seq", T_BEAT,
                                           AE_LAYERS),
                      "autoencoder pass: 4 layers, B=1920, T=140, "
@@ -1162,6 +1175,7 @@ def ssd_kernel_phase(report) -> list[dict]:
         wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
         err_y = max_abs_diff(y, wy, "ssd_chunk_scan y")
         err_h = max_abs_diff(h, wh, "ssd_chunk_scan h_final")
+        bit_equal = bool(torch.equal(y, wy) and torch.equal(h, wh))
         fy, fh = ssd_chunk.ssd_chunk_scan_plain(
             *(t.double() for t in ins), q_chunk=q)
         witness = {
@@ -1174,6 +1188,7 @@ def ssd_kernel_phase(report) -> list[dict]:
         del fy, fh, wy, wh
         case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=Q,
                     max_abs_err_y=err_y, max_abs_err_h=err_h,
+                    bit_equal=bit_equal,
                     max_abs_y=float(y.abs().max()),
                     max_abs_h=float(h.abs().max()),
                     min_log_decay_in_a_chunk=cs_min, f64_witness=witness)
@@ -1187,12 +1202,22 @@ def ssd_kernel_phase(report) -> list[dict]:
                                f"than its plain version: {case}")
         ops, nbytes = ssd_cost(B, L, H, P, N, Q)
         del y, h
-        records.append(_lm_record(
-            "ssd_chunk_scan", case, max(err_y, err_h),
-            lambda ins=ins, q=q: ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q),
+        call = lambda ins=ins, q=q: ssd_chunk.ssd_chunk_scan(  # noqa: E731
+            *ins, q_chunk=q)
+        rec = _lm_record(
+            "ssd_chunk_scan", case, max(err_y, err_h), call,
             lambda ins=ins, q=q: ssd_chunk.ssd_chunk_scan_plain(*ins,
                                                                 q_chunk=q),
-            nbytes=nbytes, ops=ops))
+            nbytes=nbytes, ops=ops)
+        # The launch's three kernels apart: the in-order cumsum, the C . B
+        # pre-pass, and the head kernel (the rest of the launch's time).
+        rec["part_device_ms"] = {
+            part: device_ms(call, 3, f"ssd_chunk_scan_kernel_{part}")
+            for part in ("cumsum", "scores")}
+        rec["head_blocks_per_sm"] = ssd_chunk.blocks_per_sm()
+        print("ssd kernel parts " + json.dumps(
+            [rec["part_device_ms"], rec["head_blocks_per_sm"]]), flush=True)
+        records.append(rec)
     report["ssd_kernel_cases"] = records
     return records
 

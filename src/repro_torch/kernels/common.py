@@ -10,7 +10,8 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   then h side): 8 for the LSTM, 6 for the GRU.
 * The kernels' operand forms: int32 rows (:func:`rows_to_int32`), keys and
   mask constants as launch arguments, the row tile of the block-per-rows
-  kernels (:func:`tile_rows`), and the card's limits the launch plans
+  kernels (:func:`tile_rows`), the sequence kernels' launch plan (warp or
+  block path, :func:`seq_plan`), and the card's limits the launch plans
   respect (``SMEM_MAX``, ``SMS``).
 * Operand checks and the launch rule (:func:`launch`): a CUDA tensor
   launches the kernel or raises, nothing falls back, and each launch is
@@ -160,6 +161,61 @@ def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
             f"need {per_row} bytes of shared memory, above the block's limit "
             "(ROADMAP.md, wide recurrent layers)")
     return rows
+
+
+_WARP_BLOCKS = (4, 2, 1)   # warps a block on the warp path, largest first
+X_RING = 8                 # x_t slots a row on the warp path (kXRing)
+
+
+def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
+    """How a sequence kernel of ``gates`` gates (``csrc/mcd_lstm_seq.cu``:
+    4, ``csrc/mcd_gru_seq.cu``: 3) runs a layer: its path, the rows a
+    block, the threads and blocks, and the shared memory a block needs.
+
+    H that divides 32 takes the warp path: a row's H units are H lanes of
+    one warp, ``32 // H`` rows a warp, 4, 2 or 1 warps a block -- the most
+    that still make two blocks an SM, so the rows spread over every SM --
+    with the layer's wx, the rows' mask factors and a ring of ``X_RING`` x
+    steps a row in shared memory.  Every other H takes the block path (one
+    thread per (row, unit), :func:`tile_rows` rows a block), and so does an
+    input too wide for the warp path's shared memory (its wx alone:
+    ``4 * gates * I * H`` bytes); both paths compute the same bits.  Raises
+    ``NotImplementedError`` where neither fits.
+    """
+    if min(batch, in_dim, hidden) < 1:
+        raise ValueError(f"empty layer: B={batch}, I={in_dim}, H={hidden}")
+    if 32 % hidden == 0:
+        per_warp = 32 // hidden
+        warps = -(-batch // per_warp)
+        fits = []
+        for wpb in _WARP_BLOCKS:
+            rows = wpb * per_warp
+            smem = 4 * (rows * (gates * (in_dim + hidden) + X_RING * in_dim)
+                        + gates * in_dim * hidden)
+            if smem <= SMEM_MAX:
+                fits.append((wpb, rows, smem))
+        if fits:
+            wpb, rows, smem = next((f for f in fits
+                                    if -(-warps // f[0]) >= 2 * SMS),
+                                   fits[-1])
+            return {"path": "warp", "rows": rows, "threads": 32 * wpb,
+                    "blocks": -(-batch // rows), "smem": smem}
+    rows = tile_rows(gates, in_dim, hidden)
+    return {"path": "block", "rows": rows, "threads": rows * hidden,
+            "blocks": -(-batch // rows),
+            "smem": 4 * rows * (gates * (in_dim + hidden) + in_dim + hidden)}
+
+
+def seq_launch(wrapper, tensors, batch: int, steps: int, in_dim: int,
+               hidden: int, gates: int, keys, p_drop: float) -> None:
+    """Launch a sequence kernel (``wrapper``: ``mcd_lstm_seq`` or
+    ``mcd_gru_seq``) on the path :func:`seq_plan` picks."""
+    plan = seq_plan(gates, batch, in_dim, hidden)
+    launch(wrapper, tensors,
+           (batch, steps, in_dim, hidden, plan["rows"],
+            int(plan["path"] == "warp"), plan["smem"]), keys, 2 * gates,
+           p_drop, f"{wrapper.__name__} (B={batch}, T={steps}, I={in_dim}, "
+           f"H={hidden}, {plan['path']} path, R={plan['rows']})")
 
 
 def check(name, t, device, dtype, shape):

@@ -1,5 +1,6 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80 and
-// later), shared by mcd_matmul.cu and mcd_gru_seq.cu.  A copy whose
+// later), shared by mcd_matmul.cu, mcd_gru_seq.cu, mcd_lstm_seq.cu and
+// ssd_chunk.cu.  A copy whose
 // `valid` is false reads nothing and zero-fills its destination, so a
 // ragged edge needs no branch around the copy; `src` must still be a
 // mapped address (callers pass the tensor's base).

@@ -1,8 +1,10 @@
 // One (row, hidden unit) of one MC-dropout recurrent step, shared by the
-// sequence kernels (mcd_lstm_seq, mcd_gru_seq's block and warp paths) and
-// the step kernels (mcd_lstm_step, mcd_gru_step), so a step backend and a
-// sequence backend of the same cell run the same arithmetic in the same
-// order.
+// sequence kernels (the block and warp paths of mcd_lstm_seq and
+// mcd_gru_seq) and the step kernels (mcd_lstm_step, mcd_gru_step), so a
+// step backend and a sequence backend of the same cell run the same
+// arithmetic in the same order.  The warp paths run their own gate sums
+// (weights in registers, h by shuffles) and share the tails (lstm_tail,
+// gru_tail).
 //
 // Operands: xr the row's input [I] and hr its h_{t-1} [H] (shared memory);
 // fxr [G][I] and fhr [G][H] the row's mask factors (mcd_mask.cuh); wx
@@ -48,6 +50,23 @@ __device__ __forceinline__ float gru_tail(float x0, float x1, float x2,
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h_own));
 }
 
+// The LSTM's activations and update from its four gate sums (x side, then
+// h side, in one chain a gate), as kernels/mcd_lstm.py::lstm_cell_plain
+// orders them:
+//   i = sigmoid(a0 + b0), f = sigmoid(a1 + b1), g = tanh(a2 + b2),
+//   o = sigmoid(a3 + b3),  c' = f * c + i * g,  h' = o * tanh(c').
+// Updates c to c' and returns h'.
+__device__ __forceinline__ float lstm_tail(float a0, float a1, float a2,
+                                           float a3, const float* bj,
+                                           float& c) {
+  const float ig = sigmoid(__fadd_rn(a0, bj[0]));
+  const float fg = sigmoid(__fadd_rn(a1, bj[1]));
+  const float gg = tanhf(__fadd_rn(a2, bj[2]));
+  const float og = sigmoid(__fadd_rn(a3, bj[3]));
+  c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
+  return __fmul_rn(og, tanhf(c));
+}
+
 // LSTM (gates i, f, g, o): updates (h, c) of unit j in place.
 __device__ __forceinline__ void lstm_unit(const float* xr, const float* hr,
                                           const float* fxr, const float* fhr,
@@ -72,12 +91,7 @@ __device__ __forceinline__ void lstm_unit(const float* xr, const float* hr,
     a2 = gate_term(a2, hv, fhr[2 * H + k], __ldg(w + 2 * H));
     a3 = gate_term(a3, hv, fhr[3 * H + k], __ldg(w + 3 * H));
   }
-  const float ig = sigmoid(__fadd_rn(a0, bj[0]));
-  const float fg = sigmoid(__fadd_rn(a1, bj[1]));
-  const float gg = tanhf(__fadd_rn(a2, bj[2]));
-  const float og = sigmoid(__fadd_rn(a3, bj[3]));
-  c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
-  h = __fmul_rn(og, tanhf(c));
+  h = lstm_tail(a0, a1, a2, a3, bj, c);
 }
 
 // GRU (gates r, z, n): returns h_new of unit j; h_own is the unit's own

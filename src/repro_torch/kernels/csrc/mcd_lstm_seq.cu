@@ -8,28 +8,50 @@
 // the sigmoid/tanh tail.  `lengths` freezes a row's (h, c) once t >= length
 // (ys repeats the frozen h), h0/c0 seed the carry, negative int32 rows (the
 // student flag, the uint32 high bit) run unmasked, and p == 0 skips masking.
+// c is carried in fp32.
 //
-// What bounds it on this card: latency.  The T steps are dependent, and each
-// is only a [rows, I+H] x [I+H, 4H] product per batch tile (at the ECG
-// classifier's H = 8 that is 64 multiply-adds per thread per step), so the
-// time is T times one step's latency (global loads of x_t, a few hundred
-// dependent FMAs, two block barriers), far above both the byte and the FLOP
-// bound of the whole layer.
+// What bounds it on this card: latency and instruction throughput, not
+// bytes or operations.  The T steps are dependent; each is a [rows, I+H] x
+// [I+H, 4H] product per row, so a layer's time is T times one step's
+// critical path (the h exchange, H dependent adds per gate sum, three
+// sigmoids and two tanhs), or, where many rows share an SM, T times the
+// instructions its warps run in a step -- either far above the bytes and
+// operations of the whole layer (its bound).
 //
-// What this simple design does about it:
-//  * The T loop runs inside the kernel (the TPU grid's sequential axis), so
-//    there is one launch per layer, not one per step.
-//  * One block owns a tile of R whole batch rows (R*H threads, one per
-//    (row, hidden unit)); rows are independent, so no state crosses blocks.
-//    h of the tile lives in shared memory, c in a register, both fp32.
-//  * Masks are tied across T, so each block computes its rows' mask factors
-//    (0, 1/(1-p), or 1 for unmasked rows) once, into shared memory, before
-//    the loop.
-//  * Weights stay in global memory, read through the read-only path; at
-//    these widths they sit in L1/L2 for the whole launch.
-// Left for a later PR: weights resident in shared memory, the gate product
-// on tensor cores (mma / wgmma) for large H, and a thread-block-cluster
-// split of H with h exchanged through distributed shared memory.
+// Two paths, one arithmetic (mcd_cells.cuh: every product and sum rounded
+// on its own, in the plain version's order -- one chain a gate, the x terms
+// in index order, then the h terms, then the bias -- and the shared
+// lstm_tail, so both paths, the step kernel and the plain version agree
+// bit for bit):
+//  * Warp path, for H that divides 32 (every ECG layer: H = 8, 16), as
+//    mcd_gru_seq.cu's: a row's H units are H lanes of one warp, 32/H rows a
+//    warp.  The T loop has no block barrier: h_{t-1} goes from lane to lane
+//    by __shfl_sync (each lane shuffles its own h * fh, the four masked h
+//    values of its unit), and every lane -- those of rows past B too --
+//    stays in the loop on zeros so the full-mask shuffles are defined.  The
+//    unit's column of wh (4H floats), its h-side mask factors and its bias
+//    live in registers, c in a register.  For the ECG input widths (I = 1,
+//    8, 16) the x-side loop is unrolled at compile time with the unit's
+//    column of wx in registers (else wx is read from shared memory); the
+//    x-side factors sit in shared memory, filled once.  x is copied by
+//    cp.async into a per-row ring of 8 steps in shared memory, 6 steps
+//    ahead of use.  The x-side sums of step t+1 start each gate's chain and
+//    do not depend on h, so they are taken with no branch before step t's
+//    h-side terms, which continue onto the current step's x-side sums: the
+//    two interleave.  Registers: at (I, H) = (16, 16) a lane holds 64 + 64
+//    weight floats; nvcc -Xptxas -v (printed by chip_smoke.py's build)
+//    reports no spill for any warp instantiation under
+//    __launch_bounds__(128), so every ECG width keeps wx in registers.
+//  * Block path, for every other H (the wide H = 128 layer, H = 24), and
+//    for an input too wide for the warp path's shared memory: one block
+//    owns R whole rows, one thread per (row, unit); h of the tile in shared
+//    memory and two block barriers a step separate the reads of h_{t-1}
+//    from the writes of h_t; weights read through the read-only path.
+// The host picks the path, the rows a block and the shared memory
+// (kernels/mcd_lstm_seq.py::lstm_seq_plan) and passes them in; the entry
+// checks the shared memory against what the path needs.
+// Left for a later PR: the int8/int4 in-kernel dequant, tensor cores for
+// large H, a cluster split of H.
 //
 // The mask stream (mcd_mask.cuh) and the cell body (mcd_cells.cuh) are
 // shared with the GRU and step kernels.
@@ -37,12 +59,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mcd_async.cuh"
 #include "mcd_cells.cuh"
 #include "mcd_mask.cuh"
 
 namespace {
 
 constexpr int kGates = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpMaxThreads = 128;
+constexpr int kXRing = 8;   // x_t slots a row on the warp path: x is read
+                            // kXRing - 2 steps ahead of its x-side sums
 
 __global__ void mcd_lstm_seq_kernel(
     const float* __restrict__ x,      // [B, T, I]
@@ -110,33 +137,237 @@ __global__ void mcd_lstm_seq_kernel(
   }
 }
 
+// Warp path: blockDim.x = 32 * warps, R = warps * (32 / H) rows a block.
+// (Both paths' names hold "mcd_lstm_seq_kernel", the name a profile of the
+// kernel matches.)
+// IX > 0: I == IX, the x-side loop is straight-line code (so its loads and
+// products interleave with the h-side chain) and the unit's column of wx
+// lives in registers; IX == 0: any I, wx read from shared memory.
+template <int H, int IX>
+__global__ void __launch_bounds__(kWarpMaxThreads)
+mcd_lstm_seq_kernel_warp(
+    const float* __restrict__ x, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ bias,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ lens,
+    const float* __restrict__ h0, const float* __restrict__ c0,
+    float* __restrict__ ys, float* __restrict__ hT, float* __restrict__ cT,
+    int B, int T, int I, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  constexpr int kRowsPerWarp = 32 / H;
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][4][I]
+  float* fh = fx + R * kGates * I;      // [R][4][H]
+  float* wxs = fh + R * kGates * H;     // [I][4][H]
+  float* xb = wxs + I * kGates * H;     // [R][kXRing][I]  x_t ring
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+  for (int e = threadIdx.x; e < I * kGates * H; e += blockDim.x)
+    wxs[e] = wx[e];
+  __syncthreads();                      // the only block barrier
+
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x >> 5) * kRowsPerWarp + lane / H;
+  const int j = lane % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+
+  float whr[kGates][H];                 // the unit's column of wh
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      whr[g][k] = __ldg(wh + (k * kGates + g) * H + j);
+  float wxr[kGates][IX > 0 ? IX : 1];   // ... and of wx, when I == IX
+#pragma unroll
+  for (int i = 0; i < IX; ++i)
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      wxr[g][i] = wxs[(i * kGates + g) * H + j];
+  float fhj[kGates], bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    fhj[g] = fh[(r * kGates + g) * H + j];
+    bj[g] = bias[g * H + j];
+  }
+  float h = active ? h0[(size_t)br * H + j] : 0.0f;
+  float c = active ? c0[(size_t)br * H + j] : 0.0f;
+  const int len = active ? lens[br] : 0;
+  const float* fxr = fx + r * kGates * I;
+  const float* xrow = x + (size_t)(active ? br : 0) * T * I;
+  float* const ring = xb + r * kXRing * I;
+  auto slot = [&](int t) { return ring + (t % kXRing) * I; };
+
+  // The row's lanes copy x_t into its slot (zeros for rows past B, nothing
+  // for t >= T); one commit group a step, empty ones too, so a wait counts
+  // steps.
+  auto stage = [&](int t) {
+    if (t < T)
+      for (int i = j; i < I; i += H)
+        mcd::cp_async4(slot(t) + i, xrow + (size_t)t * I + i, active);
+    mcd::cp_async_commit();
+  };
+  // The x-side gate sums of step t, in index order, once x_t has landed
+  // for the row: the start of each gate's chain.
+  auto x_side = [&](int t, float* s) {
+    const float* xt = slot(t);
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) s[g] = 0.0f;
+    if (IX > 0) {
+#pragma unroll
+      for (int i = 0; i < (IX > 0 ? IX : 1); ++i) {
+        const float xv = xt[i];
+#pragma unroll
+        for (int g = 0; g < kGates; ++g)
+          s[g] = mcd::gate_term(s[g], xv, fxr[g * IX + i], wxr[g][i]);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < I; ++i) {
+        const float xv = xt[i];
+        const float* w = wxs + i * kGates * H + j;
+#pragma unroll
+        for (int g = 0; g < kGates; ++g)
+          s[g] = mcd::gate_term(s[g], xv, fxr[g * I + i], w[g * H]);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kXRing - 1; ++t) stage(t);
+  mcd::cp_async_wait<kXRing - 2>();     // x_0 has landed
+  __syncwarp();
+  float a[kGates];                      // x-side sums of the current step
+  x_side(0, a);
+
+  for (int t = 0; t < T; ++t) {
+    // No branch from here to the end of the h-side chain: the x-side sums
+    // of step t+1 (unused after the last step) and step t's h side
+    // interleave.
+    mcd::cp_async_wait<kXRing - 3>();   // x_{t+1} has landed
+    __syncwarp();                       // ... for the row; x_{t-1} was read
+    stage(t + kXRing - 1);              // into x_{t-1}'s slot
+    float n[kGates];
+    x_side(t + 1, n);
+    // h side: each lane's h * fh for its unit, shuffled to the row's
+    // lanes, continuing each gate's chain after its x terms.
+    float hf[kGates];
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) hf[g] = __fmul_rn(h, fhj[g]);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g)
+        a[g] = mcd::gate_term_vf(a[g], __shfl_sync(kFull, hf[g], k, H),
+                                 whr[g][k]);
+    float c_new = c;
+    const float h_new = mcd::lstm_tail(a[0], a[1], a[2], a[3], bj, c_new);
+    if (t < len) {
+      h = h_new;
+      c = c_new;
+    }
+    if (active) ys[((size_t)br * T + t) * H + j] = h;
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) a[g] = n[g];
+  }
+  if (active) {
+    hT[(size_t)br * H + j] = h;
+    cT[(size_t)br * H + j] = c;
+  }
+}
+
+size_t block_smem_bytes(int R, int I, int H) {
+  return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
+}
+
+size_t warp_smem_bytes(int R, int I, int H) {
+  return ((size_t)R * (kGates * (I + H) + kXRing * I) +
+          (size_t)kGates * I * H) *
+         sizeof(float);
+}
+
+template <typename Kernel>
+cudaError_t fit_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int H, int IX>
+int launch_warp(const float* x, const float* wx, const float* wh,
+                const float* bias, const int32_t* rows, const int32_t* lens,
+                const float* h0, const float* c0, float* ys, float* hT,
+                float* cT, int B, int T, int I, int R, size_t smem,
+                const mcd::GateKeys& keys, uint32_t thr, float scale,
+                int masked, cudaStream_t stream) {
+  const int threads = R * H;            // whole warps
+  if (threads % 32 || threads > kWarpMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_lstm_seq_kernel_warp<H, IX>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_lstm_seq_kernel_warp<H, IX>
+      <<<(B + R - 1) / R, threads, smem, stream>>>(
+          x, wx, wh, bias, rows, lens, h0, c0, ys, hT, cT, B, T, I, R, keys,
+          thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes for a tile of R rows (the wrapper picks R).
-size_t mcd_lstm_seq_smem_bytes(int R, int I, int H) {
-  return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
-}
-
-// Launches one layer on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches one layer on `stream` on the path the host planned (warp != 0:
+// the warp path, H must divide 32) with R rows a block and `smem` bytes of
+// shared memory; returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue when the plan does not fit the path.
 int mcd_lstm_seq_launch(const float* x, const float* wx, const float* wh,
                         const float* bias, const int32_t* rows,
                         const int32_t* lens, const float* h0, const float* c0,
                         float* ys, float* hT, float* cT, int B, int T, int I,
-                        int H, int R, const uint32_t* keys8, uint32_t thr,
-                        float scale, int masked, void* stream) {
-  const size_t smem = mcd_lstm_seq_smem_bytes(R, I, H);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mcd_lstm_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                        int H, int R, int warp, int smem_bytes,
+                        const uint32_t* keys8, uint32_t thr, float scale,
+                        int masked, void* stream) {
+  const size_t smem = (size_t)smem_bytes;
+  const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (warp) {
+    if (smem < warp_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+#define MCD_LSTM_WARP_I(HH, II)                                          \
+  return launch_warp<HH, II>(x, wx, wh, bias, rows, lens, h0, c0, ys, hT, \
+                             cT, B, T, I, R, smem, keys, thr, scale,      \
+                             masked, s);
+#define MCD_LSTM_WARP(HH)          \
+  case HH:                         \
+    switch (I) {                   \
+      case 1:                      \
+        MCD_LSTM_WARP_I(HH, 1)     \
+      case 8:                      \
+        MCD_LSTM_WARP_I(HH, 8)     \
+      case 16:                     \
+        MCD_LSTM_WARP_I(HH, 16)    \
+      default:                     \
+        MCD_LSTM_WARP_I(HH, 0)     \
+    }
+    switch (H) {
+      MCD_LSTM_WARP(1)
+      MCD_LSTM_WARP(2)
+      MCD_LSTM_WARP(4)
+      MCD_LSTM_WARP(8)
+      MCD_LSTM_WARP(16)
+      MCD_LSTM_WARP(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef MCD_LSTM_WARP
+#undef MCD_LSTM_WARP_I
   }
-  const int blocks = (B + R - 1) / R;
-  mcd_lstm_seq_kernel<<<blocks, R * H, smem, (cudaStream_t)stream>>>(
-      x, wx, wh, bias, rows, lens, h0, c0, ys, hT, cT, B, T, I, H, R,
-      mcd::to_keys(keys8, 2 * kGates), thr, scale, masked);
+  if (smem < block_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_lstm_seq_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_lstm_seq_kernel<<<(B + R - 1) / R, R * H, smem, s>>>(
+      x, wx, wh, bias, rows, lens, h0, c0, ys, hT, cT, B, T, I, H, R, keys,
+      thr, scale, masked);
   return (int)cudaGetLastError();
 }
 

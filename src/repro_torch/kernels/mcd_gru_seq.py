@@ -7,9 +7,10 @@ PyTorch version of the same function, for CPU tensors.  A CUDA tensor never
 reaches the plain version: it launches the kernel or raises.
 
 The GRU's whole recurrent state is ``h``: one carried operand in, one out.
-:func:`gru_seq_plan` picks the kernel's path (a warp per 32/H rows for H
-that divides 32, else a block per row tile), the rows a block and the
-shared memory.  The kernel's design notes are at the top of the ``.cu``
+:func:`gru_seq_plan` (:func:`repro_torch.kernels.common.seq_plan`, shared
+with the LSTM) picks the kernel's path (a warp per 32/H rows for H that
+divides 32, else a block per row tile), the rows a block and the shared
+memory.  The kernel's design notes are at the top of the ``.cu``
 source.
 """
 
@@ -47,46 +48,14 @@ def mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
     return torch.stack(ys, dim=1), h
 
 
-_WARP_BLOCKS = (4, 2, 1)   # warps a block on the warp path, largest first
-X_RING = 8                 # x_t slots a row on the warp path (kXRing)
+X_RING = common.X_RING     # x_t slots a row on the warp path (kXRing)
 
 
 def gru_seq_plan(batch: int, in_dim: int, hidden: int) -> dict:
-    """How ``csrc/mcd_gru_seq.cu`` runs a layer: its path, the rows a block,
-    the threads and blocks, and the shared memory a block needs.
-
-    H that divides 32 takes the warp path: a row's H units are H lanes of
-    one warp, ``32 // H`` rows a warp, 4, 2 or 1 warps a block -- the most
-    that still make two blocks an SM, so the rows spread over every SM --
-    with the layer's wx, the rows' mask factors and a ring of ``X_RING`` x
-    steps a row in shared memory.  Every other H takes the block path (one thread
-    per (row, unit), :func:`repro_torch.kernels.common.tile_rows` rows a
-    block), and so does an input too wide for the warp path's shared
-    memory (its wx alone: ``12 * I * H`` bytes); both paths compute the
-    same bits.  Raises ``NotImplementedError`` where neither fits.
-    """
-    if min(batch, in_dim, hidden) < 1:
-        raise ValueError(f"empty layer: B={batch}, I={in_dim}, H={hidden}")
-    if 32 % hidden == 0:
-        per_warp = 32 // hidden
-        warps = -(-batch // per_warp)
-        fits = []
-        for wpb in _WARP_BLOCKS:
-            rows = wpb * per_warp
-            smem = 4 * (rows * (GATES * (in_dim + hidden) + X_RING * in_dim)
-                        + GATES * in_dim * hidden)
-            if smem <= common.SMEM_MAX:
-                fits.append((wpb, rows, smem))
-        if fits:
-            wpb, rows, smem = next((f for f in fits
-                                    if -(-warps // f[0]) >= 2 * common.SMS),
-                                   fits[-1])
-            return {"path": "warp", "rows": rows, "threads": 32 * wpb,
-                    "blocks": -(-batch // rows), "smem": smem}
-    rows = common.tile_rows(GATES, in_dim, hidden)
-    return {"path": "block", "rows": rows, "threads": rows * hidden,
-            "blocks": -(-batch // rows),
-            "smem": 4 * rows * (GATES * (in_dim + hidden) + in_dim + hidden)}
+    """How ``csrc/mcd_gru_seq.cu`` runs a layer (:func:`common.seq_plan`
+    with the GRU's 3 gates): its path, the rows a block, the threads and
+    blocks, and the shared memory a block needs."""
+    return common.seq_plan(GATES, batch, in_dim, hidden)
 
 
 def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
@@ -121,14 +90,11 @@ def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
         common.check(name, t, dev, torch.float32, shape)
     rows32 = common.rows_arg(rows, B, dev)
     lens = common.lengths_arg(lengths, B, T, dev)
-    plan = gru_seq_plan(B, I, H)
     ys = torch.empty((B, T, H), device=dev)
     hT = torch.empty((B, H), device=dev)
-    common.launch(mcd_gru_seq, (x_seq, wx, wh, b, rows32, lens, h0, ys, hT),
-                  (B, T, I, H, plan["rows"], int(plan["path"] == "warp"),
-                   plan["smem"]), keys, 6, p_drop,
-                  f"mcd_gru_seq (B={B}, T={T}, I={I}, H={H}, "
-                  f"{plan['path']} path, R={plan['rows']})")
+    common.seq_launch(mcd_gru_seq,
+                      (x_seq, wx, wh, b, rows32, lens, h0, ys, hT), B, T, I,
+                      H, GATES, keys, p_drop)
     return ys, hT
 
 

@@ -6,8 +6,11 @@
 PyTorch version of the same function, for CPU tensors.  A CUDA tensor never
 reaches the plain version: it launches the kernel or raises.
 
-The kernel's design notes (what bounds it on an H100 and what is left for a
-later PR) are at the top of the ``.cu`` source.
+:func:`lstm_seq_plan` (:func:`repro_torch.kernels.common.seq_plan`, shared
+with the GRU) picks the kernel's path (a warp per 32/H rows for H that
+divides 32, else a block per row tile), the rows a block and the shared
+memory.  The kernel's design notes (what bounds it on an H100 and what is
+left for a later PR) are at the top of the ``.cu`` source.
 """
 
 from __future__ import annotations
@@ -49,9 +52,21 @@ def mcd_lstm_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
     return torch.stack(ys, dim=1), h, c
 
 
+X_RING = common.X_RING     # x_t slots a row on the warp path (kXRing)
+
+
 def tile_rows(in_dim: int, hidden: int) -> int:
-    """Batch rows per block: ~128 threads, shrunk to fit shared memory."""
+    """Batch rows per block on the block path: ~128 threads, shrunk to fit
+    shared memory."""
     return common.tile_rows(GATES, in_dim, hidden)
+
+
+def lstm_seq_plan(batch: int, in_dim: int, hidden: int) -> dict:
+    """How ``csrc/mcd_lstm_seq.cu`` runs a layer (:func:`common.seq_plan`
+    with the LSTM's 4 gates): its path (warp for H that divides 32, else
+    block), the rows a block, the threads and blocks, and the shared memory
+    a block needs."""
+    return common.seq_plan(GATES, batch, in_dim, hidden)
 
 
 def mcd_lstm_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
@@ -88,14 +103,12 @@ def mcd_lstm_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
         common.check(name, t, dev, torch.float32, shape)
     rows32 = common.rows_arg(rows, B, dev)
     lens = common.lengths_arg(lengths, B, T, dev)
-    R = tile_rows(I, H)
     ys = torch.empty((B, T, H), device=dev)
     hT = torch.empty((B, H), device=dev)
     cT = torch.empty((B, H), device=dev)
-    common.launch(mcd_lstm_seq,
-                  (x_seq, wx, wh, b, rows32, lens, h0, c0, ys, hT, cT),
-                  (B, T, I, H, R), keys, 8, p_drop,
-                  f"mcd_lstm_seq (B={B}, T={T}, I={I}, H={H}, R={R})")
+    common.seq_launch(mcd_lstm_seq,
+                      (x_seq, wx, wh, b, rows32, lens, h0, c0, ys, hT, cT),
+                      B, T, I, H, GATES, keys, p_drop)
     return ys, hT, cT
 
 

@@ -26,9 +26,51 @@ import torch
 
 from repro_torch.kernels import common
 
-# The kernel's register tiles: P <= 64 (4 x 16 columns of y), N <= 128
-# (4 x 32 columns of the state).
-_MAX_P, _MAX_N = 64, 128
+# The kernel's shapes and tiles (csrc/ssd_chunk.cu): Q <= 256 query rows a
+# block (8 warps x 2 groups of 16), P <= 64 and N <= 128 (the register
+# tiles), 256 threads, a ring of 3 slots of staged tiles of 16 steps (rows of
+# 256 + 4 floats) and of x (rows of 64); the scores pre-pass in 64 x 64
+# tiles with rows of 64 + 4 floats.
+_MAX_Q, _MAX_P, _MAX_N = 256, 64, 128
+_THREADS, _BK, _TS, _ST, _STAGES = 256, 16, 256 + 4, 64, 3
+_SMEM_SM = 228 * 1024      # shared memory of one SM (H100) ...
+_SMEM_RESERVED = 1024      # ... of which each resident block reserves 1 KB
+
+
+def ssd_plan(B: int, L: int, H: int, P: int, N: int,
+             q_chunk: int = 256) -> dict:
+    """How ``csrc/ssd_chunk.cu`` runs a scan: the chunk ``Q``; the cumsum
+    kernel (one thread per (b, chunk, h), into a scratch shaped like dt);
+    the scores pre-pass (one block per (b, chunk) and 64 x 64 tile of the
+    causal half; its scratches of ``B * (L / Q) * Q * Q`` floats of C . B
+    and of ``B * (L / Q) * N * Q`` of C transposed); the head kernel (one
+    block of 256 threads per (b, h)); the shared memory of each and the
+    head blocks an SM holds.  Raises ``ValueError`` for a shape the kernel
+    does not take."""
+    if min(B, L, H, P, N, q_chunk) < 1:
+        raise ValueError(f"empty shape: B={B}, L={L}, H={H}, P={P}, N={N}, "
+                         f"q_chunk={q_chunk}")
+    if P > _MAX_P or N > _MAX_N:
+        raise ValueError(f"P={P} must be <= {_MAX_P} and N={N} <= {_MAX_N}")
+    Q = common.largest_divisor(L, q_chunk)
+    if Q > _MAX_Q:
+        raise ValueError(f"a chunk of {Q} steps at P={P}, N={N}: the "
+                         f"kernel's shared memory tiles hold at most "
+                         f"{_MAX_Q} query rows")
+    nt = -(-Q // _ST)
+    tiles = nt * (nt + 1) // 2
+    smem = 4 * (_MAX_N * _MAX_P + _STAGES * (_BK * _TS + _BK * _MAX_P)
+                + 4 * _MAX_Q)
+    return {"Q": Q, "chunks": L // Q, "threads": _THREADS,
+            "blocks": B * H, "smem": smem,
+            "blocks_per_sm": min(2048 // _THREADS,
+                                 _SMEM_SM // (smem + _SMEM_RESERVED)),
+            "cumsum_threads": B * (L // Q) * H,
+            "cumsum_blocks": -(-B * (L // Q) * H // _THREADS),
+            "score_tiles": tiles, "score_blocks": B * (L // Q) * tiles,
+            "score_smem": 4 * 2 * N * (_ST + 4),
+            "scores_bytes": 4 * B * (L // Q) * Q * Q,
+            "ct_bytes": 4 * B * (L // Q) * N * Q}
 
 
 def ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
@@ -67,7 +109,18 @@ def ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
     return torch.cat(ys, dim=1), state
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
+def blocks_per_sm() -> int:
+    """The head kernel's resident blocks an SM on this card, as the CUDA
+    driver computes them (builds the kernel on first use; needs a card)."""
+    n = ctypes.c_int(0)
+    err = common.c_entry("ssd_chunk", "ssd_chunk_scan_blocks_per_sm",
+                         (ctypes.c_void_p,))(ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return n.value
 
 
 def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
@@ -75,8 +128,9 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
 
     CPU tensors run :func:`ssd_chunk_scan_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``ssd_chunk_scan.launches``):
-    fp32, contiguous, P <= 64, N <= 128, and a chunk whose tiles fit in
-    shared memory (Q <= 256 at P = 64, N = 128).
+    fp32, contiguous, P <= 64, N <= 128 and a chunk of at most 256 steps
+    (:func:`ssd_plan`).  The launch runs the cumsum kernel and the scores
+    pre-pass into scratches allocated here, then the head kernel.
     """
     if common.check_device("ssd_chunk_scan", x):
         return ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip,
@@ -86,21 +140,12 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
                          f"{tuple(x.shape)}, {tuple(bm.shape)}")
     B, L, H, P = x.shape
     N = bm.shape[-1]
-    if min(B, L, H, P, N, q_chunk) < 1:
-        raise ValueError(f"empty shape: x {tuple(x.shape)}, N={N}, "
-                         f"q_chunk={q_chunk}")
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"ssd_chunk_scan takes fp32 on the card, got {x.dtype}; bf16 is "
             "queued with the serving precisions (ROADMAP.md)")
-    if P > _MAX_P or N > _MAX_N:
-        raise ValueError(f"P={P} must be <= {_MAX_P} and N={N} <= {_MAX_N}")
-    Q = common.largest_divisor(L, q_chunk)
-    smem = common.c_entry("ssd_chunk", "ssd_chunk_scan_smem",
-                          (ctypes.c_int,) * 3)(P, N, Q)
-    if smem > common.SMEM_MAX:
-        raise ValueError(f"a chunk of {Q} steps at P={P}, N={N} needs {smem} "
-                         f"bytes of shared memory, above {common.SMEM_MAX}")
+    plan = ssd_plan(B, L, H, P, N, q_chunk)
+    Q = plan["Q"]
     dev = x.device
     common.check("x", x, dev, torch.float32, (B, L, H, P))
     common.check("dt", dt, dev, torch.float32, (B, L, H))
@@ -108,12 +153,21 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
     common.check("bm", bm, dev, torch.float32, (B, L, N))
     common.check("cm", cm, dev, torch.float32, (B, L, N))
     common.check("d_skip", d_skip, dev, torch.float32, (H,))
+    scores = torch.empty((plan["scores_bytes"] // 4,), dtype=torch.float32,
+                         device=dev)
+    ct = torch.empty((plan["ct_bytes"] // 4,), dtype=torch.float32,
+                     device=dev)
+    cs = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    # 16-byte copies where every row the head kernel stages is aligned
+    vec = int(x.data_ptr() % 16 == 0 and bm.data_ptr() % 16 == 0
+              and P % 4 == 0 and N % 4 == 0 and Q % 4 == 0)
     y = torch.empty_like(x)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     common.launch_c(ssd_chunk_scan, "ssd_chunk", _ARGTYPES,
                     (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-                     cm.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
-                     h_final.data_ptr(), B, L, H, P, N, Q,
+                     cm.data_ptr(), d_skip.data_ptr(), scores.data_ptr(),
+                     ct.data_ptr(), cs.data_ptr(), y.data_ptr(),
+                     h_final.data_ptr(), B, L, H, P, N, Q, vec,
                      common.stream(dev)),
                     f"ssd_chunk_scan (B={B}, L={L}, H={H}, P={P}, N={N}, "
                     f"Q={Q})")

@@ -78,6 +78,13 @@ class BayesianEngine:
         the logits each step summarised.  Host times of the prefill and of
         each step (summary, argmax and decode call) are taken with the
         device synchronised.
+
+        Each of the n_new steps decodes one position, so prompt length +
+        n_new must not pass ``max_len``: the step past the cache raises
+        ``ValueError`` (``backbone.decode_step``).  The JAX engine differs
+        here: it clamps that step's cache write to the last slot and goes
+        on, so its tokens from that step on are computed over an
+        overwritten cache.
         """
         cfg = self.cfg
         prompts = torch.as_tensor(prompts, device=self.device)

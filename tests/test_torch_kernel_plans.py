@@ -1,13 +1,16 @@
-"""The host-side plans of the two redesigned kernels, on the CPU.
+"""The host-side plans of the redesigned kernels, on the CPU.
 
 ``mcd_matmul.matmul_plan`` picks the product's tile, grid, shared memory
-and keep-bit scratch; ``mcd_gru_seq.gru_seq_plan`` picks the GRU layer's
-path (warp or block), rows a block, threads and shared memory.  The
-kernels run only on the card; what they are launched with is checked here:
-every output and every row covered exactly once, the warp path taken for
-H that divides 32, shared memory within the H100's 227 KB, the plans in
-step with the constants of the CUDA sources, and unsupported shapes
-refused with a pointer to ROADMAP.md.  No JAX.
+and keep-bit scratch; ``mcd_gru_seq.gru_seq_plan`` and
+``mcd_lstm_seq.lstm_seq_plan`` (both ``common.seq_plan``) pick a recurrent
+layer's path (warp or block), rows a block, threads and shared memory;
+``ssd_chunk.ssd_plan`` the SSD scan's chunk, grids, shared memory and
+scores scratch.  The kernels run only on the card; what they are launched
+with is checked here: every output and every row covered exactly once, the
+warp path taken for H that divides 32, shared memory within the H100's 227
+KB, the plans in step with the constants of the CUDA sources, and
+unsupported shapes refused (with a pointer to ROADMAP.md where the port
+queues them).  No JAX.
 """
 
 import re
@@ -20,7 +23,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import build, common  # noqa: E402
 from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
+from repro_torch.kernels import mcd_lstm_seq as lseq  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 
 SMEM_LIMIT = 227 * 1024
 
@@ -150,3 +155,172 @@ def test_gru_wide_input_takes_the_block_path():
 def test_gru_plan_refuses_what_fits_no_path(I, H):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         gseq.gru_seq_plan(4, I, H)
+
+
+# -- mcd_lstm_seq: the GRU's plan with four gates ----------------------------
+
+CLF_AE_LAYERS = [(1, 8), (8, 8), (1, 16), (16, 8), (8, 16), (16, 16)]
+
+
+@pytest.mark.parametrize("B", [1, 5, 33, 1920])
+@pytest.mark.parametrize("I,H", CLF_AE_LAYERS + [(40, 32), (3, 4), (5, 24),
+                                                  (128, 128), (40, 1)])
+def test_lstm_plan_covers_every_row_once(B, I, H):
+    plan = lseq.lstm_seq_plan(B, I, H)
+    rows, blocks = plan["rows"], plan["blocks"]
+    assert np.all(_coverage(B, rows, blocks) == 1)
+    assert (blocks - 1) * rows < B
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+    if plan["path"] == "warp":
+        assert plan["threads"] % 32 == 0 and plan["threads"] <= 128
+        assert rows == plan["threads"] // 32 * (32 // H)
+    else:
+        assert plan["threads"] == rows * H <= 1024
+        assert rows == lseq.tile_rows(I, H)
+
+
+@pytest.mark.parametrize("H", list(range(1, 41)))
+def test_lstm_warp_path_iff_hidden_divides_32(H):
+    for I in (1, 8, 16, 40):
+        for B in (1, 33, 1920):
+            path = lseq.lstm_seq_plan(B, I, H)["path"]
+            assert (path == "warp") == (32 % H == 0), (B, I, H)
+
+
+def test_lstm_plan_spreads_the_ecg_layers_over_every_sm():
+    for I, H in CLF_AE_LAYERS:
+        plan = lseq.lstm_seq_plan(1920, I, H)
+        assert plan["path"] == "warp"
+        assert plan["blocks"] >= 2 * common.SMS
+
+
+def test_lstm_plan_matches_the_cuda_source():
+    """The warp path's shared memory is the source's warp_smem_bytes with
+    four gates, its x ring the source's kXRing, and the GRU's plan is the
+    same rule with three gates."""
+    src = (build.CSRC / "mcd_lstm_seq.cu").read_text()
+    assert re.search(r"constexpr int kGates = 4;", src)
+    assert re.search(rf"constexpr int kXRing = {lseq.X_RING};", src)
+    assert re.search(r"kGates \* \(I \+ H\) \+ kXRing \* I", src)
+    for B, I, H in ((1920, 16, 16), (1920, 1, 8), (33, 40, 32), (7, 3, 4)):
+        plan = lseq.lstm_seq_plan(B, I, H)
+        R = plan["rows"]
+        assert plan["smem"] == 4 * (R * (4 * (I + H) + lseq.X_RING * I)
+                                    + 4 * I * H)
+        assert gseq.gru_seq_plan(B, I, H) == common.seq_plan(3, B, I, H)
+    plan = lseq.lstm_seq_plan(5, 40, 24)
+    assert plan["smem"] == 4 * plan["rows"] * (4 * (40 + 24) + 40 + 24)
+
+
+def test_lstm_wide_input_takes_the_block_path():
+    """An input too wide for the warp path's shared memory (wx alone is
+    16 * I * H bytes) runs on the block path, which computes the same
+    bits."""
+    plan = lseq.lstm_seq_plan(3, 8192, 8)
+    assert plan["path"] == "block" and plan["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("I,H", [(8, 2048), (20000, 8), (50000, 24)])
+def test_lstm_plan_refuses_what_fits_no_path(I, H):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lseq.lstm_seq_plan(4, I, H)
+
+
+# -- ssd_chunk_scan: the scores pre-pass and the head kernel -----------------
+
+SERVING_SSD = (64, 512, 32, 64, 128, 256)      # mamba2-370m prefill
+
+
+def _cu_constants():
+    src = (build.CSRC / "ssd_chunk.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}, src
+
+
+def _score_tiles(Q, tile):
+    """The causal tiles (kt, qt) the pre-pass's blocks take, in the order
+    the source enumerates them."""
+    nt = -(-Q // tile)
+    out = []
+    for t0 in range(nt * (nt + 1) // 2):
+        t, kt = t0, 0
+        while t >= nt - kt:
+            t -= nt - kt
+            kt += 1
+        out.append((kt, kt + t))
+    return out
+
+
+@pytest.mark.parametrize("B,L,H,P,N,q", [SERVING_SSD,
+                                         (8, 320, 32, 64, 128, 256),
+                                         (3, 40, 2, 8, 16, 16),
+                                         (2, 150, 3, 40, 72, 64),
+                                         (1, 400, 2, 20, 100, 256)])
+def test_ssd_plan_covers_every_output_once(B, L, H, P, N, q):
+    plan = ssd_chunk.ssd_plan(B, L, H, P, N, q)
+    Q = plan["Q"]
+    assert Q == common.largest_divisor(L, q) and plan["chunks"] * Q == L
+    assert plan["blocks"] == B * H and plan["threads"] == 256
+    consts, _ = _cu_constants()
+    tile = consts["kST"]
+    tiles = _score_tiles(Q, tile)
+    assert len(tiles) == plan["score_tiles"]
+    assert plan["score_blocks"] == B * plan["chunks"] * len(tiles)
+    hits = np.zeros((Q, Q), dtype=np.int64)        # [k, q]
+    for kt, qt in tiles:
+        assert qt >= kt
+        hits[kt * tile:(kt + 1) * tile, qt * tile:(qt + 1) * tile] += 1
+    causal = np.triu(np.ones((Q, Q), dtype=bool))  # k <= q
+    assert np.all(hits[causal] == 1)
+    assert plan["scores_bytes"] == 4 * B * (L // Q) * Q * Q
+    assert plan["ct_bytes"] == 4 * B * (L // Q) * N * Q
+    # the cumsum: one thread per (b, chunk, h), every chain once
+    assert plan["cumsum_threads"] == B * (L // Q) * H
+    assert (plan["cumsum_blocks"] - 1) * 256 < plan["cumsum_threads"] \
+        <= plan["cumsum_blocks"] * 256
+    # the query rows the head block holds: 8 warps x 2 groups of 16
+    assert Q <= 16 * 2 * consts["kThreads"] // 32
+    assert P <= consts["kPMax"] and N <= consts["kNMax"]
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+    assert 0 < plan["score_smem"] <= SMEM_LIMIT
+
+
+def test_ssd_plan_at_the_serving_shape():
+    plan = ssd_chunk.ssd_plan(*SERVING_SSD)
+    assert plan["Q"] == 256 and plan["chunks"] == 2
+    assert plan["blocks_per_sm"] >= 2               # 16 warps an SM
+    assert plan["blocks"] >= 2 * common.SMS
+    assert plan["scores_bytes"] == 64 * 2 * 256 * 256 * 4   # 33.5 MB,
+    assert plan["scores_bytes"] < 50e6                       # within L2
+
+
+def test_ssd_plan_matches_the_cuda_source():
+    consts, src = _cu_constants()
+    assert (consts["kThreads"], consts["kQMax"], consts["kPMax"],
+            consts["kNMax"], consts["kBK"], consts["kST"]) == (
+        ssd_chunk._THREADS, ssd_chunk._MAX_Q, ssd_chunk._MAX_P,
+        ssd_chunk._MAX_N, ssd_chunk._BK, ssd_chunk._ST)
+    assert re.search(r"constexpr int kTS = kQMax \+ 4;", src)
+    assert ssd_chunk._TS == consts["kQMax"] + 4
+    assert consts["kStages"] == ssd_chunk._STAGES
+    assert re.search(r"constexpr int kStage = kBK \* kTS \+ kBK \* kPMax;",
+                     src)
+    assert re.search(r"kSmemFloats = kNMax \* kPMax \+ kStages \* kStage "
+                     r"\+ 4 \* kQMax;", src)
+    plan = ssd_chunk.ssd_plan(*SERVING_SSD)
+    assert plan["smem"] == 4 * (128 * 64 + 3 * (16 * 260 + 16 * 64)
+                                + 4 * 256)
+    assert plan["score_smem"] == 4 * 2 * 128 * (64 + 4)
+    # every kernel the wrapper launches holds the name a profile matches
+    kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", src)
+    assert len(kernels) == 3
+    assert all("ssd_chunk_scan_kernel" in k for k in kernels)
+
+
+@pytest.mark.parametrize("L,H,P,N,q,what", [
+    (512, 1, 64, 128, 512, "shared memory"), (16, 2, 72, 16, 16, "P="),
+    (16, 2, 8, 160, 16, "N="), (0, 2, 8, 16, 16, "empty")])
+def test_ssd_plan_refuses_what_the_kernel_does_not_take(L, H, P, N, q, what):
+    with pytest.raises(ValueError, match=what):
+        ssd_chunk.ssd_plan(1, L, H, P, N, q)

@@ -92,6 +92,17 @@ def test_same_seed_same_generation_and_teacher_forcing(params):
     assert not torch.equal(other.mutual_information, a.mutual_information)
 
 
+def test_generate_past_max_len_raises(params):
+    """Prompt + new tokens up to ``max_len`` serve; one more raises
+    ``ValueError`` at the decode step past the cache.  (The JAX engine
+    clamps that step's cache write to the last slot and goes on: a
+    documented divergence, not a repair.)"""
+    res = _engine(params).generate(PROMPTS, MAX_LEN - L)
+    assert res.tokens.shape == (B, MAX_LEN - L)
+    with pytest.raises(ValueError, match="past the cache"):
+        _engine(params).generate(PROMPTS, MAX_LEN - L + 1)
+
+
 def test_p_zero_leaves_no_epistemic_part(params):
     cfg = TCFG.replace(mcd=TCFG.mcd.replace(p=0.0))
     res = _engine(params, cfg).generate(PROMPTS, 3)
