@@ -48,10 +48,19 @@ Phases (each raises on failure; the exit code is then non-zero):
    cache; prefill 64 x 128 rows): the mask bit-equal to the plain stream
    (a row with bit 31 set included), ``mcd_matmul`` within MM_TOL (also at
    M = 65, K = 2050, N = 12290, off its 16-byte path; whether each case is
-   bit-equal to cuBLAS, and two calls bitwise equal) and
-   ``decode_attention`` within ATTN_TOL.  Times the kernel, its plain
-   version and the library call (cuBLAS on the masked x; scaled dot-product
-   attention over the live positions).
+   bit-equal to cuBLAS, and two calls bitwise equal).  ``decode_attention``
+   at ATTN_CASES (the serving shape at pos 0, 127 and 159; one prompt's 8
+   rows; a 4096-position cache at pos 2047 and 4095; llama3-8b's 32 q / 8
+   KV heads): within ATTN_TOL, no further from a float64 evaluation than
+   twice the plain version, two calls, a tensor pos against the int, and
+   NaN in the cache past pos each bitwise equal, and at the serving shape
+   one CUDA graph of a call with a tensor pos replayed at GRAPH_POSITIONS
+   bitwise equal to eager calls; each case records ``decode_plan`` and the
+   blocks an SM.  Times the kernel, its plain version and the library call
+   (cuBLAS on the masked x; scaled dot-product attention over the live
+   positions); a case whose caches fit in L2 is timed over copies of its
+   inputs in turn, so that no timed call finds its caches in L2 (in a
+   decode step each layer reads its own).
 7. LM serving: ``BayesianEngine.generate`` on qwen3-1.7b at full width
    (28 layers, random fp32 weights from seed 0), 8 prompts of 128 tokens x
    8 chains (p = 0.1, placement Y), 32 new tokens: the launch counts of the
@@ -103,6 +112,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # kernels compute in fp32 on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20   # its L2 cache (data sheet: 50 MB)
 TOL = 1e-5          # fp32 gate of every recurrent case.  The cell rounds
                     # every product and sum alone, in the plain versions'
                     # order (csrc/mcd_cells.cuh), so the recurrent kernels
@@ -144,9 +154,18 @@ LM_B, LM_S, LM_PROMPT, LM_NEW = 8, 8, 128, 32
 MM_TOL = 1e-4       # mcd_matmul vs cuBLAS: K = 2048 fp32 products summed
                     # in another order; on unit-scale outputs the spread is
                     # ~3e-6 and its max over 1e8 outputs ~2e-5
-ATTN_TOL = 1e-5     # decode_attention: 128-long dot products and a <= 160
-                    # position softmax in another order; outputs are
-                    # weighted means of unit-scale V
+ATTN_TOL = 1e-5     # decode_attention: 128-long dot products and a
+                    # softmax over <= 4096 positions in another order;
+                    # outputs are weighted means of unit-scale V
+# decode_attention cases of phase 6: (B, H, KV, hd, S, positions).
+ATTN_SERVING = (LM_B * LM_S, 16, LM_PROMPT + LM_NEW)     # (B, H, S)
+ATTN_CASES = [
+    (LM_B * LM_S, 16, 8, 128, LM_PROMPT + LM_NEW, (0, 127, 159)),  # qwen3
+    (LM_S, 16, 8, 128, LM_PROMPT + LM_NEW, (159,)),   # one prompt's chains
+    (LM_S, 16, 8, 128, 4096, (2047, 4095)),           # a long cache
+    (LM_B * LM_S, 32, 8, 128, LM_PROMPT + LM_NEW, (159,)),  # llama3-8b heads
+]
+GRAPH_POSITIONS = (0, 63, 127, 159)   # replays of one captured call
 LOGIT_TOL = 1e-3    # the engine on the kernels vs on the reference backend
 UNC_TOL = 1e-4      # (cuBLAS), 28 (48) layers deep: per-step logits and
                     # the entropy / mutual information (nats)
@@ -967,9 +986,7 @@ def lm_kernel_phase(report) -> list[dict]:
     """The three LM kernels against their plain versions at qwen3-1.7b's
     serving shapes."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
-                                     mcd_matmul)
+    from repro_torch.kernels import bernoulli_mask, common, mcd_matmul
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     rows_n = LM_B * LM_S                     # 8 prompts x 8 chains
@@ -1046,40 +1063,160 @@ def lm_kernel_phase(report) -> list[dict]:
             library=lambda: torch.matmul(xm, wm)))
         del got, again, want, xm
 
-    # decode_attention: 64 rows, 16 q / 8 KV heads of 128, 160 positions.
-    B, H, KV, hd, S = rows_n, 16, 8, 128, LM_PROMPT + LM_NEW
-    q = torch.randn((B, H, hd), generator=g, device=dev)
-    kc = torch.randn((B, S, KV, hd), generator=g, device=dev)
-    vc = torch.randn((B, S, KV, hd), generator=g, device=dev)
-    for pos in (0, 127, S - 1):
-        got = decode_attn.decode_attention(q, kc, vc, pos)
-        torch.cuda.synchronize()
-        want = decode_attn.decode_attention_plain(q, kc, vc, pos)
-        err = max_abs_diff(got, want, "decode_attention")
-        if err > ATTN_TOL:
-            raise RuntimeError(f"decode_attention disagrees with its plain "
-                               f"version at pos={pos}: {err} > {ATTN_TOL}")
-        n = pos + 1
-        q4 = q[:, :, None]                                 # [B, H, 1, hd]
-        k4 = kc[:, :n].permute(0, 2, 1, 3)                 # [B, KV, n, hd]
-        v4 = vc[:, :n].permute(0, 2, 1, 3)
-
-        def library(q4=q4, k4=k4, v4=v4):
-            return F.scaled_dot_product_attention(q4, k4, v4,
-                                                  enable_gqa=True)
-
-        lib_err = max_abs_diff(library()[:, :, 0], got,
-                               "decode_attention vs SDPA")
-        rec = _lm_record(
-            "decode_attention", dict(B=B, H=H, KV=KV, hd=hd, S=S, pos=pos,
-                                     library_max_abs_diff=lib_err), err,
-            lambda pos=pos: decode_attn.decode_attention(q, kc, vc, pos),
-            lambda pos=pos: decode_attn.decode_attention_plain(q, kc, vc,
-                                                               pos),
-            nbytes=4 * (2 * B * H * hd + 2 * B * n * KV * hd),
-            ops=B * H * n * (4 * hd + 5), library=library)
-        records.append(rec)
+    records += attention_cases()
     report["lm_kernel_cases"] = records
+    return records
+
+
+def attention_inputs(B, H, KV, hd, S):
+    """q [B, H, hd] and the caches [B, S, KV, hd], unit normal, from a seed
+    of the shape (the same inputs whichever tree runs them)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(B * S + H)
+    return [torch.randn(shape, generator=g, device="cuda") for shape in
+            ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def attention_cost(B, H, KV, hd, pos) -> tuple[float, float]:
+    """(bytes, operations) one call needs: q read and out written once, K
+    and V up to pos read once; a score and its share of p . V a position."""
+    n = pos + 1
+    return 4 * (2 * B * H * hd + 2 * B * n * KV * hd), B * H * n * (4 * hd + 5)
+
+
+def attention_check(q, kc, vc, pos):
+    """The gates of one case, each raising: within ATTN_TOL of the plain
+    version; no further from a float64 evaluation of the plain version than
+    twice the fp32 plain version is; two calls bitwise equal; a tensor pos
+    bitwise equal to the int; NaN in the cache past pos changes nothing.
+    Returns the case's record and the kernel's output."""
+    import torch
+    from repro_torch.kernels import decode_attn
+    S = kc.shape[1]
+    got = decode_attn.decode_attention(q, kc, vc, pos)
+    again = decode_attn.decode_attention(q, kc, vc, pos)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=q.device)
+    got_t = decode_attn.decode_attention(q, kc, vc, pos_t)
+    torch.cuda.synchronize()
+    want = decode_attn.decode_attention_plain(q, kc, vc, pos)
+    err = max_abs_diff(got, want, "decode_attention")
+    f64 = decode_attn.decode_attention_plain(q.double(), kc.double(),
+                                             vc.double(), pos)
+    witness = {"kernel_vs_f64": max_abs_diff(got.double(), f64,
+                                             "f64 witness"),
+               "plain_vs_f64": max_abs_diff(want.double(), f64,
+                                            "f64 witness")}
+    del f64
+    nan_equal = None                      # nothing lies past S - 1
+    if pos < S - 1:
+        kn, vn = kc.clone(), vc.clone()
+        kn[:, pos + 1:] = float("nan")
+        vn[:, pos + 1:] = float("nan")
+        nan_equal = bool(
+            torch.equal(decode_attn.decode_attention(q, kn, vn, pos), got)
+            and torch.equal(decode_attn.decode_attention(q, kn, vn, pos_t),
+                            got))
+        del kn, vn
+    case = dict(max_abs_err=err, f64_witness=witness,
+                bit_equal=bool(torch.equal(got, want)),
+                repeat_bit_equal=bool(torch.equal(got, again)),
+                tensor_pos_bit_equal=bool(torch.equal(got, got_t)),
+                nan_past_pos_bit_equal=nan_equal)
+    if (err > ATTN_TOL or witness["kernel_vs_f64"] > 2 *
+            witness["plain_vs_f64"] or not case["repeat_bit_equal"]
+            or not case["tensor_pos_bit_equal"] or nan_equal is False):
+        raise RuntimeError(f"decode_attention at pos={pos}, shape "
+                           f"{tuple(kc.shape)}: {case} (tol {ATTN_TOL})")
+    return case, got
+
+
+def attention_graph_check(q, kc, vc) -> dict:
+    """One CUDA graph of a call with a tensor pos, replayed at
+    GRAPH_POSITIONS: bitwise equal to eager calls with the int, or this
+    raises."""
+    import torch
+    from repro_torch.kernels import decode_attn
+    pos_t = torch.zeros(1, dtype=torch.int32, device=q.device)
+    decode_attn.decode_attention(q, kc, vc, pos_t)   # loaded, attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attn.decode_attention(q, kc, vc, pos_t)
+    equal = {}
+    for pos in GRAPH_POSITIONS:
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        equal[pos] = bool(torch.equal(
+            out, decode_attn.decode_attention(q, kc, vc, pos)))
+    if not all(equal.values()):
+        raise RuntimeError(f"decode_attention graph replay != eager: {equal}")
+    return equal
+
+
+def attention_rotation(q, kc, vc) -> list[tuple]:
+    """The inputs a case's timed calls take in turn: its own and, where its
+    caches fit in L2, copies enough that twice L2 of other caches is read
+    between two calls on one copy.  In a decode step each layer reads its
+    own cache, which is not in L2; one small cache timed over and over
+    would be read from L2."""
+    cache = kc.nbytes + vc.nbytes
+    n = 1 if cache >= L2_BYTES else -(-2 * L2_BYTES // cache)
+    return [(q, kc, vc)] + [(q.clone(), kc.clone(), vc.clone())
+                            for _ in range(n - 1)]
+
+
+def attention_record(inputs, pos, case, err) -> dict:
+    """Times of ``decode_attention`` at ``pos`` over ``inputs`` in turn
+    (:func:`attention_rotation`): the kernel, its plain version and scaled
+    dot-product attention over the live positions; and the bound."""
+    import itertools
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    q, kc, _ = inputs[0]
+    (B, H, hd), KV = q.shape, kc.shape[2]
+    turn = itertools.cycle(range(len(inputs)))
+    sdpa = [(q[:, :, None], k[:, :pos + 1].permute(0, 2, 1, 3),
+             v[:, :pos + 1].permute(0, 2, 1, 3)) for q, k, v in inputs]
+    nbytes, ops = attention_cost(B, H, KV, hd, pos)
+    return _lm_record(
+        "decode_attention", dict(case, timed_copies=len(inputs)), err,
+        lambda: decode_attn.decode_attention(*inputs[next(turn)], pos),
+        lambda: decode_attn.decode_attention_plain(*inputs[next(turn)], pos),
+        nbytes=nbytes, ops=ops,
+        library=lambda: F.scaled_dot_product_attention(
+            *sdpa[next(turn)], enable_gqa=True))
+
+
+def attention_cases() -> list[dict]:
+    """``decode_attention`` at ATTN_CASES: the gates of
+    :func:`attention_check`, the plan and the split kernel's resident
+    blocks an SM (the CUDA occupancy query), the graph replay at the
+    serving shape, SDPA's distance, and :func:`attention_record`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    records = []
+    for B, H, KV, hd, S, positions in ATTN_CASES:
+        q, kc, vc = attention_inputs(B, H, KV, hd, S)
+        plan = decode_attn.decode_plan(B, H, KV, hd, S)
+        per_sm = decode_attn.blocks_per_sm(H, KV, hd)
+        graph = (attention_graph_check(q, kc, vc)
+                 if (B, H, S) == ATTN_SERVING else None)
+        inputs = attention_rotation(q, kc, vc)
+        for pos in positions:
+            case, got = attention_check(q, kc, vc, pos)
+            sdpa = F.scaled_dot_product_attention(
+                q[:, :, None], kc[:, :pos + 1].permute(0, 2, 1, 3),
+                vc[:, :pos + 1].permute(0, 2, 1, 3), enable_gqa=True)
+            case["library_max_abs_diff"] = max_abs_diff(
+                sdpa[:, :, 0], got, "decode_attention vs SDPA")
+            err = case.pop("max_abs_err")
+            records.append(attention_record(
+                inputs, pos, dict(B=B, H=H, KV=KV, hd=hd, S=S, pos=pos,
+                                  plan=plan, blocks_per_sm=per_sm,
+                                  graph_bit_equal=graph, **case), err))
+            del got, sdpa
+        del q, kc, vc, inputs
     return records
 
 
@@ -1094,9 +1231,11 @@ def lm_kernel_entries(records) -> list[dict]:
         "mcd_matmul": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
                        "SwiGLU gate/up at decode: [64, 2048] @ [2048, "
                        "12288] fp32, p=0.1 (prefill M=8192 in the report)"),
-        "decode_attention": (lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
+        "decode_attention": (lambda r: (r["B"], r["H"], r["S"], r["pos"])
+                             == (*ATTN_SERVING, LM_PROMPT + LM_NEW - 1),
                              "B=64, H=16, KV=8, hd=128, cache 160, pos=159 "
-                             "(pos 0 and 127 in the report)"),
+                             "(pos 0 and 127, one prompt's 8 rows, a "
+                             "4096-position cache and rep=4 in the report)"),
     }
     entries = []
     for name, (pick, note) in picks.items():

@@ -7,180 +7,411 @@
 // g = h / rep and rep = H / KV (q heads group as q.reshape(B, KV, rep, hd)).
 // The running max, denominator and accumulator are fp32 and combine as the
 // TPU kernel's online softmax does (decode_attn.py:43-58): m_new =
-// max(m, max_j s), p = exp(s - m_new), corr = exp(m - m_new),
-// l = l * corr + sum p, acc = acc * corr + sum_j p v_j, out = acc /
-// max(l, 1e-30).  On the LM decode path it is the softmax over the cache of
+// max(m, max_j s), m_safe = m_new where finite else 0, p = exp(s - m_safe)
+// (0 where s is not finite), corr = exp(m - m_safe) (0 where m is not
+// finite), l = l * corr + sum p, acc = acc * corr + sum_j p v_j, out = acc /
+// max(l, 1e-30).  pos is read on the device (an int32 the caller may update
+// between graph replays) or passed by value; like the TPU kernel's operand
+// it may hold anything: pos >= S makes every position live, pos < 0 none
+// (out = 0).  On the LM decode path this is the softmax over the cache of
 // repro/models/layers.py::attention_decode, 28 launches per decode step.
 //
 // What bounds it on this card: bytes.  It reads K and V up to pos once
 // (2 * B * (pos + 1) * KV * hd * 4 bytes; 84 MB at B = 64, pos = 159,
-// KV = 8, hd = 128) and does ~4 operations per byte read.  The loop stops
-// at pos: a block of positions past pos would leave (m, l, acc) unchanged
-// bit for bit (p = 0, corr = 1), so it is never loaded.
+// KV = 8, hd = 128) and does ~4 operations per byte read.  No position past
+// pos is read: its copy zero-fills shared memory instead.
 //
-// Design: one block per (batch row, KV head), 128 threads.  The rep query
-// heads of the group share each tile of 32 positions of K and V, staged
-// through shared memory with 16-byte loads.  Scores: one warp per
-// (head, position) dot product, lanes striding hd, reduced by shuffles.
-// Softmax update: one warp per head, a lane per position of the tile.
-// Accumulate: a thread per output feature d (and d + 128), for every head
-// of the group, in registers.
+// Design (host plan: kernels/decode_attn.py::decode_plan, shapes only, never
+// pos, so one launch shape serves every decode step):
+// * Positions split over blocks.  The grid is (B * KV, splits); each block
+//   walks a contiguous run of 16-position tiles for one (row, KV head) and
+//   its rep query heads.  With one split the block writes `out`; otherwise
+//   it writes its partial (m, l, acc[rep][hd]) to an fp32 scratch and
+//   decode_attention_kernel_merge combines a (row, KV head)'s splits in
+//   split order (no atomics; a split with no live position leaves m = -inf,
+//   l = 0, acc = 0, which adds nothing).
+// * A ring of kStages = 3 tiles in shared memory, filled by 16-byte
+//   cp.async copies: one commit group and one barrier a tile, tile t + 2 in
+//   flight while tile t computes.  The ring is 48 KB at hd = 128, so four
+//   blocks fit an SM and the serving shape's 512 blocks run in one wave.
+//   A thread's copies step through the tile by fixed increments (no
+//   division in the loop), and the ring's first tiles are in flight before
+//   q is loaded.
+// * Each warp takes 4 positions of a tile, 8 lanes a position, each lane a
+//   strided eighth of hd (conflict-free 128-byte rows), so a score costs 3
+//   shuffles; the warp keeps its own online softmax, and for p . V a lane
+//   owns 4 features (and 4 more at hd > 128) of every head.  The four
+//   warps' partials combine in warp order once, after the last tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "mcd_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBS = 32;          // positions per tile (one per lane)
+constexpr int kTS = 16;                      // positions a tile
+constexpr int kStages = 3;                   // tiles in the ring
+constexpr int kPosWarp = kTS / kWarps;       // positions a warp a tile
+constexpr int kLanesPos = 32 / kPosWarp;     // lanes sharing a position
 constexpr int kMaxRep = 8;
 constexpr int kMaxHd = 256;
-constexpr int kChunks = kMaxHd / kThreads;
+constexpr int kQK = kMaxHd / 4 / kLanesPos;  // float4s a lane in a dot
+constexpr int kPV = kMaxHd / 4 / 32;         // float4s a lane accumulates
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kLanesPos == 8 && kPosWarp == 4,
+              "the shuffles below reduce over xor 1, 2, 4 (a position's "
+              "lanes) and xor 8, 16 (a warp's positions)");
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Dynamic shared memory (bytes): the ring of K and V tiles, then q.
+constexpr int smem_bytes(int rep, int hd) {
+  return (kStages * 2 * kTS * hd + rep * hd) * (int)sizeof(float);
+}
+constexpr int kMaxSmem = smem_bytes(kMaxRep, kMaxHd);
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// (m, l, a) <- (m, l, a) followed by (m2, l2, a2): the online-softmax step
+// with a partial in place of a tile.
+__device__ __forceinline__ void combine(float& m, float& l, float& a,
+                                        float m2, float l2, float a2) {
+  const float m_new = fmaxf(m, m2);
+  const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+  const float c1 = isfinite(m) ? expf(m - m_safe) : 0.0f;
+  const float c2 = isfinite(m2) ? expf(m2 - m_safe) : 0.0f;
+  m = m_new;
+  l = l * c1 + l2 * c2;
+  a = a * c1 + a2 * c2;
 }
 
+// Live positions for a pos that may hold anything: 0..n_live-1.
+__device__ __forceinline__ int live_positions(const int* pos_ptr, int pos,
+                                              int S) {
+  const int p = pos_ptr ? *pos_ptr : pos;
+  return p < 0 ? 0 : (p >= S ? S : p + 1);
+}
+
+// R: the largest rep this instantiation holds in registers (rep <= R).
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ kc,
                         const float* __restrict__ vc, float* __restrict__ out,
-                        int H, int S, int KV, int hd, int pos, float scale) {
-  extern __shared__ float smem[];
+                        float* __restrict__ part,
+                        const int* __restrict__ pos_ptr, int pos, int H,
+                        int S, int KV, int hd, int run, float scale) {
+  extern __shared__ __align__(16) float smem[];
   const int rep = H / KV;
-  float* qs = smem;                   // [rep][hd]
-  float* ks = qs + rep * hd;          // [kBS][hd]
-  float* vs = ks + kBS * hd;          // [kBS][hd]
-  float* ss = vs + kBS * hd;          // [rep][kBS] scores, then p
-  float* ms = ss + rep * kBS;         // [rep] running max
-  float* ls = ms + rep;               // [rep] running denominator
-  float* cs = ls + rep;               // [rep] this tile's correction
+  const int hd4 = hd / 4;
+  const int tile = kTS * hd;                   // floats of K (or V) a tile
+  float* ring = smem;                          // [kStages][K | V][kTS][hd]
+  float* qs = smem + kStages * 2 * tile;       // [rep][hd]
 
-  const int b = blockIdx.x / KV;
-  const int g = blockIdx.x % KV;
+  const int bg = blockIdx.x;
+  const int b = bg / KV;
+  const int g = bg % KV;
+  const int splits = gridDim.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
+  const int n_live = live_positions(pos_ptr, pos, S);
+  const int t_begin = blockIdx.y * run;
+  const int t_end = min(t_begin + run, (n_live + kTS - 1) / kTS);
+
+  // Tile t into ring slot `slot`; positions past the live ones zero-fill.
+  // Float4 e = tid + kThreads * i of a tile is row e / hd4, column e % hd4:
+  // both advance by fixed steps.
+  const int row_step = kThreads / hd4;
+  const int col_step = kThreads - row_step * hd4;
+  const int row0 = tid / hd4;
+  const int col0 = tid - row0 * hd4;
+  const size_t row_floats = (size_t)KV * hd;   // one position of the cache
+  auto load_tile = [&](int t, int slot) {
+    float* ks = ring + slot * 2 * tile;
+    float* vs = ks + tile;
+    const int j0 = t * kTS;
+    const size_t base = (((size_t)b * S + j0) * KV + g) * hd;
+    int j = row0, c = col0;
+    for (int e = tid; e < kTS * hd4; e += kThreads) {
+      const bool live = j0 + j < n_live;
+      const size_t src = live ? base + j * row_floats + 4 * c : 0;
+      mcd::cp_async16(ks + 4 * e, kc + src, live ? 16 : 0);
+      mcd::cp_async16(vs + 4 * e, vc + src, live ? 16 : 0);
+      j += row_step;
+      c += col_step;
+      if (c >= hd4) {
+        c -= hd4;
+        ++j;
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (t_begin + i < t_end) load_tile(t_begin + i, i);
+    mcd::cp_async_commit();
+  }
   const float* qg = q + ((size_t)b * H + (size_t)g * rep) * hd;
-  for (int e = tid; e < rep * hd; e += kThreads) qs[e] = qg[e];
-  if (tid < rep) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.0f;
-  }
-  float acc[kMaxRep][kChunks];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) acc[r][c] = 0.0f;
+  for (int e = tid; e < rep * hd4; e += kThreads)
+    reinterpret_cast<float4*>(qs)[e] = reinterpret_cast<const float4*>(qg)[e];
 
-  const int hd4 = hd / 4;
-  const int n_valid = pos + 1;
-  for (int t0 = 0; t0 < n_valid; t0 += kBS) {
-    const int nb = min(kBS, n_valid - t0);
-    for (int e = tid; e < nb * hd4; e += kThreads) {
-      const int j = e / hd4;
-      const int h4 = e % hd4;
-      const size_t src = (((size_t)b * S + t0 + j) * KV + g) * hd4 + h4;
-      reinterpret_cast<float4*>(ks)[e] =
-          reinterpret_cast<const float4*>(kc)[src];
-      reinterpret_cast<float4*>(vs)[e] =
-          reinterpret_cast<const float4*>(vc)[src];
-    }
-    __syncthreads();
-    for (int pair = warp; pair < rep * kBS; pair += kWarps) {
-      const int r = pair / kBS;
-      const int j = pair % kBS;
-      float s = -INFINITY;
-      if (j < nb) {
-        float dot = 0.0f;
-        for (int h = lane; h < hd; h += 32)
-          dot = fmaf(qs[r * hd + h], ks[j * hd + h], dot);
-        s = warp_sum(dot) * scale;
-      }
-      if (lane == 0) ss[r * kBS + j] = s;
-    }
-    __syncthreads();
-    for (int r = warp; r < rep; r += kWarps) {
-      const float s = ss[r * kBS + lane];
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float p = isfinite(s) ? expf(s - m_safe) : 0.0f;
-      const float psum = warp_sum(p);
-      const float corr = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.0f;
-      ss[r * kBS + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        ms[r] = m_new;
-        ls[r] = ls[r] * corr + psum;
-        cs[r] = corr;
-      }
-    }
-    __syncthreads();
+  float m[R], l[R], acc[R][kPV][4];
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int d = tid + c * kThreads;
-      if (d >= hd) continue;
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r >= rep) continue;
-        float sum = 0.0f;
-        for (int j = 0; j < nb; ++j)
-          sum = fmaf(ss[r * kBS + j], vs[j * hd + d], sum);
-        acc[r][c] = acc[r][c] * cs[r] + sum;
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < kPV; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][i][c] = 0.0f;
   }
+  const int jw = warp * kPosWarp;              // the warp's first position
+  const int jt = jw + lane / kLanesPos;        // this lane's position
+  const int part4 = lane % kLanesPos;          // its eighth of hd
 
+  for (int t = t_begin; t < t_end; ++t) {
+    mcd::cp_async_wait<kStages - 2>();
+    __syncthreads();        // tile t is in; every warp is done with t - 1
+    if (t + kStages - 1 < t_end)
+      load_tile(t + kStages - 1, (t + kStages - 1 - t_begin) % kStages);
+    mcd::cp_async_commit();
+    const float* ks = ring + ((t - t_begin) % kStages) * 2 * tile;
+    const float* vs = ks + tile;
+
+    float s[R];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int d = tid + c * kThreads;
-    if (d >= hd) continue;
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
+    for (int k = 0; k < kQK; ++k) {
+      const int f = part4 + k * kLanesPos;
+      if (f < hd4) {
+        const float4 kv = ld4(ks + jt * hd + 4 * f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < rep) {
+            const float4 qv = ld4(qs + r * hd + 4 * f);
+            s[r] = fmaf(qv.x, kv.x, s[r]);
+            s[r] = fmaf(qv.y, kv.y, s[r]);
+            s[r] = fmaf(qv.z, kv.z, s[r]);
+            s[r] = fmaf(qv.w, kv.w, s[r]);
+          }
+        }
+      }
+    }
+    const bool live = t * kTS + jt < n_live;
+    float p[R][kPosWarp], corr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
       if (r >= rep) continue;
+      float d = s[r];
+      d += __shfl_xor_sync(kFull, d, 1);
+      d += __shfl_xor_sync(kFull, d, 2);
+      d += __shfl_xor_sync(kFull, d, 4);
+      const float sc = live ? d * scale : -INFINITY;
+      float mx = fmaxf(sc, __shfl_xor_sync(kFull, sc, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+      const float pj = isfinite(sc) ? expf(sc - m_safe) : 0.0f;
+      corr[r] = isfinite(m[r]) ? expf(m[r] - m_safe) : 0.0f;
+      float ps = pj + __shfl_xor_sync(kFull, pj, 8);
+      ps += __shfl_xor_sync(kFull, ps, 16);
+      m[r] = m_new;
+      l[r] = l[r] * corr[r] + ps;
+#pragma unroll
+      for (int u = 0; u < kPosWarp; ++u)
+        p[r][u] = __shfl_sync(kFull, pj, u * kLanesPos);
+    }
+#pragma unroll
+    for (int i = 0; i < kPV; ++i) {
+      const int f = lane + 32 * i;
+      if (f >= hd4) continue;
+      float sum[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sum[r][c] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kPosWarp; ++u) {
+        const float4 vv = ld4(vs + (jw + u) * hd + 4 * f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r >= rep) continue;
+          sum[r][0] = fmaf(p[r][u], vv.x, sum[r][0]);
+          sum[r][1] = fmaf(p[r][u], vv.y, sum[r][1]);
+          sum[r][2] = fmaf(p[r][u], vv.z, sum[r][2]);
+          sum[r][3] = fmaf(p[r][u], vv.w, sum[r][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= rep) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][i][c] = acc[r][i][c] * corr[r] + sum[r][c];
+      }
+    }
+  }
+
+  // The warps' partials, combined in warp order; the ring is free once
+  // every copy has landed and every warp is past its last tile.
+  mcd::cp_async_wait<0>();
+  __syncthreads();
+  float* wacc = ring;                          // [kWarps][rep][hd]
+  float* wm = wacc + kWarps * rep * hd;        // [kWarps][rep]
+  float* wl = wm + kWarps * rep;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= rep) continue;
+#pragma unroll
+    for (int i = 0; i < kPV; ++i) {
+      const int f = lane + 32 * i;
+      if (f < hd4)
+        *reinterpret_cast<float4*>(wacc + (warp * rep + r) * hd + 4 * f) =
+            make_float4(acc[r][i][0], acc[r][i][1], acc[r][i][2],
+                        acc[r][i][3]);
+    }
+    if (lane == 0) {
+      wm[warp * rep + r] = m[r];
+      wl[warp * rep + r] = l[r];
+    }
+  }
+  __syncthreads();
+  // The partial of split (bg, y), head r: part [B * KV][splits][rep][hd],
+  // then [B * KV][splits][rep][m, l].
+  const size_t pidx = ((size_t)bg * splits + blockIdx.y) * rep;
+  for (int e = tid; e < rep * hd; e += kThreads) {
+    const int r = e / hd;
+    const int d = e - r * hd;
+    float M = -INFINITY, L = 0.0f, A = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      combine(M, L, A, wm[w * rep + r], wl[w * rep + r],
+              wacc[(w * rep + r) * hd + d]);
+    if (splits == 1) {
       out[((size_t)b * H + (size_t)g * rep + r) * hd + d] =
-          acc[r][c] / fmaxf(ls[r], 1e-30f);
+          A / fmaxf(L, 1e-30f);
+    } else {
+      part[(pidx + r) * hd + d] = A;
+      if (d == 0) {
+        float* ml = part + (size_t)gridDim.x * splits * rep * hd;
+        ml[2 * (pidx + r)] = M;
+        ml[2 * (pidx + r) + 1] = L;
+      }
     }
   }
 }
 
-size_t smem_bytes(int rep, int hd) {
-  return (size_t)(rep * hd + 2 * kBS * hd + rep * kBS + 3 * rep) *
-         sizeof(float);
+constexpr int kMergeBatch = 8;   // splits whose partials load together
+
+// One thread per output (b, g, r, d): the splits' partials in split order.
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel_merge(const float* __restrict__ part,
+                              float* __restrict__ out, int H, int KV, int hd,
+                              int splits) {
+  const int rep = H / KV;
+  const int bg = blockIdx.x;
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (e >= rep * hd) return;
+  const int r = e / hd;
+  const int d = e - r * hd;
+  const float* part_acc = part;
+  const float* part_ml = part + (size_t)gridDim.x * splits * rep * hd;
+  float M = -INFINITY, L = 0.0f, A = 0.0f;
+  for (int s0 = 0; s0 < splits; s0 += kMergeBatch) {
+    float pm[kMergeBatch], pl[kMergeBatch], pa[kMergeBatch];
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i) {
+      const size_t pidx = ((size_t)bg * splits + min(s0 + i, splits - 1)) *
+                              rep + r;
+      pm[i] = part_ml[2 * pidx];
+      pl[i] = part_ml[2 * pidx + 1];
+      pa[i] = part_acc[pidx * hd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i)
+      if (s0 + i < splits) combine(M, L, A, pm[i], pl[i], pa[i]);
+  }
+  out[((size_t)(bg / KV) * H + (size_t)(bg % KV) * rep + r) * hd + d] =
+      A / fmaxf(L, 1e-30f);
+}
+
+// The instantiation that holds `rep` heads in registers.
+template <typename F>
+cudaError_t with_kernel(int rep, F f) {
+  if (rep <= 2) return f(decode_attention_kernel<2>);
+  if (rep <= 4) return f(decode_attention_kernel<4>);
+  return f(decode_attention_kernel<kMaxRep>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches out [B, H, hd] on `stream` for positions 0..pos of the caches;
-// the wrapper checks 0 <= pos < S, H % KV == 0, H / KV <= 8, hd % 4 == 0,
-// hd <= 256 and 16-byte aligned caches.  Returns cudaGetLastError().
-int decode_attention_launch(const float* q, const float* kc, const float* vc,
-                            float* out, int B, int H, int S, int KV, int hd,
-                            int pos, float scale, void* stream) {
-  const size_t smem = smem_bytes(H / KV, hd);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+// Once per device, when the library is loaded: every instantiation may take
+// the most shared memory a shape can ask (kMaxSmem), with the SM's carveout
+// set to the most shared memory, so a launch (or a captured one) sets no
+// attribute.  Returns the CUDA error.
+int decode_attention_init() {
+  for (int rep : {2, 4, kMaxRep}) {
+    cudaError_t err = with_kernel(rep, [](auto kernel) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    });
     if (err != cudaSuccess) return (int)err;
   }
-  decode_attention_kernel<<<B * KV, kThreads, smem, (cudaStream_t)stream>>>(
-      q, kc, vc, out, H, S, KV, hd, pos, scale);
+  return 0;
+}
+
+// The split kernel's resident blocks an SM for this shape, as the runtime
+// computes them (registers, shared memory, threads); returns the CUDA error.
+int decode_attention_blocks_per_sm(int H, int KV, int hd, int* blocks) {
+  const int rep = H / KV;
+  return (int)with_kernel(rep, [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, kThreads, smem_bytes(rep, hd));
+  });
+}
+
+// Launches out [B, H, hd] on `stream` for the live positions of the caches:
+// pos from *pos_ptr (an int32 on the device) when pos_ptr is not null, else
+// `pos`.  The grid is (B * KV, splits), each block a run of `run` tiles of
+// kTS positions; splits > 1 needs `part`, B * KV * splits * rep * (hd + 2)
+// floats, and adds the merge kernel.  The wrapper
+// (kernels/decode_attn.py::decode_plan) checks H % KV == 0, H / KV <= 8,
+// hd % 4 == 0, hd <= 256 and 16-byte aligned q and caches.  Returns
+// cudaGetLastError() of the last launch (0 = launched), or
+// cudaErrorInvalidValue for a plan that does not cover the cache.
+int decode_attention_launch(const float* q, const float* kc, const float* vc,
+                            float* out, float* part, const int* pos_ptr,
+                            int B, int H, int S, int KV, int hd, int pos,
+                            int splits, int run, float scale, void* stream) {
+  const int tiles = (S + kTS - 1) / kTS;
+  if (B < 1 || KV < 1 || H % KV || H / KV > kMaxRep || hd % 4 || hd > kMaxHd ||
+      splits < 1 || run < 1 || (splits - 1) * run >= tiles ||
+      splits * run < tiles || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int rep = H / KV;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = with_kernel(rep, [&](auto kernel) {
+    kernel<<<dim3(B * KV, splits), kThreads, smem_bytes(rep, hd), s>>>(
+        q, kc, vc, out, part, pos_ptr, pos, H, S, KV, hd, run, scale);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  decode_attention_kernel_merge<<<
+      dim3(B * KV, (rep * hd + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, out, H, KV, hd, splits);
   return (int)cudaGetLastError();
 }
 

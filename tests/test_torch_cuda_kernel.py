@@ -314,18 +314,106 @@ def test_mcd_matmul_kernel_matches_plain(dev, M, K, N, p):
     assert torch.equal(got, again)
 
 
+def _attn(dev, B, H, KV, hd, S, seed=0):
+    g = torch.Generator().manual_seed(seed + hd + S)
+    return [torch.randn(shape, generator=g).to(dev) for shape in
+            [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)]]
+
+
+# (B, H, KV, hd, S): one split (decode_plan) at qwen3's serving shape and
+# at 70 rows; splits and the merge kernel for one prompt's 8 rows, a
+# 4096-position cache, rep = 5 at hd = 12, and rep = 8 at hd = 256.
+ATTN_SHAPES = [(64, 16, 8, 128, 160), (70, 16, 8, 128, 100),
+               (8, 16, 8, 128, 160), (8, 16, 8, 128, 4096),
+               (2, 40, 8, 12, 33), (1, 8, 1, 256, 70)]
+
+
 @pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40),
                                          (2, 16, 8, 128, 160),
-                                         (1, 8, 1, 256, 70)])
+                                         (1, 8, 1, 256, 70)]
+                         + ATTN_SHAPES[:5])
 def test_decode_attention_kernel_matches_plain(dev, B, H, KV, hd, S):
-    g = torch.Generator().manual_seed(hd + S)
-    q, kc, vc = (torch.randn(shape, generator=g).to(dev) for shape in
-                 [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)])
+    """Split and unsplit plans within 1e-5 of the plain version, one count
+    a call (the merge kernel included)."""
+    q, kc, vc = _attn(dev, B, H, KV, hd, S)
     for pos in (0, S // 2, S - 1):
+        before = decode_attn.decode_attention.launches
         got = decode_attn.decode_attention(q, kc, vc, pos)
         torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 1
         want = decode_attn.decode_attention_plain(q, kc, vc, pos)
         assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", ATTN_SHAPES[:3])
+def test_decode_attention_tensor_pos_equals_int(dev, B, H, KV, hd, S):
+    """A tensor pos read on the device gives the int's bits; past the
+    cache every position is live, before it the output is zero (the TPU
+    kernel's masked blocks)."""
+    q, kc, vc = _attn(dev, B, H, KV, hd, S)
+    for pos in (0, 17, S - 1):
+        t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        assert torch.equal(decode_attn.decode_attention(q, kc, vc, t),
+                           decode_attn.decode_attention(q, kc, vc, pos))
+    last = decode_attn.decode_attention(q, kc, vc, S - 1)
+    for pos in (S, S + 1000):
+        t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        assert torch.equal(decode_attn.decode_attention(q, kc, vc, t), last)
+    t = torch.tensor([-1], dtype=torch.int32, device=dev)
+    assert torch.equal(decode_attn.decode_attention(q, kc, vc, t),
+                       torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", ATTN_SHAPES[:3])
+def test_decode_attention_graph_replay_equals_eager(dev, B, H, KV, hd, S):
+    """One captured call with a tensor pos, replayed as pos moves, gives
+    the eager call's bits: the launch shape does not depend on pos and no
+    attribute is set inside the capture."""
+    q, kc, vc = _attn(dev, B, H, KV, hd, S)
+    t = torch.zeros(1, dtype=torch.int32, device=dev)
+    decode_attn.decode_attention(q, kc, vc, t)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attn.decode_attention(q, kc, vc, t)
+    for pos in (0, S // 3, S - 1):
+        t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attn.decode_attention(q, kc, vc, pos))
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", ATTN_SHAPES[:3])
+def test_decode_attention_ignores_nan_past_pos(dev, B, H, KV, hd, S):
+    """No position past pos is read: NaN there leaves the bits as they
+    were, with an int pos and with a tensor pos."""
+    q, kc, vc = _attn(dev, B, H, KV, hd, S)
+    for pos in (0, 21, S - 2):
+        want = decode_attn.decode_attention(q, kc, vc, pos)
+        kn, vn = kc.clone(), vc.clone()
+        kn[:, pos + 1:] = float("nan")
+        vn[:, pos + 1:] = float("nan")
+        t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        assert torch.equal(decode_attn.decode_attention(q, kn, vn, pos), want)
+        assert torch.equal(decode_attn.decode_attention(q, kn, vn, t), want)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", ATTN_SHAPES)
+def test_decode_attention_two_calls_bitwise_equal(dev, B, H, KV, hd, S):
+    """Splits merge in split order and warps in warp order: no atomics."""
+    q, kc, vc = _attn(dev, B, H, KV, hd, S)
+    pos = S - 5
+    assert torch.equal(decode_attn.decode_attention(q, kc, vc, pos),
+                       decode_attn.decode_attention(q, kc, vc, pos))
+
+
+def test_decode_attention_rejects_a_bad_tensor_pos(dev):
+    q, kc, vc = _attn(dev, 2, 4, 2, 16, 40)
+    for bad in (torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.zeros(2, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="int32"):
+            decode_attn.decode_attention(q, kc, vc, bad)
 
 
 def test_lm_wrappers_reject_what_the_kernels_do_not_take(dev):

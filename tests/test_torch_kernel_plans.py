@@ -5,7 +5,9 @@ and keep-bit scratch; ``mcd_gru_seq.gru_seq_plan`` and
 ``mcd_lstm_seq.lstm_seq_plan`` (both ``common.seq_plan``) pick a recurrent
 layer's path (warp or block), rows a block, threads and shared memory;
 ``ssd_chunk.ssd_plan`` the SSD scan's chunk, grids, shared memory and
-scores scratch.  The kernels run only on the card; what they are launched
+scores scratch; ``decode_attn.decode_plan`` the attention's position tiles,
+splits, grid, shared memory and scratch of partials, from the shapes alone
+(never ``pos``).  The kernels run only on the card; what they are launched
 with is checked here: every output and every row covered exactly once, the
 warp path taken for H that divides 32, shared memory within the H100's 227
 KB, the plans in step with the constants of the CUDA sources, and
@@ -13,6 +15,7 @@ unsupported shapes refused (with a pointer to ROADMAP.md where the port
 queues them).  No JAX.
 """
 
+import inspect
 import re
 
 import pytest
@@ -22,6 +25,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import build, common  # noqa: E402
+from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
 from repro_torch.kernels import mcd_lstm_seq as lseq  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
@@ -324,3 +328,126 @@ def test_ssd_plan_matches_the_cuda_source():
 def test_ssd_plan_refuses_what_the_kernel_does_not_take(L, H, P, N, q, what):
     with pytest.raises(ValueError, match=what):
         ssd_chunk.ssd_plan(1, L, H, P, N, q)
+
+
+# -- decode_attention: positions split over blocks ---------------------------
+
+ATTN_SERVING = (64, 16, 8, 128, 160)           # qwen3-1.7b decode, 8 x 8 rows
+ATTN_SHAPES = [ATTN_SERVING, (8, 16, 8, 128, 160), (8, 16, 8, 128, 4096),
+               (64, 32, 8, 128, 160), (3, 4, 2, 16, 40), (1, 8, 1, 256, 70),
+               (2, 40, 8, 12, 33), (70, 16, 8, 128, 100), (1, 1, 1, 4, 1),
+               (1, 64, 8, 256, 65536)]
+
+
+def _attn_source():
+    src = (build.CSRC / "decode_attn.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}, src
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", ATTN_SHAPES)
+def test_decode_plan_covers_every_tile_once(B, H, KV, hd, S):
+    """Every (b, g, position tile) lies in exactly one block's run, no
+    split is idle when every position is live, and the merge kernel's grid
+    covers every output of a (b, g) once."""
+    plan = decode_attn.decode_plan(B, H, KV, hd, S)
+    tile, run, splits = plan["tile"], plan["run"], plan["splits"]
+    tiles = -(-S // tile)
+    assert plan["tiles"] == tiles and plan["grid"] == (B * KV, splits)
+    hits = np.zeros(tiles, dtype=np.int64)       # the same for every (b, g)
+    for y in range(splits):
+        hits[y * run:min((y + 1) * run, tiles)] += 1
+    assert np.all(hits == 1)
+    assert (splits - 1) * run < tiles <= splits * run
+    assert run <= decode_attn._MAX_RUN
+    rep = H // KV
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+    if splits > 1:
+        assert plan["scratch_floats"] == B * KV * splits * rep * (hd + 2)
+        gx, gy = plan["merge_grid"]
+        assert gx == B * KV and (gy - 1) * 128 < rep * hd <= gy * 128
+    else:
+        assert plan["scratch_floats"] == 0 and plan["merge_grid"] is None
+
+
+def test_decode_plan_never_depends_on_pos():
+    """The launch shape comes from the shapes alone: one plan serves every
+    decode step, so a graph of the call can be captured."""
+    assert list(inspect.signature(decode_attn.decode_plan).parameters) == [
+        "B", "H", "KV", "hd", "S"]
+    plans = {str(decode_attn.decode_plan(*ATTN_SERVING)) for _ in range(3)}
+    assert len(plans) == 1
+
+
+def test_tensor_pos_is_not_read_on_the_host(monkeypatch):
+    """A tensor pos goes to the kernel as a device pointer: no ``.item()``,
+    no ``int()``, no host range check (pos >= S and pos < 0 pass)."""
+    def no_read(*_):
+        raise AssertionError("pos was read on the host")
+
+    for name in ("item", "__int__", "__index__", "tolist", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    for value in (0, 159, 160, 10 ** 6, -3):
+        t = torch.full((1,), value, dtype=torch.int32)
+        assert decode_attn._pos_arg(t, 160, t.device) == (t.data_ptr(), 0)
+
+
+@pytest.mark.parametrize("bad", [torch.zeros(1, dtype=torch.int64),
+                                 torch.zeros(2, dtype=torch.int32),
+                                 torch.zeros((), dtype=torch.float32)])
+def test_tensor_pos_must_be_one_int32_on_the_device(bad):
+    with pytest.raises(ValueError, match="int32"):
+        decode_attn._pos_arg(bad, 160, bad.device)
+
+
+@pytest.mark.parametrize("pos", [-1, 160, 161])
+def test_int_pos_is_checked_on_the_host(pos):
+    with pytest.raises(ValueError, match="pos"):
+        decode_attn._pos_arg(pos, 160, torch.device("cpu"))
+
+
+def test_decode_plan_at_the_serving_shapes():
+    """qwen3's 512 (row, KV head) pairs fill the card at one split, in one
+    wave of four blocks an SM (their shared memory fits one SM); one
+    prompt's 8 rows split the cache so the launch still has two blocks an
+    SM; a 4096-position cache walks runs of at most 16 tiles."""
+    serving = decode_attn.decode_plan(*ATTN_SERVING)
+    assert serving["splits"] == 1 and 4 * serving["smem"] <= SMEM_LIMIT
+    assert 2 * common.SMS <= 512 <= 4 * common.SMS
+    one = decode_attn.decode_plan(8, 16, 8, 128, 160)
+    assert one["splits"] > 1
+    assert one["grid"][0] * one["grid"][1] >= 2 * common.SMS
+    long = decode_attn.decode_plan(8, 16, 8, 128, 4096)
+    assert long["run"] <= 16 and long["splits"] * long["run"] == 256
+    assert 2 * common.SMS <= long["grid"][0] * long["grid"][1]
+
+
+def test_decode_plan_matches_the_cuda_source():
+    consts, src = _attn_source()
+    assert (consts["kThreads"], consts["kTS"], consts["kStages"],
+            consts["kMaxRep"], consts["kMaxHd"]) == (
+        decode_attn._THREADS, decode_attn._TILE, decode_attn._STAGES,
+        decode_attn._MAX_REP, decode_attn._MAX_HD)
+    assert consts["kStages"] >= 3          # tile t + 2 in flight at tile t
+    assert re.search(r"\(kStages \* 2 \* kTS \* hd \+ rep \* hd\) \* "
+                     r"\(int\)sizeof\(float\)", src)
+    for B, H, KV, hd, S in ATTN_SHAPES:
+        rep = H // KV
+        assert decode_attn.decode_plan(B, H, KV, hd, S)["smem"] == 4 * (
+            consts["kStages"] * 2 * consts["kTS"] * hd + rep * hd)
+    # the largest shape the kernel takes still fits a block
+    assert 4 * (consts["kStages"] * 2 * consts["kTS"] * consts["kMaxHd"]
+                + consts["kMaxRep"] * consts["kMaxHd"]) <= SMEM_LIMIT
+    # every kernel of the launch holds the name a profile matches
+    kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", src)
+    assert len(kernels) == 2
+    assert all("decode_attention_kernel" in k for k in kernels)
+
+
+@pytest.mark.parametrize("H,KV,hd,what", [
+    (18, 2, 128, "at most 8"), (16, 3, 128, "group"), (16, 8, 130, "hd="),
+    (16, 8, 260, "hd="), (0, 1, 4, "empty")])
+def test_decode_plan_refuses_what_the_kernel_does_not_take(H, KV, hd, what):
+    with pytest.raises(ValueError, match=what):
+        decode_attn.decode_plan(2, H, KV, hd, 40)

@@ -9,7 +9,9 @@
 * ``decode_attention_plain`` against ``ref.decode_attention``: 1e-6
   absolute (softmax-weighted means of unit-scale values), pos at 0, in the
   middle and last, rep = 2, a cache length that is not a multiple of the
-  TPU kernel's 512-position block.
+  TPU kernel's 512-position block; with ``pos`` an int32 tensor (as the
+  TPU kernel takes it) equal to the int, and to the reference with a
+  ``jnp`` pos, also at pos >= S (every position live).
 * ``ops.site_key`` against ``mcd.mask_key`` (exact), and the ops wrappers
   on CPU tensors against the oracles under those keys.
 
@@ -122,6 +124,24 @@ def test_decode_attention_matches_ref(pos):
                                        torch.from_numpy(vc), pos)
     assert got.shape == (B, H, hd) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("pos", [0, 17, 39, 40, 57])
+def test_decode_attention_tensor_pos_matches_int_and_ref(pos):
+    B, H, KV, hd, S = 3, 4, 2, 16, 40
+    q = _x((B, H, hd), 5)
+    kc = _x((B, S, KV, hd), 6)
+    vc = _x((B, S, KV, hd), 7)
+    want = np.asarray(jref.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                            jnp.asarray(vc),
+                                            jnp.int32(pos)))
+    args = [torch.from_numpy(a) for a in (q, kc, vc)]
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    by_int = tattn.decode_attention_plain(*args, pos)
+    by_tensor = tattn.decode_attention_plain(*args, pos_t)
+    assert torch.equal(by_tensor, by_int)
+    assert torch.equal(tattn.decode_attention(*args, pos_t), by_int)
+    np.testing.assert_allclose(by_tensor.numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_decode_attention_ignores_positions_past_pos():
