@@ -14,10 +14,11 @@ Phases (each raises on failure; the exit code is then non-zero):
    the autoencoder's (1, 16), (16, 8), (8, 16), (16, 16); the sequence
    kernels at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B
    = 256, T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student
-   rows, p = 0.125 and p = 0: fp32 max abs error on every output within
-   1e-5 (``mcd_lstm_seq`` and ``mcd_gru_seq`` bit-equal, on the warp path
-   or the block path, as each case records), and each kernel's mask bits
-   equal to the plain stream's. Times the
+   rows, p = 0.125 and p = 0: every output bit-equal to the plain version
+   (on the warp path or the block path, as each case of the sequence
+   kernels and of ``mcd_lstm_step`` records, with the step kernel's
+   ``step_plan``), and each kernel's mask bits equal to the plain
+   stream's. Times the
    kernel, its plain version and, where one PyTorch call computes the same
    function (p = 0, no student rows, full lengths: cuDNN through
    ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call. A
@@ -45,10 +46,13 @@ Phases (each raises on failure; the exit code is then non-zero):
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
    2048, 2 x d_ff = 12288, 16 query / 8 KV heads of 128, a 160-position
-   cache; prefill 64 x 128 rows): the mask bit-equal to the plain stream
-   (a row with bit 31 set included), ``mcd_matmul`` within MM_TOL (also at
-   M = 65, K = 2050, N = 12290, off its 16-byte path; whether each case is
-   bit-equal to cuBLAS, and two calls bitwise equal).  ``decode_attention``
+   cache; prefill 64 x 128 rows): the mask (also at mamba2-370m's
+   [64, 1024] and [64 x 512, 1024], at F = 2047 and on a view 4 bytes past
+   a 16-byte boundary) bit-equal to the plain version and to the plain
+   stream (a row with bit 31 set included), each case with its
+   ``mask_plan`` and its p = 0 copy time, ``mcd_matmul`` within MM_TOL
+   (also at M = 65, K = 2050, N = 12290, off its 16-byte path; whether
+   each case is bit-equal to cuBLAS, and two calls bitwise equal).  ``decode_attention``
    at ATTN_CASES (the serving shape at pos 0, 127 and 159; one prompt's 8
    rows; a 4096-position cache at pos 2047 and 4095; llama3-8b's 32 q / 8
    KV heads): within ATTN_TOL, no further from a float64 evaluation than
@@ -93,6 +97,13 @@ card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
+        python3 chip_smoke.py --only mcd_lstm_step,masked_activation \
+            [--src OTHER/src] --out cases.json
+``--only`` runs the named kernels' phase-2 and phase-6 cases alone (no
+serving phases, no ``kernels`` or ``ok`` line); ``--src`` imports
+``repro_torch`` from another checkout's ``src`` (its kernels build into
+that checkout's ``build/``), so one call can time the parent commit's
+kernels and this one's on the same cases, in turns.
 """
 
 from __future__ import annotations
@@ -116,8 +127,8 @@ L2_BYTES = 50 * 2 ** 20   # its L2 cache (data sheet: 50 MB)
 TOL = 1e-5          # fp32 gate of every recurrent case.  The cell rounds
                     # every product and sum alone, in the plain versions'
                     # order (csrc/mcd_cells.cuh), so the recurrent kernels
-                    # are bit-equal to them; phase 2 requires it of the
-                    # sequence kernels
+                    # are bit-equal to them; phase 2 requires it of all
+                    # four
 SUMMARY_TOL = 1e-5  # engine (kernel) vs the reference backend (cuBLAS)
 
 S, SESSIONS, T_BEAT, CHUNK = 30, 64, 140, 20
@@ -227,7 +238,8 @@ def _device_events(prof, match=None) -> tuple[float, int]:
     return total, count
 
 
-PROFILE_ATTEMPTS = 6
+PROFILE_ATTEMPTS = 12  # the profiler drops some or all records of a
+                       # profile now and then, at times several in a row
 
 
 LOOSE_RECORDS = 0.002   # share of records a "loose" match may lose
@@ -465,11 +477,15 @@ def kernel_cases():
     return cases
 
 
-def kernel_phase(report):
+def kernel_phase(report, only=None):
+    """Phase 2; ``only``: the names of the kernels whose cases run (all when
+    None)."""
     import torch
     from repro_torch.kernels import common
     records, library = [], {}
     for n, (name, B, T, I, H, p) in enumerate(kernel_cases()):
+        if only is not None and name not in only:
+            continue
         gates, seq, _, _ = KERNELS[name]
         d = layer_inputs(B, T, I, H, seed=n, gates=gates, ragged=seq)
         keys = _keys(name, n)
@@ -490,7 +506,7 @@ def kernel_phase(report):
             raise RuntimeError(f"{name} mask bits differ from the plain "
                                f"stream at B={B} I={I} H={H} p={p}")
         bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
-        if seq and not bit_equal:
+        if not bit_equal:
             raise RuntimeError(f"{name} is not bit-equal to its plain "
                                f"version at B={B} T={T} I={I} H={H} p={p}: "
                                f"max abs err {errs}")
@@ -498,11 +514,17 @@ def kernel_phase(report):
                    bit_equal=bit_equal, mask_bits_equal=True)
         if seq:
             rec["path"] = common.seq_plan(gates, B, I, H)["path"]
+        elif name == "mcd_lstm_step" and hasattr(common, "step_plan"):
+            rec["plan"] = common.step_plan(gates, B, I, H)
+            rec["path"] = rec["plan"]["path"]
         # Timed as the stack calls it: int32 rows and lengths converted
-        # once per stack, the keys as host ints.
+        # once per stack, the keys as host ints (the LSTM step backend
+        # builds their launch argument once a layer).
         d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
-        timed, _ = kernel_calls(name, d32,
-                                tuple(keys.reshape(-1).tolist()), p)
+        host_keys = tuple(keys.reshape(-1).tolist())
+        if name == "mcd_lstm_step":
+            host_keys = common.keys_arg(host_keys, 2 * gates)
+        timed, _ = kernel_calls(name, d32, host_keys, p)
         rec["kernel_ms"] = cuda_time_ms(timed, iters=20, warmup=2)
         rec["kernel_device_ms"] = device_ms(timed, 10, name + "_kernel")
         rec["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=0)
@@ -517,7 +539,8 @@ def kernel_phase(report):
         records.append(rec)
         print("kernel case " + json.dumps(rec), flush=True)
     report["kernel_cases"] = records
-    report["gru_f64_witness"] = gru_f64_witness()
+    if only is None or "mcd_gru_seq" in only:
+        report["gru_f64_witness"] = gru_f64_witness()
     return records
 
 
@@ -964,13 +987,15 @@ def _lm_rows(dev, n):
     return rows.repeat(-(-n // chains))[:n].to(dev)
 
 
-def _lm_record(name, case, err, call, plain, nbytes, ops, library=None):
-    """One case: call and device time of the kernel, the plain version's
-    time, the bound and the library call's times (or None)."""
+def _lm_record(name, case, err, call, plain, nbytes, ops, library=None,
+               iters=3):
+    """One case: call and device time of the kernel (over ``iters``
+    profiled calls), the plain version's time, the bound and the library
+    call's times (or None)."""
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
     rec = dict(kernel=name, **case, max_abs_err=err,
                kernel_ms=cuda_time_ms(call, iters=10, warmup=2),
-               kernel_device_ms=device_ms(call, 3, name + "_kernel"),
+               kernel_device_ms=device_ms(call, iters, name + "_kernel"),
                plain_ms=cuda_time_ms(plain, iters=3, warmup=1),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -982,54 +1007,88 @@ def _lm_record(name, case, err, call, plain, nbytes, ops, library=None):
     return rec
 
 
-def lm_kernel_phase(report) -> list[dict]:
-    """The three LM kernels against their plain versions at qwen3-1.7b's
-    serving shapes."""
-    import torch
-    from repro_torch.kernels import bernoulli_mask, common, mcd_matmul
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(11)
-    rows_n = LM_B * LM_S                     # 8 prompts x 8 chains
-    D, N = 2048, 2 * 6144
-    key = 0x2545F491
-    records = []
+# masked_activation cases of phase 6: (rows, F, x misaligned), each at
+# p = 0.1 and, for its copy floor, at p = 0: qwen3-1.7b's decode and
+# prefill, mamba2-370m's, F off the 16-byte path, and a view of x 4 bytes
+# past a 16-byte boundary.
+MASK_CASES = [
+    (LM_B * LM_S, 2048, False), (LM_B * LM_S * LM_PROMPT, 2048, False),
+    (LM_B * LM_S, 1024, False), (LM_B * LM_S * MB_PROMPT, 1024, False),
+    (LM_B * LM_S, 2047, False), (LM_B * LM_S, 2048, True),
+]
+MASK_P = 0.1
 
-    # masked_activation: decode [64, 2048] and prefill [64 x 128, 2048].
-    for M, p in ((rows_n, 0.1), (rows_n * LM_PROMPT, 0.1), (rows_n, 0.0)):
+
+def mask_cases(dev, g, key) -> list[dict]:
+    """``masked_activation`` at MASK_CASES: bitwise equal to its plain
+    version at p = 0.1 and at p = 0 (a copy), its keep bits equal to the
+    plain stream (the rows with bit 31 set masked too); each record holds
+    the plan, the times at p = 0.1 and the same launch's time at p = 0 (the
+    copy of the same bytes: the floor for a launch of this size)."""
+    import torch
+    from repro_torch.kernels import bernoulli_mask, common
+    records = []
+    for M, D, misaligned in MASK_CASES:
         rows = _lm_rows(dev, M)
-        x = torch.randn((M, D), generator=g, device=dev)
+        if misaligned:
+            buf = torch.randn((M * D + 1,), generator=g, device=dev)
+            x = buf[1:].view(M, D)
+        else:
+            x = torch.randn((M, D), generator=g, device=dev)
         ones = torch.ones_like(x)
-        got = bernoulli_mask.masked_activation(x, rows, key, p)
-        bits = bernoulli_mask.masked_activation(ones, rows, key, p) != 0
-        torch.cuda.synchronize()
-        want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
-        keep = (common.gate_mask(key, rows, D, p) if p else
-                torch.ones_like(bits))
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise RuntimeError(f"masked_activation differs from its plain "
-                               f"version at M={M} p={p}")
-        if not torch.equal(bits, keep):
-            raise RuntimeError(f"masked_activation mask bits differ from the "
-                               f"plain stream at M={M} p={p}")
-        hi = (rows >= 2 ** 31)
-        if p and bits[hi].all():
-            raise RuntimeError("masked_activation exempted the bit-31 rows")
+        for p in (MASK_P, 0.0):
+            got = bernoulli_mask.masked_activation(x, rows, key, p)
+            bits = bernoulli_mask.masked_activation(ones, rows, key, p) != 0
+            torch.cuda.synchronize()
+            want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
+            keep = (common.gate_mask(key, rows, D, p) if p else
+                    torch.ones_like(bits))
+            what = f"M={M} F={D} misaligned={misaligned} p={p}"
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(f"masked_activation differs from its "
+                                   f"plain version at {what}")
+            if not torch.equal(bits, keep):
+                raise RuntimeError(f"masked_activation mask bits differ from "
+                                   f"the plain stream at {what}")
+            hi = (rows >= 2 ** 31)
+            if p and bits[hi].all():
+                raise RuntimeError("masked_activation exempted the bit-31 "
+                                   "rows")
+        err = max_abs_diff(got, want, "masked_activation")
         r32 = common.rows_to_int32(rows)      # as the layers pass them
+        iters = 20 if M * D <= 2 ** 20 else 5
+
+        def call(p):
+            return lambda: bernoulli_mask.masked_activation(x, r32, key, p)
+
+        plan = (bernoulli_mask.mask_plan(M, D, not misaligned)
+                if hasattr(bernoulli_mask, "mask_plan") else None)
+        case = dict(M=M, F=D, p=MASK_P, misaligned=misaligned, plan=plan,
+                    bit_equal=True, mask_bits_equal=True,
+                    copy_ms=cuda_time_ms(call(0.0), iters=10, warmup=2),
+                    copy_device_ms=device_ms(call(0.0), iters,
+                                             "masked_activation_kernel"))
         records.append(_lm_record(
-            "masked_activation", dict(M=M, F=D, p=p, bit_equal=True,
-                                      mask_bits_equal=True),
-            max_abs_diff(got, want, "masked_activation"),
-            lambda: bernoulli_mask.masked_activation(x, r32, key, p),
-            lambda: bernoulli_mask.masked_activation_plain(x, rows, key, p),
+            "masked_activation", case, err, call(MASK_P),
+            lambda: bernoulli_mask.masked_activation_plain(x, rows, key,
+                                                           MASK_P),
             # ~22 integer operations an element for the hash and select,
             # counted at the CUDA cores' fp32 rate: far under the bytes.
-            nbytes=4 * (2 * M * D + M), ops=22 * M * D))
+            nbytes=4 * (2 * M * D + M), ops=22 * M * D, iters=iters))
+    return records
 
-    # mcd_matmul: the SwiGLU gate/up product, fp32 out, at decode and
-    # prefill, and once with K and N off the 16-byte path (4-byte copies,
-    # ragged tiles on every edge).  Each case: within MM_TOL of the cuBLAS
-    # plain version (bit-equal where cuBLAS also sums in order), and two
-    # calls bitwise equal (no split of K, no atomics).
+
+def matmul_cases(dev, g, key) -> list[dict]:
+    """``mcd_matmul``: the SwiGLU gate/up product, fp32 out, at decode and
+    prefill, and once with K and N off the 16-byte path (4-byte copies,
+    ragged tiles on every edge).  Each case: within MM_TOL of the cuBLAS
+    plain version (bit-equal where cuBLAS also sums in order), and two
+    calls bitwise equal (no split of K, no atomics)."""
+    import torch
+    from repro_torch.kernels import bernoulli_mask, common, mcd_matmul
+    rows_n = LM_B * LM_S                     # 8 prompts x 8 chains
+    D, N = 2048, 2 * 6144
+    records = []
     w = torch.randn((D, N), generator=g, device=dev) * D ** -0.5
     w_odd = torch.randn((D + 2, N + 2), generator=g, device=dev) * D ** -0.5
     for M, p, wm in ((rows_n, 0.1, w), (rows_n, 0.0, w),
@@ -1062,8 +1121,25 @@ def lm_kernel_phase(report) -> list[dict]:
             nbytes=4 * (M * K_ + K_ * N_ + M * N_ + M), ops=2 * M * K_ * N_,
             library=lambda: torch.matmul(xm, wm)))
         del got, again, want, xm
+    return records
 
-    records += attention_cases()
+
+def lm_kernel_phase(report, only=None) -> list[dict]:
+    """The three LM kernels against their plain versions at qwen3-1.7b's
+    serving shapes (the mask at mamba2-370m's too); ``only``: the names of
+    the kernels whose cases run (all when None)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    key = 0x2545F491
+    records = []
+
+    if only is None or "masked_activation" in only:
+        records += mask_cases(dev, g, key)
+    if only is None or "mcd_matmul" in only:
+        records += matmul_cases(dev, g, key)
+    if only is None or "decode_attention" in only:
+        records += attention_cases()
     report["lm_kernel_cases"] = records
     return records
 
@@ -1224,10 +1300,12 @@ def lm_kernel_entries(records) -> list[dict]:
     """The ``kernels`` entries of the three LM kernels, each at its decode
     step shape (the launch the main path repeats most)."""
     picks = {
-        "masked_activation": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
+        "masked_activation": (lambda r: (r["M"], r["F"], r["misaligned"])
+                              == (LM_B * LM_S, 2048, False),
                               "attention-site mask at decode: [64, 2048] "
-                              "fp32, p=0.1 (prefill [8192, 2048] in the "
-                              "report)"),
+                              "fp32, p=0.1 (prefill [8192, 2048], mamba2's "
+                              "[64, 1024] and [32768, 1024], odd F and a "
+                              "misaligned view in the report)"),
         "mcd_matmul": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
                        "SwiGLU gate/up at decode: [64, 2048] @ [2048, "
                        "12288] fp32, p=0.1 (prefill M=8192 in the report)"),
@@ -1616,11 +1694,31 @@ def profile_ticks(params, cfg, streams, dev, kernel_match,
             "device_idle_share": 1.0 - dev_us / wall_us}
 
 
+def _write(path, report):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(report, fh, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel names: run only their "
+                         "phase-2 and phase-6 cases and write the report "
+                         "(no serving phases, no kernels or ok line)")
+    ap.add_argument("--src", default=None,
+                    help="import repro_torch from this src directory "
+                         "instead of the checkout's (to time another "
+                         "commit's kernels on the same cases, e.g. the "
+                         "parent's unpacked by git archive)")
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and not only <= set(ALL_KERNELS):
+        ap.error(f"--only takes names of {ALL_KERNELS}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -1641,6 +1739,17 @@ def main(argv=None) -> int:
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
     dev = torch.device("cuda")
+    if only is not None:
+        report["only"] = sorted(only)
+        report["src"] = os.path.abspath(args.src or os.path.join(ROOT, "src"))
+        kernel_phase(report, only)
+        lm_kernel_phase(report, only)
+        report["seconds"] = time.perf_counter() - t0
+        if args.out:
+            _write(args.out, report)
+        print(json.dumps({"only": report["only"], "src": report["src"],
+                          "seconds": report["seconds"]}))
+        return 0
     entries = kernel_entries(kernel_phase(report))
     entries += lm_kernel_entries(lm_kernel_phase(report))
     entries.append(ssd_kernel_entry(ssd_kernel_phase(report)))
@@ -1661,10 +1770,7 @@ def main(argv=None) -> int:
     report["kernels"] = entries
     report["seconds"] = time.perf_counter() - t0
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fh:
-            json.dump(report, fh, indent=1)
+        _write(args.out, report)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

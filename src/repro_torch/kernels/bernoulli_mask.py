@@ -9,7 +9,8 @@ the plain PyTorch version of the same function (a mirror of
 never reaches the plain version: it launches the kernel or raises.
 
 Element (b, f) keeps with the bit ``mix32(key ^ mix32(rows[b]·F + f)) >= t``
-(uint32), the reference's stream.  Every row is masked, one whose id has
+(uint32), the reference's stream.  The launch follows :func:`mask_plan`,
+from the shape alone.  Every row is masked, one whose id has
 the high bit set too: unlike the recurrent kernels, the reference's
 ``ref._mask`` has no student exemption.
 """
@@ -17,6 +18,7 @@ the high bit set too: unlike the recurrent kernels, the reference's
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,9 +39,46 @@ def masked_activation_plain(x: torch.Tensor, rows: torch.Tensor, key: int,
                                                     device=x.device))
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (
-    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (
+    ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+
+THREADS = 256        # threads a block, one unit a thread (csrc kThreads)
+MAX_UNITS = 2 ** 31  # units the launch indexes (the magic division's range)
+
+
+def row_divisor(n: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``(e * magic) >> shift == e // n`` for every
+    ``0 <= e < 2**31``: the kernel's row of unit e, without a division on
+    the device (``magic < 2**32``; ``shift = 31 + ceil(log2 n)``)."""
+    shift = 31 + (n - 1).bit_length()
+    return (1 << shift) // n + 1, shift
+
+
+@functools.cache
+def mask_plan(B: int, F: int, aligned: bool = True) -> dict:
+    """How ``csrc/masked_activation.cu`` covers x [B, F], from the shape
+    alone (cached by shape): ``vec4`` (the 16-byte path: F % 4 == 0 and
+    ``aligned``, both pointers 16-byte aligned), ``threads`` a block, one
+    unit a thread (``elems_per_thread`` floats: 4 on the 16-byte path, else
+    1), the ``blocks`` of a flat launch over the ``units`` = B·n, n = F / 4
+    or F units a row, and the ``magic`` and ``shift`` that divide a unit's
+    index by n (:func:`row_divisor`).
+    """
+    if B < 1 or F < 1:
+        raise ValueError(f"x must be [B>=1, F>=1], got {(B, F)}")
+    vec4 = F % 4 == 0 and aligned
+    unit = 4 if vec4 else 1
+    n = F // unit
+    units = B * n
+    if units >= MAX_UNITS:
+        raise NotImplementedError(
+            f"masked_activation indexes fewer than 2**31 units a launch, got "
+            f"[{B}, {F}] ({units} units); split the batch")
+    magic, shift = row_divisor(n)
+    return {"vec4": vec4, "threads": THREADS, "elems_per_thread": unit,
+            "units": units, "blocks": -(-units // THREADS), "magic": magic,
+            "shift": shift}
 
 
 def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
@@ -65,13 +104,14 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
     dev = x.device
     common.check("x", x, dev, torch.float32, (B, F))
     rows32 = common.rows_arg(rows, B, dev)
-    out = torch.empty_like(x)
-    vec4 = int(F % 4 == 0 and x.data_ptr() % 16 == 0)
+    out = torch.empty_like(x)          # 16-byte aligned: a fresh allocation
+    plan = mask_plan(B, F, x.data_ptr() % 16 == 0)
     thr, scale, masked = common.mask_args(p_drop)
     common.launch_c(masked_activation, "masked_activation", _ARGTYPES,
                     (x.data_ptr(), rows32.data_ptr(), out.data_ptr(), B, F,
-                     vec4, int(key) & prng.MASK32, thr, scale, masked,
-                     common.stream(dev)),
+                     int(plan["vec4"]), plan["threads"], plan["blocks"],
+                     plan["magic"], plan["shift"], int(key) & prng.MASK32,
+                     thr, scale, masked, common.stream(dev)),
                     f"masked_activation (B={B}, F={F})")
     return out
 

@@ -10,9 +10,10 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   then h side): 8 for the LSTM, 6 for the GRU.
 * The kernels' operand forms: int32 rows (:func:`rows_to_int32`), keys and
   mask constants as launch arguments, the row tile of the block-per-rows
-  kernels (:func:`tile_rows`), the sequence kernels' launch plan (warp or
-  block path, :func:`seq_plan`), and the card's limits the launch plans
-  respect (``SMEM_MAX``, ``SMS``).
+  kernels (:func:`tile_rows`), the sequence kernels' and the LSTM step
+  kernel's launch plans (warp or block path, :func:`seq_plan`,
+  :func:`step_plan`), and the card's limits the launch plans respect
+  (``SMEM_MAX``, ``SMS``).
 * Operand checks and the launch rule (:func:`launch`): a CUDA tensor
   launches the kernel or raises, nothing falls back, and each launch is
   counted on its wrapper.
@@ -100,6 +101,11 @@ def key_list(keys, n: int | None = None) -> list[int]:
 
 
 def keys_arg(keys, n: int):
+    """The ``n`` gate keys as the kernels' launch argument, a ctypes uint32
+    array; one already built is passed through, so a caller that launches
+    a kernel many times with the same keys builds it once."""
+    if isinstance(keys, ctypes.Array) and len(keys) == n:
+        return keys
     return (ctypes.c_uint32 * n)(*key_list(keys, n))
 
 
@@ -109,8 +115,11 @@ def scale(p_drop: float) -> torch.Tensor:
     return torch.tensor(1.0 / (1.0 - p_drop), dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=64)
 def mask_args(p_drop: float) -> tuple[int, float, int]:
-    """``(threshold, scale, masked)`` as the kernels take them."""
+    """``(threshold, scale, masked)`` as the kernels take them (cached: a
+    model has a few dropout rates and the kernels take them at every
+    launch)."""
     masked = p_drop > 0.0
     return (prng.bernoulli_keep_threshold(p_drop),
             float(scale(p_drop)) if masked else 1.0, int(masked))
@@ -165,6 +174,7 @@ def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
 
 _WARP_BLOCKS = (4, 2, 1)   # warps a block on the warp path, largest first
 X_RING = 8                 # x_t slots a row on the warp path (kXRing)
+STEP_WARPS = 8             # warps a block on the step kernel's warp path
 
 
 def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
@@ -200,6 +210,38 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
                                    fits[-1])
             return {"path": "warp", "rows": rows, "threads": 32 * wpb,
                     "blocks": -(-batch // rows), "smem": smem}
+    return _block_plan(gates, batch, in_dim, hidden)
+
+
+@functools.cache
+def step_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
+    """How a step kernel of ``gates`` gates runs one step: its path, the
+    rows a block, the threads, blocks and shared memory a block needs
+    (``csrc/mcd_lstm_step.cu``; cached by shape, as the step backend asks
+    the same T times a layer).
+
+    H that divides 32 takes the warp path: a row's H units are H lanes of
+    one warp, ``32 // H`` rows a warp, ``STEP_WARPS`` warps a block (fewer
+    when the batch has fewer), and no shared memory.  Every other H takes
+    the block path (:func:`_block_plan`).  Both paths compute the same
+    bits.  ``mcd_gru_step`` still runs its block kernel at every H (its
+    warp path is ROADMAP.md B2.6's next item).
+    """
+    if min(batch, in_dim, hidden) < 1:
+        raise ValueError(f"empty step: B={batch}, I={in_dim}, H={hidden}")
+    if 32 % hidden == 0:
+        per_warp = 32 // hidden
+        wpb = min(STEP_WARPS, -(-batch // per_warp))
+        rows = wpb * per_warp
+        return {"path": "warp", "rows": rows, "threads": 32 * wpb,
+                "blocks": -(-batch // rows), "smem": 0}
+    return _block_plan(gates, batch, in_dim, hidden)
+
+
+def _block_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
+    """The block path of the recurrent kernels: one thread per (row, unit),
+    :func:`tile_rows` rows a block, the rows' mask factors, x and h in
+    shared memory."""
     rows = tile_rows(gates, in_dim, hidden)
     return {"path": "block", "rows": rows, "threads": rows * hidden,
             "blocks": -(-batch // rows),

@@ -3,22 +3,36 @@
 // Replaces the TPU kernel repro/kernels/bernoulli_mask.py::masked_activation
 // (pallas_call at l.50, body `_kernel` l.24): out = where(keep, x * scale, 0)
 // for x [B, F] fp32, with keep = mix32(key ^ mix32(row * F + col)) >= thr
-// (uint32 arithmetic, mcd_mask.cuh) and scale = float32(1 / (1 - p)).  Every
-// row is masked, a row with the high bit set too: this is the reference's
-// `ref._mask`, which casts the rows to uint32 and has no student exemption
-// (unlike the recurrent kernels).  masked == 0 (p == 0) copies x.  The mask
-// bits are made in registers and never stored.  On the LM decode path it is
-// the attention site's mask (repro/models/layers.py::apply_site_mask), 28
-// launches per prefill and per decode step at qwen3-1.7b's widths.
+// (uint32 arithmetic, mcd::keep_bit in mcd_mask.cuh) and scale =
+// float32(1 / (1 - p)).  Every row is masked, a row with the high bit set
+// too: this is the reference's `ref._mask`, which casts the rows to uint32
+// and has no student exemption (unlike the recurrent kernels).  masked == 0
+// (p == 0) copies x.  The mask bits are made in registers and never stored.
+// On the LM paths it is every site mask (repro/models/layers.py::
+// apply_site_mask): 28 launches a qwen3-1.7b prefill or decode step at
+// [rows, 2048], 48 a mamba2-370m one at [rows, 1024].
 //
 // What bounds it on this card: bytes.  It reads x once and writes out once
 // (8 bytes an element) and does ~20 integer operations an element for the
-// hash, far under the card's integer rate; at [64, 2048] one launch moves
-// 1 MB, so launch latency, not bandwidth, sets its time.
+// hash, far under the card's integer rate.  At prefill ([8192, 2048],
+// [32768, 1024]) that is 64-128 MB and the HBM rate sets the time.  At
+// decode ([64, 2048], [64, 1024]) a launch moves 0.5-1 MB, under 0.3 us at
+// the HBM rate, so the launch ramp and one memory round trip set the time,
+// and whatever work sits between a thread's start and its loads, or
+// between its loads and its stores, adds to it.
 //
-// Design: one thread per 4 consecutive elements of a row, with 16-byte
-// loads and stores (the wrapper takes this path when F % 4 == 0 and the
-// pointers are 16-byte aligned), else one thread per element.
+// Design: a flat 1-D launch, one unit a thread (a unit is a float4 on the
+// 16-byte path, taken when F % 4 == 0 and both pointers are 16-byte
+// aligned, else a float), 256 threads a block.  A thread's first
+// instructions form its 64-bit index and start its load; the copy path
+// (masked == 0) only stores after it.  The masked path finds the unit's row
+// as e / n by a multiply-high with a host-computed magic number (exact for
+// e < 2^31) instead of the first design's 64-bit division on the device,
+// loads the row id, hashes the unit's keep bits while x is in flight,
+// applies and stores.  Tried on the card and slower at the decode shapes:
+// a 2-D grid (reading blockIdx.y puts a special-register read on the
+// load's address path), two or four units a thread, and, at prefill, a
+// grid of a few waves striding over the rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,70 +41,82 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // threads a block (mask_plan's THREADS)
 
-__device__ __forceinline__ float masked_value(float v, uint32_t row,
-                                              uint32_t F, uint32_t col,
-                                              uint32_t key, uint32_t thr,
-                                              float scale) {
+__device__ __forceinline__ float apply(float v, uint32_t row, uint32_t F,
+                                       uint32_t col, uint32_t key,
+                                       uint32_t thr, float scale) {
   return mcd::keep_bit(key, row, F, col, thr) ? v * scale : 0.0f;
 }
 
-__global__ void masked_activation_kernel(const float* __restrict__ x,
-                                         const int32_t* __restrict__ rows,
-                                         float* __restrict__ out, int B, int F,
-                                         uint32_t key, uint32_t thr,
-                                         float scale, int masked) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)B * F) return;
-  const int b = (int)(e / F);
-  const uint32_t col = (uint32_t)(e % F);
-  out[e] = masked ? masked_value(x[e], (uint32_t)rows[b], (uint32_t)F, col,
-                                 key, thr, scale)
-                  : x[e];
+// Unit `unit` of the 16-byte path: floats 4 * unit .. 4 * unit + 3.
+__device__ __forceinline__ float4 apply(float4 v, uint32_t row, uint32_t F,
+                                        uint32_t unit, uint32_t key,
+                                        uint32_t thr, float scale) {
+  const uint32_t col = 4u * unit;
+  v.x = apply(v.x, row, F, col, key, thr, scale);
+  v.y = apply(v.y, row, F, col + 1, key, thr, scale);
+  v.z = apply(v.z, row, F, col + 2, key, thr, scale);
+  v.w = apply(v.w, row, F, col + 3, key, thr, scale);
+  return v;
 }
 
-// F % 4 == 0: thread e4 owns elements [4 * e4, 4 * e4 + 4) of one row.
-__global__ void masked_activation_kernel_vec4(
-    const float4* __restrict__ x, const int32_t* __restrict__ rows,
-    float4* __restrict__ out, int B, int F, uint32_t key, uint32_t thr,
-    float scale, int masked) {
-  const int64_t e4 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int F4 = F / 4;
-  if (e4 >= (int64_t)B * F4) return;
-  float4 v = x[e4];
+// T = float4 (16-byte path; n = F / 4 units a row) or float (n = F); unit
+// e of x [B * n] lies in row (e * magic) >> shift == e / n.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) masked_activation_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ rows,
+    T* __restrict__ out, int64_t total, uint32_t n, uint32_t F,
+    uint32_t magic, int shift, uint32_t key, uint32_t thr, float scale,
+    int masked) {
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  T v = x[e];
   if (masked) {
-    const uint32_t row = (uint32_t)rows[e4 / F4];
-    const uint32_t col = 4u * (uint32_t)(e4 % F4);
-    const uint32_t f = (uint32_t)F;
-    v.x = masked_value(v.x, row, f, col, key, thr, scale);
-    v.y = masked_value(v.y, row, f, col + 1, key, thr, scale);
-    v.z = masked_value(v.z, row, f, col + 2, key, thr, scale);
-    v.w = masked_value(v.w, row, f, col + 3, key, thr, scale);
+    const uint32_t b =
+        (uint32_t)(((uint64_t)(uint32_t)e * magic) >> shift);
+    const uint32_t row = (uint32_t)__ldg(rows + b);
+    v = apply(v, row, F, (uint32_t)e - b * n, key, thr, scale);
   }
-  out[e4] = v;
+  out[e] = v;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches out = mask(x) on `stream`; vec4 != 0 takes the 16-byte path
-// (F % 4 == 0, 16-byte aligned pointers).  Returns cudaGetLastError().
+// Launches out = mask(x) on `stream` with the host's plan
+// (kernels/bernoulli_mask.py::mask_plan): vec4 != 0 takes the 16-byte path,
+// `blocks` blocks of `threads` == kThreads threads cover the B * n units
+// once, and (magic, shift) divide a unit's index by n.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue when the plan does not fit
+// the shape: the 16-byte path needs F % 4 == 0 and 16-byte aligned
+// pointers, B * n must stay below 2^31, and the blocks must cover the units
+// with no idle block.
 int masked_activation_launch(const float* x, const int32_t* rows, float* out,
-                             int B, int F, int vec4, uint32_t key,
+                             int B, int F, int vec4, int threads, int blocks,
+                             uint32_t magic, int shift, uint32_t key,
                              uint32_t thr, float scale, int masked,
                              void* stream) {
-  const int64_t n = vec4 ? (int64_t)B * (F / 4) : (int64_t)B * F;
-  const int blocks = (int)((n + kThreads - 1) / kThreads);
+  if (B < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (vec4 && (F % 4 || (uintptr_t)x % 16 || (uintptr_t)out % 16))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = vec4 ? F / 4 : F;
+  const int64_t total = (int64_t)B * n;
+  if (total >= (int64_t)1 << 31 || threads != kThreads || blocks < 1 ||
+      (int64_t)blocks * kThreads < total ||
+      (int64_t)(blocks - 1) * kThreads >= total || shift < 31 || shift > 62)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   if (vec4) {
-    masked_activation_kernel_vec4<<<blocks, kThreads, 0,
-                                    (cudaStream_t)stream>>>(
+    masked_activation_kernel<float4><<<blocks, kThreads, 0, s>>>(
         reinterpret_cast<const float4*>(x), rows,
-        reinterpret_cast<float4*>(out), B, F, key, thr, scale, masked);
+        reinterpret_cast<float4*>(out), total, (uint32_t)n, (uint32_t)F,
+        magic, shift, key, thr, scale, masked);
   } else {
-    masked_activation_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        x, rows, out, B, F, key, thr, scale, masked);
+    masked_activation_kernel<float><<<blocks, kThreads, 0, s>>>(
+        x, rows, out, total, (uint32_t)n, (uint32_t)F, magic, shift, key,
+        thr, scale, masked);
   }
   return (int)cudaGetLastError();
 }

@@ -71,12 +71,15 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
 
     x: [B, I]; h, c: [B, H]; wx: [I, 4, H]; wh: [H, 4, H]; b: [4, H], all
     fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor; the student
-    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`.
-    Masks are rebuilt from the keys at every call.  Returns (h_new [B, H],
-    c_new [B, H]), fp32.
+    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`
+    (a tensor, a sequence of ints, or their launch argument built once by
+    :func:`repro_torch.kernels.common.keys_arg`).  Masks are rebuilt from
+    the keys at every call.  Returns (h_new [B, H], c_new [B, H]), fp32.
 
     CPU tensors run :func:`mcd_lstm_step_plain`; CUDA tensors launch the
-    kernel on the current stream (counted in ``mcd_lstm_step.launches``).
+    kernel on the current stream (counted in ``mcd_lstm_step.launches``) on
+    the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
+    path for H that divides 32, else the block path.
     """
     if common.check_device("mcd_lstm_step", x):
         return mcd_lstm_step_plain(x, h, c, wx, wh, b, rows, keys, p_drop)
@@ -92,13 +95,15 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
                            ("wh", wh, (H, 4, H)), ("b", b, (4, H))):
         common.check(name, t, dev, f32, shape)
     rows32 = common.rows_arg(rows, B, dev)
-    R = common.tile_rows(GATES, I, H)
+    plan = common.step_plan(GATES, B, I, H)
     h_out = torch.empty((B, H), device=dev)
     c_out = torch.empty((B, H), device=dev)
     common.launch(mcd_lstm_step,
-                  (x, h, c, wx, wh, b, rows32, h_out, c_out), (B, I, H, R),
+                  (x, h, c, wx, wh, b, rows32, h_out, c_out),
+                  (B, I, H, plan["rows"], int(plan["path"] == "warp")),
                   keys, 8, p_drop,
-                  f"mcd_lstm_step (B={B}, I={I}, H={H}, R={R})")
+                  f"mcd_lstm_step (B={B}, I={I}, H={H}, {plan['path']} "
+                  f"path, R={plan['rows']})")
     return h_out, c_out
 
 

@@ -206,6 +206,52 @@ def test_step_kernel_matches_plain(dev, cell, B, I, H, p):
         assert (g - r).abs().max().item() <= ATOL
 
 
+def _lstm_step_args(dev, B, I, H, p, seed=0):
+    d = _layer(dev, B, 1, I, H, seed=seed)
+    return (d["x"][:, 0].contiguous(), d["h0"], d["c0"], d["wx"], d["wh"],
+            d["b"], d["rows"], mcd_lstm.gate_keys(3, 1), p)
+
+
+@pytest.mark.parametrize("I,H", [(1, 8), (8, 8), (1, 16), (16, 8), (8, 16),
+                                 (16, 16), (40, 32), (3, 4), (70, 2)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_lstm_step_warp_path_bit_equal(dev, I, H, p):
+    """The step kernel's warp path (H divides 32) at B = 33, rows that do
+    not fill the last warp, every 7th a student row: bit-equal to its plain
+    version, one launch."""
+    B = 33
+    assert common.step_plan(4, B, I, H)["path"] == "warp"
+    args = _lstm_step_args(dev, B, I, H, p, seed=I + H)
+    before = mcd_lstm.mcd_lstm_step.launches
+    got = mcd_lstm.mcd_lstm_step(*args)
+    torch.cuda.synchronize()
+    assert mcd_lstm.mcd_lstm_step.launches == before + 1
+    for g, r in zip(got, mcd_lstm.mcd_lstm_step_plain(*args)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("B,I,H", [(5, 40, 24), (3, 128, 128)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_lstm_step_block_path_bit_equal(dev, B, I, H, p):
+    assert common.step_plan(4, B, I, H)["path"] == "block"
+    args = _lstm_step_args(dev, B, I, H, p)
+    got = mcd_lstm.mcd_lstm_step(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, mcd_lstm.mcd_lstm_step_plain(*args)):
+        assert torch.equal(g, r)
+
+
+def test_lstm_step_takes_the_keys_launch_argument(dev):
+    """The keys built once a layer (common.keys_arg) launch the same bits
+    as the tensor keys."""
+    args = _lstm_step_args(dev, 40, 8, 16, 0.125)
+    keys_c = common.keys_arg(args[7], 8)
+    got = mcd_lstm.mcd_lstm_step(*args[:7], keys_c, args[8])
+    want = mcd_lstm.mcd_lstm_step(*args)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_step_backend_agrees_with_seq_backend(dev, cell):
     """Bitwise: the step and sequence kernels (the GRU's on its warp path
@@ -283,6 +329,34 @@ def test_masked_activation_kernel_bit_equal(dev, B, F, p):
     assert bernoulli_mask.masked_activation.launches == before + 1
     want = bernoulli_mask.masked_activation_plain(x, rows, 0x9E3779B9, p)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("B,F,misaligned", [
+    (1, 2048, False), (64, 1024, False), (6, 37, False), (64, 2047, False),
+    (8, 2048, True), (5, 1024, True)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_masked_activation_edge_cases_bit_equal(dev, B, F, misaligned, p):
+    """One row, mamba2's width, F off the 16-byte path and views 4 bytes
+    past a 16-byte boundary (the scalar path), with rows whose bit 31 is
+    set (masked too): bitwise equal to the plain version, and the keep bits
+    equal to the plain stream."""
+    g = torch.Generator().manual_seed(B * F)
+    if misaligned:
+        x = torch.randn((B * F + 1,), generator=g).to(dev)[1:].view(B, F)
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = torch.randn((B, F), generator=g).to(dev)
+    rows = _lm_rows(dev, B)
+    before = bernoulli_mask.masked_activation.launches
+    got = bernoulli_mask.masked_activation(x, rows, 0x9E3779B9, p)
+    torch.cuda.synchronize()
+    assert bernoulli_mask.masked_activation.launches == before + 1
+    want = bernoulli_mask.masked_activation_plain(x, rows, 0x9E3779B9, p)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if p:
+        bits = bernoulli_mask.masked_activation(
+            torch.ones((B, F), device=dev), rows, 0x9E3779B9, p) != 0
+        assert torch.equal(bits, common.gate_mask(0x9E3779B9, rows, F, p))
 
 
 _MM_EDGES = [(M, K, N) for M in (1, 63, 65, 129) for K in (37, 2049)

@@ -7,7 +7,9 @@ layer's path (warp or block), rows a block, threads and shared memory;
 ``ssd_chunk.ssd_plan`` the SSD scan's chunk, grids, shared memory and
 scores scratch; ``decode_attn.decode_plan`` the attention's position tiles,
 splits, grid, shared memory and scratch of partials, from the shapes alone
-(never ``pos``).  The kernels run only on the card; what they are launched
+(never ``pos``); ``bernoulli_mask.mask_plan`` the mask's 16-byte path,
+blocks and row divisor; ``common.step_plan`` the LSTM step kernel's path
+(warp or block), rows a block and threads.  The kernels run only on the card; what they are launched
 with is checked here: every output and every row covered exactly once, the
 warp path taken for H that divides 32, shared memory within the H100's 227
 KB, the plans in step with the constants of the CUDA sources, and
@@ -24,8 +26,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.kernels import bernoulli_mask as bm  # noqa: E402
 from repro_torch.kernels import build, common  # noqa: E402
 from repro_torch.kernels import decode_attn  # noqa: E402
+from repro_torch.kernels import mcd_lstm  # noqa: E402
 from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
 from repro_torch.kernels import mcd_lstm_seq as lseq  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
@@ -451,3 +455,196 @@ def test_decode_plan_matches_the_cuda_source():
 def test_decode_plan_refuses_what_the_kernel_does_not_take(H, KV, hd, what):
     with pytest.raises(ValueError, match=what):
         decode_attn.decode_plan(2, H, KV, hd, 40)
+
+
+# -- masked_activation: a flat launch, one unit a thread ----------------------
+
+MASK_DECODE = [(64, 2048), (64, 1024)]       # qwen3-1.7b, mamba2-370m
+
+
+@pytest.mark.parametrize("B", [1, 6, 64, 8192, 32768])
+@pytest.mark.parametrize("F", [37, 1024, 2048])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_mask_plan_covers_every_element_once(B, F, aligned):
+    """The blocks cover the B * n units once with no idle block, a unit is
+    4 floats on the 16-byte path (1 off it), so every element is covered
+    once; and the multiply-high gives each unit its row and column: exact
+    at every row's first and last unit and at a sample in between."""
+    plan = bm.mask_plan(B, F, aligned)
+    assert plan["vec4"] == (F % 4 == 0 and aligned)
+    w = plan["elems_per_thread"]
+    assert w == (4 if plan["vec4"] else 1)
+    n = F // w
+    assert plan["units"] * w == B * F and plan["units"] == B * n
+    t = plan["threads"]
+    assert plan["blocks"] * t >= plan["units"] > (plan["blocks"] - 1) * t
+    rows = np.arange(B, dtype=np.uint64)
+    e = np.concatenate([rows * n, rows * n + n - 1,
+                        np.random.default_rng(B + F).integers(
+                            0, B * n, 4096).astype(np.uint64)])
+    b = (e * np.uint64(plan["magic"])) >> np.uint64(plan["shift"])
+    assert np.array_equal(b, e // np.uint64(n))
+    col = e - b * np.uint64(n)
+    assert np.all(col < n)
+
+
+def test_mask_plan_covers_small_shapes_exhaustively():
+    for B in (1, 2, 3, 7):
+        for F in (1, 3, 4, 5, 8, 37, 64):
+            for aligned in (True, False):
+                plan = bm.mask_plan(B, F, aligned)
+                n = F // plan["elems_per_thread"]
+                e = np.arange(plan["blocks"] * plan["threads"],
+                              dtype=np.uint64)
+                live = e[e < plan["units"]]
+                b = (live * np.uint64(plan["magic"])) >> \
+                    np.uint64(plan["shift"])
+                cols = live - b * np.uint64(n)
+                got = sorted(zip(b.tolist(), cols.tolist()))
+                assert got == [(r, c) for r in range(B) for c in range(n)]
+
+
+def test_row_divisor_is_exact_below_two_to_the_31():
+    rng = np.random.default_rng(0)
+    for n in [1, 2, 3, 7, 37, 256, 511, 512, 513, 2047, 12345, 2 ** 20 + 1,
+              2 ** 30, 2 ** 31 - 1]:
+        magic, shift = bm.row_divisor(n)
+        assert magic < 2 ** 32 and 31 <= shift <= 62
+        es = [0, 1, n - 1, n, n + 1, 2 ** 31 - 1, 2 ** 31 - 2,
+              (2 ** 31 - 1) // n * n, (2 ** 31 - 1) // n * n - 1]
+        es += rng.integers(0, 2 ** 31, 2000).tolist()
+        for e in es:
+            if 0 <= e < 2 ** 31:
+                assert (e * magic) >> shift == e // n, (n, e)
+
+
+@pytest.mark.parametrize("B,F", MASK_DECODE)
+def test_mask_plan_stays_within_one_wave_at_decode(B, F):
+    """At the decode shapes the launch is one wave, at most one block an
+    SM: nothing waits for a second wave."""
+    plan = bm.mask_plan(B, F)
+    assert plan["vec4"] and plan["blocks"] <= common.SMS
+
+
+def test_mask_plan_is_cached_by_shape():
+    assert bm.mask_plan(64, 2048) is bm.mask_plan(64, 2048)
+    assert bm.mask_plan(64, 2048, False) is not bm.mask_plan(64, 2048)
+
+
+def test_mask_plan_refuses_what_the_launch_cannot_index():
+    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
+        bm.mask_plan(2 ** 20, 2 ** 13)
+    with pytest.raises(ValueError):
+        bm.mask_plan(0, 8)
+
+
+def test_mask_plan_matches_the_cuda_source():
+    """The plan's block is the source's kThreads; the entry takes the
+    plan's fields in the wrapper's order and checks the shift's range and
+    the launch's index range; one kernel template holds the name a profile
+    matches."""
+    src = (build.CSRC / "masked_activation.cu").read_text()
+    assert re.search(rf"constexpr int kThreads = {bm.THREADS};", src)
+    assert re.search(r"int B, int F, int vec4, int threads, int blocks,\s+"
+                     r"uint32_t magic, int shift, uint32_t key", src)
+    assert "shift < 31 || shift > 62" in src
+    assert "total >= (int64_t)1 << 31" in src
+    assert bm.MAX_UNITS == 2 ** 31
+    assert len(bm._ARGTYPES) == 15
+    kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", src)
+    assert kernels == ["masked_activation_kernel"]
+
+
+# -- mcd_lstm_step: the warp path for H that divides 32 ----------------------
+
+STEP_SHAPES = CLF_AE_LAYERS + [(40, 32), (3, 4), (5, 24), (128, 128),
+                               (40, 1), (70, 2)]
+
+
+@pytest.mark.parametrize("B", [1, 5, 33, 1920])
+@pytest.mark.parametrize("I,H", STEP_SHAPES)
+def test_step_plan_covers_every_row_once(B, I, H):
+    plan = common.step_plan(4, B, I, H)
+    rows, blocks = plan["rows"], plan["blocks"]
+    assert np.all(_coverage(B, rows, blocks) == 1)
+    assert (blocks - 1) * rows < B
+    if plan["path"] == "warp":
+        # whole warps, 32 // H rows a warp, at most STEP_WARPS a block
+        assert plan["threads"] % 32 == 0
+        assert plan["threads"] <= 32 * common.STEP_WARPS
+        assert rows == plan["threads"] // 32 * (32 // H)
+        assert plan["smem"] == 0
+    else:
+        assert plan["threads"] == rows * H <= 1024
+        assert rows == common.tile_rows(4, I, H)
+        assert 0 < plan["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H", list(range(1, 41)))
+def test_step_warp_path_iff_hidden_divides_32(H):
+    for I in (1, 8, 16, 40):
+        for B in (1, 33, 1920):
+            path = common.step_plan(4, B, I, H)["path"]
+            assert (path == "warp") == (32 % H == 0), (B, I, H)
+
+
+def test_step_plan_of_the_ecg_layers():
+    """Every ECG layer (H = 8, 16) at 1920 rows takes the warp path with
+    STEP_WARPS warps a block; the plan is cached by shape."""
+    for I, H in CLF_AE_LAYERS:
+        plan = common.step_plan(4, 1920, I, H)
+        assert plan["path"] == "warp"
+        assert plan["threads"] == 32 * common.STEP_WARPS
+        assert plan is common.step_plan(4, 1920, I, H)
+
+
+def test_step_plan_matches_the_cuda_source():
+    """The warp path's block limit is the source's kWarpMaxThreads, the
+    warp kernels are instantiated for every H that divides 32, the block
+    path's shared memory is the source's block_smem_bytes, and both paths'
+    kernels hold the name a profile matches."""
+    src = (build.CSRC / "mcd_lstm_step.cu").read_text()
+    assert re.search(r"constexpr int kGates = 4;", src)
+    assert re.search(rf"constexpr int kWarpMaxThreads = "
+                     rf"{32 * common.STEP_WARPS};", src)
+    assert re.findall(r"MCD_LSTM_STEP_WARP\((\d+)\)\n", src) == [
+        "1", "2", "4", "8", "16", "32"]
+    assert re.search(r"\(size_t\)R \* \(kGates \* \(I \+ H\) \+ I \+ H\)",
+                     src)
+    assert re.search(r"int B, int I, int H, int R, int warp,", src)
+    for I, H in ((40, 24), (128, 128), (5, 24)):
+        plan = common.step_plan(4, 7, I, H)
+        R = plan["rows"]
+        assert plan["smem"] == 4 * R * (4 * (I + H) + I + H)
+    kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", src)
+    assert len(kernels) == 2
+    assert all("mcd_lstm_step_kernel" in k for k in kernels)
+
+
+def test_step_plan_refuses_empty_steps():
+    with pytest.raises(ValueError):
+        common.step_plan(4, 0, 1, 8)
+
+
+def test_keys_launch_argument_is_built_once_and_passed_through():
+    """The step backend builds the keys' ctypes argument once a layer; the
+    wrapper passes it through, and the plain version reads it as the
+    tensor keys."""
+    keys = mcd_lstm.gate_keys(3, 1)
+    arg = common.keys_arg(keys, 8)
+    assert common.keys_arg(arg, 8) is arg
+    assert common.key_list(arg, 8) == common.key_list(keys, 8)
+    g = torch.Generator().manual_seed(0)
+    B, I, H = 5, 3, 8
+    x, h, c = (torch.randn(B, d, generator=g) for d in (I, H, H))
+    wx, wh = torch.randn(I, 4, H, generator=g), torch.randn(H, 4, H,
+                                                           generator=g)
+    b = torch.randn(4, H, generator=g)
+    rows = torch.arange(B, dtype=torch.int64)
+    for u, v in zip(mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, arg,
+                                           0.125),
+                    mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, keys,
+                                           0.125)):
+        assert torch.equal(u, v)
