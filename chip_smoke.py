@@ -97,13 +97,6 @@ card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
-        python3 chip_smoke.py --only mcd_lstm_step,masked_activation \
-            [--src OTHER/src] --out cases.json
-``--only`` runs the named kernels' phase-2 and phase-6 cases alone (no
-serving phases, no ``kernels`` or ``ok`` line); ``--src`` imports
-``repro_torch`` from another checkout's ``src`` (its kernels build into
-that checkout's ``build/``), so one call can time the parent commit's
-kernels and this one's on the same cases, in turns.
 """
 
 from __future__ import annotations
@@ -477,15 +470,11 @@ def kernel_cases():
     return cases
 
 
-def kernel_phase(report, only=None):
-    """Phase 2; ``only``: the names of the kernels whose cases run (all when
-    None)."""
+def kernel_phase(report):
     import torch
     from repro_torch.kernels import common
     records, library = [], {}
     for n, (name, B, T, I, H, p) in enumerate(kernel_cases()):
-        if only is not None and name not in only:
-            continue
         gates, seq, _, _ = KERNELS[name]
         d = layer_inputs(B, T, I, H, seed=n, gates=gates, ragged=seq)
         keys = _keys(name, n)
@@ -514,17 +503,14 @@ def kernel_phase(report, only=None):
                    bit_equal=bit_equal, mask_bits_equal=True)
         if seq:
             rec["path"] = common.seq_plan(gates, B, I, H)["path"]
-        elif name == "mcd_lstm_step" and hasattr(common, "step_plan"):
+        elif name == "mcd_lstm_step":
             rec["plan"] = common.step_plan(gates, B, I, H)
             rec["path"] = rec["plan"]["path"]
         # Timed as the stack calls it: int32 rows and lengths converted
-        # once per stack, the keys as host ints (the LSTM step backend
-        # builds their launch argument once a layer).
+        # once per stack, the keys as host ints.
         d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
-        host_keys = tuple(keys.reshape(-1).tolist())
-        if name == "mcd_lstm_step":
-            host_keys = common.keys_arg(host_keys, 2 * gates)
-        timed, _ = kernel_calls(name, d32, host_keys, p)
+        timed, _ = kernel_calls(name, d32,
+                                tuple(keys.reshape(-1).tolist()), p)
         rec["kernel_ms"] = cuda_time_ms(timed, iters=20, warmup=2)
         rec["kernel_device_ms"] = device_ms(timed, 10, name + "_kernel")
         rec["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=0)
@@ -539,8 +525,7 @@ def kernel_phase(report, only=None):
         records.append(rec)
         print("kernel case " + json.dumps(rec), flush=True)
     report["kernel_cases"] = records
-    if only is None or "mcd_gru_seq" in only:
-        report["gru_f64_witness"] = gru_f64_witness()
+    report["gru_f64_witness"] = gru_f64_witness()
     return records
 
 
@@ -1061,9 +1046,8 @@ def mask_cases(dev, g, key) -> list[dict]:
         def call(p):
             return lambda: bernoulli_mask.masked_activation(x, r32, key, p)
 
-        plan = (bernoulli_mask.mask_plan(M, D, not misaligned)
-                if hasattr(bernoulli_mask, "mask_plan") else None)
-        case = dict(M=M, F=D, p=MASK_P, misaligned=misaligned, plan=plan,
+        case = dict(M=M, F=D, p=MASK_P, misaligned=misaligned,
+                    plan=bernoulli_mask.mask_plan(M, D, not misaligned),
                     bit_equal=True, mask_bits_equal=True,
                     copy_ms=cuda_time_ms(call(0.0), iters=10, warmup=2),
                     copy_device_ms=device_ms(call(0.0), iters,
@@ -1124,22 +1108,16 @@ def matmul_cases(dev, g, key) -> list[dict]:
     return records
 
 
-def lm_kernel_phase(report, only=None) -> list[dict]:
+def lm_kernel_phase(report) -> list[dict]:
     """The three LM kernels against their plain versions at qwen3-1.7b's
-    serving shapes (the mask at mamba2-370m's too); ``only``: the names of
-    the kernels whose cases run (all when None)."""
+    serving shapes (the mask at mamba2-370m's too)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     key = 0x2545F491
-    records = []
-
-    if only is None or "masked_activation" in only:
-        records += mask_cases(dev, g, key)
-    if only is None or "mcd_matmul" in only:
-        records += matmul_cases(dev, g, key)
-    if only is None or "decode_attention" in only:
-        records += attention_cases()
+    records = mask_cases(dev, g, key)
+    records += matmul_cases(dev, g, key)
+    records += attention_cases()
     report["lm_kernel_cases"] = records
     return records
 
@@ -1694,31 +1672,11 @@ def profile_ticks(params, cfg, streams, dev, kernel_match,
             "device_idle_share": 1.0 - dev_us / wall_us}
 
 
-def _write(path, report):
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as fh:
-        json.dump(report, fh, indent=1)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
-    ap.add_argument("--only", default=None,
-                    help="comma-separated kernel names: run only their "
-                         "phase-2 and phase-6 cases and write the report "
-                         "(no serving phases, no kernels or ok line)")
-    ap.add_argument("--src", default=None,
-                    help="import repro_torch from this src directory "
-                         "instead of the checkout's (to time another "
-                         "commit's kernels on the same cases, e.g. the "
-                         "parent's unpacked by git archive)")
     args = ap.parse_args(argv)
-    if args.src:
-        sys.path.insert(0, os.path.abspath(args.src))
-    only = None if args.only is None else set(args.only.split(","))
-    if only is not None and not only <= set(ALL_KERNELS):
-        ap.error(f"--only takes names of {ALL_KERNELS}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on "
@@ -1739,17 +1697,6 @@ def main(argv=None) -> int:
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
     dev = torch.device("cuda")
-    if only is not None:
-        report["only"] = sorted(only)
-        report["src"] = os.path.abspath(args.src or os.path.join(ROOT, "src"))
-        kernel_phase(report, only)
-        lm_kernel_phase(report, only)
-        report["seconds"] = time.perf_counter() - t0
-        if args.out:
-            _write(args.out, report)
-        print(json.dumps({"only": report["only"], "src": report["src"],
-                          "seconds": report["seconds"]}))
-        return 0
     entries = kernel_entries(kernel_phase(report))
     entries += lm_kernel_entries(lm_kernel_phase(report))
     entries.append(ssd_kernel_entry(ssd_kernel_phase(report)))
@@ -1770,7 +1717,10 @@ def main(argv=None) -> int:
     report["kernels"] = entries
     report["seconds"] = time.perf_counter() - t0
     if args.out:
-        _write(args.out, report)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(report, fh, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,46 +39,36 @@ def masked_activation_plain(x: torch.Tensor, rows: torch.Tensor, key: int,
                                                     device=x.device))
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p)
 
-THREADS = 256        # threads a block, one unit a thread (csrc kThreads)
-MAX_UNITS = 2 ** 31  # units the launch indexes (the magic division's range)
-
-
-def row_divisor(n: int) -> tuple[int, int]:
-    """``(magic, shift)`` with ``(e * magic) >> shift == e // n`` for every
-    ``0 <= e < 2**31``: the kernel's row of unit e, without a division on
-    the device (``magic < 2**32``; ``shift = 31 + ceil(log2 n)``)."""
-    shift = 31 + (n - 1).bit_length()
-    return (1 << shift) // n + 1, shift
+THREADS = 256           # threads a block, one unit a thread (csrc kThreads)
+MAX_ROW_BLOCKS = 65535  # blocks along the rows (gridDim.y's limit)
 
 
 @functools.cache
 def mask_plan(B: int, F: int, aligned: bool = True) -> dict:
     """How ``csrc/masked_activation.cu`` covers x [B, F], from the shape
-    alone (cached by shape): ``vec4`` (the 16-byte path: F % 4 == 0 and
-    ``aligned``, both pointers 16-byte aligned), ``threads`` a block, one
-    unit a thread (``elems_per_thread`` floats: 4 on the 16-byte path, else
-    1), the ``blocks`` of a flat launch over the ``units`` = B·n, n = F / 4
-    or F units a row, and the ``magic`` and ``shift`` that divide a unit's
-    index by n (:func:`row_divisor`).
+    alone (cached by shape).
+
+    ``vec4``: the 16-byte path (F % 4 == 0 and ``aligned``, both pointers
+    16-byte aligned), where a unit is a float4 (``elems_per_thread`` 4),
+    else a float; a row holds ``n`` = F / 4 or F units, one a thread.
+    ``grid`` is (blocks along a row, blocks along the rows), as the kernel's
+    entry sets it, one row a block along the rows; past ``MAX_ROW_BLOCKS``
+    rows the entry makes ``launches`` launches of at most that many rows.
+    At the decode shapes the grid is one wave.
     """
     if B < 1 or F < 1:
         raise ValueError(f"x must be [B>=1, F>=1], got {(B, F)}")
     vec4 = F % 4 == 0 and aligned
     unit = 4 if vec4 else 1
     n = F // unit
-    units = B * n
-    if units >= MAX_UNITS:
-        raise NotImplementedError(
-            f"masked_activation indexes fewer than 2**31 units a launch, got "
-            f"[{B}, {F}] ({units} units); split the batch")
-    magic, shift = row_divisor(n)
-    return {"vec4": vec4, "threads": THREADS, "elems_per_thread": unit,
-            "units": units, "blocks": -(-units // THREADS), "magic": magic,
-            "shift": shift}
+    return {"vec4": vec4, "threads": THREADS, "n": n,
+            "elems_per_thread": unit,
+            "grid": (-(-n // THREADS), min(B, MAX_ROW_BLOCKS)),
+            "launches": -(-B // MAX_ROW_BLOCKS)}
 
 
 def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
@@ -109,9 +99,8 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
     thr, scale, masked = common.mask_args(p_drop)
     common.launch_c(masked_activation, "masked_activation", _ARGTYPES,
                     (x.data_ptr(), rows32.data_ptr(), out.data_ptr(), B, F,
-                     int(plan["vec4"]), plan["threads"], plan["blocks"],
-                     plan["magic"], plan["shift"], int(key) & prng.MASK32,
-                     thr, scale, masked, common.stream(dev)),
+                     int(plan["vec4"]), int(key) & prng.MASK32, thr, scale,
+                     masked, common.stream(dev)),
                     f"masked_activation (B={B}, F={F})")
     return out
 

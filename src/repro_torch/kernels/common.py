@@ -102,10 +102,15 @@ def key_list(keys, n: int | None = None) -> list[int]:
 
 def keys_arg(keys, n: int):
     """The ``n`` gate keys as the kernels' launch argument, a ctypes uint32
-    array; one already built is passed through, so a caller that launches
-    a kernel many times with the same keys builds it once."""
-    if isinstance(keys, ctypes.Array) and len(keys) == n:
-        return keys
+    array, built once a key tuple (the step backends launch T times a
+    layer with the same keys)."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys.reshape(-1).tolist()
+    return _keys_array(tuple(keys), n)
+
+
+@functools.lru_cache(maxsize=256)
+def _keys_array(keys: tuple, n: int):
     return (ctypes.c_uint32 * n)(*key_list(keys, n))
 
 

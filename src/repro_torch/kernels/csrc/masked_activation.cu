@@ -21,18 +21,22 @@
 // and whatever work sits between a thread's start and its loads, or
 // between its loads and its stores, adds to it.
 //
-// Design: a flat 1-D launch, one unit a thread (a unit is a float4 on the
-// 16-byte path, taken when F % 4 == 0 and both pointers are 16-byte
-// aligned, else a float), 256 threads a block.  A thread's first
-// instructions form its 64-bit index and start its load; the copy path
-// (masked == 0) only stores after it.  The masked path finds the unit's row
-// as e / n by a multiply-high with a host-computed magic number (exact for
-// e < 2^31) instead of the first design's 64-bit division on the device,
-// loads the row id, hashes the unit's keep bits while x is in flight,
-// applies and stores.  Tried on the card and slower at the decode shapes:
-// a 2-D grid (reading blockIdx.y puts a special-register read on the
-// load's address path), two or four units a thread, and, at prefill, a
-// grid of a few waves striding over the rows.
+// Design: a 2-D launch with no division.  A unit is a float4 on the
+// 16-byte path (F % 4 == 0 and both pointers 16-byte aligned), else a
+// float; a row holds n = F / 4 or F units.  Block (bx, by) owns units
+// [bx * kThreads, (bx + 1) * kThreads) of row by: the row comes from
+// blockIdx.y, the column from blockIdx.x and the thread, so no thread
+// divides an index (as a flat launch over B * n units would) and none
+// loops.  Past gridDim.y's limit of 65535 rows the entry launches the grid
+// once for each 65535 rows.  A thread issues its x load
+// and the row id's load first, hashes its unit's keep bits while they are
+// in flight (the bits depend only on key, row and column), then applies
+// them and stores.  The host picks the path (kernels/bernoulli_mask.py::
+// mask_plan, which mirrors the grid); the grid follows from the shape.
+// Measured on the H100 and dropped (PERF.md §6): two or four float4 a
+// thread (slower at the decode shapes), a loop over rows in the kernel
+// (slower at decode, though it runs once there), and a grid of one to
+// four waves striding over the rows at prefill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,7 +45,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // threads a block (mask_plan's THREADS)
+constexpr int kThreads = 256;         // threads a block (mask_plan's THREADS)
+constexpr int kMaxRowBlocks = 65535;  // gridDim.y's limit
 
 __device__ __forceinline__ float apply(float v, uint32_t row, uint32_t F,
                                        uint32_t col, uint32_t key,
@@ -61,63 +66,60 @@ __device__ __forceinline__ float4 apply(float4 v, uint32_t row, uint32_t F,
   return v;
 }
 
-// T = float4 (16-byte path; n = F / 4 units a row) or float (n = F); unit
-// e of x [B * n] lies in row (e * magic) >> shift == e / n.
+// T = float4 (16-byte path) or float: unit blockIdx.x * kThreads + thread
+// of row blockIdx.y.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) masked_activation_kernel(
     const T* __restrict__ x, const int32_t* __restrict__ rows,
-    T* __restrict__ out, int64_t total, uint32_t n, uint32_t F,
-    uint32_t magic, int shift, uint32_t key, uint32_t thr, float scale,
-    int masked) {
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= total) return;
+    T* __restrict__ out, int n, uint32_t F, uint32_t key, uint32_t thr,
+    float scale, int masked) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n) return;
+  const int64_t e = (int64_t)blockIdx.y * n + c;
   T v = x[e];
-  if (masked) {
-    const uint32_t b =
-        (uint32_t)(((uint64_t)(uint32_t)e * magic) >> shift);
-    const uint32_t row = (uint32_t)__ldg(rows + b);
-    v = apply(v, row, F, (uint32_t)e - b * n, key, thr, scale);
-  }
+  if (masked)
+    v = apply(v, (uint32_t)__ldg(rows + blockIdx.y), F, (uint32_t)c, key,
+              thr, scale);
   out[e] = v;
+}
+
+template <typename T>
+void launch_rows(const T* x, const int32_t* rows, T* out, int B, int n,
+                 uint32_t F, uint32_t key, uint32_t thr, float scale,
+                 int masked, cudaStream_t s) {
+  const unsigned cols = (unsigned)(((int64_t)n + kThreads - 1) / kThreads);
+  for (int r0 = 0; r0 < B; r0 += kMaxRowBlocks) {
+    const int nr = B - r0 < kMaxRowBlocks ? B - r0 : kMaxRowBlocks;
+    masked_activation_kernel<T><<<dim3(cols, nr), kThreads, 0, s>>>(
+        x + (int64_t)r0 * n, rows + r0, out + (int64_t)r0 * n, n, F, key,
+        thr, scale, masked);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches out = mask(x) on `stream` with the host's plan
-// (kernels/bernoulli_mask.py::mask_plan): vec4 != 0 takes the 16-byte path,
-// `blocks` blocks of `threads` == kThreads threads cover the B * n units
-// once, and (magic, shift) divide a unit's index by n.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue when the plan does not fit
-// the shape: the 16-byte path needs F % 4 == 0 and 16-byte aligned
-// pointers, B * n must stay below 2^31, and the blocks must cover the units
-// with no idle block.
+// Launches out = mask(x) on `stream`; vec4 != 0 takes the 16-byte path,
+// which needs F % 4 == 0 and 16-byte aligned pointers.  The grid is
+// (ceil(n / kThreads), B), one launch for each kMaxRowBlocks rows.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an empty x or a
+// 16-byte path that does not fit it.
 int masked_activation_launch(const float* x, const int32_t* rows, float* out,
-                             int B, int F, int vec4, int threads, int blocks,
-                             uint32_t magic, int shift, uint32_t key,
+                             int B, int F, int vec4, uint32_t key,
                              uint32_t thr, float scale, int masked,
                              void* stream) {
   if (B < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (vec4 && (F % 4 || (uintptr_t)x % 16 || (uintptr_t)out % 16))
     return (int)cudaErrorInvalidValue;
-  const int64_t n = vec4 ? F / 4 : F;
-  const int64_t total = (int64_t)B * n;
-  if (total >= (int64_t)1 << 31 || threads != kThreads || blocks < 1 ||
-      (int64_t)blocks * kThreads < total ||
-      (int64_t)(blocks - 1) * kThreads >= total || shift < 31 || shift > 62)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec4) {
-    masked_activation_kernel<float4><<<blocks, kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(x), rows,
-        reinterpret_cast<float4*>(out), total, (uint32_t)n, (uint32_t)F,
-        magic, shift, key, thr, scale, masked);
-  } else {
-    masked_activation_kernel<float><<<blocks, kThreads, 0, s>>>(
-        x, rows, out, total, (uint32_t)n, (uint32_t)F, magic, shift, key,
-        thr, scale, masked);
-  }
+  if (vec4)
+    launch_rows(reinterpret_cast<const float4*>(x), rows,
+                reinterpret_cast<float4*>(out), B, F / 4, (uint32_t)F, key,
+                thr, scale, masked, s);
+  else
+    launch_rows(x, rows, out, B, F, (uint32_t)F, key, thr, scale, masked,
+                s);
   return (int)cudaGetLastError();
 }
 

@@ -71,10 +71,9 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
 
     x: [B, I]; h, c: [B, H]; wx: [I, 4, H]; wh: [H, 4, H]; b: [4, H], all
     fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor; the student
-    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`
-    (a tensor, a sequence of ints, or their launch argument built once by
-    :func:`repro_torch.kernels.common.keys_arg`).  Masks are rebuilt from
-    the keys at every call.  Returns (h_new [B, H], c_new [B, H]), fp32.
+    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`.
+    Masks are rebuilt from the keys at every call.  Returns (h_new [B, H],
+    c_new [B, H]), fp32.
 
     CPU tensors run :func:`mcd_lstm_step_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_lstm_step.launches``) on

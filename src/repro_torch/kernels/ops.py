@@ -35,9 +35,9 @@ import functools
 import torch
 
 from repro_torch.core import cells, mcd
-from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
-                                 mcd_gru, mcd_gru_seq, mcd_lstm,
-                                 mcd_lstm_seq, mcd_matmul, ssd_chunk)
+from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_gru,
+                                 mcd_gru_seq, mcd_lstm, mcd_lstm_seq,
+                                 mcd_matmul, ssd_chunk)
 
 LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
 
@@ -130,8 +130,7 @@ def fused_lstm_layer(wx4, wh4, b, x_seq, rows, seed, layer: int,
     """
     B, T, _ = x_seq.shape
     H = wh4.shape[0]
-    # The keys' launch argument, built once for the layer's T launches.
-    keys = common.keys_arg(_gate_keys("lstm", int(seed), int(layer)), 8)
+    keys = _gate_keys("lstm", int(seed), int(layer))
     dev = x_seq.device
     h = torch.zeros((B, H), device=dev) if h0 is None else _carry(h0)
     c = torch.zeros((B, H), device=dev) if c0 is None else _carry(c0)

@@ -241,12 +241,13 @@ def test_lstm_step_block_path_bit_equal(dev, B, I, H, p):
         assert torch.equal(g, r)
 
 
-def test_lstm_step_takes_the_keys_launch_argument(dev):
-    """The keys built once a layer (common.keys_arg) launch the same bits
-    as the tensor keys."""
+def test_lstm_step_takes_host_key_tuples(dev):
+    """The keys as a tuple of host ints (as the step backend passes them;
+    their launch argument is built once, common.keys_arg) launch the same
+    bits as the tensor keys."""
     args = _lstm_step_args(dev, 40, 8, 16, 0.125)
-    keys_c = common.keys_arg(args[7], 8)
-    got = mcd_lstm.mcd_lstm_step(*args[:7], keys_c, args[8])
+    host = tuple(args[7].reshape(-1).tolist())
+    got = mcd_lstm.mcd_lstm_step(*args[:7], host, args[8])
     want = mcd_lstm.mcd_lstm_step(*args)
     for g, r in zip(got, want):
         assert torch.equal(g, r)
@@ -333,13 +334,15 @@ def test_masked_activation_kernel_bit_equal(dev, B, F, p):
 
 @pytest.mark.parametrize("B,F,misaligned", [
     (1, 2048, False), (64, 1024, False), (6, 37, False), (64, 2047, False),
-    (8, 2048, True), (5, 1024, True)])
+    (8, 2048, True), (5, 1024, True), (65537, 8, False),
+    (65537, 5, False)])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_masked_activation_edge_cases_bit_equal(dev, B, F, misaligned, p):
-    """One row, mamba2's width, F off the 16-byte path and views 4 bytes
-    past a 16-byte boundary (the scalar path), with rows whose bit 31 is
-    set (masked too): bitwise equal to the plain version, and the keep bits
-    equal to the plain stream."""
+    """One row, mamba2's width, F off the 16-byte path, views 4 bytes past
+    a 16-byte boundary (the scalar path) and 65537 rows (past gridDim.y's
+    limit: a second launch for the last two rows), with rows
+    whose bit 31 is set (masked too): bitwise equal to the plain version,
+    and the keep bits equal to the plain stream."""
     g = torch.Generator().manual_seed(B * F)
     if misaligned:
         x = torch.randn((B * F + 1,), generator=g).to(dev)[1:].view(B, F)

@@ -7,10 +7,10 @@ layer's path (warp or block), rows a block, threads and shared memory;
 ``ssd_chunk.ssd_plan`` the SSD scan's chunk, grids, shared memory and
 scores scratch; ``decode_attn.decode_plan`` the attention's position tiles,
 splits, grid, shared memory and scratch of partials, from the shapes alone
-(never ``pos``); ``bernoulli_mask.mask_plan`` the mask's 16-byte path,
-blocks and row divisor; ``common.step_plan`` the LSTM step kernel's path
-(warp or block), rows a block and threads.  The kernels run only on the card; what they are launched
-with is checked here: every output and every row covered exactly once, the
+(never ``pos``); ``bernoulli_mask.mask_plan`` the mask's 16-byte path
+and 2-D grid; ``common.step_plan`` the LSTM step kernel's
+path (warp or block), rows a block and threads.  The kernels run only on
+the card; what they are launched with is checked here: every output and every row covered exactly once, the
 warp path taken for H that divides 32, shared memory within the H100's 227
 KB, the plans in step with the constants of the CUDA sources, and
 unsupported shapes refused (with a pointer to ROADMAP.md where the port
@@ -457,73 +457,83 @@ def test_decode_plan_refuses_what_the_kernel_does_not_take(H, KV, hd, what):
         decode_attn.decode_plan(2, H, KV, hd, 40)
 
 
-# -- masked_activation: a flat launch, one unit a thread ----------------------
+# -- masked_activation: a 2-D launch, one unit a thread ---------------------
 
 MASK_DECODE = [(64, 2048), (64, 1024)]       # qwen3-1.7b, mamba2-370m
+
+
+def _mask_columns(plan):
+    """The units of a row the threads take, as the kernel indexes them:
+    block bx, thread t takes unit bx * THREADS + t (past n: none)."""
+    c = np.arange(plan["grid"][0] * plan["threads"])
+    return c[c < plan["n"]]
+
+
+def _mask_rows(plan, B):
+    """The rows each launch's blocks along the rows take: launch i covers
+    rows i * MAX_ROW_BLOCKS + by for by < its grid (the last launch's
+    grid the rows left)."""
+    gy = plan["grid"][1]
+    assert gy == min(B, bm.MAX_ROW_BLOCKS)
+    return [np.arange(r0, min(B, r0 + gy))
+            for r0 in range(0, plan["launches"] * gy, gy)]
 
 
 @pytest.mark.parametrize("B", [1, 6, 64, 8192, 32768])
 @pytest.mark.parametrize("F", [37, 1024, 2048])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_mask_plan_covers_every_element_once(B, F, aligned):
-    """The blocks cover the B * n units once with no idle block, a unit is
-    4 floats on the 16-byte path (1 off it), so every element is covered
-    once; and the multiply-high gives each unit its row and column: exact
-    at every row's first and last unit and at a sample in between."""
+    """Each unit of a row is taken by one thread once, each row by one
+    block along the rows once, and a unit is 4 floats on the 16-byte path
+    (1 off it): every element is covered once, with no idle block."""
     plan = bm.mask_plan(B, F, aligned)
     assert plan["vec4"] == (F % 4 == 0 and aligned)
-    w = plan["elems_per_thread"]
-    assert w == (4 if plan["vec4"] else 1)
-    n = F // w
-    assert plan["units"] * w == B * F and plan["units"] == B * n
-    t = plan["threads"]
-    assert plan["blocks"] * t >= plan["units"] > (plan["blocks"] - 1) * t
-    rows = np.arange(B, dtype=np.uint64)
-    e = np.concatenate([rows * n, rows * n + n - 1,
-                        np.random.default_rng(B + F).integers(
-                            0, B * n, 4096).astype(np.uint64)])
-    b = (e * np.uint64(plan["magic"])) >> np.uint64(plan["shift"])
-    assert np.array_equal(b, e // np.uint64(n))
-    col = e - b * np.uint64(n)
-    assert np.all(col < n)
+    assert plan["elems_per_thread"] == (4 if plan["vec4"] else 1)
+    assert plan["n"] * plan["elems_per_thread"] == F
+    assert np.array_equal(_mask_columns(plan), np.arange(plan["n"]))
+    assert (plan["grid"][0] - 1) * plan["threads"] < plan["n"]
+    rows = _mask_rows(plan, B)
+    assert np.array_equal(np.concatenate(rows), np.arange(B))
+    assert min(len(r) for r in rows) >= 1
+    assert plan["launches"] == 1
 
 
 def test_mask_plan_covers_small_shapes_exhaustively():
+    """Every (row, element) of small shapes, enumerated from the grid as the
+    kernel walks it, is covered exactly once."""
     for B in (1, 2, 3, 7):
         for F in (1, 3, 4, 5, 8, 37, 64):
             for aligned in (True, False):
                 plan = bm.mask_plan(B, F, aligned)
-                n = F // plan["elems_per_thread"]
-                e = np.arange(plan["blocks"] * plan["threads"],
-                              dtype=np.uint64)
-                live = e[e < plan["units"]]
-                b = (live * np.uint64(plan["magic"])) >> \
-                    np.uint64(plan["shift"])
-                cols = live - b * np.uint64(n)
-                got = sorted(zip(b.tolist(), cols.tolist()))
-                assert got == [(r, c) for r in range(B) for c in range(n)]
+                unit = plan["elems_per_thread"]
+                got = sorted((int(b), int(c) * unit + e)
+                             for rows in _mask_rows(plan, B) for b in rows
+                             for c in _mask_columns(plan)
+                             for e in range(unit))
+                assert got == [(b, f) for b in range(B) for f in range(F)]
 
 
-def test_row_divisor_is_exact_below_two_to_the_31():
-    rng = np.random.default_rng(0)
-    for n in [1, 2, 3, 7, 37, 256, 511, 512, 513, 2047, 12345, 2 ** 20 + 1,
-              2 ** 30, 2 ** 31 - 1]:
-        magic, shift = bm.row_divisor(n)
-        assert magic < 2 ** 32 and 31 <= shift <= 62
-        es = [0, 1, n - 1, n, n + 1, 2 ** 31 - 1, 2 ** 31 - 2,
-              (2 ** 31 - 1) // n * n, (2 ** 31 - 1) // n * n - 1]
-        es += rng.integers(0, 2 ** 31, 2000).tolist()
-        for e in es:
-            if 0 <= e < 2 ** 31:
-                assert (e * magic) >> shift == e // n, (n, e)
+def test_mask_plan_launches_again_past_the_grid_limit():
+    """One launch, one row a block along the rows, at the serving shapes
+    (decode and prefill, both models); past gridDim.y's limit one launch
+    for each MAX_ROW_BLOCKS rows, each row taken once."""
+    for B, F in MASK_DECODE + [(8192, 2048), (32768, 1024)]:
+        plan = bm.mask_plan(B, F)
+        assert plan["grid"][1] == B and plan["launches"] == 1
+    for B in (bm.MAX_ROW_BLOCKS, bm.MAX_ROW_BLOCKS + 1, 131072, 2 ** 20):
+        plan = bm.mask_plan(B, 8)
+        assert plan["launches"] == -(-B // bm.MAX_ROW_BLOCKS)
+        rows = _mask_rows(plan, B)
+        assert np.array_equal(np.concatenate(rows), np.arange(B))
 
 
 @pytest.mark.parametrize("B,F", MASK_DECODE)
 def test_mask_plan_stays_within_one_wave_at_decode(B, F):
     """At the decode shapes the launch is one wave, at most one block an
-    SM: nothing waits for a second wave."""
+    SM, on the 16-byte path: nothing waits for a second wave."""
     plan = bm.mask_plan(B, F)
-    assert plan["vec4"] and plan["blocks"] <= common.SMS
+    gx, gy = plan["grid"]
+    assert plan["vec4"] and gx * gy <= common.SMS and gy == B
 
 
 def test_mask_plan_is_cached_by_shape():
@@ -532,25 +542,29 @@ def test_mask_plan_is_cached_by_shape():
 
 
 def test_mask_plan_refuses_what_the_launch_cannot_index():
-    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
-        bm.mask_plan(2 ** 20, 2 ** 13)
     with pytest.raises(ValueError):
         bm.mask_plan(0, 8)
+    with pytest.raises(ValueError):
+        bm.mask_plan(4, 0)
 
 
 def test_mask_plan_matches_the_cuda_source():
-    """The plan's block is the source's kThreads; the entry takes the
-    plan's fields in the wrapper's order and checks the shift's range and
-    the launch's index range; one kernel template holds the name a profile
-    matches."""
+    """The plan's block and row-block limit are the source's kThreads and
+    kMaxRowBlocks, and its grid the entry's; the entry takes the wrapper's
+    arguments in order; one kernel template, on both paths, holds the name
+    a profile matches."""
     src = (build.CSRC / "masked_activation.cu").read_text()
     assert re.search(rf"constexpr int kThreads = {bm.THREADS};", src)
-    assert re.search(r"int B, int F, int vec4, int threads, int blocks,\s+"
-                     r"uint32_t magic, int shift, uint32_t key", src)
-    assert "shift < 31 || shift > 62" in src
-    assert "total >= (int64_t)1 << 31" in src
-    assert bm.MAX_UNITS == 2 ** 31
-    assert len(bm._ARGTYPES) == 15
+    assert re.search(rf"constexpr int kMaxRowBlocks = {bm.MAX_ROW_BLOCKS};",
+                     src)
+    assert "((int64_t)n + kThreads - 1) / kThreads" in src
+    assert "for (int r0 = 0; r0 < B; r0 += kMaxRowBlocks)" in src
+    assert re.search(r"int B, int F, int vec4, uint32_t key,\s+"
+                     r"uint32_t thr, float scale, int masked,\s+"
+                     r"void\* stream\)", src)
+    assert len(bm._ARGTYPES) == 11
+    assert re.findall(r"masked_activation_kernel<T><<<", src)
+    assert "launch_rows(reinterpret_cast<const float4*>(x)" in src
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
     assert kernels == ["masked_activation_kernel"]
@@ -628,14 +642,19 @@ def test_step_plan_refuses_empty_steps():
         common.step_plan(4, 0, 1, 8)
 
 
-def test_keys_launch_argument_is_built_once_and_passed_through():
-    """The step backend builds the keys' ctypes argument once a layer; the
-    wrapper passes it through, and the plain version reads it as the
-    tensor keys."""
+def test_keys_launch_argument_is_built_once_a_key_tuple():
+    """The keys' ctypes argument is built once a key tuple (the step
+    backends launch T times a layer with the same keys), and a tensor of
+    the same keys gives the same argument; the wrapper takes the tuple and
+    the plain version reads it as the tensor keys."""
     keys = mcd_lstm.gate_keys(3, 1)
-    arg = common.keys_arg(keys, 8)
-    assert common.keys_arg(arg, 8) is arg
-    assert common.key_list(arg, 8) == common.key_list(keys, 8)
+    host = tuple(keys.reshape(-1).tolist())
+    arg = common.keys_arg(host, 8)
+    assert common.keys_arg(host, 8) is arg
+    assert common.keys_arg(keys, 8) is arg
+    assert list(arg) == common.key_list(keys, 8)
+    with pytest.raises(ValueError):
+        common.keys_arg(host[:6], 8)
     g = torch.Generator().manual_seed(0)
     B, I, H = 5, 3, 8
     x, h, c = (torch.randn(B, d, generator=g) for d in (I, H, H))
@@ -643,7 +662,7 @@ def test_keys_launch_argument_is_built_once_and_passed_through():
                                                            generator=g)
     b = torch.randn(4, H, generator=g)
     rows = torch.arange(B, dtype=torch.int64)
-    for u, v in zip(mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, arg,
+    for u, v in zip(mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, host,
                                            0.125),
                     mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, keys,
                                            0.125)):
