@@ -15,10 +15,9 @@ Phases (each raises on failure; the exit code is then non-zero):
    kernels at T = 140 (and the LSTM also at T = 20) -- and one wide layer (B
    = 256, T = 64, I = H = 128), with ragged lengths, non-zero h0/c0, student
    rows, p = 0.125 and p = 0: every output bit-equal to the plain version
-   (on the warp path or the block path, as each case of the sequence
-   kernels and of ``mcd_lstm_step`` records, with the step kernel's
-   ``step_plan``), and each kernel's mask bits equal to the plain
-   stream's. Times the
+   (on the warp path or the block path, as each case records, the step
+   kernels with their ``step_plan``), and each kernel's mask bits equal to
+   the plain stream's. Times the
    kernel, its plain version and, where one PyTorch call computes the same
    function (p = 0, no student rows, full lengths: cuDNN through
    ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``), that call. A
@@ -503,7 +502,7 @@ def kernel_phase(report):
                    bit_equal=bit_equal, mask_bits_equal=True)
         if seq:
             rec["path"] = common.seq_plan(gates, B, I, H)["path"]
-        elif name == "mcd_lstm_step":
+        else:
             rec["plan"] = common.step_plan(gates, B, I, H)
             rec["path"] = rec["plan"]["path"]
         # Timed as the stack calls it: int32 rows and lengths converted

@@ -220,17 +220,16 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
 
 @functools.cache
 def step_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
-    """How a step kernel of ``gates`` gates runs one step: its path, the
-    rows a block, the threads, blocks and shared memory a block needs
-    (``csrc/mcd_lstm_step.cu``; cached by shape, as the step backend asks
-    the same T times a layer).
+    """How a step kernel of ``gates`` gates (``csrc/mcd_lstm_step.cu``: 4,
+    ``csrc/mcd_gru_step.cu``: 3) runs one step: its path, the rows a
+    block, the threads, blocks and shared memory a block needs (cached by
+    shape, as the step backend asks the same T times a layer).
 
     H that divides 32 takes the warp path: a row's H units are H lanes of
     one warp, ``32 // H`` rows a warp, ``STEP_WARPS`` warps a block (fewer
     when the batch has fewer), and no shared memory.  Every other H takes
     the block path (:func:`_block_plan`).  Both paths compute the same
-    bits.  ``mcd_gru_step`` still runs its block kernel at every H (its
-    warp path is ROADMAP.md B2.6's next item).
+    bits.
     """
     if min(batch, in_dim, hidden) < 1:
         raise ValueError(f"empty step: B={batch}, I={in_dim}, H={hidden}")

@@ -8,18 +8,46 @@
 // over the full h row, and the update
 //   r = sigmoid(gx0 + gh0 + b0),  z = sigmoid(gx1 + gh1 + b1),
 //   n = tanh(gx2 + r * gh2 + b2),  h' = (1 - z) * n + z * h,
-// where the z*h term reads the unit's own h (the TPU kernel's h tile).
-// Negative int32 rows (the student flag) run unmasked and p == 0 skips
-// masking.  The step backend (repro_torch.kernels.ops.fused_gru_layer)
+// where the z*h term reads the unit's own unmasked h (the TPU kernel's h
+// tile).  Negative int32 rows (the student flag) run unmasked and p == 0
+// skips masking.  The step backend (repro_torch.kernels.ops.fused_gru_layer)
 // launches it once per time step and freezes ragged rows outside.
 //
-// What bounds it on this card: launch latency, as for mcd_lstm_step.cu --
-// one small step per launch; the paper's per-step baseline, not tuned.
+// What bounds it on this card: latency.  A launch does one [B, I+H] x
+// [I+H, 3H] step, a few hundred kB and a few MFLOP at the ECG widths
+// (bound ~0.05 us), so its time is the launch ramp, one memory round trip
+// for the operands, and the critical path of a row: its mask hashes, one
+// dependent chain of I multiply-adds (x side) and of H (h side) a gate, and
+// the sigmoid/tanh tail.  Anything that waits on the whole block -- a fill
+// of every row's mask factors into shared memory and a barrier before the
+// first gate sum, as this kernel's first design had -- adds its own latency
+// to that path.
 //
-// Design: one block owns R whole rows, one thread per (row, hidden unit);
-// the block writes its rows' mask factors, x and the full h row into
-// shared memory, then each thread runs the shared GRU body (mcd_cells.cuh),
-// the same arithmetic as the sequence kernel's step.
+// Two paths, one arithmetic (mcd_cells.cuh: every product and sum rounded
+// on its own, in the plain version's order -- the x-side sums in index
+// order from 0, the h-side sums apart in index order from 0, then
+// gru_tail -- so both paths, the sequence kernel and the plain version
+// agree bit for bit):
+//  * Warp path, for H that divides 32 (every ECG layer: H = 8, 16): one
+//    step of mcd_gru_seq.cu's warp path.  A row's H units are H lanes of
+//    one warp, 32 / H rows a warp; no shared memory and no block barrier.
+//    Each lane loads its row id, hashes its own unit's three h-side keep
+//    bits in registers and shuffles h * fh (one value a gate) to the row's
+//    lanes.  The x side is spread the same way: lane j takes the columns
+//    i = j (mod H), hashes their three x-side bits and shuffles x_i * f_gi,
+//    so a row draws each of its 3 (I + H) bits once.  The x side and the h
+//    side keep separate sums (the reset gate scales the h-side candidate
+//    sum alone); the z*h term reads the lane's own unmasked h.  Weights and
+//    bias are read through the read-only path (the unit's column of wx and
+//    wh).  Lanes of rows past B stay in every shuffle on zeros, so the
+//    full-mask shuffles are defined.  For the ECG input widths (I = 1, 8,
+//    16) the x loop is unrolled at compile time.
+//  * Block path, for every other H (the wide H = 128 layer, H = 24): one
+//    block owns R whole rows, one thread per (row, unit); the block writes
+//    its rows' mask factors, x and the full h rows into shared memory, one
+//    barrier, then each thread runs mcd_cells.cuh's gru_unit.
+// The host picks the path, the rows a block and the threads
+// (kernels/common.py::step_plan) and passes them in; the entry checks them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,6 +58,8 @@
 namespace {
 
 constexpr int kGates = 3;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpMaxThreads = 256;
 
 __global__ void mcd_gru_step_kernel(
     const float* __restrict__ x,      // [B, I]
@@ -69,32 +99,164 @@ __global__ void mcd_gru_step_kernel(
                     hs[threadIdx.x]);
 }
 
+// Warp path: blockDim.x = 32 * warps, R = warps * (32 / H) rows a block.
+// (Both paths' names hold "mcd_gru_step_kernel", the name a profile of the
+// kernel matches.)  IX > 0: I == IX, the x loop is straight-line code;
+// IX == 0: any I.
+template <int H, int IX>
+__global__ void __launch_bounds__(kWarpMaxThreads) mcd_gru_step_kernel_warp(
+    const float* __restrict__ x, const float* __restrict__ h,
+    const float* __restrict__ wx, const float* __restrict__ wh,
+    const float* __restrict__ bias, const int32_t* __restrict__ rows,
+    float* __restrict__ h_out, int B, int I_arg, mcd::GateKeys keys,
+    uint32_t thr, float scale, int masked) {
+  constexpr int kRowsPerWarp = 32 / H;
+  const int I = IX > 0 ? IX : I_arg;
+  const int lane = threadIdx.x & 31;
+  const int br = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * kRowsPerWarp +
+                 lane / H;
+  const int j = lane % H;
+  const bool active = br < B;
+
+  // The row's masking: unmasked for a student row, a row past B, or
+  // masked == 0 (its factors are 1, as mcd::fill_mask_factors writes them).
+  const int32_t row = active ? __ldg(rows + br) : -1;
+  const bool draw = masked && row >= 0;
+  auto factor = [&](uint32_t key, int feat, int col) {
+    if (!draw) return 1.0f;
+    return mcd::keep_bit(key, (uint32_t)row, (uint32_t)feat, (uint32_t)col,
+                         thr)
+               ? scale
+               : 0.0f;
+  };
+
+  const float hj = active ? __ldg(h + (size_t)br * H + j) : 0.0f;
+  const float* xrow = x + (size_t)br * I;
+
+  // x side: lane j holds x_i * f_gi for i = s * H + j, one chunk s of H
+  // columns at a time; the row's lanes take the terms in index order.
+  float sx[kGates] = {0.0f, 0.0f, 0.0f};
+  auto x_chunk = [&](int s) {
+    const int i = s * H + j;
+    const bool own = active && i < I;
+    const float xv = own ? __ldg(xrow + i) : 0.0f;
+    float xf[kGates];
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      xf[g] = __fmul_rn(xv, own ? factor(keys.k[g], I, i) : 1.0f);
+#pragma unroll
+    for (int l = 0; l < H; ++l) {
+      const int il = s * H + l;
+      if (il >= I) break;               // uniform across the warp
+      const float* w = wx + (size_t)il * kGates * H + j;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g)
+        sx[g] = mcd::gate_term_vf(sx[g], __shfl_sync(kFull, xf[g], l, H),
+                                  __ldg(w + g * H));
+    }
+  };
+  if (IX > 0) {
+#pragma unroll
+    for (int s = 0; s < (IX + H - 1) / H; ++s) x_chunk(s);
+  } else {
+    for (int s = 0; s < (I + H - 1) / H; ++s) x_chunk(s);
+  }
+
+  // h side: each lane's h * fh for its unit, shuffled to the row's lanes,
+  // into sums of their own (not continuing the x-side chains).
+  float hf[kGates], bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    hf[g] = __fmul_rn(hj, factor(keys.k[kGates + g], H, j));
+    bj[g] = __ldg(bias + g * H + j);
+  }
+  float sh[kGates] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float* w = wh + (size_t)k * kGates * H + j;
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      sh[g] = mcd::gate_term_vf(sh[g], __shfl_sync(kFull, hf[g], k, H),
+                                __ldg(w + g * H));
+  }
+  const float h_new =
+      mcd::gru_tail(sx[0], sx[1], sx[2], sh[0], sh[1], sh[2], bj, hj);
+  if (active) h_out[(size_t)br * H + j] = h_new;
+}
+
+size_t block_smem_bytes(int R, int I, int H) {
+  return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
+}
+
+template <int H, int IX>
+int launch_warp(const float* x, const float* h, const float* wx,
+                const float* wh, const float* bias, const int32_t* rows,
+                float* h_out, int B, int I, int R, const mcd::GateKeys& keys,
+                uint32_t thr, float scale, int masked, cudaStream_t stream) {
+  const int threads = R * H;            // whole warps
+  if (threads % 32 || threads > kWarpMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  mcd_gru_step_kernel_warp<H, IX><<<(B + R - 1) / R, threads, 0, stream>>>(
+      x, h, wx, wh, bias, rows, h_out, B, I, keys, thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes for a tile of R rows (the wrapper picks R).
-size_t mcd_gru_step_smem_bytes(int R, int I, int H) {
-  return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
-}
-
-// Launches one step on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches one step on `stream` on the path the host planned (warp != 0:
+// the warp path, H must divide 32) with R rows a block; returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the plan
+// does not fit the path.
 int mcd_gru_step_launch(const float* x, const float* h, const float* wx,
                         const float* wh, const float* bias,
-                        const int32_t* rows, float* h_out, int B, int I,
-                        int H, int R, const uint32_t* keys6, uint32_t thr,
-                        float scale, int masked, void* stream) {
-  const size_t smem = mcd_gru_step_smem_bytes(R, I, H);
+                        const int32_t* rows, float* h_out,
+                        int B, int I, int H, int R, int warp,
+                        const uint32_t* keys6, uint32_t thr, float scale,
+                        int masked, void* stream) {
+  const mcd::GateKeys keys = mcd::to_keys(keys6, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || I < 1 || H < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  if (warp) {
+#define MCD_GRU_STEP_WARP_I(HH, II)                                          \
+  return launch_warp<HH, II>(x, h, wx, wh, bias, rows, h_out, B, I, R, keys, \
+                             thr, scale, masked, s);
+#define MCD_GRU_STEP_WARP(HH)      \
+  case HH:                         \
+    switch (I) {                   \
+      case 1:                      \
+        MCD_GRU_STEP_WARP_I(HH, 1) \
+      case 8:                      \
+        MCD_GRU_STEP_WARP_I(HH, 8) \
+      case 16:                     \
+        MCD_GRU_STEP_WARP_I(HH, 16) \
+      default:                     \
+        MCD_GRU_STEP_WARP_I(HH, 0) \
+    }
+    switch (H) {
+      MCD_GRU_STEP_WARP(1)
+      MCD_GRU_STEP_WARP(2)
+      MCD_GRU_STEP_WARP(4)
+      MCD_GRU_STEP_WARP(8)
+      MCD_GRU_STEP_WARP(16)
+      MCD_GRU_STEP_WARP(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef MCD_GRU_STEP_WARP
+#undef MCD_GRU_STEP_WARP_I
+  }
+  if (R * H > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = block_smem_bytes(R, I, H);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         mcd_gru_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (B + R - 1) / R;
-  mcd_gru_step_kernel<<<blocks, R * H, smem, (cudaStream_t)stream>>>(
-      x, h, wx, wh, bias, rows, h_out, B, I, H, R,
-      mcd::to_keys(keys6, 2 * kGates), thr, scale, masked);
+  mcd_gru_step_kernel<<<(B + R - 1) / R, R * H, smem, s>>>(
+      x, h, wx, wh, bias, rows, h_out, B, I, H, R, keys, thr, scale, masked);
   return (int)cudaGetLastError();
 }
 

@@ -76,7 +76,9 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
     fp32.
 
     CPU tensors run :func:`mcd_gru_step_plain`; CUDA tensors launch the
-    kernel on the current stream (counted in ``mcd_gru_step.launches``).
+    kernel on the current stream (counted in ``mcd_gru_step.launches``) on
+    the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
+    path for H that divides 32, else the block path.
     """
     if common.check_device("mcd_gru_step", x):
         return mcd_gru_step_plain(x, h, wx, wh, b, rows, keys, p_drop)
@@ -91,11 +93,13 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
                            ("b", b, (3, H))):
         common.check(name, t, dev, torch.float32, shape)
     rows32 = common.rows_arg(rows, B, dev)
-    R = common.tile_rows(GATES, I, H)
+    plan = common.step_plan(GATES, B, I, H)
     h_out = torch.empty((B, H), device=dev)
     common.launch(mcd_gru_step, (x, h, wx, wh, b, rows32, h_out),
-                  (B, I, H, R), keys, 6, p_drop,
-                  f"mcd_gru_step (B={B}, I={I}, H={H}, R={R})")
+                  (B, I, H, plan["rows"], int(plan["path"] == "warp")),
+                  keys, 6, p_drop,
+                  f"mcd_gru_step (B={B}, I={I}, H={H}, {plan['path']} "
+                  f"path, R={plan['rows']})")
     return h_out
 
 

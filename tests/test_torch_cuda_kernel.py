@@ -206,50 +206,65 @@ def test_step_kernel_matches_plain(dev, cell, B, I, H, p):
         assert (g - r).abs().max().item() <= ATOL
 
 
-def _lstm_step_args(dev, B, I, H, p, seed=0):
-    d = _layer(dev, B, 1, I, H, seed=seed)
-    return (d["x"][:, 0].contiguous(), d["h0"], d["c0"], d["wx"], d["wh"],
-            d["b"], d["rows"], mcd_lstm.gate_keys(3, 1), p)
+def _step_args(dev, cell, B, I, H, p, seed=0):
+    """A step wrapper, its plain version, its arguments and its gate
+    count."""
+    if cell == "lstm":
+        d = _layer(dev, B, 1, I, H, seed=seed)
+        return (mcd_lstm.mcd_lstm_step, mcd_lstm.mcd_lstm_step_plain,
+                (d["x"][:, 0].contiguous(), d["h0"], d["c0"], d["wx"],
+                 d["wh"], d["b"], d["rows"], mcd_lstm.gate_keys(3, 1), p), 4)
+    d = _gru_layer(dev, B, 1, I, H, seed=seed)
+    return (mcd_gru.mcd_gru_step, mcd_gru.mcd_gru_step_plain,
+            (d["x"][:, 0].contiguous(), d["h0"], d["wx"], d["wh"], d["b"],
+             d["rows"], mcd_gru.gate_keys(3, 1), p), 3)
 
 
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("I,H", [(1, 8), (8, 8), (1, 16), (16, 8), (8, 16),
                                  (16, 16), (40, 32), (3, 4), (70, 2)])
 @pytest.mark.parametrize("p", [0.0, 0.125])
-def test_lstm_step_warp_path_bit_equal(dev, I, H, p):
+def test_step_warp_path_bit_equal(dev, cell, I, H, p):
     """The step kernel's warp path (H divides 32) at B = 33, rows that do
     not fill the last warp, every 7th a student row: bit-equal to its plain
     version, one launch."""
     B = 33
-    assert common.step_plan(4, B, I, H)["path"] == "warp"
-    args = _lstm_step_args(dev, B, I, H, p, seed=I + H)
-    before = mcd_lstm.mcd_lstm_step.launches
-    got = mcd_lstm.mcd_lstm_step(*args)
+    step, plain, args, gates = _step_args(dev, cell, B, I, H, p, seed=I + H)
+    assert common.step_plan(gates, B, I, H)["path"] == "warp"
+    before = step.launches
+    got = step(*args)
     torch.cuda.synchronize()
-    assert mcd_lstm.mcd_lstm_step.launches == before + 1
-    for g, r in zip(got, mcd_lstm.mcd_lstm_step_plain(*args)):
+    assert step.launches == before + 1
+    for g, r in zip(_outs(got), _outs(plain(*args)), strict=True):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("B,I,H", [(5, 40, 24), (3, 128, 128)])
 @pytest.mark.parametrize("p", [0.0, 0.125])
-def test_lstm_step_block_path_bit_equal(dev, B, I, H, p):
-    assert common.step_plan(4, B, I, H)["path"] == "block"
-    args = _lstm_step_args(dev, B, I, H, p)
-    got = mcd_lstm.mcd_lstm_step(*args)
+def test_step_block_path_bit_equal(dev, cell, B, I, H, p):
+    step, plain, args, gates = _step_args(dev, cell, B, I, H, p)
+    assert common.step_plan(gates, B, I, H)["path"] == "block"
+    got = step(*args)
     torch.cuda.synchronize()
-    for g, r in zip(got, mcd_lstm.mcd_lstm_step_plain(*args)):
+    for g, r in zip(_outs(got), _outs(plain(*args)), strict=True):
         assert torch.equal(g, r)
 
 
-def test_lstm_step_takes_host_key_tuples(dev):
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_step_takes_host_key_tuples(dev, cell):
     """The keys as a tuple of host ints (as the step backend passes them;
     their launch argument is built once, common.keys_arg) launch the same
     bits as the tensor keys."""
-    args = _lstm_step_args(dev, 40, 8, 16, 0.125)
-    host = tuple(args[7].reshape(-1).tolist())
-    got = mcd_lstm.mcd_lstm_step(*args[:7], host, args[8])
-    want = mcd_lstm.mcd_lstm_step(*args)
-    for g, r in zip(got, want):
+    step, _, args, _ = _step_args(dev, cell, 40, 8, 16, 0.125)
+    host = tuple(args[-2].reshape(-1).tolist())
+    got = step(*args[:-2], host, args[-1])
+    want = step(*args)
+    for g, r in zip(_outs(got), _outs(want), strict=True):
         assert torch.equal(g, r)
 
 

@@ -8,7 +8,7 @@ layer's path (warp or block), rows a block, threads and shared memory;
 scores scratch; ``decode_attn.decode_plan`` the attention's position tiles,
 splits, grid, shared memory and scratch of partials, from the shapes alone
 (never ``pos``); ``bernoulli_mask.mask_plan`` the mask's 16-byte path
-and 2-D grid; ``common.step_plan`` the LSTM step kernel's
+and 2-D grid; ``common.step_plan`` the LSTM and GRU step kernels'
 path (warp or block), rows a block and threads.  The kernels run only on
 the card; what they are launched with is checked here: every output and every row covered exactly once, the
 warp path taken for H that divides 32, shared memory within the H100's 227
@@ -29,7 +29,7 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import bernoulli_mask as bm  # noqa: E402
 from repro_torch.kernels import build, common  # noqa: E402
 from repro_torch.kernels import decode_attn  # noqa: E402
-from repro_torch.kernels import mcd_lstm  # noqa: E402
+from repro_torch.kernels import mcd_gru, mcd_lstm  # noqa: E402
 from repro_torch.kernels import mcd_gru_seq as gseq  # noqa: E402
 from repro_torch.kernels import mcd_lstm_seq as lseq  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
@@ -570,16 +570,20 @@ def test_mask_plan_matches_the_cuda_source():
     assert kernels == ["masked_activation_kernel"]
 
 
-# -- mcd_lstm_step: the warp path for H that divides 32 ----------------------
+# -- mcd_lstm_step and mcd_gru_step: the warp path for H that divides 32 --
 
 STEP_SHAPES = CLF_AE_LAYERS + [(40, 32), (3, 4), (5, 24), (128, 128),
                                (40, 1), (70, 2)]
+# The step kernels: (gates, CUDA source).
+STEP_CELLS = [pytest.param(4, "mcd_lstm_step.cu", id="lstm"),
+              pytest.param(3, "mcd_gru_step.cu", id="gru")]
 
 
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
 @pytest.mark.parametrize("B", [1, 5, 33, 1920])
 @pytest.mark.parametrize("I,H", STEP_SHAPES)
-def test_step_plan_covers_every_row_once(B, I, H):
-    plan = common.step_plan(4, B, I, H)
+def test_step_plan_covers_every_row_once(B, I, H, gates, source):
+    plan = common.step_plan(gates, B, I, H)
     rows, blocks = plan["rows"], plan["blocks"]
     assert np.all(_coverage(B, rows, blocks) == 1)
     assert (blocks - 1) * rows < B
@@ -591,50 +595,92 @@ def test_step_plan_covers_every_row_once(B, I, H):
         assert plan["smem"] == 0
     else:
         assert plan["threads"] == rows * H <= 1024
-        assert rows == common.tile_rows(4, I, H)
+        assert rows == common.tile_rows(gates, I, H)
         assert 0 < plan["smem"] <= SMEM_LIMIT
 
 
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
 @pytest.mark.parametrize("H", list(range(1, 41)))
-def test_step_warp_path_iff_hidden_divides_32(H):
+def test_step_warp_path_iff_hidden_divides_32(H, gates, source):
     for I in (1, 8, 16, 40):
         for B in (1, 33, 1920):
-            path = common.step_plan(4, B, I, H)["path"]
+            path = common.step_plan(gates, B, I, H)["path"]
             assert (path == "warp") == (32 % H == 0), (B, I, H)
 
 
-def test_step_plan_of_the_ecg_layers():
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
+def test_step_plan_of_the_ecg_layers(gates, source):
     """Every ECG layer (H = 8, 16) at 1920 rows takes the warp path with
     STEP_WARPS warps a block; the plan is cached by shape."""
     for I, H in CLF_AE_LAYERS:
-        plan = common.step_plan(4, 1920, I, H)
+        plan = common.step_plan(gates, 1920, I, H)
         assert plan["path"] == "warp"
         assert plan["threads"] == 32 * common.STEP_WARPS
-        assert plan is common.step_plan(4, 1920, I, H)
+        assert plan is common.step_plan(gates, 1920, I, H)
 
 
-def test_step_plan_matches_the_cuda_source():
-    """The warp path's block limit is the source's kWarpMaxThreads, the
-    warp kernels are instantiated for every H that divides 32, the block
-    path's shared memory is the source's block_smem_bytes, and both paths'
-    kernels hold the name a profile matches."""
-    src = (build.CSRC / "mcd_lstm_step.cu").read_text()
-    assert re.search(r"constexpr int kGates = 4;", src)
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
+def test_step_plan_matches_the_cuda_source(gates, source):
+    """The source's gate count is the plan's, the warp path's block limit
+    is the source's kWarpMaxThreads, the warp kernels are instantiated for
+    every H that divides 32, the block path's shared memory is the source's
+    block_smem_bytes, the entry takes the plan's rows and warp flag, and
+    both paths' kernels hold the name a profile matches."""
+    src = (build.CSRC / source).read_text()
+    stem = source.removesuffix(".cu")
+    assert re.search(rf"constexpr int kGates = {gates};", src)
     assert re.search(rf"constexpr int kWarpMaxThreads = "
                      rf"{32 * common.STEP_WARPS};", src)
-    assert re.findall(r"MCD_LSTM_STEP_WARP\((\d+)\)\n", src) == [
+    assert re.findall(rf"{stem.upper()}_WARP\((\d+)\)\n", src) == [
         "1", "2", "4", "8", "16", "32"]
     assert re.search(r"\(size_t\)R \* \(kGates \* \(I \+ H\) \+ I \+ H\)",
                      src)
     assert re.search(r"int B, int I, int H, int R, int warp,", src)
     for I, H in ((40, 24), (128, 128), (5, 24)):
-        plan = common.step_plan(4, 7, I, H)
+        plan = common.step_plan(gates, 7, I, H)
         R = plan["rows"]
-        assert plan["smem"] == 4 * R * (4 * (I + H) + I + H)
+        assert plan["smem"] == 4 * R * (gates * (I + H) + I + H)
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
     assert len(kernels) == 2
-    assert all("mcd_lstm_step_kernel" in k for k in kernels)
+    assert all(f"{stem}_kernel" in k for k in kernels)
+
+
+def _step_call(gates, B, I, H):
+    """A step wrapper (``mcd_lstm_step`` for 4 gates, ``mcd_gru_step`` for
+    3) and its arguments on CPU tensors."""
+    g = torch.Generator().manual_seed(B + I + H)
+    x, h, c = (torch.randn(B, d, generator=g) for d in (I, H, H))
+    wx = torch.randn(I, gates, H, generator=g)
+    wh = torch.randn(H, gates, H, generator=g)
+    b = torch.randn(gates, H, generator=g)
+    rows = torch.arange(B, dtype=torch.int64)
+    mod = mcd_lstm if gates == 4 else mcd_gru
+    keys = mod.gate_keys(3, 1)
+    carry = (h, c) if gates == 4 else (h,)
+    fn = mcd_lstm.mcd_lstm_step if gates == 4 else mcd_gru.mcd_gru_step
+    return fn, (x, *carry, wx, wh, b, rows, keys, 0.125)
+
+
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
+@pytest.mark.parametrize("B,I,H", [(1920, I, H) for I, H in CLF_AE_LAYERS]
+                         + [(33, 40, 24)])
+def test_step_wrapper_launches_the_plan(monkeypatch, B, I, H, gates,
+                                        source):
+    """The wrapper passes step_plan's rows and warp flag after (B, I, H):
+    the entry's ``int B, int I, int H, int R, int warp`` (the launch itself
+    recorded here, not run)."""
+    calls = []
+    monkeypatch.setattr(common, "check_device", lambda name, t: False)
+    monkeypatch.setattr(common, "launch",
+                        lambda wrapper, tensors, ints, *rest: calls.append(
+                            (wrapper, ints)))
+    fn, args = _step_call(gates, B, I, H)
+    fn(*args)
+    plan = common.step_plan(gates, B, I, H)
+    assert calls == [(fn, (B, I, H, plan["rows"],
+                           int(plan["path"] == "warp")))]
+    assert plan["path"] == ("warp" if 32 % H == 0 else "block")
 
 
 def test_step_plan_refuses_empty_steps():
