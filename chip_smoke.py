@@ -41,6 +41,13 @@ Phases (each raises on failure; the exit code is then non-zero):
    for the GRU and the LSTM classifier: bit-equal to ``cuda_seq`` (both
    run the cell body of ``mcd_cells.cuh``), and the step kernel launched
    once per layer per time step.
+5b. Serving precisions: ``StreamingEngine(..., precision=p)`` for the
+   classifier LSTM at int8 and at bf16 and the autoencoder GRU at int4
+   (64 sessions x S = 30, every beat in 12 ragged chunks) on ``cuda_seq``
+   and on ``cuda_step``: the two backends' carries (h bf16, the LSTM's c
+   fp32) and summaries bit-equal, chunked == unchunked bit for bit (and
+   the classifier's logits bf16), with the fp32 cell on the same plans
+   beside each for the tick times.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
@@ -88,10 +95,27 @@ Phases (each raises on failure; the exit code is then non-zero):
    48 launches a prefill and ``masked_activation`` 48 a prefill and 48 a
    decode step, the same checks, times and profiles as phase 7.
 
+10. Serving precisions, the kernels (last: its profiles hold thousands of
+   records, and torch.profiler has lost records in every later profile
+   of a process after such a one): each recurrent kernel at bf16, int8
+   and int4 (the sequence kernels on int8 codes / packed int4 codes and
+   their scales, dequantized at kernel entry; the step kernels on the
+   dequantized bf16 weights, as the reference hands them) on the ECG
+   layers at B = 1920 (T = 140), a block-path layer with an odd H (16, 9)
+   for the int4 pad and (128, 128) at B = 256, p = 0.125 and 0, every
+   16th row a student row: every output bit-equal to the plain version at
+   its precision (bf16 ys / h, fp32 c) and the mask bits at the bf16
+   scale equal to the plain stream's.  Times each case beside the same
+   case at fp32 (call ms by CUDA events, device ms from one profile a
+   kernel, split by marker kernels), the plain version, the bound at the
+   storage widths and the bf16 cuDNN call (none at int8 / int4).
+
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
 phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
-``mcd_lstm_seq`` has two, the classifier pass and the autoencoder pass), the
+``mcd_lstm_seq`` has two, the classifier pass and the autoencoder pass;
+each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
+int8 and int4 from phase 10), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -357,14 +381,16 @@ def _keys(name, n):
 
 
 def kernel_calls(name, d, keys, p):
-    """(kernel call, plain call) on the inputs ``d``; outputs as tuples."""
+    """(kernel call, plain call) on the inputs ``d`` (with the quantized
+    weights' keywords ``d["qkw"]`` of ``precision_operands``, if any);
+    outputs as tuples."""
     mod = _module(name)
     gates, seq, _, _ = KERNELS[name]
     lstm = gates == 4
     fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
     if seq:
         args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
-        kw = dict(h0=d["h0"], lengths=d["lengths"])
+        kw = dict(h0=d["h0"], lengths=d["lengths"], **d.get("qkw", {}))
         if lstm:
             kw["c0"] = d["c0"]
         return (lambda: fn(*args, **kw)), (lambda: plain(*args, **kw))
@@ -376,37 +402,10 @@ def kernel_calls(name, d, keys, p):
     return (lambda: (fn(*args),)), (lambda: (plain(*args),))
 
 
-def bound(name, d, p) -> tuple[float, str]:
-    """Least time (ms) for one launch on these inputs: bytes each input read
-    once and each output written once, over HBM; operations over the fp32
-    peak.  A sequence kernel needs x and compute only for the live steps
-    (t < length)."""
-    gates, seq, _, _ = KERNELS[name]
-    B, T, I = d["x"].shape
-    H = d["wh"].shape[0]
-    carries = 2 if gates == 4 else 1
-    weights = gates * H * (I + H) + gates * H
-    if seq:
-        live = int(d["lengths"].clamp(max=T).sum())
-        nbytes = 4 * (live * I + weights + 2 * B + carries * B * H
-                      + B * T * H + carries * B * H)
-    else:
-        live = B
-        nbytes = 4 * (B * I + weights + B + 2 * carries * B * H)
-    tail = 15 if gates == 4 else 12            # activations and update
-    per_step = H * (2 * gates * (I + H) + gates + tail)
-    if p > 0:
-        per_step += gates * (I + H)            # the masked views
-    flops = live * per_step
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def library_ms(name, d) -> tuple[float, float, float]:
-    """One cuDNN call (torch.nn.LSTM / GRU / LSTMCell / GRUCell) on the same
-    inputs at p = 0, full lengths, no student rows; returns (call ms,
-    device ms, max abs diff to the kernel).  PyTorch's GRU adds b_hn inside
+def library_call(name, d, dtype=None):
+    """One cuDNN call (torch.nn.LSTM / GRU / LSTMCell / GRUCell) on the
+    inputs ``d`` (p = 0, full lengths, no student rows), its weights and
+    inputs in ``dtype`` (default fp32).  PyTorch's GRU adds b_hn inside
     the reset product, so b_hn = 0 and b_in = b[2] give the reference's
     bias placement; the gate orders (i, f, g, o) and (r, z, n) match."""
     import torch
@@ -419,31 +418,37 @@ def library_ms(name, d) -> tuple[float, float, float]:
     kw = dict(batch_first=True) if seq else {}
     mod = cls(I, H, **kw).cuda()
     with torch.no_grad():
-        wih = mod.weight_ih_l0 if seq else mod.weight_ih
-        whh = mod.weight_hh_l0 if seq else mod.weight_hh
-        bih = mod.bias_ih_l0 if seq else mod.bias_ih
-        bhh = mod.bias_hh_l0 if seq else mod.bias_hh
-        wih.copy_(d["wx"].permute(1, 2, 0).reshape(gates * H, I))
-        whh.copy_(d["wh"].permute(1, 2, 0).reshape(gates * H, H))
-        bih.copy_(d["b"].reshape(-1))
-        bhh.zero_()
+        sfx = "_l0" if seq else ""
+        getattr(mod, "weight_ih" + sfx).copy_(
+            d["wx"].permute(1, 2, 0).reshape(gates * H, I))
+        getattr(mod, "weight_hh" + sfx).copy_(
+            d["wh"].permute(1, 2, 0).reshape(gates * H, H))
+        getattr(mod, "bias_ih" + sfx).copy_(d["b"].reshape(-1))
+        getattr(mod, "bias_hh" + sfx).zero_()
+    dtype = dtype or torch.float32
+    mod = mod.to(dtype)
+    h0, c0 = d["h0"].to(dtype), d["c0"].to(dtype)
     if seq:
-        h0 = d["h0"][None].contiguous()
-        state = (h0, d["c0"][None].contiguous()) if lstm else h0
-        x = d["x"]
+        state = ((h0[None].contiguous(), c0[None].contiguous()) if lstm
+                 else h0[None].contiguous())
+        x = d["x"].to(dtype)
     else:
-        state = (d["h0"], d["c0"]) if lstm else d["h0"]
-        x = d["x"][:, 0].contiguous()
+        state = (h0, c0) if lstm else h0
+        x = d["x"][:, 0].to(dtype).contiguous()
 
     def call():
         with torch.no_grad():
             return mod(x, state)
+    return call
 
+
+def library_ms(name, d) -> tuple[float, float, float]:
+    """``library_call`` in fp32: (call ms, device ms, max abs diff to the
+    kernel)."""
+    gates, seq, _, _ = KERNELS[name]
+    call = library_call(name, d)
     out = call()
-    if seq:
-        lib_out = out[0]
-    else:
-        lib_out = out[0] if lstm else out
+    lib_out = out if not seq and gates == 3 else out[0]
     keys = _keys(name, 0)
     ours = kernel_calls(name, d, keys, 0.0)[0]()[0]
     diff = max_abs_diff(lib_out, ours, f"{name} vs its library call")
@@ -654,6 +659,422 @@ def kernel_entries(records):
                                if r["kernel"] == e["name"])
         e["kernel_ms"] = e["ms"]
     return entries
+
+
+# -- serving precisions: the recurrent kernels at bf16, int8 and int4 -------
+
+PRECISIONS = ("bf16", "int8", "int4")
+# (I, H) of phase 10: the ECG layers at B = 1920 (T = 140 for the sequence
+# kernels), one block-path layer with an odd H (the int4 pad column) and
+# the wide layer at B = 256 (T = 64).
+PREC_SHAPES = ([(1920, I, H) for I, H in
+                [(1, 8), (8, 8), (1, 16), (16, 16), (16, 8), (8, 16)]]
+               + [(1920, 16, 9), (256, 128, 128)])
+
+
+def precision_operands(name, d, precision):
+    """A case's fp32 inputs ``d`` (``layer_inputs``) as the stack hands
+    them to the kernel at ``precision`` (``ops._precision_weights`` from
+    the fp32 master weights): x and h0 in the activation dtype, c0 fp32;
+    the sequence kernels take int8 / int4 codes and their scales, the step
+    kernels the dequantized bf16 weights.  fp32 returns ``d`` as it is."""
+    from repro_torch.kernels import ops
+    if precision == "fp32":
+        return dict(d, qkw={})
+    seq = KERNELS[name][1]
+    wx, wh, x, qkw = ops._precision_weights(d["wx"], d["wh"], d["x"],
+                                            precision, seq=seq)
+    return dict(d, x=x, wx=wx, wh=wh, h0=d["h0"].to(x.dtype), qkw=qkw)
+
+
+def bound(name, d, p, precision="fp32") -> tuple[float, str]:
+    """Least time (ms) for one launch on these inputs: bytes each input read
+    once and each output written once, over HBM, at the precision's storage
+    widths (x, h0, ys and h_T in the activation dtype; the weights at their
+    bits with the quantized precisions' fp32 scales; c and the bias fp32;
+    rows and lengths int32); operations over the fp32 peak (the kernels
+    compute in fp32 on the CUDA cores: a bf16 operand is widened, a code
+    dequantized once).  A sequence kernel needs x and compute only for the
+    live steps (t < length)."""
+    from repro_torch.kernels import quantize
+    gates, seq, _, _ = KERNELS[name]
+    B, T, I = d["x"].shape
+    H = d["wh"].shape[0]
+    lstm = gates == 4
+    a = 4 if precision == "fp32" else 2
+    if seq:
+        live = int(d["lengths"].clamp(max=T).sum())
+        nbytes = (a * live * I + quantize.weight_bytes(I, H, gates, precision)
+                  + 4 * 2 * B + a * B * H * (2 + T)
+                  + (8 * B * H if lstm else 0))
+    else:
+        # the step kernels take dequantized weights in the activation dtype
+        live = B
+        nbytes = (a * B * I + quantize.weight_bytes(
+            I, H, gates, "fp32" if a == 4 else "bf16") + 4 * B
+            + a * 2 * B * H + (8 * B * H if lstm else 0))
+    tail = 15 if lstm else 12                  # activations and update
+    per_step = H * (2 * gates * (I + H) + gates + tail)
+    if p > 0:
+        per_step += gates * (I + H)            # the masked views
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = live * per_step / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+MARKER = "masked_activation_kernel"   # the kernel that splits a profile
+LEAD_MARKERS = 8   # marker launches ahead of the first segment, behind a
+LEAD_SLEEP = 2_000_000   # ~1 ms spin: late in a process torch.profiler
+                         # loses a profile's first records
+
+
+def segmented_device_us(calls, iters: int, per_call=None):
+    """Device time a call (us) and kernel records a call of each of
+    ``calls``, from one torch.profiler profile: each call runs ``iters``
+    times after a marker launch (``masked_activation`` on one row of four
+    with int32 row ids: one kernel of known name that none of the calls
+    launches), and the device records between two markers are its.  The
+    profile opens with a spin kernel and LEAD_MARKERS more markers, whose
+    records may be lost; the last ``len(calls)`` segments are the calls'.  A profile counts when
+    every segment holds ``per_call`` records a call (when given) or
+    records in a multiple of ``iters``, the same numbers as the profile
+    taken just before it (``profiled_us``'s rule against lost records);
+    else it is taken again, and after PROFILE_ATTEMPTS this raises.  The
+    marker launches are not counted in ``masked_activation.launches``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import bernoulli_mask
+    wrapper = bernoulli_mask.masked_activation
+    xm = torch.zeros((1, 4), device="cuda")
+    rm = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    launches = wrapper.launches
+
+    def marker():
+        wrapper(xm, rm, 1, 0.5)
+
+    marker()
+    for call in calls:                       # warm: allocator, cuDNN plans
+        call()
+    last = None
+    for attempt in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_SLEEP)
+            for _ in range(LEAD_MARKERS):
+                marker()
+            for call in calls:
+                marker()
+                for _ in range(iters):
+                    call()
+            marker()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if "CUDA" in str(e.device_type)),
+                     key=lambda e: e.time_range.start)
+        segs, cur = [], None
+        for e in evs:
+            if MARKER in e.name:
+                if cur is not None:
+                    segs.append(cur)
+                cur = [0.0, 0]
+            elif cur is not None:
+                cur[0] += e.time_range.elapsed_us()
+                cur[1] += 1
+        segs = segs[-len(calls):]
+        counts = [n for _, n in segs]
+        whole = (len(segs) == len(calls)
+                 and all(n > 0 and (n == per_call * iters if per_call
+                                    else n % iters == 0) for n in counts))
+        if whole and counts == last:
+            wrapper.launches = launches
+            return [(us / iters, n // iters) for us, n in segs]
+        if last is not None or not whole:
+            print(f"segmented profile {attempt + 1} of {PROFILE_ATTEMPTS}: "
+                  f"{len(segs)} segments of {len(calls)}, records {counts} "
+                  f"(previous {last}); taking it again", flush=True)
+        last = counts if whole else None
+    raise RuntimeError("torch.profiler gave no two whole, agreeing "
+                       "segmented profiles")
+
+
+def precision_check(name, d, keys, p, where) -> dict:
+    """One launch of ``name`` on the precision operands ``d`` against its
+    plain version: every output of the same dtype and bit-equal, finite,
+    and the kernel's mask factors (the scale rounded to the activation
+    dtype) equal to the plain stream's; raises otherwise.  Returns the
+    plain version's time (one call, ms) and the flags."""
+    import torch
+    from repro_torch.kernels import common
+    launch, plain = kernel_calls(name, d, keys, p)
+    got = launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for g, r in zip(got, ref, strict=True):
+        err = max_abs_diff(g.float(), r.float(), where)
+        if g.dtype != r.dtype or not torch.equal(g, r):
+            raise RuntimeError(f"{where}: not bit-equal to its plain version "
+                               f"({g.dtype} vs {r.dtype}, max abs err {err})")
+    act = got[0].dtype
+    I, H = d["x"].shape[-1], d["wh"].shape[0]
+    kx, kh = common.kernel_mask_factors(keys, d["rows"], I, H, p, act)
+    px, ph = common.gate_mask_factors(keys, d["rows"], I, H, p, act)
+    if not (torch.equal(kx, px.float()) and torch.equal(kh, ph.float())):
+        raise RuntimeError(f"{where}: mask bits differ from the plain "
+                           "stream")
+    return dict(bit_equal=True, mask_bits_equal=True, plain_ms=plain_ms,
+                dtype=str(act).removeprefix("torch."))
+
+
+def precision_kernel_phase(report, t_beat=T_BEAT):
+    """Phase 10: each recurrent kernel at bf16, int8 and int4 (and fp32,
+    for its times beside them) on PREC_SHAPES at p = 0.125 and 0, every
+    16th row a student row, ragged lengths: every output bit-equal to the
+    plain version at its precision and the mask bits at the bf16 scale
+    equal to the plain stream's, or this raises.  Times each case (call ms
+    by CUDA events; device ms from one segmented profile a kernel), its
+    plain version, its bound at the precision and the bf16 cuDNN call."""
+    import torch
+    from repro_torch.kernels import common
+    records = []
+    for name, (gates, seq, _, _) in KERNELS.items():
+        cases, timed, lib_calls = [], [], {}
+        for n, (B, I, H) in enumerate(PREC_SHAPES):
+            T = (t_beat if B == 1920 else 64) if seq else 1
+            base = layer_inputs(B, T, I, H, seed=500 + n, gates=gates,
+                                ragged=seq)
+            keys = _keys(name, n)
+            for p in (0.125, 0.0):
+                for prec in ("fp32",) + PRECISIONS:
+                    d = precision_operands(name, base, prec)
+                    where = f"{name} {prec} at B={B} T={T} I={I} H={H} p={p}"
+                    rec = dict(kernel=name, precision=prec, B=B, T=T, I=I,
+                               H=H, p=p)
+                    if prec != "fp32":   # fp32: checked in phase 2
+                        rec.update(precision_check(name, d, keys, p, where))
+                    d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
+                    call, _ = kernel_calls(
+                        name, d32, tuple(keys.reshape(-1).tolist()), p)
+                    act_bytes = 4 if prec == "fp32" else 2
+                    rec["path"] = (common.seq_plan(gates, B, I, H, act_bytes)
+                                   if seq else common.step_plan(
+                                       gates, B, I, H))["path"]
+                    rec["kernel_ms"] = cuda_time_ms(call, iters=20, warmup=2)
+                    rec["bound_ms"], rec["bound_by"] = bound(name, d, p,
+                                                             prec)
+                    cases.append(rec)
+                    timed.append(call)
+            if (B, I, H) not in lib_calls:
+                dl = layer_inputs(B, T, I, H, seed=500 + n, gates=gates,
+                                  students=False, ragged=False)
+                lib_calls[(B, I, H)] = library_call(name, dl,
+                                                    torch.bfloat16)
+        dev_us = segmented_device_us(timed, iters=5, per_call=1)
+        for rec, (us, _) in zip(cases, dev_us, strict=True):
+            rec["kernel_device_ms"] = us / 1e3
+        shapes = list(lib_calls)
+        lib_us = segmented_device_us([lib_calls[k] for k in shapes],
+                                     iters=5)
+        lib = {k: (cuda_time_ms(lib_calls[k], iters=10, warmup=1), us / 1e3)
+               for k, (us, _) in zip(shapes, lib_us, strict=True)}
+        for rec in cases:
+            if rec["precision"] == "bf16":
+                (rec["library_ms"],
+                 rec["library_device_ms"]) = lib[(rec["B"], rec["I"],
+                                                   rec["H"])]
+            else:
+                rec["library_ms"] = rec["library_device_ms"] = None
+            print("precision case " + json.dumps(rec), flush=True)
+        records += cases
+    report["precision_kernel_cases"] = records
+    return records
+
+
+def precision_entries(entries, records):
+    """Each recurrent ``kernels`` entry gains ``precisions``: per
+    precision, the sums over the entry's pass of the call ms, device ms,
+    bound and plain ms, beside the same cases at fp32 from phase 10; the
+    library (bf16 cuDNN) at bf16, "none" at int8 / int4 (no PyTorch call
+    computes on quantized weights)."""
+    passes = {"classifier": CLF_LAYERS, "autoencoder": AE_LAYERS}
+    for e in entries:
+        if e["name"] not in KERNELS:
+            continue
+        layers = passes["autoencoder" if "autoencoder" in e["shape"]
+                        else "classifier"]
+        out = {}
+        for prec in ("fp32",) + PRECISIONS:
+            recs = []
+            for I, H, p in layers:
+                recs += [r for r in records if r["kernel"] == e["name"]
+                         and r["precision"] == prec and r["B"] == 1920
+                         and (r["I"], r["H"], r["p"]) == (I, H, p)]
+            if len(recs) != len(layers):
+                raise RuntimeError(f"missing {prec} cases of {e['name']}")
+            lib = [r["library_device_ms"] for r in recs]
+            out[prec] = {
+                "ms": sum(r["kernel_ms"] for r in recs),
+                "device_ms": sum(r["kernel_device_ms"] for r in recs),
+                "bound_ms": sum(r["bound_ms"] for r in recs),
+                "bound_by": recs[0]["bound_by"],
+                "plain_ms": (sum(r["plain_ms"] for r in recs)
+                             if prec != "fp32" else "phase 2"),
+                "library_ms": (sum(r["library_ms"] for r in recs)
+                               if prec == "bf16" else "none"),
+                "library_device_ms": (sum(lib) if prec == "bf16"
+                                      else "none")}
+        e["precisions"] = out
+    return entries
+
+
+def _prec_serve(params, cfg, backend, precision, dev, plans, sids,
+                streams):
+    """One engine at ``precision`` over the chunk ``plans`` [sessions,
+    ticks]; returns (engine, last results, launch counts)."""
+    from repro_torch.serve import StreamingEngine
+    eng = StreamingEngine(params, cfg, backend=backend,
+                          max_sessions=SESSIONS, chunk_capacity=CHUNK,
+                          device=dev, precision=precision)
+    for sid in sids:
+        eng.open_session(sid)
+    reset_launches()                          # count the main path only
+    res = None
+    for t in range(plans.shape[1]):
+        res = eng.step({sid: streams[k][eng.store.get(sid).steps:][
+            :plans[k, t]] for k, sid in enumerate(sids)})
+    return eng, res, read_launches()
+
+
+PREC_CELLS = (("classifier", "lstm", "int8"), ("classifier", "lstm", "bf16"),
+              ("autoencoder", "gru", "int4"))
+PREC_TICKS = 12     # every beat in 12 ragged chunks, as the AE cells
+
+
+def precision_serving_phase(report, dev):
+    """Phase 5b: StreamingEngine at a serving precision -- the classifier
+    LSTM at int8 and at bf16, the autoencoder GRU at int4 -- 64 sessions x
+    S = 30 chains over whole beats in PREC_TICKS ragged chunks, on
+    ``cuda_seq`` and on ``cuda_step``: the two backends' stored carries and
+    summaries bit-equal, chunked == unchunked bit for bit (the carries; for
+    the autoencoder the last chunk's reconstruction too), finite summaries
+    of the expected shapes; and the fp32 cell of the same model and plans
+    beside each, for the times."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autoencoder as ae, classifier as clf, mcd
+    from repro_torch.core.uncertainty import (classification_summary,
+                                              regression_summary)
+
+    streams = _beats()
+    plans = chunk_plans(np.random.default_rng(5), SESSIONS, PREC_TICKS)
+    sids = [f"pr-{k}" for k in range(SESSIONS)]
+    out, total = {}, {name: 0 for name in ALL_KERNELS}
+    for model, cell, prec in PREC_CELLS:
+        if model == "classifier":
+            cfg = clf.ClassifierConfig(
+                input_dim=1, hidden=8, num_layers=3, num_classes=4,
+                cell=cell, mcd=mcd.MCDConfig(p=0.125, placement="YNY",
+                                             n_samples=S, seed=0))
+            params = clf.init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+            per_tick = cfg.num_layers
+        else:
+            cfg = ae.AutoencoderConfig(
+                input_dim=1, hidden=16, num_layers=2, cell=cell,
+                heteroscedastic=True,
+                mcd=mcd.MCDConfig(p=0.125, placement="YNYN", n_samples=S,
+                                  seed=0))
+            params = ae.init(torch.Generator().manual_seed(0), cfg,
+                             device=dev)
+            per_tick = 2 * cfg.num_layers
+        key = f"{model}_{cell}_{prec}"
+        runs = {}
+        for backend, precision in (("cuda_seq", None), ("cuda_seq", prec),
+                                   ("cuda_step", prec)):
+            eng, res, counts = _prec_serve(params, cfg, backend, precision,
+                                           dev, plans, sids, streams)
+            kernel = f"mcd_{cell}_{'seq' if backend == 'cuda_seq' else 'step'}"
+            _check_launches(f"{key} {backend}", counts, eng.metrics, kernel,
+                            (lambda m: per_tick) if backend == "cuda_seq"
+                            else (lambda m: per_tick * m.capacity))
+            for name, v in counts.items():
+                total[name] += v
+            runs[(backend, precision)] = (eng, res, counts)
+        (seq_eng, seq_res, _), (st_eng, st_res, _) = \
+            runs[("cuda_seq", prec)], runs[("cuda_step", prec)]
+        act = torch.bfloat16
+        for sid in sids:
+            for la, lb in zip(st_eng.store.get(sid).state,
+                              seq_eng.store.get(sid).state):
+                if la[0].dtype != act or (cell == "lstm"
+                                          and la[1].dtype != torch.float32):
+                    raise RuntimeError(f"{key}: carry dtypes "
+                                       f"{[t.dtype for t in la]}")
+                for a, b in zip(la, lb):
+                    if not torch.equal(a, b):
+                        raise RuntimeError(f"{key}: cuda_step != cuda_seq "
+                                           f"carry for {sid}")
+            for a, b in zip(st_res[sid].summary, seq_res[sid].summary):
+                max_abs_diff(a, b, f"{key} summary of {sid}")
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{key}: cuda_step != cuda_seq "
+                                       f"summary for {sid}")
+        # chunked == unchunked, on the sequence kernel at the precision
+        x, rows, full = _unchunked(streams, sids, seq_eng, dev)
+        if model == "classifier":
+            logits, states = clf.apply(params, x, rows, cfg,
+                                       backend="cuda_seq", lengths=full,
+                                       return_state=True, precision=prec,
+                                       device=dev)
+            if logits.dtype != act:
+                raise RuntimeError(f"{key}: logits are {logits.dtype}")
+            whole = classification_summary(
+                logits.reshape(SESSIONS, S, -1).transpose(0, 1).float())
+            probs = torch.stack([seq_res[s].summary.probs for s in sids])
+            if probs.shape != (SESSIONS, 4) or \
+                    (probs.sum(-1) - 1).abs().max().item() > 1e-5:
+                raise RuntimeError(f"{key}: bad class probabilities")
+            for k, sid in enumerate(sids):
+                for v, u in zip(seq_res[sid].summary, whole):
+                    if not torch.equal(v, u[k]):
+                        raise RuntimeError(f"{key}: chunked != unchunked "
+                                           f"summary for {sid}")
+        else:
+            ref_cfg = dataclasses.replace(cfg, decode_window=CHUNK)
+            mean, log_var, states = ae.apply(
+                params, x, rows, ref_cfg, backend="cuda_seq", lengths=full,
+                return_state=True, precision=prec, device=dev)
+            whole = regression_summary(_per_session(mean),
+                                       _per_session(log_var))
+            for k, sid in enumerate(sids):
+                L = int(plans[k, -1])
+                summ = seq_res[sid].summary
+                if summ.mean.shape != (L, 1):
+                    raise RuntimeError(f"{key}: summary shape "
+                                       f"{summ.mean.shape}")
+                for v, u in zip(summ, whole):
+                    max_abs_diff(v, u[k][:L], f"{key} summary of {sid}")
+                    if not torch.equal(v, u[k][:L]):
+                        raise RuntimeError(f"{key}: chunked != unchunked "
+                                           f"reconstruction for {sid}")
+        _check_states(seq_eng, sids, states, key)
+        out[key] = {
+            backend + ("" if precision else " fp32"): dict(
+                _serve_stats(eng.metrics, report["card"]),
+                launches_by_kernel=counts)
+            for (backend, precision), (eng, _, counts) in runs.items()}
+        out[key].update(bit_equal_step_vs_seq=True,
+                        chunked_equals_unchunked=True)
+        print(f"serving {key} " + json.dumps(
+            {k: ({kk: vv for kk, vv in v.items() if kk != "tick_ms"}
+                 if isinstance(v, dict) else v) for k, v in
+             out[key].items()}), flush=True)
+    report["serving_precisions"] = out
+    return total
 
 
 # -- serving --------------------------------------------------------------
@@ -1696,18 +2117,29 @@ def main(argv=None) -> int:
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
     dev = torch.device("cuda")
-    entries = kernel_entries(kernel_phase(report))
-    entries += lm_kernel_entries(lm_kernel_phase(report))
-    entries.append(ssd_kernel_entry(ssd_kernel_phase(report)))
+    phase_s = report["phase_s"] = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    entries = kernel_entries(phase("2", kernel_phase, report))
+    entries += lm_kernel_entries(phase("6", lm_kernel_phase, report))
+    entries.append(ssd_kernel_entry(phase("8", ssd_kernel_phase, report)))
     launches = {name: 0 for name in ALL_KERNELS}
-    for counts in (serving_phase(report, dev),
-                   autoencoder_phase(report, dev, "lstm"),
-                   autoencoder_phase(report, dev, "gru"),
-                   step_backend_phase(report, dev),
-                   lm_serving_phase(report, dev),
-                   mamba_serving_phase(report, dev)):
-        for name, v in counts.items():
-            launches[name] += v
+    for name, fn, *rest in (
+            ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
+            ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
+            ("5b", precision_serving_phase), ("7", lm_serving_phase),
+            ("9", mamba_serving_phase)):
+        for kernel, v in phase(name, fn, report, dev, *rest).items():
+            launches[kernel] += v
+    # Last, as its profiles hold thousands of records: torch.profiler has
+    # lost records in every later profile of a process after one of them.
+    precision_entries(entries, phase("10", precision_kernel_phase, report))
+    print("phase seconds " + json.dumps(phase_s), flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import linear, mcd, rnn
+from repro_torch.kernels import quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +84,10 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
     all draw the same masks.  ``initial_state`` resumes the per-layer
     encoder carry of a streaming session, ``lengths`` freezes ragged rows,
     ``return_state`` also returns the encoder states, ``return_decoded``
-    the decoder's hidden sequence [B, W, H] (after ``log_var``).  Runs on
+    the decoder's hidden sequence [B, W, H] (after ``log_var``).
+    ``precision`` (fp32/bf16/int8/int4, None = native dtypes) serves both
+    stacks at that precision, the input cast to the activation dtype up
+    front; the head's outputs come out in the activation dtype.  Runs on
     ``device`` (default CUDA).
 
     Returns (mean [B, W, I], log_var [B, W, I] or None)[, dec_out]
@@ -91,6 +95,10 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
     """
     dev = resolve_device(device)
     x_seq = torch.as_tensor(x_seq, device=dev)
+    if precision is not None:
+        # Cast up front, so the reference masks sample in the dtype the
+        # kernels materialize the 1/(1-p) scale in.
+        x_seq = x_seq.to(quantize.activation_dtype(precision, x_seq.dtype))
     rows = torch.as_tensor(rows, device=dev)
     T = x_seq.shape[1]
     if backend == "reference":

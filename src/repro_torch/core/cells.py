@@ -57,6 +57,15 @@ def gate_stacked(params):
             params.wh.transpose(0, 1).contiguous(), params.b.contiguous())
 
 
+def _gate_sums(eq: str, views: torch.Tensor, w: torch.Tensor):
+    """The gate products in fp32, as the reference's ``einsum(...,
+    preferred_element_type=float32)``: the weights cast to the views'
+    (activation) dtype, then both operands upcast to fp32 -- a bf16 matmul
+    in PyTorch would round its result to bf16 -- so the products are exact
+    and the sums accumulate in fp32."""
+    return torch.einsum(eq, views.float(), w.to(views.dtype).float())
+
+
 def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
               x: torch.Tensor, zx: torch.Tensor | None,
               zh: torch.Tensor | None, p: float,
@@ -65,7 +74,9 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
 
     h, c: [B, H] carry; x: [B, I]; zx: [B, 4, I] / zh: [B, 4, H] keep-masks
     or None; det: [B] bool — True rows run deterministic (no mask·scale).
-    Returns (h_new, c_new); c accumulates in fp32 and returns in c's dtype.
+    Returns (h_new, c_new); the gate sums and c accumulate in fp32, h_new
+    returns in h's dtype and c_new in c's (fp32 under a serving
+    precision).
     """
     wx, wh, b = params
     xr = x[:, None, :].expand(x.shape[0], 4, x.shape[1])
@@ -75,9 +86,8 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
     if det is not None:
         xg = torch.where(det[:, None, None], xr, xg)
         hg = torch.where(det[:, None, None], hr, hg)
-    gates = (torch.einsum("bgi,gih->bgh", xg, wx.to(xg.dtype)).float()
-             + torch.einsum("bgh,ghk->bgk", hg, wh.to(hg.dtype)).float()
-             + b.float())
+    gates = (_gate_sums("bgi,gih->bgh", xg, wx)
+             + _gate_sums("bgh,ghk->bgk", hg, wh) + b.float())
     i = torch.sigmoid(gates[:, 0])
     f = torch.sigmoid(gates[:, 1])
     g = torch.tanh(gates[:, 2])
@@ -121,8 +131,8 @@ def gru_step(params: GRUParams, h: torch.Tensor, x: torch.Tensor,
     if det is not None:
         xg = torch.where(det[:, None, None], xr, xg)
         hg = torch.where(det[:, None, None], hr, hg)
-    gx = torch.einsum("bgi,gih->bgh", xg, wx.to(xg.dtype)).float()
-    gh = torch.einsum("bgh,ghk->bgk", hg, wh.to(hg.dtype)).float()
+    gx = _gate_sums("bgi,gih->bgh", xg, wx)
+    gh = _gate_sums("bgh,ghk->bgk", hg, wh)
     bf = b.float()
     r = torch.sigmoid(gx[:, 0] + gh[:, 0] + bf[0])
     zt = torch.sigmoid(gx[:, 1] + gh[:, 1] + bf[1])

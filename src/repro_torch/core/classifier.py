@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import linear, mcd, rnn
+from repro_torch.kernels import quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +48,18 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: ClassifierConfig, *,
     | ``"cuda_seq"``); all draw the same masks.  ``cfg.cell`` picks the
     recurrent unit (``"lstm"`` | ``"gru"``).  ``initial_state`` / ``lengths`` /
     ``return_state`` stream a signal chunk by chunk, as in the reference.
-    Runs on ``device`` (default CUDA).
+    ``precision`` (fp32/bf16/int8/int4, None = native dtypes) casts the
+    input to the activation dtype and the encoder's weights as
+    ``run_stack`` does; the head runs at the activation dtype too (fp32
+    sums rounded to it), so bf16 precisions give bf16 logits, as in the
+    reference.  Runs on ``device`` (default CUDA).
     """
     dev = resolve_device(device)
     x_seq = torch.as_tensor(x_seq, device=dev)
+    if precision is not None:
+        # Cast up front, so the reference masks sample in the dtype the
+        # kernels materialize the 1/(1-p) scale in.
+        x_seq = x_seq.to(quantize.activation_dtype(precision, x_seq.dtype))
     rows = torch.as_tensor(rows, device=dev)
     hiddens = (cfg.hidden,) * cfg.num_layers
     masks = (rnn.sample_stack_masks(cfg.mcd, rows, cfg.input_dim, hiddens,

@@ -28,4 +28,7 @@ def dense(params: DenseParams, x: torch.Tensor,
     if mask is not None and mask.ndim == x.ndim - 1:
         mask = mask[..., None, :]
     x = mcd.apply_mask(x, mask, p)
-    return x @ params.w.to(x.dtype) + params.b.to(x.dtype)
+    # The reference's einsum(x, w.astype(x.dtype), preferred f32), rounded
+    # to x's dtype before the bias add in x's dtype: bf16 logits at bf16.
+    y = x.float() @ params.w.to(x.dtype).float()
+    return y.to(x.dtype) + params.b.to(x.dtype)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import cells, mcd
-from repro_torch.kernels import common, ops
+from repro_torch.kernels import common, ops, quantize
 
 #: Recurrent cell types ``run_stack`` (and everything above it) dispatches
 #: on; the GRU drops into the same per-gate MCD design (paper §III-A).
@@ -95,12 +95,22 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
 
     ``device`` (default CUDA) is where the stack runs: inputs are moved
     there, and ``params`` must already live there.
+
+    ``precision`` (:data:`repro_torch.kernels.quantize.PRECISIONS`; None =
+    native dtypes): ``x_seq`` is cast to the precision's activation dtype
+    up front and the fp32 master ``params`` are cast or quantized on the
+    way, never changed.  The sequence kernel dequantizes int8/int4 codes
+    itself; the step kernel and the reference cells take the same
+    dequantized values (``quantize.fake_quant``, in core layout along axis
+    1, gives the kernels' ``(q, scale)``).  h travels in the activation
+    dtype and the LSTM's c in fp32 on every backend.  The reference
+    backend needs ``masks`` sampled in the activation dtype.
     """
     _check_cell(cell)
     if mesh is not None:
         raise NotImplementedError("run_stack(mesh=...) is not ported yet; "
                                   "see ROADMAP.md")
-    ops.check_precision(precision)
+    quantize.check_precision(precision)
     if backend not in ops.LSTM_BACKENDS:
         raise ValueError(f"backend must be one of {ops.LSTM_BACKENDS}, "
                          f"got {backend!r}")
@@ -110,6 +120,8 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
             raise ValueError(f"params live on {lp.wx.device}, run_stack "
                              f"runs on {dev}")
     x_seq = torch.as_tensor(x_seq, device=dev)
+    if precision is not None:
+        x_seq = x_seq.to(quantize.activation_dtype(precision, x_seq.dtype))
     if rows is not None:
         rows = torch.as_tensor(rows, device=dev)
     if lengths is not None:
@@ -125,13 +137,25 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
                                  initial_state=initial_state,
                                  lengths=lengths,
                                  return_all_states=return_all_states,
-                                 cell=cell)
+                                 cell=cell, precision=precision)
     if any(zx is IN_KERNEL_MASKS for zx, _ in masks):
         raise ValueError("stack_mask_plan() entries carry no mask values; "
                          "the reference backend needs sample_stack_masks()")
+    if precision is not None:
+        # Core layout [G, I/H, H]: the contraction axis is 1, which gives
+        # the kernels' (q, scale) of layout [I/H, G, H] along axis 0.
+        params = [lp._replace(
+            wx=quantize.fake_quant(lp.wx, precision, axis=1,
+                                   act_dtype=x_seq.dtype),
+            wh=quantize.fake_quant(lp.wh, precision, axis=1,
+                                   act_dtype=x_seq.dtype))
+            for lp in params]
     batch = x_seq.shape[0]
     dtype = x_seq.dtype
-    carries = _seed_carries(params, initial_state, batch, dtype, dev, cell)
+    # Under a serving precision c is fp32, the kernels' cell state.
+    c_dtype = torch.float32 if precision is not None else dtype
+    carries = _seed_carries(params, initial_state, batch, dtype, dev, cell,
+                            c_dtype)
     lens = lengths.to(torch.int64) if lengths is not None else None
     det = mcd.det_row_mask(rows) if rows is not None else None
     gru = cell == "gru"
@@ -162,24 +186,27 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
     return out, (carries if return_all_states else carries[-1])
 
 
-def _seed_carries(params, initial_state, batch, dtype, device, cell="lstm"):
+def _seed_carries(params, initial_state, batch, dtype, device, cell="lstm",
+                  c_dtype=None):
     """Per-layer carries — ``(h, c)`` for the LSTM, ``(h,)`` for the GRU:
-    zeros, or the resumed state as-is."""
+    zeros (h in ``dtype``, c in ``c_dtype``, default ``dtype``), or the
+    resumed state as-is."""
     parts = 1 if cell == "gru" else 2
+    dtypes = (dtype, c_dtype or dtype)[:parts]
     carries = []
     for i, lp in enumerate(params):
         hidden = lp.wh.shape[-1]
         state = initial_state[i] if initial_state is not None else None
         if state is None:
-            state = tuple(torch.zeros((batch, hidden), dtype=dtype,
-                                      device=device) for _ in range(parts))
+            state = tuple(torch.zeros((batch, hidden), dtype=dt,
+                                      device=device) for dt in dtypes)
         carries.append(tuple(state))
     return carries
 
 
 def _run_stack_kernel(params, x_seq, masks, p, *, backend, return_sequence,
                       rows, seed, layer_offset, initial_state, lengths,
-                      return_all_states, cell):
+                      return_all_states, cell, precision=None):
     """Kernel-backed stack: layers run whole-sequence, one after another
     (the sequence kernel once per layer, or the step kernel once per step).
     """
@@ -199,7 +226,8 @@ def _run_stack_kernel(params, x_seq, masks, p, *, backend, return_sequence,
         state0 = initial_state[i] if initial_state is not None else None
         inp, carry = stack_layer(*lp, inp, rows, seed, layer_offset + i,
                                  p_eff, seq=backend == "cuda_seq",
-                                 initial_state=state0, lengths=lengths)
+                                 initial_state=state0, lengths=lengths,
+                                 precision=precision)
         states.append(carry)
     out = inp if return_sequence else None
     if return_all_states:
@@ -208,5 +236,7 @@ def _run_stack_kernel(params, x_seq, masks, p, *, backend, return_sequence,
         return out, states
     if gru:
         return out, states[-1]                  # (h_T,)
+    # The reference's carry contract: c in the input dtype, but fp32 under
+    # a serving precision (where the reference carries c in fp32 too).
     hT, cT = states[-1]
-    return out, (hT, cT.to(x_seq.dtype))
+    return out, (hT, cT if precision is not None else cT.to(x_seq.dtype))

@@ -12,6 +12,8 @@
   ssd_chunk     the Mamba2 / SSD chunked scan (csrc/ssd_chunk.cu)
   common        mask factors, operand forms, checks and the launch rule
                 the kernels share
+  quantize      the serving precisions' weight quantization (int8, packed
+                int4) and activation dtypes
   ops           the stack-layer wrappers ``run_stack`` dispatches to, and
                 the LM's (``mcd_dense``, ``mcd_mask_apply``,
                 ``flash_decode_attention``, ``ssd_scan``)

@@ -89,7 +89,7 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"masked_activation takes fp32 on the card, got {x.dtype}; "
-            "bf16 is queued with the serving precisions (ROADMAP.md)")
+            "bf16 is queued with the LM precisions (ROADMAP.md, A2)")
     B, F = x.shape
     dev = x.device
     common.check("x", x, dev, torch.float32, (B, F))

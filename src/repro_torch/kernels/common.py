@@ -19,6 +19,10 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   counted on its wrapper.
 * The card's mask factors (:func:`kernel_mask_factors`), for holding the
   kernels' bits against the plain stream.
+* The serving precisions' operand rules: factors and the launch scale in
+  the activation dtype, the rounded masked views (:func:`masked_view`),
+  the plain versions' weights (:func:`plain_weights`) and the checks of
+  quantized weight operands (:func:`check_seq_weights`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import functools
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels import build
+from repro_torch.kernels import build, quantize
 
 _THREADS = 128          # target threads per block: R rows x H units
 _SMEM_DEFAULT = 48 * 1024
@@ -114,48 +118,125 @@ def _keys_array(keys: tuple, n: int):
     return (ctypes.c_uint32 * n)(*key_list(keys, n))
 
 
-def scale(p_drop: float) -> torch.Tensor:
-    # float32(1/(1-p)) computed in double then rounded — the reference's
-    # jnp.asarray(1.0 / (1.0 - p), float32).
-    return torch.tensor(1.0 / (1.0 - p_drop), dtype=torch.float32)
+def scale(p_drop: float, dtype=torch.float32) -> torch.Tensor:
+    # 1/(1-p) computed in double, then rounded to the activation dtype —
+    # the reference's jnp.asarray(1.0 / (1.0 - p), x.dtype).
+    return torch.tensor(1.0 / (1.0 - p_drop), dtype=dtype)
 
 
 @functools.lru_cache(maxsize=64)
-def mask_args(p_drop: float) -> tuple[int, float, int]:
-    """``(threshold, scale, masked)`` as the kernels take them (cached: a
-    model has a few dropout rates and the kernels take them at every
-    launch)."""
+def mask_args(p_drop: float,
+              dtype=torch.float32) -> tuple[int, float, int]:
+    """``(threshold, scale, masked)`` as the kernels take them, the scale
+    rounded to the activation ``dtype`` (cached: a model has a few dropout
+    rates and the kernels take them at every launch)."""
     masked = p_drop > 0.0
     return (prng.bernoulli_keep_threshold(p_drop),
-            float(scale(p_drop)) if masked else 1.0, int(masked))
+            float(scale(p_drop, dtype)) if masked else 1.0, int(masked))
 
 
 def gate_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
-                      p_drop: float):
+                      p_drop: float, dtype=torch.float32):
     """The factors each gate view is multiplied by: ``[B,G,I]``, ``[B,G,H]``
-    for a cell of G gates (``len(keys) == 2G``).
+    for a cell of G gates (``len(keys) == 2G``), in the activation
+    ``dtype``.
 
-    ``1/(1-p)`` where the keep bit is set, 0 where it is not, and 1 for
-    student rows or ``p_drop == 0`` — so ``x * factor`` is the reference's
-    ``where(det, x, where(mask, x * scale, 0))``.
+    ``1/(1-p)`` (rounded to ``dtype``) where the keep bit is set, 0 where it
+    is not, and 1 for student rows or ``p_drop == 0`` — so ``x * factor``,
+    rounded to ``dtype``, is the reference's ``where(det, x, where(mask,
+    x * scale, 0))``.
     """
     ks = key_list(keys)
     G = len(ks) // 2
     dev = rows.device
     B = rows.shape[0]
     if p_drop <= 0.0:
-        return (torch.ones((B, G, in_dim), device=dev),
-                torch.ones((B, G, hidden), device=dev))
-    sc = scale(p_drop).to(dev)
+        return (torch.ones((B, G, in_dim), dtype=dtype, device=dev),
+                torch.ones((B, G, hidden), dtype=dtype, device=dev))
+    sc = scale(p_drop, dtype).to(dev)
     det = (prng.as_u32(rows) >= 2 ** 31)[:, None, None]
 
     def factors(offset, feat):
         keep = torch.stack([gate_mask(ks[offset + g], rows, feat, p_drop)
                             for g in range(G)], dim=1)
-        f = torch.where(keep, sc, torch.zeros((), device=dev))
-        return torch.where(det, torch.ones((), device=dev), f)
+        f = torch.where(keep, sc, torch.zeros((), dtype=dtype, device=dev))
+        return torch.where(det, torch.ones((), dtype=dtype, device=dev), f)
 
     return factors(0, in_dim), factors(G, hidden)
+
+
+def masked_view(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The gate views ``v[:, None, :] * f`` ([B, G, F]) as the gate sums
+    take them: a bf16 product is rounded to bf16 (the reference's ``x *
+    scale`` in the activation dtype, the kernels' round at the masked
+    view), then held in fp32, where a bf16 value and the product of two
+    are exact; an fp32 (or float64) product as it is."""
+    m = v[:, None, :] * f
+    return m.float() if m.dtype == torch.bfloat16 else m
+
+
+def plain_weights(wx, wh, act, hidden: int, weight_bits=None, wx_scale=None,
+                  wh_scale=None):
+    """The gate weights a plain version computes with: fp32 tensors holding
+    the activation-dtype values the kernels use -- ``wx``/``wh`` cast to
+    ``act``, or, with ``weight_bits`` 8 / 4, their codes dequantized as the
+    sequence kernels do (:func:`repro_torch.kernels.quantize.kernel_weight`:
+    ``float32(q) * scale``, rounded to ``act``)."""
+    if weight_bits is None:
+        return wx.to(act).float(), wh.to(act).float()
+    if wx_scale is None or wh_scale is None:
+        raise ValueError("weight_bits set but wx_scale/wh_scale missing")
+    return tuple(quantize.kernel_weight(w, s, weight_bits, hidden=hidden,
+                                        act_dtype=act).float()
+                 for w, s in ((wx, wx_scale), (wh, wh_scale)))
+
+
+def check_seq_weights(gates: int, dev, act, I: int, H: int, wx, wh, b,
+                      weight_bits, wx_scale, wh_scale):
+    """Check a sequence kernel's weight operands: ``wx [I, G, H]`` and
+    ``wh [H, G, H]`` in the activation dtype, or int8 codes
+    (``weight_bits`` 8) or packed int4 codes (4: uint8, last axis
+    ``ceil(H/2)``) with fp32 ``[G, H]`` scales, over bf16 activations; the
+    bias fp32 ``[G, H]``."""
+    f32 = torch.float32
+    check("b", b, dev, f32, (gates, H))
+    if weight_bits is None:
+        check("wx", wx, dev, act, (I, gates, H))
+        check("wh", wh, dev, act, (H, gates, H))
+        return
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8, 4 or None, got "
+                         f"{weight_bits!r}")
+    if act != torch.bfloat16:
+        raise TypeError("quantized weights run over bf16 activations "
+                        f"(the int8/int4 precisions), got x of {act}")
+    wdt, wl = ((torch.int8, H) if weight_bits == 8
+               else (torch.uint8, -(-H // 2)))
+    check("wx", wx, dev, wdt, (I, gates, wl))
+    check("wh", wh, dev, wdt, (H, gates, wl))
+    for name, sc in (("wx_scale", wx_scale), ("wh_scale", wh_scale)):
+        if sc is None:
+            raise ValueError(f"weight_bits={weight_bits} needs {name}")
+        check(name, sc, dev, f32, (gates, H))
+
+
+#: The activation storage the kernels take: dtype -> (code, bytes).
+ACT_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}
+
+
+def act_dtype_of(t: torch.Tensor):
+    """The activation dtype of a plain-version operand: bf16 stays bf16,
+    every other float computes in fp32."""
+    return torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+
+
+def check_act(name: str, t: torch.Tensor):
+    """The activation dtype of a kernel operand (fp32 or bf16), raising
+    ``TypeError`` for any other."""
+    if t.dtype not in ACT_DTYPES:
+        raise TypeError(f"{name} must be torch.float32 or torch.bfloat16, "
+                        f"got {t.dtype}")
+    return t.dtype
 
 
 def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
@@ -182,7 +263,8 @@ X_RING = 8                 # x_t slots a row on the warp path (kXRing)
 STEP_WARPS = 8             # warps a block on the step kernel's warp path
 
 
-def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
+def seq_plan(gates: int, batch: int, in_dim: int, hidden: int,
+             act_bytes: int = 4) -> dict:
     """How a sequence kernel of ``gates`` gates (``csrc/mcd_lstm_seq.cu``:
     4, ``csrc/mcd_gru_seq.cu``: 3) runs a layer: its path, the rows a
     block, the threads and blocks, and the shared memory a block needs.
@@ -190,11 +272,16 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
     H that divides 32 takes the warp path: a row's H units are H lanes of
     one warp, ``32 // H`` rows a warp, 4, 2 or 1 warps a block -- the most
     that still make two blocks an SM, so the rows spread over every SM --
-    with the layer's wx, the rows' mask factors and a ring of ``X_RING`` x
-    steps a row in shared memory.  Every other H takes the block path (one
-    thread per (row, unit), :func:`tile_rows` rows a block), and so does an
-    input too wide for the warp path's shared memory (its wx alone:
-    ``4 * gates * I * H`` bytes); both paths compute the same bits.  Raises
+    with the layer's wx (dequantized at kernel entry, at the activation
+    width ``act_bytes``: 4 for fp32, 2 for bf16, int8 and int4; padded to
+    whole 4-byte words), the rows' fp32 mask factors and a ring of
+    ``X_RING`` x steps a row (one 4-byte word an element, whatever the
+    activation width) in shared memory.  Every other H takes the block path
+    (one thread per (row, unit), :func:`tile_rows` rows a block; x and h
+    held as fp32 values, a bf16 value being exact in fp32, so its plan does
+    not depend on the precision), and so does an input too wide for the
+    warp path's shared memory (its wx alone: ``act_bytes * gates * I * H``
+    bytes); both paths compute the same bits.  Raises
     ``NotImplementedError`` where neither fits.
     """
     if min(batch, in_dim, hidden) < 1:
@@ -206,7 +293,7 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
         for wpb in _WARP_BLOCKS:
             rows = wpb * per_warp
             smem = 4 * (rows * (gates * (in_dim + hidden) + X_RING * in_dim)
-                        + gates * in_dim * hidden)
+                        + -(-act_bytes * gates * in_dim * hidden // 4))
             if smem <= SMEM_MAX:
                 fits.append((wpb, rows, smem))
         if fits:
@@ -253,15 +340,22 @@ def _block_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
 
 
 def seq_launch(wrapper, tensors, batch: int, steps: int, in_dim: int,
-               hidden: int, gates: int, keys, p_drop: float) -> None:
+               hidden: int, gates: int, keys, p_drop: float,
+               act=torch.float32, weight_bits: int | None = None) -> None:
     """Launch a sequence kernel (``wrapper``: ``mcd_lstm_seq`` or
-    ``mcd_gru_seq``) on the path :func:`seq_plan` picks."""
-    plan = seq_plan(gates, batch, in_dim, hidden)
+    ``mcd_gru_seq``) on the path :func:`seq_plan` picks, for activations
+    of dtype ``act`` and weights of ``weight_bits`` (None: the activation
+    dtype; 8: int8 codes; 4: packed int4 codes)."""
+    code, nbytes = ACT_DTYPES[act]
+    plan = seq_plan(gates, batch, in_dim, hidden, nbytes)
+    bits = weight_bits or 8 * nbytes
     launch(wrapper, tensors,
            (batch, steps, in_dim, hidden, plan["rows"],
-            int(plan["path"] == "warp"), plan["smem"]), keys, 2 * gates,
-           p_drop, f"{wrapper.__name__} (B={batch}, T={steps}, I={in_dim}, "
-           f"H={hidden}, {plan['path']} path, R={plan['rows']})")
+            int(plan["path"] == "warp"), plan["smem"], code, bits), keys,
+           2 * gates, p_drop,
+           f"{wrapper.__name__} (B={batch}, T={steps}, I={in_dim}, "
+           f"H={hidden}, {plan['path']} path, R={plan['rows']}, {act}, "
+           f"{bits}-bit weights)", act)
 
 
 def check(name, t, device, dtype, shape):
@@ -343,15 +437,18 @@ def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str) -> None:
 
 
 def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
-           what: str) -> None:
+           what: str, act=torch.float32) -> None:
     """Launch the kernel of ``wrapper`` (``csrc/<wrapper.__name__>.cu``'s
     ``*_launch`` entry) on the current stream of the tensors' device, raise
-    on a launch error, and count one launch in ``wrapper.launches``."""
+    on a launch error, and count one launch in ``wrapper.launches``.  A
+    ``None`` among ``tensors`` passes a null pointer (the scales of
+    unquantized weights); the dropout scale is rounded to ``act``."""
     name = wrapper.__name__
-    thr, scale, masked = mask_args(p_drop)
+    thr, scale, masked = mask_args(p_drop, act)
     launch_c(wrapper, name, _rnn_argtypes(len(tensors), len(ints)),
-             (*[t.data_ptr() for t in tensors], *ints, keys_arg(keys, n_keys),
-              thr, scale, masked, stream(tensors[0].device)), what)
+             (*[None if t is None else t.data_ptr() for t in tensors], *ints,
+              keys_arg(keys, n_keys), thr, scale, masked,
+              stream(tensors[0].device)), what)
 
 
 # The mask-export entry of each cell's gate count: the layer kernels of one
@@ -361,10 +458,11 @@ _MASK_EXPORT = {4: "mcd_lstm_seq", 3: "mcd_gru_seq"}
 
 
 def kernel_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
-                        p_drop: float):
+                        p_drop: float, dtype=torch.float32):
     """The mask factors the CUDA kernels compute, exported from the card:
-    ``[B,G,I]``, ``[B,G,H]`` for ``len(keys) == 2G``, to hold against
-    :func:`gate_mask_factors`.  CUDA tensors only; not a layer launch."""
+    ``[B,G,I]``, ``[B,G,H]`` fp32 for ``len(keys) == 2G``, the scale rounded
+    to the activation ``dtype``, to hold against :func:`gate_mask_factors`.
+    CUDA tensors only; not a layer launch."""
     if rows.device.type != "cuda":
         raise ValueError("kernel_mask_factors needs rows on a CUDA device")
     ks = key_list(keys)
@@ -375,7 +473,7 @@ def kernel_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
     rows32 = rows_to_int32(rows)
     fx = torch.empty((B, G, in_dim), device=dev)
     fh = torch.empty((B, G, hidden), device=dev)
-    thr, sc, masked = mask_args(p_drop)
+    thr, sc, masked = mask_args(p_drop, dtype)
     err = c_entry(lib, f"{lib}_masks_launch", _rnn_argtypes(3, 3))(
         rows32.data_ptr(), fx.data_ptr(), fh.data_ptr(), B, in_dim, hidden,
         keys_arg(ks, 2 * G), thr, sc, masked, stream(dev))

@@ -28,6 +28,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 4 bytes from a 4-byte aligned src, of which `bytes` (0, 2 or 4) are read
+// and the rest zero-filled.
+__device__ __forceinline__ void cp_async4_bytes(void* dst, const void* src,
+                                                int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

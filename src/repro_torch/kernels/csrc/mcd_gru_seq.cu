@@ -11,8 +11,8 @@
 //   n = tanh(gx2 + r * gh2 + b2),  h' = (1 - z) * n + z * h.
 // `lengths` freezes a row's h once t >= length (ys repeats the frozen h),
 // h0 seeds the carry, negative int32 rows (the student flag, the uint32
-// high bit) run unmasked, and p == 0 skips masking.  fp32 only: the carry
-// is stored in fp32 at every step, the activation dtype.
+// high bit) run unmasked, and p == 0 skips masking.  The carry is h alone,
+// stored in the activation dtype at every step.
 //
 // What bounds it on this card: latency and instruction throughput, not
 // bytes or operations.  The T steps are dependent; each is a [rows, I+H] x
@@ -49,11 +49,24 @@
 // The host picks the path, the rows a block and the shared memory
 // (kernels/mcd_gru_seq.py::gru_seq_plan) and passes them in; the entry checks
 // the shared memory against what the path needs.
-// Left for a later PR: the int8/int4 in-kernel dequant, tensor cores for
-// large H, a cluster split of H.
+// Serving precisions (the TPU kernel's `weight_bits` branch, l.44-74, and
+// its bf16 operands), as in mcd_lstm_seq.cu: the fp32 kernels stay as they
+// were, and the `_q` kernels after them take bf16 x, h0, ys and h_T over
+// weights stored as bf16, int8 codes or packed int4 codes with fp32 [3, H]
+// scales -- dequantized once at entry on the warp path, at each read on
+// the block path (wx in registers for H = 8, 16 only); bf16 x staged as
+// the 4-byte words that hold it, the x-side sums taking its half; rounded
+// at the
+// masked views, the dequantized weights and h on every write
+// (mcd_cells.cuh), so every instantiation is bit-equal to the plain
+// version at its precision.  The r * gh2 and z * h terms are fp32
+// products of the bf16 h (repro/kernels/mcd_gru.py:71-74).
+// Left for a later PR: tensor cores for large H, a cluster split of H.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mcd_async.cuh"
 #include "mcd_cells.cuh"
@@ -258,9 +271,11 @@ size_t block_smem_bytes(int R, int I, int H) {
   return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
 }
 
-size_t warp_smem_bytes(int R, int I, int H) {
+// The staged wx at the activation width, padded to whole 4-byte words
+// (kernels/common.py::seq_plan).
+size_t warp_smem_bytes(int R, int I, int H, size_t act_bytes) {
   return ((size_t)R * (kGates * (I + H) + kXRing * I) +
-          (size_t)kGates * I * H) *
+          ((size_t)kGates * I * H * act_bytes + 3) / 4) *
          sizeof(float);
 }
 
@@ -289,25 +304,19 @@ int launch_warp(const float* x, const float* wx, const float* wh,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one layer on `stream` on the path the host planned (warp != 0:
-// the warp path, H must divide 32) with R rows a block and `smem` bytes of
-// shared memory; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue when the plan does not fit the path.
-int mcd_gru_seq_launch(const float* x, const float* wx, const float* wh,
-                       const float* bias, const int32_t* rows,
-                       const int32_t* lens, const float* h0, float* ys,
-                       float* hT, int B, int T, int I, int H, int R, int warp,
-                       int smem_bytes, const uint32_t* keys6, uint32_t thr,
-                       float scale, int masked, void* stream) {
+// The fp32 layer: the kernels above, launched as before the serving
+// precisions came.
+int launch_fp32(const float* x, const float* wx, const float* wh,
+                const float* bias, const int32_t* rows, const int32_t* lens,
+                const float* h0, float* ys, float* hT, int B, int T, int I,
+                int H, int R, int warp, int smem_bytes, const uint32_t* keys6,
+                uint32_t thr, float scale, int masked, void* stream) {
   const size_t smem = (size_t)smem_bytes;
   const mcd::GateKeys keys = mcd::to_keys(keys6, 2 * kGates);
   cudaStream_t s = (cudaStream_t)stream;
   if (warp) {
-    if (smem < warp_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+    if (smem < warp_smem_bytes(R, I, H, sizeof(float)))
+      return (int)cudaErrorInvalidValue;
 #define MCD_GRU_WARP(HH)                                               \
   case HH:                                                             \
     switch (I) {                                                       \
@@ -347,6 +356,368 @@ int mcd_gru_seq_launch(const float* x, const float* wx, const float* wh,
       x, wx, wh, bias, rows, lens, h0, ys, hT, B, T, I, H, R, keys, thr,
       scale, masked);
   return (int)cudaGetLastError();
+}
+
+// -- serving precisions: bf16 activations over bf16, int8 or int4 weights --
+//
+// The same two paths and the same arithmetic order as the fp32 kernels
+// above, templated over the activation storage A (bf16) and the weight
+// storage W, rounded where the TPU kernel rounds (mcd_cells.cuh).  The fp32
+// kernels stay as they were, so their code does not change.
+
+using mcd::bf16;
+
+template <typename A, typename W>
+__global__ void mcd_gru_seq_kernel_q(
+    const A* __restrict__ x,          // [B, T, I]
+    const typename mcd::Storage<W>::type* __restrict__ wx,  // [I, 3, H(/2)]
+    const typename mcd::Storage<W>::type* __restrict__ wh,  // [H, 3, H(/2)]
+    const float* __restrict__ sx,     // [3, H] scales (quantized W)
+    const float* __restrict__ sh,     // [3, H]
+    const float* __restrict__ bias,   // [3, H]
+    const int32_t* __restrict__ rows, // [B]
+    const int32_t* __restrict__ lens, // [B]
+    const A* __restrict__ h0,         // [B, H]
+    A* __restrict__ ys,               // [B, T, H]
+    A* __restrict__ hT,               // [B, H]
+    int B, int T, int I, int H, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][3][I]
+  float* fh = fx + R * kGates * I;      // [R][3][H]
+  float* xs = fh + R * kGates * H;      // [R][I]   x_t of the tile
+  float* hs = xs + R * I;               // [R][H]   h_{t-1} of the tile
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+
+  const int r = threadIdx.x / H;        // blockDim.x == R * H
+  const int j = threadIdx.x % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+  float h = 0.0f;
+  int len = 0;
+  if (active) {
+    h = mcd::to_f(h0[(size_t)br * H + j]);
+    len = lens[br];
+  }
+  float bj[kGates];
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + j];
+  const mcd::Column<A, W, kGates> cx(wx, sx, j, H), ch(wh, sh, j, H);
+  const float* fxr = fx + r * kGates * I;
+  const float* fhr = fh + r * kGates * H;
+  const float* xr = xs + r * I;
+  const float* hr = hs + r * H;
+
+  for (int t = 0; t < T; ++t) {
+    hs[threadIdx.x] = h;                // publish h_{t-1} (index r*H + j)
+    for (int e = threadIdx.x; e < R * I; e += blockDim.x) {
+      const int rr = row0 + e / I;
+      xs[e] = rr < B ? mcd::to_f(x[((size_t)rr * T + t) * I + e % I])
+                     : 0.0f;
+    }
+    __syncthreads();
+    if (active) {
+      const float h_new =
+          mcd::gru_unit_q<A>(xr, hr, fxr, fhr, cx, ch, bj, I, H, h);
+      if (t < len) h = h_new;
+      ys[((size_t)br * T + t) * H + j] = mcd::from_f<A>(h);
+    }
+    __syncthreads();
+  }
+  if (active) hT[(size_t)br * H + j] = mcd::from_f<A>(h);
+}
+
+// Warp path: blockDim.x = 32 * warps, R = warps * (32 / H) rows a block.
+// (Both paths' names hold "mcd_gru_seq_kernel", the name a profile of the
+// kernel matches.)
+// IX > 0: I == IX, the x-side loop is straight-line code (so its loads and
+// products interleave with the h-side chain) and the unit's column of wx
+// lives in registers; IX == 0: any I, wx read from shared memory.
+template <int H, int IX, typename A, typename W>
+__global__ void __launch_bounds__(kWarpMaxThreads)
+mcd_gru_seq_kernel_warp_q(
+    const A* __restrict__ x,
+    const typename mcd::Storage<W>::type* __restrict__ wx,
+    const typename mcd::Storage<W>::type* __restrict__ wh,
+    const float* __restrict__ sx, const float* __restrict__ sh,
+    const float* __restrict__ bias,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ lens,
+    const A* __restrict__ h0, A* __restrict__ ys, A* __restrict__ hT,
+    int B, int T, int I, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  constexpr int kRowsPerWarp = 32 / H;
+  static_assert(std::is_same<A, bf16>::value,
+                "the precision kernels take bf16 activations");
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][3][I]
+  float* fh = fx + R * kGates * I;      // [R][3][H]
+  A* wxs = reinterpret_cast<A*>(fh + R * kGates * H);   // [I][3][H]
+  float* xb = fh + R * kGates * H +     // [R][kXRing][I]  x_t ring
+              (I * kGates * H * (int)sizeof(A) + 3) / 4;
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+  mcd::stage_weights<A, W, kGates>(wxs, wx, sx, I, H);
+  __syncthreads();                      // the only block barrier
+
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x >> 5) * kRowsPerWarp + lane / H;
+  const int j = lane % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+
+  float whr[kGates][H];                 // the unit's column of wh
+  {
+    const mcd::Column<A, W, kGates> ch(wh, sh, j, H);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) whr[g][k] = ch(k, g);
+  }
+  float wxr[kGates][IX > 0 ? IX : 1];   // ... and of wx, when I == IX
+#pragma unroll
+  for (int i = 0; i < IX; ++i)
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      wxr[g][i] = mcd::to_f(wxs[(i * kGates + g) * H + j]);
+  float fhj[kGates], bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    fhj[g] = fh[(r * kGates + g) * H + j];
+    bj[g] = bias[g * H + j];
+  }
+  float h = active ? mcd::to_f(h0[(size_t)br * H + j]) : 0.0f;
+  const int len = active ? lens[br] : 0;
+  const float* fxr = fx + r * kGates * I;
+  const A* xrow = x + (size_t)(active ? br : 0) * T * I;
+  float* const ring = xb + r * kXRing * I;
+  auto slot = [&](int t) { return ring + (t % kXRing) * I; };
+
+  // The row's lanes copy x_t into its slot (zeros for rows past B, nothing
+  // for t >= T); one commit group a step, empty ones too, so a wait counts
+  // steps.  A bf16 element travels in the aligned 4-byte word that holds
+  // it (only its own 2 bytes read when it is the word's low half).
+  auto stage = [&](int t) {
+    if (t < T)
+      for (int i = j; i < I; i += H) {
+        const uintptr_t a =
+            reinterpret_cast<uintptr_t>(xrow + (size_t)t * I + i);
+        mcd::cp_async4_bytes(slot(t) + i,
+                             reinterpret_cast<const void*>(a & ~uintptr_t(3)),
+                             active ? ((a & 2) ? 4 : 2) : 0);
+      }
+    mcd::cp_async_commit();
+  };
+  // The value of element i of x_t from the word that carries it: the
+  // word's high half when the element's address is 2 past a 4-byte
+  // boundary (the row's first element's parity, then one element a step
+  // of I and one an index).
+  const uint32_t odd0 = (reinterpret_cast<uintptr_t>(xrow) >> 1) & 1;
+  auto x_val = [&](const float* xt, int t, int i) {
+    const uint32_t w = __float_as_uint(xt[i]);
+    return __uint_as_float(((odd0 + (uint32_t)(t * I + i)) & 1)
+                               ? (w & 0xffff0000u) : (w << 16));
+  };
+  // The x-side gate sums of step t, in index order, once x_t has landed
+  // for the row.
+  auto x_side = [&](int t, float& s0, float& s1, float& s2) {
+    const float* xt = slot(t);
+    s0 = s1 = s2 = 0.0f;
+    if (IX > 0) {
+#pragma unroll
+      for (int i = 0; i < (IX > 0 ? IX : 1); ++i) {
+        const float xv = x_val(xt, t, i);
+        s0 = mcd::gate_term_view<A>(s0, xv, fxr[i], wxr[0][i]);
+        s1 = mcd::gate_term_view<A>(s1, xv, fxr[IX + i], wxr[1][i]);
+        s2 = mcd::gate_term_view<A>(s2, xv, fxr[2 * IX + i], wxr[2][i]);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < I; ++i) {
+        const float xv = x_val(xt, t, i);
+        const A* w = wxs + i * kGates * H + j;
+        s0 = mcd::gate_term_view<A>(s0, xv, fxr[i], mcd::to_f(w[0]));
+        s1 = mcd::gate_term_view<A>(s1, xv, fxr[I + i], mcd::to_f(w[H]));
+        s2 = mcd::gate_term_view<A>(s2, xv, fxr[2 * I + i],
+                                    mcd::to_f(w[2 * H]));
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kXRing - 1; ++t) stage(t);
+  mcd::cp_async_wait<kXRing - 2>();     // x_0 has landed
+  __syncwarp();
+  float x0, x1, x2;                     // x-side sums of the current step
+  x_side(0, x0, x1, x2);
+
+  for (int t = 0; t < T; ++t) {
+    // No branch from here to the h-side chain: the x-side sums of step
+    // t+1 (unused after the last step) and step t's h side interleave.
+    mcd::cp_async_wait<kXRing - 3>();   // x_{t+1} has landed
+    __syncwarp();                       // ... for the row; x_{t-1} was read
+    stage(t + kXRing - 1);              // into x_{t-1}'s slot
+    float n0, n1, n2;
+    x_side(t + 1, n0, n1, n2);
+    // h side: each lane's h * fh for its unit (rounded to A), shuffled to
+    // the row's lanes.
+    const float hf0 = mcd::round_to<A>(__fmul_rn(h, fhj[0]));
+    const float hf1 = mcd::round_to<A>(__fmul_rn(h, fhj[1]));
+    const float hf2 = mcd::round_to<A>(__fmul_rn(h, fhj[2]));
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      a0 = mcd::gate_term_vf(a0, __shfl_sync(kFull, hf0, k, H), whr[0][k]);
+      a1 = mcd::gate_term_vf(a1, __shfl_sync(kFull, hf1, k, H), whr[1][k]);
+      a2 = mcd::gate_term_vf(a2, __shfl_sync(kFull, hf2, k, H), whr[2][k]);
+    }
+    const float h_new =
+        mcd::round_to<A>(mcd::gru_tail(x0, x1, x2, a0, a1, a2, bj, h));
+    if (t < len) h = h_new;
+    if (active) ys[((size_t)br * T + t) * H + j] = mcd::from_f<A>(h);
+    x0 = n0;
+    x1 = n1;
+    x2 = n2;
+  }
+  if (active) hT[(size_t)br * H + j] = mcd::from_f<A>(h);
+}
+
+// The launch's operands, typed for one (A, W) instantiation.
+template <typename A, typename W>
+struct Args {
+  using WT = typename mcd::Storage<W>::type;
+  const A* x;
+  const WT* wx;
+  const WT* wh;
+  const float *sx, *sh, *bias;
+  const int32_t *rows, *lens;
+  const A* h0;
+  A *ys, *hT;
+};
+
+template <int H, int IX, typename A, typename W>
+int launch_warp_q(const Args<A, W>& o, int B, int T, int I, int R, size_t smem,
+                  const mcd::GateKeys& keys, uint32_t thr, float scale,
+                  int masked, cudaStream_t stream) {
+  const int threads = R * H;            // whole warps
+  if (threads % 32 || threads > kWarpMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_gru_seq_kernel_warp_q<H, IX, A, W>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_gru_seq_kernel_warp_q<H, IX, A, W>
+      <<<(B + R - 1) / R, threads, smem, stream>>>(
+          o.x, o.wx, o.wh, o.sx, o.sh, o.bias, o.rows, o.lens, o.h0, o.ys,
+          o.hT, B, T, I, R, keys, thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
+template <typename A, typename W>
+int launch_layer_q(const Args<A, W>& o, int B, int T, int I, int H, int R,
+                   int warp, size_t smem, const mcd::GateKeys& keys,
+                   uint32_t thr, float scale, int masked, cudaStream_t s) {
+  if (warp) {
+    if (smem < warp_smem_bytes(R, I, H, sizeof(A)))
+      return (int)cudaErrorInvalidValue;
+#define MCD_GRU_WARP_I(HH, II)                                          \
+  return launch_warp_q<HH, II>(o, B, T, I, R, smem, keys, thr, scale, \
+                               masked, s);
+#define MCD_GRU_WARP(HH)          \
+  case HH:                        \
+    switch (I) {                  \
+      case 1:                     \
+        MCD_GRU_WARP_I(HH, 1)     \
+      case 8:                     \
+        MCD_GRU_WARP_I(HH, 8)     \
+      case 16:                    \
+        MCD_GRU_WARP_I(HH, 16)    \
+      default:                    \
+        MCD_GRU_WARP_I(HH, 0)     \
+    }
+#define MCD_GRU_WARP_ANY_I(HH) \
+  case HH:                     \
+    MCD_GRU_WARP_I(HH, 0)
+    // The input widths in registers for the ECG layers' H only (8, 16);
+    // every other H reads wx from shared memory (IX = 0).
+    switch (H) {
+      MCD_GRU_WARP_ANY_I(1)
+      MCD_GRU_WARP_ANY_I(2)
+      MCD_GRU_WARP_ANY_I(4)
+      MCD_GRU_WARP(8)
+      MCD_GRU_WARP(16)
+      MCD_GRU_WARP_ANY_I(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef MCD_GRU_WARP_ANY_I
+#undef MCD_GRU_WARP
+#undef MCD_GRU_WARP_I
+  }
+  if (smem < block_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_gru_seq_kernel_q<A, W>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_gru_seq_kernel_q<A, W><<<(B + R - 1) / R, R * H, smem, s>>>(
+      o.x, o.wx, o.wh, o.sx, o.sh, o.bias, o.rows, o.lens, o.h0, o.ys, o.hT,
+      B, T, I, H, R, keys, thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
+template <typename A, typename W>
+int launch_typed_q(const void* x, const void* wx, const void* wh,
+                   const float* sx, const float* sh, const float* bias,
+                   const int32_t* rows, const int32_t* lens, const void* h0,
+                   void* ys, void* hT, int B, int T, int I, int H, int R,
+                   int warp, size_t smem, const mcd::GateKeys& keys,
+                   uint32_t thr, float scale, int masked, cudaStream_t s) {
+  using WT = typename mcd::Storage<W>::type;
+  if (!std::is_same<W, A>::value && (sx == nullptr || sh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args<A, W> o{static_cast<const A*>(x), static_cast<const WT*>(wx),
+                     static_cast<const WT*>(wh), sx, sh, bias, rows, lens,
+                     static_cast<const A*>(h0), static_cast<A*>(ys),
+                     static_cast<A*>(hT)};
+  return launch_layer_q<A, W>(o, B, T, I, H, R, warp, smem, keys, thr, scale,
+                            masked, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one layer on `stream` on the path the host planned (warp != 0:
+// the warp path, H must divide 32) with R rows a block and `smem` bytes of
+// shared memory, for activations `act` (0: fp32, 1: bf16) and weights of
+// `wbits` bits (32: fp32, 16: bf16, 8: int8 codes, 4: packed int4 codes;
+// 8 and 4 with the [3, H] scales sx / sh and bf16 activations); returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the plan
+// or the types do not fit.
+int mcd_gru_seq_launch(const void* x, const void* wx, const void* wh,
+                       const float* sx, const float* sh, const float* bias,
+                       const int32_t* rows, const int32_t* lens,
+                       const void* h0, void* ys, void* hT, int B, int T,
+                       int I, int H, int R, int warp, int smem_bytes,
+                       int act, int wbits, const uint32_t* keys6,
+                       uint32_t thr, float scale, int masked, void* stream) {
+  const size_t smem = (size_t)smem_bytes;
+  const mcd::GateKeys keys = mcd::to_keys(keys6, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+#define MCD_GRU_TYPED(AA, WW)                                                \
+  return launch_typed_q<AA, WW>(x, wx, wh, sx, sh, bias, rows, lens, h0, ys, \
+                                hT, B, T, I, H, R, warp, smem, keys, thr,    \
+                                scale, masked, s);
+  if (act == 1 && wbits == 16) MCD_GRU_TYPED(bf16, bf16)
+  if (act == 1 && wbits == 8) MCD_GRU_TYPED(bf16, int8_t)
+  if (act == 1 && wbits == 4) MCD_GRU_TYPED(bf16, mcd::Int4)
+#undef MCD_GRU_TYPED
+  if (act != 0 || wbits != 32) return (int)cudaErrorInvalidValue;
+  return launch_fp32(static_cast<const float*>(x),
+                     static_cast<const float*>(wx),
+                     static_cast<const float*>(wh), bias, rows, lens,
+                     static_cast<const float*>(h0), static_cast<float*>(ys),
+                     static_cast<float*>(hT), B, T, I, H, R, warp, smem_bytes,
+                     keys6, thr, scale, masked, stream);
 }
 
 // Writes the mask factors of every row: fx [B,3,I], fh [B,3,H].  Every

@@ -50,14 +50,35 @@
 // The host picks the path, the rows a block and the shared memory
 // (kernels/mcd_lstm_seq.py::lstm_seq_plan) and passes them in; the entry
 // checks the shared memory against what the path needs.
-// Left for a later PR: the int8/int4 in-kernel dequant, tensor cores for
-// large H, a cluster split of H.
+// Serving precisions (the TPU kernel's `weight_bits` branch, l.56-91, and
+// its bf16 operands): the fp32 kernels stay as they were, so their code
+// does not change, and the `_q` kernels after them are templates over the
+// activation storage A (bf16 for x, h0, ys and h_T; c stays fp32) and the
+// weight storage W (bf16, int8 codes, or packed int4 codes with fp32
+// [4, H] scales).  Quantized weights are dequantized once at kernel entry,
+// float32(q) * scale rounded to bf16 (mcd_cells.cuh), into the registers
+// and shared memory the warp path already holds them in.  The block path
+// reads its weights through the read-only path every step and dequantizes
+// each read (its unit's four scales in registers): a layer wide enough to
+// take it (I = H = 128: 256 KB of bf16 weights) does not fit the block's
+// 227 KB of shared memory.  The input widths are unrolled with wx in
+// registers for the ECG layers' H (8, 16) only, every other H reading wx
+// from shared memory, which keeps the build's instantiations to 64 a
+// source.  The warp path stages each bf16 x element by cp.async of the
+// aligned 4-byte word that holds it, and the x-side sums take the
+// element's half of the word (its address's parity), so the ring is the
+// fp32 path's.  Rounding points as in mcd_cells.cuh: the masked views, the
+// dequantized weights and h on every write -- so every instantiation is
+// bit-equal to the plain version at its precision.
+// Left for a later PR: tensor cores for large H, a cluster split of H.
 //
 // The mask stream (mcd_mask.cuh) and the cell body (mcd_cells.cuh) are
 // shared with the GRU and step kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mcd_async.cuh"
 #include "mcd_cells.cuh"
@@ -281,9 +302,11 @@ size_t block_smem_bytes(int R, int I, int H) {
   return (size_t)R * (kGates * (I + H) + I + H) * sizeof(float);
 }
 
-size_t warp_smem_bytes(int R, int I, int H) {
+// The staged wx at the activation width, padded to whole 4-byte words
+// (kernels/common.py::seq_plan).
+size_t warp_smem_bytes(int R, int I, int H, size_t act_bytes) {
   return ((size_t)R * (kGates * (I + H) + kXRing * I) +
-          (size_t)kGates * I * H) *
+          ((size_t)kGates * I * H * act_bytes + 3) / 4) *
          sizeof(float);
 }
 
@@ -313,26 +336,20 @@ int launch_warp(const float* x, const float* wx, const float* wh,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one layer on `stream` on the path the host planned (warp != 0:
-// the warp path, H must divide 32) with R rows a block and `smem` bytes of
-// shared memory; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue when the plan does not fit the path.
-int mcd_lstm_seq_launch(const float* x, const float* wx, const float* wh,
-                        const float* bias, const int32_t* rows,
-                        const int32_t* lens, const float* h0, const float* c0,
-                        float* ys, float* hT, float* cT, int B, int T, int I,
-                        int H, int R, int warp, int smem_bytes,
-                        const uint32_t* keys8, uint32_t thr, float scale,
-                        int masked, void* stream) {
+// The fp32 layer: the kernels above, launched as before the serving
+// precisions came.
+int launch_fp32(const float* x, const float* wx, const float* wh,
+                const float* bias, const int32_t* rows, const int32_t* lens,
+                const float* h0, const float* c0, float* ys, float* hT,
+                float* cT, int B, int T, int I, int H, int R, int warp,
+                int smem_bytes, const uint32_t* keys8, uint32_t thr,
+                float scale, int masked, void* stream) {
   const size_t smem = (size_t)smem_bytes;
   const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
   cudaStream_t s = (cudaStream_t)stream;
   if (warp) {
-    if (smem < warp_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+    if (smem < warp_smem_bytes(R, I, H, sizeof(float)))
+      return (int)cudaErrorInvalidValue;
 #define MCD_LSTM_WARP_I(HH, II)                                          \
   return launch_warp<HH, II>(x, wx, wh, bias, rows, lens, h0, c0, ys, hT, \
                              cT, B, T, I, R, smem, keys, thr, scale,      \
@@ -369,6 +386,393 @@ int mcd_lstm_seq_launch(const float* x, const float* wx, const float* wh,
       x, wx, wh, bias, rows, lens, h0, c0, ys, hT, cT, B, T, I, H, R, keys,
       thr, scale, masked);
   return (int)cudaGetLastError();
+}
+
+// -- serving precisions: bf16 activations over bf16, int8 or int4 weights --
+//
+// The same two paths and the same arithmetic order as the fp32 kernels
+// above, templated over the activation storage A (bf16) and the weight
+// storage W, rounded where the TPU kernel rounds (mcd_cells.cuh).  The fp32
+// kernels stay as they were, so their code does not change.
+
+using mcd::bf16;
+
+template <typename A, typename W>
+__global__ void mcd_lstm_seq_kernel_q(
+    const A* __restrict__ x,          // [B, T, I]
+    const typename mcd::Storage<W>::type* __restrict__ wx,  // [I, 4, H(/2)]
+    const typename mcd::Storage<W>::type* __restrict__ wh,  // [H, 4, H(/2)]
+    const float* __restrict__ sx,     // [4, H] scales (quantized W)
+    const float* __restrict__ sh,     // [4, H]
+    const float* __restrict__ bias,   // [4, H]
+    const int32_t* __restrict__ rows, // [B]
+    const int32_t* __restrict__ lens, // [B]
+    const A* __restrict__ h0,         // [B, H]
+    const float* __restrict__ c0,     // [B, H]
+    A* __restrict__ ys,               // [B, T, H]
+    A* __restrict__ hT,               // [B, H]
+    float* __restrict__ cT,           // [B, H]
+    int B, int T, int I, int H, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][4][I]
+  float* fh = fx + R * kGates * I;      // [R][4][H]
+  float* xs = fh + R * kGates * H;      // [R][I]   x_t of the tile
+  float* hs = xs + R * I;               // [R][H]   h_{t-1} of the tile
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+
+  const int r = threadIdx.x / H;        // blockDim.x == R * H
+  const int j = threadIdx.x % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+  float h = 0.0f, c = 0.0f;
+  int len = 0;
+  if (active) {
+    h = mcd::to_f(h0[(size_t)br * H + j]);
+    c = c0[(size_t)br * H + j];
+    len = lens[br];
+  }
+  float bj[kGates];
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + j];
+  const mcd::Column<A, W, kGates> cx(wx, sx, j, H), ch(wh, sh, j, H);
+  const float* fxr = fx + r * kGates * I;
+  const float* fhr = fh + r * kGates * H;
+  const float* xr = xs + r * I;
+  const float* hr = hs + r * H;
+
+  for (int t = 0; t < T; ++t) {
+    hs[threadIdx.x] = h;                // publish h_{t-1} (index r*H + j)
+    for (int e = threadIdx.x; e < R * I; e += blockDim.x) {
+      const int rr = row0 + e / I;
+      xs[e] = rr < B ? mcd::to_f(x[((size_t)rr * T + t) * I + e % I])
+                     : 0.0f;
+    }
+    __syncthreads();
+    if (active) {
+      float h_new = h, c_new = c;
+      mcd::lstm_unit_q<A>(xr, hr, fxr, fhr, cx, ch, bj, I, H, h_new, c_new);
+      if (t < len) {
+        c = c_new;
+        h = h_new;
+      }
+      ys[((size_t)br * T + t) * H + j] = mcd::from_f<A>(h);
+    }
+    __syncthreads();
+  }
+  if (active) {
+    hT[(size_t)br * H + j] = mcd::from_f<A>(h);
+    cT[(size_t)br * H + j] = c;
+  }
+}
+
+// Warp path: blockDim.x = 32 * warps, R = warps * (32 / H) rows a block.
+// (Both paths' names hold "mcd_lstm_seq_kernel", the name a profile of the
+// kernel matches.)
+// IX > 0: I == IX, the x-side loop is straight-line code (so its loads and
+// products interleave with the h-side chain) and the unit's column of wx
+// lives in registers; IX == 0: any I, wx read from shared memory.
+template <int H, int IX, typename A, typename W>
+__global__ void __launch_bounds__(kWarpMaxThreads)
+mcd_lstm_seq_kernel_warp_q(
+    const A* __restrict__ x,
+    const typename mcd::Storage<W>::type* __restrict__ wx,
+    const typename mcd::Storage<W>::type* __restrict__ wh,
+    const float* __restrict__ sx, const float* __restrict__ sh,
+    const float* __restrict__ bias,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ lens,
+    const A* __restrict__ h0, const float* __restrict__ c0,
+    A* __restrict__ ys, A* __restrict__ hT, float* __restrict__ cT,
+    int B, int T, int I, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  constexpr int kRowsPerWarp = 32 / H;
+  static_assert(std::is_same<A, bf16>::value,
+                "the precision kernels take bf16 activations");
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][4][I]
+  float* fh = fx + R * kGates * I;      // [R][4][H]
+  A* wxs = reinterpret_cast<A*>(fh + R * kGates * H);   // [I][4][H]
+  float* xb = fh + R * kGates * H +     // [R][kXRing][I]  x_t ring
+              (I * kGates * H * (int)sizeof(A) + 3) / 4;
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+  mcd::stage_weights<A, W, kGates>(wxs, wx, sx, I, H);
+  __syncthreads();                      // the only block barrier
+
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x >> 5) * kRowsPerWarp + lane / H;
+  const int j = lane % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+
+  float whr[kGates][H];                 // the unit's column of wh
+  {
+    const mcd::Column<A, W, kGates> ch(wh, sh, j, H);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) whr[g][k] = ch(k, g);
+  }
+  float wxr[kGates][IX > 0 ? IX : 1];   // ... and of wx, when I == IX
+#pragma unroll
+  for (int i = 0; i < IX; ++i)
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      wxr[g][i] = mcd::to_f(wxs[(i * kGates + g) * H + j]);
+  float fhj[kGates], bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    fhj[g] = fh[(r * kGates + g) * H + j];
+    bj[g] = bias[g * H + j];
+  }
+  float h = active ? mcd::to_f(h0[(size_t)br * H + j]) : 0.0f;
+  float c = active ? c0[(size_t)br * H + j] : 0.0f;
+  const int len = active ? lens[br] : 0;
+  const float* fxr = fx + r * kGates * I;
+  const A* xrow = x + (size_t)(active ? br : 0) * T * I;
+  float* const ring = xb + r * kXRing * I;
+  auto slot = [&](int t) { return ring + (t % kXRing) * I; };
+
+  // The row's lanes copy x_t into its slot (zeros for rows past B, nothing
+  // for t >= T); one commit group a step, empty ones too, so a wait counts
+  // steps.  A bf16 element travels in the aligned 4-byte word that holds
+  // it (only its own 2 bytes read when it is the word's low half).
+  auto stage = [&](int t) {
+    if (t < T)
+      for (int i = j; i < I; i += H) {
+        const uintptr_t a =
+            reinterpret_cast<uintptr_t>(xrow + (size_t)t * I + i);
+        mcd::cp_async4_bytes(slot(t) + i,
+                             reinterpret_cast<const void*>(a & ~uintptr_t(3)),
+                             active ? ((a & 2) ? 4 : 2) : 0);
+      }
+    mcd::cp_async_commit();
+  };
+  // The value of element i of x_t from the word that carries it: the
+  // word's high half when the element's address is 2 past a 4-byte
+  // boundary (the row's first element's parity, then one element a step
+  // of I and one an index).
+  const uint32_t odd0 = (reinterpret_cast<uintptr_t>(xrow) >> 1) & 1;
+  auto x_val = [&](const float* xt, int t, int i) {
+    const uint32_t w = __float_as_uint(xt[i]);
+    return __uint_as_float(((odd0 + (uint32_t)(t * I + i)) & 1)
+                               ? (w & 0xffff0000u) : (w << 16));
+  };
+  // The x-side gate sums of step t, in index order, once x_t has landed
+  // for the row: the start of each gate's chain.
+  auto x_side = [&](int t, float* s) {
+    const float* xt = slot(t);
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) s[g] = 0.0f;
+    if (IX > 0) {
+#pragma unroll
+      for (int i = 0; i < (IX > 0 ? IX : 1); ++i) {
+        const float xv = x_val(xt, t, i);
+#pragma unroll
+        for (int g = 0; g < kGates; ++g)
+          s[g] = mcd::gate_term_view<A>(s[g], xv, fxr[g * IX + i],
+                                          wxr[g][i]);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < I; ++i) {
+        const float xv = x_val(xt, t, i);
+        const A* w = wxs + i * kGates * H + j;
+#pragma unroll
+        for (int g = 0; g < kGates; ++g)
+          s[g] = mcd::gate_term_view<A>(s[g], xv, fxr[g * I + i],
+                                        mcd::to_f(w[g * H]));
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kXRing - 1; ++t) stage(t);
+  mcd::cp_async_wait<kXRing - 2>();     // x_0 has landed
+  __syncwarp();
+  float a[kGates];                      // x-side sums of the current step
+  x_side(0, a);
+
+  for (int t = 0; t < T; ++t) {
+    // No branch from here to the end of the h-side chain: the x-side sums
+    // of step t+1 (unused after the last step) and step t's h side
+    // interleave.
+    mcd::cp_async_wait<kXRing - 3>();   // x_{t+1} has landed
+    __syncwarp();                       // ... for the row; x_{t-1} was read
+    stage(t + kXRing - 1);              // into x_{t-1}'s slot
+    float n[kGates];
+    x_side(t + 1, n);
+    // h side: each lane's h * fh for its unit (rounded to A), shuffled to
+    // the row's lanes, continuing each gate's chain after its x terms.
+    float hf[kGates];
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      hf[g] = mcd::round_to<A>(__fmul_rn(h, fhj[g]));
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g)
+        a[g] = mcd::gate_term_vf(a[g], __shfl_sync(kFull, hf[g], k, H),
+                                 whr[g][k]);
+    float c_new = c;
+    const float h_new = mcd::round_to<A>(
+        mcd::lstm_tail(a[0], a[1], a[2], a[3], bj, c_new));
+    if (t < len) {
+      h = h_new;
+      c = c_new;
+    }
+    if (active) ys[((size_t)br * T + t) * H + j] = mcd::from_f<A>(h);
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) a[g] = n[g];
+  }
+  if (active) {
+    hT[(size_t)br * H + j] = mcd::from_f<A>(h);
+    cT[(size_t)br * H + j] = c;
+  }
+}
+
+// The launch's operands, typed for one (A, W) instantiation.
+template <typename A, typename W>
+struct Args {
+  using WT = typename mcd::Storage<W>::type;
+  const A* x;
+  const WT* wx;
+  const WT* wh;
+  const float *sx, *sh, *bias;
+  const int32_t *rows, *lens;
+  const A* h0;
+  const float* c0;
+  A *ys, *hT;
+  float* cT;
+};
+
+template <int H, int IX, typename A, typename W>
+int launch_warp_q(const Args<A, W>& o, int B, int T, int I, int R, size_t smem,
+                  const mcd::GateKeys& keys, uint32_t thr, float scale,
+                  int masked, cudaStream_t stream) {
+  const int threads = R * H;            // whole warps
+  if (threads % 32 || threads > kWarpMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_lstm_seq_kernel_warp_q<H, IX, A, W>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_lstm_seq_kernel_warp_q<H, IX, A, W>
+      <<<(B + R - 1) / R, threads, smem, stream>>>(
+          o.x, o.wx, o.wh, o.sx, o.sh, o.bias, o.rows, o.lens, o.h0, o.c0,
+          o.ys, o.hT, o.cT, B, T, I, R, keys, thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
+template <typename A, typename W>
+int launch_layer_q(const Args<A, W>& o, int B, int T, int I, int H, int R,
+                   int warp, size_t smem, const mcd::GateKeys& keys,
+                   uint32_t thr, float scale, int masked, cudaStream_t s) {
+  if (warp) {
+    if (smem < warp_smem_bytes(R, I, H, sizeof(A)))
+      return (int)cudaErrorInvalidValue;
+#define MCD_LSTM_WARP_I(HH, II)                                         \
+  return launch_warp_q<HH, II>(o, B, T, I, R, smem, keys, thr, scale, \
+                               masked, s);
+#define MCD_LSTM_WARP(HH)          \
+  case HH:                         \
+    switch (I) {                   \
+      case 1:                      \
+        MCD_LSTM_WARP_I(HH, 1)     \
+      case 8:                      \
+        MCD_LSTM_WARP_I(HH, 8)     \
+      case 16:                     \
+        MCD_LSTM_WARP_I(HH, 16)    \
+      default:                     \
+        MCD_LSTM_WARP_I(HH, 0)     \
+    }
+#define MCD_LSTM_WARP_ANY_I(HH) \
+  case HH:                     \
+    MCD_LSTM_WARP_I(HH, 0)
+    // The input widths in registers for the ECG layers' H only (8, 16);
+    // every other H reads wx from shared memory (IX = 0).
+    switch (H) {
+      MCD_LSTM_WARP_ANY_I(1)
+      MCD_LSTM_WARP_ANY_I(2)
+      MCD_LSTM_WARP_ANY_I(4)
+      MCD_LSTM_WARP(8)
+      MCD_LSTM_WARP(16)
+      MCD_LSTM_WARP_ANY_I(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef MCD_LSTM_WARP_ANY_I
+#undef MCD_LSTM_WARP
+#undef MCD_LSTM_WARP_I
+  }
+  if (smem < block_smem_bytes(R, I, H)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fit_smem(mcd_lstm_seq_kernel_q<A, W>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mcd_lstm_seq_kernel_q<A, W><<<(B + R - 1) / R, R * H, smem, s>>>(
+      o.x, o.wx, o.wh, o.sx, o.sh, o.bias, o.rows, o.lens, o.h0, o.c0, o.ys,
+      o.hT, o.cT, B, T, I, H, R, keys, thr, scale, masked);
+  return (int)cudaGetLastError();
+}
+
+template <typename A, typename W>
+int launch_typed_q(const void* x, const void* wx, const void* wh,
+                   const float* sx, const float* sh, const float* bias,
+                   const int32_t* rows, const int32_t* lens, const void* h0,
+                   const float* c0, void* ys, void* hT, float* cT, int B, int T,
+                   int I, int H, int R, int warp, size_t smem,
+                   const mcd::GateKeys& keys, uint32_t thr, float scale,
+                   int masked, cudaStream_t s) {
+  using WT = typename mcd::Storage<W>::type;
+  if (!std::is_same<W, A>::value && (sx == nullptr || sh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args<A, W> o{static_cast<const A*>(x), static_cast<const WT*>(wx),
+                     static_cast<const WT*>(wh), sx, sh, bias, rows, lens,
+                     static_cast<const A*>(h0), c0, static_cast<A*>(ys),
+                     static_cast<A*>(hT), cT};
+  return launch_layer_q<A, W>(o, B, T, I, H, R, warp, smem, keys, thr, scale,
+                            masked, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one layer on `stream` on the path the host planned (warp != 0:
+// the warp path, H must divide 32) with R rows a block and `smem` bytes of
+// shared memory, for activations `act` (0: fp32, 1: bf16) and weights of
+// `wbits` bits (32: fp32, 16: bf16, 8: int8 codes, 4: packed int4 codes;
+// 8 and 4 with the [4, H] scales sx / sh and bf16 activations); returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the plan
+// or the types do not fit.
+int mcd_lstm_seq_launch(const void* x, const void* wx, const void* wh,
+                        const float* sx, const float* sh, const float* bias,
+                        const int32_t* rows, const int32_t* lens,
+                        const void* h0, const float* c0, void* ys, void* hT,
+                        float* cT, int B, int T, int I, int H, int R,
+                        int warp, int smem_bytes, int act, int wbits,
+                        const uint32_t* keys8, uint32_t thr, float scale,
+                        int masked, void* stream) {
+  const size_t smem = (size_t)smem_bytes;
+  const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+#define MCD_LSTM_TYPED(AA, WW)                                               \
+  return launch_typed_q<AA, WW>(x, wx, wh, sx, sh, bias, rows, lens, h0, c0, \
+                                ys, hT, cT, B, T, I, H, R, warp, smem, keys, \
+                                thr, scale, masked, s);
+  if (act == 1 && wbits == 16) MCD_LSTM_TYPED(bf16, bf16)
+  if (act == 1 && wbits == 8) MCD_LSTM_TYPED(bf16, int8_t)
+  if (act == 1 && wbits == 4) MCD_LSTM_TYPED(bf16, mcd::Int4)
+#undef MCD_LSTM_TYPED
+  if (act != 0 || wbits != 32) return (int)cudaErrorInvalidValue;
+  return launch_fp32(static_cast<const float*>(x),
+                     static_cast<const float*>(wx),
+                     static_cast<const float*>(wh), bias, rows, lens,
+                     static_cast<const float*>(h0), c0,
+                     static_cast<float*>(ys), static_cast<float*>(hT), cT, B,
+                     T, I, H, R, warp, smem_bytes, keys8, thr, scale, masked,
+                     stream);
 }
 
 // Writes the mask factors of every row: fx [B,4,I], fh [B,4,H].  Every

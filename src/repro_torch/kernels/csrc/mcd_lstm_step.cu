@@ -42,6 +42,13 @@
 //    barrier, then each thread runs mcd_cells.cuh's lstm_unit.
 // The host picks the path, the rows a block and the threads
 // (kernels/common.py::step_plan) and passes them in; the entry checks them.
+//
+// Serving precisions: the fp32 kernels stay as they were, and the `_q`
+// kernels after them take bf16 x, h and weights (int8/int4 arrive
+// dequantized, as the TPU kernel takes them) and write a bf16 h_out; c
+// stays fp32.  They round at the masked views and at h_out
+// (mcd_cells.cuh), so each is bit-equal to the plain version and to
+// mcd_lstm_seq.cu at its precision.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -204,20 +211,13 @@ int launch_warp(const float* x, const float* h, const float* c,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one step on `stream` on the path the host planned (warp != 0:
-// the warp path, H must divide 32) with R rows a block; returns
-// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the plan
-// does not fit the path.
-int mcd_lstm_step_launch(const float* x, const float* h, const float* c,
-                         const float* wx, const float* wh, const float* bias,
-                         const int32_t* rows, float* h_out, float* c_out,
-                         int B, int I, int H, int R, int warp,
-                         const uint32_t* keys8, uint32_t thr, float scale,
-                         int masked, void* stream) {
+// The fp32 step: the kernels above, launched as before the serving
+// precisions came.
+int launch_fp32(const float* x, const float* h, const float* c,
+                const float* wx, const float* wh, const float* bias,
+                const int32_t* rows, float* h_out, float* c_out, int B, int I,
+                int H, int R, int warp, const uint32_t* keys8, uint32_t thr,
+                float scale, int masked, void* stream) {
   const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
   cudaStream_t s = (cudaStream_t)stream;
   if (B < 1 || I < 1 || H < 1 || R < 1) return (int)cudaErrorInvalidValue;
@@ -262,6 +262,249 @@ int mcd_lstm_step_launch(const float* x, const float* h, const float* c,
       x, h, c, wx, wh, bias, rows, h_out, c_out, B, I, H, R, keys, thr,
       scale, masked);
   return (int)cudaGetLastError();
+}
+
+// -- serving precisions: bf16 activations and weights ---------------------
+//
+// The same two paths and the same arithmetic order as the fp32 kernels
+// above, at the activation storage A (bf16), rounded at the masked views
+// and at h_out (mcd_cells.cuh).  The fp32 kernels stay as they were, so
+// their code does not change.
+
+using mcd::bf16;
+
+template <typename A>
+__global__ void mcd_lstm_step_kernel_q(
+    const A* __restrict__ x,          // [B, I]
+    const A* __restrict__ h,          // [B, H]
+    const float* __restrict__ c,      // [B, H]
+    const A* __restrict__ wx,         // [I, 4, H]
+    const A* __restrict__ wh,         // [H, 4, H]
+    const float* __restrict__ bias,   // [4, H]
+    const int32_t* __restrict__ rows, // [B]
+    A* __restrict__ h_out,            // [B, H]
+    float* __restrict__ c_out,        // [B, H]
+    int B, int I, int H, int R, mcd::GateKeys keys, uint32_t thr,
+    float scale, int masked) {
+  extern __shared__ float smem[];
+  float* fx = smem;                     // [R][4][I]
+  float* fh = fx + R * kGates * I;      // [R][4][H]
+  float* xs = fh + R * kGates * H;      // [R][I]
+  float* hs = xs + R * I;               // [R][H]   the full h rows
+
+  const int row0 = blockIdx.x * R;
+  mcd::fill_mask_factors<kGates>(fx, fh, rows, row0, R, B, I, H, keys, thr,
+                                 scale, masked);
+  for (int e = threadIdx.x; e < R * I; e += blockDim.x) {
+    const int rr = row0 + e / I;
+    xs[e] = rr < B ? mcd::to_f(x[(size_t)rr * I + e % I]) : 0.0f;
+  }
+  const int r = threadIdx.x / H;        // blockDim.x == R * H
+  const int j = threadIdx.x % H;
+  const int br = row0 + r;
+  const bool active = br < B;
+  hs[threadIdx.x] = active ? mcd::to_f(h[(size_t)br * H + j]) : 0.0f;
+  __syncthreads();
+  if (!active) return;
+  float bj[kGates];
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + j];
+  const mcd::Column<A, A, kGates> cx(wx, nullptr, j, H), ch(wh, nullptr, j, H);
+  float h_new = hs[threadIdx.x];
+  float c_new = c[(size_t)br * H + j];
+  mcd::lstm_unit_q<A>(xs + r * I, hs + r * H, fx + r * kGates * I,
+                    fh + r * kGates * H, cx, ch, bj, I, H, h_new, c_new);
+  h_out[(size_t)br * H + j] = mcd::from_f<A>(h_new);
+  c_out[(size_t)br * H + j] = c_new;
+}
+
+// Warp path: blockDim.x = 32 * warps, R = warps * (32 / H) rows a block.
+// (Both paths' names hold "mcd_lstm_step_kernel", the name a profile of the
+// kernel matches.)  IX > 0: I == IX, the x loop is straight-line code;
+// IX == 0: any I.
+template <int H, int IX, typename A>
+__global__ void __launch_bounds__(kWarpMaxThreads) mcd_lstm_step_kernel_warp_q(
+    const A* __restrict__ x, const A* __restrict__ h,
+    const float* __restrict__ c, const A* __restrict__ wx,
+    const A* __restrict__ wh, const float* __restrict__ bias,
+    const int32_t* __restrict__ rows, A* __restrict__ h_out,
+    float* __restrict__ c_out, int B, int I_arg, mcd::GateKeys keys,
+    uint32_t thr, float scale, int masked) {
+  constexpr int kRowsPerWarp = 32 / H;
+  const int I = IX > 0 ? IX : I_arg;
+  const int lane = threadIdx.x & 31;
+  const int br = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * kRowsPerWarp +
+                 lane / H;
+  const int j = lane % H;
+  const bool active = br < B;
+
+  // The row's masking: unmasked for a student row, a row past B, or
+  // masked == 0 (its factors are 1, as mcd::fill_mask_factors writes them).
+  const int32_t row = active ? __ldg(rows + br) : -1;
+  const bool draw = masked && row >= 0;
+  auto factor = [&](uint32_t key, int feat, int col) {
+    if (!draw) return 1.0f;
+    return mcd::keep_bit(key, (uint32_t)row, (uint32_t)feat, (uint32_t)col,
+                         thr)
+               ? scale
+               : 0.0f;
+  };
+
+  const float hj = active ? mcd::to_f(__ldg(h + (size_t)br * H + j)) : 0.0f;
+  float cj = active ? __ldg(c + (size_t)br * H + j) : 0.0f;
+  const A* xrow = x + (size_t)br * I;
+
+  // x side: lane j holds x_i * f_gi (rounded to A) for i = s * H + j, one
+  // chunk s of H columns at a time; the row's lanes take the terms in index
+  // order.
+  float a[kGates] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto x_chunk = [&](int s) {
+    const int i = s * H + j;
+    const bool own = active && i < I;
+    const float xv = own ? mcd::to_f(__ldg(xrow + i)) : 0.0f;
+    float xf[kGates];
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      xf[g] = mcd::round_to<A>(
+          __fmul_rn(xv, own ? factor(keys.k[g], I, i) : 1.0f));
+#pragma unroll
+    for (int l = 0; l < H; ++l) {
+      const int il = s * H + l;
+      if (il >= I) break;               // uniform across the warp
+      const A* w = wx + (size_t)il * kGates * H + j;
+#pragma unroll
+      for (int g = 0; g < kGates; ++g)
+        a[g] = mcd::gate_term_vf(a[g], __shfl_sync(kFull, xf[g], l, H),
+                                 mcd::to_f(__ldg(w + g * H)));
+    }
+  };
+  if (IX > 0) {
+#pragma unroll
+    for (int s = 0; s < (IX + H - 1) / H; ++s) x_chunk(s);
+  } else {
+    for (int s = 0; s < (I + H - 1) / H; ++s) x_chunk(s);
+  }
+
+  // h side: each lane's h * fh for its unit (rounded to A), shuffled to
+  // the row's lanes, continuing each gate's chain after its x terms.
+  float hf[kGates], bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    hf[g] = mcd::round_to<A>(
+        __fmul_rn(hj, factor(keys.k[kGates + g], H, j)));
+    bj[g] = __ldg(bias + g * H + j);
+  }
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const A* w = wh + (size_t)k * kGates * H + j;
+#pragma unroll
+    for (int g = 0; g < kGates; ++g)
+      a[g] = mcd::gate_term_vf(a[g], __shfl_sync(kFull, hf[g], k, H),
+                               mcd::to_f(__ldg(w + g * H)));
+  }
+  const float h_new = mcd::lstm_tail(a[0], a[1], a[2], a[3], bj, cj);
+  if (active) {
+    h_out[(size_t)br * H + j] = mcd::from_f<A>(h_new);
+    c_out[(size_t)br * H + j] = cj;
+  }
+}
+
+template <int H, int IX, typename A>
+int launch_warp_q(const A* x, const A* h, const float* c, const A* wx,
+                  const A* wh, const float* bias, const int32_t* rows,
+                  A* h_out, float* c_out, int B, int I, int R,
+                  const mcd::GateKeys& keys, uint32_t thr, float scale,
+                  int masked, cudaStream_t stream) {
+  const int threads = R * H;            // whole warps
+  if (threads % 32 || threads > kWarpMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  mcd_lstm_step_kernel_warp_q<H, IX, A>
+      <<<(B + R - 1) / R, threads, 0, stream>>>(
+          x, h, c, wx, wh, bias, rows, h_out, c_out, B, I, keys, thr, scale,
+          masked);
+  return (int)cudaGetLastError();
+}
+
+template <typename A>
+int launch_typed_q(const void* xv, const void* hv, const float* c,
+                   const void* wxv, const void* whv, const float* bias,
+                   const int32_t* rows, void* h_outv, float* c_out, int B,
+                   int I, int H, int R, int warp, const mcd::GateKeys& keys,
+                   uint32_t thr, float scale, int masked, cudaStream_t s) {
+  const A* x = static_cast<const A*>(xv);
+  const A* h = static_cast<const A*>(hv);
+  const A* wx = static_cast<const A*>(wxv);
+  const A* wh = static_cast<const A*>(whv);
+  A* h_out = static_cast<A*>(h_outv);
+  if (warp) {
+#define MCD_LSTM_STEP_WARP_I(HH, II)                                      \
+  return launch_warp_q<HH, II>(x, h, c, wx, wh, bias, rows, h_out, c_out, B, \
+                             I, R, keys, thr, scale, masked, s);
+#define MCD_LSTM_STEP_WARP(HH)      \
+  case HH:                          \
+    switch (I) {                    \
+      case 1:                       \
+        MCD_LSTM_STEP_WARP_I(HH, 1) \
+      case 8:                       \
+        MCD_LSTM_STEP_WARP_I(HH, 8) \
+      case 16:                      \
+        MCD_LSTM_STEP_WARP_I(HH, 16) \
+      default:                      \
+        MCD_LSTM_STEP_WARP_I(HH, 0) \
+    }
+    switch (H) {
+      MCD_LSTM_STEP_WARP(1)
+      MCD_LSTM_STEP_WARP(2)
+      MCD_LSTM_STEP_WARP(4)
+      MCD_LSTM_STEP_WARP(8)
+      MCD_LSTM_STEP_WARP(16)
+      MCD_LSTM_STEP_WARP(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef MCD_LSTM_STEP_WARP
+#undef MCD_LSTM_STEP_WARP_I
+  }
+  if (R * H > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = block_smem_bytes(R, I, H);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mcd_lstm_step_kernel_q<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mcd_lstm_step_kernel_q<A><<<(B + R - 1) / R, R * H, smem, s>>>(
+      x, h, c, wx, wh, bias, rows, h_out, c_out, B, I, H, R, keys, thr,
+      scale, masked);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one step on `stream` on the path the host planned (warp != 0:
+// the warp path, H must divide 32) with R rows a block, for activations
+// and weights `act` (0: fp32, 1: bf16); returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue when the plan does not fit the path.
+int mcd_lstm_step_launch(const void* x, const void* h, const float* c,
+                         const void* wx, const void* wh, const float* bias,
+                         const int32_t* rows, void* h_out, float* c_out,
+                         int B, int I, int H, int R, int warp, int act,
+                         const uint32_t* keys8, uint32_t thr, float scale,
+                         int masked, void* stream) {
+  const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || I < 1 || H < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  if (act == 1)
+    return launch_typed_q<bf16>(x, h, c, wx, wh, bias, rows, h_out, c_out, B,
+                              I, H, R, warp, keys, thr, scale, masked, s);
+  if (act != 0) return (int)cudaErrorInvalidValue;
+  return launch_fp32(static_cast<const float*>(x),
+                     static_cast<const float*>(h), c,
+                     static_cast<const float*>(wx),
+                     static_cast<const float*>(wh), bias, rows,
+                     static_cast<float*>(h_out), c_out, B, I, H, R, warp,
+                     keys8, thr, scale, masked, stream);
 }
 
 }  // extern "C"

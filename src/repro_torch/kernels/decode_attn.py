@@ -160,7 +160,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.dtype != torch.float32:
         raise NotImplementedError(
             f"decode_attention takes fp32 on the card, got {q.dtype}; bf16 "
-            "is queued with the serving precisions (ROADMAP.md)")
+            "is queued with the LM precisions (ROADMAP.md, A2)")
     for name, t, shape in (("q", q, (B, H, hd)),
                            ("k_cache", k_cache, (B, S, KV, hd)),
                            ("v_cache", v_cache, (B, S, KV, hd))):

@@ -33,17 +33,23 @@ def gru_update_plain(x, h, h_prev, fx, fh, wx, wh, b):
     """The kernels' GRU body on mask factors, in plain PyTorch.
 
     x [B, I]; h [B, H] feeds the recurrent products (the full row); h_prev
-    [B, H] feeds the ``z·h`` update; fx [B, 3, I], fh [B, 3, H] from
-    :func:`repro_torch.kernels.common.gate_mask_factors`; wx [I, 3, H];
-    wh [H, 3, H]; b [3, H].  The x-side and h-side sums stay apart — the
-    reset gate scales the h-side candidate sum alone, before the candidate
-    bias lands — and each is a loop of elementwise multiply-adds over the
-    contraction index, the kernels' order; the activations run row by row
+    [B, H] feeds the ``z·h`` update; x, h, h_prev in the activation dtype
+    (fp32 or bf16); fx [B, 3, I], fh [B, 3, H] from
+    :func:`repro_torch.kernels.common.gate_mask_factors` in the activation
+    dtype; wx [I, 3, H], wh [H, 3, H] fp32 (at bf16: bf16 values); b
+    [3, H] fp32.  The masked views are rounded to the activation dtype
+    (:func:`repro_torch.kernels.common.masked_view`).  The x-side and
+    h-side sums stay apart — the reset gate scales the h-side candidate sum
+    alone, before the candidate bias lands — and each is a loop of
+    elementwise fp32 multiply-adds over the contraction index, the kernels'
+    order; ``r * gh[2]`` and ``z * h_prev`` are fp32 products of the
+    activation-dtype h; the activations run row by row
     (:func:`repro_torch.kernels.common.rowwise`), so every row's result is
-    the same whatever the batch around it.  Returns h_new, fp32.
+    the same whatever the batch around it.  Returns h_new in h_prev's
+    dtype (rounded once, at the end).
     """
-    xg = x[:, None, :] * fx                     # [B, 3, I]
-    hg = h[:, None, :] * fh                     # [B, 3, H]
+    xg = common.masked_view(x, fx)              # [B, 3, I]
+    hg = common.masked_view(h, fh)              # [B, 3, H]
     gx = torch.zeros((x.shape[0], 3, wh.shape[0]), device=x.device)
     for i in range(wx.shape[0]):
         gx = gx + xg[:, :, i, None] * wx[i]
@@ -53,27 +59,31 @@ def gru_update_plain(x, h, h_prev, fx, fh, wx, wh, b):
     r = common.rowwise(torch.sigmoid, gx[:, 0] + gh[:, 0] + b[0])
     z = common.rowwise(torch.sigmoid, gx[:, 1] + gh[:, 1] + b[1])
     n = common.rowwise(torch.tanh, gx[:, 2] + r * gh[:, 2] + b[2])
-    return (1.0 - z) * n + z * h_prev
+    h_new = (1.0 - z) * n + z * h_prev.to(gx.dtype)
+    return h_new.to(h_prev.dtype)
 
 
 def mcd_gru_step_plain(x, h, wx, wh, b, rows, keys, p_drop: float):
     """Plain PyTorch version of the step kernel; same contract as
     :func:`mcd_gru_step`."""
+    act = common.act_dtype_of(x)
     fx, fh = common.gate_mask_factors(keys, rows, x.shape[1], wh.shape[0],
-                                      p_drop)
-    h = h.float()
-    return gru_update_plain(x.float(), h, h, fx, fh, wx.float(), wh.float(),
-                            b.float())
+                                      p_drop, act)
+    h = h.to(act)
+    return gru_update_plain(x.to(act), h, h, fx, fh, wx.to(act).float(),
+                            wh.to(act).float(), b.float())
 
 
 def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
     """Fused Bayesian GRU step.
 
-    x: [B, I]; h: [B, H]; wx: [I, 3, H]; wh: [H, 3, H]; b: [3, H], all
-    fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor; the student
-    flag marks unmasked rows); keys: the 6 keys from :func:`gate_keys`.
-    Masks are rebuilt from the keys at every call.  Returns h_new [B, H],
-    fp32.
+    x: [B, I]; h: [B, H]; wx: [I, 3, H]; wh: [H, 3, H], all in the
+    activation dtype (fp32, or bf16 under a serving precision: the int8 /
+    int4 weights arrive dequantized, as in the reference); b: [3, H] fp32;
+    rows: [B] uint32 mask row ids (int64 or int32 tensor; the student flag
+    marks unmasked rows); keys: the 6 keys from :func:`gate_keys`.  Masks
+    are rebuilt from the keys at every call.  Returns h_new [B, H] in the
+    activation dtype.
 
     CPU tensors run :func:`mcd_gru_step_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_gru_step.launches``) on
@@ -88,20 +98,23 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
     B, I = x.shape
     H = wh.shape[0]
     dev = x.device
-    for name, t, shape in (("x", x, (B, I)), ("h", h, (B, H)),
-                           ("wx", wx, (I, 3, H)), ("wh", wh, (H, 3, H)),
-                           ("b", b, (3, H))):
-        common.check(name, t, dev, torch.float32, shape)
+    act = common.check_act("x", x)
+    for name, t, dtype, shape in (("x", x, act, (B, I)),
+                                  ("h", h, act, (B, H)),
+                                  ("wx", wx, act, (I, 3, H)),
+                                  ("wh", wh, act, (H, 3, H)),
+                                  ("b", b, torch.float32, (3, H))):
+        common.check(name, t, dev, dtype, shape)
     rows32 = common.rows_arg(rows, B, dev)
     plan = common.step_plan(GATES, B, I, H)
-    h_out = torch.empty((B, H), device=dev)
+    h_out = torch.empty((B, H), dtype=act, device=dev)
     common.launch(mcd_gru_step, (x, h, wx, wh, b, rows32, h_out),
-                  (B, I, H, plan["rows"], int(plan["path"] == "warp")),
+                  (B, I, H, plan["rows"], int(plan["path"] == "warp"),
+                   common.ACT_DTYPES[act][0]),
                   keys, 6, p_drop,
                   f"mcd_gru_step (B={B}, I={I}, H={H}, {plan['path']} "
-                  f"path, R={plan['rows']})")
+                  f"path, R={plan['rows']}, {act})", act)
     return h_out
 
 
 mcd_gru_step.launches = 0
-

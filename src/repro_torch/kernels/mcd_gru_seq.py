@@ -24,22 +24,28 @@ from repro_torch.kernels.mcd_gru import GATES, gru_update_plain
 
 
 def mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
-                      h0=None, lengths=None):
+                      h0=None, lengths=None, weight_bits=None,
+                      wx_scale=None, wh_scale=None):
     """Plain PyTorch version of the kernel: a Python loop over T.
 
     Same contract as :func:`mcd_gru_seq`, with the kernel's per-row
-    summation order (:func:`repro_torch.kernels.mcd_gru.gru_update_plain`),
-    so chunked == unchunked holds bit for bit here too.
+    summation order and roundings
+    (:func:`repro_torch.kernels.mcd_gru.gru_update_plain`), so chunked ==
+    unchunked holds bit for bit here too.
     """
     B, T, I = x_seq.shape
     H = wh.shape[0]
     dev = x_seq.device
-    x_seq = x_seq.float()
-    fx, fh = gate_mask_factors(keys, rows, I, H, p_drop)
-    h = (torch.zeros((B, H), device=dev) if h0 is None else h0.float())
+    act = common.act_dtype_of(x_seq)
+    x_seq = x_seq.to(act)
+    fx, fh = gate_mask_factors(keys, rows, I, H, p_drop, act)
+    h = (torch.zeros((B, H), dtype=act, device=dev) if h0 is None
+         else h0.to(act))
     lens = (torch.full((B,), T, device=dev) if lengths is None
             else lengths.to(dev))
-    wx, wh, b = wx.float(), wh.float(), b.float()
+    wx, wh = common.plain_weights(wx, wh, act, H, weight_bits, wx_scale,
+                                  wh_scale)
+    b = b.float()
     ys = []
     for t in range(T):
         h_new = gru_update_plain(x_seq[:, t], h, h, fx, fh, wx, wh, b)
@@ -51,31 +57,41 @@ def mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
 X_RING = common.X_RING     # x_t slots a row on the warp path (kXRing)
 
 
-def gru_seq_plan(batch: int, in_dim: int, hidden: int) -> dict:
+def gru_seq_plan(batch: int, in_dim: int, hidden: int,
+                 act_bytes: int = 4) -> dict:
     """How ``csrc/mcd_gru_seq.cu`` runs a layer (:func:`common.seq_plan`
-    with the GRU's 3 gates): its path, the rows a block, the threads and
-    blocks, and the shared memory a block needs."""
-    return common.seq_plan(GATES, batch, in_dim, hidden)
+    with the GRU's 3 gates) at an activation width of ``act_bytes``: its
+    path, the rows a block, the threads and blocks, and the shared memory a
+    block needs."""
+    return common.seq_plan(GATES, batch, in_dim, hidden, act_bytes)
 
 
 def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
-                lengths=None):
+                lengths=None, weight_bits=None, wx_scale=None,
+                wh_scale=None):
     """Sequence-fused Bayesian GRU layer, optionally resuming carried state.
 
-    x_seq: [B, T, I] fp32; wx: [I, 3, H]; wh: [H, 3, H]; b: [3, H];
-    rows: [B] uint32 mask row ids (int64 or int32 tensor; the student flag
-    marks unmasked rows); keys: the 6 gate keys from
-    :func:`repro_torch.kernels.mcd_gru.gate_keys`.  h0 [B, H] seeds the
-    carry (zeros when omitted); lengths [B] freezes a row at its own chunk
-    length.  Returns (ys [B, T, H], h_T [B, H]), fp32;
-    ``ys[:, t >= lengths[row]]`` repeats the frozen h.
+    x_seq: [B, T, I] in the activation dtype (fp32, or bf16 under a serving
+    precision); wx: [I, 3, H]; wh: [H, 3, H] in the activation dtype, or,
+    with ``weight_bits`` 8 / 4 (over bf16 activations), int8 codes or int4
+    codes nibble-packed into uint8 (last axis ``ceil(H/2)``) with the
+    [3, H] fp32 scales ``wx_scale`` / ``wh_scale``, dequantized once at
+    kernel entry; b: [3, H] fp32; rows: [B] uint32 mask row ids (int64 or
+    int32 tensor; the student flag marks unmasked rows); keys: the 6 gate
+    keys from :func:`repro_torch.kernels.mcd_gru.gate_keys`.  h0 [B, H]
+    (activation dtype) seeds the carry (zeros when omitted); lengths [B]
+    freezes a row at its own chunk length.  Returns (ys [B, T, H], h_T
+    [B, H]) in the activation dtype; ``ys[:, t >= lengths[row]]`` repeats
+    the frozen h.
 
     CPU tensors run :func:`mcd_gru_seq_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_gru_seq.launches``).
     """
+    qkw = dict(weight_bits=weight_bits, wx_scale=wx_scale,
+               wh_scale=wh_scale)
     if common.check_device("mcd_gru_seq", x_seq):
         return mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop,
-                                 h0=h0, lengths=lengths)
+                                 h0=h0, lengths=lengths, **qkw)
     common.check_p(p_drop)
     if x_seq.ndim != 3 or x_seq.shape[0] < 1 or x_seq.shape[1] < 1:
         raise ValueError(f"x_seq must be [B>=1, T>=1, I], "
@@ -83,20 +99,20 @@ def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
     B, T, I = x_seq.shape
     H = wh.shape[0]
     dev = x_seq.device
-    h0 = torch.zeros((B, H), device=dev) if h0 is None else h0
-    for name, t, shape in (("x_seq", x_seq, (B, T, I)),
-                           ("wx", wx, (I, 3, H)), ("wh", wh, (H, 3, H)),
-                           ("b", b, (3, H)), ("h0", h0, (B, H))):
-        common.check(name, t, dev, torch.float32, shape)
+    act = common.check_act("x_seq", x_seq)
+    h0 = torch.zeros((B, H), dtype=act, device=dev) if h0 is None else h0
+    common.check("x_seq", x_seq, dev, act, (B, T, I))
+    common.check_seq_weights(GATES, dev, act, I, H, wx, wh, b, **qkw)
+    common.check("h0", h0, dev, act, (B, H))
     rows32 = common.rows_arg(rows, B, dev)
     lens = common.lengths_arg(lengths, B, T, dev)
-    ys = torch.empty((B, T, H), device=dev)
-    hT = torch.empty((B, H), device=dev)
+    ys = torch.empty((B, T, H), dtype=act, device=dev)
+    hT = torch.empty((B, H), dtype=act, device=dev)
     common.seq_launch(mcd_gru_seq,
-                      (x_seq, wx, wh, b, rows32, lens, h0, ys, hT), B, T, I,
-                      H, GATES, keys, p_drop)
+                      (x_seq, wx, wh, wx_scale, wh_scale, b, rows32, lens,
+                       h0, ys, hT),
+                      B, T, I, H, GATES, keys, p_drop, act, weight_bits)
     return ys, hT
 
 
 mcd_gru_seq.launches = 0
-

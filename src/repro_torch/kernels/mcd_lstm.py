@@ -33,16 +33,20 @@ def gate_keys(seed, layer) -> torch.Tensor:
 def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b):
     """One step of the kernels' LSTM body on mask factors, in plain PyTorch.
 
-    x [B, I]; h, c [B, H]; fx [B, 4, I], fh [B, 4, H] from
-    :func:`repro_torch.kernels.common.gate_mask_factors`; wx [I, 4, H];
-    wh [H, 4, H]; b [4, H].  The gate products are a loop of elementwise
-    multiply-adds over the contraction index (x side, then h side, then the
-    bias), the kernels' order, and the activations run row by row
-    (:func:`repro_torch.kernels.common.rowwise`), so every row's result is
-    the same whatever the batch around it.  Returns (h_new, c_new), fp32.
+    x [B, I]; h [B, H] in the activation dtype (fp32 or bf16); c [B, H]
+    fp32; fx [B, 4, I], fh [B, 4, H] from
+    :func:`repro_torch.kernels.common.gate_mask_factors` in the activation
+    dtype; wx [I, 4, H], wh [H, 4, H] fp32 (at bf16: bf16 values); b
+    [4, H] fp32.  The masked views are rounded to the activation dtype
+    (:func:`repro_torch.kernels.common.masked_view`); the gate products are
+    a loop of elementwise fp32 multiply-adds over the contraction index (x
+    side, then h side, then the bias), the kernels' order, and the
+    activations run row by row (:func:`repro_torch.kernels.common.rowwise`),
+    so every row's result is the same whatever the batch around it.
+    Returns (h_new in h's dtype, c_new fp32).
     """
-    xg = x[:, None, :] * fx                     # [B, 4, I]
-    hg = h[:, None, :] * fh                     # [B, 4, H]
+    xg = common.masked_view(x, fx)              # [B, 4, I]
+    hg = common.masked_view(h, fh)              # [B, 4, H]
     acc = torch.zeros((x.shape[0], 4, wh.shape[0]), device=x.device)
     for i in range(wx.shape[0]):
         acc = acc + xg[:, :, i, None] * wx[i]
@@ -54,26 +58,30 @@ def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b):
     gg = common.rowwise(torch.tanh, gates[:, 2])
     og = common.rowwise(torch.sigmoid, gates[:, 3])
     c_new = fg * c + ig * gg
-    return og * common.rowwise(torch.tanh, c_new), c_new
+    h_new = og * common.rowwise(torch.tanh, c_new)
+    return h_new.to(h.dtype), c_new
 
 
 def mcd_lstm_step_plain(x, h, c, wx, wh, b, rows, keys, p_drop: float):
     """Plain PyTorch version of the step kernel; same contract as
     :func:`mcd_lstm_step`."""
+    act = common.act_dtype_of(x)
     fx, fh = common.gate_mask_factors(keys, rows, x.shape[1], wh.shape[0],
-                                      p_drop)
-    return lstm_cell_plain(x.float(), h.float(), c.float(), fx, fh,
-                           wx.float(), wh.float(), b.float())
+                                      p_drop, act)
+    return lstm_cell_plain(x.to(act), h.to(act), c.float(), fx, fh,
+                           wx.to(act).float(), wh.to(act).float(), b.float())
 
 
 def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
     """Fused Bayesian LSTM step.
 
-    x: [B, I]; h, c: [B, H]; wx: [I, 4, H]; wh: [H, 4, H]; b: [4, H], all
-    fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor; the student
-    flag marks unmasked rows); keys: the 8 keys from :func:`gate_keys`.
-    Masks are rebuilt from the keys at every call.  Returns (h_new [B, H],
-    c_new [B, H]), fp32.
+    x: [B, I]; h: [B, H]; wx: [I, 4, H]; wh: [H, 4, H], all in the
+    activation dtype (fp32, or bf16 under a serving precision: the int8 /
+    int4 weights arrive dequantized, as in the reference); c: [B, H] and
+    b: [4, H] fp32; rows: [B] uint32 mask row ids (int64 or int32 tensor;
+    the student flag marks unmasked rows); keys: the 8 keys from
+    :func:`gate_keys`.  Masks are rebuilt from the keys at every call.
+    Returns (h_new [B, H] in the activation dtype, c_new [B, H] fp32).
 
     CPU tensors run :func:`mcd_lstm_step_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_lstm_step.launches``) on
@@ -88,23 +96,27 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
     B, I = x.shape
     H = wh.shape[0]
     dev = x.device
+    act = common.check_act("x", x)
     f32 = torch.float32
-    for name, t, shape in (("x", x, (B, I)), ("h", h, (B, H)),
-                           ("c", c, (B, H)), ("wx", wx, (I, 4, H)),
-                           ("wh", wh, (H, 4, H)), ("b", b, (4, H))):
-        common.check(name, t, dev, f32, shape)
+    for name, t, dtype, shape in (("x", x, act, (B, I)),
+                                  ("h", h, act, (B, H)),
+                                  ("c", c, f32, (B, H)),
+                                  ("wx", wx, act, (I, 4, H)),
+                                  ("wh", wh, act, (H, 4, H)),
+                                  ("b", b, f32, (4, H))):
+        common.check(name, t, dev, dtype, shape)
     rows32 = common.rows_arg(rows, B, dev)
     plan = common.step_plan(GATES, B, I, H)
-    h_out = torch.empty((B, H), device=dev)
+    h_out = torch.empty((B, H), dtype=act, device=dev)
     c_out = torch.empty((B, H), device=dev)
     common.launch(mcd_lstm_step,
                   (x, h, c, wx, wh, b, rows32, h_out, c_out),
-                  (B, I, H, plan["rows"], int(plan["path"] == "warp")),
+                  (B, I, H, plan["rows"], int(plan["path"] == "warp"),
+                   common.ACT_DTYPES[act][0]),
                   keys, 8, p_drop,
                   f"mcd_lstm_step (B={B}, I={I}, H={H}, {plan['path']} "
-                  f"path, R={plan['rows']})")
+                  f"path, R={plan['rows']}, {act})", act)
     return h_out, c_out
 
 
 mcd_lstm_step.launches = 0
-

@@ -90,8 +90,8 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     if x.dtype != torch.float32 or out_dtype != torch.float32:
         raise NotImplementedError(
             f"mcd_matmul takes fp32 in and out on the card, got {x.dtype} "
-            f"-> {out_dtype}; bf16 is queued with the serving precisions "
-            "(ROADMAP.md)")
+            f"-> {out_dtype}; bf16 is queued with the LM precisions "
+            "(ROADMAP.md, A2)")
     if x.ndim != 2 or w.ndim != 2 or min(*x.shape, w.shape[1]) < 1:
         raise ValueError(f"x must be [M, K] and w [K, N], non-empty; got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")

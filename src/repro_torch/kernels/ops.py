@@ -37,19 +37,9 @@ import torch
 from repro_torch.core import cells, mcd
 from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_gru,
                                  mcd_gru_seq, mcd_lstm, mcd_lstm_seq,
-                                 mcd_matmul, ssd_chunk)
+                                 mcd_matmul, quantize, ssd_chunk)
 
 LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
-
-#: Serving precisions the recurrent stack supports (``None`` = native fp32).
-PRECISIONS = (None, "fp32")
-
-
-def check_precision(precision) -> None:
-    if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (only None/'fp32'); "
-            "bf16/int8/int4 serving is queued in ROADMAP.md")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -100,7 +90,7 @@ def ssd_scan(x, dt, a, bm, cm, d_skip, chunk: int):
     if bm.shape[2] != 1:
         raise NotImplementedError(
             f"ssd_scan takes n_groups = 1, got {bm.shape[2]}; the grouped "
-            "scan comes with jamba (ROADMAP.md queue A item 14)")
+            "scan comes with jamba (ROADMAP.md, A9)")
     Q = min(chunk, L)
     pad = (-L) % Q
 
@@ -115,25 +105,63 @@ def ssd_scan(x, dt, a, bm, cm, d_skip, chunk: int):
     return y[:, :L].to(x.dtype), h_final
 
 
-def _carry(t):
+def _carry_h(t, act):
+    """A resumed h: the activation dtype the kernels take it in."""
+    return None if t is None else t.to(act).contiguous()
+
+
+def _carry_c(t):
+    """A resumed LSTM c: fp32 on every precision."""
     return None if t is None else t.float().contiguous()
+
+
+def _precision_weights(wx, wh, x_seq, precision, *, seq: bool):
+    """Apply a serving precision to gate-stacked weights and the input, as
+    the reference's ``ops._precision_weights``.
+
+    Returns ``(wx, wh, x_seq, qkw)``: ``qkw`` holds the extra keywords the
+    sequence kernels take for quantized codes (``weight_bits``, the fp32
+    ``[G, H]`` scales).  The step kernels get the dequantized weights
+    instead -- the same ``float32(q) * scale`` values, rounded to bf16
+    outside the kernel -- so every backend computes with the same weights.
+    ``None`` and ``"fp32"`` run fp32.
+    """
+    act = quantize.activation_dtype(precision, torch.float32)
+    x_seq = x_seq.to(act).contiguous()
+    if precision not in quantize.QUANTIZED:
+        return (wx.to(act).contiguous(), wh.to(act).contiguous(), x_seq,
+                {})
+    bits = quantize.WEIGHT_BITS[precision]
+    qx, sx = quantize.quantize(wx, bits, axis=0)
+    qh, sh = quantize.quantize(wh, bits, axis=0)
+    if seq:
+        return (quantize.packed_weight(qx, bits).contiguous(),
+                quantize.packed_weight(qh, bits).contiguous(), x_seq,
+                dict(weight_bits=bits, wx_scale=sx.contiguous(),
+                     wh_scale=sh.contiguous()))
+    return (quantize.dequantize(qx, sx, axis=0).to(act).contiguous(),
+            quantize.dequantize(qh, sh, axis=0).to(act).contiguous(), x_seq,
+            {})
 
 
 def fused_lstm_layer(wx4, wh4, b, x_seq, rows, seed, layer: int,
                      p_drop: float, h0=None, c0=None, lengths=None):
     """The step kernel looped over T from Python (the per-step baseline).
 
-    wx4: [I, 4, H]; wh4: [H, 4, H]; b: [4, H]; x_seq: [B, T, I].
-    ``h0``/``c0`` resume carried state (zeros when omitted); ``lengths``
-    freezes each row's state at its own chunk length, outside the kernel.
-    Returns (outputs [B, T, H], (h_T, c_T fp32)).
+    wx4: [I, 4, H]; wh4: [H, 4, H] in x_seq's dtype (fp32 or bf16); b:
+    [4, H] fp32; x_seq: [B, T, I].  ``h0``/``c0`` resume carried state
+    (zeros when omitted; h in x_seq's dtype, c fp32); ``lengths`` freezes
+    each row's state at its own chunk length, outside the kernel.
+    Returns (outputs [B, T, H] in x_seq's dtype, (h_T, c_T fp32)).
     """
     B, T, _ = x_seq.shape
     H = wh4.shape[0]
     keys = _gate_keys("lstm", int(seed), int(layer))
     dev = x_seq.device
-    h = torch.zeros((B, H), device=dev) if h0 is None else _carry(h0)
-    c = torch.zeros((B, H), device=dev) if c0 is None else _carry(c0)
+    act = x_seq.dtype
+    h = (torch.zeros((B, H), dtype=act, device=dev) if h0 is None
+         else _carry_h(h0, act))
+    c = torch.zeros((B, H), device=dev) if c0 is None else _carry_c(c0)
     xs = x_seq.transpose(0, 1).contiguous()            # [T, B, I]
     ys = []
     for t in range(T):
@@ -147,16 +175,20 @@ def fused_lstm_layer(wx4, wh4, b, x_seq, rows, seed, layer: int,
 
 
 def fused_lstm_seq(wx4, wh4, b, x_seq, rows, seed, layer: int,
-                   p_drop: float, h0=None, c0=None, lengths=None):
+                   p_drop: float, h0=None, c0=None, lengths=None,
+                   weight_bits=None, wx_scale=None, wh_scale=None):
     """One kernel launch for the whole sequence.
 
-    Same contract as :func:`fused_lstm_layer`.
+    Same contract as :func:`fused_lstm_layer`; with ``weight_bits`` 8 / 4,
+    ``wx4``/``wh4`` carry quantized codes and ``wx_scale``/``wh_scale`` the
+    [4, H] fp32 scales (dequantized in the kernel).
     Returns (outputs [B, T, H], (h_T, c_T fp32)).
     """
     keys = _gate_keys("lstm", int(seed), int(layer))
     ys, hT, cT = mcd_lstm_seq.mcd_lstm_seq(
-        x_seq, wx4, wh4, b, rows, keys, p_drop, h0=_carry(h0),
-        c0=_carry(c0), lengths=lengths)
+        x_seq, wx4, wh4, b, rows, keys, p_drop,
+        h0=_carry_h(h0, x_seq.dtype), c0=_carry_c(c0), lengths=lengths,
+        weight_bits=weight_bits, wx_scale=wx_scale, wh_scale=wh_scale)
     return ys, (hT, cT)
 
 
@@ -170,29 +202,34 @@ def lstm_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
     ``[I, 4, H]`` / ``[H, 4, H]``.  ``seq`` picks the sequence kernel
     (``cuda_seq``) or the step kernel (``cuda_step``).  ``initial_state`` is
     an optional ``(h0, c0)`` pair resuming a streaming session's state.
+    ``precision`` (fp32/bf16/int8/int4) casts or quantizes the fp32 master
+    weights (:func:`_precision_weights`): int8/int4 hand the sequence
+    kernel the codes and the step kernel the dequantized values.
     """
-    check_precision(precision)
     wx4, wh4, b = cells.gate_stacked(cells.LSTMParams(wx, wh, b))
+    wx4, wh4, x_seq, qkw = _precision_weights(wx4, wh4, x_seq, precision,
+                                              seq=seq)
     h0, c0 = initial_state if initial_state is not None else (None, None)
     fn = fused_lstm_seq if seq else fused_lstm_layer
-    return fn(wx4, wh4, b, x_seq.float().contiguous(), rows, seed, layer,
-              p_drop, h0=h0, c0=c0, lengths=lengths)
+    return fn(wx4, wh4, b.float().contiguous(), x_seq, rows, seed, layer,
+              p_drop, h0=h0, c0=c0, lengths=lengths, **qkw)
 
 
 def fused_gru_layer(wx3, wh3, b, x_seq, rows, seed, layer: int,
                     p_drop: float, h0=None, lengths=None):
     """The GRU step kernel looped over T from Python (per-step baseline).
 
-    wx3: [I, 3, H]; wh3: [H, 3, H]; b: [3, H]; x_seq: [B, T, I].
-    ``h0`` resumes carried state (zeros when omitted); ``lengths`` freezes
-    each row's state at its own chunk length, outside the kernel.
+    wx3: [I, 3, H]; wh3: [H, 3, H] in x_seq's dtype (fp32 or bf16); b:
+    [3, H] fp32; x_seq: [B, T, I].  ``h0`` resumes carried state (zeros
+    when omitted; x_seq's dtype); ``lengths`` freezes each row's state at
+    its own chunk length, outside the kernel.
     Returns (outputs [B, T, H], (h_T,)) — the GRU's whole carry is ``h``.
     """
     B, T, _ = x_seq.shape
     H = wh3.shape[0]
     keys = _gate_keys("gru", int(seed), int(layer))
-    h = (torch.zeros((B, H), device=x_seq.device) if h0 is None
-         else _carry(h0))
+    h = (torch.zeros((B, H), dtype=x_seq.dtype, device=x_seq.device)
+         if h0 is None else _carry_h(h0, x_seq.dtype))
     xs = x_seq.transpose(0, 1).contiguous()            # [T, B, I]
     ys = []
     for t in range(T):
@@ -206,15 +243,20 @@ def fused_gru_layer(wx3, wh3, b, x_seq, rows, seed, layer: int,
 
 
 def fused_gru_seq(wx3, wh3, b, x_seq, rows, seed, layer: int,
-                  p_drop: float, h0=None, lengths=None):
+                  p_drop: float, h0=None, lengths=None, weight_bits=None,
+                  wx_scale=None, wh_scale=None):
     """One kernel launch for the whole GRU sequence.
 
-    Same contract as :func:`fused_gru_layer`.
+    Same contract as :func:`fused_gru_layer`; with ``weight_bits`` 8 / 4,
+    ``wx3``/``wh3`` carry quantized codes and ``wx_scale``/``wh_scale`` the
+    [3, H] fp32 scales (dequantized in the kernel).
     Returns (outputs [B, T, H], (h_T,)).
     """
     keys = _gate_keys("gru", int(seed), int(layer))
-    ys, hT = mcd_gru_seq.mcd_gru_seq(x_seq, wx3, wh3, b, rows, keys, p_drop,
-                                     h0=_carry(h0), lengths=lengths)
+    ys, hT = mcd_gru_seq.mcd_gru_seq(
+        x_seq, wx3, wh3, b, rows, keys, p_drop,
+        h0=_carry_h(h0, x_seq.dtype), lengths=lengths,
+        weight_bits=weight_bits, wx_scale=wx_scale, wh_scale=wh_scale)
     return ys, (hT,)
 
 
@@ -226,11 +268,13 @@ def gru_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
     Mirrors :func:`lstm_stack_layer` for
     :class:`repro_torch.core.cells.GRUParams` (wx: [3, I, H]; wh:
     [3, H, H]); ``initial_state`` is the 1-tuple ``(h0,)`` a streaming
-    session stores for a GRU layer.
+    session stores for a GRU layer; ``precision`` as in
+    :func:`lstm_stack_layer`.
     """
-    check_precision(precision)
     wx3, wh3, b = cells.gate_stacked(cells.GRUParams(wx, wh, b))
+    wx3, wh3, x_seq, qkw = _precision_weights(wx3, wh3, x_seq, precision,
+                                              seq=seq)
     (h0,) = initial_state if initial_state is not None else (None,)
     fn = fused_gru_seq if seq else fused_gru_layer
-    return fn(wx3, wh3, b, x_seq.float().contiguous(), rows, seed, layer,
-              p_drop, h0=h0, lengths=lengths)
+    return fn(wx3, wh3, b.float().contiguous(), x_seq, rows, seed, layer,
+              p_drop, h0=h0, lengths=lengths, **qkw)

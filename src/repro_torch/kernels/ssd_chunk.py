@@ -143,7 +143,7 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"ssd_chunk_scan takes fp32 on the card, got {x.dtype}; bf16 is "
-            "queued with the serving precisions (ROADMAP.md)")
+            "queued with the LM precisions (ROADMAP.md, A2)")
     plan = ssd_plan(B, L, H, P, N, q_chunk)
     Q = plan["Q"]
     dev = x.device

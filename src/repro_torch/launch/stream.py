@@ -13,6 +13,8 @@ Usage:
       --cell gru --backend cuda_step
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --sessions 2 --samples 4 --beats 1 --ragged --capacity auto
+  PYTHONPATH=src python -m repro_torch.launch.stream --precision int8 \
+      --sessions 4 --samples 8 --beats 1
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=8, help="S MC chains")
     ap.add_argument("--backend", default="cuda_seq",
                     choices=("reference", "cuda_step", "cuda_seq"))
+    ap.add_argument("--precision", default=None,
+                    choices=("fp32", "bf16", "int8", "int4"),
+                    help="serving precision: per-channel weight "
+                    "quantization + bf16 activations (default: native "
+                    "dtypes, fp32)")
     ap.add_argument("--cell", default="lstm", choices=("lstm", "gru"),
                     help="recurrent unit (paper §III-A: the GRU drops into "
                     "the same per-gate MCD design; h-only carried state)")
@@ -85,7 +92,8 @@ def main(argv=None):
     eng = StreamingEngine(params, cfg, backend=args.backend,
                           max_sessions=args.sessions,
                           chunk_capacity=capacity, ladder=ladder,
-                          metrics_sink=sink, device=device)
+                          metrics_sink=sink, device=device,
+                          precision=args.precision)
     streams, labels = build_streams(args.sessions, args.beats, args.seed)
     for k in range(args.sessions):
         eng.open_session(f"ecg-{k}")
@@ -93,6 +101,7 @@ def main(argv=None):
           f"(T={ecg.T_STEPS} each) | S={args.samples} p={cfg.mcd.p} "
           f"B={mcd.placement_str(cfg.mcd.placement)} cell={args.cell} "
           f"backend={args.backend} device={device} "
+          f"precision={args.precision or 'native'} "
           f"capacity={args.capacity}")
 
     rng = np.random.default_rng(args.seed + 1)

@@ -38,12 +38,11 @@ from repro_torch.models.config import ArchConfig, Stage
 _MIXERS = ("attn", "mamba")
 _NOT_PORTED = {
     "mamba_ffn": "a mamba block with an FFN (jamba's blocks) is queued with "
-                 "the hybrid (ROADMAP.md queue A item 14)",
-    "mla": "multi-head latent attention is queued (ROADMAP.md queue A "
-           "item 14)",
-    "moe": "the MoE FFN is queued (ROADMAP.md queue A item 14)",
-    "cross": "cross-attention and encoders are queued (ROADMAP.md queue A "
-             "item 14)",
+                 "the hybrid (ROADMAP.md, A9)",
+    "mla": "multi-head latent attention is queued (ROADMAP.md, A9)",
+    "moe": "the MoE FFN is queued (ROADMAP.md, A9)",
+    "cross": "cross-attention and encoders are queued (ROADMAP.md, "
+             "A9)",
 }
 
 
@@ -226,7 +225,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     if kv_quant:
         raise NotImplementedError(
             "the int8 KV cache is not ported yet; it is queued with the "
-            "serving precisions (ROADMAP.md, 'Still to port' item 2)")
+            "LM precisions (ROADMAP.md, A2)")
     check_cfg(cfg)
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)

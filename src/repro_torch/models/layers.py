@@ -288,8 +288,7 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache, pos: int,
     if len(cache) != 2:
         raise NotImplementedError(
             "the int8 KV cache (k_i8, k_scale, v_i8, v_scale) is not ported "
-            "yet; it is queued with the serving precisions (ROADMAP.md, "
-            "'Still to port' item 2)")
+            "yet; it is queued with the LM precisions (ROADMAP.md, A2)")
     B = x.shape[0]
     h = rmsnorm(p.norm, x)
     h = apply_site_mask(h, mask_in, p_drop, backend)

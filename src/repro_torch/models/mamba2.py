@@ -124,8 +124,8 @@ def _ssd_chunked(x, dt, a, bm, cm, d_skip, chunk: int, h0=None):
     if h0 is not None:
         raise NotImplementedError(
             "_ssd_chunked's h0 (a carried-in state) is not ported: the model "
-            "never passes it; it comes with chunked prefill (ROADMAP.md "
-            "queue A item 14)")
+            "never passes it; it comes with chunked prefill (ROADMAP.md, "
+            "A9)")
     B, L, H, P = x.shape
     G, N = bm.shape[2], bm.shape[3]
     rep = H // G

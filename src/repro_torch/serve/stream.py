@@ -13,9 +13,12 @@ Streaming passes always supply ``lengths``, so a session's results do not
 depend on how its signal was chunked or on which sessions shared the batch:
 chunked == unchunked, bit for bit.
 
+``precision`` serves at fp32, bf16, int8 or int4 (bf16 activations and
+carried h, an fp32 LSTM c, int8/int4 weights dequantized in the sequence
+kernel), on every backend.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh`` sharding, serving precisions other than fp32, early exit,
-distilled students, and snapshot/restore.
+``mesh`` sharding, early exit, distilled students, and snapshot/restore.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from repro_torch.core.uncertainty import (ClassificationSummary,
                                           regression_summary)
 from repro_torch.kernels import (mcd_gru, mcd_gru_seq, mcd_lstm,
                                  mcd_lstm_seq)
-from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import ops as _ops, quantize as _quant
 from repro_torch.serve.admission import AdmissionQueue, DrainRejected
 from repro_torch.serve.scheduler import AdaptiveTickScheduler, TickMetrics
 from repro_torch.serve.sessions import Session, SessionStore
@@ -146,6 +149,10 @@ class StreamingEngine:
         ring of the last 4096 ticks).
       device: where the engine serves (default CUDA; ``"cpu"`` runs the
         plain-PyTorch paths).
+      precision: serving precision (``quantize.PRECISIONS``; None = native
+        dtypes): the fp32 master ``params`` are cast or quantized on the
+        way through the stacks, never changed; the carries follow it (h in
+        the activation dtype, LSTM c in fp32).
     """
 
     def __init__(self, params, cfg, *, backend: str = "cuda_seq",
@@ -169,7 +176,7 @@ class StreamingEngine:
             raise _unported("early exit")
         if student is not None:
             raise _unported("distilled student heads")
-        _ops.check_precision(precision)
+        _quant.check_precision(precision)
         if backend not in _ops.LSTM_BACKENDS:
             raise ValueError(f"backend must be one of {_ops.LSTM_BACKENDS}, "
                              f"got {backend!r}")
@@ -440,13 +447,18 @@ class StreamingEngine:
 
         Fresh sessions and pad slots contribute zeros in the backend's own
         carry dtypes (h in the activation dtype; LSTM c in fp32 on the
-        kernel backends, the activation dtype on the reference), sized per
-        encoder layer; the parts follow the cell: ``(h, c)`` for the LSTM,
-        ``(h,)`` for the GRU.
+        kernel backends, the activation dtype on the reference; under a
+        serving precision h in its activation dtype and c in fp32 on every
+        backend), sized per encoder layer; the parts follow the cell:
+        ``(h, c)`` for the LSTM, ``(h,)`` for the GRU.
         """
         if all(sess.fresh for sess in sessions) and not self._fixed:
             return None
-        c_dtype = dtype if self.backend == "reference" else torch.float32
+        if self.precision is not None:
+            dtype = _quant.activation_dtype(self.precision, dtype)
+            c_dtype = torch.float32
+        else:
+            c_dtype = dtype if self.backend == "reference" else torch.float32
         part_dtypes = (dtype,) if self.cell == "gru" else (dtype, c_dtype)
         dev = self.device
         layers = []

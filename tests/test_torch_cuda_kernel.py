@@ -330,6 +330,140 @@ LM_ROWS = [0, 1, 2 ** 31 + 3, 77, 2 ** 31 - 1, 2 ** 32 - 1, 5, 9]
 MM_ATOL = 1e-4   # K-long fp32 sums in another order than cuBLAS's
 
 
+# -- serving precisions: bf16 operands, int8 / int4 weights ----------------
+
+PRECISIONS = ("bf16", "int8", "int4")
+
+
+def _prec_layer(dev, cell, precision, B, T, I, H, seq, seed=0):
+    """One layer's operands at a serving precision, as the stack hands them
+    to the kernel (``ops._precision_weights`` from fp32 master weights):
+    x and h0 bf16, c0 fp32, codes and scales for the sequence kernel at
+    int8 / int4, dequantized bf16 weights for the step kernel."""
+    from repro_torch.kernels import ops
+    d = (_layer if cell == "lstm" else _gru_layer)(dev, B, T, I, H, seed)
+    wx, wh, x, qkw = ops._precision_weights(d["wx"], d["wh"], d["x"],
+                                            precision, seq=seq)
+    return dict(d, x=x, wx=wx, wh=wh, h0=d["h0"].bfloat16(), qkw=qkw)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("B,T,I,H,path", [
+    (67, 40, 1, 8, "warp"), (67, 40, 8, 8, "warp"), (67, 40, 16, 16, "warp"),
+    (67, 40, 1, 16, "warp"), (37, 11, 40, 32, "warp"),
+    (9, 6, 16, 9, "block"), (7, 4, 128, 128, "block")])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_seq_kernel_bit_equal_at_precision(dev, cell, precision, B, T, I, H,
+                                           path, p):
+    """The sequence kernels at bf16, int8 and int4 (dequantized at kernel
+    entry on the warp path, at each read on the block path; H = 9 pads the
+    int4 codes) bit-equal to their plain versions: ys, h_T bf16, c_T fp32;
+    ragged lengths, student rows, non-zero h0 / c0."""
+    mod = seq if cell == "lstm" else gseq
+    fn = mod.mcd_lstm_seq if cell == "lstm" else mod.mcd_gru_seq
+    plain = (mod.mcd_lstm_seq_plain if cell == "lstm"
+             else mod.mcd_gru_seq_plain)
+    gates = 4 if cell == "lstm" else 3
+    assert common.seq_plan(gates, B, I, H, 2)["path"] == path
+    d = _prec_layer(dev, cell, precision, B, T, I, H, seq=True, seed=H)
+    keys = (mcd_lstm if cell == "lstm" else mcd_gru).gate_keys(3, 1)
+    kw = dict(h0=d["h0"], lengths=d["lengths"], **d["qkw"])
+    if cell == "lstm":
+        kw["c0"] = d["c0"]
+    args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(*args, **kw)
+    assert got[0].dtype == torch.bfloat16
+    for g, r in zip(got, ref, strict=True):
+        assert g.dtype == r.dtype and torch.isfinite(g).all()
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("B,I,H", [(33, 1, 8), (33, 8, 16), (33, 16, 8),
+                                   (33, 40, 32), (5, 40, 24), (3, 128, 128)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_step_kernel_bit_equal_at_precision(dev, cell, precision, B, I, H,
+                                            p):
+    """The step kernels on bf16 operands (the int8 / int4 weights
+    dequantized outside, as the reference hands them): bit-equal to their
+    plain versions on both paths."""
+    d = _prec_layer(dev, cell, precision, B, 1, I, H, seq=False, seed=I)
+    x = d["x"][:, 0].contiguous()
+    if cell == "lstm":
+        step, plain = mcd_lstm.mcd_lstm_step, mcd_lstm.mcd_lstm_step_plain
+        args = (x, d["h0"], d["c0"], d["wx"], d["wh"], d["b"], d["rows"],
+                mcd_lstm.gate_keys(3, 1), p)
+    else:
+        step, plain = mcd_gru.mcd_gru_step, mcd_gru.mcd_gru_step_plain
+        args = (x, d["h0"], d["wx"], d["wh"], d["b"], d["rows"],
+                mcd_gru.gate_keys(3, 1), p)
+    got = step(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(_outs(got), _outs(plain(*args)), strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert _outs(got)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_kernel_mask_bits_equal_at_bf16(dev, cell):
+    """The factors at bf16: the same keep bits, the scale rounded to bf16
+    as the reference's jnp.asarray(1 / (1 - p), bf16)."""
+    rows = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31 + 3, 77], device=dev)
+    keys = (mcd_lstm if cell == "lstm" else mcd_gru).gate_keys(9, 2)
+    for p in (0.125, 0.1, 0.3):
+        kx, kh = common.kernel_mask_factors(keys, rows, 16, 8, p,
+                                            torch.bfloat16)
+        px, ph = common.gate_mask_factors(keys, rows, 16, 8, p,
+                                          torch.bfloat16)
+        assert torch.equal(kx, px.float()) and torch.equal(kh, ph.float())
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_step_backend_agrees_with_seq_backend_at_precision(dev, cell,
+                                                            precision):
+    """Bitwise at each precision: the sequence kernel on codes and the step
+    kernel on the dequantized weights."""
+    params = rnn.init_stack(torch.Generator().manual_seed(1), 1, (16, 8),
+                            cell=cell, device=dev)
+    cfg = mcd.MCDConfig(p=0.125, placement="YN", seed=4)
+    d = _layer(dev, 40, 12, 1, 16)
+    outs = {}
+    for backend in ("cuda_step", "cuda_seq"):
+        outs[backend] = rnn.run_stack(
+            params, d["x"], rnn.stack_mask_plan(cfg, 2), cfg.p,
+            backend=backend, rows=d["rows"], seed=cfg.seed,
+            lengths=d["lengths"], return_all_states=True, cell=cell,
+            precision=precision, device=dev)
+    (ys, st), (yq, sq) = outs["cuda_step"], outs["cuda_seq"]
+    assert ys.dtype == torch.bfloat16 and torch.equal(ys, yq)
+    for a, b in zip(st, sq):
+        for u, v in zip(a, b):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+def test_seq_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    d = _prec_layer(dev, "lstm", "int8", 4, 3, 2, 8, seq=True)
+    keys = mcd_lstm.gate_keys(0, 0)
+    args = (d["wx"], d["wh"], d["b"], d["rows"], keys, 0.1)
+    with pytest.raises(TypeError, match="bf16"):      # int8 over fp32 x
+        seq.mcd_lstm_seq(d["x"].float(), *args, **d["qkw"])
+    with pytest.raises(ValueError, match="wh_scale"):
+        seq.mcd_lstm_seq(d["x"], *args, weight_bits=8,
+                         wx_scale=d["qkw"]["wx_scale"])
+    with pytest.raises(TypeError):                    # codes read as int4
+        seq.mcd_lstm_seq(d["x"], *args, **dict(d["qkw"], weight_bits=4))
+    with pytest.raises(TypeError):                    # a bf16 h0 is needed
+        seq.mcd_lstm_seq(d["x"], *args, h0=torch.zeros(
+            (4, 8), device=dev), **d["qkw"])
+
+
 def _lm_rows(dev, n):
     return torch.tensor((LM_ROWS * n)[:n], dtype=torch.int64, device=dev)
 

@@ -234,6 +234,146 @@ def test_lstm_plan_refuses_what_fits_no_path(I, H):
         lseq.lstm_seq_plan(4, I, H)
 
 
+# -- the serving precisions: plans at each activation width ------------------
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("B", [1, 33, 1920])
+@pytest.mark.parametrize("I,H", CLF_AE_LAYERS + [(40, 32), (3, 4), (16, 9),
+                                                  (128, 128), (1, 1)])
+def test_seq_plan_at_each_activation_width(gates, B, I, H):
+    """At bf16 (2-byte activations: bf16, int8 and int4 weights are
+    staged dequantized at the activation width) the warp path stages wx in
+    whole 4-byte words of 2-byte values, the factors and the x ring stay
+    4-byte, the rows a block follow the same rule; the block path keeps x
+    and h as fp32 values, so its plan is the fp32 one.  Every plan fits the
+    H100's shared memory and covers every row once; the fp32 plan is the
+    one taken with no width given."""
+    fp32 = common.seq_plan(gates, B, I, H)
+    assert common.seq_plan(gates, B, I, H, 4) == fp32
+    plan = common.seq_plan(gates, B, I, H, 2)
+    assert plan["path"] == fp32["path"] == ("warp" if 32 % H == 0
+                                            else "block")
+    assert 0 < plan["smem"] <= fp32["smem"] <= SMEM_LIMIT
+    assert np.all(_coverage(B, plan["rows"], plan["blocks"]) == 1)
+    if plan["path"] == "block":
+        assert plan == fp32
+        return
+    R = plan["rows"]
+    assert plan["smem"] == 4 * (R * (gates * (I + H) + common.X_RING * I)
+                                + -(-2 * gates * I * H // 4))
+    assert plan["smem"] % 4 == 0
+
+
+def test_fp32_seq_plans_unchanged():
+    """The fp32 plans of the ECG layers at B = 1920 (rows a block, threads,
+    shared memory; both gate counts), pinned as the fp32 kernels were
+    launched before the serving precisions came."""
+    want = {(1, 8): (32, 832, 656), (8, 8): (32, 3072, 2560),
+            (1, 16): (64, 1472, 1136), (16, 8): (32, 5632, 4736),
+            (8, 16): (64, 4608, 3712), (16, 16): (64, 8192, 6656)}
+    for (I, H), (threads, lstm, gru) in want.items():
+        for gates, smem in ((4, lstm), (3, gru)):
+            assert common.seq_plan(gates, 1920, I, H) == {
+                "path": "warp", "rows": 4, "threads": threads,
+                "blocks": 480, "smem": smem}
+
+
+@pytest.mark.parametrize("source", ["mcd_lstm_seq", "mcd_gru_seq"])
+def test_seq_sources_size_the_staged_weights_by_the_activation_width(
+        source):
+    """The sources' warp_smem_bytes pads the staged wx (``act_bytes`` a
+    value) to 4-byte words, the precision kernel puts the x ring after it
+    at the same offset, each launcher checks the plan with its
+    activation's size, and the entry takes bf16 over 16-, 8- and 4-bit
+    weights and fp32 over fp32 only."""
+    src = (build.CSRC / f"{source}.cu").read_text()
+    assert "((size_t)kGates * I * H * act_bytes + 3) / 4" in src
+    assert "(I * kGates * H * (int)sizeof(A) + 3) / 4" in src
+    assert "warp_smem_bytes(R, I, H, sizeof(A))" in src
+    assert "warp_smem_bytes(R, I, H, sizeof(float))" in src
+    for bits in (16, 8, 4):
+        assert f"act == 1 && wbits == {bits}" in src
+    assert "act != 0 || wbits != 32" in src
+
+
+def _seq_call(gates, precision, B=33, T=5, I=8, H=16):
+    """A sequence wrapper and its operands at ``precision`` on CPU tensors,
+    as ``ops._precision_weights`` builds them."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(gates)
+    x = torch.randn(B, T, I, generator=g)
+    wx = torch.randn(I, gates, H, generator=g)
+    wh = torch.randn(H, gates, H, generator=g)
+    b = torch.randn(gates, H, generator=g)
+    wx, wh, x, qkw = ops._precision_weights(wx, wh, x, precision, seq=True)
+    h0 = torch.zeros(B, H, dtype=x.dtype)
+    kw = dict(h0=h0, **qkw)
+    if gates == 4:
+        kw["c0"] = torch.zeros(B, H)
+    fn = lseq.mcd_lstm_seq if gates == 4 else gseq.mcd_gru_seq
+    keys = (mcd_lstm if gates == 4 else mcd_gru).gate_keys(3, 1)
+    return fn, (x, wx, wh, b, torch.arange(B), keys, 0.125), kw, qkw
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("precision,act,bits", [
+    ("fp32", 0, 32), ("bf16", 1, 16), ("int8", 1, 8), ("int4", 1, 4)])
+def test_seq_wrapper_launches_the_plan_at_precision(monkeypatch, gates,
+                                                    precision, act, bits):
+    """The wrapper passes the plan at the activation width, then the
+    activation code and the weight bits (the entry's ``int warp, int
+    smem_bytes, int act, int wbits``), the scales after the weights (null
+    pointers for unquantized weights) and the dropout scale rounded to the
+    activation dtype (the launch itself recorded here, not run)."""
+    calls = []
+    monkeypatch.setattr(common, "check_device", lambda name, t: False)
+    monkeypatch.setattr(common, "launch",
+                        lambda wrapper, tensors, ints, keys, n, p, what,
+                        act_dtype: calls.append((tensors, ints, act_dtype)))
+    fn, args, kw, qkw = _seq_call(gates, precision)
+    fn(*args, **kw)
+    (tensors, ints, act_dtype), = calls
+    B, T, I = args[0].shape
+    H = args[2].shape[0]
+    plan = common.seq_plan(gates, B, I, H, 4 if act == 0 else 2)
+    assert ints == (B, T, I, H, plan["rows"], int(plan["path"] == "warp"),
+                    plan["smem"], act, bits)
+    assert act_dtype == (torch.float32 if act == 0 else torch.bfloat16)
+    if qkw:
+        assert tensors[3] is qkw["wx_scale"] and tensors[4] is \
+            qkw["wh_scale"]
+        wl = H if bits == 8 else -(-H // 2)
+        assert tensors[1].shape == (I, gates, wl)
+    else:
+        assert tensors[3] is None and tensors[4] is None
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_step_wrapper_passes_the_bf16_code(monkeypatch, gates):
+    """At bf16 the step wrappers pass act = 1 and the bf16 dropout scale."""
+    calls = []
+    monkeypatch.setattr(common, "check_device", lambda name, t: False)
+    monkeypatch.setattr(common, "launch",
+                        lambda wrapper, tensors, ints, keys, n, p, what,
+                        act_dtype: calls.append((ints, act_dtype)))
+    fn, args = _step_call(gates, 33, 8, 16)
+    # x, h and the weights in bf16; c (LSTM) and the bias stay fp32
+    act = (0, 1, 3, 4) if gates == 4 else (0, 1, 2, 3)
+    bf = [a.bfloat16() if i in act else a for i, a in enumerate(args)]
+    fn(*bf)
+    (ints, act_dtype), = calls
+    assert ints[-1] == 1 and act_dtype == torch.bfloat16
+
+
+def test_step_plans_do_not_depend_on_the_precision():
+    """The step kernels' warp path holds nothing in shared memory and the
+    block path keeps x and h as fp32 values: one plan for every
+    precision, and step_plan takes no width."""
+    assert "act_bytes" not in inspect.signature(common.step_plan).parameters
+    for I, H in CLF_AE_LAYERS:
+        assert common.step_plan(4, 1920, I, H)["smem"] == 0
+
+
 # -- ssd_chunk_scan: the scores pre-pass and the head kernel -----------------
 
 SERVING_SSD = (64, 512, 32, 64, 128, 256)      # mamba2-370m prefill
@@ -623,16 +763,17 @@ def test_step_plan_of_the_ecg_layers(gates, source):
 def test_step_plan_matches_the_cuda_source(gates, source):
     """The source's gate count is the plan's, the warp path's block limit
     is the source's kWarpMaxThreads, the warp kernels are instantiated for
-    every H that divides 32, the block path's shared memory is the source's
-    block_smem_bytes, the entry takes the plan's rows and warp flag, and
-    both paths' kernels hold the name a profile matches."""
+    every H that divides 32 (by the fp32 launcher and by the bf16 one), the
+    block path's shared memory is the source's block_smem_bytes, the entry
+    takes the plan's rows and warp flag, and both paths' kernels, fp32 and
+    bf16 (``_q``), hold the name a profile matches."""
     src = (build.CSRC / source).read_text()
     stem = source.removesuffix(".cu")
     assert re.search(rf"constexpr int kGates = {gates};", src)
     assert re.search(rf"constexpr int kWarpMaxThreads = "
                      rf"{32 * common.STEP_WARPS};", src)
     assert re.findall(rf"{stem.upper()}_WARP\((\d+)\)\n", src) == [
-        "1", "2", "4", "8", "16", "32"]
+        "1", "2", "4", "8", "16", "32"] * 2
     assert re.search(r"\(size_t\)R \* \(kGates \* \(I \+ H\) \+ I \+ H\)",
                      src)
     assert re.search(r"int B, int I, int H, int R, int warp,", src)
@@ -642,7 +783,7 @@ def test_step_plan_matches_the_cuda_source(gates, source):
         assert plan["smem"] == 4 * R * (gates * (I + H) + I + H)
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert len(kernels) == 2
+    assert len(kernels) == 4
     assert all(f"{stem}_kernel" in k for k in kernels)
 
 
@@ -667,9 +808,10 @@ def _step_call(gates, B, I, H):
                          + [(33, 40, 24)])
 def test_step_wrapper_launches_the_plan(monkeypatch, B, I, H, gates,
                                         source):
-    """The wrapper passes step_plan's rows and warp flag after (B, I, H):
-    the entry's ``int B, int I, int H, int R, int warp`` (the launch itself
-    recorded here, not run)."""
+    """The wrapper passes step_plan's rows and warp flag after (B, I, H),
+    then the activation code (0: fp32): the entry's ``int B, int I, int H,
+    int R, int warp, int act`` (the launch itself recorded here, not
+    run)."""
     calls = []
     monkeypatch.setattr(common, "check_device", lambda name, t: False)
     monkeypatch.setattr(common, "launch",
@@ -679,7 +821,7 @@ def test_step_wrapper_launches_the_plan(monkeypatch, B, I, H, gates,
     fn(*args)
     plan = common.step_plan(gates, B, I, H)
     assert calls == [(fn, (B, I, H, plan["rows"],
-                           int(plan["path"] == "warp")))]
+                           int(plan["path"] == "warp"), 0))]
     assert plan["path"] == ("warp" if 32 % H == 0 else "block")
 
 

@@ -186,10 +186,17 @@ def test_run_stack_last_state_form():
     with pytest.raises(ValueError, match="rows"):
         trnn.run_stack(tp, _t(x), trnn.stack_mask_plan(cfg, NL), cfg.p,
                        backend="cuda_seq", device="cpu")
-    with pytest.raises(NotImplementedError):
+    # Under a serving precision h comes back in the activation dtype and c
+    # in fp32, as the reference returns them; an unknown precision raises.
+    _, (h, c) = trnn.run_stack(tp, _t(x), trnn.stack_mask_plan(cfg, NL),
+                               cfg.p, backend="cuda_seq", rows=_rows_t(),
+                               seed=cfg.seed, return_sequence=False,
+                               device="cpu", precision="bf16")
+    assert h.dtype == torch.bfloat16 and c.dtype == torch.float32
+    with pytest.raises(ValueError, match="precision"):
         trnn.run_stack(tp, _t(x), trnn.stack_mask_plan(cfg, NL), cfg.p,
                        backend="cuda_seq", rows=_rows_t(), device="cpu",
-                       precision="bf16")
+                       precision="fp8")
 
 
 def test_gate_stacked_layout():

@@ -123,6 +123,14 @@ def test_only_cpu_and_cuda_devices():
     {"early_exit_threshold": 0.1}, {"student": object()}])
 def test_engine_unported_options_raise(kw):
     cfg, params = _cpu_model()
+    if "precision" in kw:
+        # The serving precisions are ported: the engine takes them, and a
+        # precision that is none of them is refused.
+        assert StreamingEngine(params, cfg, device="cpu",
+                               **kw).precision == kw["precision"]
+        with pytest.raises(ValueError, match="precision"):
+            StreamingEngine(params, cfg, device="cpu", precision="fp8")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, cfg, device="cpu", **kw)
 
@@ -141,11 +149,15 @@ def test_engine_unported_calls_raise():
     gru = rnn.init_stack(torch.Generator(), 1, (8,), cell="gru",
                          device="cpu")
     plan = rnn.stack_mask_plan(cfg.mcd, 1)
-    for kw in ({"mesh": object()}, {"precision": "bf16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rnn.run_stack(gru, torch.zeros((2, 3, 1)), plan, 0.125,
-                          backend="cuda_seq", rows=torch.arange(2),
-                          cell="gru", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rnn.run_stack(gru, torch.zeros((2, 3, 1)), plan, 0.125,
+                      backend="cuda_seq", rows=torch.arange(2), cell="gru",
+                      device="cpu", mesh=object())
+    # ... and serves the precisions: h in the activation dtype.
+    _, (h,) = rnn.run_stack(gru, torch.zeros((2, 3, 1)), plan, 0.125,
+                            backend="cuda_seq", rows=torch.arange(2),
+                            cell="gru", device="cpu", precision="bf16")
+    assert h.dtype == torch.bfloat16
 
 
 def test_cli_serves_on_cpu(tmp_path):
