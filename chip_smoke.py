@@ -48,6 +48,21 @@ Phases (each raises on failure; the exit code is then non-zero):
    fp32) and summaries bit-equal, chunked == unchunked bit for bit (and
    the classifier's logits bf16), with the fp32 cell on the same plans
    beside each for the tick times.
+5c. The compiled tick: on GRAPH_CELLS (the classifier LSTM and the
+   autoencoder GRU on ``cuda_seq``, the classifier LSTM and GRU on
+   ``cuda_step``, the classifier LSTM at int8 and the autoencoder GRU at
+   int4; ``chunk_capacity`` fixed at 20 or ``"auto"`` over (8, 16, 20)),
+   the engine replaying one captured CUDA graph a tick against the same
+   engine served eagerly (``graphs=False``), GRAPH_RUNS runs a side in
+   turns, each 64 sessions x S = 30 over whole beats in 12 ragged chunks;
+   each graph run prewarmed (capacities and seconds recorded): carries and
+   every tick's summaries bit-equal to eager, chunked == unchunked, no
+   capture after prewarm, the launches of every tick as eager's; tick p50
+   / p95, chain-steps/s, each run's first tick, the host time of each part
+   of a tick and the device's idle share a side.
+   Every serving phase (3, 4, 5, 5b, 5c, 7, 9) serves through the graphs,
+   as the engines do by default on a fixed shape; 5c's eager runs and the
+   LM phases' eager turns are the comparison.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
@@ -77,7 +92,11 @@ Phases (each raises on failure; the exit code is then non-zero):
    three kernels, the same tokens again when fed its own tokens, the
    "reference" backend teacher-forced on those tokens within LOGIT_TOL /
    UNC_TOL, prefill and per-token times, profiles of the prefill and of 5
-   decode steps, and the peak device memory.
+   decode steps, and the peak device memory.  Then the decode step as the
+   replay of the engine's captured graph against the same engine decoding
+   eagerly, LM_GRAPH_RUNS ``generate`` runs a side in turns: tokens
+   equal, logits, entropy and MI bit-equal, the same launch counts; decode
+   ms a token p50 / p95 a side, and a profile of 5 replayed decode steps.
 8. The SSD kernel: ``ssd_chunk_scan`` against ``ssd_chunk_scan_plain`` on
    the card at mamba2-370m's serving shape (B = 64, L = 512, H = 32,
    P = 64, N = 128, Q = 256), at a length Q does not divide (L = 320: Q
@@ -93,11 +112,14 @@ Phases (each raises on failure; the exit code is then non-zero):
    (48 ``mamba`` layers, random fp32 weights from seed 0), 8 prompts of
    512 tokens (two chunks) x 8 chains, 32 new tokens: ``ssd_chunk_scan``
    48 launches a prefill and ``masked_activation`` 48 a prefill and 48 a
-   decode step, the same checks, times and profiles as phase 7.
+   decode step, the same checks, times, profiles and graph turns as
+   phase 7.
 
-10. Serving precisions, the kernels (last: its profiles hold thousands of
-   records, and torch.profiler has lost records in every later profile
-   of a process after such a one): each recurrent kernel at bf16, int8
+10. Serving precisions, the kernels (last, in a fresh process of this
+   script: its profiles hold thousands of records, torch.profiler has
+   lost records in every later profile of a process after such a one, and
+   it loses most profiles' first records late in a process that has
+   profiled graph replays): each recurrent kernel at bf16, int8
    and int4 (the sequence kernels on int8 codes / packed int4 codes and
    their scales, dequantized at kernel entry; the step kernels on the
    dequantized bf16 weights, as the reference hands them) on the ECG
@@ -738,10 +760,12 @@ def segmented_device_us(calls, iters: int, per_call=None):
     profile opens with a spin kernel and LEAD_MARKERS more markers, whose
     records may be lost; the last ``len(calls)`` segments are the calls'.  A profile counts when
     every segment holds ``per_call`` records a call (when given) or
-    records in a multiple of ``iters``, the same numbers as the profile
-    taken just before it (``profiled_us``'s rule against lost records);
-    else it is taken again, and after PROFILE_ATTEMPTS this raises.  The
-    marker launches are not counted in ``masked_activation.launches``."""
+    records in a multiple of ``iters``, the same numbers as the last whole
+    profile taken before it (``profiled_us``'s rule against lost records;
+    a profile that lost records in between does not reset it: late in a
+    process every other profile may lose its first records); else it is
+    taken again, and after PROFILE_ATTEMPTS this raises.  The marker
+    launches are not counted in ``masked_activation.launches``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import bernoulli_mask
@@ -793,8 +817,9 @@ def segmented_device_us(calls, iters: int, per_call=None):
         if last is not None or not whole:
             print(f"segmented profile {attempt + 1} of {PROFILE_ATTEMPTS}: "
                   f"{len(segs)} segments of {len(calls)}, records {counts} "
-                  f"(previous {last}); taking it again", flush=True)
-        last = counts if whole else None
+                  f"(last whole {last}); taking it again", flush=True)
+        if whole:
+            last = counts
     raise RuntimeError("torch.profiler gave no two whole, agreeing "
                        "segmented profiles")
 
@@ -890,6 +915,32 @@ def precision_kernel_phase(report, t_beat=T_BEAT):
                 rec["library_ms"] = rec["library_device_ms"] = None
             print("precision case " + json.dumps(rec), flush=True)
         records += cases
+    report["precision_kernel_cases"] = records
+    return records
+
+
+PHASE10_TIMEOUT = 600   # seconds; phase 10 takes ~45 on the card
+
+
+def phase10_child(report):
+    """Phase 10 in a fresh process of this script, which writes its records
+    as JSON under ``build/`` (ignored by git) and exits; waited for here.
+    Its profiles hold thousands of records, and torch.profiler has lost
+    records in every later profile of a process after one of them; and
+    late in a process that has profiled CUDA graph replays (phases 5c, 7,
+    9) it loses a profile's first records in most profiles.  A fresh
+    process profiles as the first phases of this one do.  The child's
+    kernel launches are no serving path's and are not counted here."""
+    path = os.path.join(ROOT, "build", "phase10.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--phase10-out", path], check=True,
+                   timeout=PHASE10_TIMEOUT)
+    with open(path) as fh:
+        records = json.load(fh)
+    os.remove(path)
     report["precision_kernel_cases"] = records
     return records
 
@@ -1373,6 +1424,197 @@ def step_backend_phase(report, dev):
     for counts in all_counts.values():
         for name, v in counts.items():
             total[name] += v
+    return total
+
+
+# -- the compiled tick: graph against eager ------------------------------
+
+# (model, cell, backend, precision, chunk_capacity) of phase 5c.
+GRAPH_CELLS = (
+    ("classifier", "lstm", "cuda_seq", None, CHUNK),
+    ("classifier", "lstm", "cuda_seq", None, "auto"),
+    ("autoencoder", "gru", "cuda_seq", None, CHUNK),
+    ("classifier", "lstm", "cuda_step", None, CHUNK),
+    ("classifier", "gru", "cuda_step", None, "auto"),
+    ("classifier", "lstm", "cuda_seq", "int8", "auto"),
+    ("autoencoder", "gru", "cuda_seq", "int4", CHUNK),
+)
+GRAPH_RUNS = 3      # runs a side, graph and eager in turns
+GRAPH_TICKS = 12    # every beat in 12 ragged chunks
+TICK_PARTS = ("assemble", "to_device", "apply", "summaries", "store",
+              "sync")
+
+
+def ecg_model(model, cell, dev):
+    """(cfg, params, layer launches a tick at T = 1) of the ECG classifier
+    (I = 1, H = 8, NL = 3, YNY) or autoencoder (H = 16, NL = 2, YNYN,
+    heteroscedastic), random weights from seed 0."""
+    import torch
+    from repro_torch.core import autoencoder as ae, classifier as clf, mcd
+    if model == "classifier":
+        cfg = clf.ClassifierConfig(
+            input_dim=1, hidden=8, num_layers=3, num_classes=4, cell=cell,
+            mcd=mcd.MCDConfig(p=0.125, placement="YNY", n_samples=S,
+                              seed=0))
+        return (cfg, clf.init(torch.Generator().manual_seed(0), cfg,
+                              device=dev), cfg.num_layers)
+    cfg = ae.AutoencoderConfig(
+        input_dim=1, hidden=16, num_layers=2, cell=cell,
+        heteroscedastic=True,
+        mcd=mcd.MCDConfig(p=0.125, placement="YNYN", n_samples=S, seed=0))
+    return (cfg, ae.init(torch.Generator().manual_seed(0), cfg, device=dev),
+            2 * cfg.num_layers)
+
+
+def _graph_run(params, cfg, dev, graphs, plans, sids, streams, **kw):
+    """One engine over the chunk ``plans``: (engine, every tick's
+    results, launch counts, prewarm seconds and capacities)."""
+    import torch
+    from repro_torch.serve import StreamingEngine, prewarm
+    eng = StreamingEngine(params, cfg, max_sessions=SESSIONS, device=dev,
+                          graphs=graphs, **kw)
+    warm = None
+    if graphs:
+        t0 = time.perf_counter()
+        caps = prewarm(eng)
+        warm = (time.perf_counter() - t0, caps)
+        if len(eng._graphs) != len(caps) or any(
+                not e.step.ready or (dev.type == "cuda" and e.step.graph
+                                     is None)
+                for e in eng._graphs.values()):
+            raise RuntimeError("prewarm did not capture every rung")
+    for sid in sids:
+        eng.open_session(sid)
+    reset_launches()                          # count the main path only
+    ticks = [eng.step({sid: streams[k][eng.store.get(sid).steps:][
+        :plans[k, t]] for k, sid in enumerate(sids)})
+        for t in range(plans.shape[1])]
+    torch.cuda.synchronize()
+    return eng, ticks, read_launches(), warm
+
+
+def _same_serving(a, b, sids, what):
+    """Carries and every tick's summaries of two runs, bit for bit."""
+    import torch
+    ea, ta = a[:2]
+    eb, tb = b[:2]
+    for sid in sids:
+        for la, lb in zip(ea.store.get(sid).state, eb.store.get(sid).state,
+                          strict=True):
+            for x, y in zip(la, lb, strict=True):
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise RuntimeError(f"{what}: carry of {sid} differs")
+    for t, (ra, rb) in enumerate(zip(ta, tb, strict=True)):
+        for sid in sids:
+            for x, y in zip(ra[sid].summary, rb[sid].summary, strict=True):
+                max_abs_diff(x, y, f"{what} tick {t} summary of {sid}")
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"{what}: tick {t} summary of {sid} "
+                                       "differs")
+
+
+def _side_stats(runs, card) -> dict:
+    """Tick times of one side's runs, pooled, with each run's first tick
+    and the p50 host seconds of each part of a tick."""
+    import numpy as np
+    metrics = [m for eng, *_ in runs for m in eng.metrics]
+    out = _serve_stats(metrics, card)
+    out.pop("tick_ms")
+    out["runs"] = len(runs)
+    out["tick_ms_p50_by_run"] = [_serve_stats(eng.metrics, card)[
+        "tick_ms_p50"] for eng, *_ in runs]
+    out["first_tick_ms"] = [eng.metrics[0].duration_s * 1e3
+                            for eng, *_ in runs]
+    out["part_ms_p50"] = {
+        part: float(np.percentile([m.parts_s[part] for m in metrics], 50))
+        * 1e3 for part in TICK_PARTS}
+    out["compiles"] = sum(m.compiles for m in metrics)
+    return out
+
+
+def graph_phase(report, dev):
+    """Phase 5c: the tick as the replay of one captured CUDA graph against
+    the same engine served eagerly, on GRAPH_CELLS: each cell GRAPH_RUNS
+    runs a side in turns (graph, eager, eager, graph, ...), every run 64
+    sessions x S = 30 over whole beats in GRAPH_TICKS ragged chunks.  A
+    graph run is prewarmed (its capacities and seconds recorded).  Checks:
+    every carry and every tick's summaries bit-equal to the first eager
+    run's, chunked == unchunked (the first graph run against one pass over
+    the whole beats on the cell's backend and precision), no capture on
+    any tick after prewarm, and the launches of every tick equal to the
+    eager tick's (one a layer, or one a layer a step).  Times: tick p50 /
+    p95, chain-steps/s, each run's first tick, the parts of a tick, and
+    the device's idle share from a profile of 5 ticks a side."""
+    import numpy as np
+    from repro_torch.core import autoencoder as ae, classifier as clf
+    from repro_torch.serve import pow2_ladder
+
+    streams = _beats()
+    plans = chunk_plans(np.random.default_rng(6), SESSIONS, GRAPH_TICKS)
+    sids = [f"g-{k}" for k in range(SESSIONS)]
+    out, total = {}, {name: 0 for name in ALL_KERNELS}
+    for model, cell, backend, prec, cap in GRAPH_CELLS:
+        cfg, params, per_layer = ecg_model(model, cell, dev)
+        kw = dict(backend=backend, precision=prec, chunk_capacity=cap,
+                  ladder=pow2_ladder(CHUNK) if cap == "auto" else None)
+        key = (f"{model}_{cell}_{backend}_{prec or 'fp32'}_"
+               f"{'auto' if cap == 'auto' else 'fixed'}")
+        seq = backend == "cuda_seq"
+        kernel = f"mcd_{cell}_{'seq' if seq else 'step'}"
+        runs = {True: [], False: []}
+        for r in range(GRAPH_RUNS):
+            for graphs in ((True, False) if r % 2 == 0 else (False, True)):
+                run = _graph_run(params, cfg, dev, graphs, plans, sids,
+                                 streams, **kw)
+                eng, _, counts, _ = run
+                _check_launches(
+                    f"{key} {'graph' if graphs else 'eager'}", counts,
+                    eng.metrics, kernel,
+                    (lambda m: per_layer) if seq
+                    else (lambda m: per_layer * m.capacity))
+                if graphs:
+                    for name, v in counts.items():
+                        total[name] += v
+                    if any(m.compiles for m in eng.metrics):
+                        raise RuntimeError(f"{key}: a tick captured after "
+                                           "prewarm")
+                runs[graphs].append(run)
+        base = runs[False][0]
+        for k, run in enumerate(runs[True] + runs[False][1:]):
+            _same_serving(run, base, sids, f"{key} run {k}")
+        for g, e in zip(runs[True], runs[False]):
+            if [m.launches for m in g[0].metrics] != \
+                    [m.launches for m in e[0].metrics]:
+                raise RuntimeError(f"{key}: launches a tick differ")
+        # chunked == unchunked on the graph run's carries
+        geng = runs[True][0][0]
+        x, rows, full = _unchunked(streams, sids, geng, dev)
+        if model == "classifier":
+            _, states = clf.apply(params, x, rows, cfg, backend=backend,
+                                  lengths=full, return_state=True,
+                                  precision=prec, device=dev)
+        else:
+            *_, states = ae.apply(params, x, rows, cfg, backend=backend,
+                                  lengths=full, return_state=True,
+                                  precision=prec, device=dev)
+        _check_states(geng, sids, states, key)
+        match = f"{kernel}_kernel"
+        cell_out = {
+            "model": model, "cell": cell, "backend": backend,
+            "precision": prec or "fp32",
+            "chunk_capacity": cap,
+            "prewarm": [{"seconds": w[0], "capacities": w[1]}
+                        for *_, w in runs[True]],
+            "graph": _side_stats(runs[True], report["card"]),
+            "eager": _side_stats(runs[False], report["card"]),
+            "bit_equal_graph_vs_eager": True,
+            "chunked_equals_unchunked": True}
+        for side, graphs in (("graph", True), ("eager", False)):
+            cell_out[side].update(profile_ticks(
+                params, cfg, streams, dev, match, graphs=graphs, **kw))
+        out[key] = cell_out
+        print(f"graph {key} " + json.dumps(cell_out), flush=True)
+    report["serving_graphs"] = out
     return total
 
 
@@ -1943,7 +2185,10 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
                            f"entropy {d_ent}, MI {d_mi} (tol {LOGIT_TOL}, "
                            f"{UNC_TOL})")
     flips = int((ref.tokens != res.tokens).sum())
-    del again, ref
+    del ref
+    graph_vs_eager = lm_graph_turns(eng, params, cfg, prompts, res, again,
+                                    want)
+    del again
 
     steps_ms = np.asarray(res.decode_s) * 1e3
     decode_s = float(np.sum(res.decode_s))
@@ -1965,12 +2210,75 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
            "max_abs_diff_vs_reference": {"logits": d_logits,
                                          "entropy": d_ent, "mi": d_mi},
            "greedy_tokens_differing_in_reference": flips,
-           "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean())}
+           "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean()),
+           "graph_vs_eager": graph_vs_eager}
     report[key] = out
     print(f"{key} " + json.dumps(out), flush=True)
     out.update(profile_lm(eng, prompts, prefill_kernels, decode_kernels))
+    graph_vs_eager["profiled_decode_step_graph"] = profile_lm(
+        eng, prompts, prefill_kernels, decode_kernels,
+        graph=True)["profiled_decode_step"]
     print(f"{key} profile " + json.dumps(out), flush=True)
     return counts
+
+
+LM_GRAPH_RUNS = 3   # generate runs a side, graph and eager in turns
+
+
+def lm_graph_turns(eng, params, cfg, prompts, res, forced, want) -> dict:
+    """The decode step as the replay of one captured graph (``eng``, which
+    captured it on its first decode step) against the same engine decoding
+    eagerly, LM_GRAPH_RUNS ``generate`` runs a side in turns: every run's
+    tokens equal to ``res.tokens``, its logits, entropy and mutual
+    information bit-equal to ``forced`` (the graph run teacher-forced on
+    them, keeping its logits), its launch counts ``want``.  Times: decode ms
+    a token p50 / p95 of each side, pooled, and each run's first step."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import BayesianEngine
+
+    eager = BayesianEngine(params, cfg, max_len=eng.max_len, seed=0,
+                           device=eng.device, graphs=False)
+    sides = {"graph": [], "eager": []}
+    for r in range(LM_GRAPH_RUNS):
+        for side in (("graph", "eager") if r % 2 == 0
+                     else ("eager", "graph")):
+            e = eng if side == "graph" else eager
+            reset_launches()
+            run = e.generate(prompts, LM_NEW, keep_logits=True)
+            counts = {k: v for k, v in read_launches().items() if v}
+            if counts != want:
+                raise RuntimeError(f"{cfg.name} {side} run launched "
+                                   f"{counts}, expected {want}")
+            if not torch.equal(run.tokens, res.tokens):
+                raise RuntimeError(f"{cfg.name}: {side} tokens differ")
+            for what, a, b in (
+                    ("logits", run.logits, forced.logits),
+                    ("entropy", run.predictive_entropy,
+                     forced.predictive_entropy),
+                    ("MI", run.mutual_information,
+                     forced.mutual_information)):
+                max_abs_diff(a, b, f"{cfg.name} {side} {what}")
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{cfg.name}: {side} {what} differ "
+                                       "from the graph run's")
+            sides[side].append((run.decode_s, run.prefill_s))
+            del run
+    if len(eng._graphs) != 1 or eager._graphs is not None:
+        raise RuntimeError(f"{cfg.name}: {len(eng._graphs)} decode graphs")
+    out = {"card": card_line(), "runs": LM_GRAPH_RUNS,
+           "bit_equal_graph_vs_eager": True, "tokens_equal": True}
+    for side, runs in sides.items():
+        ms = np.concatenate([np.asarray(d) for d, _ in runs]) * 1e3
+        out[side] = {
+            "decode_ms_per_token_p50": float(np.percentile(ms, 50)),
+            "decode_ms_per_token_p95": float(np.percentile(ms, 95)),
+            "decode_ms_per_token_p50_by_run": [
+                float(np.percentile(np.asarray(d) * 1e3, 50))
+                for d, _ in runs],
+            "first_step_ms": [d[0] * 1e3 for d, _ in runs],
+            "prefill_ms": [p * 1e3 for _, p in runs]}
+    return out
 
 
 def _leaves(tree):
@@ -1986,14 +2294,17 @@ def _leaves(tree):
 
 
 def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
-               n_steps: int = 5) -> dict:
+               n_steps: int = 5, graph: bool = False) -> dict:
     """Device time inside one prefill, then inside ``n_steps`` decode steps
     as ``generate`` makes them (summary, argmax, the decode call, a device
     sync): the device's idle share and the time of each kernel the model
     launches there (``prefill_kernels``, ``decode_kernels``: a kernel that
     a span does not launch has no records, and a profile without records
     of a named kernel is refused).  Each decode profile taken again
-    continues from the last position; not part of the launch count."""
+    continues from the last position; not part of the launch count.
+    ``graph``: the decode call is the replay of the engine's captured
+    step (the prefill's state copied into its buffers, as ``generate``
+    does); else ``backbone.decode_step`` eagerly."""
     import torch
     from repro_torch.core import mcd
     from repro_torch.core.uncertainty import classification_summary
@@ -2005,6 +2316,11 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
                      cfg.mcd)
     p = torch.as_tensor(prompts, device=eng.device)
     tiled = p[None].expand(S_LM, *p.shape).reshape(S_LM * B, -1)
+    entry = eng._decode_graph(B, S_LM, p.dtype) if graph else None
+    if entry is not None:
+        if not entry.step.ready:
+            raise RuntimeError("the engine has no captured decode step")
+        ctx = entry.ctx
     live = {}
 
     def prefill():
@@ -2014,12 +2330,16 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
             t0 = time.perf_counter()
             live["logits"], live["state"] = backbone.prefill(
                 eng.params, cfg, tiled, ctx, eng.max_len)
+            if entry is not None:
+                eng._adopt(entry, live["state"])
+                live["state"] = entry.state
             torch.cuda.synchronize()
+            live["pos"] = prompts.shape[1]
             return (time.perf_counter() - t0) * 1e6
         return run
 
     def decode():
-        if live["state"].pos + n_steps > eng.max_len:
+        if live["pos"] + n_steps > eng.max_len:
             raise RuntimeError("no cache positions left to profile")
 
         def run():
@@ -2028,17 +2348,25 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
                 summ = classification_summary(
                     live["logits"][:, 0].reshape(S_LM, B, -1).float())
                 tok = torch.argmax(summ.probs, dim=-1).to(p.dtype)
-                live["logits"], live["state"] = backbone.decode_step(
-                    eng.params, cfg, tok[None].expand(S_LM, B).reshape(
-                        S_LM * B, 1), live["state"], ctx)
+                fed = tok[None].expand(S_LM, B).reshape(S_LM * B, 1)
+                if entry is None:
+                    live["logits"], live["state"] = backbone.decode_step(
+                        eng.params, cfg, fed, live["state"], ctx)
+                else:
+                    entry.token.copy_(fed)
+                    live["logits"] = entry.step.replay()
                 torch.cuda.synchronize()
+                live["pos"] += 1
             return (time.perf_counter() - t0) * 1e6
         return run
 
+    spans = [("prefill", prefill, 1, prefill_kernels),
+             ("decode_step", decode, n_steps, decode_kernels)]
+    if graph:
+        prefill()()                   # the state to decode from, unprofiled
+        spans = spans[1:]
     out = {}
-    for what, prepare, calls, kernels in (
-            ("prefill", prefill, 1, prefill_kernels),
-            ("decode_step", decode, n_steps, decode_kernels)):
+    for what, prepare, calls, kernels in spans:
         matches = [None] + [n + "_kernel" for n in kernels]
         us, wall_us = profiled_us(prepare, matches, calls=calls, loose=(0,))
         out[f"profiled_{what}"] = {
@@ -2051,19 +2379,24 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
 
 
 def profile_ticks(params, cfg, streams, dev, kernel_match,
-                  n_ticks: int = 5) -> dict:
+                  n_ticks: int = 5, **engine_kw) -> dict:
     """Device time inside a few serving ticks (torch.profiler, CUDA
     activity): the kernel's share and the device's idle share of the
     tick's wall time.  Runs a fresh engine (a fresh one for each profile
-    taken again); not part of the launch count.
+    taken again; ``engine_kw`` go to it, and an engine that replays tick
+    graphs is prewarmed first); not part of the launch count.
     """
     import numpy as np
     import torch
-    from repro_torch.serve import StreamingEngine
+    from repro_torch.serve import StreamingEngine, prewarm
+
+    engine_kw.setdefault("chunk_capacity", CHUNK)
 
     def prepare():
         eng = StreamingEngine(params, cfg, max_sessions=SESSIONS,
-                              chunk_capacity=CHUNK, device=dev)
+                              device=dev, **engine_kw)
+        if eng._graphs is not None:
+            prewarm(eng)
         sids = [f"p{k}" for k in range(SESSIONS)]
         for sid in sids:
             eng.open_session(sid)
@@ -2096,6 +2429,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--phase10-out", default=None,
+                    help=argparse.SUPPRESS)   # the child of phase10_child
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2117,6 +2452,11 @@ def main(argv=None) -> int:
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
     dev = torch.device("cuda")
+    if args.phase10_out:
+        records = precision_kernel_phase({})
+        with open(args.phase10_out, "w") as fh:
+            json.dump(records, fh)
+        return 0
     phase_s = report["phase_s"] = {}
 
     def phase(name, fn, *args):
@@ -2132,13 +2472,13 @@ def main(argv=None) -> int:
     for name, fn, *rest in (
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
-            ("5b", precision_serving_phase), ("7", lm_serving_phase),
+            ("5b", precision_serving_phase), ("5c", graph_phase),
+            ("7", lm_serving_phase),
             ("9", mamba_serving_phase)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
-    # Last, as its profiles hold thousands of records: torch.profiler has
-    # lost records in every later profile of a process after one of them.
-    precision_entries(entries, phase("10", precision_kernel_phase, report))
+    # Last, in a process of its own (phase10_child).
+    precision_entries(entries, phase("10", phase10_child, report))
     print("phase seconds " + json.dumps(phase_s), flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -15,11 +15,14 @@ Usage:
       --sessions 2 --samples 4 --beats 1 --ragged --capacity auto
   PYTHONPATH=src python -m repro_torch.launch.stream --precision int8 \
       --sessions 4 --samples 8 --beats 1
+  PYTHONPATH=src python -m repro_torch.launch.stream --capacity auto \
+      --prewarm --sessions 4 --samples 8 --beats 1
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -28,7 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.core import classifier as clf, mcd
 from repro_torch.data import ecg
 from repro_torch.serve import (JsonlSink, StreamingEngine, pow2_ladder,
-                               summarize)
+                               prewarm, summarize)
 
 
 def build_streams(n_sessions: int, beats: int, seed: int):
@@ -71,6 +74,10 @@ def main(argv=None):
                     choices=("fixed", "auto", "dynamic"),
                     help="launch-shape policy: fixed=--chunk-len, "
                     "auto=adaptive ladder, dynamic=per-tick max")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="capture every capacity rung's tick graph at boot "
+                    "(scheduler.prewarm) so no tick pays a first-use "
+                    "capture; needs --capacity fixed or auto")
     ap.add_argument("--metrics-out", default=None,
                     help="append per-tick TickMetrics as JSON lines here")
     ap.add_argument("--device", default=None,
@@ -94,6 +101,11 @@ def main(argv=None):
                           chunk_capacity=capacity, ladder=ladder,
                           metrics_sink=sink, device=device,
                           precision=args.precision)
+    if args.prewarm:
+        t0 = time.perf_counter()
+        caps = prewarm(eng)
+        print(f"prewarmed capacities {caps} in "
+              f"{time.perf_counter() - t0:.2f}s")
     streams, labels = build_streams(args.sessions, args.beats, args.seed)
     for k in range(args.sessions):
         eng.open_session(f"ecg-{k}")
@@ -123,7 +135,8 @@ def main(argv=None):
                         f"MI={float(su.mutual_information):6.4f}")
         m = eng.last_metrics
         print(f"tick {m.tick:3d} [cap={m.capacity} launches={m.launches} "
-              f"{m.duration_s * 1e3:.2f}ms] | " + " | ".join(line))
+              f"compiles={m.compiles} {m.duration_s * 1e3:.2f}ms] | "
+              + " | ".join(line))
         for sid in list(eng.active_sessions):
             k = int(sid.split("-")[1])
             if eng.store.get(sid).steps >= len(streams[k]):
@@ -133,6 +146,7 @@ def main(argv=None):
     agg = summarize(eng.metrics)
     print(f"served {sum(m.live_steps for m in eng.metrics)} signal steps "
           f"over {agg['ticks']} ticks | launches {agg['launches']} | "
+          f"compiles {agg['compiles']} | "
           f"pad waste {agg['pad_waste']:4.2f} | tick p50 "
           f"{agg['duration_s_p50'] * 1e3:.2f}ms p95 "
           f"{agg['duration_s_p95'] * 1e3:.2f}ms")

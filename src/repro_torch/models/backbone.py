@@ -18,7 +18,9 @@ attention, a ``mamba2.MambaState`` for a mamba block.  Entry points:
   forward      full sequence (``collect_caches``, ``return_hidden``)
   prefill      forward + the decode state (KV caches padded to
                ``max_len``; a Mamba state has no sequence axis)
-  decode_step  one token through the caches, updated in place
+  decode_step  one token through the caches, updated in place; the
+               position is a device int32 scalar, never read on the host,
+               so a decode step can be captured as one CUDA graph
 
 Other mixers and FFNs (``mla``, ``moe``, a mamba block with an FFN,
 cross-attention, encoders, patch or frame inputs) are not ported yet and
@@ -143,7 +145,7 @@ def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
     return x, 0.0, cache
 
 
-def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos: int,
+def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos,
                   ctx: layers.Ctx, layer_id: int, bayes: bool,
                   backend: str = "cuda"):
     """One block, one token.  Returns (x, cache), the cache updated in
@@ -183,7 +185,7 @@ def _stage_layers(stage: Stage, layer_offset: int):
 
 
 class DecodeState(NamedTuple):
-    pos: int          # next position to write
+    pos: Any          # next position to write: int32 scalar on the device
     caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd],
                       # or a mamba2.MambaState
     cross: Any = None
@@ -236,7 +238,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
-    return DecodeState(pos=0, caches=[
+    return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=dev),
+                       caches=[
         [[cache(kind) for kind in st.pattern] for _ in range(st.repeat)]
         for st in cfg.stages])
 
@@ -270,10 +273,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
     padded = [[[_pad_cache_to(c, kind, max_len)
                 for c, kind in zip(rep, st.pattern)] for rep in stage]
               for st, stage in zip(cfg.stages, caches)]
-    return lg, DecodeState(pos=tokens.shape[1], caches=padded)
+    pos = torch.full((), tokens.shape[1], dtype=torch.int32,
+                     device=tokens.device)
+    return lg, DecodeState(pos=pos, caches=padded)
 
 
-def _cache_positions(cfg: ArchConfig, caches) -> int | None:
+def cache_positions(cfg: ArchConfig, caches) -> int | None:
     """Positions of the attention caches; None for a model without one (a
     Mamba state has no position limit, as in the reference)."""
     for st, stage in zip(cfg.stages, caches):
@@ -286,13 +291,12 @@ def _cache_positions(cfg: ArchConfig, caches) -> int | None:
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
                 state: DecodeState, ctx: layers.Ctx, backend: str = "cuda"):
     """One decode step.  token: [B, 1] → (logits [B, 1, V], the state one
-    position on).  The caches are updated in place."""
+    position on).  The caches are updated in place; the position stays on
+    the device (``state.pos``, an int32 scalar, is never read on the host),
+    so the caller keeps count of the positions (``cache_positions``): a
+    step past the attention caches is an index error here."""
     layers.check_backend(backend)
-    pos = int(state.pos)
-    smax = _cache_positions(cfg, state.caches)
-    if smax is not None and pos >= smax:
-        raise ValueError(f"decode position {pos} is past the cache's "
-                         f"{smax} positions")
+    pos = torch.as_tensor(state.pos, dtype=torch.int32, device=token.device)
     x = layers.embed(params["embed"], token)
     offset = 0
     for sp, st, stage_caches in zip(params["stages"], cfg.stages,

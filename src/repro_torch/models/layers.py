@@ -276,14 +276,19 @@ def attention_forward(p: AttnParams, x: torch.Tensor,
     return out
 
 
-def attention_decode(p: AttnParams, x: torch.Tensor, cache, pos: int,
-                     theta: float, mask_in: SiteMask | None, p_drop: float,
+def attention_decode(p: AttnParams, x: torch.Tensor, cache,
+                     pos: torch.Tensor, theta: float,
+                     mask_in: SiteMask | None, p_drop: float,
                      backend: str = "cuda"):
     """Single-token decode with a KV cache.
 
-    x: [B, 1, D]; cache: (k, v), each [B, Smax, KV, hd].  The new token's
-    K and V are written into the cache **in place** at ``pos`` (the
-    reference returns a new cache); returns (out [B, 1, D], cache).
+    x: [B, 1, D]; cache: (k, v), each [B, Smax, KV, hd]; ``pos`` the
+    position as a one-element int32 tensor on x's device, read there and
+    never on the host (so a captured step decodes the position the tensor
+    holds at each replay).  The new token's K and V are written into the
+    cache **in place** at ``pos`` (the reference returns a new cache; a
+    ``pos`` past the cache is an index error, where the reference clamps);
+    returns (out [B, 1, D], cache).
     """
     if len(cache) != 2:
         raise NotImplementedError(
@@ -294,17 +299,19 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache, pos: int,
     h = apply_site_mask(h, mask_in, p_drop, backend)
     q, k, v = _proj(h, p.wq), _proj(h, p.wk), _proj(h, p.wv)
     q, k = _qk_normalize(q, k, p)
-    posv = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
+    posv = torch.as_tensor(pos, dtype=torch.int32,
+                           device=x.device).reshape(1)
     q = rope(q, posv, theta)
     k = rope(k, posv, theta)
     kc, vc = cache
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
+    at = posv.long()
+    kc.index_copy_(1, at, k.to(kc.dtype))
+    vc.index_copy_(1, at, v.to(vc.dtype))
     q1 = q[:, 0].contiguous()                   # [B, H, hd]
     if backend == "reference":
-        o = decode_attn.decode_attention_plain(q1, kc, vc, pos)
+        o = decode_attn.decode_attention_plain(q1, kc, vc, posv)
     else:
-        o = ops.flash_decode_attention(q1, kc, vc, pos)
+        o = ops.flash_decode_attention(q1, kc, vc, posv)
     o = o.reshape(B, 1, *o.shape[1:]).to(x.dtype)
     return _out_proj(o, p.wo), cache
 

@@ -14,6 +14,16 @@ SwiGLU gate/up product, the decode attention, the Mamba2 prefill scan; on
 CPU tensors their plain versions); ``backend="reference"`` runs the plain
 mirrors of the reference's jnp code (``repro_torch.models.layers``,
 ``repro_torch.models.mamba2``).
+
+On ``backend="cuda"`` a decode step is the replay of one captured CUDA
+graph, the counterpart of the reference's jitted decode: a graph a (S·B
+rows, ``max_len``, token dtype), captured on the first decode step over a
+static token buffer and a static decode state (the caches and the device
+position, which the graph advances itself); each ``generate`` copies its
+prefill's state into them (``serve.graphs.StaticStep``; on the CPU the
+same buffers, run without capture).  The prefill stays eager (it is
+nearly all device time), and ``backend="reference"`` stays eager as the
+oracle.
 """
 
 from __future__ import annotations
@@ -27,8 +37,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import mcd
 from repro_torch.core.uncertainty import classification_summary
+from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_matmul,
+                                 ssd_chunk)
 from repro_torch.models import backbone, layers
 from repro_torch.models.config import ArchConfig
+from repro_torch.serve.graphs import StaticStep, copy_into
+
+#: The kernel wrappers a decode step can launch (their counts follow
+#: replays too).
+_LM_KERNELS = (bernoulli_mask.masked_activation, mcd_matmul.mcd_matmul,
+               decode_attn.decode_attention, ssd_chunk.ssd_chunk_scan)
 
 
 @dataclasses.dataclass
@@ -42,12 +60,27 @@ class GenerationResult:
     logits: Any = None          # [n_new, S·B, vocab] with keep_logits
 
 
+@dataclasses.dataclass
+class _DecodeGraph:
+    """The static buffers of one (rows, ``max_len``, token dtype) decode
+    step and the step over them: the fed tokens ``[S·B, 1]``, the decode
+    state (caches and device position, advanced by the step itself) and
+    the mask context (row ids) it was captured with."""
+
+    token: torch.Tensor
+    state: backbone.DecodeState
+    ctx: layers.Ctx
+    step: StaticStep
+
+
 class BayesianEngine:
     """Static-batch S-sample serving engine for the dense and the mamba
-    archs."""
+    archs.  ``graphs=False`` runs every decode step eagerly on the
+    ``cuda`` backend too (what the graphs are held to)."""
 
     def __init__(self, params, cfg: ArchConfig, *, max_len: int = 512,
-                 seed: int = 0, device=None, backend: str = "cuda"):
+                 seed: int = 0, device=None, backend: str = "cuda",
+                 graphs: bool = True):
         layers.check_backend(backend)
         backbone.check_cfg(cfg)
         self.params = params
@@ -56,11 +89,48 @@ class BayesianEngine:
         self.seed = seed
         self.device = resolve_device(device)
         self.backend = backend
+        # (rows, max_len, token dtype) -> _DecodeGraph; None: eager.
+        self._graphs: dict | None = (
+            {} if graphs and backend == "cuda" else None)
+        self._pool = None
 
     def _ctx(self, batch: int, s: int) -> layers.Ctx:
         rows = mcd.sample_rows(batch, s, device=self.device)
         return layers.Ctx(rows=rows, seed=self.seed, cfg=self.cfg.mcd,
                           deterministic=not self.cfg.mcd.any_bayesian)
+
+    def _decode_graph(self, batch: int, s: int, dtype) -> _DecodeGraph:
+        """The decode step of S·``batch`` rows at this ``max_len`` and
+        token dtype, made on first use; its state is adopted from the
+        first prefill (``_adopt``)."""
+        key = (s * batch, self.max_len, dtype)
+        entry = self._graphs.get(key)
+        if entry is None:
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            token = torch.zeros((s * batch, 1), dtype=dtype,
+                                device=self.device)
+            entry = _DecodeGraph(token, None, self._ctx(batch, s), None)
+
+            def fn(e=entry):
+                lg, new = backbone.decode_step(self.params, self.cfg,
+                                               e.token, e.state, e.ctx,
+                                               self.backend)
+                e.state.pos.copy_(new.pos)     # advanced inside the graph
+                return lg
+            entry.step = StaticStep(fn, self.device, counted=_LM_KERNELS,
+                                    pool=self._pool)
+            self._graphs[key] = entry
+        return entry
+
+    @staticmethod
+    def _adopt(entry: _DecodeGraph, state: backbone.DecodeState) -> None:
+        """Make a prefill's decode state the step's: the first prefill's
+        tensors become the static state, a later one is copied in."""
+        if entry.state is None:
+            entry.state = state
+            return
+        copy_into(entry.state, state)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -88,22 +158,31 @@ class BayesianEngine:
         """
         cfg = self.cfg
         prompts = torch.as_tensor(prompts, device=self.device)
-        B = prompts.shape[0]
+        B, L = prompts.shape
         s = max(1, cfg.mcd.n_samples if cfg.mcd.any_bayesian else 1)
-        ctx = self._ctx(B, s)
+        graph = (None if self._graphs is None
+                 else self._decode_graph(B, s, prompts.dtype))
+        ctx = self._ctx(B, s) if graph is None else graph.ctx
         tiled = prompts[None].expand(s, *prompts.shape).reshape(s * B, -1)
         t0 = time.perf_counter()
         logits, state = backbone.prefill(self.params, cfg, tiled, ctx,
                                          self.max_len, backend=self.backend)
+        if graph is not None:
+            self._adopt(graph, state)
         self._sync()
         prefill_s = time.perf_counter() - t0
+        smax = backbone.cache_positions(cfg, state.caches)
 
         toks, ents, mis, kept, steps = [], [], [], [], []
         probs = None
         for i in range(n_new):
             t0 = time.perf_counter()
+            if smax is not None and L + i >= smax:
+                raise ValueError(f"decode position {L + i} is past the "
+                                 f"cache's {smax} positions")
             if keep_logits:
-                kept.append(logits[:, 0].float())
+                # A copy: a replay overwrites the step's logits in place.
+                kept.append(logits[:, 0].float().clone())
             summ = classification_summary(
                 logits[:, 0].reshape(s, B, -1).float())
             probs = summ.probs
@@ -115,8 +194,13 @@ class BayesianEngine:
                    torch.as_tensor(teacher_tokens)[:, i].to(
                        device=self.device, dtype=prompts.dtype))
             fed = fed[None].expand(s, B).reshape(s * B, 1)
-            logits, state = backbone.decode_step(self.params, cfg, fed, state,
-                                                 ctx, self.backend)
+            if graph is None:
+                logits, state = backbone.decode_step(self.params, cfg, fed,
+                                                     state, ctx, self.backend)
+            else:
+                graph.token.copy_(fed)
+                logits = (graph.step.replay() if graph.step.ready
+                          else graph.step.first())
             self._sync()
             steps.append(time.perf_counter() - t0)
         return GenerationResult(
@@ -125,3 +209,4 @@ class BayesianEngine:
             mutual_information=torch.stack(mis, dim=1),
             mean_probs_last=probs, prefill_s=prefill_s, decode_s=steps,
             logits=torch.stack(kept) if keep_logits else None)
+

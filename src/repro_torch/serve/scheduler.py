@@ -2,10 +2,13 @@
 ``repro.serve.scheduler``.
 
 The scheduler picks each tick's launch T from a small ladder of capacities
-tracking the observed ragged chunk lengths.  On the GPU a rung is no
-compiled graph (PyTorch runs eagerly), but the ladder still bounds the
-launch shapes and the pad waste.  :class:`TickMetrics` counts kernel
-launches where the reference counted jit compiles.
+tracking the observed ragged chunk lengths.  On a kernel backend a rung is
+one captured CUDA graph of the tick (``StreamingEngine``: a graph a
+capacity and chunk dtype, captured on the first tick that needs it), so
+the ladder bounds the captures as the reference's bounds its jit
+compiles; :func:`prewarm` captures every rung at boot.
+:class:`TickMetrics` counts the graphs a tick captured (``compiles``) and
+its kernel launches.
 """
 
 from __future__ import annotations
@@ -47,8 +50,18 @@ class TickMetrics:
     queue_wait_s: float = 0.0  # oldest-pending admission age at the drain
     launches: int = 0      # layer-kernel launches this tick (one per layer
                            # on the kernel backend; 0 on the reference)
+    compiles: int = 0      # tick graphs captured this tick (a slow tick
+                           # with compiles > 0 is a capture stall, fixed
+                           # by prewarm; 0 on an eager tick)
     dropped: int = 0       # admissions the store refused this tick
     active_chains: int = 0     # live MC chains across the store at tick end
+    parts_s: dict = dataclasses.field(default_factory=dict)
+                           # host seconds of the tick's parts: assemble
+                           # (the batch on the host), to_device (copies and
+                           # carries), apply (the pass, or the replay and
+                           # the copies out of its buffers), summaries,
+                           # store (carries and results), sync (the wait
+                           # for the device)
 
 
 class AdaptiveTickScheduler:
@@ -101,6 +114,60 @@ class AdaptiveTickScheduler:
         return win[k]
 
 
+def prewarm(engine, *, dtype=None) -> list[int]:
+    """Capture every capacity rung at boot instead of on first use.
+
+    Walks the engine's ladder (or its single fixed capacity) and drives
+    the tick step of each rung with the serving batch layout
+    (``engine._slot_count(0)`` slots of S chains, zeros from
+    ``engine._gather_states([], dtype, n_pad=nb)``), so the first real
+    tick of any shape replays a graph that exists (``compiles == 0``).  An
+    engine that serves eagerly (the ``reference`` backend, or
+    ``graphs=False``) runs one pass a rung, which builds and loads its
+    kernels.  Dynamic-shape engines (``chunk_capacity=None``) have no
+    finite shape family to warm and are rejected.
+
+    Args:
+      engine: a ``StreamingEngine`` with ``chunk_capacity`` an int or
+        ``"auto"``.
+      dtype: the chunk dtype traffic will arrive in (default float32, what
+        the launchers feed; another dtype is another graph).
+
+    Returns the list of capacities warmed, ascending.
+    """
+    import numpy as np
+    import torch
+
+    if engine._scheduler is not None:
+        caps = list(engine._scheduler.ladder)
+    elif isinstance(engine.chunk_capacity, int):
+        caps = [engine.chunk_capacity]
+    else:
+        raise ValueError(
+            "prewarm needs a bounded shape family: chunk_capacity must be "
+            "an int or 'auto' (dynamic mode runs each observed shape "
+            "eagerly)")
+    dtype = torch.from_numpy(
+        np.zeros(0, np.float32 if dtype is None else dtype)).dtype
+    nb = engine._slot_count(0) * engine.n_samples
+    in_dim = engine.cfg.input_dim
+    dev = engine.device
+    for cap in caps:
+        if engine._graphs is not None:
+            entry = engine._tick_step(cap, dtype)
+            if not entry.step.ready:
+                entry.step.first()
+            continue
+        x = torch.zeros((nb, cap, in_dim), dtype=dtype, device=dev)
+        rows = torch.zeros((nb,), dtype=torch.int64, device=dev)
+        lengths = torch.ones((nb,), dtype=torch.int32, device=dev)
+        state = engine._gather_states([], dtype, n_pad=nb)
+        engine._apply(x, rows, lengths, state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return caps
+
+
 def percentile(values: Sequence[float], p: float) -> float:
     """Nearest-rank percentile (p in (0, 100]); 0.0 on an empty sequence."""
     vals = sorted(values)
@@ -134,6 +201,7 @@ def summarize(metrics: Sequence[TickMetrics]) -> dict:
         "tokens_per_sec_p95": percentile(tps, 95),
         "queue_wait_s_p95": percentile([m.queue_wait_s for m in metrics], 95),
         "launches": sum(m.launches for m in metrics),
+        "compiles": sum(m.compiles for m in metrics),
         "dropped": sum(m.dropped for m in metrics),
         "active_chains_mean": (sum(m.active_chains for m in metrics)
                                / len(metrics)),

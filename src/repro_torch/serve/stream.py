@@ -17,6 +17,18 @@ chunked == unchunked, bit for bit.
 carried h, an fp32 LSTM c, int8/int4 weights dequantized in the sequence
 kernel), on every backend.
 
+A fixed-shape engine on a kernel backend (``chunk_capacity`` an int or
+``"auto"``) runs each tick as the replay of one captured CUDA graph, the
+counterpart of the reference's jitted stack: a graph a (capacity, chunk
+dtype), captured on the first tick that needs it or at boot by
+``scheduler.prewarm``, over static buffers the tick copies its batch and
+carries into (``serve.graphs.StaticStep``; on the CPU the same buffers,
+run without capture).  The quantization of the serving precisions is
+captured with the layers.  Dynamic mode (``chunk_capacity=None``) and the
+``reference`` backend stay eager: the reference compiles a graph for each
+observed shape, and a capture for each shape costs more than an eager
+pass.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
 ``mesh`` sharding, early exit, distilled students, and snapshot/restore.
 """
@@ -42,6 +54,7 @@ from repro_torch.kernels import (mcd_gru, mcd_gru_seq, mcd_lstm,
                                  mcd_lstm_seq)
 from repro_torch.kernels import ops as _ops, quantize as _quant
 from repro_torch.serve.admission import AdmissionQueue, DrainRejected
+from repro_torch.serve.graphs import StaticStep
 from repro_torch.serve.scheduler import AdaptiveTickScheduler, TickMetrics
 from repro_torch.serve.sessions import Session, SessionStore
 
@@ -58,6 +71,20 @@ def stack_launch_count() -> int:
     layer; on ``cuda_step`` the step kernel once per layer per time step.
     """
     return sum(k.launches for k in _STACK_KERNELS)
+
+
+@dataclasses.dataclass
+class _TickStep:
+    """The static buffers of one (capacity, chunk dtype) tick step and the
+    step over them: ``x [nb, cap, I]``, ``rows [nb]`` int64, ``lengths
+    [nb]`` int32 and each layer's carry parts as ``_gather_states`` makes
+    them."""
+
+    x: torch.Tensor
+    rows: torch.Tensor
+    lengths: torch.Tensor
+    state: list
+    step: StaticStep
 
 
 @dataclasses.dataclass
@@ -121,6 +148,14 @@ class JsonlSink(RingBufferSink):
         self._fh.close()
 
 
+def _lap(parts: dict, name: str, t0: float) -> float:
+    """Record the host seconds since ``t0`` as ``parts[name]``; returns
+    now."""
+    t = time.perf_counter()
+    parts[name] = t - t0
+    return t
+
+
 def _unported(feature: str):
     return NotImplementedError(
         f"StreamingEngine: {feature} is not ported to repro_torch yet; "
@@ -153,6 +188,10 @@ class StreamingEngine:
         dtypes): the fp32 master ``params`` are cast or quantized on the
         way through the stacks, never changed; the carries follow it (h in
         the activation dtype, LSTM c in fp32).
+      graphs: replay one captured graph a tick where the shape family is
+        bounded (``chunk_capacity`` an int or ``"auto"``) on a kernel
+        backend; False serves every tick eagerly (what the graphs are held
+        to).  Dynamic mode and the ``reference`` backend are always eager.
     """
 
     def __init__(self, params, cfg, *, backend: str = "cuda_seq",
@@ -162,7 +201,7 @@ class StreamingEngine:
                  metrics_sink: MetricsSink | None = None,
                  device=None, mesh=None, precision: str | None = None,
                  early_exit_threshold: float | None = None,
-                 student=None):
+                 student=None, graphs: bool = True):
         if isinstance(cfg, _clf.ClassifierConfig):
             self.kind = "classifier"
         elif isinstance(cfg, _ae.AutoencoderConfig):
@@ -195,6 +234,11 @@ class StreamingEngine:
             raise ValueError(f"chunk_capacity must be an int, None or "
                              f"'auto', got {chunk_capacity!r}")
         self._fixed = chunk_capacity is not None
+        # (capacity, chunk dtype) -> _TickStep; None serves eagerly.
+        self._graphs: dict | None = (
+            {} if graphs and self._fixed and backend != "reference"
+            else None)
+        self._pool = None
         s = cfg.mcd.n_samples if cfg.mcd.any_bayesian else 1
         self.n_samples = max(1, s)
         self.store = SessionStore(self.n_samples, cfg.mcd.seed,
@@ -324,7 +368,7 @@ class StreamingEngine:
         else:
             t_max = max(lens)
         dtype = xs[0].dtype
-        slots = self.max_sessions if self._fixed else len(sessions)
+        slots = self._slot_count(len(sessions))
         live_chains = sum(s_list)
         nb = slots * self.n_samples if self._fixed else live_chains
         n_pad = nb - live_chains
@@ -342,12 +386,39 @@ class StreamingEngine:
             lens_host[sl] = L
             off += si
         dev = self.device
-        x_batch = torch.from_numpy(x_host).to(dev)
-        rows = torch.from_numpy(rows_host).to(dev)
-        lengths = torch.from_numpy(lens_host).to(dev)
-        initial_state = self._gather_states(sessions, x_batch.dtype, n_pad)
-
-        outs, states = self._apply(x_batch, rows, lengths, initial_state)
+        parts = {}
+        t_part = _lap(parts, "assemble", t_start)
+        compiles = 0
+        if self._graphs is None:
+            x_batch = torch.from_numpy(x_host).to(dev)
+            rows = torch.from_numpy(rows_host).to(dev)
+            lengths = torch.from_numpy(lens_host).to(dev)
+            initial_state = self._gather_states(sessions, x_batch.dtype,
+                                                n_pad)
+            t_part = _lap(parts, "to_device", t_part)
+            outs, states = self._apply(x_batch, rows, lengths,
+                                       initial_state)
+            t_part = _lap(parts, "apply", t_part)
+        else:
+            x_cpu = torch.from_numpy(x_host)
+            entry = self._tick_step(t_max, x_cpu.dtype)
+            entry.x.copy_(x_cpu)
+            entry.rows.copy_(torch.from_numpy(rows_host))
+            entry.lengths.copy_(torch.from_numpy(lens_host))
+            self._gather_states(sessions, x_cpu.dtype, n_pad,
+                                out=entry.state)
+            t_part = _lap(parts, "to_device", t_part)
+            if entry.step.ready:
+                outs, states = entry.step.replay()
+            else:
+                outs, states = entry.step.first()
+                compiles = 1
+            # The next replay overwrites the step's outputs in place:
+            # everything the summaries and the store keep is a copy.
+            outs = tuple(None if o is None else o.clone() for o in outs)
+            states = [tuple(part.clone() for part in layer)
+                      for layer in states]
+            t_part = _lap(parts, "apply", t_part)
 
         # Batched summaries over [s, group, ...]: sessions grouped by chain
         # count, each group's rows gathered once, per-session results
@@ -382,6 +453,7 @@ class StreamingEngine:
                 per = RegressionSummary
             for j, k in enumerate(ks):
                 summaries[k] = per(*(v[j] for v in batched))
+        t_part = _lap(parts, "summaries", t_part)
 
         # A windowed decoder reconstructs min(L, W) positions per chunk.
         win = getattr(self.cfg, "decode_window", None)
@@ -399,8 +471,10 @@ class StreamingEngine:
             results[sess.sid] = ChunkResult(sid=sess.sid, length=L,
                                             steps_total=sess.steps,
                                             summary=summary)
+        t_part = _lap(parts, "store", t_part)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        _lap(parts, "sync", t_part)
         dur = time.perf_counter() - t_start
         live_chain_steps = int(sum(L * si for L, si in zip(lens, s_list)))
         m = TickMetrics(
@@ -414,8 +488,9 @@ class StreamingEngine:
             tokens_per_sec=live_chain_steps / dur if dur > 0 else 0.0,
             queue_wait_s=queue_wait_s,
             launches=stack_launch_count() - launches_before,
+            compiles=compiles,
             dropped=self._take_dropped(),
-            active_chains=self.store.active_chains)
+            active_chains=self.store.active_chains, parts_s=parts)
         self.metrics_sink.emit(m)
         self.tick += 1
         return results
@@ -423,6 +498,36 @@ class StreamingEngine:
     def _take_dropped(self) -> int:
         n, self._dropped_unreported = self._dropped_unreported, 0
         return n
+
+    def _slot_count(self, n_sessions: int) -> int:
+        """Session slots a tick launches with, the batch-layout contract
+        :meth:`step` and :func:`repro_torch.serve.scheduler.prewarm`
+        share: fixed-shape modes pad idle slots to ``max_sessions`` so one
+        graph a capacity serves every tick; dynamic mode launches the
+        sessions it has."""
+        return self.max_sessions if self._fixed else n_sessions
+
+    def _tick_step(self, capacity: int, dtype) -> _TickStep:
+        """The tick step of ``(capacity, chunk dtype)``, made on first use
+        with its static buffers in the prewarm layout (zeros; lengths 1);
+        the caller runs its ``first()`` (a capture on the card)."""
+        key = (int(capacity), dtype)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            return entry
+        dev = self.device
+        if dev.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        nb = self._slot_count(0) * self.n_samples
+        x = torch.zeros((nb, int(capacity), self.cfg.input_dim),
+                        dtype=dtype, device=dev)
+        rows = torch.zeros((nb,), dtype=torch.int64, device=dev)
+        lengths = torch.ones((nb,), dtype=torch.int32, device=dev)
+        state = self._gather_states([], dtype, n_pad=nb)
+        step = StaticStep(lambda: self._apply(x, rows, lengths, state), dev,
+                          counted=_STACK_KERNELS, pool=self._pool)
+        entry = self._graphs[key] = _TickStep(x, rows, lengths, state, step)
+        return entry
 
     def _apply(self, x_batch, rows, lengths, initial_state):
         """One batched model pass — the tick hot path.
@@ -442,8 +547,9 @@ class StreamingEngine:
             self.params, x_batch, rows, self.cfg, return_decoded=True, **kw)
         return (mean, log_var, dec_out), states
 
-    def _gather_states(self, sessions, dtype, n_pad: int = 0):
-        """Concatenate per-session carries into batch-aligned layer states.
+    def _gather_states(self, sessions, dtype, n_pad: int = 0, out=None):
+        """Concatenate per-session carries into batch-aligned layer states
+        (into the tensors of ``out``, the same layout, when given).
 
         Fresh sessions and pad slots contribute zeros in the backend's own
         carry dtypes (h in the activation dtype; LSTM c in fp32 on the
@@ -477,8 +583,12 @@ class StreamingEngine:
                 for acc, dt in zip(parts, part_dtypes):
                     acc.append(torch.zeros((n_pad, hid), dtype=dt,
                                            device=dev))
-            layers.append(tuple(torch.cat(acc) for acc in parts))
-        return layers
+            if out is None:
+                layers.append(tuple(torch.cat(acc) for acc in parts))
+            else:
+                for acc, dst in zip(parts, out[li], strict=True):
+                    torch.cat(acc, out=dst)
+        return out if out is not None else layers
 
     def _encoder_hiddens(self):
         if self.kind == "classifier":

@@ -1,0 +1,179 @@
+"""The captured serving steps on the card: the ECG tick graph of
+``StreamingEngine`` and the decode graph of ``BayesianEngine``, each
+against the same engine served eagerly (``graphs=False``).
+
+Marked ``cuda``: each test skips (in a fixture, at run time) where there
+is no GPU; run them on a GPU machine with
+``PYTHONPATH=src python -m pytest --noconftest -m cuda
+tests/test_torch_cuda_graphs.py``.
+
+* Every kernel backend and precision: the replayed tick gives the eager
+  tick's carries and summaries bit for bit, with the same launches a
+  tick; after ``prewarm`` no tick captures (``compiles == 0``).
+* qwen3 and mamba2 (REDUCED): the decode graph gives the eager decode's
+  tokens, logits, entropy and mutual information bit for bit and the
+  same launch counts, over two ``generate`` calls on one engine.
+* A capture that fails raises, and leaves the launch counts as they were.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core import autoencoder as ae  # noqa: E402
+from repro_torch.core import classifier as clf, mcd  # noqa: E402
+from repro_torch.kernels import (bernoulli_mask, decode_attn,  # noqa: E402
+                                 mcd_lstm_seq, mcd_matmul, ssd_chunk)
+from repro_torch.models import backbone  # noqa: E402
+from repro_torch.serve import (StaticStep, StreamingEngine, prewarm,  # noqa: E402
+                               summarize)
+from repro_torch.serve.engine import BayesianEngine  # noqa: E402
+from repro_torch.serve.stream import stack_launch_count  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+S = 4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _model(model, cell, dev):
+    if model == "classifier":
+        cfg = clf.ClassifierConfig(
+            hidden=8, num_layers=3, num_classes=4, cell=cell,
+            mcd=mcd.MCDConfig(p=0.125, placement="YNY", n_samples=S,
+                              seed=3))
+        return cfg, clf.init(torch.Generator().manual_seed(0), cfg,
+                             device=dev)
+    cfg = ae.AutoencoderConfig(
+        input_dim=1, hidden=16, num_layers=2, cell=cell,
+        heteroscedastic=True,
+        mcd=mcd.MCDConfig(p=0.125, placement="YNYN", n_samples=S, seed=3))
+    return cfg, ae.init(torch.Generator().manual_seed(0), cfg, device=dev)
+
+
+def _serve(eng, sigs, plan):
+    sids = [f"s{k}" for k in range(len(sigs))]
+    for sid in sids:
+        eng.open_session(sid)
+    out = []
+    for lens in plan:
+        out.append(eng.step({sid: sigs[k][eng.store.get(sid).steps:][
+            :int(n)] for k, (sid, n) in enumerate(zip(sids, lens)) if n}))
+    return out
+
+
+@pytest.mark.parametrize("capacity", [12, "auto"])
+@pytest.mark.parametrize("precision", [None, "bf16", "int8", "int4"])
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+@pytest.mark.parametrize("model,cell", [("classifier", "lstm"),
+                                        ("classifier", "gru"),
+                                        ("autoencoder", "gru")])
+def test_tick_graph_equals_eager(dev, model, cell, backend, precision,
+                                 capacity):
+    cfg, params = _model(model, cell, dev)
+    rng = np.random.default_rng(0)
+    sigs = [rng.standard_normal((48, 1)).astype(np.float32)
+            for _ in range(5)]
+    plan = rng.integers(0, 13, (6, 5))
+    plan[0] = np.maximum(plan[0], 1)
+    kw = dict(backend=backend, precision=precision, max_sessions=6,
+              chunk_capacity=capacity, ladder=(4, 8, 12), device=dev)
+    g = StreamingEngine(params, cfg, **kw)
+    e = StreamingEngine(params, cfg, graphs=False, **kw)
+    caps = prewarm(g)
+    assert caps == ([4, 8, 12] if capacity == "auto" else [12])
+    assert all(entry.step.graph is not None for entry in g._graphs.values())
+    rg, re = _serve(g, sigs, plan), _serve(e, sigs, plan)
+    for sid in g.active_sessions:
+        for la, lb in zip(g.store.get(sid).state, e.store.get(sid).state,
+                          strict=True):
+            for a, b in zip(la, lb, strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    for ta, tb in zip(rg, re, strict=True):
+        for sid in ta:
+            for a, b in zip(ta[sid].summary, tb[sid].summary, strict=True):
+                assert torch.equal(a, b)
+    assert [m.launches for m in g.metrics] == [m.launches for m in e.metrics]
+    assert all(m.launches > 0 for m in g.metrics)
+    assert summarize(g.metrics)["compiles"] == 0
+
+
+def test_first_tick_captures_and_counts_its_launches(dev):
+    cfg, params = _model("classifier", "lstm", dev)
+    eng = StreamingEngine(params, cfg, max_sessions=2, chunk_capacity=8,
+                          device=dev)
+    eng.open_session("a")
+    x = np.ones((8, 1), np.float32)
+    before = mcd_lstm_seq.mcd_lstm_seq.launches
+    for n in (5, 8, 3):
+        eng.step({"a": x[:n]})
+    assert [m.compiles for m in eng.metrics] == [1, 0, 0]
+    assert [m.launches for m in eng.metrics] == [cfg.num_layers] * 3
+    assert mcd_lstm_seq.mcd_lstm_seq.launches - before == 3 * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
+                                             ("mamba2-370m", 40)])
+def test_decode_graph_equals_eager(dev, arch, prompt_len):
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=S))
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (2, prompt_len))
+    names = (bernoulli_mask.masked_activation, mcd_matmul.mcd_matmul,
+             decode_attn.decode_attention, ssd_chunk.ssd_chunk_scan)
+    kw = dict(max_len=prompt_len + 6, seed=1, device=dev)
+    g = BayesianEngine(params, cfg, **kw)
+    e = BayesianEngine(params, cfg, graphs=False, **kw)
+    counts = []
+    for eng in (e, g, g):
+        for fn in names:
+            fn.launches = 0
+        res = eng.generate(prompts, 5, keep_logits=True)
+        counts.append([fn.launches for fn in names])
+        if eng is e:
+            want = res
+            continue
+        for a, b in ((res.tokens, want.tokens), (res.logits, want.logits),
+                     (res.predictive_entropy, want.predictive_entropy),
+                     (res.mutual_information, want.mutual_information)):
+            assert torch.equal(a, b)
+    assert counts[0] == counts[1] == counts[2] and counts[0][0] > 0
+    (entry,) = g._graphs.values()
+    assert entry.step.graph is not None
+    assert int(entry.state.pos) == prompt_len + 5
+
+
+def test_a_failed_capture_raises(dev):
+    """A step that reads a value on the host cannot be captured: the
+    capture raises (nothing falls back to eager) and the launch counts
+    stay as they were."""
+    x = torch.ones(4, device=dev)
+    cfg, params = _model("classifier", "lstm", dev)
+    rows = torch.arange(2 * S, device=dev)
+    xs = torch.zeros((2 * S, 4, 1), device=dev)
+
+    def fn():
+        out = clf.apply(params, xs, rows, cfg, backend="cuda_seq",
+                        device=dev)
+        return out * float(x.sum().item())
+
+    before = stack_launch_count()
+    step = StaticStep(fn, dev, counted=(mcd_lstm_seq.mcd_lstm_seq,))
+    with pytest.raises(RuntimeError):
+        step.first()
+    torch.cuda.synchronize()
+    assert stack_launch_count() == before + cfg.num_layers   # the warm-up
+    assert not step.ready
