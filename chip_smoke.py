@@ -85,7 +85,15 @@ Phases (each raises on failure; the exit code is then non-zero):
    (cuBLAS on the masked x; scaled dot-product attention over the live
    positions); a case whose caches fit in L2 is timed over copies of its
    inputs in turn, so that no timed call finds its caches in L2 (in a
-   decode step each layer reads its own).
+   decode step each layer reads its own).  Then the three kernels at bf16
+   (their own bf16 kernels) at the serving shapes: the mask at qwen3's
+   and mamba2's decode and prefill shapes bitwise equal to its plain
+   version, ``mcd_matmul``'s fp32 out at decode and prefill within MM_TOL
+   (two calls bitwise equal), ``decode_attention`` at pos 0, 127 and 159
+   within ATTN_TOL plus one bf16 ulp (two calls and a tensor pos bitwise
+   equal); each record's ``dtype`` is "bf16", its bound at bf16 bytes (a
+   product's operations at the bf16 tensor-core rate), its library call
+   the bf16 one (cuBLAS ``torch.matmul``, SDPA).
 7. LM serving: ``BayesianEngine.generate`` on qwen3-1.7b at full width
    (28 layers, random fp32 weights from seed 0), 8 prompts of 128 tokens x
    8 chains (p = 0.1, placement Y), 32 new tokens: the launch counts of the
@@ -107,13 +115,28 @@ Phases (each raises on failure; the exit code is then non-zero):
    device times of the launch's cumsum and C . B pre-pass kernels, and the
    head kernel's resident blocks an SM.
    Times the kernel and its plain version; no PyTorch call computes the
-   scan (no library time).
+   scan (no library time).  Then the scan at bf16 (x, B and C bf16) at
+   the serving shape: y within SSD_TOL plus one bf16 ulp, the state
+   within SSD_TOL.
 9. Mamba serving: ``BayesianEngine.generate`` on mamba2-370m at full width
    (48 ``mamba`` layers, random fp32 weights from seed 0), 8 prompts of
    512 tokens (two chunks) x 8 chains, 32 new tokens: ``ssd_chunk_scan``
    48 launches a prefill and ``masked_activation`` 48 a prefill and 48 a
    decode step, the same checks, times, profiles and graph turns as
    phase 7.
+7b, 9b. The LMs at bf16: phases 7 and 9 again with the weights drawn in
+   bf16 (the dtype the reference builds its LMs in): the same launch
+   counts, the kernel run repeated on its own tokens, the ``reference``
+   backend teacher-forced within BF16_LOGIT_TOL / BF16_UNC_TOL, printed
+   beside the reference's own distance from fp32 on the same weights
+   (held in fp32), LM_GRAPH_RUNS_BF16 runs a side of graph and eager
+   (bit-equal), times and profiles.
+7c. qwen3-1.7b with the int8 KV cache: bf16 weights, INT8_STEPS decode
+   steps from ``init_decode_state(kv_quant=True)`` on both backends side
+   by side, every step within the bf16 tolerances; the cache's bytes.
+   Every main-path run of phases 7–9b and 7c runs inside
+   ``no_plain_versions()``: a plain version of an LM kernel called there
+   raises.
 
 10. Serving precisions, the kernels (last, in a fresh process of this
    script: its profiles hold thousands of records, torch.profiler has
@@ -137,7 +160,9 @@ read just after it; each kernel's ``launches`` is the sum over the serving
 phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
 ``mcd_lstm_seq`` has two, the classifier pass and the autoencoder pass;
 each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
-int8 and int4 from phase 10), the
+int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
+``.bf16``, its case at bf16 from phases 6 and 8 with the launches of
+phases 7b, 9b and 7c), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -158,8 +183,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
-# kernels compute in fp32 on the CUDA cores.
+# kernels compute in fp32 on the CUDA cores; a bf16 product's bound is
+# taken at the bf16 tensor-core rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # tensor cores, dense: the bound of a bf16 product
 PEAK_HBM_BYTES = 3.35e12
 L2_BYTES = 50 * 2 ** 20   # its L2 cache (data sheet: 50 MB)
 TOL = 1e-5          # fp32 gate of every recurrent case.  The cell rounds
@@ -218,6 +245,18 @@ GRAPH_POSITIONS = (0, 63, 127, 159)   # replays of one captured call
 LOGIT_TOL = 1e-3    # the engine on the kernels vs on the reference backend
 UNC_TOL = 1e-4      # (cuBLAS), 28 (48) layers deep: per-step logits and
                     # the entropy / mutual information (nats)
+# The LMs at bf16 (the dtype the reference builds them in), phases 7b and
+# 9b: the engine on the kernels against its reference backend,
+# teacher-forced.  bf16 rounds every activation to 8 bits of mantissa
+# (2^-9 relative), the two backends round the decode softmax weights
+# differently (fp32 in the TPU kernel, bf16 in the reference) and sum in
+# other orders, 28 (48) layers deep on logits of ~4: a quarter of a logit,
+# and 0.05 nats of entropy or MI.  Each run prints beside them how far the
+# reference itself moves from fp32 on the same weights.
+BF16_LOGIT_TOL = 0.25
+BF16_UNC_TOL = 0.05
+LM_GRAPH_RUNS_BF16 = 2   # generate runs a side, graph and eager, at bf16
+INT8_STEPS = 48          # phase 7c: decode steps from an int8 zero state
 # mamba2-370m serving: 8 prompts x 8 chains, 512-token prompts (two chunks
 # of 256), 32 new tokens.
 MB_PROMPT = 512
@@ -1635,11 +1674,12 @@ def _lm_rows(dev, n):
 
 
 def _lm_record(name, case, err, call, plain, nbytes, ops, library=None,
-               iters=3):
+               iters=3, peak=PEAK_FP32_FLOPS):
     """One case: call and device time of the kernel (over ``iters``
-    profiled calls), the plain version's time, the bound and the library
-    call's times (or None)."""
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
+    profiled calls), the plain version's time, the bound (the operations
+    at ``peak``, the rate of their type) and the library call's times (or
+    None)."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / peak
     rec = dict(kernel=name, **case, max_abs_err=err,
                kernel_ms=cuda_time_ms(call, iters=10, warmup=2),
                kernel_device_ms=device_ms(call, iters, name + "_kernel"),
@@ -1780,7 +1820,151 @@ def lm_kernel_phase(report) -> list[dict]:
     records = mask_cases(dev, g, key)
     records += matmul_cases(dev, g, key)
     records += attention_cases()
+    records += lm_bf16_cases(dev, g, key)
     report["lm_kernel_cases"] = records
+    return records
+
+
+def bf16_excess(got, want, atol) -> float:
+    """How far ``got`` lies past ``atol`` plus one bf16 ulp of ``want``
+    (2^(e-7) at |want| in [2^e, 2^(e+1))), at its worst: <= 0 when every
+    element is within (fp32 results within ``atol``, each rounded once to
+    bf16, differ by at most that).  Raises on a non-finite value."""
+    import torch
+    g, w = got.float(), want.float()
+    max_abs_diff(g, w, "a bf16 result")
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2 ** -126)))
+                     - 7)
+    return ((g - w).abs() - atol - ulp).max().item()
+
+
+# The bf16 cases of phases 6 and 8: the serving shapes at bf16.
+BF16_MASK_CASES = [(LM_B * LM_S, 2048), (LM_B * LM_S * LM_PROMPT, 2048),
+                   (LM_B * LM_S, 1024), (LM_B * LM_S * MB_PROMPT, 1024)]
+BF16_MM_ROWS = (LM_B * LM_S, LM_B * LM_S * LM_PROMPT)   # decode, prefill
+BF16_ATTN_POSITIONS = (0, 127, 159)
+
+
+def lm_bf16_cases(dev, g, key) -> list[dict]:
+    """The three LM kernels at bf16 against their plain versions at the
+    serving shapes: ``masked_activation`` bitwise equal (qwen3's and
+    mamba2's decode and prefill); ``mcd_matmul``'s fp32 out (the SwiGLU
+    gate/up product) within MM_TOL at decode and prefill, and two calls
+    bitwise equal; ``decode_attention`` within ATTN_TOL plus one bf16 ulp
+    at the serving shape, two calls and a tensor pos bitwise equal to the
+    int.  Each record: ``dtype`` "bf16", times, the bound at bf16 bytes
+    (operations of a product at the bf16 tensor-core rate) and the bf16
+    library call (cuBLAS ``torch.matmul``, SDPA)."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
+                                     mcd_matmul)
+    bf = torch.bfloat16
+    records = []
+    for M, D in BF16_MASK_CASES:
+        rows = _lm_rows(dev, M)
+        x = torch.randn((M, D), generator=g, device=dev).to(bf)
+        for p in (MASK_P, 0.0):
+            got = bernoulli_mask.masked_activation(x, rows, key, p)
+            torch.cuda.synchronize()
+            want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
+            if not torch.equal(got.view(torch.int16),
+                               want.view(torch.int16)):
+                raise RuntimeError(f"bf16 masked_activation differs from its "
+                                   f"plain version at M={M} F={D} p={p}")
+        err = max_abs_diff(got.float(), want.float(), "masked_activation")
+        r32 = common.rows_to_int32(rows)
+        iters = 20 if M * D <= 2 ** 20 else 5
+
+        def call(p, x=x, r32=r32):
+            return lambda: bernoulli_mask.masked_activation(x, r32, key, p)
+
+        records.append(_lm_record(
+            "masked_activation",
+            dict(M=M, F=D, p=MASK_P, dtype="bf16", misaligned=False,
+                 plan=bernoulli_mask.mask_plan(M, D, True, 2),
+                 bit_equal=True,
+                 copy_device_ms=device_ms(call(0.0), iters,
+                                          "masked_activation_kernel")),
+            err, call(MASK_P),
+            lambda x=x, rows=rows: bernoulli_mask.masked_activation_plain(
+                x, rows, key, MASK_P),
+            nbytes=2 * 2 * M * D + 4 * M, ops=22 * M * D, iters=iters))
+        del x, got, want
+    D, N = 2048, 2 * 6144
+    w = (torch.randn((D, N), generator=g, device=dev) * D ** -0.5).to(bf)
+    for M in BF16_MM_ROWS:
+        rows = _lm_rows(dev, M)
+        x = torch.randn((M, D), generator=g, device=dev).to(bf)
+        got = mcd_matmul.mcd_matmul(x, w, rows, key, 0.1, torch.float32)
+        again = mcd_matmul.mcd_matmul(x, w, rows, key, 0.1, torch.float32)
+        torch.cuda.synchronize()
+        want = mcd_matmul.mcd_matmul_plain(x, w, rows, key, 0.1,
+                                           torch.float32)
+        err = max_abs_diff(got, want, "bf16 mcd_matmul")
+        if err > MM_TOL or not torch.equal(got, again):
+            raise RuntimeError(f"bf16 mcd_matmul at M={M}: {err} from its "
+                               f"plain version (tol {MM_TOL}); two calls "
+                               f"equal: {torch.equal(got, again)}")
+        xm = bernoulli_mask.masked_activation_plain(x, rows, key, 0.1)
+        r32 = common.rows_to_int32(rows)
+        plan = mcd_matmul.matmul_plan(M, N, D, 2)
+        records.append(_lm_record(
+            "mcd_matmul", dict(M=M, K=D, N=N, p=0.1, dtype="bf16",
+                               out="float32", tile=plan["tile"],
+                               smem=plan["smem"], repeat_bit_equal=True),
+            err,
+            lambda x=x, r32=r32: mcd_matmul.mcd_matmul(x, w, r32, key, 0.1,
+                                                       torch.float32),
+            lambda x=x, rows=rows: mcd_matmul.mcd_matmul_plain(
+                x, w, rows, key, 0.1, torch.float32),
+            nbytes=2 * (M * D + D * N) + 4 * M * N + 4 * M,
+            ops=2 * M * D * N, peak=PEAK_BF16_FLOPS,
+            library=lambda xm=xm: torch.matmul(xm, w)))
+        del x, got, again, want, xm
+    del w
+    B, H, S = ATTN_SERVING
+    KV, hd = 8, 128
+    q, kc, vc = (t.to(bf) for t in attention_inputs(B, H, KV, hd, S))
+    inputs = attention_rotation(q, kc, vc)
+    for pos in BF16_ATTN_POSITIONS:
+        got = decode_attn.decode_attention(q, kc, vc, pos)
+        again = decode_attn.decode_attention(q, kc, vc, pos)
+        got_t = decode_attn.decode_attention(
+            q, kc, vc, torch.tensor([pos], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        want = decode_attn.decode_attention_plain(q, kc, vc, pos)
+        excess = bf16_excess(got, want, ATTN_TOL)
+        if excess > 0 or not (torch.equal(got, again)
+                              and torch.equal(got, got_t)):
+            raise RuntimeError(f"bf16 decode_attention at pos={pos}: "
+                               f"{excess} past ATTN_TOL plus one ulp; two "
+                               f"calls / tensor pos equal: "
+                               f"{torch.equal(got, again)}, "
+                               f"{torch.equal(got, got_t)}")
+        err = max_abs_diff(got.float(), want.float(), "decode_attention")
+        turn = itertools.count()
+        sdpa = [(a[:, :, None], k[:, :pos + 1].permute(0, 2, 1, 3),
+                 v[:, :pos + 1].permute(0, 2, 1, 3)) for a, k, v in inputs]
+        nbytes, ops = attention_cost(B, H, KV, hd, pos)
+        records.append(_lm_record(
+            "decode_attention",
+            dict(B=B, H=H, KV=KV, hd=hd, S=S, pos=pos, dtype="bf16",
+                 plan=decode_attn.decode_plan(B, H, KV, hd, S, 2),
+                 blocks_per_sm=decode_attn.blocks_per_sm(H, KV, hd, bf),
+                 timed_copies=len(inputs), repeat_bit_equal=True,
+                 tensor_pos_bit_equal=True),
+            err,
+            lambda: decode_attn.decode_attention(
+                *inputs[next(turn) % len(inputs)], pos),
+            lambda: decode_attn.decode_attention_plain(
+                *inputs[next(turn) % len(inputs)], pos),
+            nbytes=nbytes // 2, ops=ops, peak=PEAK_BF16_FLOPS,
+            library=lambda: F.scaled_dot_product_attention(
+                *sdpa[next(turn) % len(sdpa)], enable_gqa=True)))
+        del got, again, got_t, want, sdpa
+    del q, kc, vc, inputs
     return records
 
 
@@ -1956,6 +2140,7 @@ def lm_kernel_entries(records) -> list[dict]:
                              "4096-position cache and rep=4 in the report)"),
     }
     entries = []
+    records = [r for r in records if r.get("dtype") != "bf16"]
     for name, (pick, note) in picks.items():
         (rec,) = [r for r in records if r["kernel"] == name and pick(r)]
         _, src, replaces = LM_KERNELS[name]
@@ -1971,6 +2156,45 @@ def lm_kernel_entries(records) -> list[dict]:
             "library_device_ms": rec["library_device_ms"],
             "kernel_ms": rec["kernel_ms"]})
     return entries
+
+
+def lm_bf16_entries(entries, records, launches) -> None:
+    """Each LM ``kernels`` entry gains ``precisions``: ``fp32`` (the
+    entry's own numbers) and ``bf16``, its case at the same shape at bf16
+    from phases 6 and 8 (the mask [64, 2048], the decode product, the
+    decode attention at pos 159, the SSD scan at its serving shape) with
+    the launches of the bf16 serving phases (7b, 9b, 7c)."""
+    picks = {
+        "masked_activation": lambda r: (r["M"], r["F"]) == (LM_B * LM_S,
+                                                            2048),
+        "mcd_matmul": lambda r: r["M"] == LM_B * LM_S,
+        "decode_attention": lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
+        "ssd_chunk_scan": lambda r: True,
+    }
+    for e in entries:
+        if e["name"] not in LM_KERNELS:
+            continue
+        (rec,) = [r for r in records if r["kernel"] == e["name"]
+                  and r.get("dtype") == "bf16" and picks[e["name"]](r)]
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "max_abs_err")
+        e["precisions"] = {
+            "fp32": {k: e[k] for k in keys},
+            "bf16": {"ms": rec["kernel_ms"],
+                     "device_ms": rec["kernel_device_ms"],
+                     "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"],
+                     "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"],
+                     "library_device_ms": rec["library_device_ms"],
+                     "max_abs_err": max(
+                         r["max_abs_err"] for r in records
+                         if r["kernel"] == e["name"]
+                         and r.get("dtype") == "bf16"),
+                     "launches": launches[e["name"]]}}
+        if not e["precisions"]["bf16"]["launches"]:
+            raise RuntimeError(f"{e['name']} was never launched at bf16 on "
+                               "a serving path")
 
 
 # -- the Mamba2 SSD scan ------------------------------------------------------
@@ -2075,12 +2299,51 @@ def ssd_kernel_phase(report) -> list[dict]:
         print("ssd kernel parts " + json.dumps(
             [rec["part_device_ms"], rec["head_blocks_per_sm"]]), flush=True)
         records.append(rec)
+    records.append(ssd_bf16_case())
     report["ssd_kernel_cases"] = records
     return records
 
 
+def ssd_bf16_case() -> dict:
+    """``ssd_chunk_scan`` at bf16 (x, B and C bf16; dt, a and D fp32) at the
+    serving shape: y within SSD_TOL plus one bf16 ulp of the plain version,
+    the fp32 state within SSD_TOL.  The bound: the scan's operations at the
+    fp32 rate (its arithmetic: dt, a, the decay and the state are fp32),
+    its bytes at the storage widths."""
+    import torch
+    from repro_torch.kernels import common, ssd_chunk
+    B, L, H, P, N, q = SSD_CASES[0]
+    ins = ssd_inputs(B, L, H, P, N, seed=L + H + 1)
+    for i in (0, 3, 4):
+        ins[i] = ins[i].to(torch.bfloat16)
+    Q = common.largest_divisor(L, q)
+    y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+    torch.cuda.synchronize()
+    wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
+    excess = bf16_excess(y, wy, SSD_TOL)
+    err_h = max_abs_diff(h, wh, "bf16 ssd_chunk_scan h_final")
+    err_y = max_abs_diff(y.float(), wy.float(), "bf16 ssd_chunk_scan y")
+    case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=Q, dtype="bf16",
+                max_abs_err_y=err_y, max_abs_err_h=err_h,
+                y_excess_past_tol_and_ulp=excess)
+    print("ssd kernel check " + json.dumps(case), flush=True)
+    if excess > 0 or err_h > SSD_TOL:
+        raise RuntimeError(f"bf16 ssd_chunk_scan disagrees with its plain "
+                           f"version: {case}")
+    ops, nbytes = ssd_cost(B, L, H, P, N, Q)
+    # x, B, C and y at 2 bytes: half of those terms of the fp32 count
+    nbytes -= 2 * (2 * B * L * H * P + 2 * B * L * N)
+    del y, h, wy, wh
+    return _lm_record(
+        "ssd_chunk_scan", case, max(err_y, err_h),
+        lambda: ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q),
+        lambda: ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q),
+        nbytes=nbytes, ops=ops)
+
+
 def ssd_kernel_entry(records) -> dict:
     """The ``kernels`` entry of ``ssd_chunk_scan`` at the serving shape."""
+    records = [r for r in records if r.get("dtype") != "bf16"]
     (rec,) = [r for r in records if (r["B"], r["L"]) == (LM_B * LM_S,
                                                          MB_PROMPT)]
     _, src, replaces = LM_KERNELS["ssd_chunk_scan"]
@@ -2099,39 +2362,120 @@ def ssd_kernel_entry(records) -> dict:
         "library_device_ms": None, "kernel_ms": rec["kernel_ms"]}
 
 
+def _qwen3_want(L):
+    """Launches of a qwen3 ``generate``: the attention-site mask and the
+    SwiGLU gate/up product a layer at prefill and at each decode step, the
+    decode attention a layer a decode step."""
+    return {"masked_activation": L * (1 + LM_NEW),
+            "mcd_matmul": L * (1 + LM_NEW),
+            "decode_attention": L * LM_NEW}
+
+
+def _mamba_want(L):
+    """Launches of a mamba2 ``generate``: the mixer-site mask a layer at
+    prefill and at each decode step, the SSD scan a layer at prefill
+    (decode is the plain recurrent update)."""
+    return {"masked_activation": L * (1 + LM_NEW), "ssd_chunk_scan": L}
+
+
+QWEN3_KERNELS = (["masked_activation", "mcd_matmul"],
+                 ["masked_activation", "mcd_matmul", "decode_attention"])
+MAMBA_KERNELS = (["masked_activation", "ssd_chunk_scan"],
+                 ["masked_activation"])
+
+
 def lm_serving_phase(report, dev):
-    """qwen3-1.7b at full width through ``BayesianEngine.generate``: the
-    attention-site mask and the SwiGLU gate/up product a layer at prefill
-    and at each decode step, the decode attention a layer a decode step."""
-    def want(L):
-        return {"masked_activation": L * (1 + LM_NEW),
-                "mcd_matmul": L * (1 + LM_NEW),
-                "decode_attention": L * LM_NEW}
-    return serve_lm(report, dev, "qwen3-1.7b", LM_PROMPT, want,
-                    ["masked_activation", "mcd_matmul"],
-                    ["masked_activation", "mcd_matmul", "decode_attention"],
-                    "serving_lm")
+    """qwen3-1.7b at full width through ``BayesianEngine.generate``, fp32."""
+    return serve_lm(report, dev, "qwen3-1.7b", LM_PROMPT, _qwen3_want,
+                    *QWEN3_KERNELS, "serving_lm")
 
 
 def mamba_serving_phase(report, dev):
-    """mamba2-370m at full width through ``BayesianEngine.generate``: the
-    mixer-site mask a layer at prefill and at each decode step, the SSD
-    scan a layer at prefill (decode is the plain recurrent update)."""
-    def want(L):
-        return {"masked_activation": L * (1 + LM_NEW),
-                "ssd_chunk_scan": L}
-    return serve_lm(report, dev, "mamba2-370m", MB_PROMPT, want,
-                    ["masked_activation", "ssd_chunk_scan"],
-                    ["masked_activation"], "serving_mamba")
+    """mamba2-370m at full width through ``BayesianEngine.generate``,
+    fp32."""
+    return serve_lm(report, dev, "mamba2-370m", MB_PROMPT, _mamba_want,
+                    *MAMBA_KERNELS, "serving_mamba")
+
+
+def lm_bf16_serving_phase(report, dev):
+    """qwen3-1.7b at full width in bf16, the fp32 cell's traffic."""
+    return serve_lm(report, dev, "qwen3-1.7b", LM_PROMPT, _qwen3_want,
+                    *QWEN3_KERNELS, "serving_lm_bf16", dtype="bf16")
+
+
+def mamba_bf16_serving_phase(report, dev):
+    """mamba2-370m at full width in bf16, the fp32 cell's traffic."""
+    return serve_lm(report, dev, "mamba2-370m", MB_PROMPT, _mamba_want,
+                    *MAMBA_KERNELS, "serving_mamba_bf16", dtype="bf16")
+
+
+# The kernels' plain versions, by module: none may run on a main path on
+# the card (a wrapper given a CUDA tensor launches its kernel or raises).
+PLAIN_VERSIONS = {"bernoulli_mask": ["masked_activation_plain"],
+                  "mcd_matmul": ["masked_activation_plain",
+                                 "mcd_matmul_plain"],
+                  "decode_attn": ["decode_attention_plain"],
+                  "ssd_chunk": ["ssd_chunk_scan_plain"]}
+
+
+class no_plain_versions:
+    """Within the block every plain version of an LM kernel raises when
+    called (each module's name for it replaced, then restored)."""
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod_name, names in PLAIN_VERSIONS.items():
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            for name in names:
+                self.saved.append((mod, name, getattr(mod, name)))
+
+                def refuse(*_, name=name, **__):
+                    raise RuntimeError(f"{name} ran on a main path on the "
+                                       "card")
+                setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _tree_to(tree, dtype):
+    """A copy of a parameter tree with its bf16 leaves in ``dtype`` (fp32
+    leaves stay as they are)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.dtype == torch.bfloat16 else tree
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(v, dtype) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dtype) for v in tree)
+    return tree
+
+
+def _deviation(a, b, what) -> dict:
+    """max |a - b| of the logits, entropy and MI of two GenerationResults."""
+    return {"logits": max_abs_diff(a.logits, b.logits, f"{what} logits"),
+            "entropy": max_abs_diff(a.predictive_entropy,
+                                    b.predictive_entropy,
+                                    f"{what} entropy"),
+            "mi": max_abs_diff(a.mutual_information, b.mutual_information,
+                               f"{what} mutual information")}
 
 
 def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
-             decode_kernels, key):
+             decode_kernels, key, dtype="fp32"):
     """One LM at full width through ``BayesianEngine.generate``: 8 prompts
     of ``prompt_len`` tokens x the config's chains, LM_NEW new tokens, the
-    launch counts ``want_of(layers)``, the run repeated on its own tokens,
-    the reference backend teacher-forced within LOGIT_TOL / UNC_TOL, times,
-    peak memory and profiles."""
+    launch counts ``want_of(layers)`` (no plain version of a kernel called
+    meanwhile), the run repeated on its own tokens, the reference backend
+    teacher-forced within LOGIT_TOL / UNC_TOL (at bf16 BF16_LOGIT_TOL /
+    BF16_UNC_TOL, printed beside the reference's own distance from fp32 on
+    the same weights), times, peak memory and profiles."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2142,9 +2486,13 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     S_LM = cfg.mcd.n_samples
     if S_LM != LM_S:
         raise RuntimeError(f"{arch} serves {S_LM} chains, not {LM_S}")
+    bf16 = dtype == "bf16"
+    logit_tol, unc_tol = ((BF16_LOGIT_TOL, BF16_UNC_TOL) if bf16
+                          else (LOGIT_TOL, UNC_TOL))
     torch.cuda.reset_peak_memory_stats()
     params = backbone.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16 if bf16 else torch.float32)
     n_params = sum(t.numel() for t in _leaves(params))
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_B, prompt_len), dtype=np.int32)
@@ -2152,7 +2500,8 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
     want = want_of(cfg.num_layers)
     reset_launches()                          # count the main path only
-    res = eng.generate(prompts, LM_NEW)
+    with no_plain_versions():
+        res = eng.generate(prompts, LM_NEW)
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
     if {k: v for k, v in counts.items() if v} != want:
@@ -2175,19 +2524,30 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     ref = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev,
                          backend="reference").generate(
         prompts, LM_NEW, teacher_tokens=res.tokens, keep_logits=True)
-    d_logits = max_abs_diff(again.logits, ref.logits, "LM logits")
-    d_ent = max_abs_diff(again.predictive_entropy, ref.predictive_entropy,
-                         "LM entropy")
-    d_mi = max_abs_diff(again.mutual_information, ref.mutual_information,
-                        "LM mutual information")
-    if d_logits > LOGIT_TOL or max(d_ent, d_mi) > UNC_TOL:
+    dev_ref = _deviation(again, ref, "LM")
+    d_logits, d_ent, d_mi = dev_ref["logits"], dev_ref["entropy"], \
+        dev_ref["mi"]
+    ref_vs_fp32 = None
+    if bf16:
+        # the reference backend on the same weights held in fp32
+        ref32 = BayesianEngine(_tree_to(params, torch.float32), cfg,
+                               max_len=max_len, seed=0, device=dev,
+                               backend="reference").generate(
+            prompts, LM_NEW, teacher_tokens=res.tokens, keep_logits=True)
+        ref_vs_fp32 = _deviation(ref, ref32, "LM bf16 vs fp32")
+        del ref32
+        print(f"{key} cuda vs reference {json.dumps(dev_ref)} (tol "
+              f"{logit_tol}, {unc_tol}); the reference's own bf16 vs fp32 "
+              f"{json.dumps(ref_vs_fp32)}", flush=True)
+    if d_logits > logit_tol or max(d_ent, d_mi) > unc_tol:
         raise RuntimeError(f"LM serving vs reference: logits {d_logits}, "
-                           f"entropy {d_ent}, MI {d_mi} (tol {LOGIT_TOL}, "
-                           f"{UNC_TOL})")
+                           f"entropy {d_ent}, MI {d_mi} (tol {logit_tol}, "
+                           f"{unc_tol})")
     flips = int((ref.tokens != res.tokens).sum())
     del ref
-    graph_vs_eager = lm_graph_turns(eng, params, cfg, prompts, res, again,
-                                    want)
+    graph_vs_eager = lm_graph_turns(
+        eng, params, cfg, prompts, res, again, want,
+        runs=LM_GRAPH_RUNS_BF16 if bf16 else LM_GRAPH_RUNS)
     del again
 
     steps_ms = np.asarray(res.decode_s) * 1e3
@@ -2195,7 +2555,8 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     out = {"card": report["card"], "arch": cfg.name, "params": n_params,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size,
-           "dtype": "float32", "requests": LM_B, "chains": S_LM,
+           "dtype": "bfloat16" if bf16 else "float32", "requests": LM_B,
+           "chains": S_LM,
            "rows": LM_B * S_LM, "prompt_len": prompt_len,
            "new_tokens": LM_NEW, "p": cfg.mcd.p,
            "launches_by_kernel": counts,
@@ -2209,6 +2570,9 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
            "max_memory_allocated_gb": peak / 1e9,
            "max_abs_diff_vs_reference": {"logits": d_logits,
                                          "entropy": d_ent, "mi": d_mi},
+           "tolerance_vs_reference": {"logits": logit_tol,
+                                      "entropy_mi": unc_tol},
+           "reference_bf16_vs_fp32": ref_vs_fp32,
            "greedy_tokens_differing_in_reference": flips,
            "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean()),
            "graph_vs_eager": graph_vs_eager}
@@ -2225,10 +2589,100 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
 LM_GRAPH_RUNS = 3   # generate runs a side, graph and eager in turns
 
 
-def lm_graph_turns(eng, params, cfg, prompts, res, forced, want) -> dict:
+def int8_kv_phase(report, dev):
+    """qwen3-1.7b at full width in bf16 with the int8 KV cache: from
+    ``init_decode_state(kv_quant=True)``, INT8_STEPS ``decode_step`` calls
+    teacher-forced on seeded tokens, the ``cuda`` backend (the codes
+    dequantized to bf16 by plain PyTorch, then the bf16 ``decode_attention``
+    kernel; no plain version of a kernel called) and the ``reference``
+    backend side by side: at every step the logits, entropy and MI within
+    BF16_LOGIT_TOL / BF16_UNC_TOL.  The cache bytes beside a bf16 cache's;
+    launches counted over the kernel backend's steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import mcd
+    from repro_torch.core.uncertainty import classification_summary
+    from repro_torch.models import backbone, layers
+
+    cfg = get_config("qwen3-1.7b")
+    rows = LM_B * LM_S
+    max_len = LM_PROMPT + LM_NEW
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16)
+    ctx = layers.Ctx(mcd.sample_rows(LM_B, LM_S, device=dev), 0, cfg.mcd)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (INT8_STEPS, LM_B), dtype=np.int32)).to(dev)
+    states = {b: backbone.init_decode_state(cfg, rows, max_len,
+                                            kv_quant=True, device=dev)
+              for b in ("cuda", "reference")}
+    cache_bytes = sum(t.nbytes for stage in states["cuda"].caches
+                      for rep in stage for c in rep for t in c)
+    bf16_bytes = 2 * cfg.num_layers * rows * max_len * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    worst = {"logits": 0.0, "entropy": 0.0, "mi": 0.0}
+    want = {"masked_activation": cfg.num_layers * INT8_STEPS,
+            "mcd_matmul": cfg.num_layers * INT8_STEPS,
+            "decode_attention": cfg.num_layers * INT8_STEPS}
+    counts = {name: 0 for name in ALL_KERNELS}
+    step_ms = []
+    for i in range(INT8_STEPS):
+        fed = toks[i][None].expand(LM_S, LM_B).reshape(rows, 1)
+        out = {}
+        for backend in ("cuda", "reference"):
+            reset_launches()
+            t0 = time.perf_counter()
+            with no_plain_versions():
+                lg, states[backend] = backbone.decode_step(
+                    params, cfg, fed, states[backend], ctx, backend)
+            torch.cuda.synchronize()
+            if backend == "cuda":
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                for k, v in read_launches().items():
+                    counts[k] += v
+            out[backend] = (lg[:, 0].float(), classification_summary(
+                lg[:, 0].reshape(LM_S, LM_B, -1).float()))
+        (a, sa), (b, sb) = out["cuda"], out["reference"]
+        for what, x, y in (("logits", a, b),
+                           ("entropy", sa.predictive_entropy,
+                            sb.predictive_entropy),
+                           ("mi", sa.mutual_information,
+                            sb.mutual_information)):
+            worst[what] = max(worst[what],
+                              max_abs_diff(x, y, f"int8 KV {what}"))
+        del out, lg
+    counts = {k: v for k, v in counts.items() if v}
+    if counts != want:
+        raise RuntimeError(f"int8 KV decode launched {counts}, expected "
+                           f"{want}")
+    k8, ks = states["cuda"].caches[0][0][0][:2]
+    if not (k8.dtype == torch.int8 and ks[:, INT8_STEPS:].eq(0).all()
+            and ks[:, :INT8_STEPS].abs().min() > 0):
+        raise RuntimeError("the int8 cache was not written at each step")
+    out = {"card": report["card"], "arch": cfg.name, "dtype": "bfloat16",
+           "kv_cache": "int8 codes, bf16 scales", "rows": rows,
+           "steps": INT8_STEPS, "max_len": max_len,
+           "launches_by_kernel": counts,
+           "kv_cache_bytes": cache_bytes, "bf16_kv_cache_bytes": bf16_bytes,
+           "max_abs_diff_vs_reference": worst,
+           "tolerance_vs_reference": {"logits": BF16_LOGIT_TOL,
+                                      "entropy_mi": BF16_UNC_TOL},
+           "eager_decode_ms_per_step_p50": float(np.percentile(step_ms, 50))}
+    print("int8_kv " + json.dumps(out), flush=True)
+    if worst["logits"] > BF16_LOGIT_TOL or max(
+            worst["entropy"], worst["mi"]) > BF16_UNC_TOL:
+        raise RuntimeError(f"int8 KV decode, cuda vs reference: {worst}")
+    report["int8_kv"] = out
+    del states, params
+    return counts
+
+
+def lm_graph_turns(eng, params, cfg, prompts, res, forced, want,
+                   runs=LM_GRAPH_RUNS) -> dict:
     """The decode step as the replay of one captured graph (``eng``, which
     captured it on its first decode step) against the same engine decoding
-    eagerly, LM_GRAPH_RUNS ``generate`` runs a side in turns: every run's
+    eagerly, ``runs`` ``generate`` runs a side in turns: every run's
     tokens equal to ``res.tokens``, its logits, entropy and mutual
     information bit-equal to ``forced`` (the graph run teacher-forced on
     them, keeping its logits), its launch counts ``want``.  Times: decode ms
@@ -2240,12 +2694,13 @@ def lm_graph_turns(eng, params, cfg, prompts, res, forced, want) -> dict:
     eager = BayesianEngine(params, cfg, max_len=eng.max_len, seed=0,
                            device=eng.device, graphs=False)
     sides = {"graph": [], "eager": []}
-    for r in range(LM_GRAPH_RUNS):
+    for r in range(runs):
         for side in (("graph", "eager") if r % 2 == 0
                      else ("eager", "graph")):
             e = eng if side == "graph" else eager
             reset_launches()
-            run = e.generate(prompts, LM_NEW, keep_logits=True)
+            with no_plain_versions():
+                run = e.generate(prompts, LM_NEW, keep_logits=True)
             counts = {k: v for k, v in read_launches().items() if v}
             if counts != want:
                 raise RuntimeError(f"{cfg.name} {side} run launched "
@@ -2266,7 +2721,7 @@ def lm_graph_turns(eng, params, cfg, prompts, res, forced, want) -> dict:
             del run
     if len(eng._graphs) != 1 or eager._graphs is not None:
         raise RuntimeError(f"{cfg.name}: {len(eng._graphs)} decode graphs")
-    out = {"card": card_line(), "runs": LM_GRAPH_RUNS,
+    out = {"card": card_line(), "runs": runs,
            "bit_equal_graph_vs_eager": True, "tokens_equal": True}
     for side, runs in sides.items():
         ms = np.concatenate([np.asarray(d) for d, _ in runs]) * 1e3
@@ -2469,14 +2924,20 @@ def main(argv=None) -> int:
     entries += lm_kernel_entries(phase("6", lm_kernel_phase, report))
     entries.append(ssd_kernel_entry(phase("8", ssd_kernel_phase, report)))
     launches = {name: 0 for name in ALL_KERNELS}
+    launches_bf16 = {name: 0 for name in ALL_KERNELS}
     for name, fn, *rest in (
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
             ("5b", precision_serving_phase), ("5c", graph_phase),
             ("7", lm_serving_phase),
-            ("9", mamba_serving_phase)):
+            ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
+            ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
+            if name in ("7b", "9b", "7c"):
+                launches_bf16[kernel] += v
+    lm_bf16_entries(entries, report["lm_kernel_cases"]
+                    + report["ssd_kernel_cases"], launches_bf16)
     # Last, in a process of its own (phase10_child).
     precision_entries(entries, phase("10", phase10_child, report))
     print("phase seconds " + json.dumps(phase_s), flush=True)

@@ -12,7 +12,8 @@ functions take the reference's layouts.
 
 The LM backbone (:func:`from_numpy_backbone`) takes the reference's
 ``backbone.init_params`` tree, whose stage leaves are stacked over repeats,
-and unstacks it into the port's per-layer blocks.
+and unstacks it into the port's per-layer blocks, bf16 leaves as bf16.
+The recurrent models' leaves become fp32.
 
 Nothing here imports jax; the caller does the ``np.asarray`` on its side
 (``jax.tree.map(np.asarray, params)`` keeps the NamedTuples and the
@@ -34,7 +35,14 @@ from repro_torch.models.mamba2 import MambaParams
 _CELL_PARAMS = {3: GRUParams, 4: LSTMParams}
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device, keep_bf16: bool = False) -> torch.Tensor:
+    """An fp32 tensor of ``a``; with ``keep_bf16`` a bfloat16 leaf (numpy's
+    extension dtype named ``bfloat16``, found by its name) stays bfloat16,
+    its bits taken as they are."""
+    a = np.asarray(a)
+    if keep_bf16 and a.dtype.name == "bfloat16":
+        bits = np.array(a).view(np.int16)          # a writable copy
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
@@ -63,7 +71,8 @@ def _leaves(kind, leaves, device, r=None):
     """A NamedTuple ``kind`` of port tensors from numpy leaves (``None``
     stays ``None``), taking repeat ``r`` of stacked leaves when given."""
     return kind(*(None if a is None else
-                  _tensor(a if r is None else np.asarray(a)[r], device)
+                  _tensor(a if r is None else np.asarray(a)[r], device,
+                          keep_bf16=True)
                   for a in leaves))
 
 
@@ -76,7 +85,8 @@ def from_numpy_backbone(tree, cfg, device=None) -> dict:
     block), each leaf stacked [repeat, ...]]}`` with numpy leaves.
     Returns ``{"embed": EmbedParams, "stages": [[tuple over pattern
     positions of block dicts] per repeat] per stage}`` on ``device``
-    (default CUDA), fp32.
+    (default CUDA): a bfloat16 leaf stays bfloat16 (the reference builds
+    its LMs in bf16), every other leaf is fp32.
     """
     backbone.check_cfg(cfg)
     dev = resolve_device(device)

@@ -48,13 +48,15 @@ MAX_ROW_BLOCKS = 65535  # blocks along the rows (gridDim.y's limit)
 
 
 @functools.cache
-def mask_plan(B: int, F: int, aligned: bool = True) -> dict:
-    """How ``csrc/masked_activation.cu`` covers x [B, F], from the shape
-    alone (cached by shape).
+def mask_plan(B: int, F: int, aligned: bool = True,
+              elem_bytes: int = 4) -> dict:
+    """How ``csrc/masked_activation.cu`` covers x [B, F] of ``elem_bytes``
+    an element (4: fp32, 2: bf16), from the shape alone (cached by shape).
 
-    ``vec4``: the 16-byte path (F % 4 == 0 and ``aligned``, both pointers
-    16-byte aligned), where a unit is a float4 (``elems_per_thread`` 4),
-    else a float; a row holds ``n`` = F / 4 or F units, one a thread.
+    ``vec4``: the 16-byte path (F a multiple of the elements in 16 bytes
+    and ``aligned``, both pointers 16-byte aligned), where a unit is 16
+    bytes (``elems_per_thread`` 4 fp32 or 8 bf16), else one element; a row
+    holds ``n`` = F / 4 (F / 8) or F units, one a thread.
     ``grid`` is (blocks along a row, blocks along the rows), as the kernel's
     entry sets it, one row a block along the rows; past ``MAX_ROW_BLOCKS``
     rows the entry makes ``launches`` launches of at most that many rows.
@@ -62,8 +64,9 @@ def mask_plan(B: int, F: int, aligned: bool = True) -> dict:
     """
     if B < 1 or F < 1:
         raise ValueError(f"x must be [B>=1, F>=1], got {(B, F)}")
-    vec4 = F % 4 == 0 and aligned
-    unit = 4 if vec4 else 1
+    per16 = 16 // elem_bytes
+    vec4 = F % per16 == 0 and aligned
+    unit = per16 if vec4 else 1
     n = F // unit
     return {"vec4": vec4, "threads": THREADS, "n": n,
             "elems_per_thread": unit,
@@ -79,29 +82,27 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
     :func:`repro_torch.kernels.common.rows_to_int32`); ``key``: the uint32
     site key.  CPU tensors run :func:`masked_activation_plain`; CUDA tensors
     launch the kernel on the current stream (counted in
-    ``masked_activation.launches``), fp32 only.
+    ``masked_activation.launches``): fp32, or bf16 (its own kernel, the
+    scale rounded to bf16); any other dtype raises.
     """
     if common.check_device("masked_activation", x):
         return masked_activation_plain(x, rows, key, p_drop)
     common.check_p(p_drop)
     if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"x must be [B>=1, F>=1], got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"masked_activation takes fp32 on the card, got {x.dtype}; "
-            "bf16 is queued with the LM precisions (ROADMAP.md, A2)")
+    act, variant = common.lm_act("masked_activation", x)
     B, F = x.shape
     dev = x.device
-    common.check("x", x, dev, torch.float32, (B, F))
+    common.check("x", x, dev, act, (B, F))
     rows32 = common.rows_arg(rows, B, dev)
     out = torch.empty_like(x)          # 16-byte aligned: a fresh allocation
-    plan = mask_plan(B, F, x.data_ptr() % 16 == 0)
-    thr, scale, masked = common.mask_args(p_drop)
+    plan = mask_plan(B, F, x.data_ptr() % 16 == 0, x.element_size())
+    thr, scale, masked = common.mask_args(p_drop, act)
     common.launch_c(masked_activation, "masked_activation", _ARGTYPES,
                     (x.data_ptr(), rows32.data_ptr(), out.data_ptr(), B, F,
                      int(plan["vec4"]), int(key) & prng.MASK32, thr, scale,
                      masked, common.stream(dev)),
-                    f"masked_activation (B={B}, F={F})")
+                    f"masked_activation (B={B}, F={F}, {act})", variant)
     return out
 
 

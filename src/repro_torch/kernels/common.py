@@ -224,6 +224,17 @@ def check_seq_weights(gates: int, dev, act, I: int, H: int, wx, wh, b,
 ACT_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}
 
 
+def lm_act(name: str, t: torch.Tensor):
+    """The activation dtype of an LM kernel's operand on the card: fp32, or
+    bf16 (the reference's LM dtype), whose entry is the ``bf16`` variant;
+    ``NotImplementedError`` for any other precision."""
+    if t.dtype not in ACT_DTYPES:
+        raise NotImplementedError(
+            f"{name} takes fp32 or bf16 on the card, got {t.dtype}; no other "
+            "precision of the LM kernels is planned (ROADMAP.md, A2)")
+    return t.dtype, ("bf16" if t.dtype == torch.bfloat16 else "")
+
+
 def act_dtype_of(t: torch.Tensor):
     """The activation dtype of a plain-version operand: bf16 stays bf16,
     every other float computes in fp32."""
@@ -426,11 +437,14 @@ def _rnn_argtypes(n_ptr: int, n_int: int) -> tuple:
                                             ctypes.c_float, I32, P)
 
 
-def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str) -> None:
-    """Launch ``csrc/<lib>.cu``'s ``<wrapper name>_launch`` entry with
-    ``args`` (declared ``argtypes``), raise on a launch error, and count one
-    launch in ``wrapper.launches``."""
-    err = c_entry(lib, f"{wrapper.__name__}_launch", argtypes)(*args)
+def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str,
+             variant: str = "") -> None:
+    """Launch ``csrc/<lib>.cu``'s ``<wrapper name>[_<variant>]_launch``
+    entry (``variant`` "bf16": the LM kernels' bf16 entries) with ``args``
+    (declared ``argtypes``), raise on a launch error, and count one launch
+    in ``wrapper.launches``."""
+    name = wrapper.__name__ + (f"_{variant}" if variant else "")
+    err = c_entry(lib, f"{name}_launch", argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1

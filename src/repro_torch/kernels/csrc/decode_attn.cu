@@ -49,6 +49,8 @@
 
 #include <initializer_list>
 
+#include <cuda_bf16.h>
+
 #include "mcd_async.cuh"
 
 namespace {
@@ -350,24 +352,300 @@ cudaError_t with_kernel(int rep, F f) {
   return f(decode_attention_kernel<kMaxRep>);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 (the reference's LM dtype): q and the caches bf16, out bf16, every
+// score, weight and sum in fp32 as above (the TPU kernel upcasts q, k and
+// v and writes q.dtype, decode_attn.py:36-59).  The fp32 kernels above are
+// left as they were; these are their design with 16-bit loads: the ring
+// holds bf16 tiles (16-byte copies of 8 elements, half the bytes), q is
+// widened into shared memory once, and a lane reads 4 features of K or V as
+// 8 bytes and widens them.  The partials of a split stay fp32; the out
+// rounds to bf16 once.  Bound by bytes: 42 MB of caches at the serving
+// shape (B = 64, 160 positions, KV = 8, hd = 128), 12.7 us at 3.35 TB/s.
+
+constexpr int smem_bytes_bf16(int rep, int hd) {
+  return kStages * 2 * kTS * hd * 2 + rep * hd * (int)sizeof(float);
+}
+
+__device__ __forceinline__ float4 ld4_bf16(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ kc,
+                             const __nv_bfloat16* __restrict__ vc,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ part,
+                             const int* __restrict__ pos_ptr, int pos, int H,
+                             int S, int KV, int hd, int run, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int rep = H / KV;
+  const int hd4 = hd / 4;
+  const int hd8 = hd / 8;
+  const int tile = kTS * hd;                   // bf16 of K (or V) a tile
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* qs = smem + kStages * tile;           // after 2 * kStages tiles
+
+  const int bg = blockIdx.x;
+  const int b = bg / KV;
+  const int g = bg % KV;
+  const int splits = gridDim.y;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int n_live = live_positions(pos_ptr, pos, S);
+  const int t_begin = blockIdx.y * run;
+  const int t_end = min(t_begin + run, (n_live + kTS - 1) / kTS);
+
+  // Tile t into ring slot `slot`: 16-byte chunk e = tid + kThreads * i of a
+  // tile is row e / hd8, column e % hd8.
+  const int row_step = kThreads / hd8;
+  const int col_step = kThreads - row_step * hd8;
+  const int row0 = tid / hd8;
+  const int col0 = tid - row0 * hd8;
+  const size_t row_elems = (size_t)KV * hd;
+  auto load_tile = [&](int t, int slot) {
+    __nv_bfloat16* ks = ring + slot * 2 * tile;
+    __nv_bfloat16* vs = ks + tile;
+    const int j0 = t * kTS;
+    const size_t base = (((size_t)b * S + j0) * KV + g) * hd;
+    int j = row0, c = col0;
+    for (int e = tid; e < kTS * hd8; e += kThreads) {
+      const bool live = j0 + j < n_live;
+      const size_t src = live ? base + j * row_elems + 8 * c : 0;
+      mcd::cp_async16(ks + 8 * e, kc + src, live ? 16 : 0);
+      mcd::cp_async16(vs + 8 * e, vc + src, live ? 16 : 0);
+      j += row_step;
+      c += col_step;
+      if (c >= hd8) {
+        c -= hd8;
+        ++j;
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (t_begin + i < t_end) load_tile(t_begin + i, i);
+    mcd::cp_async_commit();
+  }
+  const __nv_bfloat16* qg = q + ((size_t)b * H + (size_t)g * rep) * hd;
+  for (int e = tid; e < rep * hd4; e += kThreads)
+    reinterpret_cast<float4*>(qs)[e] = ld4_bf16(qg + 4 * e);
+
+  float m[R], l[R], acc[R][kPV][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kPV; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][i][c] = 0.0f;
+  }
+  const int jw = warp * kPosWarp;
+  const int jt = jw + lane / kLanesPos;
+  const int part4 = lane % kLanesPos;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    mcd::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (t + kStages - 1 < t_end)
+      load_tile(t + kStages - 1, (t + kStages - 1 - t_begin) % kStages);
+    mcd::cp_async_commit();
+    const __nv_bfloat16* ks = ring + ((t - t_begin) % kStages) * 2 * tile;
+    const __nv_bfloat16* vs = ks + tile;
+
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kQK; ++k) {
+      const int f = part4 + k * kLanesPos;
+      if (f < hd4) {
+        const float4 kv = ld4_bf16(ks + jt * hd + 4 * f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < rep) {
+            const float4 qv = ld4(qs + r * hd + 4 * f);
+            s[r] = fmaf(qv.x, kv.x, s[r]);
+            s[r] = fmaf(qv.y, kv.y, s[r]);
+            s[r] = fmaf(qv.z, kv.z, s[r]);
+            s[r] = fmaf(qv.w, kv.w, s[r]);
+          }
+        }
+      }
+    }
+    const bool live = t * kTS + jt < n_live;
+    float p[R][kPosWarp], corr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= rep) continue;
+      float d = s[r];
+      d += __shfl_xor_sync(kFull, d, 1);
+      d += __shfl_xor_sync(kFull, d, 2);
+      d += __shfl_xor_sync(kFull, d, 4);
+      const float sc = live ? d * scale : -INFINITY;
+      float mx = fmaxf(sc, __shfl_xor_sync(kFull, sc, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+      const float pj = isfinite(sc) ? expf(sc - m_safe) : 0.0f;
+      corr[r] = isfinite(m[r]) ? expf(m[r] - m_safe) : 0.0f;
+      float ps = pj + __shfl_xor_sync(kFull, pj, 8);
+      ps += __shfl_xor_sync(kFull, ps, 16);
+      m[r] = m_new;
+      l[r] = l[r] * corr[r] + ps;
+#pragma unroll
+      for (int u = 0; u < kPosWarp; ++u)
+        p[r][u] = __shfl_sync(kFull, pj, u * kLanesPos);
+    }
+#pragma unroll
+    for (int i = 0; i < kPV; ++i) {
+      const int f = lane + 32 * i;
+      if (f >= hd4) continue;
+      float sum[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sum[r][c] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kPosWarp; ++u) {
+        const float4 vv = ld4_bf16(vs + (jw + u) * hd + 4 * f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r >= rep) continue;
+          sum[r][0] = fmaf(p[r][u], vv.x, sum[r][0]);
+          sum[r][1] = fmaf(p[r][u], vv.y, sum[r][1]);
+          sum[r][2] = fmaf(p[r][u], vv.z, sum[r][2]);
+          sum[r][3] = fmaf(p[r][u], vv.w, sum[r][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= rep) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][i][c] = acc[r][i][c] * corr[r] + sum[r][c];
+      }
+    }
+  }
+
+  // The warps' partials, combined in warp order, in the freed ring (it
+  // holds kStages * 2 * kTS * hd * 2 bytes, at least the 16 * rep * hd +
+  // 32 * rep the partials take).
+  mcd::cp_async_wait<0>();
+  __syncthreads();
+  float* wacc = smem;                          // [kWarps][rep][hd]
+  float* wm = wacc + kWarps * rep * hd;        // [kWarps][rep]
+  float* wl = wm + kWarps * rep;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= rep) continue;
+#pragma unroll
+    for (int i = 0; i < kPV; ++i) {
+      const int f = lane + 32 * i;
+      if (f < hd4)
+        *reinterpret_cast<float4*>(wacc + (warp * rep + r) * hd + 4 * f) =
+            make_float4(acc[r][i][0], acc[r][i][1], acc[r][i][2],
+                        acc[r][i][3]);
+    }
+    if (lane == 0) {
+      wm[warp * rep + r] = m[r];
+      wl[warp * rep + r] = l[r];
+    }
+  }
+  __syncthreads();
+  const size_t pidx = ((size_t)bg * splits + blockIdx.y) * rep;
+  for (int e = tid; e < rep * hd; e += kThreads) {
+    const int r = e / hd;
+    const int d = e - r * hd;
+    float M = -INFINITY, L = 0.0f, A = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      combine(M, L, A, wm[w * rep + r], wl[w * rep + r],
+              wacc[(w * rep + r) * hd + d]);
+    if (splits == 1) {
+      out[((size_t)b * H + (size_t)g * rep + r) * hd + d] =
+          __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+    } else {
+      part[(pidx + r) * hd + d] = A;
+      if (d == 0) {
+        float* ml = part + (size_t)gridDim.x * splits * rep * hd;
+        ml[2 * (pidx + r)] = M;
+        ml[2 * (pidx + r) + 1] = L;
+      }
+    }
+  }
+}
+
+// The merge of the fp32 partials into a bf16 out.
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel_merge_bf16(const float* __restrict__ part,
+                                   __nv_bfloat16* __restrict__ out, int H,
+                                   int KV, int hd, int splits) {
+  const int rep = H / KV;
+  const int bg = blockIdx.x;
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (e >= rep * hd) return;
+  const int r = e / hd;
+  const int d = e - r * hd;
+  const float* part_acc = part;
+  const float* part_ml = part + (size_t)gridDim.x * splits * rep * hd;
+  float M = -INFINITY, L = 0.0f, A = 0.0f;
+  for (int s0 = 0; s0 < splits; s0 += kMergeBatch) {
+    float pm[kMergeBatch], pl[kMergeBatch], pa[kMergeBatch];
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i) {
+      const size_t pidx = ((size_t)bg * splits + min(s0 + i, splits - 1)) *
+                              rep + r;
+      pm[i] = part_ml[2 * pidx];
+      pl[i] = part_ml[2 * pidx + 1];
+      pa[i] = part_acc[pidx * hd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i)
+      if (s0 + i < splits) combine(M, L, A, pm[i], pl[i], pa[i]);
+  }
+  out[((size_t)(bg / KV) * H + (size_t)(bg % KV) * rep + r) * hd + d] =
+      __float2bfloat16_rn(A / fmaxf(L, 1e-30f));
+}
+
+template <typename F>
+cudaError_t with_kernel_bf16(int rep, F f) {
+  if (rep <= 2) return f(decode_attention_kernel_bf16<2>);
+  if (rep <= 4) return f(decode_attention_kernel_bf16<4>);
+  return f(decode_attention_kernel_bf16<kMaxRep>);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Once per device, when the library is loaded: every instantiation may take
+// Once per device, when the library is loaded: every instantiation (fp32 and
+// bf16) may take
 // the most shared memory a shape can ask (kMaxSmem), with the SM's carveout
 // set to the most shared memory, so a launch (or a captured one) sets no
 // attribute.  Returns the CUDA error.
 int decode_attention_init() {
+  auto fit = [](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  };
   for (int rep : {2, 4, kMaxRep}) {
-    cudaError_t err = with_kernel(rep, [](auto kernel) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (e != cudaSuccess) return e;
-      return cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-    });
+    cudaError_t err = with_kernel(rep, fit);
+    if (err == cudaSuccess) err = with_kernel_bf16(rep, fit);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
@@ -412,6 +690,50 @@ int decode_attention_launch(const float* q, const float* kc, const float* vc,
   decode_attention_kernel_merge<<<
       dim3(B * KV, (rep * hd + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       part, out, H, KV, hd, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// The bf16 split kernel's resident blocks an SM for this shape.
+int decode_attention_bf16_blocks_per_sm(int H, int KV, int hd, int* blocks) {
+  const int rep = H / KV;
+  return (int)with_kernel_bf16(rep, [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, kThreads, smem_bytes_bf16(rep, hd));
+  });
+}
+
+// The bf16 launch: as decode_attention_launch on bf16 q, caches and out
+// (the partials fp32), which also needs hd % 8 == 0 (16-byte copies of 8
+// elements).
+int decode_attention_bf16_launch(const void* q, const void* kc,
+                                 const void* vc, void* out, float* part,
+                                 const int* pos_ptr, int B, int H, int S,
+                                 int KV, int hd, int pos, int splits, int run,
+                                 float scale, void* stream) {
+  const int tiles = (S + kTS - 1) / kTS;
+  if (B < 1 || KV < 1 || H % KV || H / KV > kMaxRep || hd % 8 ||
+      hd > kMaxHd || splits < 1 || run < 1 || (splits - 1) * run >= tiles ||
+      splits * run < tiles || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int rep = H / KV;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(q);
+  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(kc);
+  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(vc);
+  auto* ob = reinterpret_cast<__nv_bfloat16*>(out);
+  cudaError_t err = with_kernel_bf16(rep, [&](auto kernel) {
+    kernel<<<dim3(B * KV, splits), kThreads, smem_bytes_bf16(rep, hd), s>>>(
+        qb, kb, vb, ob, part, pos_ptr, pos, H, S, KV, hd, run, scale);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  decode_attention_kernel_merge_bf16<<<
+      dim3(B * KV, (rep * hd + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, ob, H, KV, hd, splits);
   return (int)cudaGetLastError();
 }
 

@@ -124,3 +124,97 @@ int masked_activation_launch(const float* x, const int32_t* rows, float* out,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// bf16: the reference's LM dtype.  out = where(keep, bf16(x * scale), 0) for
+// x [B, F] bf16, with scale the bf16 value of 1 / (1 - p) (the TPU kernel's
+// jnp.asarray(1 / (1 - p), x.dtype), bernoulli_mask.py:35): the product of
+// two bf16 values is exact in fp32, so one rounding to bf16 is the bf16
+// product, as the plain version's.  The fp32 kernel above is left as it
+// was; this is its design with 16-bit elements: a unit is 8 bf16 (16
+// bytes) on the 16-byte path (F % 8 == 0 and both pointers 16-byte
+// aligned), else one bf16.  Bound by bytes: 4 an element, half the fp32
+// kernel's.
+
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ __nv_bfloat16 apply_bf16(
+    __nv_bfloat16 v, uint32_t row, uint32_t F, uint32_t col, uint32_t key,
+    uint32_t thr, float scale) {
+  return mcd::keep_bit(key, row, F, col, thr)
+             ? __float2bfloat16_rn(__fmul_rn(__bfloat162float(v), scale))
+             : __float2bfloat16_rn(0.0f);
+}
+
+// Unit `unit` of the 16-byte path: bf16 elements 8 * unit .. 8 * unit + 7.
+__device__ __forceinline__ uint4 apply_bf16(uint4 v, uint32_t row,
+                                            uint32_t F, uint32_t unit,
+                                            uint32_t key, uint32_t thr,
+                                            float scale) {
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+  const uint32_t col = 8u * unit;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = apply_bf16(e[i], row, F, col + i, key, thr, scale);
+  return v;
+}
+
+// T = uint4 (8 bf16, the 16-byte path) or __nv_bfloat16.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) masked_activation_kernel_bf16(
+    const T* __restrict__ x, const int32_t* __restrict__ rows,
+    T* __restrict__ out, int n, uint32_t F, uint32_t key, uint32_t thr,
+    float scale, int masked) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n) return;
+  const int64_t e = (int64_t)blockIdx.y * n + c;
+  T v = x[e];
+  if (masked)
+    v = apply_bf16(v, (uint32_t)__ldg(rows + blockIdx.y), F, (uint32_t)c,
+                   key, thr, scale);
+  out[e] = v;
+}
+
+template <typename T>
+void launch_rows_bf16(const T* x, const int32_t* rows, T* out, int B, int n,
+                      uint32_t F, uint32_t key, uint32_t thr, float scale,
+                      int masked, cudaStream_t s) {
+  const unsigned cols = (unsigned)(((int64_t)n + kThreads - 1) / kThreads);
+  for (int r0 = 0; r0 < B; r0 += kMaxRowBlocks) {
+    const int nr = B - r0 < kMaxRowBlocks ? B - r0 : kMaxRowBlocks;
+    masked_activation_kernel_bf16<T><<<dim3(cols, nr), kThreads, 0, s>>>(
+        x + (int64_t)r0 * n, rows + r0, out + (int64_t)r0 * n, n, F, key,
+        thr, scale, masked);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The bf16 launch: as masked_activation_launch, on bf16 x and out, with
+// vec8 != 0 taking the 16-byte path (8 elements a thread), which needs
+// F % 8 == 0 and 16-byte aligned pointers; `scale` is the bf16 scale's
+// value.
+int masked_activation_bf16_launch(const void* x, const int32_t* rows,
+                                  void* out, int B, int F, int vec8,
+                                  uint32_t key, uint32_t thr, float scale,
+                                  int masked, void* stream) {
+  if (B < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (vec8 && (F % 8 || (uintptr_t)x % 16 || (uintptr_t)out % 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec8)
+    launch_rows_bf16(reinterpret_cast<const uint4*>(x), rows,
+                     reinterpret_cast<uint4*>(out), B, F / 8, (uint32_t)F,
+                     key, thr, scale, masked, s);
+  else
+    launch_rows_bf16(reinterpret_cast<const __nv_bfloat16*>(x), rows,
+                     reinterpret_cast<__nv_bfloat16*>(out), B, F,
+                     (uint32_t)F, key, thr, scale, masked, s);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

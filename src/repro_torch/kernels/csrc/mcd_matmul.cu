@@ -338,3 +338,297 @@ int mcd_matmul_launch(const float* x, const float* w, const int32_t* rows,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// bf16: the reference's LM dtype.  x [M, K] and W [K, N] bf16, the mask
+// applied in bf16 (bit ? bf16(x * scale) : 0, scale the bf16 value of
+// 1 / (1 - p), as the TPU kernel's x * scale in x.dtype,
+// mcd_matmul.py:40-42), each output's K-sum in fp32 in index order, and the
+// result written as fp32 (the SwiGLU gate/up product of the LM, the
+// reference's preferred_element_type) or rounded to bf16 (out_bf16, the
+// TPU kernel's own x.dtype out).  The fp32 kernel above is left as it was;
+// this is its design with 16-bit operands: the ring holds raw bf16 tiles
+// (16-byte copies of 8 elements, half the bytes a K step), the x elements
+// are masked and widened to fp32 into the same transposed [k][m] tile, and
+// the W tile is widened to fp32 as the inner loop reads it.  Where K or N
+// is not a multiple of 8 or a pointer not 16-byte aligned, the tiles are
+// filled by plain 2-byte loads.  Bound on this card: bytes at decode (W is
+// 50 MB of bf16 at K = 2048, N = 12288: 15 us at 3.35 TB/s); the fp32 FMAs
+// on the CUDA cores cap it at the fp32 kernel's rate (tensor cores are
+// later work).
+
+#include <cuda_bf16.h>
+
+namespace {
+
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+struct TileBf16 {
+  static constexpr int kThreads = (BM / TM) * (BN / TN);
+  static constexpr int kChunksA = BM * BK / 8;     // 16-byte chunks of x
+  static constexpr int kChunksB = BK * BN / 8;
+  static constexpr int kPerThread = kChunksA / kThreads;  // of one row
+  static_assert(kChunksA % kThreads == 0 && (BK / 8) % kPerThread == 0,
+                "a thread's x chunks must lie in one row");
+  // Bytes of a ring slot: raw x, raw W, a keep-bit word a thread.
+  static constexpr int kRawA = 2 * BM * BK;
+  static constexpr int kRawB = 2 * BK * BN;
+  static constexpr int kStage = kRawA + kRawB + 4 * kThreads;
+  static_assert(kRawA % 16 == 0 && kRawB % 16 == 0, "16-byte regions");
+  static constexpr int kLdA = BM + kPad;
+  static constexpr int kAt = BK * kLdA;            // floats
+  static constexpr size_t kSmem =
+      (size_t)STAGES * kStage + (size_t)2 * kAt * sizeof(float);
+};
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <int BM, int BN, int TM, int TN, int VN, int BK, int STAGES,
+          int MIN_BLOCKS>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
+mcd_matmul_kernel_bf16(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const uint32_t* __restrict__ bits,
+                       void* __restrict__ out, int M, int N, int K, int KW,
+                       float scale, int masked, int vec_a, int vec_b,
+                       int out_bf16) {
+  using Tl = TileBf16<BM, BN, TM, TN, BK, STAGES>;
+  constexpr int NT = Tl::kThreads;
+  constexpr int TX = BN / TN;
+  constexpr int QM = TM / 4;
+  constexpr int QN = TN / VN;
+  constexpr int CPT = Tl::kPerThread;
+  static_assert(TM % 4 == 0 && TN % VN == 0 && (VN == 4 || VN == 2), "");
+  extern __shared__ float4 smem4[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(smem4);
+  float* const at_base =
+      reinterpret_cast<float*>(smem + STAGES * Tl::kStage);  // [2][BK][kLdA]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int KT = (K + BK - 1) / BK;
+
+  auto raw_a = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * Tl::kStage);
+  };
+  auto raw_b = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * Tl::kStage +
+                                            Tl::kRawA);
+  };
+  auto words = [&](int s) {
+    return reinterpret_cast<uint32_t*>(smem + s * Tl::kStage + Tl::kRawA +
+                                       Tl::kRawB);
+  };
+
+  const int ml = tid * CPT / (BK / 8);           // the thread's x row
+  const int kq0 = (tid * CPT % (BK / 8)) * 8;
+  auto load = [&](int kt, int s) {
+    const int k0 = kt * BK;
+    __nv_bfloat16* a = raw_a(s);
+    const int gm = m0 + ml;
+    if (masked)
+      mcd::cp_async4(words(s) + tid,
+                     gm < M ? bits + (size_t)gm * KW + k0 / 32 : bits,
+                     gm < M);
+#pragma unroll
+    for (int l = 0; l < CPT; ++l) {
+      const int kq = kq0 + 8 * l;
+      const int gk = k0 + kq;
+      __nv_bfloat16* dst = a + ml * BK + kq;
+      const __nv_bfloat16* src = x + (size_t)gm * K + gk;
+      if (vec_a) {
+        const int n = (gm < M && gk < K) ? 2 * min(8, K - gk) : 0;
+        mcd::cp_async16(dst, n ? src : x, n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (gm < M && gk + e < K) ? src[e] : __float2bfloat16_rn(0.f);
+      }
+    }
+    __nv_bfloat16* b = raw_b(s);
+    for (int c = tid; c < Tl::kChunksB; c += NT) {
+      const int kl = c / (BN / 8);
+      const int nq = (c % (BN / 8)) * 8;
+      const int gk = k0 + kl;
+      const int gn = n0 + nq;
+      __nv_bfloat16* dst = b + kl * BN + nq;
+      const __nv_bfloat16* src = w + (size_t)gk * N + gn;
+      if (vec_b) {
+        const int n = (gk < K && gn < N) ? 2 * min(8, N - gn) : 0;
+        mcd::cp_async16(dst, n ? src : w, n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (gk < K && gn + e < N) ? src[e] : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  // Mask the x elements this thread copied, in bf16, and write them as
+  // fp32 into the transposed tile.
+  auto transform = [&](int kt, int s, float* at) {
+    const __nv_bfloat16* a = raw_a(s);
+    const uint32_t word = masked ? words(s)[tid] >> ((kt * BK) & 31) : 0u;
+#pragma unroll
+    for (int l = 0; l < CPT; ++l) {
+      const int kq = kq0 + 8 * l;
+      const uint32_t bw = word >> kq;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float v = bf(a[ml * BK + kq + e]);
+        if (masked)
+          v = ((bw >> e) & 1u) ? bf(__float2bfloat16_rn(__fmul_rn(v, scale)))
+                               : 0.0f;
+        at[(kq + e) * Tl::kLdA + ml] = v;
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    mcd::cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    mcd::cp_async_wait<STAGES - 2>();
+    const int s = kt % STAGES;
+    float* at = at_base + (kt & 1) * Tl::kAt;
+    transform(kt, s, at);
+    __syncthreads();
+    if (kt + STAGES - 1 < KT)
+      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    mcd::cp_async_commit();
+    const __nv_bfloat16* b = raw_b(s);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int q = 0; q < QM; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            at + k * Tl::kLdA + q * (BM / QM) + ty * 4);
+        av[4 * q] = v.x;
+        av[4 * q + 1] = v.y;
+        av[4 * q + 2] = v.z;
+        av[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < QN; ++q) {
+        const __nv_bfloat16* src = b + k * BN + q * (BN / QN) + tx * VN;
+        if (VN == 4) {
+          const uint2 u = *reinterpret_cast<const uint2*>(src);
+          const float2 lo = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          bv[4 * q] = lo.x;
+          bv[4 * q + 1] = lo.y;
+          bv[4 * q + 2] = hi.x;
+          bv[4 * q + 3] = hi.y;
+        } else {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(src));
+          bv[2 * q] = v.x;
+          bv[2 * q + 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    }
+  }
+  mcd::cp_async_wait<0>();
+
+  float* const of = reinterpret_cast<float*>(out);
+  __nv_bfloat16* const ob = reinterpret_cast<__nv_bfloat16*>(out);
+#pragma unroll
+  for (int q = 0; q < QM; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + q * (BM / QM) + ty * 4 + i;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int qn = 0; qn < QN; ++qn) {
+        const int gn = n0 + qn * (BN / QN) + tx * VN;
+        const float* r = &acc[4 * q + i][VN * qn];
+#pragma unroll
+        for (int e = 0; e < VN; ++e) {
+          if (gn + e >= N) continue;
+          if (out_bf16)
+            ob[(size_t)gm * N + gn + e] = __float2bfloat16_rn(r[e]);
+          else
+            of[(size_t)gm * N + gn + e] = r[e];
+        }
+      }
+    }
+}
+
+template <int BM, int BN, int TM, int TN, int VN, int BK, int STAGES,
+          int MIN_BLOCKS>
+int launch_tile_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                     const uint32_t* bits, void* out, int M, int N, int K,
+                     int KW, float scale, int masked, size_t smem,
+                     int out_bf16, cudaStream_t stream) {
+  using Tl = TileBf16<BM, BN, TM, TN, BK, STAGES>;
+  auto kernel =
+      mcd_matmul_kernel_bf16<BM, BN, TM, TN, VN, BK, STAGES, MIN_BLOCKS>;
+  if (smem < Tl::kSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec_a = K % 8 == 0 && ((uintptr_t)x & 15) == 0;
+  const int vec_b = N % 8 == 0 && ((uintptr_t)w & 15) == 0;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, Tl::kThreads, smem, stream>>>(x, w, bits, out, M, N, K, KW,
+                                               scale, masked, vec_a, vec_b,
+                                               out_bf16);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The bf16 launch: as mcd_matmul_launch, on bf16 x and w, the result fp32
+// (out_bf16 == 0) or bf16; `scale` is the bf16 scale's value and
+// `smem_bytes` the bf16 tile's (matmul_plan with elem_bytes 2).
+int mcd_matmul_bf16_launch(const void* x, const void* w, const int32_t* rows,
+                           uint32_t* bits, void* out, int M, int N, int K,
+                           uint32_t key, uint32_t thr, float scale,
+                           int masked, int tile, int smem_bytes,
+                           int out_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int KW = (K + 31) / 32;
+  if (masked) {
+    const long long threads = (long long)M * KW * 32;
+    mcd_matmul_kernel_bits<<<(unsigned)((threads + 255) / 256), 256, 0,
+                             s>>>(rows, bits, M, K, KW, key, thr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const auto* wb = reinterpret_cast<const __nv_bfloat16*>(w);
+  const size_t smem = (size_t)smem_bytes;
+  if (tile == 1)
+    return launch_tile_bf16<128, 128, 8, 8, 4, 32, 2, 2>(
+        xb, wb, bits, out, M, N, K, KW, scale, masked, smem, out_bf16, s);
+  if (tile == 0)
+    return launch_tile_bf16<64, 96, 4, 6, 2, 32, 3, 1>(
+        xb, wb, bits, out, M, N, K, KW, scale, masked, smem, out_bf16, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

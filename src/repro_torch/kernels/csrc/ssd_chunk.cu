@@ -561,3 +561,115 @@ int ssd_chunk_scan_launch(const float* x, const float* dt, const float* a,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// bf16 (the reference's LM dtype): x, B and C bf16, dt, a and D fp32, y
+// bf16 and the state fp32, with every operation of the scan in fp32 (the
+// TPU kernel upcasts its inputs and keeps the state in fp32,
+// ssd_chunk.py:34-68).  A first, simple design, which leaves the three
+// fp32 kernels above as they were: ssd_chunk_scan_kernel_widen copies x,
+// B and C into fp32 scratches (a bf16 value is exact in fp32), the fp32
+// launch runs on them, and ssd_chunk_scan_kernel_narrow rounds y to bf16
+// once, where the plain version's y.to(x.dtype) rounds.  At the serving
+// shape the two copies move ~0.8 GB besides the scan's own traffic; a head
+// kernel that stages bf16 tiles itself, on tensor cores, is later work.
+
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int kCopyBlocks = 132 * 8;   // grid-stride copies: 8 blocks an SM
+
+// dst[i] = float(src[i]), 4 elements a thread (8-byte loads, 16-byte
+// stores) where both pointers allow it, the tail one at a time.
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_scan_kernel_widen(const __nv_bfloat16* __restrict__ src,
+                            float* __restrict__ dst, long long n, int vec) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = first; i < n4; i += stride) {
+    const uint2 u = reinterpret_cast<const uint2*>(src)[i];
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    reinterpret_cast<float4*>(dst)[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  for (long long i = 4 * n4 + first; i < n; i += stride)
+    dst[i] = __bfloat162float(src[i]);
+}
+
+// dst[i] = bf16(src[i]), rounded to nearest even.
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_scan_kernel_narrow(const float* __restrict__ src,
+                             __nv_bfloat16* __restrict__ dst, long long n,
+                             int vec) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = first; i < n4; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(src)[i];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    reinterpret_cast<uint2*>(dst)[i] = u;
+  }
+  for (long long i = 4 * n4 + first; i < n; i += stride)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+int copy_blocks(long long n) {
+  const long long b = (n + kThreads - 1) / kThreads;
+  return (int)(b < kCopyBlocks ? (b > 0 ? b : 1) : kCopyBlocks);
+}
+
+bool aligned(const void* a, const void* b) {
+  return ((uintptr_t)a % 8) == 0 && ((uintptr_t)b % 16) == 0;
+}
+
+cudaError_t widen(const void* src, float* dst, long long n,
+                  cudaStream_t s) {
+  const auto* p = reinterpret_cast<const __nv_bfloat16*>(src);
+  ssd_chunk_scan_kernel_widen<<<copy_blocks(n), kThreads, 0, s>>>(
+      p, dst, n, aligned(src, dst));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The bf16 launch: x, bm and cm widened into the fp32 scratches xw
+// [B, L, H, P], bw and cw [B, L, N]; ssd_chunk_scan_launch on them into yw
+// [B, L, H, P] fp32 and h_out; y [B, L, H, P] bf16 from yw.  `vec` is the
+// fp32 launch's, for the scratches.  Returns the first CUDA error.
+int ssd_chunk_scan_bf16_launch(const void* x, const float* dt,
+                               const float* a, const void* bm,
+                               const void* cm, const float* d_skip,
+                               float* scores, float* ctr, float* cs, void* y,
+                               float* h_out, float* xw, float* bw, float* cw,
+                               float* yw, int B, int L, int H, int P, int N,
+                               int Q, int vec, void* stream) {
+  if (Q < 1 || Q > kQMax || L % Q || P > kPMax || N > kNMax)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long nx = (long long)B * L * H * P;
+  const long long nb = (long long)B * L * N;
+  cudaError_t err = widen(x, xw, nx, s);
+  if (err == cudaSuccess) err = widen(bm, bw, nb, s);
+  if (err == cudaSuccess) err = widen(cm, cw, nb, s);
+  if (err != cudaSuccess) return (int)err;
+  const int e = ssd_chunk_scan_launch(xw, dt, a, bw, cw, d_skip, scores, ctr,
+                                      cs, yw, h_out, B, L, H, P, N, Q, vec,
+                                      stream);
+  if (e != 0) return e;
+  auto* yb = reinterpret_cast<__nv_bfloat16*>(y);
+  ssd_chunk_scan_kernel_narrow<<<copy_blocks(nx), kThreads, 0, s>>>(
+      yw, yb, nx, ((uintptr_t)yw % 16) == 0 && ((uintptr_t)y % 8) == 0);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

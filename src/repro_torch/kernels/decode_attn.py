@@ -55,7 +55,8 @@ _MAX_RUN = 16                     # tiles a block walks, at most
 
 
 @functools.cache
-def decode_plan(B: int, H: int, KV: int, hd: int, S: int) -> dict:
+def decode_plan(B: int, H: int, KV: int, hd: int, S: int,
+                elem_bytes: int = 4) -> dict:
     """How ``csrc/decode_attn.cu`` runs a launch, from the shapes alone (never
     ``pos``, so one launch shape serves every decode step and a graph can
     be captured): the position tile and ring stages, the ``splits`` of the
@@ -64,23 +65,27 @@ def decode_plan(B: int, H: int, KV: int, hd: int, S: int) -> dict:
     ``(B * KV, splits)``, the shared memory a block, and the fp32 scratch
     of partials and the merge kernel's grid when ``splits > 1``.  Cached by
     shape, so a decode step's calls build it once; the dict is shared and
-    must not be changed.  Raises ``ValueError`` for a shape the kernel does
-    not take."""
+    must not be changed.  ``elem_bytes`` 2: the bf16 kernel, whose ring
+    holds bf16 tiles (q is widened to fp32 in shared memory; the partials
+    stay fp32) and which needs hd a multiple of 8.  Raises ``ValueError``
+    for a shape the kernel does not take."""
     if min(B, H, KV, hd, S) < 1:
         raise ValueError(f"empty shape: B={B}, H={H}, KV={KV}, hd={hd}, "
                          f"S={S}")
     if H % KV or H // KV > _MAX_REP:
         raise ValueError(f"H={H} heads must group over KV={KV} heads, at "
                          f"most {_MAX_REP} to a group (B={B})")
-    if hd % 4 or hd > _MAX_HD:
-        raise ValueError(f"hd={hd} must be a multiple of 4 and <= {_MAX_HD}")
+    align = 16 // elem_bytes         # a 16-byte copy: 4 fp32 or 8 bf16
+    if hd % align or hd > _MAX_HD:
+        raise ValueError(f"hd={hd} must be a multiple of {align} and <= "
+                         f"{_MAX_HD}")
     rep = H // KV
     tiles = -(-S // _TILE)
     want = min(tiles, max(-(-_MIN_BLOCKS // (B * KV)),
                           -(-tiles // _MAX_RUN)))
     run = -(-tiles // want)
     splits = -(-tiles // run)
-    smem = 4 * (_STAGES * 2 * _TILE * hd + rep * hd)
+    smem = elem_bytes * _STAGES * 2 * _TILE * hd + 4 * rep * hd
     return {"tile": _TILE, "stages": _STAGES, "threads": _THREADS,
             "tiles": tiles, "splits": splits, "run": run,
             "grid": (B * KV, splits), "smem": smem,
@@ -105,12 +110,15 @@ def _ready(index: int) -> None:
         raise RuntimeError(f"decode_attention init failed: CUDA error {err}")
 
 
-def blocks_per_sm(H: int, KV: int, hd: int) -> int:
-    """The split kernel's resident blocks an SM at this shape, as the CUDA
-    runtime computes them (builds the kernel on first use; needs a card)."""
+def blocks_per_sm(H: int, KV: int, hd: int, dtype=torch.float32) -> int:
+    """The split kernel's resident blocks an SM at this shape and dtype
+    (fp32 or bf16), as the CUDA runtime computes them (builds the kernel on
+    first use; needs a card)."""
     _ready(torch.cuda.current_device())
     n = ctypes.c_int(0)
-    err = common.c_entry("decode_attn", "decode_attention_blocks_per_sm",
+    bf16 = "_bf16" if dtype == torch.bfloat16 else ""
+    err = common.c_entry("decode_attn",
+                         f"decode_attention{bf16}_blocks_per_sm",
                          (ctypes.c_int,) * 3 + (ctypes.c_void_p,))(
         H, KV, hd, ctypes.addressof(n))
     if err != 0:
@@ -141,8 +149,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
     kernel on the current stream (one count in ``decode_attention.launches``
-    a call, the merge kernel included): fp32, ``H / KV <= 8``, ``hd <= 256``
-    and a multiple of 4.  ``pos`` is an int in ``[0, S)`` or an int32
+    a call, the merge kernel included): fp32, or bf16 q, caches and out
+    (its own kernel; fp32 math), ``H / KV <= 8``, ``hd <= 256`` and a
+    multiple of 4 (8 at bf16); any other dtype raises.  ``pos`` is an int in ``[0, S)`` or an int32
     tensor of one element on q's device, which the kernel reads there
     (``pos >= S``: every position; ``pos < 0``: zeros, as the TPU kernel).
     The kernel reads no position past ``pos``.
@@ -154,17 +163,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"hd]; got {tuple(q.shape)}, {tuple(k_cache.shape)}")
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    plan = decode_plan(B, H, KV, hd, S)
+    act, variant = common.lm_act("decode_attention", q)
+    plan = decode_plan(B, H, KV, hd, S, q.element_size())
     dev = q.device
     pos_ptr, pos_val = _pos_arg(pos, S, dev)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"decode_attention takes fp32 on the card, got {q.dtype}; bf16 "
-            "is queued with the LM precisions (ROADMAP.md, A2)")
     for name, t, shape in (("q", q, (B, H, hd)),
                            ("k_cache", k_cache, (B, S, KV, hd)),
                            ("v_cache", v_cache, (B, S, KV, hd))):
-        common.check(name, t, dev, torch.float32, shape)
+        common.check(name, t, dev, act, shape)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
@@ -177,7 +183,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      pos_ptr, B, H, S, KV, hd, pos_val, plan["splits"],
                      plan["run"], hd ** -0.5, common.stream(dev)),
                     f"decode_attention (B={B}, H={H}, KV={KV}, hd={hd}, "
-                    f"S={S}, splits={plan['splits']})")
+                    f"S={S}, splits={plan['splits']}, {act})", variant)
     return out
 
 

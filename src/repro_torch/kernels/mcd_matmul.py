@@ -40,7 +40,7 @@ def mcd_matmul_plain(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
 TILES = {"wide": (1, 128, 128, 256, 32, 2), "narrow": (0, 64, 96, 256, 32, 3)}
 
 
-def matmul_plan(M: int, N: int, K: int) -> dict:
+def matmul_plan(M: int, N: int, K: int, elem_bytes: int = 4) -> dict:
     """How the kernel covers ``[M, K] @ [K, N]``: the tile, its grid, the
     shared memory a block needs and the keep-bit scratch (uint32 words).
 
@@ -49,7 +49,9 @@ def matmul_plan(M: int, N: int, K: int) -> dict:
     wave on 132 SMs).  No split of K on either: each output's sum runs in
     index order.  The shared memory is ``csrc/mcd_matmul.cu``'s
     ``Tile::kSmem``: the ring of raw x, W and a keep-bit word a thread, and
-    the double-buffered transposed x tile; the entry refuses less.
+    the double-buffered transposed x tile; the entry refuses less.  The
+    bf16 kernel (``elem_bytes`` 2) takes the same tiles, its ring holding
+    the raw tiles at 2 bytes an element (``Tile``'s bf16 twin, ``kSmem``).
     """
     if min(M, N, K) < 1:
         raise ValueError(f"empty product: M={M}, N={N}, K={K}")
@@ -62,7 +64,8 @@ def matmul_plan(M: int, N: int, K: int) -> dict:
         raise NotImplementedError(
             f"mcd_matmul: M={M} needs {grid[1]} row blocks, above the "
             "grid's 65535; split the rows (ROADMAP.md)")
-    smem = 4 * (stages * (bm * bk + bk * bn + threads) + 2 * bk * (bm + 4))
+    smem = (stages * (elem_bytes * (bm * bk + bk * bn) + 4 * threads)
+            + 4 * 2 * bk * (bm + 4))
     return {"tile": name, "tile_id": tile, "block": (bm, bn),
             "threads": threads, "grid": grid, "smem": smem,
             "scratch_words": M * -(-K // 32)}
@@ -71,6 +74,8 @@ def matmul_plan(M: int, N: int, K: int) -> dict:
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float) + (ctypes.c_int,) * 3 \
     + (ctypes.c_void_p,)
+# The bf16 entry takes one more int, out_bf16, before the stream.
+_ARGTYPES_BF16 = _ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)
 
 
 def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
@@ -80,38 +85,45 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     ``key`` is the uint32 site key; ``p_drop == 0`` is the plain product.
     CPU tensors run :func:`mcd_matmul_plain`; CUDA tensors launch the kernel
     on the current stream (counted in ``mcd_matmul.launches``): fp32
-    operands, fp32 out.  The kernel's keep-bit pass writes a scratch of
-    ``M * ceil(K/32)`` words, allocated here.
+    operands and fp32 out, or bf16 operands (their own kernel: the mask in
+    bf16, fp32 sums) and fp32 or bf16 out; any other dtype raises.  The
+    kernel's keep-bit pass writes a scratch of ``M * ceil(K/32)`` words,
+    allocated here.
     """
     if common.check_device("mcd_matmul", x):
         return mcd_matmul_plain(x, w, rows, key, p_drop, out_dtype)
     common.check_p(p_drop)
-    out_dtype = x.dtype if out_dtype is None else out_dtype
-    if x.dtype != torch.float32 or out_dtype != torch.float32:
+    act, variant = common.lm_act("mcd_matmul", x)
+    out_dtype = act if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, act):
         raise NotImplementedError(
-            f"mcd_matmul takes fp32 in and out on the card, got {x.dtype} "
-            f"-> {out_dtype}; bf16 is queued with the LM precisions "
-            "(ROADMAP.md, A2)")
+            f"mcd_matmul writes fp32 or x's dtype on the card, got {act} -> "
+            f"{out_dtype} (ROADMAP.md, A2)")
     if x.ndim != 2 or w.ndim != 2 or min(*x.shape, w.shape[1]) < 1:
         raise ValueError(f"x must be [M, K] and w [K, N], non-empty; got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
-    common.check("x", x, dev, torch.float32, (M, K))
-    common.check("w", w, dev, torch.float32, (K, N))
+    common.check("x", x, dev, act, (M, K))
+    common.check("w", w, dev, act, (K, N))
     rows32 = common.rows_arg(rows, M, dev)
-    plan = matmul_plan(M, N, K)
-    out = torch.empty((M, N), device=dev)
-    thr, scale, masked = common.mask_args(p_drop)
+    plan = matmul_plan(M, N, K, x.element_size())
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    thr, scale, masked = common.mask_args(p_drop, act)
     bits = (torch.empty(plan["scratch_words"], dtype=torch.int32, device=dev)
             if masked else None)
-    common.launch_c(mcd_matmul, "mcd_matmul", _ARGTYPES,
-                    (x.data_ptr(), w.data_ptr(), rows32.data_ptr(),
-                     0 if bits is None else bits.data_ptr(), out.data_ptr(),
-                     M, N, K, int(key) & prng.MASK32, thr, scale, masked,
-                     plan["tile_id"], plan["smem"], common.stream(dev)),
-                    f"mcd_matmul (M={M}, N={N}, K={K}, {plan['tile']})")
+    args = (x.data_ptr(), w.data_ptr(), rows32.data_ptr(),
+            0 if bits is None else bits.data_ptr(), out.data_ptr(),
+            M, N, K, int(key) & prng.MASK32, thr, scale, masked,
+            plan["tile_id"], plan["smem"])
+    if variant:
+        args += (int(out_dtype == torch.bfloat16),)
+    common.launch_c(mcd_matmul, "mcd_matmul",
+                    _ARGTYPES_BF16 if variant else _ARGTYPES,
+                    (*args, common.stream(dev)),
+                    f"mcd_matmul (M={M}, N={N}, K={K}, {plan['tile']}, "
+                    f"{act} -> {out_dtype})", variant)
     return out
 
 

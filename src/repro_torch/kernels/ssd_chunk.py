@@ -110,6 +110,8 @@ def ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+# The bf16 entry also takes the four fp32 scratches (x, bm, cm widened; y).
+_ARGTYPES_BF16 = (ctypes.c_void_p,) * 15 + _ARGTYPES[11:]
 
 
 def blocks_per_sm() -> int:
@@ -128,9 +130,12 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
 
     CPU tensors run :func:`ssd_chunk_scan_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``ssd_chunk_scan.launches``):
-    fp32, contiguous, P <= 64, N <= 128 and a chunk of at most 256 steps
-    (:func:`ssd_plan`).  The launch runs the cumsum kernel and the scores
-    pre-pass into scratches allocated here, then the head kernel.
+    fp32, or bf16 x, bm and cm (dt, a and d_skip fp32; y bf16, the state
+    fp32); any other dtype raises; contiguous, P <= 64, N <= 128 and a
+    chunk of at most 256 steps (:func:`ssd_plan`).  The launch runs the
+    cumsum kernel and the scores pre-pass into scratches allocated here,
+    then the head kernel; at bf16 it first widens x, bm and cm into fp32
+    scratches and last rounds y to bf16 (``csrc/ssd_chunk.cu``).
     """
     if common.check_device("ssd_chunk_scan", x):
         return ssd_chunk_scan_plain(x, dt, a, bm, cm, d_skip,
@@ -140,37 +145,40 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256):
                          f"{tuple(x.shape)}, {tuple(bm.shape)}")
     B, L, H, P = x.shape
     N = bm.shape[-1]
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"ssd_chunk_scan takes fp32 on the card, got {x.dtype}; bf16 is "
-            "queued with the LM precisions (ROADMAP.md, A2)")
+    act, variant = common.lm_act("ssd_chunk_scan", x)
     plan = ssd_plan(B, L, H, P, N, q_chunk)
     Q = plan["Q"]
     dev = x.device
-    common.check("x", x, dev, torch.float32, (B, L, H, P))
-    common.check("dt", dt, dev, torch.float32, (B, L, H))
-    common.check("a", a, dev, torch.float32, (H,))
-    common.check("bm", bm, dev, torch.float32, (B, L, N))
-    common.check("cm", cm, dev, torch.float32, (B, L, N))
-    common.check("d_skip", d_skip, dev, torch.float32, (H,))
+    f32 = torch.float32
+    common.check("x", x, dev, act, (B, L, H, P))
+    common.check("dt", dt, dev, f32, (B, L, H))
+    common.check("a", a, dev, f32, (H,))
+    common.check("bm", bm, dev, act, (B, L, N))
+    common.check("cm", cm, dev, act, (B, L, N))
+    common.check("d_skip", d_skip, dev, f32, (H,))
     scores = torch.empty((plan["scores_bytes"] // 4,), dtype=torch.float32,
                          device=dev)
     ct = torch.empty((plan["ct_bytes"] // 4,), dtype=torch.float32,
                      device=dev)
     cs = torch.empty((B, L, H), dtype=torch.float32, device=dev)
-    # 16-byte copies where every row the head kernel stages is aligned
-    vec = int(x.data_ptr() % 16 == 0 and bm.data_ptr() % 16 == 0
-              and P % 4 == 0 and N % 4 == 0 and Q % 4 == 0)
     y = torch.empty_like(x)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    common.launch_c(ssd_chunk_scan, "ssd_chunk", _ARGTYPES,
+    # At bf16 the fp32 launch reads widened copies and writes an fp32 y.
+    wide = ([torch.empty(t.shape, dtype=f32, device=dev)
+             for t in (x, bm, cm, x)] if variant else [])
+    xs, bs = (wide[0], wide[1]) if variant else (x, bm)
+    # 16-byte copies where every row the head kernel stages is aligned
+    vec = int(xs.data_ptr() % 16 == 0 and bs.data_ptr() % 16 == 0
+              and P % 4 == 0 and N % 4 == 0 and Q % 4 == 0)
+    common.launch_c(ssd_chunk_scan, "ssd_chunk",
+                    _ARGTYPES_BF16 if variant else _ARGTYPES,
                     (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
                      cm.data_ptr(), d_skip.data_ptr(), scores.data_ptr(),
                      ct.data_ptr(), cs.data_ptr(), y.data_ptr(),
-                     h_final.data_ptr(), B, L, H, P, N, Q, vec,
-                     common.stream(dev)),
+                     h_final.data_ptr(), *(t.data_ptr() for t in wide),
+                     B, L, H, P, N, Q, vec, common.stream(dev)),
                     f"ssd_chunk_scan (B={B}, L={L}, H={H}, P={P}, N={N}, "
-                    f"Q={Q})")
+                    f"Q={Q}, {act})", variant)
     return y, h_final
 
 

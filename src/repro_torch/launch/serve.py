@@ -7,13 +7,17 @@ Usage (the reduced rehearsal on the CPU, then full width on a GPU):
       --batch 8 --prompt-len 128 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --no-reduced --batch 8 --prompt-len 512 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
+      --dtype bf16 --batch 8 --prompt-len 128 --new-tokens 32
 
-The flags are the reference launcher's, plus ``--device``.  ``--reduced``
-is on by default and ``--no-reduced`` reaches the published config (the
-reference's ``store_true`` flag with ``default=True`` cannot be turned
-off).  Weights are random, drawn from ``--seed`` by the port's
-``backbone.init_params`` on the serving device, in fp32 as the reference
-launcher initialises them.
+The flags are the reference launcher's, plus ``--device`` and
+``--dtype``.  ``--reduced`` is on by default and ``--no-reduced`` reaches
+the published config (the reference's ``store_true`` flag with
+``default=True`` cannot be turned off).  Weights are random, drawn from
+``--seed`` by the port's ``backbone.init_params`` on the serving device,
+in fp32 as the reference launcher initialises them, or with ``--dtype
+bf16`` in bf16, the dtype the reference's ``init_params`` builds an LM in
+by default.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain versions")
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="the parameters' (and activations') dtype")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -52,7 +58,8 @@ def main(argv=None):
     cfg = cfg.replace(mcd=mcd_cfg)
     backbone.check_cfg(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = backbone.init_params(cfg, gen, device=dev, dtype=torch.float32)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    params = backbone.init_params(cfg, gen, device=dev, dtype=dtype)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
@@ -62,7 +69,8 @@ def main(argv=None):
                          seed=args.seed, device=dev)
     res = eng.generate(prompts, args.new_tokens)
     placement = cfg.mcd.placement and mcd.placement_str(cfg.mcd.placement)
-    print(f"arch={cfg.name} S={args.samples} p={cfg.mcd.p} B={placement}")
+    print(f"arch={cfg.name} S={args.samples} p={cfg.mcd.p} B={placement} "
+          f"dtype={args.dtype}")
     for b in range(args.batch):
         toks = res.tokens[b].cpu().numpy()
         ent = res.predictive_entropy[b].cpu().numpy()

@@ -187,7 +187,8 @@ def _stage_layers(stage: Stage, layer_offset: int):
 class DecodeState(NamedTuple):
     pos: Any          # next position to write: int32 scalar on the device
     caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd],
-                      # or a mamba2.MambaState
+                      # the int8 (k_i8, k_scale, v_i8, v_scale), or a
+                      # mamba2.MambaState
     cross: Any = None
 
 
@@ -223,20 +224,26 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.float32, kv_quant: bool = False,
                       device=None) -> DecodeState:
     """Zero decode state: one (k, v) pair of [B, max_len, KV, hd] per
-    attention layer, a zero ``MambaState`` per mamba layer."""
-    if kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet; it is queued with the "
-            "LM precisions (ROADMAP.md, A2)")
+    attention layer -- with ``kv_quant`` the reference's int8 form (k_i8,
+    k_scale, v_i8, v_scale): int8 codes [B, max_len, KV, hd] and bf16
+    scales [B, max_len, KV] (``_block_cache_spec``) -- and a zero
+    ``MambaState`` per mamba layer.  Every tensor is its own: the caches
+    are updated in place."""
     check_cfg(cfg)
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
 
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     def cache(kind):
         if _parse(kind)[0] == "mamba":
             return mamba2.init_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
-        return (torch.zeros(shape, dtype=dtype, device=dev),
-                torch.zeros(shape, dtype=dtype, device=dev))
+        if kv_quant:
+            return tuple(zeros(sh, dt) for sh, dt in
+                         ((shape, torch.int8), (shape[:3], torch.bfloat16))
+                         * 2)
+        return (zeros(shape, dtype), zeros(shape, dtype))
 
     return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=dev),
                        caches=[

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core import mcd
 from repro_torch.core.mcd import MCDConfig
-from repro_torch.kernels import common, decode_attn, ops
+from repro_torch.kernels import common, ops
 
 BACKENDS = ("cuda", "reference")
 
@@ -213,7 +213,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, q_block: int = 512,
                         kv_block: int = 1024) -> torch.Tensor:
     """Online-softmax attention over query and KV blocks, the reference's
-    blockwise form (its blocks, its update order) in plain PyTorch.
+    blockwise form (its blocks, its update order) in plain PyTorch.  The
+    scores and the P·V product are fp32 sums of the operands' fp32 views
+    (the reference's ``preferred_element_type=float32``: a product of two
+    bf16 values is exact in fp32), P rounded to V's dtype first.
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] (GQA: H = KV · rep).
     """
@@ -238,7 +241,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((B, KV, rep, qb, hdv), device=dev)
         for jk in range(Skv // kb):
             kj, vj = kr[:, jk], vr[:, jk]               # [B, kb, KV, hd]
-            s = torch.einsum("bqgrh,bkgh->bgrqk", qi, kj).float() * scale
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qi.float(),
+                             kj.float()) * scale
             if causal:
                 qpos = iq * qb + torch.arange(qb, device=dev)[:, None]
                 kpos = jk * kb + torch.arange(kb, device=dev)[None, :]
@@ -250,7 +254,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bgrqk,bkgh->bgrqh", p.to(vj.dtype), vj).float()
+                "bgrqk,bkgh->bgrqh", p.to(vj.dtype).float(), vj.float())
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.stack(outs, dim=1)            # [B, nq, KV, rep, qb, hdv]
@@ -276,24 +280,74 @@ def attention_forward(p: AttnParams, x: torch.Tensor,
     return out
 
 
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def quantize_kv(kv: torch.Tensor):
+    """Per-(batch, token, head) symmetric int8, the reference's
+    ``_quantize_kv`` as XLA compiles it: [B, 1, KV, hd] → (int8 codes
+    [B, 1, KV, hd], bf16 scales [B, 1, KV]).  The scale is ``max|kv| ·
+    float32(1/127)``: XLA rewrites the division by the constant 127 as that
+    product (so the compiled reference's codes differ from a true division
+    on about one element in 20,000); ``torch.round`` rounds half to even,
+    as ``jnp.round``."""
+    kf = kv.float()
+    scale = kf.abs().amax(dim=-1) * _INV_127
+    q = torch.clamp(torch.round(kf / torch.clamp(scale, min=1e-8)[..., None]),
+                    -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int8 cache as the reference reads it: ``bf16(codes) ·
+    bf16(scale)``, rounded to bf16 ([B, S, KV, hd])."""
+    return codes.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def _decode_softmax_plain(q1, k_eff, v_eff, posv):
+    """The reference's decode softmax (``attention_decode``): q cast to the
+    cache dtype, fp32 scores over the whole cache (the fp32 views'
+    product), positions past ``pos`` at -inf, a softmax, the weights cast
+    to the cache dtype before the fp32 P·V product.  q1: [B, H, hd]."""
+    B, H, hd = q1.shape
+    S, KV = k_eff.shape[1], k_eff.shape[2]
+    qr = q1.reshape(B, KV, H // KV, hd).to(k_eff.dtype)
+    s = torch.einsum("bgrh,bkgh->bgrk", qr.float(), k_eff.float()) \
+        * hd ** -0.5
+    valid = torch.arange(S, device=q1.device) <= posv
+    s = torch.where(valid, s, torch.full((), -torch.inf, device=q1.device))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bkgh->bgrh", w.to(v_eff.dtype).float(),
+                     v_eff.float())
+    return o.reshape(B, H, hd)
+
+
 def attention_decode(p: AttnParams, x: torch.Tensor, cache,
                      pos: torch.Tensor, theta: float,
                      mask_in: SiteMask | None, p_drop: float,
                      backend: str = "cuda"):
     """Single-token decode with a KV cache.
 
-    x: [B, 1, D]; cache: (k, v), each [B, Smax, KV, hd]; ``pos`` the
-    position as a one-element int32 tensor on x's device, read there and
-    never on the host (so a captured step decodes the position the tensor
-    holds at each replay).  The new token's K and V are written into the
-    cache **in place** at ``pos`` (the reference returns a new cache; a
-    ``pos`` past the cache is an index error, where the reference clamps);
-    returns (out [B, 1, D], cache).
+    x: [B, 1, D]; cache: (k, v), each [B, Smax, KV, hd], or the int8 form
+    (k_i8 [B, Smax, KV, hd], k_scale [B, Smax, KV] bf16, v_i8, v_scale);
+    ``pos`` the position as a one-element int32 tensor on x's device, read
+    there and never on the host (so a captured step decodes the position
+    the tensor holds at each replay).  The new token's K and V (their
+    codes and scales, :func:`quantize_kv`) are written into the cache **in
+    place** at ``pos`` (the reference returns a new cache; a ``pos`` past
+    the cache is an index error, where the reference clamps); returns (out
+    [B, 1, D], cache).
+
+    The softmax over the cache: on ``"reference"`` the reference's own
+    (:func:`_decode_softmax_plain`: weights rounded to the cache dtype); on
+    ``"cuda"`` ``decode_attention`` (the TPU kernel's fp32 online
+    softmax).  The int8 cache is read as bf16 (:func:`dequantize_kv`, plain
+    PyTorch on both backends, as the reference reads it outside any
+    kernel), and the kernel then runs at bf16.
     """
-    if len(cache) != 2:
-        raise NotImplementedError(
-            "the int8 KV cache (k_i8, k_scale, v_i8, v_scale) is not ported "
-            "yet; it is queued with the LM precisions (ROADMAP.md, A2)")
+    if len(cache) not in (2, 4):
+        raise ValueError(f"a KV cache is (k, v) or (k_i8, k_scale, v_i8, "
+                         f"v_scale), got {len(cache)} tensors")
     B = x.shape[0]
     h = rmsnorm(p.norm, x)
     h = apply_site_mask(h, mask_in, p_drop, backend)
@@ -303,15 +357,22 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache,
                            device=x.device).reshape(1)
     q = rope(q, posv, theta)
     k = rope(k, posv, theta)
-    kc, vc = cache
     at = posv.long()
-    kc.index_copy_(1, at, k.to(kc.dtype))
-    vc.index_copy_(1, at, v.to(vc.dtype))
+    if len(cache) == 4:
+        k8, ks, v8, vs = cache
+        for buf, val in zip(cache, (*quantize_kv(k), *quantize_kv(v))):
+            buf.index_copy_(1, at, val)
+        k_eff, v_eff = dequantize_kv(k8, ks), dequantize_kv(v8, vs)
+    else:
+        k_eff, v_eff = cache
+        k_eff.index_copy_(1, at, k.to(k_eff.dtype))
+        v_eff.index_copy_(1, at, v.to(v_eff.dtype))
     q1 = q[:, 0].contiguous()                   # [B, H, hd]
     if backend == "reference":
-        o = decode_attn.decode_attention_plain(q1, kc, vc, posv)
+        o = _decode_softmax_plain(q1, k_eff, v_eff, posv)
     else:
-        o = ops.flash_decode_attention(q1, kc, vc, posv)
+        o = ops.flash_decode_attention(q1.to(k_eff.dtype), k_eff, v_eff,
+                                       posv)
     o = o.reshape(B, 1, *o.shape[1:]).to(x.dtype)
     return _out_proj(o, p.wo), cache
 
@@ -342,7 +403,7 @@ def mlp_forward(p: MLPParams, x: torch.Tensor, mask_in: SiteMask | None,
     wi = p.wi.to(h.dtype).reshape(D, -1)
     if backend == "reference":
         hm = apply_site_mask(h, mask_in, p_drop, backend)
-        gu = torch.matmul(hm, wi).float()
+        gu = torch.matmul(hm.float(), wi.float())
     else:
         if mask_in is None:
             rows = torch.zeros((B * S,), dtype=torch.int32, device=h.device)
@@ -382,7 +443,8 @@ def embed(p: EmbedParams, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def logits(p: EmbedParams, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits [B, S, V]."""
+    """fp32 logits [B, S, V]: the product of the fp32 views (the
+    reference's ``preferred_element_type=float32``)."""
     h = rmsnorm(p.final_norm, x)
     w = p.table.T if p.head is None else p.head
-    return torch.matmul(h, w.to(h.dtype)).float()
+    return torch.matmul(h.float(), w.to(h.dtype).float())

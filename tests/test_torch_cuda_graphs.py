@@ -126,10 +126,29 @@ def test_first_tick_captures_and_counts_its_launches(dev):
 @pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
                                              ("mamba2-370m", 40)])
 def test_decode_graph_equals_eager(dev, arch, prompt_len):
+    _decode_graph_check(dev, arch, prompt_len, torch.float32)
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
+                                             ("mamba2-370m", 40)])
+def test_bf16_decode_graph_equals_eager(dev, arch, prompt_len):
+    """At bf16: the graph captures the bf16 step (a bf16 KV cache, or a
+    bf16 conv state beside the fp32 SSM state) and replays it bit for bit
+    as eager, with fp32's launch counts."""
+    counts = _decode_graph_check(dev, arch, prompt_len, torch.bfloat16)
+    assert counts == _decode_graph_check(dev, arch, prompt_len,
+                                         torch.float32)
+
+
+def _decode_graph_check(dev, arch, prompt_len, dtype):
+    """An engine's decode graph against the same engine served eagerly, at
+    ``dtype``: tokens, logits, entropy and MI bitwise equal, the same
+    launch counts (returned)."""
     cfg = configs.get_config(arch, reduced=True)
     cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=S))
     params = backbone.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=dtype)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (2, prompt_len))
     names = (bernoulli_mask.masked_activation, mcd_matmul.mcd_matmul,
@@ -154,6 +173,12 @@ def test_decode_graph_equals_eager(dev, arch, prompt_len):
     (entry,) = g._graphs.values()
     assert entry.step.graph is not None
     assert int(entry.state.pos) == prompt_len + 5
+    cache = entry.state.caches[0][0][0]
+    if arch == "mamba2-370m":
+        assert (cache.conv.dtype, cache.ssm.dtype) == (dtype, torch.float32)
+    else:
+        assert cache[0].dtype == dtype
+    return counts[0]
 
 
 def test_a_failed_capture_raises(dev):

@@ -25,7 +25,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import bernoulli_mask, decode_attn  # noqa: E402
 from repro_torch.kernels import mcd_matmul as mm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
-from repro_torch.models import backbone  # noqa: E402
+from repro_torch.models import backbone, layers  # noqa: E402
 from repro_torch.serve.engine import BayesianEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -650,8 +650,13 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="precision"):
         decode_attn.decode_attention(q.double(), kc.double(), kc.double(), 0)
     with pytest.raises(NotImplementedError, match="precision"):
-        bernoulli_mask.masked_activation(q[0].bfloat16(), _lm_rows(dev, 4),
+        bernoulli_mask.masked_activation(q[0].half(), _lm_rows(dev, 4),
                                          1, 0.1)
+    with pytest.raises(NotImplementedError, match="precision"):
+        mm.mcd_matmul(q[0].half(), torch.zeros((16, 3), device=dev).half(),
+                      _lm_rows(dev, 4), 1, 0.1)
+    with pytest.raises(NotImplementedError, match="precision"):
+        decode_attn.decode_attention(q.half(), kc.half(), kc.half(), 0)
     with pytest.raises(ValueError, match="shape"):
         mm.mcd_matmul(q[0], torch.zeros((15, 3), device=dev),
                       _lm_rows(dev, 4), 1, 0.1)
@@ -718,7 +723,7 @@ def test_ssd_chunk_scan_kernel_matches_plain(dev, B, L, H, P, N, q):
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     ins = _ssd_inputs(dev, 1, 16, 2, 8, 16)
     with pytest.raises(NotImplementedError, match="precision"):
-        ssd_chunk.ssd_chunk_scan(ins[0].bfloat16(), *ins[1:])
+        ssd_chunk.ssd_chunk_scan(ins[0].half(), *ins[1:])
     with pytest.raises(ValueError, match="P="):
         ssd_chunk.ssd_chunk_scan(torch.zeros((1, 16, 2, 72), device=dev),
                                  *ins[1:])
@@ -750,3 +755,170 @@ def test_mamba_engine_serves_through_the_kernels(dev):
     assert (res.logits - ref.logits).abs().max().item() <= 1e-4
     assert (res.mutual_information - ref.mutual_information).abs().max() \
         .item() <= 1e-4
+
+
+# -- the LM kernels at bf16 ----------------------------------------------------
+
+def _within_bf16_ulp(got, want, atol):
+    """Every |got - want| <= atol + one bf16 ulp of want (2^(e-7) at |want|
+    in [2^e, 2^(e+1))): fp32 results within ``atol`` of each other, each
+    rounded once to bf16, differ by at most that."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2 ** -126)))
+                     - 7)
+    return bool(((g - w).abs() <= atol + ulp).all())
+
+
+@pytest.mark.parametrize("B,F,misaligned", [
+    (64, 2048, False), (64, 1024, False), (6, 37, False), (8, 2044, False),
+    (8, 2048, True), (65537, 8, False)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_masked_activation_bf16_bit_equal(dev, B, F, misaligned, p):
+    """The bf16 kernel on its 16-byte path (8 elements a thread) and off it
+    (F % 8, a view 2 bytes past a 16-byte boundary), past the row-block
+    limit: bitwise equal to the plain version, the keep bits the plain
+    stream's, one launch a call."""
+    g = torch.Generator().manual_seed(B + F)
+    n = B * F + int(misaligned)
+    x = torch.randn((n,), generator=g).bfloat16().to(dev)[int(misaligned):]
+    x = x.view(B, F)
+    rows = _lm_rows(dev, B)
+    before = bernoulli_mask.masked_activation.launches
+    got = bernoulli_mask.masked_activation(x, rows, 0x9E3779B9, p)
+    torch.cuda.synchronize()
+    assert bernoulli_mask.masked_activation.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    want = bernoulli_mask.masked_activation_plain(x, rows, 0x9E3779B9, p)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if p:
+        ones = torch.ones((B, F), device=dev, dtype=torch.bfloat16)
+        bits = bernoulli_mask.masked_activation(ones, rows, 0x9E3779B9,
+                                                p) != 0
+        assert torch.equal(bits, common.gate_mask(0x9E3779B9, rows, F, p))
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 2048, 12288), (64, 2048, 256),
+                                   (5, 37, 70), (130, 96, 65),
+                                   (8192, 64, 1000), (65, 2050, 1001)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+def test_mcd_matmul_bf16_matches_plain(dev, M, K, N, p, out):
+    """bf16 x and W (K and N off the 16-byte path included), the mask in
+    bf16, fp32 sums: fp32 out within MM_ATOL of the plain version (the
+    fp32 product of the same bf16 values, in cuBLAS's order), bf16 out
+    within one bf16 ulp of it; two calls bitwise equal."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g).bfloat16().to(dev)
+    w = (torch.randn((K, N), generator=g) * K ** -0.5).bfloat16().to(dev)
+    rows = _lm_rows(dev, M)
+    od = torch.float32 if out == "fp32" else torch.bfloat16
+    before = mm.mcd_matmul.launches
+    got = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=od)
+    again = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=od)
+    torch.cuda.synchronize()
+    assert mm.mcd_matmul.launches == before + 2
+    want = mm.mcd_matmul_plain(x, w, rows, 12345, p, od)
+    assert got.dtype == od and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+    if od == torch.float32:
+        assert (got - want).abs().max().item() <= MM_ATOL
+    else:
+        assert _within_bf16_ulp(got, want, MM_ATOL)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40)] + ATTN_SHAPES[:4]
+                         + [(1, 8, 1, 256, 70)])
+def test_decode_attention_bf16_matches_plain(dev, B, H, KV, hd, S):
+    """bf16 q and caches, split and unsplit plans (the merge kernel
+    writing bf16): within 1e-5 plus one bf16 ulp of the plain version
+    (fp32 math on the same bf16 values, rounded once); a tensor pos equal to
+    the int; one count a call."""
+    q, kc, vc = (t.bfloat16() for t in _attn(dev, B, H, KV, hd, S))
+    for pos in (0, S // 2, S - 1):
+        before = decode_attn.decode_attention.launches
+        got = decode_attn.decode_attention(q, kc, vc, pos)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        got_t = decode_attn.decode_attention(q, kc, vc, pos_t)
+        torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 2
+        want = decode_attn.decode_attention_plain(q, kc, vc, pos)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, got_t)
+        assert _within_bf16_ulp(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,q", [(3, 40, 2, 8, 16, 16),
+                                         (2, 320, 4, 64, 128, 256),
+                                         (1, 400, 2, 20, 100, 256)])
+def test_ssd_chunk_scan_bf16_matches_plain(dev, B, L, H, P, N, q):
+    """bf16 x, B and C (dt, a and D fp32): y (bf16) within SSD_ATOL plus
+    one bf16 ulp of the plain version, the state (fp32) within SSD_ATOL;
+    one count a call."""
+    ins = _ssd_inputs(dev, B, L, H, P, N, seed=L)
+    for i in (0, 3, 4):
+        ins[i] = ins[i].bfloat16()
+    before = ssd_chunk.ssd_chunk_scan.launches
+    y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_chunk.ssd_chunk_scan.launches == before + 1
+    wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert _within_bf16_ulp(y, wy, SSD_ATOL)
+    assert (h - wh).abs().max().item() <= SSD_ATOL
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
+                                             ("mamba2-370m", 40)])
+def test_lm_engine_serves_bf16_through_the_kernels(dev, arch, prompt_len):
+    """bf16 parameters: the launch counts of fp32, and the kernel backend
+    within the bf16 tolerances of the reference backend, teacher-forced
+    (qwen3's decode softmax is the TPU kernel's fp32 one on the kernel
+    backend and the reference's bf16-rounded one on the other)."""
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=4))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (2, prompt_len))
+    names = (bernoulli_mask.masked_activation, mm.mcd_matmul,
+             decode_attn.decode_attention, ssd_chunk.ssd_chunk_scan)
+    counts, runs = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        params = backbone.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+            dtype=dtype)
+        for fn in names:
+            fn.launches = 0
+        res = BayesianEngine(params, cfg, max_len=prompt_len + 4, seed=1,
+                             device=dev).generate(prompts, 4,
+                                                  keep_logits=True)
+        counts.append([fn.launches for fn in names])
+        runs.append((params, res))
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    params, res = runs[1]
+    ref = BayesianEngine(params, cfg, max_len=prompt_len + 4, seed=1,
+                         device=dev, backend="reference").generate(
+        prompts, 4, teacher_tokens=res.tokens, keep_logits=True)
+    assert (res.logits - ref.logits).abs().max().item() <= 0.06
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_int8_kv_decode_runs_on_the_card(dev, backend):
+    """decode_step from an int8 zero state: the codes and bf16 scales
+    written in place, the bf16 decode_attention kernel on the dequantized
+    cache (one launch a layer a step on the kernel backend)."""
+    cfg = configs.get_config("qwen3-1.7b", reduced=True)
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16)
+    st = backbone.init_decode_state(cfg, 4, 8, kv_quant=True, device=dev)
+    ctx = layers.Ctx(mcd.sample_rows(2, 2, device=dev), 1, cfg.mcd)
+    decode_attn.decode_attention.launches = 0
+    for i in range(4):
+        tok = torch.full((4, 1), 3 + i, dtype=torch.int32, device=dev)
+        lg, st = backbone.decode_step(params, cfg, tok, st, ctx, backend)
+    torch.cuda.synchronize()
+    assert torch.isfinite(lg).all()
+    k8, ks, _, _ = st.caches[0][0][0]
+    assert k8.dtype == torch.int8 and ks[:, :4].abs().min() > 0
+    assert not ks[:, 4:].any()
+    want = 4 * cfg.num_layers if backend == "cuda" else 0
+    assert decode_attn.decode_attention.launches == want

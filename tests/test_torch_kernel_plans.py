@@ -462,7 +462,7 @@ def test_ssd_plan_matches_the_cuda_source():
     # every kernel the wrapper launches holds the name a profile matches
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert len(kernels) == 3
+    assert len(kernels) == 5    # the fp32 three, the bf16 widen and narrow
     assert all("ssd_chunk_scan_kernel" in k for k in kernels)
 
 
@@ -515,10 +515,11 @@ def test_decode_plan_covers_every_tile_once(B, H, KV, hd, S):
 
 
 def test_decode_plan_never_depends_on_pos():
-    """The launch shape comes from the shapes alone: one plan serves every
-    decode step, so a graph of the call can be captured."""
+    """The launch shape comes from the shapes (and the element width)
+    alone: one plan serves every decode step, so a graph of the call can be
+    captured."""
     assert list(inspect.signature(decode_attn.decode_plan).parameters) == [
-        "B", "H", "KV", "hd", "S"]
+        "B", "H", "KV", "hd", "S", "elem_bytes"]
     plans = {str(decode_attn.decode_plan(*ATTN_SERVING)) for _ in range(3)}
     assert len(plans) == 1
 
@@ -585,7 +586,7 @@ def test_decode_plan_matches_the_cuda_source():
     # every kernel of the launch holds the name a profile matches
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert len(kernels) == 2
+    assert len(kernels) == 4    # the split and merge kernels, fp32 and bf16
     assert all("decode_attention_kernel" in k for k in kernels)
 
 
@@ -707,7 +708,8 @@ def test_mask_plan_matches_the_cuda_source():
     assert "launch_rows(reinterpret_cast<const float4*>(x)" in src
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert kernels == ["masked_activation_kernel"]
+    assert kernels == ["masked_activation_kernel",
+                       "masked_activation_kernel_bf16"]
 
 
 # -- mcd_lstm_step and mcd_gru_step: the warp path for H that divides 32 --
@@ -855,3 +857,88 @@ def test_keys_launch_argument_is_built_once_a_key_tuple():
                     mcd_lstm.mcd_lstm_step(x, h, c, wx, wh, b, rows, keys,
                                            0.125)):
         assert torch.equal(u, v)
+
+
+# -- the bf16 LM kernels: the fp32 designs with 16-bit elements --------------
+
+def _c_params(src, entry):
+    """The parameter count of ``entry``'s C signature in ``src``."""
+    sig = re.search(rf"int {entry}\(([^)]*)\)", src)
+    assert sig, entry
+    return len(sig.group(1).split(","))
+
+
+@pytest.mark.parametrize("B", [1, 64, 32768])
+@pytest.mark.parametrize("F", [37, 1020, 1024, 2048])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_mask_plan_bf16_covers_every_element_once(B, F, aligned):
+    """At bf16 a 16-byte unit holds 8 elements (F % 8 == 0 and aligned),
+    else one; every element is covered once; the serving shapes take the
+    16-byte path."""
+    plan = bm.mask_plan(B, F, aligned, 2)
+    assert plan["vec4"] == (F % 8 == 0 and aligned)
+    assert plan["elems_per_thread"] == (8 if plan["vec4"] else 1)
+    assert plan["n"] * plan["elems_per_thread"] == F
+    assert np.array_equal(_mask_columns(plan), np.arange(plan["n"]))
+    rows = _mask_rows(plan, B)
+    assert np.array_equal(np.concatenate(rows), np.arange(B))
+    src = (build.CSRC / "masked_activation.cu").read_text()
+    assert "masked_activation_kernel_bf16<T><<<" in src
+    assert "launch_rows_bf16(reinterpret_cast<const uint4*>(x)" in src
+    assert _c_params(src, "masked_activation_bf16_launch") == len(
+        bm._ARGTYPES)
+
+
+def test_matmul_bf16_tiles_match_the_cuda_source():
+    """The bf16 entry launches the same tiles for the same ids, and the
+    plan's shared memory at 2 bytes an element is the source's
+    TileBf16::kSmem: the ring of raw bf16 tiles and a word a thread, the
+    fp32 transposed x tiles."""
+    src = (build.CSRC / "mcd_matmul.cu").read_text()
+    launched = dict(re.findall(
+        r"if \(tile == (\d)\)\s*return launch_tile_bf16<([\d, ]+)>", src))
+    assert len(launched) == len(mm.TILES)
+    for name, (tid, bm_, bn, threads, bk, stages) in mm.TILES.items():
+        BM, BN, TM, TN, _VN, BK, STAGES, _ = (
+            int(v) for v in launched[str(tid)].split(","))
+        assert (BM, BN, BK, STAGES) == (bm_, bn, bk, stages)
+        plan = mm.matmul_plan(bm_ * 2 * common.SMS if name == "wide" else 1,
+                              bn, bk, 2)
+        assert plan["tile"] == name
+        stage = 2 * (BM * BK + BK * BN) + 4 * threads
+        assert plan["smem"] == STAGES * stage + 4 * 2 * BK * (BM + 4)
+        assert plan["smem"] <= SMEM_LIMIT
+    assert _c_params(src, "mcd_matmul_bf16_launch") == len(
+        mm._ARGTYPES_BF16)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S", [(64, 16, 8, 128, 160),
+                                         (8, 16, 8, 128, 4096),
+                                         (3, 8, 1, 64, 40)])
+def test_decode_plan_bf16_matches_the_cuda_source(B, H, KV, hd, S):
+    """The bf16 plan covers the tiles as the fp32 one (the same grid,
+    splits and runs: the plan never depends on the dtype but for the ring's
+    bytes), its shared memory is the source's smem_bytes_bf16, and the
+    bf16 entry takes the fp32 entry's arguments."""
+    f32 = decode_attn.decode_plan(B, H, KV, hd, S)
+    bf = decode_attn.decode_plan(B, H, KV, hd, S, 2)
+    assert {k: v for k, v in bf.items() if k != "smem"} == \
+        {k: v for k, v in f32.items() if k != "smem"}
+    assert bf["smem"] == 2 * 3 * 2 * 16 * hd + 4 * (H // KV) * hd
+    src = (build.CSRC / "decode_attn.cu").read_text()
+    assert re.search(r"kStages \* 2 \* kTS \* hd \* 2 \+ rep \* hd \* "
+                     r"\(int\)sizeof\(float\)", src)
+    assert _c_params(src, "decode_attention_bf16_launch") == len(
+        decode_attn._ARGTYPES)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode_attn.decode_plan(B, H, KV, 68, S, 2)
+
+
+def test_ssd_bf16_entry_takes_the_wrappers_arguments():
+    """The bf16 entry: the fp32 entry's pointers, the four fp32 scratches,
+    then the same ints and the stream."""
+    src = (build.CSRC / "ssd_chunk.cu").read_text()
+    assert _c_params(src, "ssd_chunk_scan_launch") == len(
+        ssd_chunk._ARGTYPES)
+    assert _c_params(src, "ssd_chunk_scan_bf16_launch") == len(
+        ssd_chunk._ARGTYPES_BF16) == len(ssd_chunk._ARGTYPES) + 4

@@ -189,13 +189,28 @@ def test_unported_blocks_raise(arch):
 
 
 def test_int8_kv_cache_raises(port):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbb.init_decode_state(TCFG, 2, 8, kv_quant=True, device="cpu")
+    """The int8 KV cache is ported (held to JAX in
+    ``test_torch_lm_precision.py``): ``init_decode_state(kv_quant=True)``
+    makes the reference's (k_i8, k_scale, v_i8, v_scale), a decode step
+    writes the codes and scales at pos in place on both backends; a cache
+    of any other arity raises."""
+    for backend in ("cuda", "reference"):
+        st = tbb.init_decode_state(TCFG, S * B, MAX_LEN, kv_quant=True,
+                                   device="cpu")
+        k8, ks, v8, vs = st.caches[0][0][0]
+        assert (k8.dtype, ks.dtype) == (torch.int8, torch.bfloat16)
+        assert ks.shape == (S * B, MAX_LEN, TCFG.num_kv_heads)
+        lg, st = tbb.decode_step(port, TCFG, torch.from_numpy(DECODE[0]), st,
+                                 _ctx(), backend=backend)
+        assert torch.isfinite(lg).all() and st.pos == 1
+        assert ks[:, 0].abs().min() > 0 and not ks[:, 1:].any()
+        assert k8[:, 0].abs().max() == 127 and not k8[:, 1:].any()
     blk = port["stages"][0][0][0]["mixer"]
     kv = torch.zeros((2, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="k_i8"):
         tlayers.attention_decode(blk, torch.zeros((2, 1, 64)),
-                                 (kv, kv, kv, kv), 0, 1e6, None, 0.1)
+                                 (kv, kv, kv), torch.tensor(0), 1e6, None,
+                                 0.1)
 
 
 def test_init_params_is_seeded_and_at_the_reference_scales():
