@@ -89,7 +89,10 @@ Phases (each raises on failure; the exit code is then non-zero):
    (their own bf16 kernels) at the serving shapes: the mask at qwen3's
    and mamba2's decode and prefill shapes bitwise equal to its plain
    version, ``mcd_matmul``'s fp32 out at decode and prefill within MM_TOL
-   (two calls bitwise equal), ``decode_attention`` at pos 0, 127 and 159
+   on the tensor cores and at M = 65 and 8192, K = 2050, N = 12290 on the
+   CUDA cores' narrow and wide tiles (each record's ``path``, the plan the
+   wrapper launched; two calls bitwise equal),
+   ``decode_attention`` at pos 0, 127 and 159
    within ATTN_TOL plus one bf16 ulp (two calls and a tensor pos bitwise
    equal); each record's ``dtype`` is "bf16", its bound at bf16 bytes (a
    product's operations at the bf16 tensor-core rate), its library call
@@ -385,6 +388,21 @@ def device_ms(fn, iters: int, match=None) -> float:
 
     (us,), _ = profiled_us(prepare, [match], calls=iters)
     return us / iters / 1e3
+
+
+def host_ms(fn, calls: int = 100) -> float:
+    """Host time a call of ``fn``: ``calls`` calls enqueued back to back,
+    unsynchronised, after one warm-up call (a few launches a call: the
+    launch queue does not fill)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 def max_abs_diff(a, b, what: str) -> float:
@@ -1796,9 +1814,10 @@ def matmul_cases(dev, g, key) -> list[dict]:
                                f"{torch.equal(got, again)}")
         xm = bernoulli_mask.masked_activation_plain(x, rows, key, p)
         r32 = common.rows_to_int32(rows)
-        plan = mcd_matmul.matmul_plan(M, N_, K_)
+        plan = mcd_matmul.mcd_matmul.last_plan
         records.append(_lm_record(
-            "mcd_matmul", dict(M=M, K=K_, N=N_, p=p, tile=plan["tile"],
+            "mcd_matmul", dict(M=M, K=K_, N=N_, p=p, path=plan["path"],
+                               tile=plan["tile"],
                                bit_equal=bool(torch.equal(got, want)),
                                repeat_bit_equal=True), err,
             lambda: mcd_matmul.mcd_matmul(x, wm, r32, key, p, torch.float32),
@@ -1841,7 +1860,13 @@ def bf16_excess(got, want, atol) -> float:
 # The bf16 cases of phases 6 and 8: the serving shapes at bf16.
 BF16_MASK_CASES = [(LM_B * LM_S, 2048), (LM_B * LM_S * LM_PROMPT, 2048),
                    (LM_B * LM_S, 1024), (LM_B * LM_S * MB_PROMPT, 1024)]
-BF16_MM_ROWS = (LM_B * LM_S, LM_B * LM_S * LM_PROMPT)   # decode, prefill
+# bf16 mcd_matmul: (M, W, path, tile): decode and prefill on the tensor
+# cores; K = 2050 and N = 12290 (W "ragged") on the CUDA cores.
+BF16_MM_CASES = [(LM_B * LM_S, "aligned", "tensor_cores", "tc_narrow"),
+                 (LM_B * LM_S * LM_PROMPT, "aligned", "tensor_cores",
+                  "tc_wide"),
+                 (LM_B * LM_S + 1, "ragged", "cuda_cores", "narrow"),
+                 (LM_B * LM_S * LM_PROMPT, "ragged", "cuda_cores", "wide")]
 BF16_ATTN_POSITIONS = (0, 127, 159)
 
 
@@ -1849,8 +1874,12 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
     """The three LM kernels at bf16 against their plain versions at the
     serving shapes: ``masked_activation`` bitwise equal (qwen3's and
     mamba2's decode and prefill); ``mcd_matmul``'s fp32 out (the SwiGLU
-    gate/up product) within MM_TOL at decode and prefill, and two calls
-    bitwise equal; ``decode_attention`` within ATTN_TOL plus one bf16 ulp
+    gate/up product) within MM_TOL at decode and prefill on the tensor
+    cores, and at K = 2050, N = 12290 on the CUDA cores, M = 65 on the
+    narrow tile and M = 8192 on the wide one (the ``path`` and ``tile``
+    of the plan the wrapper launched, checked; its host ms a call beside
+    the device ms), two calls bitwise equal;
+    ``decode_attention`` within ATTN_TOL plus one bf16 ulp
     at the serving shape, two calls and a tensor pos bitwise equal to the
     int.  Each record: ``dtype`` "bf16", times, the bound at bf16 bytes
     (operations of a product at the bf16 tensor-core rate) and the bf16
@@ -1894,36 +1923,49 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
         del x, got, want
     D, N = 2048, 2 * 6144
     w = (torch.randn((D, N), generator=g, device=dev) * D ** -0.5).to(bf)
-    for M in BF16_MM_ROWS:
+    w_odd = (torch.randn((D + 2, N + 2), generator=g, device=dev)
+             * D ** -0.5).to(bf)
+    for M, which, path, tile in BF16_MM_CASES:
+        wm = w if which == "aligned" else w_odd
+        K_, N_ = wm.shape
         rows = _lm_rows(dev, M)
-        x = torch.randn((M, D), generator=g, device=dev).to(bf)
-        got = mcd_matmul.mcd_matmul(x, w, rows, key, 0.1, torch.float32)
-        again = mcd_matmul.mcd_matmul(x, w, rows, key, 0.1, torch.float32)
+        x = torch.randn((M, K_), generator=g, device=dev).to(bf)
+        got = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
+        plan = mcd_matmul.mcd_matmul.last_plan
+        if (plan["path"], plan["tile"]) != (path, tile):
+            raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_} "
+                               f"launched {plan['path']} {plan['tile']}, "
+                               f"not {path} {tile}")
+        again = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
         torch.cuda.synchronize()
-        want = mcd_matmul.mcd_matmul_plain(x, w, rows, key, 0.1,
+        want = mcd_matmul.mcd_matmul_plain(x, wm, rows, key, 0.1,
                                            torch.float32)
         err = max_abs_diff(got, want, "bf16 mcd_matmul")
         if err > MM_TOL or not torch.equal(got, again):
-            raise RuntimeError(f"bf16 mcd_matmul at M={M}: {err} from its "
-                               f"plain version (tol {MM_TOL}); two calls "
-                               f"equal: {torch.equal(got, again)}")
+            raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_}: "
+                               f"{err} from its plain version (tol "
+                               f"{MM_TOL}); two calls equal: "
+                               f"{torch.equal(got, again)}")
         xm = bernoulli_mask.masked_activation_plain(x, rows, key, 0.1)
         r32 = common.rows_to_int32(rows)
-        plan = mcd_matmul.matmul_plan(M, N, D, 2)
+
+        def mm_call(x=x, wm=wm, r32=r32):
+            return mcd_matmul.mcd_matmul(x, wm, r32, key, 0.1, torch.float32)
+
         records.append(_lm_record(
-            "mcd_matmul", dict(M=M, K=D, N=N, p=0.1, dtype="bf16",
-                               out="float32", tile=plan["tile"],
-                               smem=plan["smem"], repeat_bit_equal=True),
-            err,
-            lambda x=x, r32=r32: mcd_matmul.mcd_matmul(x, w, r32, key, 0.1,
-                                                       torch.float32),
-            lambda x=x, rows=rows: mcd_matmul.mcd_matmul_plain(
-                x, w, rows, key, 0.1, torch.float32),
-            nbytes=2 * (M * D + D * N) + 4 * M * N + 4 * M,
-            ops=2 * M * D * N, peak=PEAK_BF16_FLOPS,
-            library=lambda xm=xm: torch.matmul(xm, w)))
+            "mcd_matmul", dict(M=M, K=K_, N=N_, p=0.1, dtype="bf16",
+                               out="float32", path=plan["path"],
+                               tile=plan["tile"], smem=plan["smem"],
+                               repeat_bit_equal=True,
+                               host_ms=host_ms(mm_call)),
+            err, mm_call,
+            lambda x=x, wm=wm, rows=rows: mcd_matmul.mcd_matmul_plain(
+                x, wm, rows, key, 0.1, torch.float32),
+            nbytes=2 * (M * K_ + K_ * N_) + 4 * M * N_ + 4 * M,
+            ops=2 * M * K_ * N_, peak=PEAK_BF16_FLOPS,
+            library=lambda xm=xm, wm=wm: torch.matmul(xm, wm)))
         del x, got, again, want, xm
-    del w
+    del w, w_odd
     B, H, S = ATTN_SERVING
     KV, hd = 8, 128
     q, kc, vc = (t.to(bf) for t in attention_inputs(B, H, KV, hd, S))
@@ -2192,6 +2234,8 @@ def lm_bf16_entries(entries, records, launches) -> None:
                          if r["kernel"] == e["name"]
                          and r.get("dtype") == "bf16"),
                      "launches": launches[e["name"]]}}
+        if "path" in rec:
+            e["precisions"]["bf16"]["path"] = rec["path"]
         if not e["precisions"]["bf16"]["launches"]:
             raise RuntimeError(f"{e['name']} was never launched at bf16 on "
                                "a serving path")

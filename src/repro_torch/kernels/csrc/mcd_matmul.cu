@@ -343,19 +343,26 @@ int mcd_matmul_launch(const float* x, const float* w, const int32_t* rows,
 // bf16: the reference's LM dtype.  x [M, K] and W [K, N] bf16, the mask
 // applied in bf16 (bit ? bf16(x * scale) : 0, scale the bf16 value of
 // 1 / (1 - p), as the TPU kernel's x * scale in x.dtype,
-// mcd_matmul.py:40-42), each output's K-sum in fp32 in index order, and the
-// result written as fp32 (the SwiGLU gate/up product of the LM, the
-// reference's preferred_element_type) or rounded to bf16 (out_bf16, the
-// TPU kernel's own x.dtype out).  The fp32 kernel above is left as it was;
-// this is its design with 16-bit operands: the ring holds raw bf16 tiles
-// (16-byte copies of 8 elements, half the bytes a K step), the x elements
-// are masked and widened to fp32 into the same transposed [k][m] tile, and
-// the W tile is widened to fp32 as the inner loop reads it.  Where K or N
-// is not a multiple of 8 or a pointer not 16-byte aligned, the tiles are
-// filled by plain 2-byte loads.  Bound on this card: bytes at decode (W is
-// 50 MB of bf16 at K = 2048, N = 12288: 15 us at 3.35 TB/s); the fp32 FMAs
-// on the CUDA cores cap it at the fp32 kernel's rate (tensor cores are
-// later work).
+// mcd_matmul.py:40-42), fp32 sums, and the result written as fp32 (the
+// SwiGLU gate/up product of the LM, the reference's
+// preferred_element_type) or rounded to bf16 (out_bf16, the TPU kernel's
+// own x.dtype out).  The fp32 kernel above is left as it was.  Two paths,
+// chosen by shape on the host (mcd_matmul.py::matmul_plan, "path"):
+//  * the tensor cores (tiles 2 and 3, mcd_matmul_kernel_bf16_tc, below),
+//    where K and N are multiples of 8 and x, W and out 16-byte aligned:
+//    what TMA can read.  Bounds at qwen3-1.7b's [M, 2048] @ [2048, 12288]:
+//    operations at prefill (M = 8192: 0.417 ms at 989 TFLOP/s), bytes at
+//    decode (M = 64: W is 50 MB, 16 us at 3.35 TB/s).  The tensor core
+//    sums each k16 step in its own order: not the index order of the
+//    CUDA-core kernels, the same at every call.
+//  * the CUDA cores (tiles 0 and 1, mcd_matmul_kernel_bf16) for any other
+//    shape: the fp32 design with 16-bit operands, each output's K-sum in
+//    fp32 in index order.  The ring holds raw bf16 tiles (16-byte copies
+//    of 8 elements), the x elements are masked and widened to fp32 into
+//    the transposed [k][m] tile, and the W tile is widened to fp32 as the
+//    inner loop reads it; where K or N is not a multiple of 8 or a pointer
+//    not 16-byte aligned, the tiles are filled by plain 2-byte loads.  Its
+//    fp32 FMAs cap it at the fp32 kernel's rate.
 
 #include <cuda_bf16.h>
 
@@ -600,11 +607,492 @@ int launch_tile_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (tiles 2 and 3): mcd_matmul_kernel_bf16_tc.
+//
+// Replaces, for bf16 operands that TMA can read, the same TPU kernel
+// (repro/kernels/mcd_matmul.py::mcd_matmul, pallas_call l.64): the product
+// on wgmma (m64nNk16, bf16 operands, fp32 accumulators).  Bounds: above.
+// Design:
+//  * Warp specialised.  The last warp is the producer: one thread keeps a
+//    ring of K steps of 64 in flight with TMA, each stage completing on an
+//    mbarrier: the x tile [BM][64] and the W tile [64][BN] with the
+//    hardware's swizzle, and 4 keep-bit words a row of the tile (the
+//    pre-pass above, its rows padded to a multiple of 4 words so that TMA
+//    can read them).  The warpgroups before it consume, 64 rows each.
+//  * The mask meets the tensor core in shared memory: a consumer
+//    warpgroup rewrites its 64 rows of the landed x tile in place, each
+//    element bit ? bf16(x * scale) : 0 (one fma.rn.bf16x2 a pair, a single
+//    rounding of the exact product: the value of the CUDA-core path and of
+//    the plain version), fences the writes to the async proxy, meets at a
+//    named barrier and issues wgmma with both operands from shared memory:
+//    A K-major, B (the W tile, N contiguous) MN-major with the transpose
+//    bit.  The masked x never exists in device memory.  (A from registers,
+//    the other form, needs 16 more registers a thread, 32 with a group in
+//    flight, beside the 128 accumulators of the prefill tile: ptxas held
+//    the block to 168 a thread, serialised the wgmma and spilled, and on
+//    an H100 it ran slower at prefill; at decode it was a few percent
+//    faster, not worth a second form.)
+//  * One wgmma group in flight behind the one being issued: a warpgroup
+//    masks step k + 1 while the tensor core runs step k, and hands a stage
+//    back to the producer once its group has completed.
+//  * The tensor core sums each k16 step in its own order, so the K-sum is
+//    not the in-order FMA chain of the CUDA-core kernels; it is the same
+//    order at every call (no split of K, no atomics): two calls are
+//    bitwise equal.
+//  * Two tiles, picked by the host (mcd_matmul.py::TC_TILES):
+//    - prefill (tile 2): 128 x 256 outputs, two consumer warpgroups with
+//      128 accumulators a thread, a 4-stage ring of 50 KB; the blocks walk
+//      the tiles in groups of kGroupM row blocks, so that a wave shares
+//      its x and W panels in L2;
+//    - decode (tile 3): 64 x 96 outputs, one consumer warpgroup, an
+//      8-stage ring of 21 KB: 128 blocks for N = 12288 (one wave on 132
+//      SMs), each with ~100 KB of W in flight; every block rereads x
+//      (256 KB) from L2.
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached
+                    // through the runtime, so nothing links libcuda
+
+#include <atomic>
+
+namespace {
+
+constexpr int kGroupM = 8;              // row blocks of a raster group
+constexpr int kMaxDevices = 64;         // devices whose attribute is kept
+constexpr uint32_t kSpinLimit = 1u << 24;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the phase of `parity` to complete.  A ring that never fills
+// (a fault) traps after kSpinLimit polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == kSpinLimit) __trap();
+  }
+}
+
+// One TMA box of `map` at (c0 inner, c1 outer) into shared memory at dst,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A pair of bf16 x values masked as the plain version: bf16(x * scale)
+// where the pair's bit (bit 0 low half, bit 1 high half) is set, else 0.
+__device__ __forceinline__ uint32_t mask_pair(uint32_t v, uint32_t bits,
+                                              uint32_t scale2) {
+  uint32_t prod;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(prod)
+      : "r"(v), "r"(scale2), "r"(0x80008000u));
+  return prod & (((bits & 1u) ? 0x0000ffffu : 0u) |
+                 ((bits & 2u) ? 0xffff0000u : 0u));
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets, swizzle of `swb` bytes (128, 64 or 32).  For the K-major A
+// tile (rows of 128 bytes) SBO is the stride between groups of 8 rows and
+// LBO is unused; for the MN-major B tile (swizzle atoms of swb bytes along
+// N by 8 rows along K) LBO is the stride between atoms along N and SBO
+// between groups of 8 rows along K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int swb) {
+  const uint64_t layout = swb == 128 ? 1 : swb == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the accumulators in their registers across the asynchronous
+// wgmma (the compiler must not move them while it runs).
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64, N] = A[64, 16] @ B[16, N] (+ D where `accumulate`), both operands
+// from shared memory (A K-major, B MN-major).
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a,
+                                      uint64_t b, int accumulate) {
+  if constexpr (BN == 256)
+    wgmma_n256(d, a, b, accumulate);
+  else
+    wgmma_n96(d, a, b, accumulate);
+}
+
+// The tensor-core tile: WG consumer warpgroups of 64 rows and a producer
+// warp, BN columns, K steps of 64 on a ring of STAGES, W staged in swizzle
+// atoms of SWB bytes (SWB / 2 columns).  A stage holds x [BM][64] (128-byte
+// swizzle), W as BN / (SWB / 2) boxes of [64][SWB / 2] and 4 keep-bit
+// words a row, padded to 1 KB; the ring sits on a 1 KB boundary (the
+// swizzle's period), the full and empty mbarriers after it.
+template <int WG, int BN, int STAGES, int SWB>
+struct TileTc {
+  static constexpr int kBM = 64 * WG;
+  static constexpr int kBK = 64;
+  static constexpr int kThreads = 128 * WG + 32;
+  static constexpr int kAtom = SWB / 2;
+  static constexpr int kX = kBM * kBK * 2;
+  static constexpr int kW = kBK * BN * 2;
+  static constexpr int kBits = kBM * 16;
+  static constexpr int kStage = (kX + kW + kBits + 1023) / 1024 * 1024;
+  static constexpr size_t kSmem = 1024 + (size_t)STAGES * kStage + 16 * STAGES;
+  static_assert(BN % kAtom == 0 && (BN == 256 || BN == 96), "wgmma width");
+};
+
+template <int WG, int BN, int STAGES, int SWB>
+__global__ void __launch_bounds__(128 * WG + 32, 1)
+mcd_matmul_kernel_bf16_tc(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w,
+                          const __grid_constant__ CUtensorMap tm_bits,
+                          void* __restrict__ out, int M, int N, int K,
+                          float scale, int masked, int out_bf16) {
+  using Tl = TileTc<WG, BN, STAGES, SWB>;
+  constexpr int BM = Tl::kBM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + STAGES * Tl::kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  // This block's tile: groups of kGroupM row blocks, rows fastest.
+  const int MB = (M + BM - 1) / BM;
+  const int NB = (N + BN - 1) / BN;
+  const int per_group = kGroupM * NB;
+  const int group = blockIdx.x / per_group;
+  const int in_group = blockIdx.x % per_group;
+  const int rows_in = min(MB - group * kGroupM, kGroupM);
+  const int m0 = (group * kGroupM + in_group % rows_in) * BM;
+  const int n0 = (in_group / rows_in) * BN;
+  const int KT = (K + Tl::kBK - 1) / Tl::kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * WG);           // a warp of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WG) {
+    // Producer: one thread.  The bits box is 4 words (16 bytes, TMA's
+    // least) at a 16-byte aligned column: steps 2j and 2j + 1 both load
+    // words 4j .. 4j + 3 and read their own two.
+    if (threadIdx.x == 128 * WG) {
+      const uint32_t tx = Tl::kX + Tl::kW + (masked ? Tl::kBits : 0);
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(empty(s), ((kt / STAGES) & 1) ^ 1);
+        const uint32_t st = base + s * Tl::kStage;
+        mbar_expect_tx(full(s), tx);
+        tma_load(st, &tm_x, full(s), kt * Tl::kBK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / Tl::kAtom; ++j)
+          tma_load(st + Tl::kX + j * Tl::kBK * SWB, &tm_w, full(s),
+                   n0 + j * Tl::kAtom, kt * Tl::kBK);
+        if (masked)
+          tma_load(st + Tl::kX + Tl::kW, &tm_bits, full(s), (kt >> 1) * 4,
+                   m0);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows wg * 64 .. + 63 of the tile.
+  const int t = threadIdx.x & 127;
+  const __nv_bfloat162 sc = __float2bfloat162_rn(scale);
+  const uint32_t scale2 = *reinterpret_cast<const uint32_t*>(&sc);
+  float acc[BN / 2];   // set by the first wgmma (accumulate 0)
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full(s), (kt / STAGES) & 1);
+    const uint32_t st = base + s * Tl::kStage;
+    unsigned char* const sg = gbase + s * Tl::kStage;
+    if (masked) {
+      // 4 16-byte chunks a thread; physical chunk pc of row r holds the
+      // columns 8 * (pc ^ r % 8) .. + 7 (the 128-byte swizzle).
+      const uint32_t* words =
+          reinterpret_cast<const uint32_t*>(sg + Tl::kX + Tl::kW) +
+          (kt & 1) * 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = i * 128 + t;
+        const int r = wg * 64 + q / 8;
+        const int lc = (q % 8) ^ (r & 7);
+        const uint32_t bw = words[r * 4 + lc / 4] >> ((lc % 4) * 8);
+        uint4* const v = reinterpret_cast<uint4*>(sg + r * 128 + (q % 8) * 16);
+        uint4 u = *v;
+        u.x = mask_pair(u.x, bw, scale2);
+        u.y = mask_pair(u.y, bw >> 2, scale2);
+        u.z = mask_pair(u.z, bw >> 4, scale2);
+        u.w = mask_pair(u.w, bw >> 6, scale2);
+        *v = u;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    pin(acc);
+    wg_fence();
+    const uint32_t xa = st + wg * 64 * 128;
+    const uint32_t wt = st + Tl::kX;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<BN>(acc, smem_desc(xa + kk * 32, 16, 8 * 128, 128),
+                smem_desc(wt + kk * 16 * SWB, Tl::kBK * SWB, 8 * SWB, SWB),
+                kt > 0 || kk > 0);
+    wg_commit();
+    wg_wait<1>();                        // step kt - 1's group is done
+    pin(acc);
+    if (kt > 0 && (t & 31) == 0) mbar_arrive(empty((kt - 1) % STAGES));
+  }
+  wg_wait<0>();
+  pin(acc);
+
+  // acc[4j + e]: row g (e < 2) or g + 8 of the warp's 16, column
+  // 8j + 2c + (e & 1), for g = lane / 4, c = lane % 4.
+  const int rw = wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int cw = 2 * (t & 3);
+  float* const of = reinterpret_cast<float*>(out);
+  __nv_bfloat16* const ob = reinterpret_cast<__nv_bfloat16*>(out);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int gn = n0 + 8 * j + cw;
+    if (gn >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + rw + 8 * h;
+      if (gm >= M) continue;
+      const size_t o = (size_t)gm * N + gn;
+      const float lo = acc[4 * j + 2 * h], hi = acc[4 * j + 2 * h + 1];
+      if (out_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(ob + o) =
+            __floats2bfloat162_rn(lo, hi);
+      else
+        *reinterpret_cast<float2*>(of + o) = make_float2(lo, hi);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of the row-major [rows, cols] array at ptr (elements of `bytes`),
+// read in boxes of box_cols x box_rows; out-of-range elements read as 0.
+bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                int bytes, int cols, int rows, int box_cols, int box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int WG, int BN, int STAGES, int SWB>
+int launch_tile_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const uint32_t* bits, int KWb, void* out, int M, int N,
+                   int K, float scale, int masked, size_t smem, int out_bf16,
+                   cudaStream_t stream) {
+  using Tl = TileTc<WG, BN, STAGES, SWB>;
+  auto kernel = mcd_matmul_kernel_bf16_tc<WG, BN, STAGES, SWB>;
+  if (smem < Tl::kSmem || encode_tiled() == nullptr || K % 8 != 0 ||
+      N % 8 != 0 || (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
+  // The shared-memory attribute is the function's on each device: set it
+  // once a device (and again for a larger size), not at every call.
+  static std::atomic<int> smem_set[kMaxDevices];   // zero: static
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || smem_set[dev].load() < (int)smem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) smem_set[dev].store((int)smem);
+  }
+  CUtensorMap tx, tw, tb = {};
+  if (!tensor_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, Tl::kBK,
+                  Tl::kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, Tl::kAtom,
+                  Tl::kBK,
+                  SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      (masked && !tensor_map(&tb, bits, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4,
+                             KWb, M, 4, Tl::kBM, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)((M + Tl::kBM - 1) / Tl::kBM) * ((N + BN - 1) / BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)tiles, Tl::kThreads, smem, stream>>>(
+      tx, tw, tb, out, M, N, K, scale, masked, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
 // The bf16 launch: as mcd_matmul_launch, on bf16 x and w, the result fp32
 // (out_bf16 == 0) or bf16; `scale` is the bf16 scale's value and
-// `smem_bytes` the bf16 tile's (matmul_plan with elem_bytes 2).
+// `smem_bytes` the tile's (matmul_plan with elem_bytes 2).  Tiles 0 and 1
+// run on the CUDA cores, 2 and 3 on the tensor cores; for those the
+// keep-bit pass writes rows of ceil(K/32) words rounded up to a multiple
+// of 4 (the extra words zero), the row pitch TMA needs.
 int mcd_matmul_bf16_launch(const void* x, const void* w, const int32_t* rows,
                            uint32_t* bits, void* out, int M, int N, int K,
                            uint32_t key, uint32_t thr, float scale,
@@ -612,10 +1100,11 @@ int mcd_matmul_bf16_launch(const void* x, const void* w, const int32_t* rows,
                            int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int KW = (K + 31) / 32;
+  const int KWb = tile >= 2 ? (KW + 3) / 4 * 4 : KW;
   if (masked) {
-    const long long threads = (long long)M * KW * 32;
+    const long long threads = (long long)M * KWb * 32;
     mcd_matmul_kernel_bits<<<(unsigned)((threads + 255) / 256), 256, 0,
-                             s>>>(rows, bits, M, K, KW, key, thr);
+                             s>>>(rows, bits, M, K, KWb, key, thr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -628,6 +1117,13 @@ int mcd_matmul_bf16_launch(const void* x, const void* w, const int32_t* rows,
   if (tile == 0)
     return launch_tile_bf16<64, 96, 4, 6, 2, 32, 3, 1>(
         xb, wb, bits, out, M, N, K, KW, scale, masked, smem, out_bf16, s);
+  // <WG, BN, STAGES, SWB>: matmul_plan's TC_TILES.
+  if (tile == 2)
+    return launch_tile_tc<2, 256, 4, 128>(xb, wb, bits, KWb, out, M, N, K,
+                                          scale, masked, smem, out_bf16, s);
+  if (tile == 3)
+    return launch_tile_tc<1, 96, 8, 64>(xb, wb, bits, KWb, out, M, N, K,
+                                        scale, masked, smem, out_bf16, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -35,26 +35,58 @@ def mcd_matmul_plain(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     return y.to(x.dtype if out_dtype is None else out_dtype)
 
 
-# The kernel's two tiles (csrc/mcd_matmul.cu, ``tile`` argument): name ->
-# (tile id, rows, columns, threads, K step, ring stages).
+# The CUDA-core kernels' two tiles (csrc/mcd_matmul.cu, ``tile`` argument):
+# name -> (tile id, rows, columns, threads, K step, ring stages).
 TILES = {"wide": (1, 128, 128, 256, 32, 2), "narrow": (0, 64, 96, 256, 32, 3)}
+# The bf16 tensor-core kernel's two tiles (``TileTc``): name -> (tile id,
+# rows, columns, threads, K step, ring stages, W swizzle bytes): 64 rows
+# a consumer warpgroup, and one producer warp.
+TC_TILES = {"tc_wide": (2, 128, 256, 288, 64, 4, 128),
+            "tc_narrow": (3, 64, 96, 160, 64, 8, 64)}
+TC_GROUP_M = 8   # row blocks of a raster group (csrc kGroupM)
 
 
-def matmul_plan(M: int, N: int, K: int, elem_bytes: int = 4) -> dict:
-    """How the kernel covers ``[M, K] @ [K, N]``: the tile, its grid, the
-    shared memory a block needs and the keep-bit scratch (uint32 words).
+def matmul_plan(M: int, N: int, K: int, elem_bytes: int = 4,
+                aligned: bool = True) -> dict:
+    """How the kernel covers ``[M, K] @ [K, N]``: the path, the tile, its
+    grid, the shared memory a block needs and the keep-bit scratch (uint32
+    words).
 
-    The 128 x 128 tile when it fills every SM twice over (a prefill), else
-    the 64 x 96 one (a decode step: M = 64, N = 12288 makes 128 blocks, one
-    wave on 132 SMs).  No split of K on either: each output's sum runs in
-    index order.  The shared memory is ``csrc/mcd_matmul.cu``'s
-    ``Tile::kSmem``: the ring of raw x, W and a keep-bit word a thread, and
-    the double-buffered transposed x tile; the entry refuses less.  The
-    bf16 kernel (``elem_bytes`` 2) takes the same tiles, its ring holding
-    the raw tiles at 2 bytes an element (``Tile``'s bf16 twin, ``kSmem``).
+    ``path`` "tensor_cores" for bf16 operands that TMA can read: K and N
+    multiples of 8 (rows of 16 bytes) and, ``aligned``, x, W and out
+    16-byte aligned.  The 128 x 256 tile of two consumer warpgroups where
+    it fills every SM twice over (a prefill), else the 64 x 96 one (a
+    decode step: 128 blocks for N = 12288, one wave); the grid is 1-D
+    (``blocks``, walked in groups of TC_GROUP_M row blocks), ``grid`` the
+    tiles it covers.  The shared memory is ``TileTc::kSmem``: a 1 KB-
+    aligned ring of stages (x, W and 4 keep-bit words a row, rounded up
+    to 1 KB) and two mbarriers a stage.  The keep-bit rows are padded to 4
+    words for TMA.
+
+    ``path`` "cuda_cores" for fp32, and for bf16 off that path: the
+    128 x 128 tile when it fills every SM twice over, else the 64 x 96
+    one.  No split of K on either: each output's sum runs in index order.
+    The shared memory is ``Tile::kSmem``: the ring of raw x, W and a
+    keep-bit word a thread, and the double-buffered transposed x tile; the
+    entry refuses less.  The bf16 kernel (``elem_bytes`` 2) takes the same
+    tiles, its ring holding the raw tiles at 2 bytes an element
+    (``TileBf16::kSmem``).
     """
     if min(M, N, K) < 1:
         raise ValueError(f"empty product: M={M}, N={N}, K={K}")
+    words = -(-K // 32)
+    if elem_bytes == 2 and aligned and K % 8 == 0 and N % 8 == 0:
+        wide = TC_TILES["tc_wide"]
+        wide_blocks = -(-M // wide[1]) * -(-N // wide[2])
+        name = "tc_wide" if wide_blocks >= 2 * common.SMS else "tc_narrow"
+        tile, bm, bn, threads, bk, stages, _ = TC_TILES[name]
+        stage = -(-(2 * (bm * bk + bk * bn) + 16 * bm) // 1024) * 1024
+        grid = (-(-N // bn), -(-M // bm))
+        return {"path": "tensor_cores", "tile": name, "tile_id": tile,
+                "block": (bm, bn), "threads": threads, "grid": grid,
+                "blocks": grid[0] * grid[1],
+                "smem": 1024 + stages * stage + 16 * stages,
+                "scratch_words": M * -(-words // 4) * 4}
     wide = TILES["wide"]
     wide_blocks = -(-M // wide[1]) * -(-N // wide[2])
     name = "wide" if wide_blocks >= 2 * common.SMS else "narrow"
@@ -66,9 +98,9 @@ def matmul_plan(M: int, N: int, K: int, elem_bytes: int = 4) -> dict:
             "grid's 65535; split the rows (ROADMAP.md)")
     smem = (stages * (elem_bytes * (bm * bk + bk * bn) + 4 * threads)
             + 4 * 2 * bk * (bm + 4))
-    return {"tile": name, "tile_id": tile, "block": (bm, bn),
-            "threads": threads, "grid": grid, "smem": smem,
-            "scratch_words": M * -(-K // 32)}
+    return {"path": "cuda_cores", "tile": name, "tile_id": tile,
+            "block": (bm, bn), "threads": threads, "grid": grid,
+            "smem": smem, "scratch_words": M * words}
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
@@ -85,10 +117,12 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     ``key`` is the uint32 site key; ``p_drop == 0`` is the plain product.
     CPU tensors run :func:`mcd_matmul_plain`; CUDA tensors launch the kernel
     on the current stream (counted in ``mcd_matmul.launches``): fp32
-    operands and fp32 out, or bf16 operands (their own kernel: the mask in
-    bf16, fp32 sums) and fp32 or bf16 out; any other dtype raises.  The
-    kernel's keep-bit pass writes a scratch of ``M * ceil(K/32)`` words,
-    allocated here.
+    operands and fp32 out, or bf16 operands (their own kernels: the mask in
+    bf16, fp32 sums; on the tensor cores or the CUDA cores by
+    :func:`matmul_plan`'s ``path``) and fp32 or bf16 out; any other dtype
+    raises.  The kernel's keep-bit pass writes a scratch of the plan's
+    ``scratch_words``, allocated here.  The plan of the last launch, made
+    from the real pointers' alignment, is ``mcd_matmul.last_plan``.
     """
     if common.check_device("mcd_matmul", x):
         return mcd_matmul_plain(x, w, rows, key, p_drop, out_dtype)
@@ -108,8 +142,9 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     common.check("x", x, dev, act, (M, K))
     common.check("w", w, dev, act, (K, N))
     rows32 = common.rows_arg(rows, M, dev)
-    plan = matmul_plan(M, N, K, x.element_size())
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+    plan = matmul_plan(M, N, K, x.element_size(), aligned)
     thr, scale, masked = common.mask_args(p_drop, act)
     bits = (torch.empty(plan["scratch_words"], dtype=torch.int32, device=dev)
             if masked else None)
@@ -124,7 +159,9 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
                     (*args, common.stream(dev)),
                     f"mcd_matmul (M={M}, N={N}, K={K}, {plan['tile']}, "
                     f"{act} -> {out_dtype})", variant)
+    mcd_matmul.last_plan = plan
     return out
 
 
 mcd_matmul.launches = 0
+mcd_matmul.last_plan = None

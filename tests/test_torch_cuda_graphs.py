@@ -13,6 +13,8 @@ tests/test_torch_cuda_graphs.py``.
 * qwen3 and mamba2 (REDUCED): the decode graph gives the eager decode's
   tokens, logits, entropy and mutual information bit for bit and the
   same launch counts, over two ``generate`` calls on one engine.
+* The bf16 ``mcd_matmul`` on the tensor cores: a captured call replays
+  bitwise equal to eager calls.
 * A capture that fails raises, and leaves the launch counts as they were.
 """
 
@@ -179,6 +181,42 @@ def _decode_graph_check(dev, arch, prompt_len, dtype):
     else:
         assert cache[0].dtype == dtype
     return counts[0]
+
+
+
+@pytest.mark.parametrize("M", [64, 8192])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_mcd_matmul_tensor_cores_graph_replay_equals_eager(dev, M, out):
+    """The bf16 product on the tensor cores captured in a CUDA graph (its
+    TMA tensor maps baked into the graph's launch, its keep-bit scratch
+    from the graph's pool) replays bitwise equal to eager calls on new x
+    values copied into the captured input, at the decode and the prefill
+    tile."""
+    K, N = 2048, 12288
+    assert mcd_matmul.matmul_plan(M, N, K, 2)["path"] == "tensor_cores"
+    g = torch.Generator(device=dev).manual_seed(M)
+    w = (torch.randn((K, N), generator=g, device=dev)
+         * K ** -0.5).bfloat16()
+    rows = torch.arange(M, dtype=torch.int64)
+    rows[5::16] |= 1 << 31                       # masked like any other row
+    rows = rows.to(torch.int32).to(dev)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # build and warm up
+        mcd_matmul.mcd_matmul(x, w, rows, 7, 0.1, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = mcd_matmul.mcd_matmul(x, w, rows, 7, 0.1, out)
+    before = mcd_matmul.mcd_matmul.launches
+    for _ in range(2):
+        x.copy_(torch.randn((M, K), generator=g, device=dev).bfloat16())
+        graph.replay()
+        want = mcd_matmul.mcd_matmul(x, w, rows, 7, 0.1, out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert mcd_matmul.mcd_matmul.launches == before + 2     # eager calls
 
 
 def test_a_failed_capture_raises(dev):

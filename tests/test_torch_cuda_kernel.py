@@ -799,14 +799,17 @@ def test_masked_activation_bf16_bit_equal(dev, B, F, misaligned, p):
 
 @pytest.mark.parametrize("M,K,N", [(64, 2048, 12288), (64, 2048, 256),
                                    (5, 37, 70), (130, 96, 65),
-                                   (8192, 64, 1000), (65, 2050, 1001)])
+                                   (8192, 64, 1000), (65, 2050, 1001),
+                                   (8192, 2050, 1001)])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("out", ["fp32", "bf16"])
 def test_mcd_matmul_bf16_matches_plain(dev, M, K, N, p, out):
-    """bf16 x and W (K and N off the 16-byte path included), the mask in
-    bf16, fp32 sums: fp32 out within MM_ATOL of the plain version (the
-    fp32 product of the same bf16 values, in cuBLAS's order), bf16 out
-    within one bf16 ulp of it; two calls bitwise equal."""
+    """bf16 x and W (K and N off the 16-byte path included: the CUDA-core
+    tiles, the wide one at M = 8192; on it: the tensor cores), the mask in
+    bf16, fp32 sums: fp32 out within MM_ATOL of the plain version (the fp32
+    product of the same bf16 values, in cuBLAS's order), bf16 out within
+    one bf16 ulp of it; two calls bitwise equal, on the path the plan
+    names."""
     g = torch.Generator().manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g).bfloat16().to(dev)
     w = (torch.randn((K, N), generator=g) * K ** -0.5).bfloat16().to(dev)
@@ -817,6 +820,7 @@ def test_mcd_matmul_bf16_matches_plain(dev, M, K, N, p, out):
     again = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=od)
     torch.cuda.synchronize()
     assert mm.mcd_matmul.launches == before + 2
+    assert mm.mcd_matmul.last_plan == mm.matmul_plan(M, N, K, 2)
     want = mm.mcd_matmul_plain(x, w, rows, 12345, p, od)
     assert got.dtype == od and got.shape == (M, N)
     assert torch.isfinite(got.float()).all() and torch.equal(got, again)
@@ -824,6 +828,77 @@ def test_mcd_matmul_bf16_matches_plain(dev, M, K, N, p, out):
         assert (got - want).abs().max().item() <= MM_ATOL
     else:
         assert _within_bf16_ulp(got, want, MM_ATOL)
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 130, 8192])
+@pytest.mark.parametrize("N", [256, 1000, 12288])
+@pytest.mark.parametrize("K", [64, 2048, 2056])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+def test_mcd_matmul_bf16_tensor_cores_match_plain(dev, M, N, K, p, out):
+    """The tensor-core path (K and N multiples of 8, aligned operands) on
+    both tiles and their ragged edges in M, N and K, rows with bit 31 set
+    masked like any other: fp32 out within MM_ATOL of the plain version
+    (the tensor core sums each k16 step in its own order), bf16 out within
+    one bf16 ulp of it plus MM_ATOL; two calls bitwise equal, one launch a
+    call."""
+    plan = mm.matmul_plan(M, N, K, 2)
+    assert plan["path"] == "tensor_cores"
+    assert plan["tile"] == ("tc_wide" if M == 8192 and N == 12288
+                            else "tc_narrow")
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).bfloat16()
+    rows = _lm_rows(dev, M)
+    od = torch.float32 if out == "fp32" else torch.bfloat16
+    before = mm.mcd_matmul.launches
+    got = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=od)
+    again = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=od)
+    torch.cuda.synchronize()
+    assert mm.mcd_matmul.launches == before + 2
+    assert mm.mcd_matmul.last_plan == plan
+    want = mm.mcd_matmul_plain(x, w, rows, 12345, p, od)
+    assert got.dtype == od and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+    if od == torch.float32:
+        assert (got - want).abs().max().item() <= MM_ATOL
+    else:
+        assert _within_bf16_ulp(got, want, MM_ATOL)
+
+
+@pytest.mark.parametrize("M,K,N,tile", [(64, 2048, 256, "narrow"),
+                                        (8192, 64, 1000, "wide")])
+@pytest.mark.parametrize("operand", ["x", "w"])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_mcd_matmul_bf16_misaligned_takes_the_cuda_cores(dev, M, K, N, tile,
+                                                         operand, p):
+    """An operand 2 bytes past a 16-byte boundary at a shape the tensor
+    cores would take: the wrapper launches the CUDA-core tile of its plan
+    (the wide one at a prefill), within MM_ATOL of the plain version, two
+    calls bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+
+    def operand_of(shape, k, off):
+        n = shape[0] * shape[1]
+        buf = torch.randn((n + off,), generator=g, device=dev) * k
+        return buf.bfloat16()[off:].view(shape)
+
+    x = operand_of((M, K), 1.0, 1 if operand == "x" else 0)
+    w = operand_of((K, N), K ** -0.5, 1 if operand == "w" else 0)
+    assert (x.data_ptr() % 16 != 0) == (operand == "x")
+    assert (w.data_ptr() % 16 != 0) == (operand == "w")
+    rows = _lm_rows(dev, M)
+    before = mm.mcd_matmul.launches
+    got = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=torch.float32)
+    plan = mm.mcd_matmul.last_plan
+    again = mm.mcd_matmul(x, w, rows, 12345, p, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mm.mcd_matmul.launches == before + 2
+    assert (plan["path"], plan["tile"]) == ("cuda_cores", tile)
+    assert mm.matmul_plan(M, N, K, 2)["path"] == "tensor_cores"
+    want = mm.mcd_matmul_plain(x, w, rows, 12345, p, torch.float32)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= MM_ATOL
 
 
 @pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40)] + ATTN_SHAPES[:4]

@@ -890,10 +890,11 @@ def test_mask_plan_bf16_covers_every_element_once(B, F, aligned):
 
 
 def test_matmul_bf16_tiles_match_the_cuda_source():
-    """The bf16 entry launches the same tiles for the same ids, and the
-    plan's shared memory at 2 bytes an element is the source's
-    TileBf16::kSmem: the ring of raw bf16 tiles and a word a thread, the
-    fp32 transposed x tiles."""
+    """The bf16 entry launches the same CUDA-core tiles for the same ids
+    (the bf16 path off the tensor cores: here operands not 16-byte
+    aligned), and the plan's shared memory at 2 bytes an element is the
+    source's TileBf16::kSmem: the ring of raw bf16 tiles and a word a
+    thread, the fp32 transposed x tiles."""
     src = (build.CSRC / "mcd_matmul.cu").read_text()
     launched = dict(re.findall(
         r"if \(tile == (\d)\)\s*return launch_tile_bf16<([\d, ]+)>", src))
@@ -903,8 +904,8 @@ def test_matmul_bf16_tiles_match_the_cuda_source():
             int(v) for v in launched[str(tid)].split(","))
         assert (BM, BN, BK, STAGES) == (bm_, bn, bk, stages)
         plan = mm.matmul_plan(bm_ * 2 * common.SMS if name == "wide" else 1,
-                              bn, bk, 2)
-        assert plan["tile"] == name
+                              bn, bk, 2, aligned=False)
+        assert plan["tile"] == name and plan["path"] == "cuda_cores"
         stage = 2 * (BM * BK + BK * BN) + 4 * threads
         assert plan["smem"] == STAGES * stage + 4 * 2 * BK * (BM + 4)
         assert plan["smem"] <= SMEM_LIMIT
@@ -942,3 +943,124 @@ def test_ssd_bf16_entry_takes_the_wrappers_arguments():
         ssd_chunk._ARGTYPES)
     assert _c_params(src, "ssd_chunk_scan_bf16_launch") == len(
         ssd_chunk._ARGTYPES_BF16) == len(ssd_chunk._ARGTYPES) + 4
+
+
+# -- the bf16 product on the tensor cores -------------------------------------
+
+# qwen3-1.7b's and llama3-8b's SwiGLU gate/up products, decode and prefill
+TC_SERVING = [(64, 12288, 2048), (8192, 12288, 2048),
+              (64, 28672, 4096), (8192, 28672, 4096)]
+
+
+@pytest.mark.parametrize("M,N,K", TC_SERVING)
+def test_matmul_plan_bf16_serving_shapes_take_the_tensor_cores(M, N, K):
+    """The serving shapes take the tensor cores: the 64 x 96 tile in one
+    wave at decode, the 128 x 256 one at least twice over the SMs at
+    prefill; the keep-bit rows padded to 4 words."""
+    plan = mm.matmul_plan(M, N, K, 2)
+    assert plan["path"] == "tensor_cores"
+    assert plan["tile"] == ("tc_narrow" if M == 64 else "tc_wide")
+    if M == 64 and N == 12288:
+        assert plan["blocks"] == 128 <= common.SMS
+    if M == 8192:
+        assert plan["blocks"] >= 2 * common.SMS
+    assert plan["scratch_words"] == M * -(-(-(-K // 32)) // 4) * 4
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M,N,K,aligned", [
+    (64, 12288, 2050, True), (64, 12290, 2048, True), (65, 12290, 2050, True),
+    (8192, 12284, 2048, True), (8192, 12290, 2050, True), (5, 70, 37, True),
+    (64, 12288, 2048, False), (8192, 12288, 2048, False)])
+def test_matmul_plan_bf16_off_the_tensor_cores(M, N, K, aligned):
+    """K or N not a multiple of 8, or an operand not 16-byte aligned: the
+    CUDA-core bf16 tiles, as before (a prefill on the wide one)."""
+    plan = mm.matmul_plan(M, N, K, 2, aligned)
+    assert plan["path"] == "cuda_cores"
+    assert plan["tile"] == ("wide" if M == 8192 else "narrow")
+    assert "blocks" not in plan
+    assert plan["scratch_words"] == M * -(-K // 32)
+
+
+def _tc_tile_of(block, mb, nb):
+    """The (row block, column block) block ``block`` of the tensor-core
+    kernel's 1-D grid computes, as ``mcd_matmul_kernel_bf16_tc`` walks
+    them: groups of TC_GROUP_M row blocks, rows fastest in a group."""
+    group, within = divmod(block, mm.TC_GROUP_M * nb)
+    rows_in = min(mb - group * mm.TC_GROUP_M, mm.TC_GROUP_M)
+    return group * mm.TC_GROUP_M + within % rows_in, within // rows_in
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 8, 8), (63, 1000, 2056),
+                                   (65, 256, 64), (130, 12288, 64),
+                                   (2048, 4352, 64), (8200, 1000, 2048)]
+                         + TC_SERVING)
+def test_matmul_tc_grid_covers_every_output_once(M, N, K):
+    """The 1-D grid, walked in groups of TC_GROUP_M row blocks as the
+    kernel does, computes every output tile exactly once."""
+    plan = mm.matmul_plan(M, N, K, 2)
+    assert plan["path"] == "tensor_cores"
+    bm, bn = plan["block"]
+    nb, mb = plan["grid"]
+    assert plan["blocks"] == mb * nb
+    assert (mb - 1) * bm < M <= mb * bm and (nb - 1) * bn < N <= nb * bn
+    hits = np.zeros((mb, nb), dtype=np.int64)
+    for b in range(plan["blocks"]):
+        hits[_tc_tile_of(b, mb, nb)] += 1
+    assert np.all(hits == 1)
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+
+
+def test_matmul_tc_tiles_match_the_cuda_source():
+    """Each TC_TILES entry is the template the bf16 entry launches for its
+    id (warpgroups, columns, stages, W swizzle), the plan's threads and
+    shared memory are TileTc's kThreads and kSmem, the raster group is the
+    source's kGroupM, and the entry takes the wrapper's arguments."""
+    src = (build.CSRC / "mcd_matmul.cu").read_text()
+    launched = dict(re.findall(
+        r"if \(tile == (\d)\)\s*return launch_tile_tc<([\d, ]+)>", src))
+    assert len(launched) == len(mm.TC_TILES)
+    for name, (tid, bm, bn, threads, bk, stages, swb) in mm.TC_TILES.items():
+        WG, BN, STAGES, SWB = (int(v) for v in launched[str(tid)].split(","))
+        assert (64 * WG, BN, STAGES, SWB) == (bm, bn, stages, swb)
+        assert threads == 128 * WG + 32 and bk == 64
+        plan = mm.matmul_plan(*((8192, 12288) if name == "tc_wide"
+                                else (64, BN)), bk, 2)
+        assert plan["tile"] == name and plan["tile_id"] == tid
+        stage = -(-(2 * bm * bk + 2 * bk * BN + 16 * bm) // 1024) * 1024
+        assert plan["smem"] == 1024 + STAGES * stage + 16 * STAGES
+    assert re.search(r"kThreads = 128 \* WG \+ 32;", src)
+    assert re.search(r"kStage = \(kX \+ kW \+ kBits \+ 1023\) / 1024 \* "
+                     r"1024;", src)
+    assert re.search(r"kSmem = 1024 \+ \(size_t\)STAGES \* kStage \+ "
+                     r"16 \* STAGES;", src)
+    assert re.search(rf"constexpr int kGroupM = {mm.TC_GROUP_M};", src)
+    assert _c_params(src, "mcd_matmul_bf16_launch") == len(
+        mm._ARGTYPES_BF16)
+
+
+def _matmul_plan_before(M, N, K, elem_bytes=4):
+    """``matmul_plan`` as it was before the tensor-core path (the CUDA-core
+    tiles alone), for the fp32 check below."""
+    wide = mm.TILES["wide"]
+    wide_blocks = -(-M // wide[1]) * -(-N // wide[2])
+    name = "wide" if wide_blocks >= 2 * common.SMS else "narrow"
+    tile, bm, bn, threads, bk, stages = mm.TILES[name]
+    grid = (-(-N // bn), -(-M // bm))
+    smem = (stages * (elem_bytes * (bm * bk + bk * bn) + 4 * threads)
+            + 4 * 2 * bk * (bm + 4))
+    return {"tile": name, "tile_id": tile, "block": (bm, bn),
+            "threads": threads, "grid": grid, "smem": smem,
+            "scratch_words": M * -(-K // 32)}
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (64, 12288, 2048),
+                                   (8192, 12288, 2048), (65, 12290, 2050),
+                                   (64, 28672, 4096), (4100, 1001, 37)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_matmul_plan_fp32_is_unchanged(M, N, K, aligned):
+    """fp32 never takes the tensor cores: its plan is the one it was, with
+    ``path`` "cuda_cores" beside it, whatever the alignment."""
+    plan = mm.matmul_plan(M, N, K, 4, aligned)
+    assert plan.pop("path") == "cuda_cores"
+    assert plan == _matmul_plan_before(M, N, K)
