@@ -119,14 +119,22 @@ Phases (each raises on failure; the exit code is then non-zero):
    head kernel's resident blocks an SM.
    Times the kernel and its plain version; no PyTorch call computes the
    scan (no library time).  Then the scan at bf16 (x, B and C bf16) at
-   the serving shape: y within SSD_TOL plus one bf16 ulp, the state
-   within SSD_TOL.
+   the serving shape on both bf16 paths (SSD_BF16_CASES): the tensor-core
+   kernel and, with x 8 bytes off a 16-byte boundary, the widened fp32
+   launch; each holds the plan's path and the profiled kernel names, y
+   within SSD_TOL plus one bf16 ulp, the state within SSD_TOL, two calls
+   bitwise equal; the tensor-core case a float64 witness (y before its
+   rounding and the state no farther from it than the plain fp32
+   version, +25%), the bound at the storage widths and the bf16 rate, the
+   design's own floor and the host ms of an eager call.
 9. Mamba serving: ``BayesianEngine.generate`` on mamba2-370m at full width
    (48 ``mamba`` layers, random fp32 weights from seed 0), 8 prompts of
    512 tokens (two chunks) x 8 chains, 32 new tokens: ``ssd_chunk_scan``
    48 launches a prefill and ``masked_activation`` 48 a prefill and 48 a
    decode step, the same checks, times, profiles and graph turns as
-   phase 7.
+   phase 7; the scan's path in the prefill (``last_plan``: "cuda_cores"
+   at fp32, "tensor_cores" at bf16).  Each LM phase also records the five
+   kernels with the most device time in its prefill (``top_kernels``).
 7b, 9b. The LMs at bf16: phases 7 and 9 again with the weights drawn in
    bf16 (the dtype the reference builds its LMs in): the same launch
    counts, the kernel run repeated on its own tokens, the ``reference``
@@ -303,19 +311,26 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _device_events(prof, match=None) -> tuple[float, int]:
-    """Device-kernel time (us) and number of kernel records in a profile;
-    only kernels whose name holds ``match`` when given.  CPU ops are
-    skipped: they would count their kernels twice."""
-    total, count = 0.0, 0
+def _kernel_table(prof) -> dict:
+    """Device time (us) and number of records of each kernel in a profile,
+    by name.  CPU ops are skipped: they would count their kernels twice."""
+    table = {}
     for ev in prof.key_averages():
         if "CUDA" not in str(ev.device_type):
             continue
-        if match is None or match in ev.key:
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            count += ev.count
-    return total, count
+        us, n = table.get(ev.key, (0.0, 0))
+        table[ev.key] = (us + getattr(ev, "self_device_time_total",
+                                      getattr(ev, "self_cuda_time_total",
+                                              0.0)), n + ev.count)
+    return table
+
+
+def _device_events(table, match=None) -> tuple[float, int]:
+    """Device-kernel time (us) and number of kernel records in a profile's
+    ``_kernel_table``; only kernels whose name holds ``match`` when
+    given."""
+    got = [v for k, v in table.items() if match is None or match in k]
+    return sum(us for us, _ in got), sum(n for _, n in got)
 
 
 PROFILE_ATTEMPTS = 12  # the profiler drops some or all records of a
@@ -325,12 +340,13 @@ PROFILE_ATTEMPTS = 12  # the profiler drops some or all records of a
 LOOSE_RECORDS = 0.002   # share of records a "loose" match may lose
 
 
-def profiled_us(prepare, matches, calls=None, loose=()):
+def profiled_us(prepare, matches, calls=None, loose=(), table=False):
     """Profile one call under torch.profiler (CUDA activity): ``prepare()``
     runs outside the profile and returns the call, which makes ``calls``
     repeats of one function when given.  Returns the device time (us) of
     the kernels matching each entry of ``matches`` (None: every kernel) and
-    the call's return value.
+    the call's return value; with ``table``, also the accepted profile's
+    ``_kernel_table``.
 
     The profiler now and then loses kernel records -- a whole profile's, or
     some of them -- and a lost record reads as time that did not pass.  So
@@ -355,7 +371,8 @@ def profiled_us(prepare, matches, calls=None, loose=()):
                                  ProfilerActivity.CUDA]) as prof:
             out = call()
             torch.cuda.synchronize()
-        got = [_device_events(prof, m) for m in matches]
+        kernels = _kernel_table(prof)
+        got = [_device_events(kernels, m) for m in matches]
         counts = [n for _, n in got]
         whole = all(n > 0 and (calls is None or i in loose
                                or n % calls == 0)
@@ -364,7 +381,8 @@ def profiled_us(prepare, matches, calls=None, loose=()):
             abs(n - m) <= LOOSE_RECORDS * m if i in loose else n == m
             for i, (n, m) in enumerate(zip(counts, last)))
         if whole and agree:
-            return [us for us, _ in got], out
+            return ([us for us, _ in got], out) + ((kernels,) if table
+                                                   else ())
         if last is not None or not whole:
             print(f"profile {attempt + 1} of {PROFILE_ATTEMPTS} for "
                   f"{matches}: kernel records {counts} (previous {last}); "
@@ -2211,7 +2229,7 @@ def lm_bf16_entries(entries, records, launches) -> None:
                                                             2048),
         "mcd_matmul": lambda r: r["M"] == LM_B * LM_S,
         "decode_attention": lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
-        "ssd_chunk_scan": lambda r: True,
+        "ssd_chunk_scan": lambda r: r["path"] == "tensor_cores",
     }
     for e in entries:
         if e["name"] not in LM_KERNELS:
@@ -2234,8 +2252,9 @@ def lm_bf16_entries(entries, records, launches) -> None:
                          if r["kernel"] == e["name"]
                          and r.get("dtype") == "bf16"),
                      "launches": launches[e["name"]]}}
-        if "path" in rec:
-            e["precisions"]["bf16"]["path"] = rec["path"]
+        for key in ("path", "host_ms", "kernel_names"):
+            if key in rec:
+                e["precisions"]["bf16"][key] = rec[key]
         if not e["precisions"]["bf16"]["launches"]:
             raise RuntimeError(f"{e['name']} was never launched at bf16 on "
                                "a serving path")
@@ -2343,46 +2362,141 @@ def ssd_kernel_phase(report) -> list[dict]:
         print("ssd kernel parts " + json.dumps(
             [rec["part_device_ms"], rec["head_blocks_per_sm"]]), flush=True)
         records.append(rec)
-    records.append(ssd_bf16_case())
+    records += ssd_bf16_cases()
     report["ssd_kernel_cases"] = records
     return records
 
 
-def ssd_bf16_case() -> dict:
-    """``ssd_chunk_scan`` at bf16 (x, B and C bf16; dt, a and D fp32) at the
-    serving shape: y within SSD_TOL plus one bf16 ulp of the plain version,
-    the fp32 state within SSD_TOL.  The bound: the scan's operations at the
-    fp32 rate (its arithmetic: dt, a, the decay and the state are fp32),
-    its bytes at the storage widths."""
+# bf16 SSD cases of phase 8, at the serving shape: (x off 16 bytes, the path
+# the plan must name).  The tensor-core kernel is the served path; the
+# widened fp32 launch takes the bf16 shapes and pointers TMA cannot read.
+SSD_BF16_CASES = [(False, "tensor_cores"), (True, "widen")]
+
+
+def host_parts(fn, calls: int = 200, n: int = 10) -> list:
+    """Where the host time of an eager call of ``fn`` goes: the ``n``
+    functions with the most cumulative time a call under cProfile, [name,
+    cumulative us, own us] (the profiler's own cost inflates each call; the
+    shares are what it tells)."""
+    import cProfile
+    import pstats
     import torch
-    from repro_torch.kernels import common, ssd_chunk
-    B, L, H, P, N, q = SSD_CASES[0]
-    ins = ssd_inputs(B, L, H, P, N, seed=L + H + 1)
-    for i in (0, 3, 4):
-        ins[i] = ins[i].to(torch.bfloat16)
-    Q = common.largest_divisor(L, q)
-    y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+    fn()
     torch.cuda.synchronize()
-    wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
-    excess = bf16_excess(y, wy, SSD_TOL)
-    err_h = max_abs_diff(h, wh, "bf16 ssd_chunk_scan h_final")
-    err_y = max_abs_diff(y.float(), wy.float(), "bf16 ssd_chunk_scan y")
-    case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=Q, dtype="bf16",
-                max_abs_err_y=err_y, max_abs_err_h=err_h,
-                y_excess_past_tol_and_ulp=excess)
-    print("ssd kernel check " + json.dumps(case), flush=True)
-    if excess > 0 or err_h > SSD_TOL:
-        raise RuntimeError(f"bf16 ssd_chunk_scan disagrees with its plain "
-                           f"version: {case}")
-    ops, nbytes = ssd_cost(B, L, H, P, N, Q)
-    # x, B, C and y at 2 bytes: half of those terms of the fp32 count
-    nbytes -= 2 * (2 * B * L * H * P + 2 * B * L * N)
-    del y, h, wy, wh
-    return _lm_record(
-        "ssd_chunk_scan", case, max(err_y, err_h),
-        lambda: ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q),
-        lambda: ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q),
-        nbytes=nbytes, ops=ops)
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+    return [[f"{os.path.basename(f)}:{line}({func})", ct / calls * 1e6,
+             tt / calls * 1e6] for (f, line, func), (_, _, tt, ct, _)
+            in rows[:n]]
+
+
+def top_kernels(table, n: int = 5) -> list:
+    """The ``n`` kernels of a ``_kernel_table`` with the most device time:
+    [name (cut to 120 characters), device ms, calls]."""
+    got = sorted(table.items(), key=lambda kv: -kv[1][0])
+    return [[k[:120], us / 1e3, calls] for k, (us, calls) in got[:n]]
+
+
+def ssd_bf16_cases() -> list[dict]:
+    """``ssd_chunk_scan`` at bf16 (x, B and C bf16; dt, a and D fp32) at the
+    serving shape, on each path of SSD_BF16_CASES: the plan's path
+    (``last_plan``) and the profiled kernels (``_bf16_tc`` on the
+    tensor-core path only), y within SSD_TOL plus one bf16 ulp of the plain
+    version, the fp32 state within SSD_TOL, two calls bitwise equal; on the
+    tensor-core path also a float64 witness: y before its rounding and the
+    state no farther from the float64 scan than the plain fp32 version,
+    +25%.  The bound: the scan's bytes at the storage widths against its
+    operations at the dense bf16 rate; beside it the tensor-core design's
+    own floor (its wgmma work at that rate) and the host ms of an eager
+    call."""
+    import torch
+    from repro_torch.kernels import ssd_chunk
+    B, L, H, P, N, q = SSD_CASES[0]
+    records = []
+    for misaligned, path in SSD_BF16_CASES:
+        ins = ssd_inputs(B, L, H, P, N, seed=L + H + 1)
+        for i in (0, 3, 4):
+            ins[i] = ins[i].to(torch.bfloat16)
+        if misaligned:        # a view 8 bytes past a 16-byte boundary
+            buf = torch.empty(ins[0].numel() + 4, dtype=torch.bfloat16,
+                              device="cuda")
+            ins[0] = buf[4:].view(ins[0].shape).copy_(ins[0])
+        y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+        plan = ssd_chunk.ssd_chunk_scan.last_plan
+        again = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(y, again[0]) and torch.equal(h, again[1]))
+        wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
+        excess = bf16_excess(y, wy, SSD_TOL)
+        err_h = max_abs_diff(h, wh, "bf16 ssd_chunk_scan h_final")
+        err_y = max_abs_diff(y.float(), wy.float(), "bf16 ssd_chunk_scan y")
+        del again, wy, wh
+
+        def call(ins=ins):
+            return ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+
+        _, _, kernels = profiled_us(lambda: call, ["ssd_chunk_scan_kernel"],
+                                    table=True)
+        names = sorted(n for n in kernels if "ssd_chunk_scan_kernel" in n)
+        tc = any("ssd_chunk_scan_kernel_bf16_tc" in n for n in names)
+        case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=plan["Q"],
+                    dtype="bf16", path=plan["path"], misaligned=misaligned,
+                    smem=plan["smem"], kernel_names=names,
+                    max_abs_err_y=err_y, max_abs_err_h=err_h,
+                    y_excess_past_tol_and_ulp=excess,
+                    repeat_bit_equal=repeat, host_ms=host_ms(call, 20),
+                    host_parts_us=host_parts(call, 50))
+        if path == "tensor_cores":
+            yf, hf = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q,
+                                              y_dtype=torch.float32)
+            torch.cuda.synchronize()
+            # the fp32-y instantiation is the served one but for its store
+            case["unrounded_rounds_to_served"] = bool(
+                torch.equal(yf.bfloat16(), y) and torch.equal(hf, h))
+            py, ph = ssd_chunk.ssd_chunk_scan_plain(
+                *(t.float() for t in ins), q_chunk=q)
+            fy, fh = ssd_chunk.ssd_chunk_scan_plain(
+                *(t.double() for t in ins), q_chunk=q)
+            case["f64_witness"] = {
+                "kernel_vs_f64": [max_abs_diff(yf.double(), fy, "witness"),
+                                  max_abs_diff(hf.double(), fh, "witness")],
+                "plain_vs_f64": [max_abs_diff(py.double(), fy, "witness"),
+                                 max_abs_diff(ph.double(), fh, "witness")]}
+            case["pieces"] = plan["pieces"]
+            case["design_floor_ms"] = plan["wgmma_flop"] / PEAK_BF16_FLOPS \
+                * 1e3
+            del yf, hf, py, ph, fy, fh
+        print("ssd kernel check " + json.dumps(case), flush=True)
+        if plan["path"] != path or tc != (path == "tensor_cores"):
+            raise RuntimeError(f"bf16 ssd_chunk_scan took {plan['path']} "
+                               f"with kernels {names}, not {path}")
+        if excess > 0 or err_h > SSD_TOL or not repeat:
+            raise RuntimeError(f"bf16 ssd_chunk_scan disagrees with its "
+                               f"plain version or itself: {case}")
+        if case.get("unrounded_rounds_to_served") is False:
+            raise RuntimeError(f"bf16 ssd_chunk_scan's unrounded y does not "
+                               f"round to its served y: {case}")
+        if "f64_witness" in case and any(
+                k > 1.25 * w for k, w in zip(
+                    case["f64_witness"]["kernel_vs_f64"],
+                    case["f64_witness"]["plain_vs_f64"])):
+            raise RuntimeError(f"bf16 ssd_chunk_scan is further from "
+                               f"float64 than its plain version: {case}")
+        ops, nbytes = ssd_cost(B, L, H, P, N, plan["Q"])
+        # x, B, C and y at 2 bytes: half of those terms of the fp32 count
+        nbytes -= 2 * (2 * B * L * H * P + 2 * B * L * N)
+        del y, h
+        records.append(_lm_record(
+            "ssd_chunk_scan", case, max(err_y, err_h), call,
+            lambda ins=ins: ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q),
+            nbytes=nbytes, ops=ops, peak=PEAK_BF16_FLOPS))
+        del ins
+    return records
 
 
 def ssd_kernel_entry(records) -> dict:
@@ -2551,6 +2665,13 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     if {k: v for k, v in counts.items() if v} != want:
         raise RuntimeError(f"{arch} serving launched {counts}, expected "
                            f"{want}")
+    ssd_path = None
+    if "ssd_chunk_scan" in prefill_kernels:   # the prefill's scan path
+        from repro_torch.kernels import ssd_chunk
+        plan = getattr(ssd_chunk.ssd_chunk_scan, "last_plan", None)
+        ssd_path = plan and plan["path"]      # None: a tree before plans
+        if ssd_path not in (None, "tensor_cores" if bf16 else "cuda_cores"):
+            raise RuntimeError(f"{arch} prefill's SSD scan took {ssd_path}")
     ent, mi = res.predictive_entropy, res.mutual_information
     if res.tokens.shape != (LM_B, LM_NEW) or not (
             torch.isfinite(ent).all() and torch.isfinite(mi).all()):
@@ -2603,7 +2724,7 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
            "chains": S_LM,
            "rows": LM_B * S_LM, "prompt_len": prompt_len,
            "new_tokens": LM_NEW, "p": cfg.mcd.p,
-           "launches_by_kernel": counts,
+           "launches_by_kernel": counts, "ssd_path": ssd_path,
            "prefill_ms": res.prefill_s * 1e3,
            "decode_ms_per_token_p50": float(np.percentile(steps_ms, 50)),
            "decode_ms_per_token_p95": float(np.percentile(steps_ms, 95)),
@@ -2867,13 +2988,16 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
     out = {}
     for what, prepare, calls, kernels in spans:
         matches = [None] + [n + "_kernel" for n in kernels]
-        us, wall_us = profiled_us(prepare, matches, calls=calls, loose=(0,))
+        us, wall_us, table = profiled_us(prepare, matches, calls=calls,
+                                         loose=(0,), table=True)
         out[f"profiled_{what}"] = {
             "calls": calls, "wall_ms": wall_us / calls / 1e3,
             "device_busy_ms": us[0] / calls / 1e3,
             "kernel_device_ms": {n: v / calls / 1e3
                                  for n, v in zip(kernels, us[1:])},
             "device_idle_share": 1.0 - us[0] / wall_us}
+        if what == "prefill":   # what the prefill's device time is made of
+            out["profiled_prefill"]["top_kernels"] = top_kernels(table)
     return out
 
 

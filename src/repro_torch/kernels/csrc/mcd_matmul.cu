@@ -650,66 +650,13 @@ int launch_tile_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 //      SMs), each with ~100 KB of W in flight; every block rereads x
 //      (256 KB) from L2.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached
-                    // through the runtime, so nothing links libcuda
-
-#include <atomic>
+#include "mcd_tma.cuh"
 
 namespace {
 
+using namespace mcd;
+
 constexpr int kGroupM = 8;              // row blocks of a raster group
-constexpr int kMaxDevices = 64;         // devices whose attribute is kept
-constexpr uint32_t kSpinLimit = 1u << 24;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of `parity` to complete.  A ring that never fills
-// (a fault) traps after kSpinLimit polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == kSpinLimit) __trap();
-  }
-}
-
-// One TMA box of `map` at (c0 inner, c1 outer) into shared memory at dst,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // A pair of bf16 x values masked as the plain version: bf16(x * scale)
 // where the pair's bit (bit 0 low half, bit 1 high half) is set, else 0.
@@ -721,38 +668,6 @@ __device__ __forceinline__ uint32_t mask_pair(uint32_t v, uint32_t bits,
       : "r"(v), "r"(scale2), "r"(0x80008000u));
   return prod & (((bits & 1u) ? 0x0000ffffu : 0u) |
                  ((bits & 2u) ? 0xffff0000u : 0u));
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride
-// byte offsets, swizzle of `swb` bytes (128, 64 or 32).  For the K-major A
-// tile (rows of 128 bytes) SBO is the stride between groups of 8 rows and
-// LBO is unused; for the MN-major B tile (swizzle atoms of swb bytes along
-// N by 8 rows along K) LBO is the stride between atoms along N and SBO
-// between groups of 8 rows along K.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int swb) {
-  const uint64_t layout = swb == 128 ? 1 : swb == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the accumulators in their registers across the asynchronous
-// wgmma (the compiler must not move them while it runs).
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D[64, N] = A[64, 16] @ B[16, N] (+ D where `accumulate`), both operands
@@ -1002,47 +917,6 @@ mcd_matmul_kernel_bf16_tc(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A map of the row-major [rows, cols] array at ptr (elements of `bytes`),
-// read in boxes of box_cols x box_rows; out-of-range elements read as 0.
-bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                int bytes, int cols, int rows, int box_cols, int box_rows,
-                CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides,
-                        box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int WG, int BN, int STAGES, int SWB>
 int launch_tile_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
                    const uint32_t* bits, int KWb, void* out, int M, int N,
@@ -1053,18 +927,9 @@ int launch_tile_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
   if (smem < Tl::kSmem || encode_tiled() == nullptr || K % 8 != 0 ||
       N % 8 != 0 || (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15))
     return (int)cudaErrorInvalidValue;
-  // The shared-memory attribute is the function's on each device: set it
-  // once a device (and again for a larger size), not at every call.
   static std::atomic<int> smem_set[kMaxDevices];   // zero: static
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = fit_smem(kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || smem_set[dev].load() < (int)smem) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) smem_set[dev].store((int)smem);
-  }
   CUtensorMap tx, tw, tb = {};
   if (!tensor_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, Tl::kBK,
                   Tl::kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||

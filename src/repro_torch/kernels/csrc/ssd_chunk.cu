@@ -571,8 +571,10 @@ int ssd_chunk_scan_launch(const float* x, const float* dt, const float* a,
 // B and C into fp32 scratches (a bf16 value is exact in fp32), the fp32
 // launch runs on them, and ssd_chunk_scan_kernel_narrow rounds y to bf16
 // once, where the plain version's y.to(x.dtype) rounds.  At the serving
-// shape the two copies move ~0.8 GB besides the scan's own traffic; a head
-// kernel that stages bf16 tiles itself, on tensor cores, is later work.
+// shape the two copies move ~0.8 GB besides the scan's own traffic.  It is
+// the "widen" path of ssd_plan: the bf16 shapes and pointers that the
+// tensor-core kernel further below (ssd_chunk_scan_kernel_bf16_tc) does
+// not take.
 
 #include <cuda_bf16.h>
 
@@ -670,6 +672,493 @@ int ssd_chunk_scan_bf16_launch(const void* x, const float* dt,
   ssd_chunk_scan_kernel_narrow<<<copy_blocks(nx), kThreads, 0, s>>>(
       yw, yb, nx, ((uintptr_t)yw % 16) == 0 && ((uintptr_t)y % 8) == 0);
   return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: ssd_chunk_scan_kernel_bf16_tc, the bf16 scan's
+// own kernel where TMA can read x, B and C (P and N multiples of 8, P <= 64,
+// the three 16-byte aligned; ssd_chunk.py::ssd_plan's "tensor_cores" path;
+// the widen path above takes every other bf16 shape).
+//
+// What bounds it.  With x, B and C at 2 bytes the scan's bytes take 0.106
+// ms at the serving shape (356 MB at 3.35 TB/s) and its 53.3 GFLOP 0.054
+// ms at the dense bf16 rate: bytes.  The design's own floor is higher: it
+// recomputes C . B for every head (the intra term's causal tile pairs) and
+// carries each fp32 operand as bf16 pieces: 159 GFLOP of wgmma at the
+// serving shape (ssd_plan's "wgmma_flop"), 0.16 ms at the dense rate.
+//
+// The arithmetic is the fp32 kernel's (the TPU kernel upcasts and computes
+// in fp32): x, B and C are bf16 values, exact on the tensor cores, and a
+// bf16 x bf16 product is exact in fp32.  Three products have an fp32
+// operand that is not a bf16 value -- G' = S exp(cs_q - cs_k) dt_k against
+// x, the carried state against C, B' = B dt_k exp(cs_end - cs_k) against
+// x -- and rounding one to bf16 once costs 2^-9 relative, ~1e-2 on y at the
+// serving scales (tests/test_torch_ssd_split.py).  So each enters as an
+// unevaluated sum of bf16 pieces, hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid) (each difference exact in fp32), one wgmma a piece
+// into the same fp32 accumulators: kPiecesG = 3 for G' (two leave ~3e-5 on
+// y, past a quarter of SSD_TOL), 2 for the state and B' (their share of y
+// and of the state is ~1e-6 with two).
+//
+// Design: one block of two warpgroups per (b, h), the chunk loop inside.
+//  * Per chunk, one thread stages the whole chunk with TMA (128-byte
+//    swizzle; boxes of 64 x 64): C and B [Q][128] and x [Q][64] (the
+//    head's columns of the [B L, H P] rows), one mbarrier per tile of 64
+//    steps (40 KB), so the products start when their tile lands.  Rows
+//    past the tensor read as zeros; rows past the chunk are the next
+//    chunk's, never stored, and carry no weight (dt = 0 past Q).
+//  * y, a 64-row query tile at a time (warpgroup 0 takes tiles 0 and 3,
+//    warpgroup 1 tiles 1 and 2: five causal tile pairs each):
+//    - inter (past the first chunk): acc = C . state^T over the state's
+//      pieces (wgmma, both operands in shared memory), rows then scaled by
+//      exp(cs_q), as the fp32 kernel does;
+//    - intra, for each key tile kt <= qt: S = C_q . B_k^T (m64n64k16 over
+//      N = 128) into registers; G' = (S exp(cs_q - cs_k)) dt_k in fp32 in
+//      registers, 0 above the diagonal (where the decay's argument is
+//      clamped to 0, so it never overflows, and its value is not used);
+//      its pieces are the A operand (the accumulator's layout is mma's A
+//      fragment) of acc += G' x, x the MN-major B operand in shared
+//      memory;
+//    - y = acc + D x, rounded once (bf16; fp32 for the float64 witness).
+//  * The state, fp32 in registers across chunks (warpgroup w holds rows
+//    n in [64 w, 64 w + 64) of state^T): dstate^T = B'^T x, B'^T the A
+//    operand (B read from shared memory with ldmatrix.trans, times dt_k
+//    exp(cs_end - cs_k), split); state = state exp(cs_end) + dstate; its
+//    pieces go to shared memory as the next chunk's inter operand, the last
+//    chunk's state to h_final.
+//  * cs comes from ssd_chunk_scan_kernel_cumsum, in order, as at fp32.
+//  * Each product group is waited for before its registers are reused;
+//    the two warpgroups overlap each other's fp32 work.  (Pipelining inside
+//    a warpgroup -- the next tile's S, or half of G' x, in flight during
+//    the fp32 work; two buffers of B' pieces -- ran slower on the H100:
+//    ptxas serialised the wgmma, C7515 / C7520.)  No split of a sum
+//    across blocks, no atomics: two calls are bitwise equal.
+// Shared memory 197 KB: one block an SM, 2048 blocks at the serving shape.
+
+#include "mcd_tma.cuh"
+
+namespace {
+
+using namespace mcd;
+
+constexpr int kTcRows = 64;                  // steps of a tile
+constexpr int kTcTiles = kQMax / kTcRows;    // tiles of the longest chunk
+constexpr int kTcThreads = 256;              // two warpgroups
+static_assert(kTcThreads == kQMax, "a thread a step of the chunk");
+constexpr int kPiecesG = 3;                  // bf16 pieces of G'
+constexpr int kPiecesS = 2;                  // of the carried state
+constexpr int kPiecesB = 2;                  // of B'
+constexpr int kTcBox = 64 * 64 * 2;          // a TMA box [64][64] of bf16
+// Shared memory, bytes from a 1 KB-aligned base: C and B (tile t, column
+// box j at box 2t + j), x (box t), the state's pieces ([128 n][64 p], two
+// boxes a piece), the fp32 cs, exp(cs), dt exp(cs_end - cs) and dt of the
+// chunk, one mbarrier a tile.
+constexpr int kTcC = 0;
+constexpr int kTcB = kTcC + 2 * kTcTiles * kTcBox;
+constexpr int kTcX = kTcB + 2 * kTcTiles * kTcBox;
+constexpr int kTcS = kTcX + kTcTiles * kTcBox;
+constexpr int kTcF = kTcS + kPiecesS * 2 * kTcBox;
+constexpr int kTcBar = kTcF + 4 * kQMax * 4;
+constexpr int kTcSmem = 1024 + kTcBar + 8 * kTcTiles;   // + alignment
+constexpr uint32_t kTcTileBytes = 5 * kTcBox;  // C, B (two boxes), x
+
+// Byte of element (r, c) of a box of 128-byte rows written with TMA's
+// 128-byte swizzle: 16-byte chunk c / 8 of row r sits at chunk (c / 8) ^
+// (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// D[64, 64] (+ D where `accumulate`) = A[64, 16] B[16, 64], both from
+// shared memory: A K-major, B K-major (TB 0) or MN-major (TB 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+// The same with A from registers (a thread's 4 bf16 pairs of the warp's 16
+// rows, mma's A fragment) and B MN-major from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The bf16 pieces of (v0, v1) as NP bf16 pairs, hi first: piece i rounds
+// what the pieces before it leave (each difference exact in fp32).
+template <int NP>
+__device__ __forceinline__ void split(float v0, float v1,
+                                      uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+    out[i] = *reinterpret_cast<const uint32_t*>(&p);
+    const float2 f = __bfloat1622float2(p);
+    v0 = __fsub_rn(v0, f.x);
+    v1 = __fsub_rn(v1, f.y);
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// A thread's place in a warpgroup's m64n64 accumulator: acc[4 j + e] is
+// row 16 wi + g + 8 (e >> 1), column 8 j + c2 + (e & 1), for warp wi,
+// g = lane / 4, c2 = 2 (lane % 4).
+template <typename Y>
+__global__ void __launch_bounds__(kTcThreads, 1)
+ssd_chunk_scan_kernel_bf16_tc(const __grid_constant__ CUtensorMap tm_x,
+                              const __grid_constant__ CUtensorMap tm_b,
+                              const __grid_constant__ CUtensorMap tm_c,
+                              const float* __restrict__ dt,
+                              const float* __restrict__ d_skip,
+                              const float* __restrict__ csum,
+                              Y* __restrict__ y, float* __restrict__ h_out,
+                              int L, int H, int P, int N, int Q) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  float* const cs = reinterpret_cast<float*>(sm + kTcF);  // past Q: cs_{Q-1}
+  float* const ecs = cs + kQMax;      // exp(cs_q); 0 past Q
+  float* const wk = ecs + kQMax;      // dt_k exp(cs_end - cs_k); 0 past Q
+  float* const dts = wk + kQMax;      // dt_k; 0 past Q
+  const uint32_t bars = base + kTcBar;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wi = (tid & 127) >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int nt = (Q + kTcRows - 1) / kTcRows;
+  const float dh = d_skip[h];
+  const size_t row_stride = (size_t)H * P;
+
+  if (tid == 0) {
+    for (int i = 0; i < kTcTiles; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float st[32];                       // state^T, rows n = 64 wg + ...
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = 0.0f;
+
+  int ci = 0;
+  for (int c0 = 0; c0 < L; c0 += Q, ++ci) {
+    const int row0 = b * L + c0;      // the chunk's first row of [B L]
+    const uint32_t parity = ci & 1;
+    __syncthreads();                  // the last chunk's readers are done
+    if (tid == 0) {
+      for (int t = 0; t < nt; ++t) {
+        const uint32_t bar = bars + 8 * t;
+        const int r = row0 + t * kTcRows;
+        mbar_expect_tx(bar, kTcTileBytes);
+        for (int j = 0; j < 2; ++j) {
+          tma_load(base + kTcC + (2 * t + j) * kTcBox, &tm_c, bar, 64 * j, r);
+          tma_load(base + kTcB + (2 * t + j) * kTcBox, &tm_b, bar, 64 * j, r);
+        }
+        tma_load(base + kTcX + t * kTcBox, &tm_x, bar, h * P, r);
+      }
+    }
+    {
+      const size_t i = (size_t)(row0 + min(tid, Q - 1)) * H + h;
+      cs[tid] = csum[i];
+      dts[tid] = tid < Q ? dt[i] : 0.0f;
+    }
+    __syncthreads();
+    const float cs_end = cs[Q - 1];
+    wk[tid] = tid < Q ? __fmul_rn(dts[tid], expf(cs_end - cs[tid])) : 0.0f;
+    ecs[tid] = tid < Q ? expf(cs[tid]) : 0.0f;
+    __syncthreads();
+
+    // ---- y, one query tile at a time -----------------------------------
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      const int qt = i == 0 ? wg : kTcTiles - 1 - wg;
+      if (qt >= nt) continue;
+      const int q0 = qt * kTcRows;
+      const int qr = 16 * wi + g;     // the thread's rows qr, qr + 8
+      const uint32_t ca = base + kTcC + 2 * qt * kTcBox;
+      mbar_wait(bars + 8 * qt, parity);
+      float acc[32];
+      if (ci > 0) {
+        // inter: C_q . state^T over the state's pieces, then exp(cs_q)
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < kPiecesS; ++j)
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            wgmma_ss<1>(acc,
+                        smem_desc(ca + (kk >> 2) * kTcBox + (kk & 3) * 32, 16,
+                                  1024, 128),
+                        smem_desc(base + kTcS + j * 2 * kTcBox + kk * 2048,
+                                  8192, 1024, 128),
+                        j > 0 || kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        pin(acc);
+        const float f0 = ecs[q0 + qr], f1 = ecs[q0 + qr + 8];
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          acc[e] = __fmul_rn(acc[e], (e & 2) ? f1 : f0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+      }
+      // intra: for each key tile, S = C_q . B_k^T, then acc += G' x_k
+#pragma unroll 1
+      for (int kt = 0; kt <= qt; ++kt) {
+        mbar_wait(bars + 8 * kt, parity);
+        const uint32_t bk = base + kTcB + 2 * kt * kTcBox;
+        float s[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss<0>(s,
+                      smem_desc(ca + (kk >> 2) * kTcBox + (kk & 3) * 32, 16,
+                                1024, 128),
+                      smem_desc(bk + (kk >> 2) * kTcBox + (kk & 3) * 32, 16,
+                                1024, 128),
+                      kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        pin(s);
+        // G' pieces: k16 step ks takes s[8 ks .. 8 ks + 7]; its register
+        // r holds row qr + 8 (r & 1), columns 8 i + c2, + 1 of the tile
+        // for i = 2 ks + (r >> 1).  cs_k and dt_k of those 16 columns are
+        // loaded once a tile.  cs_q - cs_k <= 0 wherever k <= q, so fminf
+        // changes no weight that is used, and keeps the masked ones
+        // (above the diagonal) from overflowing.
+        uint32_t a[4][kPiecesG][4];
+        const int k0 = kt * kTcRows;
+        const float cq[2] = {cs[q0 + qr], cs[q0 + qr + 8]};
+        float2 ck[8], dk[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          ck[i] = *reinterpret_cast<const float2*>(cs + k0 + 8 * i + c2);
+          dk[i] = *reinterpret_cast<const float2*>(dts + k0 + 8 * i + c2);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 2 * ks + (r >> 1);
+            const int q = q0 + qr + 8 * (r & 1), k = k0 + 8 * i + c2;
+            const float g0 = __fmul_rn(
+                __fmul_rn(s[8 * ks + 2 * r],
+                          expf(fminf(cq[r & 1] - ck[i].x, 0.0f))),
+                dk[i].x);
+            const float g1 = __fmul_rn(
+                __fmul_rn(s[8 * ks + 2 * r + 1],
+                          expf(fminf(cq[r & 1] - ck[i].y, 0.0f))),
+                dk[i].y);
+            uint32_t pc[kPiecesG];
+            split<kPiecesG>(k <= q ? g0 : 0.0f, k + 1 <= q ? g1 : 0.0f, pc);
+#pragma unroll
+            for (int j = 0; j < kPiecesG; ++j) a[ks][j][r] = pc[j];
+          }
+        const uint32_t xk = base + kTcX + kt * kTcBox;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int j = 0; j < kPiecesG; ++j)
+            wgmma_rs(acc, a[ks][j],
+                     smem_desc(xk + ks * 2048, 8192, 1024, 128), 1);
+        wg_commit();
+        wg_wait<0>();
+        pin(acc);
+      }
+      // y = acc + D x, rounded once; rows past Q, columns past P not stored
+      const unsigned char* xt = sm + kTcX + qt * kTcBox;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = qr + 8 * hh, p = 8 * jj + c2;
+          if (q0 + r >= Q || p >= P) continue;
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xt + swz(r, p)));
+          store_pair(y + (size_t)(row0 + q0 + r) * row_stride +
+                         (size_t)h * P + p,
+                     __fadd_rn(acc[4 * jj + 2 * hh], __fmul_rn(dh, xf.x)),
+                     __fadd_rn(acc[4 * jj + 2 * hh + 1], __fmul_rn(dh, xf.y)));
+        }
+    }
+
+    // ---- state = state exp(cs_end) + B'^T x, rows n of this warpgroup --
+    float ds[32];
+#pragma unroll 1
+    for (int kt = 0; kt < nt; ++kt) {
+      mbar_wait(bars + 8 * kt, parity);
+      const uint32_t bt = base + kTcB + (2 * kt + wg) * kTcBox;
+      // ldmatrix.trans: matrix m = lane / 8 holds key rows 16 ks + 8 (m >> 1)
+      // and the 8 columns n of chunk 2 wi + (m & 1); register m then is the
+      // A fragment's register m (rows n, columns k).
+      const int m = lane >> 3;
+      uint32_t a[4][kPiecesB][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int r = 16 * ks + 8 * (m >> 1) + (lane & 7);
+        uint32_t bv[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3},"
+            " [%4];\n"
+            : "=r"(bv[0]), "=r"(bv[1]), "=r"(bv[2]), "=r"(bv[3])
+            : "r"(bt + r * 128 + ((((2 * wi + (m & 1)) ^ r) & 7) << 4)));
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int k = kt * kTcRows + 16 * ks + c2 + 8 * (rr >> 1);
+          const float2 bf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&bv[rr]));
+          uint32_t pc[kPiecesB];
+          split<kPiecesB>(__fmul_rn(bf.x, wk[k]), __fmul_rn(bf.y, wk[k + 1]),
+                          pc);
+#pragma unroll
+          for (int j = 0; j < kPiecesB; ++j) a[ks][j][rr] = pc[j];
+        }
+      }
+      const uint32_t xk = base + kTcX + kt * kTcBox;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < kPiecesB; ++j)
+          wgmma_rs(ds, a[ks][j], smem_desc(xk + ks * 2048, 8192, 1024, 128),
+                   kt > 0 || ks > 0 || j > 0);
+      wg_commit();
+      wg_wait<0>();
+      pin(ds);
+    }
+    const float dec = expf(cs_end);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      st[e] = __fadd_rn(__fmul_rn(st[e], dec), ds[e]);
+    __syncthreads();                  // every inter term has read the pieces
+    const int nr = 64 * wg + 16 * wi + g;
+    if (c0 + Q < L) {
+      // the next chunk's operand: the pieces of state^T, [n][p] rows
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n = nr + 8 * hh, p = 8 * jj + c2;
+          uint32_t pc[kPiecesS];
+          split<kPiecesS>(st[4 * jj + 2 * hh], st[4 * jj + 2 * hh + 1], pc);
+#pragma unroll
+          for (int j = 0; j < kPiecesS; ++j)
+            *reinterpret_cast<uint32_t*>(sm + kTcS + j * 2 * kTcBox +
+                                         swz(n, p)) = pc[j];
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    } else {
+      float* hb = h_out + (size_t)blockIdx.x * P * N;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n = nr + 8 * hh, p = 8 * jj + c2;
+          if (n >= N || p >= P) continue;
+          hb[(size_t)p * N + n] = st[4 * jj + 2 * hh];
+          hb[(size_t)(p + 1) * N + n] = st[4 * jj + 2 * hh + 1];
+        }
+    }
+  }
+}
+
+template <typename Y>
+int launch_bf16_tc(const void* x, const float* dt, const float* a,
+                   const void* bm, const void* cm, const float* d_skip,
+                   float* cs, void* y, float* h_out, int B, int L, int H,
+                   int P, int N, int Q, cudaStream_t s) {
+  static std::atomic<int> smem_set[kMaxDevices];   // zero: static
+  auto kernel = ssd_chunk_scan_kernel_bf16_tc<Y>;
+  cudaError_t err = fit_smem(kernel, kTcSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tx, tb, tc;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&tx, x, bf, 2, H * P, B * L, 64, kTcRows, sw) ||
+      !tensor_map(&tb, bm, bf, 2, N, B * L, 64, kTcRows, sw) ||
+      !tensor_map(&tc, cm, bf, 2, N, B * L, 64, kTcRows, sw))
+    return (int)cudaErrorInvalidValue;
+  const int chains = B * (L / Q) * H;
+  ssd_chunk_scan_kernel_cumsum<<<(chains + kThreads - 1) / kThreads,
+                                 kThreads, 0, s>>>(dt, a, cs, chains, H, Q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H, kTcThreads, kTcSmem, s>>>(tx, tb, tc, dt, d_skip, cs,
+                                            reinterpret_cast<Y*>(y), h_out, L,
+                                            H, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The bf16 launch on the tensor cores: the cumsum kernel into `cs`
+// [B, L, H], then ssd_chunk_scan_kernel_bf16_tc, y [B, L, H, P] bf16 (fp32
+// where y_f32, the float64 witness's unrounded y) and h_out [B, H, P, N]
+// fp32.  Takes P <= 64 and N <= 128, multiples of 8, Q <= 256 dividing L,
+// and x, bm, cm 16-byte aligned (ssd_plan's "tensor_cores" path); returns
+// cudaErrorInvalidValue for anything else, else the last launch's error.
+int ssd_chunk_scan_bf16_tc_launch(const void* x, const float* dt,
+                                  const float* a, const void* bm,
+                                  const void* cm, const float* d_skip,
+                                  float* cs, void* y, float* h_out, int B,
+                                  int L, int H, int P, int N, int Q,
+                                  int y_f32, void* stream) {
+  if (Q < 1 || Q > kQMax || L % Q || P > kPMax || N > kNMax || P % 8 ||
+      N % 8 || (long long)B * L > 0x7fffffff ||
+      (((uintptr_t)x | (uintptr_t)bm | (uintptr_t)cm) & 15) ||
+      encode_tiled() == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (y_f32)
+    return launch_bf16_tc<float>(x, dt, a, bm, cm, d_skip, cs, y, h_out, B, L,
+                                 H, P, N, Q, s);
+  return launch_bf16_tc<__nv_bfloat16>(x, dt, a, bm, cm, d_skip, cs, y, h_out,
+                                       B, L, H, P, N, Q, s);
 }
 
 }  // extern "C"

@@ -921,25 +921,59 @@ def test_decode_attention_bf16_matches_plain(dev, B, H, KV, hd, S):
         assert _within_bf16_ulp(got, want, 1e-5)
 
 
-@pytest.mark.parametrize("B,L,H,P,N,q", [(3, 40, 2, 8, 16, 16),
-                                         (2, 320, 4, 64, 128, 256),
-                                         (1, 400, 2, 20, 100, 256)])
-def test_ssd_chunk_scan_bf16_matches_plain(dev, B, L, H, P, N, q):
+@pytest.mark.parametrize("B,L,H,P,N,q,misaligned,path", [
+    (3, 40, 2, 8, 16, 16, False, "tensor_cores"),
+    (2, 320, 4, 64, 128, 256, False, "tensor_cores"),      # Q = 160
+    (1, 400, 2, 20, 100, 256, False, "widen"),             # P, N ragged
+    (64, 512, 32, 64, 128, 256, False, "tensor_cores"),    # serving
+    (8, 320, 32, 64, 128, 256, False, "tensor_cores"),     # Q = 160
+    (2, 320, 4, 64, 128, 256, True, "widen")])             # x off 16 bytes
+def test_ssd_chunk_scan_bf16_matches_plain(dev, B, L, H, P, N, q, misaligned,
+                                           path):
     """bf16 x, B and C (dt, a and D fp32): y (bf16) within SSD_ATOL plus
     one bf16 ulp of the plain version, the state (fp32) within SSD_ATOL;
-    one count a call."""
+    one count a call; the path the plan names (``last_plan``), and two
+    calls bitwise equal."""
     ins = _ssd_inputs(dev, B, L, H, P, N, seed=L)
     for i in (0, 3, 4):
         ins[i] = ins[i].bfloat16()
+    if misaligned:
+        buf = torch.empty(ins[0].numel() + 4, dtype=torch.bfloat16,
+                          device=dev)
+        ins[0] = buf[4:].view(ins[0].shape).copy_(ins[0])
+        assert ins[0].data_ptr() % 16 == 8
     before = ssd_chunk.ssd_chunk_scan.launches
     y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
+    assert ssd_chunk.ssd_chunk_scan.last_plan["path"] == path
+    y2, h2 = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=q)
     torch.cuda.synchronize()
-    assert ssd_chunk.ssd_chunk_scan.launches == before + 1
+    assert ssd_chunk.ssd_chunk_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     wy, wh = ssd_chunk.ssd_chunk_scan_plain(*ins, q_chunk=q)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
     assert _within_bf16_ulp(y, wy, SSD_ATOL)
     assert (h - wh).abs().max().item() <= SSD_ATOL
+
+
+def test_ssd_chunk_scan_bf16_y_unrounded(dev):
+    """``y_dtype=torch.float32`` on the tensor-core path: y before its one
+    rounding, within SSD_ATOL of the plain version's fp32 y, and rounding
+    it gives the bf16 launch's y; off that path it raises."""
+    ins = _ssd_inputs(dev, 2, 320, 4, 64, 128, seed=3)
+    for i in (0, 3, 4):
+        ins[i] = ins[i].bfloat16()
+    yf, hf = ssd_chunk.ssd_chunk_scan(*ins, y_dtype=torch.float32)
+    y, h = ssd_chunk.ssd_chunk_scan(*ins)
+    torch.cuda.synchronize()
+    assert yf.dtype == torch.float32 and torch.equal(hf, h)
+    assert torch.equal(yf.bfloat16(), y)
+    wy, _ = ssd_chunk.ssd_chunk_scan_plain(*(t.float() for t in ins))
+    assert (yf - wy).abs().max().item() <= SSD_ATOL
+    with pytest.raises(ValueError, match="y_dtype"):
+        ssd_chunk.ssd_chunk_scan(*[t.float() if i in (0, 3, 4) else t
+                                   for i, t in enumerate(ins)],
+                                 y_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),

@@ -462,7 +462,9 @@ def test_ssd_plan_matches_the_cuda_source():
     # every kernel the wrapper launches holds the name a profile matches
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert len(kernels) == 5    # the fp32 three, the bf16 widen and narrow
+    # the fp32 three, the bf16 widen and narrow, the bf16 tensor-core kernel
+    assert len(kernels) == 6
+    assert "ssd_chunk_scan_kernel_bf16_tc" in kernels
     assert all("ssd_chunk_scan_kernel" in k for k in kernels)
 
 
@@ -472,6 +474,106 @@ def test_ssd_plan_matches_the_cuda_source():
 def test_ssd_plan_refuses_what_the_kernel_does_not_take(L, H, P, N, q, what):
     with pytest.raises(ValueError, match=what):
         ssd_chunk.ssd_plan(1, L, H, P, N, q)
+
+
+# -- ssd_chunk_scan at bf16: the tensor-core path or the widened copies ------
+
+# (B, L, H, P, N, q, aligned, path): serving, Q = 160, small and odd (Q =
+# 10, P = 8, N = 16), P and N multiples of 8 off the tiles' widths; P or N
+# ragged, or a pointer off 16 bytes: the widened fp32 launch.
+SSD_BF16_PATHS = [
+    SERVING_SSD + (True, "tensor_cores"),
+    (8, 320, 32, 64, 128, 256, True, "tensor_cores"),
+    (3, 40, 2, 8, 16, 16, True, "tensor_cores"),
+    (2, 150, 3, 40, 72, 64, True, "tensor_cores"),
+    (1, 400, 2, 20, 100, 256, True, "widen"),
+    (2, 64, 2, 64, 100, 64, True, "widen"),
+    (2, 64, 2, 60, 128, 64, True, "widen"),
+    SERVING_SSD + (False, "widen"),
+]
+
+
+@pytest.mark.parametrize("B,L,H,P,N,q,aligned,path", SSD_BF16_PATHS)
+def test_ssd_plan_picks_the_bf16_path(B, L, H, P, N, q, aligned, path):
+    """The path follows from the shapes and the pointers' alignment alone;
+    the tensor-core path allocates no scratch but cs, fits one block an SM
+    in the H100's shared memory and covers every (b, h) once; the widened
+    path is the fp32 plan on fp32 copies of x, B, C and y."""
+    plan = ssd_chunk.ssd_plan(B, L, H, P, N, q, 2, aligned)
+    fp32 = ssd_chunk.ssd_plan(B, L, H, P, N, q)
+    assert plan["path"] == path and fp32["path"] == "cuda_cores"
+    assert plan["Q"] == fp32["Q"] and plan["blocks"] == B * H
+    assert plan["cumsum_threads"] == fp32["cumsum_threads"]
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+    if path == "tensor_cores":
+        assert plan["threads"] == 256 and plan["blocks_per_sm"] == 1
+        assert plan["tiles"] == -(-plan["Q"] // 64) <= 4
+        assert plan["scores_bytes"] == plan["ct_bytes"] == 0
+        assert plan["widened_bytes"] == 0 and plan["wgmma_flop"] > 0
+    else:
+        assert {k: v for k, v in plan.items()
+                if k not in ("path", "widened_bytes")} == {
+            k: v for k, v in fp32.items()
+            if k not in ("path", "widened_bytes")}
+        assert plan["widened_bytes"] == 4 * (2 * B * L * H * P
+                                             + 2 * B * L * N)
+
+
+def test_ssd_tensor_core_plan_at_the_serving_shape():
+    """197 KB of shared memory (the whole chunk of C, B and x, the state's
+    pieces), 2048 blocks of one a SM; 159 GFLOP of m64n64k16 products."""
+    plan = ssd_chunk.ssd_plan(*SERVING_SSD, 2)
+    assert plan["path"] == "tensor_cores" and plan["Q"] == 256
+    assert plan["smem"] == 1024 + 24 * 8192 + 4096 + 32 == 201760
+    assert plan["blocks"] == 2048 and plan["tiles"] == 4
+    # per (b, h): 10 causal tile pairs x (8 + 4 x 3) and the state update's
+    # 2 x 4 x 4 x 2 a chunk, the inter term's 4 x 8 x 2 in the second
+    assert plan["wgmma_flop"] == 2048 * (2 * 264 + 64) * 2 * 64 * 64 * 16
+    assert 158e9 < plan["wgmma_flop"] < 160e9
+
+
+def test_ssd_tensor_core_plan_matches_the_cuda_source():
+    consts, src = _cu_constants()
+    assert (consts["kTcRows"], consts["kTcThreads"]) == (
+        ssd_chunk._TC_ROWS, ssd_chunk._TC_THREADS)
+    assert {k: consts[f"kPieces{k}"] for k in "GSB"} == ssd_chunk._PIECES
+    assert re.search(r"constexpr int kTcBox = 64 \* 64 \* 2;", src)
+    assert ssd_chunk._TC_BOX == 64 * 64 * 2
+    for line in (r"kTcB = kTcC \+ 2 \* kTcTiles \* kTcBox;",
+                 r"kTcX = kTcB \+ 2 \* kTcTiles \* kTcBox;",
+                 r"kTcS = kTcX \+ kTcTiles \* kTcBox;",
+                 r"kTcF = kTcS \+ kPiecesS \* 2 \* kTcBox;",
+                 r"kTcBar = kTcF \+ 4 \* kQMax \* 4;",
+                 r"kTcSmem = 1024 \+ kTcBar \+ 8 \* kTcTiles;"):
+        assert re.search(r"constexpr int " + line, src), line
+    tiles = consts["kQMax"] // consts["kTcRows"]
+    smem = 1024 + (5 * tiles + 2 * consts["kPiecesS"]) * 8192 \
+        + 16 * consts["kQMax"] + 8 * tiles
+    assert ssd_chunk._TC_SMEM == smem
+
+
+def test_ssd_unrounded_y_is_the_plain_version_on_fp32_inputs():
+    """On CPU tensors the wrapper refuses ``y_dtype`` (the tensor-core
+    path's); the plain version on the bf16 inputs widened to fp32 gives
+    the unrounded y, which rounds to the bf16 call's y."""
+    rng = np.random.default_rng(0)
+    B, L, H, P, N = 1, 24, 2, 8, 16
+    f32 = torch.float32
+    x = torch.as_tensor(rng.standard_normal((B, L, H, P)), dtype=f32)
+    dt = torch.nn.functional.softplus(
+        torch.as_tensor(rng.standard_normal((B, L, H)), dtype=f32))
+    a = -torch.linspace(1.0, 4.0, H)
+    bmat, cmat = (torch.as_tensor(0.3 * rng.standard_normal((B, L, N)),
+                                  dtype=f32) for _ in range(2))
+    d = torch.ones(H)
+    ins = [x.bfloat16(), dt, a, bmat.bfloat16(), cmat.bfloat16(), d]
+    with pytest.raises(ValueError, match="y_dtype"):
+        ssd_chunk.ssd_chunk_scan(*ins, q_chunk=8, y_dtype=f32)
+    y, h = ssd_chunk.ssd_chunk_scan(*ins, q_chunk=8)
+    yf, hf = ssd_chunk.ssd_chunk_scan_plain(*(t.float() for t in ins),
+                                            q_chunk=8)
+    assert y.dtype == torch.bfloat16 and yf.dtype == f32
+    assert torch.equal(yf.bfloat16(), y) and torch.equal(hf, h)
 
 
 # -- decode_attention: positions split over blocks ---------------------------
