@@ -60,9 +60,27 @@ Phases (each raises on failure; the exit code is then non-zero):
    capture after prewarm, the launches of every tick as eager's; tick p50
    / p95, chain-steps/s, each run's first tick, the host time of each part
    of a tick and the device's idle share a side.
-   Every serving phase (3, 4, 5, 5b, 5c, 7, 9) serves through the graphs,
-   as the engines do by default on a fixed shape; 5c's eager runs and the
-   LM phases' eager turns are the comparison.
+5d. Durable and early-exiting streams: kill -> snapshot -> restore on
+   DURABLE_CELLS (the classifier LSTM at fp32 on ``cuda_seq``, the
+   classifier GRU at bf16 on ``cuda_step``, the autoencoder GRU at int4 on
+   ``cuda_seq``; capacity 20), each 64 sessions x S = 30 over whole beats
+   in 12 ragged chunks: ticks 0-4, a wait-list (two fresh tickets, one at
+   S / 2, drained by two closes; the first closed session queued back as
+   a re-attach), ``snapshot``, and a fresh prewarmed engine that restores
+   it and serves to the end (the re-attach goes live at tick 8).  The
+   first cell restores in a child process of this script, then again into
+   a ``chunk_capacity="auto"`` engine.  Every tick's summaries and the
+   final carries bit-equal to the engine run uninterrupted, the same
+   launches a tick, no capture after the restore; snapshot and restore ms,
+   bytes and files on disk, the first tick after the restore.  Then early
+   exit on the classifier LSTM (``cuda_seq``, graphs): 32 flat and 32 ECG
+   sessions at EE_THRESHOLD / EE_FLOOR against the engine with it off:
+   rows reclaimed, flat sessions at EE_FLOOR chains, every summary served
+   at all S chains and every never-retired carry bit-equal, each S
+   restored from a snapshot; tick p50 on and off.
+   Every serving phase (3, 4, 5, 5b, 5c, 5d, 7, 9) serves through the
+   graphs, as the engines do by default on a fixed shape; 5c's eager runs
+   and the LM phases' eager turns are the comparison.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
@@ -186,6 +204,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1693,6 +1712,406 @@ def graph_phase(report, dev):
     return total
 
 
+# -- durable and early-exiting streams ---------------------------------------
+
+# (model, cell, backend, precision) of phase 5d's kill -> snapshot -> restore.
+DURABLE_CELLS = (("classifier", "lstm", "cuda_seq", None),
+                 ("classifier", "gru", "cuda_step", "bf16"),
+                 ("autoencoder", "gru", "cuda_seq", "int4"))
+DURABLE_TICKS = 12     # every beat in 12 ragged chunks
+KILL_TICK = 5          # ticks served before the snapshot
+REATTACH_TICK = 8      # a session closes here: the queued re-attach goes on
+DURABLE_NEW = ("d-new-0", "d-new-1")   # fresh tickets; the first at S / 2
+EE_THRESHOLD = 1e-3    # early exit: |MI_full - MI_prefix| at which to halve
+EE_FLOOR = 4           # its min_samples
+CHILD_TIMEOUT = 300    # seconds; the restore child takes ~15 on the card
+
+
+def _durable_dir(k):
+    return os.path.join(ROOT, "build", "phase5d", f"cell{k}")
+
+
+def _durable_setup(k, dev):
+    """Cell ``k``'s (cfg, params, layer launches a tick at T = 1, engine
+    kwargs, streams, plans, session ids): 64 sessions and the two fresh
+    tickets, each with a row of whole-beat chunk plans."""
+    import numpy as np
+    model, cell, backend, prec = DURABLE_CELLS[k]
+    cfg, params, per_layer = ecg_model(model, cell, dev)
+    kw = dict(backend=backend, precision=prec, max_sessions=SESSIONS,
+              device=dev)
+    plans = chunk_plans(np.random.default_rng(7 + k), SESSIONS + 2,
+                        DURABLE_TICKS)
+    sids = [f"d-{i}" for i in range(SESSIONS)] + list(DURABLE_NEW)
+    return cfg, params, per_layer, kw, _beats(), plans, sids
+
+
+def _durable_chunks(eng, streams, plans, sids):
+    """Each live session's next planned chunk (none once its beat ends)."""
+    chunks = {}
+    for sid in eng.active_sessions:
+        i, sess = sids.index(sid), eng.store.get(sid)
+        if sess.chunks < plans.shape[1]:
+            chunks[sid] = streams[i % SESSIONS][sess.steps:][
+                :plans[i, sess.chunks]]
+    return chunks
+
+
+def _durable_pre(eng, streams, plans, sids):
+    """Ticks 0 .. KILL_TICK - 1, then the wait-list: two fresh tickets
+    queued on a full store (one at S / 2 chains), two sessions closed (each
+    close drains one ticket), the first queued back as a re-attach."""
+    for sid in sids[:SESSIONS]:
+        eng.open_session(sid)
+    for _ in range(KILL_TICK):
+        eng.step(_durable_chunks(eng, streams, plans, sids))
+    if (eng.admit(DURABLE_NEW[0], n_samples=S // 2) is not None
+            or eng.admit(DURABLE_NEW[1]) is not None):
+        raise RuntimeError("5d: a fresh ticket went live on a full store")
+    evicted = eng.close_session(sids[0])
+    eng.close_session(sids[1])
+    if eng.admit(sids[0], session=evicted) is not None or \
+            eng.queued_sessions != [sids[0]] or \
+            eng.store.get(DURABLE_NEW[0]).rows.shape[0] != S // 2:
+        raise RuntimeError("5d: the wait-list is not as planned")
+
+
+def _durable_post(eng, streams, plans, sids):
+    """The ticks after the kill point, to the end of every beat; at tick
+    REATTACH_TICK a session closes and the queued re-attach goes live."""
+    ticks = []
+    while True:
+        if eng.tick == REATTACH_TICK:
+            eng.close_session(sids[2])
+            if sids[0] not in eng.active_sessions:
+                raise RuntimeError("5d: the re-attach did not go live")
+        chunks = _durable_chunks(eng, streams, plans, sids)
+        if not chunks:
+            return ticks
+        ticks.append(eng.step(chunks))
+
+
+def _durable_restore(k, dev, capacity=CHUNK):
+    """A fresh engine of cell ``k`` (``capacity``), prewarmed, restored
+    from the cell's snapshot and served to the end: its ticks' results,
+    the engine, the launch counts of those ticks, restore and prewarm
+    seconds."""
+    import torch
+    from repro_torch.serve import StreamingEngine, pow2_ladder, prewarm
+    cfg, params, _, kw, streams, plans, sids = _durable_setup(k, dev)
+    eng = StreamingEngine(params, cfg, chunk_capacity=capacity,
+                          ladder=pow2_ladder(CHUNK) if capacity == "auto"
+                          else None, **kw)
+    t0 = time.perf_counter()
+    caps = prewarm(eng)
+    prewarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.restore(_durable_dir(k))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    reset_launches()                          # count the main path only
+    ticks = _durable_post(eng, streams, plans, sids)
+    return ticks, eng, read_launches(), restore_s, (prewarm_s, caps)
+
+
+def durable_child(path):
+    """Cell 0 restored in a fresh process of this script (nothing of the
+    process that wrote the snapshot carries over): its results, carries,
+    metrics and launch counts to ``path`` (torch.save, CPU tensors)."""
+    import torch
+    ticks, eng, counts, restore_s, warm = _durable_restore(
+        0, torch.device("cuda"))
+    torch.save({
+        "ticks": [{sid: [v.cpu() for v in r.summary]
+                   for sid, r in t.items()} for t in ticks],
+        "states": {sid: [[p.cpu() for p in layer]
+                         for layer in eng.store.get(sid).state]
+                   for sid in eng.active_sessions},
+        "launches": [m.launches for m in eng.metrics],
+        "compiles": [m.compiles for m in eng.metrics],
+        "tick_ms": [m.duration_s * 1e3 for m in eng.metrics],
+        "counts": counts, "restore_s": restore_s, "prewarm": warm,
+        "tick": eng.tick}, path)
+
+
+def _same_durable(ticks, states, gold_ticks, gold, what):
+    """Every tick's summaries and every final carry of a restored run,
+    bit-equal to the uninterrupted run's (``ticks``: per tick, sid ->
+    summary fields; ``states``: sid -> carry parts a layer)."""
+    import torch
+    if len(ticks) != len(gold_ticks):
+        raise RuntimeError(f"{what}: {len(ticks)} ticks, the uninterrupted "
+                           f"run served {len(gold_ticks)}")
+    for t, (got, want) in enumerate(zip(ticks, gold_ticks)):
+        if got.keys() != want.keys():
+            raise RuntimeError(f"{what}: tick {t} served other sessions")
+        for sid, fields in got.items():
+            for a, b in zip(fields, want[sid].summary, strict=True):
+                max_abs_diff(a.to(b.device), b, f"{what} tick {t} {sid}")
+                if a.dtype != b.dtype or not torch.equal(a.to(b.device), b):
+                    raise RuntimeError(f"{what}: tick {t} summary of {sid} "
+                                       "differs")
+    if sorted(states) != sorted(gold.active_sessions):
+        raise RuntimeError(f"{what}: other sessions live at the end")
+    for sid, layers in states.items():
+        for la, lb in zip(layers, gold.store.get(sid).state, strict=True):
+            for a, b in zip(la, lb, strict=True):
+                if a.dtype != b.dtype or not torch.equal(a.to(b.device), b):
+                    raise RuntimeError(f"{what}: carry of {sid} differs")
+
+
+def _snapshot_disk(path) -> tuple[int, int]:
+    names = os.listdir(path)
+    return (sum(os.path.getsize(os.path.join(path, n)) for n in names),
+            len(names))
+
+
+def _kill_restore_cell(k, report, dev, total):
+    """One cell of phase 5d: the uninterrupted run, the victim and its
+    snapshot, the restore (in a child process for cell 0, then again
+    into an ``"auto"`` engine), every check; returns the cell's record."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import StreamingEngine, prewarm
+    model, cell, backend, prec = DURABLE_CELLS[k]
+    cfg, params, per_layer, kw, streams, plans, sids = _durable_setup(k, dev)
+    key = f"{model}_{cell}_{backend}_{prec or 'fp32'}"
+    seq = backend == "cuda_seq"
+    kernel = f"mcd_{cell}_{'seq' if seq else 'step'}"
+    per_tick = ((lambda m: per_layer) if seq
+                else (lambda m: per_layer * m.capacity))
+
+    def counted(counts, metrics, what):
+        _check_launches(f"5d {key} {what}", counts, metrics, kernel,
+                        per_tick)
+        for name, v in counts.items():
+            total[name] += v
+
+    gold = StreamingEngine(params, cfg, chunk_capacity=CHUNK, **kw)
+    prewarm(gold)
+    reset_launches()                          # count the main path only
+    _durable_pre(gold, streams, plans, sids)
+    n_pre = len(gold.metrics)
+    gold_ticks = _durable_post(gold, streams, plans, sids)
+    counted(read_launches(), gold.metrics, "uninterrupted")
+
+    victim = StreamingEngine(params, cfg, chunk_capacity=CHUNK, **kw)
+    prewarm(victim)
+    reset_launches()
+    _durable_pre(victim, streams, plans, sids)
+    counted(read_launches(), victim.metrics, "victim")
+    path = _durable_dir(k)
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    snap = victim.snapshot(path)
+    snapshot_s = time.perf_counter() - t0
+    nbytes, nfiles = _snapshot_disk(snap)
+    del victim
+
+    restores = []
+    if k == 0:
+        out = os.path.join(ROOT, "build", "phase5d_child.pt")
+        if os.path.exists(out):
+            os.remove(out)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phase5d-child", out], check=True,
+                        timeout=CHILD_TIMEOUT)
+        rec = torch.load(out)
+        os.remove(out)
+        _same_durable(rec["ticks"], rec["states"], gold_ticks, gold,
+                      f"5d {key} child")
+        launches, compiles = rec["launches"], rec["compiles"]
+        for name, v in rec["counts"].items():
+            total[name] += v
+        restores.append({"where": "child process", "capacity": CHUNK,
+                         "restore_ms": rec["restore_s"] * 1e3,
+                         "prewarm_s": rec["prewarm"][0],
+                         "first_tick_ms": rec["tick_ms"][0],
+                         "tick_ms_p50": float(np.percentile(
+                             rec["tick_ms"], 50)),
+                         "launches": launches, "compiles": compiles})
+    for where, cap in ([("this process, auto", "auto")] if k == 0
+                       else [("this process", CHUNK)]):
+        ticks, eng, counts, restore_s, warm = _durable_restore(k, dev, cap)
+        counted(counts, eng.metrics, f"restored ({where})")
+        _same_durable([{sid: r.summary for sid, r in t.items()}
+                       for t in ticks],
+                      {sid: eng.store.get(sid).state
+                       for sid in eng.active_sessions},
+                      gold_ticks, gold, f"5d {key} {where}")
+        if any(p.device != gold.store.get(sid).state[0][0].device
+               for sid in eng.active_sessions
+               for layer in eng.store.get(sid).state for p in layer):
+            raise RuntimeError(f"5d {key}: a carry is off the card")
+        restores.append({"where": where, "capacity": cap,
+                         "restore_ms": restore_s * 1e3,
+                         "prewarm_s": warm[0], "capacities": warm[1],
+                         "first_tick_ms": eng.metrics[0].duration_s * 1e3,
+                         "tick_ms_p50": float(np.percentile(
+                             [m.duration_s * 1e3 for m in eng.metrics], 50)),
+                         "launches": [m.launches for m in eng.metrics],
+                         "compiles": [m.compiles for m in eng.metrics]})
+    want = [m.launches for m in gold.metrics[n_pre:]]
+    for r in restores:
+        if r["launches"] != want:
+            raise RuntimeError(f"5d {key} {r['where']}: launches a tick "
+                               f"{r['launches']}, uninterrupted {want}")
+        if any(r["compiles"]):
+            raise RuntimeError(f"5d {key} {r['where']}: a tick captured "
+                               f"after restore ({r['compiles']})")
+        r["launches"] = sum(r["launches"])
+        r.pop("compiles")
+    gold_ms = [m.duration_s * 1e3 for m in gold.metrics]
+    return key, {
+        "card": report["card"], "model": model, "cell": cell,
+        "backend": backend, "precision": prec or "fp32",
+        "sessions": SESSIONS, "chains": S, "ticks": len(gold_ms),
+        "kill_after_ticks": KILL_TICK,
+        "snapshot_ms": snapshot_s * 1e3, "snapshot_bytes": nbytes,
+        "snapshot_files": nfiles,
+        "uninterrupted_tick_ms_p50": float(np.percentile(gold_ms, 50)),
+        "restores": restores, "bit_equal_to_uninterrupted": True}
+
+
+def _early_exit_run(params, cfg, dev, streams, plans, threshold):
+    """64 sessions (the first 32 flat, the rest ECG beats) over ``plans``
+    on the classifier LSTM (``cuda_seq``, capacity CHUNK, prewarmed)."""
+    import numpy as np
+    from repro_torch.serve import StreamingEngine, prewarm
+    eng = StreamingEngine(params, cfg, backend="cuda_seq",
+                          max_sessions=SESSIONS, chunk_capacity=CHUNK,
+                          device=dev, early_exit_threshold=threshold,
+                          min_samples=EE_FLOOR)
+    prewarm(eng)
+    sids = [f"ee-{k}" for k in range(SESSIONS)]
+    for sid in sids:
+        eng.open_session(sid)
+    flat = np.zeros((T_BEAT, 1), np.float32)
+    ticks, served = [], []                    # served: each tick's chains
+    reset_launches()                          # count the main path only
+    for t in range(plans.shape[1]):
+        served.append({sid: int(eng.store.get(sid).rows.shape[0])
+                       for sid in sids})
+        ticks.append(eng.step({sid: (flat if k < SESSIONS // 2
+                                     else streams[k])[
+            eng.store.get(sid).steps:][:plans[k, t]]
+            for k, sid in enumerate(sids)}))
+    return eng, ticks, read_launches(), sids, served
+
+
+def _early_exit_cell(report, dev, total):
+    """Early exit on the graph path: the classifier LSTM with
+    EE_THRESHOLD / EE_FLOOR against the same engine with it off."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import StreamingEngine, summarize
+    cfg, params, per_layer = ecg_model("classifier", "lstm", dev)
+    streams = _beats()
+    plans = chunk_plans(np.random.default_rng(9), SESSIONS, DURABLE_TICKS)
+    runs = {}
+    for side, thr in (("off", None), ("on", EE_THRESHOLD)):
+        eng, ticks, counts, sids, served = _early_exit_run(
+            params, cfg, dev, streams, plans, thr)
+        _check_launches(f"5d early exit {side}", counts, eng.metrics,
+                        "mcd_lstm_seq", lambda m: per_layer)
+        for name, v in counts.items():
+            total[name] += v
+        runs[side] = (eng, ticks, served)
+    (off, off_ticks, _), (on, on_ticks, served) = runs["off"], runs["on"]
+    s_end = {sid: int(on.store.get(sid).rows.shape[0]) for sid in sids}
+    reclaimed = [m.reclaimed_rows for m in on.metrics]
+    if not any(reclaimed):
+        raise RuntimeError("5d early exit retired no chain")
+    flat = sids[:SESSIONS // 2]
+    if any(s_end[sid] != EE_FLOOR for sid in flat):
+        raise RuntimeError(f"5d early exit: flat sessions end at "
+                           f"{sorted({s_end[s] for s in flat})} chains, "
+                           f"not {EE_FLOOR}")
+    # A session served at all S chains on a tick has, up to that tick, the
+    # carries and inputs it has with early exit off: its summary there is
+    # the off engine's, bit for bit, whether or not it retires later.
+    kept = [sid for sid in sids if s_end[sid] == S]
+    full_ticks = 0
+    for t, (a, b) in enumerate(zip(on_ticks, off_ticks)):
+        for sid in sids:
+            if served[t][sid] != S:
+                continue
+            full_ticks += 1
+            for x, y in zip(a[sid].summary, b[sid].summary, strict=True):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"5d early exit: tick {t} summary of "
+                                       f"{sid}, served at all {S} chains, "
+                                       "moved")
+    for sid in kept:
+        for la, lb in zip(on.store.get(sid).state, off.store.get(sid).state):
+            for x, y in zip(la, lb):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"5d early exit: carry of "
+                                       f"never-retired {sid} moved")
+    path = os.path.join(ROOT, "build", "phase5d", "early_exit")
+    shutil.rmtree(path, ignore_errors=True)
+    on.snapshot(path)
+    back = StreamingEngine(params, cfg, backend="cuda_seq",
+                           max_sessions=SESSIONS, chunk_capacity=CHUNK,
+                           device=dev, early_exit_threshold=EE_THRESHOLD,
+                           min_samples=EE_FLOOR)
+    back.restore(path)
+    if {sid: int(back.store.get(sid).rows.shape[0]) for sid in sids} \
+            != s_end:
+        raise RuntimeError("5d early exit: a restored session's S differs")
+    agg_on, agg_off = summarize(on.metrics), summarize(off.metrics)
+    ecg_s = [s_end[sid] for sid in sids[SESSIONS // 2:]]
+    return {"card": report["card"], "threshold": EE_THRESHOLD,
+            "min_samples": EE_FLOOR, "sessions_flat": len(flat),
+            "sessions_ecg": len(ecg_s), "ticks": len(on_ticks),
+            "reclaimed_rows_by_tick": reclaimed,
+            "reclaimed_rows": agg_on["reclaimed_rows"],
+            "active_chains_by_tick": [m.active_chains for m in on.metrics],
+            "ecg_sessions_chains_at_end": {str(s): ecg_s.count(s)
+                                           for s in sorted(set(ecg_s))},
+            "never_retired": len(kept),
+            "session_ticks_at_all_chains_bit_equal_to_off": full_ticks,
+            "tick_ms_p50_on": agg_on["duration_s_p50"] * 1e3,
+            "tick_ms_p50_off": agg_off["duration_s_p50"] * 1e3,
+            "early_exit_part_ms_p50": float(np.percentile(
+                [m.parts_s["early_exit"] for m in on.metrics], 50)) * 1e3,
+            "never_retired_bit_equal_to_off": True,
+            "restored_s_equal": True}
+
+
+def durable_phase(report, dev):
+    """Phase 5d: kill -> snapshot -> restore on DURABLE_CELLS, then early
+    exit.  Each cell serves 64 sessions x S = 30 over whole beats in 12
+    ragged chunks (capacity 20, graphs, prewarmed): ticks 0-4, then two
+    fresh tickets queued on the full store (one at S / 2), two sessions
+    closed (each drains a ticket) and the first queued back as a
+    re-attach; a snapshot; a fresh prewarmed engine restores it and serves
+    to the end (at tick 8 a session closes and the re-attach goes live).
+    Cell 0 is restored in a child process of this script, then again
+    into a ``chunk_capacity="auto"`` engine (8, 16, 20).  Checks: every
+    tick's summaries and the final carries bit-equal to the same engine
+    run uninterrupted, the launches of every tick equal, no capture after
+    the restore.  Early exit: the classifier LSTM (``cuda_seq``, graphs)
+    over 32 flat and 32 ECG sessions at EE_THRESHOLD / EE_FLOOR: some
+    tick reclaims rows, flat sessions end at EE_FLOOR chains, every
+    session's summary on every tick it was served at all S chains, and the
+    carries of every session never retired, are bit-equal to the engine
+    with early exit off, and a snapshot after the retirements restores
+    each session's S."""
+    total = {name: 0 for name in ALL_KERNELS}
+    out = {}
+    for k in range(len(DURABLE_CELLS)):
+        key, rec = _kill_restore_cell(k, report, dev, total)
+        out[key] = rec
+        print(f"durable {key} " + json.dumps(rec), flush=True)
+    out["early_exit"] = _early_exit_cell(report, dev, total)
+    print("early_exit " + json.dumps(out["early_exit"]), flush=True)
+    shutil.rmtree(os.path.join(ROOT, "build", "phase5d"),
+                  ignore_errors=True)
+    report["durable"] = out
+    return total
+
+
 # -- the LM decode path -----------------------------------------------------
 
 def _lm_rows(dev, n):
@@ -3054,6 +3473,8 @@ def main(argv=None) -> int:
                     help="also write the full report as JSON here")
     ap.add_argument("--phase10-out", default=None,
                     help=argparse.SUPPRESS)   # the child of phase10_child
+    ap.add_argument("--phase5d-child", default=None,
+                    help=argparse.SUPPRESS)   # the restore child of 5d
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3075,6 +3496,9 @@ def main(argv=None) -> int:
         print(f"nvcc {name}.cu ({report['build_s']:.1f}s):\n{log.strip()}",
               flush=True)
     dev = torch.device("cuda")
+    if args.phase5d_child:
+        durable_child(args.phase5d_child)
+        return 0
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -3097,6 +3521,7 @@ def main(argv=None) -> int:
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
             ("5b", precision_serving_phase), ("5c", graph_phase),
+            ("5d", durable_phase),
             ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):

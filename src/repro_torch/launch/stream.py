@@ -17,6 +17,12 @@ Usage:
       --sessions 4 --samples 8 --beats 1
   PYTHONPATH=src python -m repro_torch.launch.stream --capacity auto \
       --prewarm --sessions 4 --samples 8 --beats 1
+  PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
+      --samples 8 --beats 2 --snapshot-dir snaps --snapshot-every 2
+  PYTHONPATH=src python -m repro_torch.launch.stream --snapshot-dir snaps \
+      --resume            # a killed run goes on where its snapshot left it
+  PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
+      --samples 8 --early-exit-threshold 1e-3 --min-samples 2
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ckpt import checkpoint
 from repro_torch.core import classifier as clf, mcd
 from repro_torch.data import ecg
 from repro_torch.serve import (JsonlSink, StreamingEngine, pow2_ladder,
@@ -80,10 +87,29 @@ def main(argv=None):
                     "capture; needs --capacity fixed or auto")
     ap.add_argument("--metrics-out", default=None,
                     help="append per-tick TickMetrics as JSON lines here")
+    ap.add_argument("--min-samples", type=int, default=1,
+                    help="uncertainty floor: early exit never takes a "
+                    "session below this many chains")
+    ap.add_argument("--early-exit-threshold", type=float, default=None,
+                    metavar="DELTA",
+                    help="retire a session's surplus MC chains once halving "
+                    "them would move its uncertainty summary by at most "
+                    "DELTA (default: off, every session keeps --samples)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="durable session snapshots (crash-safe resume)")
+    ap.add_argument("--snapshot-every", type=int, default=5,
+                    help="snapshot cadence in ticks")
+    ap.add_argument("--snapshot-keep", type=int, default=3,
+                    help="snapshots retained (older ones pruned)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest snapshot in --snapshot-dir "
+                    "and continue every stream where it left off")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain-PyTorch paths)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.resume and not args.snapshot_dir:
+        ap.error("--resume requires --snapshot-dir")
 
     device = resolve_device(args.device)
     cfg = clf.ClassifierConfig(
@@ -100,15 +126,34 @@ def main(argv=None):
                           max_sessions=args.sessions,
                           chunk_capacity=capacity, ladder=ladder,
                           metrics_sink=sink, device=device,
-                          precision=args.precision)
+                          precision=args.precision,
+                          early_exit_threshold=args.early_exit_threshold,
+                          min_samples=min(args.min_samples, args.samples))
     if args.prewarm:
         t0 = time.perf_counter()
         caps = prewarm(eng)
         print(f"prewarmed capacities {caps} in "
               f"{time.perf_counter() - t0:.2f}s")
+    # Streams are regenerated from their generation params, which ride the
+    # snapshot; the per-stream cursor lives in the session (steps served).
+    done: set[str] = set()
+    if args.resume:
+        extra = eng.restore(args.snapshot_dir)
+        done = set(extra.get("done", []))
+        gen = extra.get("gen")
+        if gen and (gen["total"], gen["beats"]) != (args.sessions,
+                                                    args.beats):
+            print(f"resume: adopting snapshot stream params "
+                  f"total={gen['total']} beats={gen['beats']} "
+                  f"(CLI values differ)")
+        if gen:
+            args.sessions, args.beats = int(gen["total"]), int(gen["beats"])
+        print(f"resumed tick {eng.tick}: live={eng.active_sessions} "
+              f"queued={eng.queued_sessions} done={sorted(done)}")
     streams, labels = build_streams(args.sessions, args.beats, args.seed)
-    for k in range(args.sessions):
-        eng.open_session(f"ecg-{k}")
+    if not args.resume:
+        for k in range(args.sessions):
+            eng.open_session(f"ecg-{k}")
     print(f"streaming {args.sessions} sessions x {args.beats} beats "
           f"(T={ecg.T_STEPS} each) | S={args.samples} p={cfg.mcd.p} "
           f"B={mcd.placement_str(cfg.mcd.placement)} cell={args.cell} "
@@ -134,22 +179,40 @@ def main(argv=None):
                         f"H={float(su.predictive_entropy):5.3f} "
                         f"MI={float(su.mutual_information):6.4f}")
         m = eng.last_metrics
-        print(f"tick {m.tick:3d} [cap={m.capacity} launches={m.launches} "
-              f"compiles={m.compiles} {m.duration_s * 1e3:.2f}ms] | "
-              + " | ".join(line))
+        stat = (f"cap={m.capacity} launches={m.launches} "
+                f"compiles={m.compiles} {m.duration_s * 1e3:.2f}ms")
+        if args.early_exit_threshold is not None:
+            stat += f" chains={m.active_chains}"
+            if m.reclaimed_rows:
+                stat += f" -{m.reclaimed_rows}"
+        print(f"tick {m.tick:3d} [{stat}] | " + " | ".join(line))
         for sid in list(eng.active_sessions):
             k = int(sid.split("-")[1])
             if eng.store.get(sid).steps >= len(streams[k]):
                 sess = eng.close_session(sid)
+                done.add(sid)
                 print(f"{sid}: served {sess.steps} steps in {sess.chunks} "
                       f"chunks (beat labels {labels[k]})")
+        if args.snapshot_dir and eng.tick % args.snapshot_every == 0:
+            path = eng.snapshot(args.snapshot_dir, extra={
+                "done": sorted(done),
+                "gen": {"total": args.sessions, "beats": args.beats,
+                        "seed": args.seed}})
+            checkpoint.keep_last(args.snapshot_dir, args.snapshot_keep)
+            print(f"  snapshot -> {path}")
     agg = summarize(eng.metrics)
+    if not eng.metrics:
+        print("nothing left to serve")
+        return agg
     print(f"served {sum(m.live_steps for m in eng.metrics)} signal steps "
           f"over {agg['ticks']} ticks | launches {agg['launches']} | "
           f"compiles {agg['compiles']} | "
           f"pad waste {agg['pad_waste']:4.2f} | tick p50 "
           f"{agg['duration_s_p50'] * 1e3:.2f}ms p95 "
           f"{agg['duration_s_p95'] * 1e3:.2f}ms")
+    if args.early_exit_threshold is not None:
+        print(f"early exit: {agg['reclaimed_rows']} chain(s) retired | "
+              f"mean active chains {agg['active_chains_mean']:.1f}")
     if args.metrics_out:
         eng.metrics_sink.close()
         print(f"tick metrics -> {args.metrics_out}")

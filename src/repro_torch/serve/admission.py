@@ -48,6 +48,8 @@ class Ticket:
     session: Session | None = None
     submitted_at: float = 0.0
     n_samples: int | None = None
+    mode: str | None = None    # fresh admissions: "mc" | "student" (None:
+                               # "mc"; a re-attach carries its own mode)
 
 
 class AdmissionQueue:
@@ -63,8 +65,14 @@ class AdmissionQueue:
 
     def submit(self, sid: str, *, priority: int = 0,
                session: Session | None = None,
-               n_samples: int | None = None) -> Ticket:
-        """Queue an admission (or, with ``session``, a re-attach) request."""
+               n_samples: int | None = None,
+               mode: str | None = None) -> Ticket:
+        """Queue an admission (or, with ``session``, a re-attach) request.
+
+        ``n_samples`` and ``mode`` ride the ticket of a fresh admission and
+        are checked by the store when it is drained (a student ticket is
+        kept, and raises there: students are not ported yet).
+        """
         if session is not None and session.sid != sid:
             raise ValueError(f"ticket sid {sid!r} != session.sid "
                              f"{session.sid!r}")
@@ -77,7 +85,7 @@ class AdmissionQueue:
         ticket = Ticket(sid=sid, priority=int(priority), seq=self._seq,
                         session=session, submitted_at=time.monotonic(),
                         n_samples=None if n_samples is None
-                        else int(n_samples))
+                        else int(n_samples), mode=mode)
         self._seq += 1
         self._pending[sid] = ticket
         heapq.heappush(self._heap, (-ticket.priority, ticket.seq, ticket))
@@ -99,7 +107,8 @@ class AdmissionQueue:
                     admitted.append(store.attach(ticket.session))
                 else:
                     admitted.append(store.admit(
-                        ticket.sid, n_samples=ticket.n_samples))
+                        ticket.sid, n_samples=ticket.n_samples,
+                        mode=ticket.mode or "mc"))
             except (ValueError, CapacityError) as err:
                 rejected.append((ticket, err))
         if rejected:

@@ -55,13 +55,17 @@ class TickMetrics:
                            # by prewarm; 0 on an eager tick)
     dropped: int = 0       # admissions the store refused this tick
     active_chains: int = 0     # live MC chains across the store at tick end
+                               # (after early exit's retirements)
+    reclaimed_rows: int = 0    # chain rows early exit retired this tick
+                               # (freed batch capacity; ids stay burned)
     parts_s: dict = dataclasses.field(default_factory=dict)
                            # host seconds of the tick's parts: assemble
                            # (the batch on the host), to_device (copies and
                            # carries), apply (the pass, or the replay and
                            # the copies out of its buffers), summaries,
-                           # store (carries and results), sync (the wait
-                           # for the device)
+                           # store (carries and results), early_exit (the
+                           # retirement decisions, when on), sync (the
+                           # wait for the device)
 
 
 class AdaptiveTickScheduler:
@@ -112,6 +116,14 @@ class AdaptiveTickScheduler:
         k = max(0, min(len(win) - 1,
                        int(round(self.percentile / 100.0 * len(win))) - 1))
         return win[k]
+
+    # -- persistence hooks (serve.persistence) -------------------------------
+    def state(self) -> dict:
+        """JSON-able state: the observation window."""
+        return {"window": list(self._window)}
+
+    def load_state(self, state: dict) -> None:
+        self._window.extend(int(n) for n in state.get("window", ()))
 
 
 def prewarm(engine, *, dtype=None) -> list[int]:
@@ -205,4 +217,5 @@ def summarize(metrics: Sequence[TickMetrics]) -> dict:
         "dropped": sum(m.dropped for m in metrics),
         "active_chains_mean": (sum(m.active_chains for m in metrics)
                                / len(metrics)),
+        "reclaimed_rows": sum(m.reclaimed_rows for m in metrics),
     }

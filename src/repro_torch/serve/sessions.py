@@ -9,8 +9,9 @@ mask-stream coordinates, allocated once at admission from a monotone
 allocator and never reused, so every chunk redraws the same masks.
 
 Rows are host numpy uint32 arrays, allocated exactly as the reference
-allocates them.  Chain regrowth/retirement (``grow``/``retire``) and student
-sessions are not ported yet (ROADMAP.md).
+allocates them.  ``retire`` (the early-exit primitive) trims a session to a
+prefix of its chains; the ids it drops stay burned.  Chain regrowth
+(``grow``) and student sessions are not ported yet (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -95,6 +96,30 @@ class SessionStore:
                 f"row allocator exhausted ({self._next_row} ids burned; "
                 f"ceiling {_mcd.STUDENT_ROW_FLAG})")
 
+    def retire(self, sid: str, keep: int) -> int:
+        """Shrink a live session to its first ``keep`` MC chains.
+
+        Chains are independent trajectories, so keeping a *prefix* leaves
+        the survivors' masks and carries untouched: the shrunk session
+        streams on bit-identically to one that had those ``keep`` rows all
+        along, and co-batched neighbours never notice.  The freed rows are
+        released as batch capacity only — their ids stay burned in the
+        allocator.  Returns the number of rows retired.
+        """
+        sess = self.get(sid)
+        s_old = int(sess.rows.shape[0])
+        keep = int(keep)
+        if not 1 <= keep <= s_old:
+            raise ValueError(
+                f"session {sid!r}: keep={keep} must be in [1, {s_old}]")
+        if keep == s_old:
+            return 0
+        sess.rows = sess.rows[:keep].copy()
+        if sess.state is not None:
+            sess.state = [tuple(part[:keep] for part in layer)
+                          for layer in sess.state]
+        return s_old - keep
+
     def attach(self, session: Session) -> Session:
         """Re-admit a previously evicted :class:`Session` (same draw)."""
         if session.sid in self._sessions:
@@ -139,6 +164,10 @@ class SessionStore:
     @property
     def active(self) -> list[str]:
         return list(self._sessions)
+
+    def sessions(self) -> list[Session]:
+        """Live sessions in admission order (snapshot iteration order)."""
+        return list(self._sessions.values())
 
     @property
     def active_chains(self) -> int:

@@ -29,8 +29,16 @@ captured with the layers.  Dynamic mode (``chunk_capacity=None``) and the
 observed shape, and a capture for each shape costs more than an eager
 pass.
 
+``snapshot`` / ``restore`` make every live and queued stream durable in
+the reference's snapshot format (``serve.persistence``): a snapshot either
+package writes restores in the other, and a killed engine resumes
+bit-identically, on any backend and ``chunk_capacity``, into an engine
+that may already be prewarmed.  ``early_exit_threshold`` retires a
+converged session's surplus chains (a prefix, one halving a tick, down to
+``min_samples``), deciding as the reference decides.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh`` sharding, early exit, distilled students, and snapshot/restore.
+``mesh`` sharding (A8) and distilled students (A5).
 """
 
 from __future__ import annotations
@@ -46,13 +54,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import autoencoder as _ae, classifier as _clf
+from repro_torch.core import mcd as _mcd
 from repro_torch.core.uncertainty import (ClassificationSummary,
                                           RegressionSummary,
+                                          RunningClassificationSummary,
+                                          RunningRegressionSummary,
                                           classification_summary,
                                           regression_summary)
 from repro_torch.kernels import (mcd_gru, mcd_gru_seq, mcd_lstm,
                                  mcd_lstm_seq)
 from repro_torch.kernels import ops as _ops, quantize as _quant
+from repro_torch.serve import persistence as _persist
 from repro_torch.serve.admission import AdmissionQueue, DrainRejected
 from repro_torch.serve.graphs import StaticStep
 from repro_torch.serve.scheduler import AdaptiveTickScheduler, TickMetrics
@@ -192,6 +204,14 @@ class StreamingEngine:
         bounded (``chunk_capacity`` an int or ``"auto"``) on a kernel
         backend; False serves every tick eagerly (what the graphs are held
         to).  Dynamic mode and the ``reference`` backend are always eager.
+      early_exit_threshold: after each served chunk, compare a session's
+        uncertainty over all its chains with that over the prefix it would
+        keep (``max(min_samples, ceil(s/2))`` chains) — classifier:
+        ``|MI_full - MI_prefix|``; autoencoder: the mean ``|epistemic_full
+        - epistemic_prefix|`` over the chunk's valid positions — and at or
+        under the threshold retire the rest (``SessionStore.retire``).
+        None (default) never retires.
+      min_samples: the early-exit floor.
     """
 
     def __init__(self, params, cfg, *, backend: str = "cuda_seq",
@@ -201,6 +221,7 @@ class StreamingEngine:
                  metrics_sink: MetricsSink | None = None,
                  device=None, mesh=None, precision: str | None = None,
                  early_exit_threshold: float | None = None,
+                 min_samples: int = 1,
                  student=None, graphs: bool = True):
         if isinstance(cfg, _clf.ClassifierConfig):
             self.kind = "classifier"
@@ -211,8 +232,6 @@ class StreamingEngine:
                             "and the autoencoder are served)")
         if mesh is not None:
             raise _unported("mesh sharding")
-        if early_exit_threshold is not None:
-            raise _unported("early exit")
         if student is not None:
             raise _unported("distilled student heads")
         _quant.check_precision(precision)
@@ -241,6 +260,20 @@ class StreamingEngine:
         self._pool = None
         s = cfg.mcd.n_samples if cfg.mcd.any_bayesian else 1
         self.n_samples = max(1, s)
+        if (early_exit_threshold is not None
+                and not float(early_exit_threshold) >= 0.0):
+            raise ValueError(f"early_exit_threshold must be >= 0, "
+                             f"got {early_exit_threshold}")
+        self.early_exit_threshold = (None if early_exit_threshold is None
+                                     else float(early_exit_threshold))
+        if not 1 <= int(min_samples) <= self.n_samples:
+            raise ValueError(
+                f"min_samples must be in [1, {self.n_samples}], "
+                f"got {min_samples}")
+        self.min_samples = int(min_samples)
+        # sid -> the prefix-vs-full delta early exit compared with the
+        # threshold on the last tick (sessions above the floor only).
+        self.last_exit_deltas: dict[str, float] = {}
         self.store = SessionStore(self.n_samples, cfg.mcd.seed,
                                   max_sessions=max_sessions)
         self.queue = AdmissionQueue(max_pending)
@@ -277,7 +310,7 @@ class StreamingEngine:
                     f"session {sid!r} carries {int(session.rows.shape[0])} "
                     f"MC chains, engine ceiling is {self.n_samples}")
         self.queue.submit(sid, priority=priority, session=session,
-                          n_samples=n_samples)
+                          n_samples=n_samples, mode=mode)
         try:
             self.queue.drain(self.store)
         except DrainRejected as err:
@@ -323,11 +356,119 @@ class StreamingEngine:
     def last_metrics(self) -> TickMetrics | None:
         return self.metrics_sink.last()
 
-    def snapshot(self, *args, **kw):
-        raise _unported("snapshot")
+    # -- durability ----------------------------------------------------------
+    def snapshot(self, directory: str, *, step: int | None = None,
+                 extra: dict | None = None) -> str:
+        """Atomic, crash-safe snapshot of every live and queued stream.
 
-    def restore(self, *args, **kw):
-        raise _unported("restore")
+        Durable state is exactly: per-session per-chain carries, ``(seed,
+        rows)`` mask coordinates, step/chunk cursors, the row allocator,
+        the admission wait-list, the scheduler's window and the tick
+        counter.  Masks are not stored: the kernels recompute them from
+        ``(seed, rows)``, which is why restore is bit-exact.  Returns the
+        snapshot's path.
+        """
+        return _persist.snapshot_store(directory, self.store, step=step,
+                                       queue=self.queue,
+                                       extra=self._engine_meta(extra))
+
+    def _engine_meta(self, extra: dict | None = None) -> dict:
+        """The engine's snapshot meta, as the reference writes it;
+        validated by :meth:`restore`.  ``backend`` (the port's name) and
+        ``data_shards`` are recorded, not validated: a snapshot restores
+        on any backend of either package."""
+        engine_meta = {"tick": self.tick, "kind": self.kind,
+                       "backend": self.backend, "cell": self.cell,
+                       "precision": self.precision,
+                       "data_shards": 1,
+                       "mcd": {"p": float(self.cfg.mcd.p),
+                               "placement":
+                                   _mcd.placement_str(self.cfg.mcd.placement)}}
+        if self._scheduler is not None:
+            engine_meta["sched"] = self._scheduler.state()
+        if extra is not None:
+            engine_meta["extra"] = extra
+        return engine_meta
+
+    def restore(self, directory: str, *, step: int | None = None,
+                sids: list[str] | None = None) -> dict:
+        """Resume every snapshotted stream into this (fresh) engine.
+
+        Replaces the store, wait-list and tick counter with the
+        snapshot's, carries on this engine's device; serving then goes on
+        bit-identically to the uninterrupted run (any backend, any
+        ``chunk_capacity``; a prewarmed engine replays its graphs at
+        once).  Returns the ``extra`` meta stashed by :meth:`snapshot`.
+        """
+        if self.store.sessions() or len(self.queue):
+            raise RuntimeError("restore() needs a fresh engine: live or "
+                               "queued sessions would collide")
+        # Size the queue to hold the snapshot's whole wait-list.
+        peek = _persist.load_snapshot_meta(directory, step)
+        queue = AdmissionQueue(max(self.queue.max_pending,
+                                   len(peek["queue"]) or 1))
+        store, meta = _persist.restore_store(
+            directory, step=peek["step"], sids=sids, queue=queue,
+            max_sessions=self.max_sessions, device=self.device)
+        engine_meta = self._check_restore_meta(meta)
+        self._adopt(store, queue, engine_meta)
+        return engine_meta.get("extra", {})
+
+    def _check_restore_meta(self, meta: dict) -> dict:
+        """Validate snapshot meta against this engine; return its engine
+        meta (typed errors, the reference's messages)."""
+        if meta["n_samples"] != self.n_samples:
+            raise ValueError(
+                f"snapshot's chain ceiling is {meta['n_samples']} MC "
+                f"chains/session, engine ceiling is {self.n_samples}")
+        if meta["seed"] != self.cfg.mcd.seed:
+            raise ValueError(
+                f"snapshot drawn under seed {meta['seed']!r}, engine uses "
+                f"{self.cfg.mcd.seed!r} — resuming would change the masks")
+        engine_meta = meta.get("extra") or {}
+        if engine_meta.get("kind") not in (None, self.kind):
+            raise ValueError(f"snapshot is a {engine_meta['kind']} stream, "
+                             f"engine is a {self.kind}")
+        snap_cell = engine_meta.get("cell", "lstm")
+        if snap_cell != self.cell:
+            raise ValueError(f"snapshot streamed through a {snap_cell} "
+                             f"stack, engine runs {self.cell} — the carries "
+                             "are not interchangeable")
+        # Pre-quantization snapshots carry no key: native-dtype engines
+        # wrote them, so they restore only into precision=None.
+        snap_prec = engine_meta.get("precision")
+        if snap_prec != self.precision:
+            raise ValueError(
+                f"snapshot streamed at precision {snap_prec!r}, engine "
+                f"serves {self.precision!r} — the carries are not "
+                "interchangeable")
+        snap_mcd = engine_meta.get("mcd")
+        here_mcd = {"p": float(self.cfg.mcd.p),
+                    "placement": _mcd.placement_str(self.cfg.mcd.placement)}
+        if snap_mcd is not None and snap_mcd != here_mcd:
+            raise ValueError(
+                f"snapshot streamed under mcd {snap_mcd}, engine uses "
+                f"{here_mcd} — resuming would silently change the masks")
+        return engine_meta
+
+    def _adopt(self, store: SessionStore, queue: AdmissionQueue,
+               engine_meta: dict) -> None:
+        """Take over a restored store/queue and validated engine meta."""
+        # A student session decodes through student heads, which the port
+        # does not have yet: adopting one would misserve it.
+        stu = ([s.sid for s in store.sessions() if s.mode == "student"]
+               + [t.sid for t in queue.waiting() if t.mode == "student"])
+        if stu:
+            raise ValueError(
+                f"snapshot carries student-mode sessions {sorted(stu)}; "
+                "this engine was built without student= heads (students "
+                "are not ported yet, ROADMAP.md A5)")
+        store.n_samples = self.n_samples
+        self.store = store
+        self.queue = queue
+        self.tick = int(engine_meta.get("tick", 0))
+        if self._scheduler is not None and "sched" in engine_meta:
+            self._scheduler.load_state(engine_meta["sched"])
 
     # -- serving -------------------------------------------------------------
     def step(self, chunks: Mapping[str, Any]) -> dict[str, ChunkResult]:
@@ -420,24 +561,31 @@ class StreamingEngine:
                       for layer in states]
             t_part = _lap(parts, "apply", t_part)
 
-        # Batched summaries over [s, group, ...]: sessions grouped by chain
-        # count, each group's rows gathered once, per-session results
-        # indexed out.
+        # Batched summaries over [s, sessions, ...], per-session results
+        # indexed out.  A uniform tick is one reshape of the live prefix.  In
+        # a ragged one (early exit) the sessions at the chain ceiling are
+        # summarized at the uniform tick's shape [ceiling, all sessions]
+        # (the others' columns filled with their own rows, then dropped), so
+        # a session early exit never touched gets the bits the engine
+        # without early exit gives it: a reduction's order follows the
+        # shape.  Each smaller chain count is a group of its own.
         k_n = len(sessions)
         summaries: list = [None] * k_n
-        groups = ([(s_list[0], list(range(k_n)))] if len(set(s_list)) == 1
-                  else sorted({si: [k for k in range(k_n) if s_list[k] == si]
-                               for si in set(s_list)}.items()))
-        for si, ks in groups:
-            if len(ks) == k_n:
+        uniform = len(set(s_list)) == 1
+        for si in sorted(set(s_list)):
+            if uniform:
+                cols = range(k_n)
+
                 def sel(a, si=si):
                     return a[:k_n * si].reshape((k_n, si) + a.shape[1:])
             else:
+                cols = [k for k in range(k_n) if s_list[k] == si
+                        or si == self.n_samples]
                 idx = torch.as_tensor(np.concatenate(
-                    [np.arange(offsets[k], offsets[k] + si) for k in ks]),
+                    [np.arange(si) % s_list[k] + offsets[k] for k in cols]),
                     device=dev)
 
-                def sel(a, idx=idx, n=len(ks), si=si):
+                def sel(a, idx=idx, n=len(cols), si=si):
                     return a[idx].reshape((n, si) + a.shape[1:])
             if self.kind == "classifier":
                 (logits,) = outs
@@ -451,8 +599,9 @@ class StreamingEngine:
                     None if log_var is None
                     else sel(log_var).transpose(0, 1).float())
                 per = RegressionSummary
-            for j, k in enumerate(ks):
-                summaries[k] = per(*(v[j] for v in batched))
+            for j, k in enumerate(cols):
+                if s_list[k] == si:
+                    summaries[k] = per(*(v[j] for v in batched))
         t_part = _lap(parts, "summaries", t_part)
 
         # A windowed decoder reconstructs min(L, W) positions per chunk.
@@ -472,6 +621,10 @@ class StreamingEngine:
                                             steps_total=sess.steps,
                                             summary=summary)
         t_part = _lap(parts, "store", t_part)
+        reclaimed = self._early_exit(sessions, lens, s_list, offsets, outs,
+                                     win)
+        if self.early_exit_threshold is not None:
+            t_part = _lap(parts, "early_exit", t_part)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _lap(parts, "sync", t_part)
@@ -490,10 +643,67 @@ class StreamingEngine:
             launches=stack_launch_count() - launches_before,
             compiles=compiles,
             dropped=self._take_dropped(),
-            active_chains=self.store.active_chains, parts_s=parts)
+            active_chains=self.store.active_chains,
+            reclaimed_rows=reclaimed, parts_s=parts)
         self.metrics_sink.emit(m)
         self.tick += 1
         return results
+
+    def _early_exit(self, sessions, lens, s_list, offsets, outs, win) -> int:
+        """Retire surplus chains of prefix-converged sessions (one stage).
+
+        For each served session above the floor, compare the summary over
+        the prefix it would keep with the summary over all its chains, in
+        the reference's float64 accumulators on the same values: the
+        tick's live logits (or means and log-variances) come to the host
+        once, then each session's slice is summarized as the reference
+        summarizes it.  At or under the threshold the session is trimmed
+        to the prefix.  Returns the rows retired this tick.
+        """
+        self.last_exit_deltas = {}
+        if self.early_exit_threshold is None:
+            return 0
+        keeps = [max(self.min_samples, (si + 1) // 2) for si in s_list]
+        if all(keep >= si for keep, si in zip(keeps, s_list)):
+            return 0
+        live = sum(s_list)
+        if self.kind == "classifier":
+            host = (outs[0][:live].float().cpu().numpy(),)
+        else:
+            mean, log_var = outs[0], outs[1]
+            t_valid = max(lens) if win is None else min(max(lens), win)
+            host = (mean[:live, :t_valid].float().cpu().numpy(),
+                    None if log_var is None
+                    else log_var[:live, :t_valid].float().cpu().numpy())
+        reclaimed = 0
+        for k, (sess, L) in enumerate(zip(sessions, lens)):
+            si, keep = s_list[k], keeps[k]
+            if keep >= si:
+                continue
+            off = offsets[k]
+            if self.kind == "classifier":
+                lg = host[0][off:off + si][:, None, :]          # [s, 1, C]
+                prefix = RunningClassificationSummary().update(lg[:keep])
+                full = prefix.copy().update(lg[keep:])
+                delta = float(np.abs(
+                    full.finalize_numpy().mutual_information
+                    - prefix.finalize_numpy().mutual_information)[0])
+            else:
+                valid = L if win is None else min(L, win)
+                mu = host[0][off:off + si, :valid]
+                lv = (None if host[1] is None
+                      else host[1][off:off + si, :valid])
+                prefix = RunningRegressionSummary().update(
+                    mu[:keep], None if lv is None else lv[:keep])
+                full = prefix.copy().update(
+                    mu[keep:], None if lv is None else lv[keep:])
+                delta = float(np.mean(np.abs(
+                    full.finalize_numpy().epistemic
+                    - prefix.finalize_numpy().epistemic)))
+            self.last_exit_deltas[sess.sid] = delta
+            if delta <= self.early_exit_threshold:
+                reclaimed += self.store.retire(sess.sid, keep)
+        return reclaimed
 
     def _take_dropped(self) -> int:
         n, self._dropped_unreported = self._dropped_unreported, 0

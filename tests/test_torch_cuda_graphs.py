@@ -15,6 +15,10 @@ tests/test_torch_cuda_graphs.py``.
   same launch counts, over two ``generate`` calls on one engine.
 * The bf16 ``mcd_matmul`` on the tensor cores: a captured call replays
   bitwise equal to eager calls.
+* Kill -> snapshot -> restore: an engine restored after prewarm replays
+  the uninterrupted engine's bits with no capture; early exit through the
+  tick graph leaves every stream it never touched bit-equal to an engine
+  without it.
 * A capture that fails raises, and leaves the launch counts as they were.
 """
 
@@ -217,6 +221,89 @@ def test_mcd_matmul_tensor_cores_graph_replay_equals_eager(dev, M, out):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert mcd_matmul.mcd_matmul.launches == before + 2     # eager calls
+
+
+@pytest.mark.parametrize("model,cell,backend,precision", [
+    ("classifier", "lstm", "cuda_seq", None),
+    ("classifier", "gru", "cuda_step", "bf16"),
+    ("autoencoder", "gru", "cuda_seq", "int4"),
+    ("classifier", "lstm", "cuda_step", "int8")])
+def test_kill_restore_graph_bit_identical(dev, model, cell, backend,
+                                          precision, tmp_path):
+    """Kill -> snapshot -> restore on the card: the tick graphs of an
+    engine restored after prewarm (another capacity policy) give the
+    uninterrupted engine's carries and summaries bit for bit, with the
+    same launches a tick and no capture."""
+    cfg, params = _model(model, cell, dev)
+    rng = np.random.default_rng(1)
+    sigs = [rng.standard_normal((48, 1)).astype(np.float32)
+            for _ in range(4)]
+    plan = rng.integers(1, 13, (6, 4))
+    kw = dict(backend=backend, precision=precision, max_sessions=5,
+              ladder=(4, 8, 12), device=dev)
+    gold = StreamingEngine(params, cfg, chunk_capacity=12, **kw)
+    victim = StreamingEngine(params, cfg, chunk_capacity=12, **kw)
+    want = _serve(gold, sigs, plan)
+    _serve(victim, sigs, plan[:3])
+    victim.snapshot(str(tmp_path))
+    del victim
+    revived = StreamingEngine(params, cfg, chunk_capacity="auto", **kw)
+    prewarm(revived)
+    revived.restore(str(tmp_path))
+    assert revived.tick == 3
+    got = [revived.step({sid: sigs[k][revived.store.get(sid).steps:][
+        :int(n)] for k, (sid, n) in enumerate(zip(sorted(
+            revived.active_sessions), lens))}) for lens in plan[3:]]
+    for ta, tb in zip(got, want[3:], strict=True):
+        for sid in tb:
+            for a, b in zip(ta[sid].summary, tb[sid].summary, strict=True):
+                assert torch.equal(a, b)
+    for sid in gold.active_sessions:
+        for la, lb in zip(revived.store.get(sid).state,
+                          gold.store.get(sid).state, strict=True):
+            for a, b in zip(la, lb, strict=True):
+                assert a.device == b.device and a.dtype == b.dtype
+                assert torch.equal(a, b)
+    assert [m.launches for m in revived.metrics] == \
+        [m.launches for m in gold.metrics[3:]]
+    assert summarize(revived.metrics)["compiles"] == 0
+
+
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+def test_early_exit_on_the_graph_path(dev, backend, tmp_path):
+    """Flat streams halve to the floor through the tick graph; every
+    stream early exit never touched keeps the bits of an engine without
+    early exit; a snapshot after the retirements restores each S."""
+    cfg, params = _model("classifier", "lstm", dev)
+    rng = np.random.default_rng(2)
+    sigs = [rng.standard_normal((48, 1)).astype(np.float32) * (k % 2)
+            for k in range(6)]                      # even streams flat
+    plan = np.full((4, 6), 12)
+    kw = dict(backend=backend, max_sessions=6, chunk_capacity=12,
+              device=dev)
+    ee = StreamingEngine(params, cfg, early_exit_threshold=0.0,
+                         min_samples=1, **kw)
+    off = StreamingEngine(params, cfg, **kw)
+    got, want = _serve(ee, sigs, plan), _serve(off, sigs, plan)
+    assert [m.reclaimed_rows for m in ee.metrics] == [6, 3, 0, 0]
+    kept = [sid for sid in ee.active_sessions
+            if ee.store.get(sid).rows.shape[0] == S]
+    assert len(kept) == 3 and all(
+        ee.store.get(f"s{k}").rows.shape[0] == 1 for k in (0, 2, 4))
+    for ta, tb in zip(got, want, strict=True):
+        for sid in kept:
+            for a, b in zip(ta[sid].summary, tb[sid].summary, strict=True):
+                assert torch.equal(a, b)
+    for sid in kept:
+        for la, lb in zip(ee.store.get(sid).state, off.store.get(sid).state):
+            for a, b in zip(la, lb):
+                assert torch.equal(a, b)
+    ee.snapshot(str(tmp_path))
+    back = StreamingEngine(params, cfg, early_exit_threshold=0.0, **kw)
+    back.restore(str(tmp_path))
+    assert {sid: back.store.get(sid).rows.shape[0]
+            for sid in back.active_sessions} == \
+        {sid: ee.store.get(sid).rows.shape[0] for sid in ee.active_sessions}
 
 
 def test_a_failed_capture_raises(dev):

@@ -131,6 +131,15 @@ def test_engine_unported_options_raise(kw):
         with pytest.raises(ValueError, match="precision"):
             StreamingEngine(params, cfg, device="cpu", precision="fp8")
         return
+    if "early_exit_threshold" in kw:
+        # Early exit is ported: the engine takes a threshold and refuses a
+        # negative one, as the reference does.
+        assert StreamingEngine(params, cfg, device="cpu",
+                               **kw).early_exit_threshold == 0.1
+        with pytest.raises(ValueError, match="threshold"):
+            StreamingEngine(params, cfg, device="cpu",
+                            early_exit_threshold=-1.0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, cfg, device="cpu", **kw)
 
@@ -138,11 +147,14 @@ def test_engine_unported_options_raise(kw):
 def test_engine_unported_calls_raise():
     cfg, params = _cpu_model()
     eng = StreamingEngine(params, cfg, device="cpu")
-    for call in (lambda: eng.snapshot("x"), lambda: eng.restore("x"),
-                 lambda: eng.open_session("s", mode="student"),
+    for call in (lambda: eng.open_session("s", mode="student"),
                  lambda: eng.admit("s", mode="student")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # snapshot / restore are ported: a directory with no snapshot is a
+    # missing file, not an unported call.
+    with pytest.raises(FileNotFoundError, match="no snapshot"):
+        eng.restore(str(ROOT / "build" / "no-such-snapshot"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, object(), device="cpu")
     # The GRU is ported; its stack still refuses what is not.
