@@ -78,7 +78,24 @@ Phases (each raises on failure; the exit code is then non-zero):
    rows reclaimed, flat sessions at EE_FLOOR chains, every summary served
    at all S chains and every never-retired carry bit-equal, each S
    restored from a snapshot; tick p50 on and off.
-   Every serving phase (3, 4, 5, 5b, 5c, 5d, 7, 9) serves through the
+5e. Distilled students on STUDENT_CELLS (the classifier LSTM on
+   ``cuda_seq``, the autoencoder GRU on ``cuda_step``; fp32, S = 30,
+   capacity 20): ``distill_classifier`` / ``distill_autoencoder`` on 64
+   synthetic ECG5000 beats (the teacher one 1920-row launch a layer,
+   teacher targets and features within TEACHER_TOL of the ``reference``
+   backend, DISTILL_STEPS head steps, the loss falls); then 32 students
+   and 32 MC sessions co-batched over whole beats in 12 ragged chunks:
+   the launches of an all-MC tick, every MC summary and carry bit-equal
+   to an all-MC engine on the same rows, chunked == unchunked, each
+   student's carry its solo deterministic pass and its summary within
+   STUDENT_TOL of the heads on it; a threshold some students cross, every
+   escalated session bit-equal to an attached MC twin; kill -> snapshot
+   -> restore with students live and a student ticket queued, bit-equal;
+   ``distill_v1`` restored with heads serves a tick (refused without).
+   Records distill seconds, tick p50 / p95 against the all-MC engine,
+   ``student_rows``, escalations, ``parts_s["student"]`` and the device
+   rows a tick.
+   Every serving phase (3, 4, 5, 5b, 5c, 5d, 5e, 7, 9) serves through the
    graphs, as the engines do by default on a fixed shape; 5c's eager runs
    and the LM phases' eager turns are the comparison.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
@@ -1234,9 +1251,10 @@ def read_launches() -> dict:
             for name in ALL_KERNELS}
 
 
-def _check_launches(phase, counts, metrics, kernel, per_tick):
+def _check_launches(phase, counts, metrics, kernel, per_tick, want=None):
     bad = [m.tick for m in metrics if m.launches != per_tick(m)]
-    want = sum(per_tick(m) for m in metrics)
+    if want is None:
+        want = sum(per_tick(m) for m in metrics)
     others = {k: v for k, v in counts.items() if k != kernel and v}
     if bad or counts[kernel] != want or others:
         raise RuntimeError(f"{phase}: ticks {bad} did not launch {kernel} "
@@ -2109,6 +2127,418 @@ def durable_phase(report, dev):
     shutil.rmtree(os.path.join(ROOT, "build", "phase5d"),
                   ignore_errors=True)
     report["durable"] = out
+    return total
+
+
+# -- phase 5e: distilled students ----------------------------------------------
+
+# (model, cell, backend) of each cell: fp32, S = 30, capacity 20, graphs.
+STUDENT_CELLS = (("classifier", "lstm", "cuda_seq"),
+                 ("autoencoder", "gru", "cuda_step"))
+DISTILL_BEATS = 64     # the teacher batch: 64 beats x 30 chains, one launch
+DISTILL_STEPS = 200    # head steps over the cached batch
+TEACHER_TOL = 1e-5     # teacher targets and features: the kernels against
+                       # the port's reference backend on the card
+STUDENT_TOL = 1e-6     # a student's summary against the heads on a solo
+                       # deterministic pass of its signal (a [32, H] and a
+                       # [1, H] product may round differently in cuBLAS)
+STUDENT_KILL_TICK = 5  # ticks served before the snapshot
+
+
+def _student_setup(k, dev):
+    """Cell ``k``'s (key, cfg, params, layer launches a tick at T = 1,
+    kernel name, streams, plans, session ids, modes): 64 sessions, the
+    odd ones students, every beat in 12 ragged chunks."""
+    import numpy as np
+    model, cell, backend = STUDENT_CELLS[k]
+    cfg, params, per_layer = ecg_model(model, cell, dev)
+    kernel = f"mcd_{cell}_{backend.removeprefix('cuda_')}"
+    plans = chunk_plans(np.random.default_rng(11 + k), SESSIONS,
+                        DURABLE_TICKS)
+    sids = [f"e-{i}" for i in range(SESSIONS)]
+    modes = ["student" if i % 2 else "mc" for i in range(SESSIONS)]
+    return (f"{model}_{cell}_{backend}", cfg, params, per_layer, kernel,
+            _beats(), plans, sids, modes)
+
+
+def _distill(model, cfg, params, backend, dev):
+    """Distil heads from the MC teacher on DISTILL_BEATS beats: the
+    teacher sweep held against the reference backend, then the fit.
+    Returns (student, record, launches of the fit)."""
+    import torch
+    from repro_torch.data import ecg
+    from repro_torch.train import distill as dtrain
+    x = torch.from_numpy(ecg.make_ecg5000(0)[0][:DISTILL_BEATS]).to(dev)
+    batches, fit = ((dtrain.classifier_batches, dtrain.distill_classifier)
+                    if model == "classifier" else
+                    (dtrain.autoencoder_batches, dtrain.distill_autoencoder))
+    dcfg = dtrain.DistillConfig(backend=backend, cache_targets=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = next(batches(params, cfg, [x], dcfg, dev))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    want = next(batches(params, cfg, [x], dataclasses.replace(
+        dcfg, backend="reference"), dev))
+    errs = {name: max_abs_diff(got[name], want[name], f"5e teacher {name}")
+            for name in got}
+    if max(errs.values()) > TEACHER_TOL:
+        raise RuntimeError(f"5e {model}: the teacher pass on {backend} is "
+                           f"off the reference backend: {errs}")
+    reset_launches()
+    t0 = time.perf_counter()
+    student, hist = fit(params, cfg, [x], DISTILL_STEPS, dcfg=dcfg,
+                        generator=torch.Generator().manual_seed(1),
+                        device=dev)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    counts = read_launches()
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise RuntimeError(f"5e {model}: the distillation loss did not fall "
+                           f"({hist[0]['loss']} -> {hist[-1]['loss']})")
+    rec = {"beats": DISTILL_BEATS, "teacher_rows": DISTILL_BEATS * S,
+           "steps": len(hist), "teacher_sweep_s": sweep_s,
+           "distill_s": distill_s, "head_steps_s": distill_s - sweep_s,
+           "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+           "teacher_vs_reference": errs}
+    return student, rec, counts
+
+
+def _student_step(eng, streams, plans, sids, t):
+    """Tick ``t`` of the cell's plans for the engine's live sessions, in
+    ``sids`` order (the order fixes the summaries' columns)."""
+    chunks = {}
+    for i, sid in enumerate(sids):
+        if sid in eng.store:
+            sess = eng.store.get(sid)
+            chunks[sid] = streams[i][sess.steps:][:plans[i, t]]
+    return eng.step(chunks)
+
+
+def _same_results(a, b, sids, what):
+    import torch
+    for sid in sids:
+        for x, y in zip(a[sid].summary, b[sid].summary, strict=True):
+            max_abs_diff(x, y, f"{what} summary of {sid}")
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise RuntimeError(f"{what}: summary of {sid} differs")
+
+
+def _same_carries(ea, eb, sids, what):
+    import numpy as np
+    import torch
+    for sid in sids:
+        sa, sb = ea.store.get(sid), eb.store.get(sid)
+        if sa.mode != sb.mode or not np.array_equal(sa.rows, sb.rows):
+            raise RuntimeError(f"{what}: mode or rows of {sid} differ")
+        for la, lb in zip(sa.state, sb.state, strict=True):
+            for x, y in zip(la, lb, strict=True):
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise RuntimeError(f"{what}: carry of {sid} differs")
+
+
+def _solo_pass(eng, stream, rows, length=None):
+    """One pass of a whole beat on ``rows`` (no carry): (encoder states,
+    the decoder's hidden sequence or None)."""
+    import torch
+    from repro_torch.core import autoencoder as ae, classifier as clf
+    dev = eng.device
+    x = torch.from_numpy(stream[None]).to(dev).repeat(len(rows), 1, 1)
+    rows = torch.as_tensor(rows.astype("int64"), device=dev)
+    lengths = torch.full((len(rows),), stream.shape[0], dtype=torch.int32,
+                         device=dev)
+    kw = dict(backend=eng.backend, lengths=lengths, return_state=True,
+              device=dev)
+    if eng.kind == "classifier":
+        _, states = clf.apply(eng.params, x, rows, eng.cfg, **kw)
+        return states, None
+    *_, dec, states = ae.apply(eng.params, x, rows, eng.cfg,
+                               return_decoded=True, **kw)
+    return states, dec
+
+
+def _student_checks(eng, streams, plans, sids, modes, last):
+    """Chunked == unchunked for every session (its carry against one pass
+    of its whole beat on its rows), each student's carry against a solo
+    deterministic pass, each student's last summary against the heads on
+    that pass.  Returns the largest head distance and whether every
+    summary was bitwise."""
+    import torch
+    from repro_torch.core import distill
+    worst, bitwise = 0.0, True
+    for i, (sid, mode) in enumerate(zip(sids, modes)):
+        sess = eng.store.get(sid)
+        states, dec = _solo_pass(eng, streams[i], sess.rows)
+        for li, (lp, lw) in enumerate(zip(sess.state, states, strict=True)):
+            for part, whole in zip(lp, lw, strict=True):
+                if not torch.equal(part, whole):
+                    raise RuntimeError(f"5e: {sid}'s carry is not its "
+                                       f"unchunked pass (layer {li})")
+        if mode != "student":
+            continue
+        if eng.kind == "classifier":
+            want = distill.classifier_student_summary(eng.student,
+                                                      states[-1][0])
+        else:
+            L = int(plans[i, -1])
+            want = distill.autoencoder_student_summary(
+                eng.student, dec[:, :L], eng.cfg.heteroscedastic)
+        for g, w in zip(last[sid].summary, want, strict=True):
+            worst = max(worst, max_abs_diff(g, w[0], f"5e head {sid}"))
+            bitwise = bitwise and torch.equal(g, w[0])
+    if worst > STUDENT_TOL:
+        raise RuntimeError(f"5e: a student summary is {worst} from the "
+                           "heads on its solo pass")
+    return worst, bitwise
+
+
+def _student_cell(k, report, dev, total):
+    """One cell of phase 5e; returns its record."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.serve import Session, StreamingEngine, prewarm
+    (key, cfg, params, per_layer, kernel, streams, plans, sids,
+     modes) = _student_setup(k, dev)
+    model, cell, backend = STUDENT_CELLS[k]
+    seq = backend == "cuda_seq"
+    per_tick = ((lambda m: per_layer) if seq
+                else (lambda m: per_layer * m.capacity))
+    card = report["card"]
+    student, rec, counts = _distill(model, cfg, params, backend, dev)
+    # The teacher pass and the features' pass, each one launch a layer (a
+    # time step on cuda_step).
+    passes = 2 * (1 if seq else T_BEAT)
+    _check_launches(f"5e {key} distillation", counts, [], kernel,
+                    lambda m: 0, want=per_layer * passes)
+    for name, v in counts.items():
+        total[name] += v
+    kw = dict(backend=backend, max_sessions=SESSIONS, chunk_capacity=CHUNK,
+              device=dev)
+
+    def engine(**extra):
+        eng = StreamingEngine(params, cfg, **kw, **extra)
+        prewarm(eng)
+        return eng
+
+    def counted(counts, metrics, what):
+        _check_launches(f"5e {key} {what}", counts, metrics, kernel,
+                        per_tick)
+        for name, v in counts.items():
+            total[name] += v
+
+    # Serve: students and MC sessions co-batched, against an all-MC engine
+    # with the same MC sessions on the same rows, ticks in turns.
+    mixed = engine(student=student)
+    for sid, mode in zip(sids, modes):
+        mixed.open_session(sid, mode=mode)
+    mc = [sid for sid, mode in zip(sids, modes) if mode == "mc"]
+    alone = engine()
+    for sid in mc:
+        sess = mixed.store.get(sid)
+        alone.attach_session(Session(sid=sid, rows=sess.rows.copy(),
+                                     seed=sess.seed))
+    field = "mutual_information" if model == "classifier" else "epistemic"
+    students = [sid for sid, mode in zip(sids, modes) if mode == "student"]
+    serve_counts = {name: 0 for name in ALL_KERNELS}
+    last, served = {}, []
+    for t in range(DURABLE_TICKS):
+        reset_launches()
+        res = _student_step(mixed, streams, plans, sids, t)
+        for name, v in read_launches().items():
+            serve_counts[name] += v
+        _same_results(res, _student_step(alone, streams, plans, sids, t),
+                      mc, f"5e {key} tick {t} MC beside students")
+        last.update(res)
+        served.append(torch.stack([getattr(res[sid].summary, field)
+                                   .float().mean() for sid in students]))
+    counted(serve_counts, mixed.metrics, "co-batched")
+    _same_carries(mixed, alone, mc, f"5e {key} MC beside students")
+    head_err, head_bitwise = _student_checks(mixed, streams, plans, sids,
+                                             modes, last)
+    if [m.launches for m in mixed.metrics] != \
+            [m.launches for m in alone.metrics]:
+        raise RuntimeError(f"5e {key}: students changed the launches")
+
+    # Escalate: a threshold some students cross and some do not (the
+    # median of the students' largest predicted uncertainty over the run).
+    peak = torch.stack(served).amax(0).cpu().numpy()
+    threshold = float(np.median(peak))
+    esc = engine(student=student, student_escalate_threshold=threshold)
+    for sid, mode in zip(sids, modes):
+        esc.open_session(sid, mode=mode)
+    twin = engine()
+    for sid in mc:
+        sess = esc.store.get(sid)
+        twin.attach_session(Session(sid=sid, rows=sess.rows.copy(),
+                                    seed=sess.seed))
+    path = os.path.join(ROOT, "build", "phase5e", f"cell{k}")
+    shutil.rmtree(path, ignore_errors=True)
+    esc_counts = {name: 0 for name in ALL_KERNELS}
+    esc_ticks, escalated = [], []
+    for t in range(DURABLE_TICKS):
+        if t == STUDENT_KILL_TICK:
+            if esc.admit("e-queued", mode="student") is not None:
+                raise RuntimeError("5e: a student ticket went live on a "
+                                   "full store")
+            t0 = time.perf_counter()
+            esc.snapshot(path)
+            snapshot_s = time.perf_counter() - t0
+        before = {sid: esc.store.get(sid).mode for sid in sids}
+        reset_launches()
+        res = _student_step(esc, streams, plans, sids, t)
+        for name, v in read_launches().items():
+            esc_counts[name] += v
+        esc_ticks.append(res)
+        _same_results(res, _student_step(twin, streams, plans, sids, t),
+                      list(twin.active_sessions),
+                      f"5e {key} tick {t} escalated and MC vs twins")
+        for sid in sids:
+            sess = esc.store.get(sid)
+            if before[sid] == "student" and sess.mode == "mc":
+                escalated.append((t, sid))
+                twin.attach_session(dc.replace(
+                    sess, rows=sess.rows.copy(),
+                    state=[tuple(p.clone() for p in layer)
+                           for layer in sess.state]))
+    counted(esc_counts, esc.metrics, "escalating")
+    _same_carries(esc, twin, list(twin.active_sessions),
+                  f"5e {key} escalated and MC vs twins")
+    n_stu = len(students)
+    if not 0 < len(escalated) < n_stu or \
+            sum(m.escalations for m in esc.metrics) != len(escalated):
+        raise RuntimeError(f"5e {key}: {len(escalated)} of {n_stu} students "
+                           "escalated; some, not all, wanted")
+
+    # Kill -> snapshot -> restore with students live and a queued student
+    # ticket: a fresh prewarmed engine serves the rest bit-equal.
+    revived = engine(student=student, student_escalate_threshold=threshold)
+    t0 = time.perf_counter()
+    revived.restore(path)
+    restore_s = time.perf_counter() - t0
+    waiting = revived.queue.waiting()
+    if [(w.sid, w.mode) for w in waiting] != [("e-queued", "student")] or \
+            sum(revived.store.get(sid).mode == "student" for sid in sids) \
+            == 0:
+        raise RuntimeError("5e: the restored wait-list or modes are wrong")
+    reset_launches()
+    for t in range(STUDENT_KILL_TICK, DURABLE_TICKS):
+        _same_results(_student_step(revived, streams, plans, sids, t),
+                      esc_ticks[t], sids, f"5e {key} restored tick {t}")
+    counted(read_launches(), revived.metrics, "restored")
+    _same_carries(revived, esc, sids, f"5e {key} restored")
+    if any(m.compiles for m in revived.metrics):
+        raise RuntimeError("5e: the restored engine captured a graph")
+    shutil.rmtree(path, ignore_errors=True)
+
+    stats = {side: _serve_stats(eng.metrics, card)
+             for side, eng in (("co_batched", mixed), ("all_mc", alone))}
+    for side in stats:
+        stats[side].pop("tick_ms")
+    m0 = mixed.metrics[0]
+    rec.update({
+        "card": card, "sessions": SESSIONS, "students": n_stu, "chains": S,
+        "tick_ms_p50": stats["co_batched"]["tick_ms_p50"],
+        "tick_ms_p95": stats["co_batched"]["tick_ms_p95"],
+        "all_mc_tick_ms_p50": stats["all_mc"]["tick_ms_p50"],
+        "all_mc_tick_ms_p95": stats["all_mc"]["tick_ms_p95"],
+        "student_rows": [m.student_rows for m in mixed.metrics],
+        "device_rows_per_tick": m0.batch_rows,
+        "live_rows_per_tick": m0.live_rows,
+        "all_mc_live_rows_per_tick": alone.metrics[0].live_rows,
+        "part_ms_p50": {side: {part: float(np.percentile(
+            [m.parts_s[part] for m in eng.metrics], 50)) * 1e3
+            for part in eng.metrics[0].parts_s}
+            for side, eng in (("co_batched", mixed), ("all_mc", alone))},
+        "student_part_ms_p50": float(np.percentile(
+            [m.parts_s["student"] for m in mixed.metrics], 50)) * 1e3,
+        "escalate_part_ms_p50": float(np.percentile(
+            [m.parts_s["escalate"] for m in esc.metrics], 50)) * 1e3,
+        "threshold": threshold, "escalations": len(escalated),
+        "escalation_ticks": sorted({t for t, _ in escalated}),
+        "launches_per_tick": [m.launches for m in mixed.metrics],
+        "head_vs_solo_max_abs": head_err, "head_vs_solo_bitwise":
+            head_bitwise,
+        "snapshot_ms": snapshot_s * 1e3, "restore_ms": restore_s * 1e3})
+    return key, rec
+
+
+def _distill_fixture(report, dev, total):
+    """``tests/fixtures/snapshots/distill_v1`` (H 8, NL 2, S 2, seed 3,
+    YN) restored into an engine with student heads and served one tick;
+    an engine without heads refuses it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import classifier as clf, distill, mcd
+    from repro_torch.serve import StreamingEngine
+    cfg = clf.ClassifierConfig(
+        hidden=8, num_layers=2, mcd=mcd.MCDConfig(
+            p=0.125, placement="YN", n_samples=2, seed=3))
+    params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    heads = distill.init_student(torch.Generator().manual_seed(1), cfg,
+                                 params, device=dev)
+    path = os.path.join(ROOT, "tests", "fixtures", "snapshots", "distill_v1")
+    try:
+        StreamingEngine(params, cfg, device=dev).restore(path)
+    except ValueError as err:
+        if "student" not in str(err):
+            raise
+    else:
+        raise RuntimeError("5e: distill_v1 restored without heads")
+    eng = StreamingEngine(params, cfg, backend="cuda_seq",
+                          chunk_capacity=CHUNK, student=heads, device=dev)
+    eng.restore(path)
+    reset_launches()
+    x = np.ones((3, 1), np.float32)
+    out = eng.step({"ward_2": x, "ward_1": x})
+    counts = read_launches()
+    m = eng.last_metrics
+    _check_launches("5e distill_v1", counts, [m], "mcd_lstm_seq",
+                    lambda m: cfg.num_layers)
+    for name, v in counts.items():
+        total[name] += v
+    for sid, r in out.items():
+        for v in r.summary:
+            max_abs_diff(v, v, f"5e distill_v1 {sid}")
+    if (m.student_rows, out["ward_2"].steps_total,
+            eng.store.get("ward_2").mode) != (1, 10, "student"):
+        raise RuntimeError(f"5e: distill_v1 served {m.student_rows} student "
+                           f"rows, ward_2 at {out['ward_2'].steps_total}")
+    return {"student_rows": m.student_rows,
+            "queued": [(t.sid, t.mode) for t in eng.queue.waiting()],
+            "tick_ms": m.duration_s * 1e3}
+
+
+def student_phase(report, dev):
+    """Phase 5e: distilled students on STUDENT_CELLS (the classifier LSTM
+    on ``cuda_seq``, the autoencoder GRU on ``cuda_step``; fp32, S = 30,
+    capacity 20, graphs).  Each cell distils heads from the MC teacher on
+    64 ECG5000 beats (one 1920-row teacher launch a layer, held within
+    TEACHER_TOL of the reference backend; DISTILL_STEPS head steps; the
+    loss falls), then serves 32 students and 32 MC sessions co-batched
+    over whole beats in 12 ragged chunks: the launches of an all-MC tick,
+    every MC summary and carry bit-equal to an all-MC engine serving the
+    same MC sessions on the same rows (ticks in turns), chunked ==
+    unchunked, each student's carry a solo deterministic pass and its
+    summary within STUDENT_TOL of the heads on it.  Then with a threshold
+    some students cross: every MC and escalated session bit-equal to an
+    all-MC twin engine (escalated sessions attached there with their
+    regrown rows and carry), a student ticket queued on the full store,
+    a snapshot, and a fresh prewarmed engine that restores it and serves
+    the rest bit-equal.  Last, ``distill_v1`` restores and serves one
+    tick with heads, and is refused without."""
+    total = {name: 0 for name in ALL_KERNELS}
+    out = {}
+    for k in range(len(STUDENT_CELLS)):
+        key, rec = _student_cell(k, report, dev, total)
+        out[key] = rec
+        print(f"students {key} " + json.dumps(rec), flush=True)
+    out["distill_v1"] = _distill_fixture(report, dev, total)
+    print("students distill_v1 " + json.dumps(out["distill_v1"]),
+          flush=True)
+    shutil.rmtree(os.path.join(ROOT, "build", "phase5e"),
+                  ignore_errors=True)
+    report["students"] = out
     return total
 
 
@@ -3521,7 +3951,7 @@ def main(argv=None) -> int:
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
             ("5b", precision_serving_phase), ("5c", graph_phase),
-            ("5d", durable_phase),
+            ("5d", durable_phase), ("5e", student_phase),
             ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):

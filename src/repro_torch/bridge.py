@@ -10,6 +10,10 @@ in that field order): ``GRUParams`` when the gate axis G is 3,
 ``LSTMParams`` when it is 4.  Layouts are unchanged: the port's public
 functions take the reference's layouts.
 
+A distilled student's heads (:func:`from_numpy_student`) take the
+reference's ``{"head": DenseParams, "unc": DenseParams}`` with numpy
+leaves.
+
 The LM backbone (:func:`from_numpy_backbone`) takes the reference's
 ``backbone.init_params`` tree, whose stage leaves are stacked over repeats,
 and unstacks it into the port's per-layer blocks, bf16 leaves as bf16.
@@ -65,6 +69,15 @@ def from_numpy_params(tree, device=None) -> dict:
     w, b = tree["head"]
     out["head"] = DenseParams(_tensor(w, dev), _tensor(b, dev))
     return out
+
+
+def from_numpy_student(tree, device=None) -> dict:
+    """A student's two dense heads (``repro.core.distill.init_student``)
+    as port tensors on ``device`` (default CUDA): ``{"head": DenseParams,
+    "unc": DenseParams}``, fp32."""
+    dev = resolve_device(device)
+    return {name: DenseParams(*(_tensor(a, dev) for a in tree[name]))
+            for name in ("head", "unc")}
 
 
 def _leaves(kind, leaves, device, r=None):

@@ -72,6 +72,24 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``jax.tree_util`` order."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the same leaves of each tree
+    of ``rest``, in ``tree``'s structure (``jax.tree.map``)."""
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(
+        tree_leaves(tree), *map(tree_leaves, rest), strict=True)])
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure over ``leaves``, given in ``jax.tree_util``
+    order."""
+    return _unflatten(like, iter(leaves))
+
+
 def _leaf_names(tree) -> list[str]:
     names = []
     for path, _ in _flatten(tree):

@@ -70,8 +70,8 @@ class AdmissionQueue:
         """Queue an admission (or, with ``session``, a re-attach) request.
 
         ``n_samples`` and ``mode`` ride the ticket of a fresh admission and
-        are checked by the store when it is drained (a student ticket is
-        kept, and raises there: students are not ported yet).
+        are checked by the store when it is drained (a student ticket
+        drains into a student session).
         """
         if session is not None and session.sid != sid:
             raise ValueError(f"ticket sid {sid!r} != session.sid "

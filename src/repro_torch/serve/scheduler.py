@@ -58,14 +58,22 @@ class TickMetrics:
                                # (after early exit's retirements)
     reclaimed_rows: int = 0    # chain rows early exit retired this tick
                                # (freed batch capacity; ids stay burned)
+    student_rows: int = 0      # rows served on the distilled fast path
+                               # (one a student session)
+    escalations: int = 0       # student sessions that crossed the
+                               # threshold this tick and regrew to S fresh
+                               # MC chains (store.grow)
     parts_s: dict = dataclasses.field(default_factory=dict)
                            # host seconds of the tick's parts: assemble
                            # (the batch on the host), to_device (copies and
                            # carries), apply (the pass, or the replay and
                            # the copies out of its buffers), summaries,
-                           # store (carries and results), early_exit (the
-                           # retirement decisions, when on), sync (the
-                           # wait for the device)
+                           # student (the student heads' summaries, on an
+                           # engine with heads), store (carries and
+                           # results), early_exit (the retirement
+                           # decisions, when on), escalate (the student
+                           # escalations, when on), sync (the wait for
+                           # the device)
 
 
 class AdaptiveTickScheduler:
@@ -218,4 +226,7 @@ def summarize(metrics: Sequence[TickMetrics]) -> dict:
         "active_chains_mean": (sum(m.active_chains for m in metrics)
                                / len(metrics)),
         "reclaimed_rows": sum(m.reclaimed_rows for m in metrics),
+        "student_rows_mean": (sum(m.student_rows for m in metrics)
+                              / len(metrics)),
+        "escalations": sum(m.escalations for m in metrics),
     }

@@ -10,8 +10,11 @@ allocator and never reused, so every chunk redraws the same masks.
 
 Rows are host numpy uint32 arrays, allocated exactly as the reference
 allocates them.  ``retire`` (the early-exit primitive) trims a session to a
-prefix of its chains; the ids it drops stay burned.  Chain regrowth
-(``grow``) and student sessions are not ported yet (ROADMAP.md A5).
+prefix of its chains; the ids it drops stay burned.  ``grow`` is its
+reverse and the student-escalation primitive: fresh rows from the
+allocator, never a reused id.  A ``"student"`` session runs one
+deterministic row whose id carries ``mcd.STUDENT_ROW_FLAG``, so the
+kernels run it unmasked in the same launch as its MC neighbours.
 """
 
 from __future__ import annotations
@@ -20,10 +23,13 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import mcd as _mcd
 
-MODES = ("mc",)
+#: Session serving modes: ``"mc"`` runs S Bayesian chains; ``"student"``
+#: runs one deterministic (flagged) row decoded by the student heads.
+MODES = ("mc", "student")
 
 
 class CapacityError(RuntimeError):
@@ -41,7 +47,8 @@ class Session:
                                # or None while fresh
     steps: int = 0             # timesteps consumed so far
     chunks: int = 0            # chunks served so far
-    mode: str = "mc"
+    mode: str = "mc"           # MODES; a student session carries exactly
+                               # one flagged deterministic row
 
     @property
     def fresh(self) -> bool:
@@ -67,16 +74,32 @@ class SessionStore:
 
     def admit(self, sid: str, *, n_samples: int | None = None,
               mode: str = "mc") -> Session:
-        """Register a new stream; allocates its mask rows for life."""
+        """Register a new stream; allocates its mask rows for life.
+
+        ``mode="student"`` opens one deterministic row, ``student_row`` of
+        the next base id (one id burned, so :meth:`grow` can escalate it
+        to fresh MC rows without a collision); ``n_samples`` must then be
+        None or 1.
+        """
         if sid in self._sessions:
             raise ValueError(f"session {sid!r} already admitted")
         if len(self._sessions) >= self.max_sessions:
             raise CapacityError(
                 f"store full ({self.max_sessions} sessions); evict first")
         if mode not in MODES:
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (student sessions are "
-                "queued in ROADMAP.md)")
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode == "student":
+            if n_samples not in (None, 1):
+                raise ValueError(
+                    f"session {sid!r}: student sessions run exactly one "
+                    f"deterministic row, got n_samples={n_samples}")
+            self._check_allocator(1)
+            rows = np.asarray([_mcd.student_row(self._next_row)], np.uint32)
+            self._next_row += 1
+            sess = Session(sid=sid, rows=rows, seed=self.seed,
+                           mode="student")
+            self._sessions[sid] = sess
+            return sess
         s = self.n_samples if n_samples is None else int(n_samples)
         if not 1 <= s <= self.n_samples:
             raise ValueError(
@@ -119,6 +142,53 @@ class SessionStore:
             sess.state = [tuple(part[:keep] for part in layer)
                           for layer in sess.state]
         return s_old - keep
+
+    def grow(self, sid: str, n: int) -> int:
+        """Grow a live session to ``n`` MC chains with fresh rows.
+
+        The reverse of :meth:`retire` and the student-escalation
+        primitive; fresh ids come from the monotone allocator.
+
+        * An MC session gains ``n - s`` chains starting from zero carries,
+          each part in its own dtype (h in the activation dtype, an LSTM's
+          c in fp32).
+        * A student session is replaced: its deterministic row retires and
+          ``n`` fresh MC rows take over, each resuming a copy of the
+          student's carry; its mode becomes ``"mc"``.  It then streams
+          bit-identically to an MC session attached with those rows and
+          that carry.
+
+        Returns the number of fresh rows allocated (0 if already at ``n``).
+        """
+        sess = self.get(sid)
+        s_old = int(sess.rows.shape[0])
+        n = int(n)
+        student = sess.mode == "student"
+        if not (1 if student else s_old) <= n <= self.n_samples:
+            raise ValueError(
+                f"session {sid!r}: grow target {n} must be in "
+                f"[{s_old}, {self.n_samples}]")
+        count = n if student else n - s_old
+        if count == 0:
+            return 0
+        self._check_allocator(count)
+        fresh = np.arange(self._next_row, self._next_row + count,
+                          dtype=np.uint32)
+        self._next_row += count
+        if student:
+            sess.rows = fresh
+            if sess.state is not None:
+                sess.state = [tuple(part.repeat_interleave(n, dim=0)
+                                    for part in layer)
+                              for layer in sess.state]
+            sess.mode = "mc"
+        else:
+            sess.rows = np.concatenate([sess.rows, fresh])
+            if sess.state is not None:
+                sess.state = [tuple(torch.cat([part, part.new_zeros(
+                    (count,) + tuple(part.shape[1:]))]) for part in layer)
+                    for layer in sess.state]
+        return count
 
     def attach(self, session: Session) -> Session:
         """Re-admit a previously evicted :class:`Session` (same draw)."""

@@ -37,8 +37,14 @@ that may already be prewarmed.  ``early_exit_threshold`` retires a
 converged session's surplus chains (a prefix, one halving a tick, down to
 ``min_samples``), deciding as the reference decides.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh`` sharding (A8) and distilled students (A5).
+``student=`` heads (``core.distill``) serve ``mode="student"`` sessions on
+the distilled fast path: one deterministic (flagged) row a session, in the
+same launches as the MC rows, decoded by one batched call of the student
+heads; ``student_escalate_threshold`` regrows an uncertain student to S
+fresh MC chains (``SessionStore.grow``).
+
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md): ``mesh``
+sharding (A8).
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import autoencoder as _ae, classifier as _clf
-from repro_torch.core import mcd as _mcd
+from repro_torch.core import distill as _distill, mcd as _mcd
 from repro_torch.core.uncertainty import (ClassificationSummary,
                                           RegressionSummary,
                                           RunningClassificationSummary,
@@ -212,6 +218,17 @@ class StreamingEngine:
         under the threshold retire the rest (``SessionStore.retire``).
         None (default) never retires.
       min_samples: the early-exit floor.
+      student: distilled student heads (``core.distill.init_student``, on
+        ``device``) enabling ``mode="student"`` sessions: one
+        deterministic row a session, co-batched with the MC rows, whose
+        summary comes from the heads on its feature (``h_T``; the
+        decoder's hidden sequence for the autoencoder).  None: student
+        admissions are refused.
+      student_escalate_threshold: after each served chunk, a student
+        whose predicted epistemic uncertainty (MI; the mean epistemic
+        variance for the autoencoder) is above this value regrows to
+        ``n_samples`` fresh MC chains from its carry
+        (``SessionStore.grow``).  None: students never escalate.
     """
 
     def __init__(self, params, cfg, *, backend: str = "cuda_seq",
@@ -222,7 +239,9 @@ class StreamingEngine:
                  device=None, mesh=None, precision: str | None = None,
                  early_exit_threshold: float | None = None,
                  min_samples: int = 1,
-                 student=None, graphs: bool = True):
+                 student=None,
+                 student_escalate_threshold: float | None = None,
+                 graphs: bool = True):
         if isinstance(cfg, _clf.ClassifierConfig):
             self.kind = "classifier"
         elif isinstance(cfg, _ae.AutoencoderConfig):
@@ -232,8 +251,6 @@ class StreamingEngine:
                             "and the autoencoder are served)")
         if mesh is not None:
             raise _unported("mesh sharding")
-        if student is not None:
-            raise _unported("distilled student heads")
         _quant.check_precision(precision)
         if backend not in _ops.LSTM_BACKENDS:
             raise ValueError(f"backend must be one of {_ops.LSTM_BACKENDS}, "
@@ -271,6 +288,18 @@ class StreamingEngine:
                 f"min_samples must be in [1, {self.n_samples}], "
                 f"got {min_samples}")
         self.min_samples = int(min_samples)
+        self.student = student
+        if student_escalate_threshold is not None:
+            if student is None:
+                raise ValueError("student_escalate_threshold needs student= "
+                                 "heads — there is nothing to escalate from")
+            if not float(student_escalate_threshold) >= 0.0:
+                raise ValueError(
+                    f"student_escalate_threshold must be >= 0, "
+                    f"got {student_escalate_threshold}")
+        self.student_escalate_threshold = (
+            None if student_escalate_threshold is None
+            else float(student_escalate_threshold))
         # sid -> the prefix-vs-full delta early exit compared with the
         # threshold on the last tick (sessions above the floor only).
         self.last_exit_deltas: dict[str, float] = {}
@@ -285,8 +314,18 @@ class StreamingEngine:
     # -- session lifecycle ---------------------------------------------------
     def open_session(self, sid: str, *, n_samples: int | None = None,
                      mode: str = "mc"):
-        """Admit a stream *now* or fail fast with ``CapacityError``."""
+        """Admit a stream *now* or fail fast with ``CapacityError``.
+        ``mode="student"`` opens on the distilled fast path (needs
+        ``student=`` heads)."""
+        if mode == "student":
+            self._check_student(sid)
         return self.store.admit(sid, n_samples=n_samples, mode=mode)
+
+    def _check_student(self, sid: str) -> None:
+        if self.student is None:
+            raise ValueError(
+                f"session {sid!r}: mode='student' needs an engine built "
+                "with student= head params (repro_torch.core.distill)")
 
     def admit(self, sid: str, *, priority: int = 0,
               session: Session | None = None,
@@ -296,8 +335,8 @@ class StreamingEngine:
         Returns the live :class:`Session` if admitted at once, else None
         (it waits in the queue; see ``queued_sessions``).
         """
-        if mode not in (None, "mc"):
-            raise _unported(f"mode={mode!r} sessions")
+        if mode == "student":
+            self._check_student(sid)
         if sid in self.store:
             raise ValueError(f"session {sid!r} already admitted")
         if session is not None:
@@ -309,6 +348,8 @@ class StreamingEngine:
                 raise ValueError(
                     f"session {sid!r} carries {int(session.rows.shape[0])} "
                     f"MC chains, engine ceiling is {self.n_samples}")
+            if session.mode == "student":
+                self._check_student(sid)
         self.queue.submit(sid, priority=priority, session=session,
                           n_samples=n_samples, mode=mode)
         try:
@@ -330,6 +371,12 @@ class StreamingEngine:
         sess = self.store.evict(sid)
         self._drain()
         return sess
+
+    def attach_session(self, session: Session) -> Session:
+        """Re-admit an evicted Session (same draw: state + (seed, rows))."""
+        if session.mode == "student":
+            self._check_student(session.sid)
+        return self.store.attach(session)
 
     def _drain(self):
         # A rejected ticket belongs to another caller: record it, keep going.
@@ -454,15 +501,16 @@ class StreamingEngine:
     def _adopt(self, store: SessionStore, queue: AdmissionQueue,
                engine_meta: dict) -> None:
         """Take over a restored store/queue and validated engine meta."""
-        # A student session decodes through student heads, which the port
-        # does not have yet: adopting one would misserve it.
-        stu = ([s.sid for s in store.sessions() if s.mode == "student"]
-               + [t.sid for t in queue.waiting() if t.mode == "student"])
-        if stu:
-            raise ValueError(
-                f"snapshot carries student-mode sessions {sorted(stu)}; "
-                "this engine was built without student= heads (students "
-                "are not ported yet, ROADMAP.md A5)")
+        # A student session decodes through the student heads: an engine
+        # without them would misserve it.
+        if self.student is None:
+            stu = ([s.sid for s in store.sessions() if s.mode == "student"]
+                   + [t.sid for t in queue.waiting()
+                      if t.mode == "student"])
+            if stu:
+                raise ValueError(
+                    f"snapshot carries student-mode sessions {sorted(stu)}; "
+                    "this engine was built without student= heads")
         store.n_samples = self.n_samples
         self.store = store
         self.queue = queue
@@ -562,24 +610,29 @@ class StreamingEngine:
             t_part = _lap(parts, "apply", t_part)
 
         # Batched summaries over [s, sessions, ...], per-session results
-        # indexed out.  A uniform tick is one reshape of the live prefix.  In
-        # a ragged one (early exit) the sessions at the chain ceiling are
-        # summarized at the uniform tick's shape [ceiling, all sessions]
-        # (the others' columns filled with their own rows, then dropped), so
-        # a session early exit never touched gets the bits the engine
-        # without early exit gives it: a reduction's order follows the
-        # shape.  Each smaller chain count is a group of its own.
+        # indexed out.  A uniform all-MC tick is one reshape of the live
+        # prefix.  In a ragged one (early exit, students) the MC sessions at
+        # the chain ceiling are summarized at the shape of the uniform tick
+        # of the MC sessions, [ceiling, MC sessions] (the others' columns
+        # filled with their own rows, then dropped), so a session early
+        # exit never touched gets the bits the engine without early exit
+        # and without students gives it: a reduction's order follows the
+        # shape.  Each smaller chain count is a group of its own.  Student
+        # sessions are never a column of an MC group: their one row goes
+        # through the student heads below.
         k_n = len(sessions)
         summaries: list = [None] * k_n
-        uniform = len(set(s_list)) == 1
-        for si in sorted(set(s_list)):
+        stu_ks = [k for k in range(k_n) if sessions[k].mode == "student"]
+        mc_ks = [k for k in range(k_n) if sessions[k].mode != "student"]
+        uniform = not stu_ks and len(set(s_list)) == 1
+        for si in sorted({s_list[k] for k in mc_ks}):
             if uniform:
                 cols = range(k_n)
 
                 def sel(a, si=si):
                     return a[:k_n * si].reshape((k_n, si) + a.shape[1:])
             else:
-                cols = [k for k in range(k_n) if s_list[k] == si
+                cols = [k for k in mc_ks if s_list[k] == si
                         or si == self.n_samples]
                 idx = torch.as_tensor(np.concatenate(
                     [np.arange(si) % s_list[k] + offsets[k] for k in cols]),
@@ -603,6 +656,20 @@ class StreamingEngine:
                 if s_list[k] == si:
                     summaries[k] = per(*(v[j] for v in batched))
         t_part = _lap(parts, "summaries", t_part)
+        # The distilled fast path: one batched head call over every student
+        # row's feature (h_T; the decoder's hidden sequence).
+        if stu_ks:
+            idx = torch.as_tensor([offsets[k] for k in stu_ks], device=dev)
+            if self.kind == "classifier":
+                batched = _distill.classifier_student_summary(
+                    self.student, states[-1][0][idx])
+            else:
+                batched = _distill.autoencoder_student_summary(
+                    self.student, outs[2][idx], self.cfg.heteroscedastic)
+            for j, k in enumerate(stu_ks):
+                summaries[k] = type(batched)(*(v[j] for v in batched))
+        if self.student is not None:
+            t_part = _lap(parts, "student", t_part)
 
         # A windowed decoder reconstructs min(L, W) positions per chunk.
         win = getattr(self.cfg, "decode_window", None)
@@ -625,6 +692,10 @@ class StreamingEngine:
                                      win)
         if self.early_exit_threshold is not None:
             t_part = _lap(parts, "early_exit", t_part)
+        # After the writeback: grow() copies the carry the tick just stored.
+        escalations = self._escalate(sessions, results)
+        if self.student_escalate_threshold is not None:
+            t_part = _lap(parts, "escalate", t_part)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _lap(parts, "sync", t_part)
@@ -644,7 +715,8 @@ class StreamingEngine:
             compiles=compiles,
             dropped=self._take_dropped(),
             active_chains=self.store.active_chains,
-            reclaimed_rows=reclaimed, parts_s=parts)
+            reclaimed_rows=reclaimed, student_rows=len(stu_ks),
+            escalations=escalations, parts_s=parts)
         self.metrics_sink.emit(m)
         self.tick += 1
         return results
@@ -704,6 +776,35 @@ class StreamingEngine:
             if delta <= self.early_exit_threshold:
                 reclaimed += self.store.retire(sess.sid, keep)
         return reclaimed
+
+    def _escalate(self, sessions, results) -> int:
+        """Regrow the student sessions whose predicted uncertainty crossed
+        the threshold (the MC fallback).
+
+        Reads each student's served summary (the heads' predicted MI; the
+        mean predicted epistemic variance for the autoencoder); above
+        ``student_escalate_threshold`` (strict) ``SessionStore.grow(sid,
+        n_samples)`` retires the deterministic row and ``n_samples`` fresh
+        MC chains resume copies of its carry.  Returns the escalations.
+        """
+        if self.student_escalate_threshold is None:
+            return 0
+        stu = [sess for sess in sessions if sess.mode == "student"]
+        if not stu:
+            return 0
+        # One transfer for every student, then the reference's host mean.
+        field = ("mutual_information" if self.kind == "classifier"
+                 else "epistemic")
+        vals = [getattr(results[sess.sid].summary, field).float().reshape(-1)
+                for sess in stu]
+        host = np.split(torch.cat(vals).cpu().numpy(),
+                        np.cumsum([v.numel() for v in vals])[:-1])
+        n = 0
+        for sess, u in zip(stu, host):
+            if float(np.mean(u)) > self.student_escalate_threshold:
+                self.store.grow(sess.sid, self.n_samples)
+                n += 1
+        return n
 
     def _take_dropped(self) -> int:
         n, self._dropped_unreported = self._dropped_unreported, 0

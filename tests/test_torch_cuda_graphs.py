@@ -19,6 +19,10 @@ tests/test_torch_cuda_graphs.py``.
   the uninterrupted engine's bits with no capture; early exit through the
   tick graph leaves every stream it never touched bit-equal to an engine
   without it.
+* Distilled students: co-batched student and MC ticks (escalations
+  included) replayed from the graph equal eager, the students riding the
+  same launches; an escalated session equals its attached MC twin; the
+  AdamW step on the card within an ulp of the CPU.
 * A capture that fails raises, and leaves the launch counts as they were.
 """
 
@@ -304,6 +308,151 @@ def test_early_exit_on_the_graph_path(dev, backend, tmp_path):
     assert {sid: back.store.get(sid).rows.shape[0]
             for sid in back.active_sessions} == \
         {sid: ee.store.get(sid).rows.shape[0] for sid in ee.active_sessions}
+
+
+# -- distilled students on the card ------------------------------------------
+
+def _students_serve(eng, sigs, plan, modes):
+    """``_serve`` with per-session modes (``modes[k]``: "mc" | "student")."""
+    sids = [f"s{k}" for k in range(len(sigs))]
+    for sid, mode in zip(sids, modes):
+        eng.open_session(sid, mode=mode)
+    out = []
+    for lens in plan:
+        out.append(eng.step({sid: sigs[k][eng.store.get(sid).steps:][
+            :int(n)] for k, (sid, n) in enumerate(zip(sids, lens)) if n}))
+    return out
+
+
+def _same_engines(a, b, ra, rb):
+    for sid in a.active_sessions:
+        assert a.store.get(sid).mode == b.store.get(sid).mode
+        assert np.array_equal(a.store.get(sid).rows, b.store.get(sid).rows)
+        for la, lb in zip(a.store.get(sid).state, b.store.get(sid).state,
+                          strict=True):
+            for x, y in zip(la, lb, strict=True):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+    for ta, tb in zip(ra, rb, strict=True):
+        assert ta.keys() == tb.keys()
+        for sid in ta:
+            for x, y in zip(ta[sid].summary, tb[sid].summary, strict=True):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+@pytest.mark.parametrize("model,cell", [("classifier", "lstm"),
+                                        ("autoencoder", "gru")])
+def test_students_tick_graph_equals_eager(dev, model, cell, backend,
+                                          precision):
+    """Student and MC sessions co-batched, escalations included: the
+    replayed tick gives the eager tick's carries, summaries, modes and
+    rows bit for bit, the same launches a tick (the students ride the
+    layer launches: as many as an all-MC tick) and no capture after
+    prewarm."""
+    from repro_torch.core import distill
+    cfg, params = _model(model, cell, dev)
+    stu = distill.init_student(torch.Generator().manual_seed(1), cfg,
+                               params, device=dev)
+    rng = np.random.default_rng(3)
+    sigs = [rng.standard_normal((48, 1)).astype(np.float32)
+            for _ in range(6)]
+    plan = rng.integers(1, 13, (5, 6))
+    modes = ["mc", "student"] * 3
+    kw = dict(backend=backend, precision=precision, max_sessions=6,
+              chunk_capacity=12, student=stu, device=dev)
+    # A threshold the untrained heads' predictions straddle on tick 0.
+    probe = StreamingEngine(params, cfg, **kw)
+    first = _students_serve(probe, sigs, plan[:1], modes)[0]
+    field = 3 if model == "classifier" else 2
+    u = sorted(float(first[f"s{k}"].summary[field].float().mean())
+               for k in (1, 3, 5))
+    kw["student_escalate_threshold"] = 0.5 * (u[0] + u[2])
+    g = StreamingEngine(params, cfg, **kw)
+    e = StreamingEngine(params, cfg, graphs=False, **kw)
+    prewarm(g)
+    rg = _students_serve(g, sigs, plan, modes)
+    re = _students_serve(e, sigs, plan, modes)
+    _same_engines(g, e, rg, re)
+    assert [m.launches for m in g.metrics] == [m.launches for m in e.metrics]
+    per_tick = (cfg.num_layers if model == "classifier"
+                else 2 * cfg.num_layers)
+    if backend == "cuda_seq":
+        assert all(m.launches == per_tick for m in g.metrics)
+    assert g.metrics[0].student_rows == 3
+    assert 1 <= g.metrics[0].escalations <= 2
+    assert summarize(g.metrics)["compiles"] == 0
+
+
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+def test_escalation_equals_the_attached_twin_on_the_card(dev, backend):
+    """Escalated on the graph path: from the next chunk bit-equal to an
+    always-MC session attached with the regrown rows and carry."""
+    import dataclasses
+    from repro_torch.core import distill
+    cfg, params = _model("classifier", "lstm", dev)
+    stu = distill.init_student(torch.Generator().manual_seed(1), cfg,
+                               params, device=dev)
+    sig = np.random.default_rng(4).standard_normal((48, 1)).astype(
+        np.float32)
+    kw = dict(backend=backend, max_sessions=2, chunk_capacity=12,
+              device=dev)
+    esc = StreamingEngine(params, cfg, student=stu,
+                          student_escalate_threshold=0.0, **kw)
+    esc.open_session("p", mode="student")
+    esc.step({"p": sig[:12]})
+    sess = esc.store.get("p")
+    assert esc.last_metrics.escalations == 1 and sess.mode == "mc"
+    twin = StreamingEngine(params, cfg, **kw)
+    twin.attach_session(dataclasses.replace(
+        sess, rows=sess.rows.copy(),
+        state=[tuple(p.clone() for p in layer) for layer in sess.state]))
+    ra = [esc.step({"p": sig[12 * t:12 * (t + 1)]}) for t in (1, 2, 3)]
+    rb = [twin.step({"p": sig[12 * t:12 * (t + 1)]}) for t in (1, 2, 3)]
+    _same_engines(esc, twin, ra, rb)
+
+
+def test_optimizer_step_on_cuda_within_an_ulp_of_the_cpu(dev, monkeypatch):
+    """AdamW on the card against the CPU on the same inputs, five steps
+    with warmup and clipping: the global norm within 2 ulps (per-leaf
+    sums in another order); given the CPU's norm, params and moments
+    within 1 ulp."""
+    from repro_torch.core.linear import DenseParams
+    from repro_torch.train import optimizer as opt
+    rng = np.random.default_rng(0)
+
+    def tree(scale=1.0):
+        return {name: DenseParams(*(torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+            for shape in shapes)) for name, shapes in
+            (("head", ((8, 4), (4,))), ("unc", ((8, 1), (1,))))}
+
+    def ulps(a, b):
+        a = a.detach().cpu().double().numpy()
+        b = b.detach().cpu().float().numpy()
+        return float(np.max(np.abs(a - b) / np.abs(np.spacing(b))))
+
+    from repro_torch.ckpt.checkpoint import tree_leaves, tree_map
+    cfg = opt.AdamWConfig(lr=1e-2, warmup_steps=3, clip_norm=0.5)
+    cpu = tree()
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    sc, sg = opt.init(cpu), opt.init(gpu)
+    real_norm = opt.global_norm
+    for _ in range(5):
+        grads = tree(2.0)
+        norm = real_norm(grads)
+        assert ulps(real_norm(tree_map(lambda t: t.to(dev), grads)),
+                    norm) <= 2
+        monkeypatch.setattr(opt, "global_norm", lambda t, n=norm: n.to(
+            tree_leaves(t)[0].device))
+        cpu, sc, mc = opt.apply(cfg, cpu, grads, sc)
+        gpu, sg, mg = opt.apply(cfg, gpu, tree_map(lambda t: t.to(dev),
+                                                   grads), sg)
+        monkeypatch.setattr(opt, "global_norm", real_norm)
+        assert float(mc["grad_norm"]) > cfg.clip_norm
+        for a, b in zip(tree_leaves((gpu, sg.m, sg.v)),
+                        tree_leaves((cpu, sc.m, sc.v)), strict=True):
+            assert a.device.type == dev.type and ulps(a, b) <= 1
 
 
 def test_a_failed_capture_raises(dev):

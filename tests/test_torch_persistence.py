@@ -198,8 +198,14 @@ def test_distill_fixture_at_the_store_level():
     assert store.get("ward_2").mode == "student"
     assert [(t.sid, t.priority, t.mode, t.n_samples) for t in q.waiting()] \
         == [(t.sid, t.priority, t.mode, t.n_samples) for t in jq.waiting()]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        q.drain(store)                  # students are not ported yet
+    # Students are ported: the queued student ticket drains into a student
+    # session, as in the reference.
+    store.evict("ward_1")
+    jstore.evict("ward_1")
+    got, want = q.drain(store), jq.drain(jstore)
+    assert [(s.sid, s.mode) for s in got] == \
+        [(s.sid, s.mode) for s in want] == [(want[0].sid, "student")]
+    _same_store(store, jstore)
 
 
 # -- the format across packages ----------------------------------------------

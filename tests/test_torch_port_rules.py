@@ -140,6 +140,15 @@ def test_engine_unported_options_raise(kw):
             StreamingEngine(params, cfg, device="cpu",
                             early_exit_threshold=-1.0)
         return
+    if "student" in kw:
+        # Distilled students are ported: the engine takes heads, and
+        # mode="student" without them is refused.
+        assert StreamingEngine(params, cfg, device="cpu",
+                               **kw).student is kw["student"]
+        eng = StreamingEngine(params, cfg, device="cpu")
+        with pytest.raises(ValueError, match="student"):
+            eng.open_session("s", mode="student")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, cfg, device="cpu", **kw)
 
@@ -147,9 +156,11 @@ def test_engine_unported_options_raise(kw):
 def test_engine_unported_calls_raise():
     cfg, params = _cpu_model()
     eng = StreamingEngine(params, cfg, device="cpu")
+    # Student sessions are ported: without student= heads they are
+    # refused as the reference refuses them.
     for call in (lambda: eng.open_session("s", mode="student"),
                  lambda: eng.admit("s", mode="student")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="student"):
             call()
     # snapshot / restore are ported: a directory with no snapshot is a
     # missing file, not an unported call.
