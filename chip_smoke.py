@@ -95,7 +95,28 @@ Phases (each raises on failure; the exit code is then non-zero):
    Records distill seconds, tick p50 / p95 against the all-MC engine,
    ``student_rows``, escalations, ``parts_s["student"]`` and the device
    rows a tick.
-   Every serving phase (3, 4, 5, 5b, 5c, 5d, 5e, 7, 9) serves through the
+5f. The multi-tenant fleet (FLEET_TENANTS): ward (the classifier LSTM,
+   fp32, ``cuda_seq``, S = 30, weight 3, 32 rows), ward_lite (the same
+   params object at S = 10, weight 1, 16 rows: one launch group with
+   ward, ceiling 30), anom (the autoencoder GRU, int4, ``cuda_seq``,
+   weight 2, 24 rows) and night (the classifier GRU, bf16, ``cuda_step``,
+   weight 1, 16 rows), capacity 20; each submits 1.5x its rows in
+   streams of one whole beat in 12 ragged chunks, FLEET_ADMIT = 16
+   admissions a tick, every group engine prewarmed.  Three groups, each
+   group tick launching what a solo tick launches; no capture after
+   prewarm; every tenant's summaries and carries bit-equal to a
+   prewarmed engine of its own on the same rows, ticked in turns with
+   the fleet; chunked == unchunked; the first drain split by the weights;
+   kill -> snapshot -> restore mid-stream (a queued fresh ticket and a
+   queued re-attach) bit-equal to the uninterrupted fleet;
+   ``reconfigure_tenant("ward", ServingConfig(n_samples=8))`` once the
+   queue is empty: the other tenants bit-unmoved, ward's kept chains its
+   first 8 rows, the first tick after the swap recorded; ``fleet_v1``
+   restored and served.  Records the fleet tick p50 / p95, the group
+   ticks inside it and the fleet layer's own ms, the sum of the solo
+   engines' tick p50s, per-tenant p95 / queue wait / drops, snapshot and
+   restore ms.
+   Every serving phase (3, 4, 5, 5b, 5c, 5d, 5e, 5f, 7, 9) serves through the
    graphs, as the engines do by default on a fixed shape; 5c's eager runs
    and the LM phases' eager turns are the comparison.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
@@ -2542,6 +2563,465 @@ def student_phase(report, dev):
     return total
 
 
+# -- phase 5f: the multi-tenant fleet -----------------------------------------
+
+# (tenant, model, cell, precision, backend, S, weight, max_sessions), each
+# at capacity CHUNK; ward_lite shares ward's params object (one group).
+FLEET_TENANTS = (
+    ("ward", "classifier", "lstm", None, "cuda_seq", S, 3.0, 32),
+    ("ward_lite", "classifier", "lstm", None, "cuda_seq", 10, 1.0, 16),
+    ("anom", "autoencoder", "gru", "int4", "cuda_seq", S, 2.0, 24),
+    ("night", "classifier", "gru", "bf16", "cuda_step", S, 1.0, 16))
+FLEET_ADMIT = 16       # admit_per_tick: the weighted-fair queue binds
+FLEET_STREAMS = 1.5    # streams a tenant submits, per row of max_sessions
+FLEET_TICKS = 12       # every beat in 12 ragged chunks
+FLEET_KILL_TICK = 8    # fleet ticks served before the snapshot
+FLEET_SHRINK = 8       # ward's S after reconfigure_tenant
+
+
+def _fleet_specs(dev):
+    """The TenantSpecs of FLEET_TENANTS and each tenant's (model, layer
+    launches a tick at T = 1, kernel)."""
+    from repro_torch.serve import TenantSpec
+    models, specs, info = {}, [], {}
+    for name, model, cell, prec, backend, s, w, cap in FLEET_TENANTS:
+        if (model, cell) not in models:
+            models[model, cell] = ecg_model(model, cell, dev)
+        cfg, params, per_layer = models[model, cell]
+        specs.append(TenantSpec(
+            name=name, cfg=cfg, params=params, weight=w, n_samples=s,
+            precision=prec, backend=backend, max_sessions=cap,
+            chunk_capacity=CHUNK))
+        info[name] = (model, per_layer,
+                      f"mcd_{cell}_{backend.removeprefix('cuda_')}")
+    return specs, info
+
+
+def _fleet(dev):
+    """A fresh fleet of FLEET_TENANTS, every group engine prewarmed;
+    (fleet, prewarm seconds)."""
+    from repro_torch.serve import FleetEngine, prewarm
+    specs, _ = _fleet_specs(dev)
+    fleet = FleetEngine(specs, admit_per_tick=FLEET_ADMIT, max_pending=512,
+                        device=dev)
+    t0 = time.perf_counter()
+    for g in fleet.groups.values():
+        prewarm(g.engine)
+    return fleet, time.perf_counter() - t0
+
+
+def _fleet_load(dev):
+    """Per tenant: its streams (whole synthetic ECG5000 beats) and their
+    chunk plans [streams, FLEET_TICKS]."""
+    import numpy as np
+    from repro_torch.launch.stream import build_streams
+    streams, plans = {}, {}
+    for k, (name, *_, cap) in enumerate(FLEET_TENANTS):
+        n = int(cap * FLEET_STREAMS)
+        streams[name], _ = build_streams(n, 1, seed=30 + k)
+        if any(len(s) != T_BEAT for s in streams[name]):
+            raise RuntimeError("ECG beats are not 140 steps long")
+        plans[name] = chunk_plans(np.random.default_rng(40 + k), n,
+                                  FLEET_TICKS)
+    return streams, plans
+
+
+class _FleetRun:
+    """One fleet driven over the load: every live session its next planned
+    chunk a tick, a session closed once its beat ends (its final Session
+    kept), the launches of the fleet's ticks summed (reset before and read
+    after each ``step``), host seconds of each synced fleet tick and of
+    its group ticks."""
+
+    def __init__(self, fleet, streams, plans):
+        self.fleet, self.streams, self.plans = fleet, streams, plans
+        self.counts = {name: 0 for name in ALL_KERNELS}
+        self.ticks, self.closed = {}, {}
+        self.tick_s, self.group_s = [], []
+
+    def chunks(self):
+        out = {}
+        for tenant, sids in self.fleet.active_sessions.items():
+            store = self.fleet.group_of(tenant).engine.store
+            for sid in sids:
+                sess, i = store.get(f"{tenant}/{sid}"), int(sid[1:])
+                out.setdefault(tenant, {})[sid] = self.streams[tenant][i][
+                    sess.steps:][:self.plans[tenant][i, sess.chunks]]
+        return out
+
+    def step(self):
+        import torch
+        fleet = self.fleet
+        chunks = self.chunks()
+        before = {g: e.engine.tick for g, e in fleet.groups.items()}
+        tick = fleet.tick
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fleet.step(chunks)
+        torch.cuda.synchronize()
+        self.tick_s.append(time.perf_counter() - t0)
+        for name, v in read_launches().items():
+            self.counts[name] += v
+        self.group_s.append(sum(
+            g.engine.last_metrics.duration_s
+            for name, g in fleet.groups.items()
+            if g.engine.tick != before.get(name, g.engine.tick)))
+        self.ticks[tick] = res
+        done = []
+        for tenant, sids in fleet.active_sessions.items():
+            store = fleet.group_of(tenant).engine.store
+            for sid in sids:
+                if store.get(f"{tenant}/{sid}").steps >= T_BEAT:
+                    self.closed[tenant, sid] = fleet.close(tenant, sid)
+                    done.append((tenant, sid))
+        return chunks, res, done
+
+    def busy(self) -> bool:
+        return any(self.fleet.active_sessions.values()) or \
+            len(self.fleet.queue) > 0
+
+
+def _admit_all(fleet, streams):
+    for tenant, ss in streams.items():
+        for i in range(len(ss)):
+            if fleet.admit(tenant, f"s{i}") is not None:
+                raise RuntimeError("5f: a rate-limited admit went live")
+
+
+def _fleet_launch_check(what, run, info):
+    """Each group tick launched what its solo tick launches (one launch a
+    layer on ``cuda_seq``, one a layer a step on ``cuda_step``), and the
+    fleet's ticks launched the sum of its groups' ticks, nothing else."""
+    want = {name: 0 for name in ALL_KERNELS}
+    for g in run.fleet.groups.values():
+        _, per_layer, kernel = info[g.tenants[0]]
+        seq = kernel.endswith("_seq")
+        for m in g.engine.metrics:
+            n = per_layer if seq else per_layer * m.capacity
+            if m.launches != n:
+                raise RuntimeError(f"{what}: group {g.name} tick {m.tick} "
+                                   f"launched {m.launches}, not {n}")
+            want[kernel] += n
+    if want != run.counts:
+        raise RuntimeError(f"{what}: launches {run.counts}, want {want}")
+
+
+def _fleet_same(a, b, what):
+    """Two results of one (tenant, sid): summaries bit for bit."""
+    import torch
+    for x, y in zip(a.summary, b.summary, strict=True):
+        max_abs_diff(x, y, what)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise RuntimeError(f"{what}: summaries differ")
+
+
+def _fleet_same_session(a, b, what, rows=None):
+    """Two final Sessions: rows and carries bit for bit (``rows``: the
+    first ``rows`` chains of ``b``)."""
+    import numpy as np
+    import torch
+    n = len(b.rows) if rows is None else rows
+    if not np.array_equal(a.rows, b.rows[:n]):
+        raise RuntimeError(f"{what}: rows differ")
+    for la, lb in zip(a.state, b.state, strict=True):
+        for x, y in zip(la, lb, strict=True):
+            if x.dtype != y.dtype or not torch.equal(x, y[:n]):
+                raise RuntimeError(f"{what}: carries differ")
+
+
+def _fleet_unchunked(run, dev):
+    """Every closed session's carry against one pass over its whole beat
+    on its rows (a batch a tenant; not counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autoencoder as ae, classifier as clf
+    fleet = run.fleet
+    for tenant, spec in fleet.specs.items():
+        keys = [k for k in run.closed if k[0] == tenant]
+        sess = [run.closed[k] for k in keys]
+        x = torch.from_numpy(np.concatenate([np.repeat(
+            run.streams[tenant][int(sid[1:])][None], len(s.rows), 0)
+            for (_, sid), s in zip(keys, sess)])).to(dev)
+        rows = torch.from_numpy(np.concatenate(
+            [s.rows for s in sess]).astype(np.int64)).to(dev)
+        kw = dict(backend=spec.backend, return_state=True,
+                  lengths=torch.full((len(rows),), T_BEAT, device=dev),
+                  precision=spec.precision, device=dev)
+        mod = clf if isinstance(spec.cfg, clf.ClassifierConfig) else ae
+        *_, states = mod.apply(spec.params, x, rows, spec.resolved_cfg(),
+                               **kw)
+        off = 0
+        for (_, sid), s in zip(keys, sess):
+            n = len(s.rows)
+            for li, layer in enumerate(states):
+                for part, whole in zip(s.state[li], layer, strict=True):
+                    if not torch.equal(part, whole[off:off + n]):
+                        raise RuntimeError(f"5f: {tenant}/{sid} chunked != "
+                                           f"unchunked (layer {li})")
+            off += n
+    return len(run.closed)
+
+
+def _fleet_solo(fleet, dev):
+    """Per tenant an engine of its own (its spec, capacity CHUNK),
+    prewarmed."""
+    from repro_torch.serve import StreamingEngine, prewarm
+    solo = {}
+    for name, spec in fleet.specs.items():
+        eng = StreamingEngine(spec.params, spec.resolved_cfg(),
+                              backend=spec.backend,
+                              max_sessions=spec.max_sessions,
+                              chunk_capacity=CHUNK,
+                              precision=spec.precision, device=dev)
+        prewarm(eng)
+        solo[name] = eng
+    return solo
+
+
+def _fleet_mirror(fleet, solo, evicted, chunks, res, done):
+    """The solo engines follow the fleet tick just served: each takes the
+    tenant's sessions that went live (fresh on the same rows, or its own
+    evicted carry), serves the tenant's chunks, and must give the fleet's
+    summaries; the sessions the fleet closed close there too."""
+    from repro_torch.serve import Session
+    for tenant, eng in solo.items():
+        for sess in fleet.sessions_of(tenant):
+            if sess.sid not in eng.store:
+                eng.attach_session(evicted.pop(sess.sid, None) or Session(
+                    sid=sess.sid, rows=sess.rows.copy(), seed=sess.seed))
+        tchunks = chunks.get(tenant)
+        if not tchunks:
+            continue
+        got = eng.step({f"{tenant}/{s}": c for s, c in tchunks.items()})
+        for sid in tchunks:
+            _fleet_same(res[tenant][sid], got[f"{tenant}/{sid}"],
+                        f"5f {tenant}/{sid} fleet vs solo, tick "
+                        f"{fleet.tick - 1}")
+    for tenant, sid in done:
+        gsid = f"{tenant}/{sid}"
+        evicted[gsid] = solo[tenant].store.evict(gsid)
+
+
+def _fleet_fixture(dev, counts):
+    """``tests/fixtures/snapshots/fleet_v1`` (H 8, NL 2, S 2, seed 3, YN;
+    tenants ward and anom on one params object) restored into a fleet on
+    ``cuda_seq`` and served one tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import classifier as clf, mcd
+    from repro_torch.serve import FleetEngine, TenantSpec
+    cfg = clf.ClassifierConfig(hidden=8, num_layers=2, mcd=mcd.MCDConfig(
+        p=0.125, placement="YN", n_samples=2, seed=3))
+    params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    fleet = FleetEngine([TenantSpec(name=n, cfg=cfg, params=params,
+                                    max_sessions=4, chunk_capacity=CHUNK)
+                         for n in ("ward", "anom")], device=dev)
+    fleet.restore(os.path.join(ROOT, "tests", "fixtures", "snapshots",
+                               "fleet_v1"))
+    queued = [(t.tenant, t.sid) for t in fleet.queue.waiting()]
+    reset_launches()
+    out = fleet.step({"ward": {"p1": np.ones((3, 1), np.float32)}})
+    got = read_launches()
+    _check_launches("5f fleet_v1", got, fleet.groups["g0"].engine.metrics,
+                    "mcd_lstm_seq", lambda m: cfg.num_layers)
+    for name, v in got.items():
+        counts[name] += v
+    if out["ward"]["p1"].steps_total != 10 or \
+            queued != [("ward", "ward/p2")]:
+        raise RuntimeError(f"5f: fleet_v1 served "
+                           f"{out['ward']['p1'].steps_total} steps, "
+                           f"queue {queued}")
+    for v in out["ward"]["p1"].summary:
+        max_abs_diff(v, v, "5f fleet_v1")
+    return {"tick": fleet.tick, "launches": got["mcd_lstm_seq"],
+            "tick_ms": fleet.metrics[-1].duration_s * 1e3}
+
+
+def fleet_phase(report, dev):
+    """Phase 5f: the multi-tenant fleet at the ECG models' full width:
+    FLEET_TENANTS (ward: clf LSTM fp32 ``cuda_seq`` S 30; ward_lite: the
+    same params at S 10, one group with ward; anom: AE GRU int4
+    ``cuda_seq``; night: clf GRU bf16 ``cuda_step``), each submitting 1.5x
+    its max_sessions streams of one whole beat in 12 ragged chunks,
+    FLEET_ADMIT admissions a tick, every group engine prewarmed.  Checks:
+    three groups; each group tick launches what a solo tick launches; no
+    capture after prewarm; every tenant's summaries (every tick) and
+    final carries bit-equal to a prewarmed engine of its own on the same
+    rows, ticked in turns with the fleet; chunked == unchunked; the first
+    tick's admissions split by the weights and every stream admitted;
+    kill -> snapshot -> restore mid-stream (a queued fresh ticket and a
+    queued re-attach) into a fresh prewarmed fleet, bit-equal to the
+    uninterrupted fleet; ``reconfigure_tenant("ward", S 8)`` once the
+    queue is empty: the other tenants bit-unmoved, ward's kept chains
+    equal to the first 8 rows, the first tick after the swap recorded;
+    ``fleet_v1`` restored and served.  Records the fleet tick p50 / p95
+    against the sum of the solo engines' tick p50s (in turns), the
+    group ticks inside the fleet tick, per-tenant p95 / queue wait /
+    drops, snapshot and restore ms."""
+    from repro_torch.serve import ServingConfig
+    from repro_torch.serve.scheduler import percentile
+    card = report["card"]
+    streams, plans = _fleet_load(dev)
+    _, info = _fleet_specs(dev)
+    path = os.path.join(ROOT, "build", "phase5f")
+    shutil.rmtree(path, ignore_errors=True)
+    total = {name: 0 for name in ALL_KERNELS}
+
+    # The uninterrupted fleet, each tenant mirrored by a solo engine.
+    fleet, prewarm_s = _fleet(dev)
+    if len(fleet.groups) != 3 or fleet.group_of("ward") is not \
+            fleet.group_of("ward_lite"):
+        raise RuntimeError("5f: groups " + str(
+            [g.tenants for g in fleet.groups.values()]))
+    solo, evicted = _fleet_solo(fleet, dev), {}
+    _admit_all(fleet, streams)
+    run = _FleetRun(fleet, streams, plans)
+    admitted, reattach, snapshot_s = [], None, None
+    queue_empty = None
+    while run.busy():
+        if fleet.tick == FLEET_KILL_TICK:
+            live = fleet.active_sessions["ward"]
+            reattach = live[0]
+            gone = fleet.close("ward", reattach)
+            evicted[f"ward/{reattach}"] = solo["ward"].store.evict(
+                f"ward/{reattach}")
+            fleet.admit("ward", reattach, session=gone)
+            kinds = {t.session is not None for t in fleet.queue.waiting()}
+            if kinds != {False, True}:
+                raise RuntimeError("5f: the wait-list lacks a fresh ticket "
+                                   "or the re-attach")
+            t0 = time.perf_counter()
+            fleet.snapshot(path)
+            snapshot_s = time.perf_counter() - t0
+        before = dict(fleet.queue.state()["admitted"])
+        chunks, res, done = run.step()
+        admitted.append({n: fleet.queue.state()["admitted"][n] - before[n]
+                         for n in before})
+        if queue_empty is None and fleet.tick > FLEET_KILL_TICK and \
+                not len(fleet.queue):
+            queue_empty = fleet.tick
+        _fleet_mirror(fleet, solo, evicted, chunks, res, done)
+    _fleet_launch_check("5f fleet", run, info)
+    for name, v in run.counts.items():
+        total[name] += v
+    for gsid, sess in evicted.items():
+        tenant, sid = gsid.split("/", 1)
+        _fleet_same_session(run.closed[tenant, sid], sess,
+                            f"5f {gsid} fleet vs solo carry")
+    if any(m.compiles for g in fleet.groups.values()
+           for m in g.engine.metrics):
+        raise RuntimeError("5f: a group tick captured after prewarm")
+    closed = _fleet_unchunked(run, dev)
+    n_streams = {n: len(s) for n, s in streams.items()}
+    ledger = fleet.queue.state()["admitted"]
+    if ledger != {n: v + (n == "ward") for n, v in n_streams.items()} or \
+            closed != sum(n_streams.values()):
+        raise RuntimeError(f"5f: admitted {ledger}, closed {closed}")
+    w = {name: spec.weight for name, spec in fleet.specs.items()}
+    first = admitted[0]
+    if sum(first.values()) != FLEET_ADMIT or any(
+            abs(first[n] - FLEET_ADMIT * w[n] / sum(w.values())) > 1
+            for n in w):
+        raise RuntimeError(f"5f: the first drain admitted {first}")
+
+    # Kill -> restore: a fresh prewarmed fleet from the snapshot.
+    back, _ = _fleet(dev)
+    t0 = time.perf_counter()
+    back.restore(path)
+    restore_s = time.perf_counter() - t0
+    if back.tick != FLEET_KILL_TICK or \
+            [(t.tenant, t.sid) for t in back.queue.waiting()][-1] != \
+            ("ward", f"ward/{reattach}"):
+        raise RuntimeError("5f: the restored fleet's tick or queue differ")
+    again = _FleetRun(back, streams, plans)
+    while again.busy():
+        _, res, _ = again.step()
+        for tenant, rs in res.items():
+            for sid, r in rs.items():
+                _fleet_same(r, run.ticks[back.tick - 1][tenant][sid],
+                            f"5f restored {tenant}/{sid}")
+    _fleet_launch_check("5f restored", again, info)
+    for name, v in again.counts.items():
+        total[name] += v
+    for key, sess in again.closed.items():
+        _fleet_same_session(sess, run.closed[key], f"5f restored {key}")
+    if any(m.compiles for g in back.groups.values()
+           for m in g.engine.metrics):
+        raise RuntimeError("5f: the restored fleet captured a graph")
+
+    # reconfigure_tenant("ward", S 8) once the queue is empty, mid-stream.
+    swap, _ = _fleet(dev)
+    swap.restore(path)
+    moved = _FleetRun(swap, streams, plans)
+    while swap.tick < queue_empty:
+        moved.step()
+    kept = set(swap.active_sessions["ward"])
+    if not any(0 < swap.group_of("ward").engine.store.get(
+            f"ward/{s}").steps < T_BEAT for s in kept):
+        raise RuntimeError("5f: no ward session mid-beat at the swap")
+    new = swap.reconfigure_tenant("ward",
+                                  ServingConfig(n_samples=FLEET_SHRINK))
+    while moved.busy():
+        _, res, _ = moved.step()
+        for tenant, rs in res.items():
+            if tenant == "ward":
+                continue
+            for sid, r in rs.items():
+                _fleet_same(r, run.ticks[swap.tick - 1][tenant][sid],
+                            f"5f {tenant}/{sid} after the swap")
+    _fleet_launch_check("5f reconfigured", moved, info)
+    for name, v in moved.counts.items():
+        total[name] += v
+    for key, sess in moved.closed.items():
+        if key[0] != "ward":
+            _fleet_same_session(sess, run.closed[key], f"5f swap {key}")
+        elif key[1] in kept:
+            _fleet_same_session(sess, run.closed[key], f"5f kept {key}",
+                                rows=FLEET_SHRINK)
+    if new.n_samples != FLEET_SHRINK or len(swap.groups) != 4:
+        raise RuntimeError("5f: the reconfigured fleet is not as planned")
+    first_swap = new.metrics[0]
+
+    fixture = _fleet_fixture(dev, total)
+    shutil.rmtree(path, ignore_errors=True)
+
+    tick_ms = [t * 1e3 for t in run.tick_s]
+    over_ms = [(t - g) * 1e3 for t, g in zip(run.tick_s, run.group_s)]
+    solo_p50 = {n: percentile([m.duration_s for m in e.metrics], 50) * 1e3
+                for n, e in solo.items()}
+    tenants = fleet.summarize()["tenants"]
+    rec = {
+        "card": card, "tenants": {
+            n: {"S": fleet._resolved_s(n), "weight": w[n],
+                "max_sessions": fleet.specs[n].max_sessions,
+                "streams": n_streams[n],
+                "group": fleet._tenant_group[n],
+                "tick_ms_p95": tenants[n]["duration_s_p95"] * 1e3,
+                "queue_wait_ms_p95": tenants[n]["queue_wait_s_p95"] * 1e3,
+                "dropped": tenants[n]["dropped"],
+                "records": tenants[n]["ticks"],
+                "solo_tick_ms_p50": solo_p50[n]} for n in w},
+        "groups": {g.name: g.tenants for g in fleet.groups.values()},
+        "ticks": len(tick_ms), "prewarm_s": prewarm_s,
+        "fleet_tick_ms_p50": percentile(tick_ms, 50),
+        "fleet_tick_ms_p95": percentile(tick_ms, 95),
+        "group_ticks_ms_p50": percentile([g * 1e3 for g in run.group_s],
+                                         50),
+        "fleet_layer_ms_p50": percentile(over_ms, 50),
+        "fleet_layer_ms_p95": percentile(over_ms, 95),
+        "solo_tick_ms_p50_sum": sum(solo_p50.values()),
+        "admitted_per_tick": admitted[:4], "kill_tick": FLEET_KILL_TICK,
+        "snapshot_ms": snapshot_s * 1e3, "restore_ms": restore_s * 1e3,
+        "swap_tick": queue_empty, "swap_kept_sessions": len(kept),
+        "first_tick_after_swap": {"ms": first_swap.duration_s * 1e3,
+                                  "compiles": first_swap.compiles},
+        "launches": {k: v for k, v in total.items() if v},
+        "fleet_v1": fixture, "closed_sessions": closed}
+    report["fleet"] = rec
+    print("fleet " + json.dumps(rec), flush=True)
+    return total
+
+
 # -- the LM decode path -----------------------------------------------------
 
 def _lm_rows(dev, n):
@@ -3952,6 +4432,7 @@ def main(argv=None) -> int:
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
             ("5b", precision_serving_phase), ("5c", graph_phase),
             ("5d", durable_phase), ("5e", student_phase),
+            ("5f", fleet_phase),
             ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):

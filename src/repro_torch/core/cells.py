@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import mcd
+from repro_torch.kernels import common
 
 
 class LSTMParams(NamedTuple):
@@ -57,13 +58,24 @@ def gate_stacked(params):
             params.wh.transpose(0, 1).contiguous(), params.b.contiguous())
 
 
-def _gate_sums(eq: str, views: torch.Tensor, w: torch.Tensor):
-    """The gate products in fp32, as the reference's ``einsum(...,
-    preferred_element_type=float32)``: the weights cast to the views'
-    (activation) dtype, then both operands upcast to fp32 -- a bf16 matmul
-    in PyTorch would round its result to bf16 -- so the products are exact
-    and the sums accumulate in fp32."""
-    return torch.einsum(eq, views.float(), w.to(views.dtype).float())
+def _gate_sums(views: torch.Tensor, w: torch.Tensor):
+    """The gate products ``[B, G, K] = sum_i views[:, :, i] * w[:, i]`` in
+    fp32, as the reference's ``einsum(..., preferred_element_type=
+    float32)``: the weights cast to the views' (activation) dtype, then
+    both operands upcast to fp32 -- a bf16 matmul in PyTorch would round
+    its result to bf16 -- so the products are exact at bf16 and the sums
+    accumulate in fp32.  The sum runs over the contraction index in order,
+    one elementwise multiply-add at a time, so a row's result does not
+    depend on the rows around it: a batched matmul picks its blocking (and,
+    below 400 multiply-adds a matrix, a loop of its own) from the batch's
+    row count, and a fleet's tenant would round otherwise in a shared
+    launch than alone."""
+    v = views.float()
+    wf = w.to(views.dtype).float()
+    acc = v[:, :, 0, None] * wf[:, 0]
+    for i in range(1, wf.shape[1]):
+        acc = acc + v[:, :, i, None] * wf[:, i]
+    return acc
 
 
 def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
@@ -86,14 +98,13 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
     if det is not None:
         xg = torch.where(det[:, None, None], xr, xg)
         hg = torch.where(det[:, None, None], hr, hg)
-    gates = (_gate_sums("bgi,gih->bgh", xg, wx)
-             + _gate_sums("bgh,ghk->bgk", hg, wh) + b.float())
-    i = torch.sigmoid(gates[:, 0])
-    f = torch.sigmoid(gates[:, 1])
-    g = torch.tanh(gates[:, 2])
-    o = torch.sigmoid(gates[:, 3])
+    gates = _gate_sums(xg, wx) + _gate_sums(hg, wh) + b.float()
+    i = common.rowwise(torch.sigmoid, gates[:, 0])
+    f = common.rowwise(torch.sigmoid, gates[:, 1])
+    g = common.rowwise(torch.tanh, gates[:, 2])
+    o = common.rowwise(torch.sigmoid, gates[:, 3])
     c_new = f * c.float() + i * g
-    h_new = (o * torch.tanh(c_new)).to(h.dtype)
+    h_new = (o * common.rowwise(torch.tanh, c_new)).to(h.dtype)
     return h_new, c_new.to(c.dtype)
 
 
@@ -131,11 +142,11 @@ def gru_step(params: GRUParams, h: torch.Tensor, x: torch.Tensor,
     if det is not None:
         xg = torch.where(det[:, None, None], xr, xg)
         hg = torch.where(det[:, None, None], hr, hg)
-    gx = _gate_sums("bgi,gih->bgh", xg, wx)
-    gh = _gate_sums("bgh,ghk->bgk", hg, wh)
+    gx = _gate_sums(xg, wx)
+    gh = _gate_sums(hg, wh)
     bf = b.float()
-    r = torch.sigmoid(gx[:, 0] + gh[:, 0] + bf[0])
-    zt = torch.sigmoid(gx[:, 1] + gh[:, 1] + bf[1])
-    n = torch.tanh(gx[:, 2] + r * gh[:, 2] + bf[2])
+    r = common.rowwise(torch.sigmoid, gx[:, 0] + gh[:, 0] + bf[0])
+    zt = common.rowwise(torch.sigmoid, gx[:, 1] + gh[:, 1] + bf[1])
+    n = common.rowwise(torch.tanh, gx[:, 2] + r * gh[:, 2] + bf[2])
     h_new = (1.0 - zt) * n + zt * h.float()
     return h_new.to(h.dtype)

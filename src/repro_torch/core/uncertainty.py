@@ -41,18 +41,28 @@ def _sum(v: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
     return v.float().sum(dim, keepdim=keepdim).to(v.dtype)
 
 
+def _chains_last(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """``v`` with the chain axis ``dim`` moved last, contiguous.  Reduced
+    over its last axis, each output sums its own chains in an order fixed
+    by the chain count alone; over a leading axis PyTorch's CPU kernel
+    sums in an order that follows the other axes' sizes, so a session's
+    summary would follow how many sessions share its batch."""
+    return v.movedim(dim, -1).contiguous()
+
+
 def _mean(v: torch.Tensor, dim: int) -> torch.Tensor:
+    d = _chains_last(v if not _low(v) else v.float(), dim)
     if not _low(v):
-        return torch.mean(v, dim=dim)
-    return (v.float().sum(dim) / v.shape[dim]).to(v.dtype)
+        return torch.mean(d, dim=-1)
+    return (d.sum(-1) / v.shape[dim]).to(v.dtype)
 
 
 def _var(v: torch.Tensor, dim: int) -> torch.Tensor:
+    d = _chains_last(v if not _low(v) else v.float(), dim)
     if not _low(v):
-        return torch.var(v, dim=dim, correction=0)
-    d = v.float()
-    m = d.sum(dim, keepdim=True) / v.shape[dim]
-    return (torch.square(d - m).sum(dim) / v.shape[dim]).to(v.dtype)
+        return torch.var(d, dim=-1, correction=0)
+    m = d.sum(-1, keepdim=True) / v.shape[dim]
+    return (torch.square(d - m).sum(-1) / v.shape[dim]).to(v.dtype)
 
 
 def _softmax(v: torch.Tensor) -> torch.Tensor:
@@ -66,8 +76,9 @@ def regression_summary(means: torch.Tensor,
                        log_vars: torch.Tensor | None) -> RegressionSummary:
     """means/log_vars: [S, B, T, I] stacked MC passes (fp32, or bf16
     reduced in fp32 as the reference does)."""
-    mu = _mean(means, 0)
-    epistemic = _var(means, 0)
+    chains = _chains_last(means, 0)     # one copy for the mean and the var
+    mu = _mean(chains, -1)
+    epistemic = _var(chains, -1)
     aleatoric = (_mean(torch.exp(log_vars), 0)
                  if log_vars is not None else torch.zeros_like(mu))
     return RegressionSummary(mu, aleatoric, epistemic, aleatoric + epistemic)

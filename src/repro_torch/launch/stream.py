@@ -6,6 +6,13 @@ beats back to back), and serves them chunk by chunk through the
 uncertainty over the signal so far.  Single tenant, the ECG classifier,
 LSTM or GRU (``--cell``), on any stack backend (``--backend``).
 
+``--tenants fleet.json`` serves a multi-tenant fleet instead: the JSON
+declares heterogeneous tenants (classifier or autoencoder, LSTM or GRU,
+each with its own S, precision and weight) and one ``FleetEngine`` serves
+them all a tick (see :func:`load_fleet`).  ``--chunk-len``, ``--ragged``,
+``--metrics-out``, ``--snapshot-*``, ``--resume`` and ``--device`` apply
+fleet-wide.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
       --chunk-len 20 --samples 8 --beats 2
@@ -23,11 +30,14 @@ Usage:
       --resume            # a killed run goes on where its snapshot left it
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
       --samples 8 --early-exit-threshold 1e-3 --min-samples 2
+  PYTHONPATH=src python -m repro_torch.launch.stream --tenants fleet.json \
+      --chunk-len 20 --metrics-out fleet.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -35,10 +45,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint
-from repro_torch.core import classifier as clf, mcd
+from repro_torch.core import autoencoder as ae, classifier as clf, mcd
 from repro_torch.data import ecg
-from repro_torch.serve import (JsonlSink, StreamingEngine, pow2_ladder,
-                               prewarm, summarize)
+from repro_torch.serve import (FleetEngine, JsonlSink, StreamingEngine,
+                               TenantSpec, pow2_ladder, prewarm, summarize)
+
+#: The reference's backend names, as a fleet table written for it names
+#: them (a snapshot's backend name is not checked either).
+_BACKENDS = {"pallas_seq": "cuda_seq", "pallas_step": "cuda_step"}
 
 
 def build_streams(n_sessions: int, beats: int, seed: int):
@@ -53,8 +67,173 @@ def build_streams(n_sessions: int, beats: int, seed: int):
     return streams, labels
 
 
+def load_fleet(path: str, default_seed: int, device=None):
+    """Parse a fleet JSON tenant table into ``TenantSpec``s and stream
+    plans.
+
+    Schema (every per-tenant key optional except ``name``)::
+
+        {"admit_per_tick": 4, "aging_rounds": 16, "max_pending": 256,
+         "tenants": [
+           {"name": "ward", "task": "classifier", "cell": "lstm",
+            "hidden": 8, "layers": 2, "classes": 5, "samples": 4,
+            "p": 0.125, "placement": "YN", "weight": 3.0,
+            "precision": null, "backend": "cuda_seq",
+            "max_sessions": 4, "streams": 6, "beats": 2,
+            "decode_window": null, "seed": 0,
+            "early_exit_threshold": null, "min_samples": 1},
+           ...]}
+
+    The reference's schema, read the same way: a table written for it
+    names ``pallas_seq`` / ``pallas_step``, served here as ``cuda_seq`` /
+    ``cuda_step``.  Tenants serve at dynamic shapes, as the reference's.
+    ``streams`` is how many signals the tenant submits (more than
+    ``max_sessions`` overloads it).  Each params object is drawn from a
+    ``torch.Generator`` seeded by the tenant's ``seed``; tenants with an
+    identical model spec and seed share one, so they fold into one launch
+    group.
+    """
+    with open(path) as fh:
+        doc = json.load(fh)
+    specs, plans, params_cache = [], {}, {}
+    for e in doc["tenants"]:
+        name = e["name"]
+        task = e.get("task", "classifier")
+        layers = int(e.get("layers", 2))
+        m = mcd.MCDConfig(
+            p=float(e.get("p", 0.125)),
+            placement=e.get("placement") or "Y" + "N" * (layers - 1),
+            n_samples=int(e.get("samples", 4)),
+            seed=int(e.get("seed", default_seed)))
+        if task == "classifier":
+            cfg = clf.ClassifierConfig(
+                hidden=int(e.get("hidden", 8)), num_layers=layers,
+                num_classes=int(e.get("classes", 5)),
+                cell=e.get("cell", "lstm"), mcd=m)
+            init = clf.init
+        elif task == "autoencoder":
+            cfg = ae.AutoencoderConfig(
+                hidden=int(e.get("hidden", 8)), num_layers=layers,
+                cell=e.get("cell", "lstm"), mcd=m,
+                decode_window=e.get("decode_window"))
+            init = ae.init
+        else:
+            raise ValueError(f"tenant {name!r}: unknown task {task!r} "
+                             "(classifier | autoencoder)")
+        key = (task, cfg, m.seed)
+        if key not in params_cache:
+            params_cache[key] = init(torch.Generator().manual_seed(m.seed),
+                                     cfg, device=device)
+        backend = e.get("backend", "cuda_seq")
+        max_sessions = int(e.get("max_sessions", 4))
+        eet = e.get("early_exit_threshold")
+        specs.append(TenantSpec(
+            name=name, cfg=cfg, params=params_cache[key],
+            weight=float(e.get("weight", 1.0)),
+            precision=e.get("precision"),
+            backend=_BACKENDS.get(backend, backend),
+            max_sessions=max_sessions,
+            early_exit_threshold=None if eet is None else float(eet),
+            min_samples=int(e.get("min_samples", 1))))
+        plans[name] = {"streams": int(e.get("streams", max_sessions)),
+                       "beats": int(e.get("beats", 2)),
+                       "seed": int(e.get("seed", default_seed))}
+    fleet_kw = {k: doc[k] for k in ("admit_per_tick", "aging_rounds",
+                                    "max_pending") if k in doc}
+    return specs, plans, fleet_kw
+
+
+def run_fleet(args, device) -> dict:
+    """Serve the multi-tenant fleet of ``--tenants fleet.json``; returns
+    ``summarize()`` of its tenant-tagged trail."""
+    specs, plans, fleet_kw = load_fleet(args.tenants, args.seed, device)
+    sink = JsonlSink(args.metrics_out) if args.metrics_out else None
+    fleet = FleetEngine(specs, metrics_sink=sink, device=device, **fleet_kw)
+    for g in fleet.groups.values():
+        print(f"launch group {g.name}: tenants={g.tenants}")
+    print(f"fleet of {len(specs)} tenant(s) on {device}, "
+          f"admit_per_tick={fleet.admit_per_tick or 'eager'} | "
+          + " ".join(f"{s.name}[w={s.weight:g} rows={s.max_sessions} "
+                     f"streams={plans[s.name]['streams']}]" for s in specs))
+
+    # Streams regenerate from the tenant table, so a resume needs only the
+    # snapshot and the same fleet.json.
+    streams = {t: build_streams(p["streams"], p["beats"], p["seed"])[0]
+               for t, p in plans.items()}
+    planned = {t: [f"s{k}" for k in range(p["streams"])]
+               for t, p in plans.items()}
+    done: dict[str, set[str]] = {t: set() for t in plans}
+    if args.resume:
+        fleet.restore(args.snapshot_dir)
+        live = fleet.active_sessions
+        queued = {(t.tenant, t.sid.split("/", 1)[1])
+                  for t in fleet.queue.waiting()}
+        # Everything was admitted before the first snapshot: a planned sid
+        # neither live nor queued has finished.
+        for t in plans:
+            done[t] = {s for s in planned[t]
+                       if s not in live.get(t, []) and (t, s) not in queued}
+        print(f"resumed fleet tick {fleet.tick}: live={live} "
+              f"queued={sorted(queued)} "
+              f"done={ {t: sorted(v) for t, v in done.items() if v} }")
+    else:
+        for t in sorted(plans):
+            for k, s in enumerate(planned[t]):
+                went_live = fleet.admit(t, s, priority=len(planned[t]) - k)
+                print(f"admit {t}/{s}: "
+                      f"{'live' if went_live is not None else 'queued'}")
+
+    rng = np.random.default_rng(args.seed + 1)
+    total = sum(len(v) for v in planned.values())
+    while sum(len(v) for v in done.values()) < total:
+        chunks: dict[str, dict] = {}
+        for t, sids in fleet.active_sessions.items():
+            store = fleet.group_of(t).engine.store
+            for s in sids:
+                sig = streams[t][int(s[1:])]
+                pos = store.get(f"{t}/{s}").steps
+                if pos >= len(sig):
+                    continue
+                n = (int(rng.integers(1, args.chunk_len + 1)) if args.ragged
+                     else args.chunk_len)
+                chunks.setdefault(t, {})[s] = sig[pos:pos + n]
+        results = fleet.step(chunks)
+        print(f"tick {fleet.tick:3d} | " + " ".join(
+            f"{t}:{len(results.get(t, {}))}r q={fleet.queue.depth_of(t)} "
+            f"done={len(done[t])}/{len(planned[t])}"
+            for t in sorted(plans)))
+        for t, sids in list(fleet.active_sessions.items()):
+            store = fleet.group_of(t).engine.store
+            for s in list(sids):
+                if store.get(f"{t}/{s}").steps >= len(streams[t][int(s[1:])]):
+                    sess = fleet.close(t, s)
+                    done[t].add(s)
+                    print(f"  {t}/{s}: served {sess.steps} steps in "
+                          f"{sess.chunks} chunks")
+        if args.snapshot_dir and fleet.tick % args.snapshot_every == 0:
+            path = fleet.snapshot(args.snapshot_dir)
+            checkpoint.keep_last(args.snapshot_dir, args.snapshot_keep)
+            print(f"  snapshot -> {path}")
+
+    agg = fleet.summarize()
+    for t, sub in sorted(agg.get("tenants", {}).items()):
+        print(f"{t}: {sub['ticks']} tick record(s) | tick p95 "
+              f"{sub['duration_s_p95'] * 1e3:.2f}ms | p95 wait "
+              f"{sub['queue_wait_s_p95'] * 1e3:.2f}ms | "
+              f"dropped {sub['dropped']}")
+    if args.metrics_out:
+        fleet.metrics_sink.close()
+        print(f"tick metrics -> {args.metrics_out}")
+    return agg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tenants", default=None, metavar="FLEET_JSON",
+                    help="multi-tenant fleet mode: serve the tenant table "
+                    "in this JSON file through one FleetEngine (see "
+                    "load_fleet for the schema); the per-model flags are "
+                    "ignored, the serving flags apply fleet-wide")
     ap.add_argument("--sessions", type=int, default=4,
                     help="concurrently live streams")
     ap.add_argument("--chunk-len", type=int, default=20)
@@ -112,6 +291,8 @@ def main(argv=None):
         ap.error("--resume requires --snapshot-dir")
 
     device = resolve_device(args.device)
+    if args.tenants:
+        return run_fleet(args, device)
     cfg = clf.ClassifierConfig(
         hidden=args.hidden, num_layers=args.layers, cell=args.cell,
         mcd=mcd.MCDConfig(p=args.p, placement=args.placement,

@@ -1,11 +1,17 @@
 """Streaming session serving: ``sessions`` (carried state + mask
 coordinates), ``stream`` (the batched tick loop), ``admission`` (bounded
-priority queue), ``scheduler`` (adaptive launch shapes, tick metrics and
-``prewarm``), ``graphs`` (a serving step captured as one CUDA graph) and
-``persistence`` (crash-safe snapshots in the reference's format)."""
+priority queue, and the fleet's weighted-fair queue), ``scheduler``
+(adaptive launch shapes, tick metrics and ``prewarm``), ``graphs`` (a
+serving step captured as one CUDA graph), ``persistence`` (crash-safe
+snapshots in the reference's format), ``fleet`` (heterogeneous tenants in
+one tick) and ``controller`` (the data plane of a reconfiguration)."""
 
 from repro_torch.serve.admission import (AdmissionQueue, DrainRejected,
-                                         QueueFull, Ticket)
+                                         FleetTicket, QueueFull, Ticket,
+                                         WeightedFairQueue)
+from repro_torch.serve.controller import (ServingConfig, carry_dtypes,
+                                          convert_session)
+from repro_torch.serve.fleet import FleetEngine, TenantSpec
 from repro_torch.serve.graphs import StaticStep
 from repro_torch.serve.persistence import (FLEET_FORMAT_VERSION,
                                            FORMAT_VERSION,
@@ -22,9 +28,11 @@ from repro_torch.serve.stream import (ChunkResult, JsonlSink, MetricsSink,
 
 __all__ = ["AdmissionQueue", "AdaptiveTickScheduler", "CapacityError",
            "ChunkResult", "DrainRejected", "FLEET_FORMAT_VERSION",
-           "FORMAT_VERSION", "JsonlSink", "MetricsSink", "QueueFull",
-           "RingBufferSink", "Session", "SessionStore", "StaticStep",
-           "StreamingEngine", "Ticket", "TickMetrics",
+           "FORMAT_VERSION", "FleetEngine", "FleetTicket", "JsonlSink",
+           "MetricsSink", "QueueFull", "RingBufferSink",
+           "ServingConfig", "Session", "SessionStore", "StaticStep",
+           "StreamingEngine", "TenantSpec", "Ticket", "TickMetrics",
+           "WeightedFairQueue", "carry_dtypes", "convert_session",
            "load_any_snapshot_meta", "load_fleet_meta",
            "load_snapshot_meta", "pow2_ladder", "prewarm", "restore_fleet",
            "restore_store", "snapshot_fleet", "snapshot_store", "summarize"]

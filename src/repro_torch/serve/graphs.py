@@ -20,6 +20,13 @@ whatever the static inputs now hold and returns the static outputs.
 The static outputs are overwritten by the next replay: a caller that keeps
 an output past it keeps a copy.
 
+Python's cyclic garbage collector is off during a capture.  An engine
+that holds captured graphs is a reference cycle (its steps' functions
+refer to it); dropped, it is freed by the collector whenever that next
+runs, and a graph destroyed while another is being captured makes the
+capture fail (``torch.cuda.graph`` no longer collects before it
+captures).  The collector runs again after the capture.
+
 Launch counts.  The kernel wrappers count their launches on the host
 (``kernels.common.launch_c``); a capture runs that host code without
 launching anything and a replay launches without running it.  So the
@@ -31,6 +38,8 @@ kernels that ran.
 from __future__ import annotations
 
 from typing import Callable, Sequence
+
+import gc
 
 import torch
 
@@ -93,10 +102,14 @@ class StaticStep:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = [w.launches for w in self.counted]
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 outputs = self.fn()
         finally:
+            if collecting:
+                gc.enable()
             # The capture launched nothing: take its counts back.
             taken = {w: w.launches - n for w, n in zip(self.counted, before)}
             for w, n in taken.items():

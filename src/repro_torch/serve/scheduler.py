@@ -74,6 +74,9 @@ class TickMetrics:
                            # decisions, when on), escalate (the student
                            # escalations, when on), sync (the wait for
                            # the device)
+    tenant: str | None = None  # owning tenant of a FleetEngine record
+                               # (None: a single-tenant engine);
+                               # summarize() groups on it
 
 
 class AdaptiveTickScheduler:
@@ -198,7 +201,12 @@ def percentile(values: Sequence[float], p: float) -> float:
 
 
 def summarize(metrics: Sequence[TickMetrics]) -> dict:
-    """Aggregate control-plane observables over recorded ticks."""
+    """Aggregate control-plane observables over recorded ticks.
+
+    A fleet trail carries tenant-tagged records: the roll-up then gains
+    ``"tenants"``, each tenant's own sub-summary (over tenant-stripped
+    copies, so a slice never nests a second ``"tenants"``).
+    """
     if not metrics:
         return {"ticks": 0}
     live = sum(m.live_chain_steps for m in metrics)
@@ -206,7 +214,7 @@ def summarize(metrics: Sequence[TickMetrics]) -> dict:
     dur = sum(m.duration_s for m in metrics)
     durs = [m.duration_s for m in metrics]
     tps = [m.tokens_per_sec for m in metrics]
-    return {
+    out = {
         "ticks": len(metrics),
         "capacities_used": sorted({m.capacity for m in metrics}),
         "live_chain_steps": live,
@@ -230,3 +238,10 @@ def summarize(metrics: Sequence[TickMetrics]) -> dict:
                               / len(metrics)),
         "escalations": sum(m.escalations for m in metrics),
     }
+    tenants = sorted({m.tenant for m in metrics if m.tenant is not None})
+    if tenants:
+        out["tenants"] = {
+            name: summarize([dataclasses.replace(m, tenant=None)
+                             for m in metrics if m.tenant == name])
+            for name in tenants}
+    return out

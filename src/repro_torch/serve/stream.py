@@ -303,6 +303,12 @@ class StreamingEngine:
         # sid -> the prefix-vs-full delta early exit compared with the
         # threshold on the last tick (sessions above the floor only).
         self.last_exit_deltas: dict[str, float] = {}
+        # The last tick's attribution a fleet splits across its tenants:
+        # sid -> chains served / rows retired / student rows / escalations.
+        self._last_served_chains: dict[str, int] = {}
+        self._last_reclaimed: dict[str, int] = {}
+        self._last_student_rows: dict[str, int] = {}
+        self._last_escalated: dict[str, int] = {}
         self.store = SessionStore(self.n_samples, cfg.mcd.seed,
                                   max_sessions=max_sessions)
         self.queue = AdmissionQueue(max_pending)
@@ -611,32 +617,26 @@ class StreamingEngine:
 
         # Batched summaries over [s, sessions, ...], per-session results
         # indexed out.  A uniform all-MC tick is one reshape of the live
-        # prefix.  In a ragged one (early exit, students) the MC sessions at
-        # the chain ceiling are summarized at the shape of the uniform tick
-        # of the MC sessions, [ceiling, MC sessions] (the others' columns
-        # filled with their own rows, then dropped), so a session early
-        # exit never touched gets the bits the engine without early exit
-        # and without students gives it: a reduction's order follows the
-        # shape.  Each smaller chain count is a group of its own.  Student
-        # sessions are never a column of an MC group: their one row goes
-        # through the student heads below.
+        # prefix; a ragged one (early exit, students) gathers each chain
+        # count's sessions into a group of its own.  The chain-axis
+        # reductions sum each session's chains in an order fixed by its
+        # chain count (``core.uncertainty._chains_last``), so a session's
+        # bits follow neither its group's width nor its neighbours.
+        # Student sessions are never a column of an MC group: their one
+        # row goes through the student heads below.
         k_n = len(sessions)
         summaries: list = [None] * k_n
         stu_ks = [k for k in range(k_n) if sessions[k].mode == "student"]
         mc_ks = [k for k in range(k_n) if sessions[k].mode != "student"]
         uniform = not stu_ks and len(set(s_list)) == 1
         for si in sorted({s_list[k] for k in mc_ks}):
+            cols = [k for k in mc_ks if s_list[k] == si]
             if uniform:
-                cols = range(k_n)
-
                 def sel(a, si=si):
                     return a[:k_n * si].reshape((k_n, si) + a.shape[1:])
             else:
-                cols = [k for k in mc_ks if s_list[k] == si
-                        or si == self.n_samples]
                 idx = torch.as_tensor(np.concatenate(
-                    [np.arange(si) % s_list[k] + offsets[k] for k in cols]),
-                    device=dev)
+                    [np.arange(si) + offsets[k] for k in cols]), device=dev)
 
                 def sel(a, idx=idx, n=len(cols), si=si):
                     return a[idx].reshape((n, si) + a.shape[1:])
@@ -653,8 +653,7 @@ class StreamingEngine:
                     else sel(log_var).transpose(0, 1).float())
                 per = RegressionSummary
             for j, k in enumerate(cols):
-                if s_list[k] == si:
-                    summaries[k] = per(*(v[j] for v in batched))
+                summaries[k] = per(*(v[j] for v in batched))
         t_part = _lap(parts, "summaries", t_part)
         # The distilled fast path: one batched head call over every student
         # row's feature (h_T; the decoder's hidden sequence).
@@ -688,6 +687,9 @@ class StreamingEngine:
                                             steps_total=sess.steps,
                                             summary=summary)
         t_part = _lap(parts, "store", t_part)
+        self._last_served_chains = {sess.sid: si for sess, si
+                                    in zip(sessions, s_list)}
+        self._last_student_rows = {sessions[k].sid: 1 for k in stu_ks}
         reclaimed = self._early_exit(sessions, lens, s_list, offsets, outs,
                                      win)
         if self.early_exit_threshold is not None:
@@ -733,6 +735,7 @@ class StreamingEngine:
         to the prefix.  Returns the rows retired this tick.
         """
         self.last_exit_deltas = {}
+        self._last_reclaimed = {}
         if self.early_exit_threshold is None:
             return 0
         keeps = [max(self.min_samples, (si + 1) // 2) for si in s_list]
@@ -774,7 +777,10 @@ class StreamingEngine:
                     - prefix.finalize_numpy().epistemic)))
             self.last_exit_deltas[sess.sid] = delta
             if delta <= self.early_exit_threshold:
-                reclaimed += self.store.retire(sess.sid, keep)
+                n_ret = self.store.retire(sess.sid, keep)
+                if n_ret:
+                    reclaimed += n_ret
+                    self._last_reclaimed[sess.sid] = n_ret
         return reclaimed
 
     def _escalate(self, sessions, results) -> int:
@@ -787,6 +793,7 @@ class StreamingEngine:
         n_samples)`` retires the deterministic row and ``n_samples`` fresh
         MC chains resume copies of its carry.  Returns the escalations.
         """
+        self._last_escalated = {}
         if self.student_escalate_threshold is None:
             return 0
         stu = [sess for sess in sessions if sess.mode == "student"]
@@ -803,6 +810,7 @@ class StreamingEngine:
         for sess, u in zip(stu, host):
             if float(np.mean(u)) > self.student_escalate_threshold:
                 self.store.grow(sess.sid, self.n_samples)
+                self._last_escalated[sess.sid] = 1
                 n += 1
         return n
 

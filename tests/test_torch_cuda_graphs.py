@@ -23,6 +23,9 @@ tests/test_torch_cuda_graphs.py``.
   included) replayed from the graph equal eager, the students riding the
   same launches; an escalated session equals its attached MC twin; the
   AdamW step on the card within an ulp of the CPU.
+* The fleet: group engines replaying their graphs equal the same fleet
+  served eagerly, and every tenant equals an engine of its own holding
+  its sessions on the same rows, bit for bit.
 * A capture that fails raises, and leaves the launch counts as they were.
 """
 
@@ -453,6 +456,147 @@ def test_optimizer_step_on_cuda_within_an_ulp_of_the_cpu(dev, monkeypatch):
         for a, b in zip(tree_leaves((gpu, sg.m, sg.v)),
                         tree_leaves((cpu, sc.m, sc.v)), strict=True):
             assert a.device.type == dev.type and ulps(a, b) <= 1
+
+
+def _fleet(dev, backend, graphs=True):
+    """``ward`` (classifier LSTM, S 4) and ``lite`` (the same params, S 2)
+    in one group, ``anom`` (autoencoder GRU at bf16) in another."""
+    from repro_torch.serve import FleetEngine, TenantSpec
+    cfg, params = _model("classifier", "lstm", dev)
+    acfg, aparams = _model("autoencoder", "gru", dev)
+    kw = dict(backend=backend, chunk_capacity=12)
+    fleet = FleetEngine([
+        TenantSpec(name="ward", cfg=cfg, params=params, max_sessions=3,
+                   **kw),
+        TenantSpec(name="lite", cfg=cfg, params=params, n_samples=2,
+                   max_sessions=2, **kw),
+        TenantSpec(name="anom", cfg=acfg, params=aparams, precision="bf16",
+                   max_sessions=2, **kw)], device=dev, graphs=graphs)
+    if graphs:
+        for g in fleet.groups.values():
+            prewarm(g.engine)
+    sids = {"ward": ["a", "b", "c"], "lite": ["a", "b"], "anom": ["a", "b"]}
+    for tenant, ss in sids.items():
+        for sid in ss:
+            fleet.admit(tenant, sid)
+    return fleet, sids
+
+
+def _fleet_ticks(fleet, sids):
+    rng = np.random.default_rng(4)
+    sigs = {key: rng.standard_normal((48, 1)).astype(np.float32)
+            for key in ((t, s) for t, ss in sids.items() for s in ss)}
+    out = []
+    for t in range(4):
+        chunks = {}
+        for k, (tenant, sid) in enumerate(sigs):
+            if (t + k) % 3 == 2:
+                continue                           # sits out this tick
+            at = fleet.group_of(tenant).engine.store.get(
+                f"{tenant}/{sid}").steps
+            chunks.setdefault(tenant, {})[sid] = sigs[tenant, sid][
+                at:at + int(rng.integers(1, 13))]
+        out.append((chunks, fleet.step(chunks)))
+    return out
+
+
+def _same_session(a, b):
+    assert np.array_equal(a.rows, b.rows)
+    for la, lb in zip(a.state, b.state, strict=True):
+        for x, y in zip(la, lb, strict=True):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+def test_fleet_graph_tick_equals_eager(dev, backend):
+    """A fleet whose group engines replay their tick graphs against the
+    same fleet served eagerly: summaries and carries bit for bit, the
+    same launches a group tick, no capture after prewarm."""
+    fg, sids = _fleet(dev, backend)
+    fe, _ = _fleet(dev, backend, graphs=False)
+    assert len(fg.groups) == 2
+    for (_, rg), (_, re) in zip(_fleet_ticks(fg, sids),
+                                _fleet_ticks(fe, sids), strict=True):
+        for tenant in re:
+            for sid, r in re[tenant].items():
+                for a, b in zip(rg[tenant][sid].summary, r.summary,
+                                strict=True):
+                    assert torch.equal(a, b)
+    for tenant in sids:
+        for sess in fe.sessions_of(tenant):
+            _same_session(fg.group_of(tenant).engine.store.get(sess.sid),
+                          sess)
+    for name, g in fg.groups.items():
+        assert [m.launches for m in g.engine.metrics] == \
+            [m.launches for m in fe.groups[name].engine.metrics]
+        assert summarize(g.engine.metrics)["compiles"] == 0
+    assert {m.tenant for m in fg.metrics} == set(sids)
+
+
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+def test_fleet_equals_solo_on_the_card(dev, backend):
+    """Each tenant in the shared fleet tick against an engine of its own
+    holding its sessions on the same rows: bit for bit."""
+    from repro_torch.serve import Session
+    fleet, sids = _fleet(dev, backend)
+    solo = {}
+    for tenant in sids:
+        spec = fleet.specs[tenant]
+        eng = StreamingEngine(spec.params, spec.resolved_cfg(),
+                              backend=backend, max_sessions=spec.max_sessions,
+                              chunk_capacity=12, precision=spec.precision,
+                              device=dev)
+        for sess in fleet.sessions_of(tenant):
+            eng.attach_session(Session(sid=sess.sid, rows=sess.rows.copy(),
+                                       seed=sess.seed))
+        solo[tenant] = eng
+    for chunks, got in _fleet_ticks(fleet, sids):
+        for tenant, tchunks in chunks.items():
+            want = solo[tenant].step({f"{tenant}/{s}": c
+                                      for s, c in tchunks.items()})
+            for sid in tchunks:
+                for a, b in zip(got[tenant][sid].summary,
+                                want[f"{tenant}/{sid}"].summary,
+                                strict=True):
+                    assert torch.equal(a, b)
+    for tenant, eng in solo.items():
+        for sess in fleet.sessions_of(tenant):
+            _same_session(sess, eng.store.get(sess.sid))
+
+
+def test_a_dead_engine_is_not_freed_during_a_capture(dev):
+    """An engine with captured graphs is a reference cycle; dropped, the
+    cyclic collector frees it whenever it next runs.  With the collector
+    due at every allocation, another engine's captures must not free it
+    mid-capture (a graph destroyed during a capture fails the capture)."""
+    import gc
+    cfg, params = _model("classifier", "lstm", dev)
+    dead = StreamingEngine(params, cfg, max_sessions=2, chunk_capacity=4,
+                           device=dev)
+    prewarm(dead)
+    del dead
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng = StreamingEngine(params, cfg, max_sessions=2, chunk_capacity=8,
+                              device=dev)
+        prewarm(eng)
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    eng.open_session("a")
+    eng.step({"a": np.ones((8, 1), np.float32)})
+    assert eng.last_metrics.compiles == 0
+    # The mechanism itself: the collector is off inside the capture only.
+    seen = []
+    x = torch.ones(4, device=dev)
+
+    def fn():
+        seen.append(gc.isenabled())
+        return x * 2
+
+    StaticStep(fn, dev).first()
+    assert seen == [True, False] and gc.isenabled()
 
 
 def test_a_failed_capture_raises(dev):

@@ -238,7 +238,8 @@ def test_threshold_none_never_retires(models):
     assert eng.last_exit_deltas == {}
 
 
-@pytest.mark.parametrize("backend,capacity", [("cuda_seq", None),
+@pytest.mark.parametrize("backend,capacity", [("reference", None),
+                                              ("cuda_seq", None),
                                               ("cuda_seq", 8),
                                               ("cuda_step", "auto")])
 def test_retained_outputs_never_move(models, backend, capacity):

@@ -102,6 +102,45 @@ def test_entry_points_raise_without_gpu(no_gpu):
         launch_stream.main(["--sessions", "1"])
 
 
+def _fleet_specs():
+    from repro_torch.serve import TenantSpec
+    cfg, params = _cpu_model()
+    return [TenantSpec(name="a", cfg=cfg, params=params),
+            TenantSpec(name="b", cfg=cfg, params=params, n_samples=1)]
+
+
+def test_fleet_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    from repro_torch.serve import FleetEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetEngine(_fleet_specs())
+    table = tmp_path / "fleet.json"
+    table.write_text('{"tenants": [{"name": "a", "samples": 2}]}')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_stream.main(["--tenants", str(table)])
+    assert len(FleetEngine(_fleet_specs(), device="cpu").groups) == 1
+
+
+def test_fleet_mesh_raises():
+    from repro_torch.serve import FleetEngine
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FleetEngine(_fleet_specs(), device="cpu", mesh=object())
+
+
+def test_fleet_reconfigure_to_shards_raises():
+    import types
+    from repro_torch.serve import FleetEngine, ServingConfig
+    fleet = FleetEngine(_fleet_specs(), device="cpu")
+    groups = [list(g.tenants) for g in fleet.groups.values()]
+    for new in (types.SimpleNamespace(n_samples=2, shards=4),
+                types.SimpleNamespace(n_samples=2, precision=None,
+                                      chunk_capacity=0, shards=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
+            fleet.reconfigure_tenant("a", new)
+    assert [list(g.tenants) for g in fleet.groups.values()] == groups
+    with pytest.raises(TypeError):
+        ServingConfig(n_samples=2, shards=4)
+
+
 def test_cpu_when_asked(no_gpu):
     cfg, params = _cpu_model()
     logits = clf.apply(params, torch.zeros((2, 3, 1)), torch.arange(2), cfg,

@@ -13,10 +13,12 @@ harness:
   host ms a call (``chip_smoke.host_ms``);
 * the serving phases named after OUT.json (default ``7b 7c``), each
   ``chip_smoke``'s own function with its gates: ``5c`` (the ECG tick
-  graphs against eager), ``7`` / ``9`` (qwen3-1.7b / mamba2-370m fp32),
-  ``7b`` / ``9b`` (the same in bf16: prefill and decode times, device ms
-  and top kernels of a prefill, peak memory, graph against eager), ``7c``
-  (the eager decode step from an int8 KV cache).
+  graphs against eager), ``5e`` (students beside MC sessions: a ragged
+  tick), ``ee`` (phase 5d's early-exit cell alone: on against off),
+  ``7`` / ``9`` (qwen3-1.7b / mamba2-370m fp32), ``7b`` / ``9b`` (the
+  same in bf16: prefill and decode times, device ms and top kernels of a
+  prefill, peak memory, graph against eager), ``7c`` (the eager decode
+  step from an int8 KV cache).
 
 Usage, on a machine with the card, both checkouts on the same card and in
 turns (parent, change, change, parent)::
@@ -34,7 +36,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-PHASES = {"5c": chip_smoke.graph_phase, "7": chip_smoke.lm_serving_phase,
+def early_exit_cell(report, dev):
+    """Phase 5d's early-exit cell alone (the ragged tick's summaries)."""
+    report["early_exit"] = chip_smoke._early_exit_cell(
+        report, dev, {name: 0 for name in chip_smoke.ALL_KERNELS})
+    print("early_exit " + json.dumps(report["early_exit"]), flush=True)
+
+
+PHASES = {"5c": chip_smoke.graph_phase, "5e": chip_smoke.student_phase,
+          "ee": early_exit_cell, "7": chip_smoke.lm_serving_phase,
           "9": chip_smoke.mamba_serving_phase,
           "7b": chip_smoke.lm_bf16_serving_phase,
           "9b": chip_smoke.mamba_bf16_serving_phase,
