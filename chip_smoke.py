@@ -116,9 +116,33 @@ Phases (each raises on failure; the exit code is then non-zero):
    ticks inside it and the fleet layer's own ms, the sum of the solo
    engines' tick p50s, per-tenant p95 / queue wait / drops, snapshot and
    restore ms.
-   Every serving phase (3, 4, 5, 5b, 5c, 5d, 5e, 5f, 7, 9) serves through the
-   graphs, as the engines do by default on a fixed shape; 5c's eager runs
-   and the LM phases' eager turns are the comparison.
+5g. The co-design loop (the classifier LSTM, fp32, ``cuda_seq``, S = 30,
+   capacity "auto" over (8, 16, 20)): (a) the GPU roofline
+   (``dse.gpu_model``) calibrated by ``dse.calibrate.fit_roofline`` on
+   prewarmed engines at CAL_SESSIONS = 8, 16, 32 and 64 sessions, ragged
+   chunks in blocks of bounds 8, 16 and 20 so every (sessions, rung) pair
+   recurs: the pooled fit, the fit of each engine and without each
+   engine's first tick, each shape's raw roofline beside its observed p50;
+   (b) an attached ``CoDesignController`` over 64 sessions and
+   CTRL_QUEUED queued tickets, its SLO CTRL_SLO x the p95 of a warm-up
+   window of this process, floor CTRL_FLOOR, knobs S and fp32 / bf16:
+   an applied slo-breach downshift to 8 <= S < 30, no capture after the
+   swap, the queue and its order kept, no row drawn twice, every
+   post-swap summary and the final carries bit-equal to a prewarmed
+   engine at the winner's config fed the converted pre-swap sessions, the
+   JSONL trail one line a decision; the swap's ms (build, convert,
+   prewarm), the prediction against the observed p50 / p95 over the
+   cooldown; (c) a ``FleetController`` over the classifier LSTM (an SLO
+   from its own warm-up) and the classifier GRU at bf16 on ``cuda_step``
+   (none): only the first reconfigured, its new engine prewarmed (no
+   capture after the swap), the second's engine kept and bit-equal to an
+   engine of its own ticked in turns; (d)
+   ``core.bayesian.predict`` on 64 beats: fold (one 1920-row launch a
+   layer) and scan (30 launches of 64 rows a layer) bit-equal, each
+   within TOL of the ``reference`` backend, with launches and device ms.
+   Every serving phase (3, 4, 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 9) serves
+   through the graphs, as the engines do by default on a fixed shape; 5c's
+   eager runs and the LM phases' eager turns are the comparison.
 6. LM kernels: ``masked_activation``, ``mcd_matmul`` and
    ``decode_attention`` against their plain versions on the card at the
    shapes qwen3-1.7b's decode serving gives them (64 chain rows, d_model
@@ -3022,6 +3046,480 @@ def fleet_phase(report, dev):
     return total
 
 
+# -- the co-design loop -------------------------------------------------------
+
+CAL_SESSIONS = (8, 16, 32, 64)   # max_sessions of the calibration engines
+CAL_BOUNDS = (8, 16, CHUNK)      # chunk-length bounds, one a block of ticks
+CAL_BLOCK = 12         # ticks a block: each (sessions, rung) pair recurs
+CAL_CYCLES = 2
+CAL_BEATS = 8          # a calibration stream's beats (1120 steps)
+CTRL_WARM = 8          # ticks served before the warm-up window
+CTRL_WINDOW = 32       # the warm-up window, and the controller's window
+CTRL_TICKS = 24        # ticks served with the controller attached
+CTRL_QUEUED = 8        # fresh tickets waiting behind the live sessions
+CTRL_BEATS = 10        # a controlled stream's beats (1400 steps)
+CTRL_SLO = 0.6         # the SLO: this share of the warm-up window's p95
+CTRL_FLOOR = 8         # the SLO's uncertainty floor (min_samples)
+CTRL_FLEET_ROWS = 32   # max_sessions of each 5g fleet tenant
+
+
+def _ctrl_engine(cfg, params, dev, n, **kw):
+    """The classifier LSTM on ``cuda_seq`` at ``n`` sessions, capacity
+    "auto" over pow2_ladder(CHUNK), prewarmed."""
+    from repro_torch.serve import StreamingEngine, pow2_ladder, prewarm
+    eng = StreamingEngine(params, cfg, backend="cuda_seq", max_sessions=n,
+                          chunk_capacity="auto", ladder=pow2_ladder(CHUNK),
+                          device=dev, **kw)
+    prewarm(eng)
+    return eng
+
+
+def _ctrl_chunks(eng, streams, sids, rng, bound=CHUNK):
+    """Each live session of ``sids`` its next ragged chunk of 1..bound
+    steps (the first exactly ``bound``, so the tick's rung follows it)."""
+    lens = rng.integers(1, bound + 1, size=len(sids))
+    lens[0] = bound
+    out = {}
+    for k, sid in enumerate(sids):
+        if sid in eng.store:
+            pos = eng.store.get(sid).steps
+            out[sid] = streams[k][pos:pos + int(lens[k])]
+    return out
+
+
+def _ctrl_step(eng, chunks, counts):
+    """One counted engine tick (launches added to ``counts``), synced."""
+    import torch
+    reset_launches()
+    res = eng.step(chunks)
+    torch.cuda.synchronize()
+    for name, v in read_launches().items():
+        counts[name] += v
+    return res
+
+
+def _ctrl_launch_check(what, metrics, per_tick, counts=None, want=None):
+    """Each tick of ``metrics`` launched ``per_tick`` layer kernels; and
+    ``counts`` (a call's launch counts) holds ``want`` launches of
+    ``mcd_lstm_seq`` and nothing else."""
+    bad = [m.tick for m in metrics if m.launches != per_tick]
+    if bad:
+        raise RuntimeError(f"5g {what}: ticks {bad} did not launch "
+                           f"{per_tick} layer kernels")
+    if counts is not None and (counts["mcd_lstm_seq"] != want
+                               or sum(counts.values()) != want):
+        raise RuntimeError(f"5g {what}: launches {counts}, {want} wanted")
+
+
+def _fit_dict(fit):
+    return None if fit is None else dataclasses.asdict(fit)
+
+
+def _calibration(cfg, params, dev, counts, per_layer):
+    """5g (a): the roofline calibrated on the card."""
+    import numpy as np
+    from repro_torch.dse import calibrate
+    from repro_torch.launch.stream import build_streams
+    from repro_torch.serve import CoDesignController
+    from repro_torch.serve.scheduler import percentile
+    rng = np.random.default_rng(50)
+    pooled, fits, arch = [], {}, None
+    for n in CAL_SESSIONS:
+        eng = _ctrl_engine(cfg, params, dev, n)
+        arch = CoDesignController._derive_arch(
+            eng, CoDesignController._derive_config(eng))
+        streams, _ = build_streams(n, CAL_BEATS, seed=50 + n)
+        sids = [f"c{k}" for k in range(n)]
+        for sid in sids:
+            eng.open_session(sid)
+        for _ in range(CAL_CYCLES):
+            for bound in CAL_BOUNDS:
+                for _ in range(CAL_BLOCK):
+                    _ctrl_step(eng, _ctrl_chunks(eng, streams, sids, rng,
+                                                 bound), counts)
+        metrics = list(eng.metrics)
+        _ctrl_launch_check(f"calibration at {n} sessions", metrics,
+                           per_layer)
+        if any(m.compiles for m in metrics):
+            raise RuntimeError("5g: a calibration tick captured a graph")
+        fits[n] = calibrate.fit_roofline(metrics, arch)
+        pooled += metrics
+    fit = calibrate.fit_roofline(pooled, arch)
+    # The same window without each engine's first tick: how far that one
+    # tick (the eager summaries' first run at a shape) moves the fit.
+    steady = calibrate.fit_roofline([m for m in pooled if m.tick], arch)
+    if fit is None or any(f is None for f in fits.values()):
+        raise RuntimeError("5g: a calibration window gave no fit")
+    shapes = {}
+    for m in pooled:
+        shapes.setdefault((m.batch_rows, m.capacity), []).append(
+            m.duration_s)
+    table = []
+    for (rows, cap), durs in sorted(shapes.items()):
+        raw = calibrate.tick_raw_seconds(arch, rows=rows, capacity=cap)
+        table.append({"rows": rows, "capacity": cap, "ticks": len(durs),
+                      "raw_us": raw * 1e6,
+                      "observed_ms_p50": percentile(durs, 50) * 1e3,
+                      "predicted_ms": fit.predict(raw) * 1e3})
+    if min(t["ticks"] for t in table) < 2:
+        raise RuntimeError(f"5g: a (sessions, rung) pair did not recur: "
+                           f"{table}")
+    first = [m.duration_s * 1e3 for m in pooled if not m.tick]
+    return {"pooled": _fit_dict(fit),
+            "by_sessions": {n: _fit_dict(f) for n, f in fits.items()},
+            "pooled_without_first_ticks": _fit_dict(steady),
+            "first_tick_ms": dict(zip(CAL_SESSIONS, first)),
+            "max_tick_ms": max(m.duration_s for m in pooled) * 1e3,
+            "shapes": table}
+
+
+def _ctrl_same(got, want, what):
+    import torch
+    for sid, r in want.items():
+        for x, y in zip(got[sid].summary, r.summary, strict=True):
+            max_abs_diff(x, y, what)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise RuntimeError(f"5g {what}: {sid} differs")
+
+
+def _twin(ctrl, cfg, params, dev, old):
+    """A prewarmed ``cuda_seq`` engine at the controller's new config fed
+    ``convert_session`` of the swap's pre-swap sessions (the old engine's
+    scheduler window loaded, as the swap carries it)."""
+    from repro_torch.serve import carry_dtypes, convert_session
+    new = ctrl.last_swap["new_config"]
+    twin = _ctrl_engine(dataclasses.replace(cfg, mcd=cfg.mcd.replace(
+        n_samples=new.n_samples)), params, dev, old.max_sessions,
+        precision=new.precision)
+    twin._scheduler.load_state(old._scheduler.state())
+    dts = carry_dtypes("lstm", new.precision, "cuda_seq")
+    for sess in ctrl.last_swap["old_sessions"]:
+        twin.attach_session(convert_session(
+            sess, n_samples=new.n_samples, part_dtypes=dts))
+    return twin
+
+
+def _controlled(report, cfg, params, dev, counts, per_layer):
+    """5g (b): the attached controller on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.stream import build_streams
+    from repro_torch.serve import (CoDesignController, JsonlSink, KnobSpace,
+                                   SLOPolicy)
+    from repro_torch.serve.scheduler import percentile
+    n = SESSIONS
+    eng = _ctrl_engine(cfg, params, dev, n)
+    streams, _ = build_streams(n + CTRL_QUEUED, CTRL_BEATS, seed=60)
+    sids = [f"k{k}" for k in range(n + CTRL_QUEUED)]
+    for sid in sids[:n]:
+        eng.open_session(sid)
+    for k, sid in enumerate(sids[n:]):
+        if eng.admit(sid, priority=k % 3) is not None:
+            raise RuntimeError("5g: a ticket went live on a full store")
+    drawn = {sid: set(eng.store.get(sid).rows.tolist()) for sid in sids[:n]}
+    rng = np.random.default_rng(61)
+    for _ in range(CTRL_WARM + CTRL_WINDOW):
+        _ctrl_step(eng, _ctrl_chunks(eng, streams, sids, rng), counts)
+    warm = [m.duration_s for m in eng.metrics][-CTRL_WINDOW:]
+    warm_p95 = percentile(warm, 95)
+    slo = SLOPolicy(p95_tick_s=CTRL_SLO * warm_p95, min_samples=CTRL_FLOOR)
+    print(f"5g SLO: p95 <= {slo.p95_tick_s * 1e3:.3f} ms ({CTRL_SLO} x the "
+          f"warm-up p95 {warm_p95 * 1e3:.3f} ms), S >= {CTRL_FLOOR}",
+          flush=True)
+    path = os.path.join(ROOT, "build", "phase5g", "decisions.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    config = CoDesignController._derive_config(eng)
+    ctrl = CoDesignController(
+        eng, slo, knobs=KnobSpace.around(config, precisions=(None, "bf16")),
+        decision_sink=JsonlSink(path), window=CTRL_WINDOW)
+    twin, swaps = None, []
+    for _ in range(CTRL_TICKS):
+        cur = ctrl.engine
+        chunks = _ctrl_chunks(cur, streams, sids, rng)
+        res = _ctrl_step(cur, chunks, counts)
+        if twin is not None:
+            _ctrl_same(res, twin.step(chunks),
+                          f"tick {cur.tick - 1} against the twin")
+        queued = cur.queued_sessions
+        rec = ctrl.maybe_reconfigure()
+        if rec is None or not rec.applied:
+            continue
+        new = ctrl.engine
+        if new.queued_sessions != queued or len(queued) != CTRL_QUEUED:
+            raise RuntimeError(f"5g: the queue {queued} came back "
+                               f"{new.queued_sessions}")
+        if rec.winner["n_samples"] <= rec.current["n_samples"]:
+            for sid in new.active_sessions:
+                if not set(new.store.get(sid).rows.tolist()) <= drawn[sid]:
+                    raise RuntimeError(f"5g: {sid} drew new rows in a "
+                                       "downshift")
+        twin = _twin(ctrl, cfg, params, dev, cur)
+        swaps.append({"rec": rec, "seconds": ctrl.last_swap["seconds"]})
+    ctrl.decision_sink.close()
+    final = ctrl.engine
+    if twin is not None:
+        for sid in final.active_sessions:
+            for la, lb in zip(final.store.get(sid).state,
+                              twin.store.get(sid).state, strict=True):
+                for x, y in zip(la, lb, strict=True):
+                    if x.dtype != y.dtype or not torch.equal(x, y):
+                        raise RuntimeError(f"5g: the final carry of {sid} "
+                                           "differs from the twin's")
+    decisions = ctrl.decisions
+    with open(path) as fh:
+        lines = [json.loads(line) for line in fh]
+    if len(lines) != len(decisions) or [
+            (x["tick"], x["reason"], x["applied"]) for x in lines] != [
+            (r.tick, r.reason, r.applied) for r in decisions]:
+        raise RuntimeError(f"5g: the decision trail has {len(lines)} lines "
+                           f"for {len(decisions)} decisions")
+    good = [s for s in swaps if s["rec"].reason == "slo-breach"
+            and CTRL_FLOOR <= s["rec"].winner["n_samples"] < S]
+    if not good:
+        raise RuntimeError("5g: no applied slo-breach downshift to "
+                           f"{CTRL_FLOOR} <= S < {S}: " + json.dumps(
+                               [dataclasses.asdict(r) for r in decisions]))
+    first = good[0]["rec"]
+    post = [m for m in final.metrics if m.tick > first.tick]
+    if any(m.compiles for m in post):
+        raise RuntimeError("5g: a tick after the swap captured a graph")
+    _ctrl_launch_check("controlled", list(final.metrics), per_layer)
+    cool = [m.duration_s for m in post
+            if m.tick <= first.tick + ctrl.cooldown_ticks]
+    # Rows: close the live sessions one by one; each close drains a queued
+    # ticket, whose fresh rows no session ever drew.
+    old_rows = set().union(*drawn.values())
+    for sid in list(final.active_sessions):
+        final.close_session(sid)
+    fresh = [final.store.get(sid).rows.tolist() for sid in sids[n:]]
+    flat = [r for rows in fresh for r in rows]
+    if len(set(flat)) != len(flat) or set(flat) & old_rows:
+        raise RuntimeError("5g: a row was drawn twice")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return {
+        "sessions": n, "queued": CTRL_QUEUED, "warm_ticks": CTRL_WARM,
+        "window": CTRL_WINDOW, "warm_p95_ms": warm_p95 * 1e3,
+        "slo_p95_ms": slo.p95_tick_s * 1e3, "min_samples": CTRL_FLOOR,
+        "decisions": [{"tick": r.tick, "reason": r.reason,
+                       "applied": r.applied, "winner": r.winner,
+                       "predicted_ms": (None if r.predicted_s is None
+                                        else r.predicted_s * 1e3),
+                       "observed_p95_ms": r.observed["duration_s_p95"] * 1e3,
+                       "observed_p50_ms": r.observed["duration_s_p50"] * 1e3,
+                       "fit": r.fit} for r in decisions],
+        "swaps": [{"tick": s["rec"].tick,
+                   "winner": s["rec"].winner,
+                   "apply_ms": {k: v * 1e3 for k, v in s["seconds"].items()},
+                   "apply_ms_total": sum(s["seconds"].values()) * 1e3}
+                  for s in swaps],
+        "first_swap": {
+            "winner": first.winner, "reason": first.reason,
+            "predicted_ms": first.predicted_s * 1e3, "fit": first.fit,
+            "cooldown_ticks": len(cool),
+            "observed_ms_p50": percentile(cool, 50) * 1e3,
+            "observed_ms_p95": percentile(cool, 95) * 1e3,
+            "slo_met": percentile(cool, 95) <= slo.p95_tick_s},
+        "post_swap_compiles": sum(m.compiles for m in post),
+        "trail_lines": len(lines), "rows_fresh": len(flat)}
+
+
+def _fleet_controlled(cfg, params, dev, counts):
+    """5g (c): a FleetController over two tenants on the card."""
+    import numpy as np
+    from repro_torch.launch.stream import build_streams
+    from repro_torch.serve import (FleetController, FleetEngine, KnobSpace,
+                                   ServingConfig, Session, SLOPolicy,
+                                   StreamingEngine, TenantSpec, prewarm)
+    from repro_torch.serve.scheduler import percentile
+    gcfg, gparams, _ = ecg_model("classifier", "gru", dev)
+    rows = CTRL_FLEET_ROWS
+    fleet = FleetEngine([
+        TenantSpec(name="ward", cfg=cfg, params=params, max_sessions=rows,
+                   chunk_capacity=CHUNK),
+        TenantSpec(name="night", cfg=gcfg, params=gparams,
+                   max_sessions=rows, chunk_capacity=CHUNK,
+                   precision="bf16", backend="cuda_step")], device=dev)
+    for g in fleet.groups.values():
+        prewarm(g.engine)
+    night = fleet.group_of("night").engine
+    solo = StreamingEngine(gparams, gcfg, backend="cuda_step",
+                           max_sessions=rows, chunk_capacity=CHUNK,
+                           precision="bf16", device=dev)
+    prewarm(solo)
+    streams = {t: build_streams(rows, CTRL_BEATS, seed=70 + k)[0]
+               for k, t in enumerate(("ward", "night"))}
+    sids = [f"s{k}" for k in range(rows)]
+    for t in streams:
+        for sid in sids:
+            fleet.admit(t, sid)
+    for sid in sids:
+        sess = night.store.get(f"night/{sid}")
+        solo.attach_session(Session(sid=sess.sid, rows=sess.rows.copy(),
+                                    seed=sess.seed))
+    rng = np.random.default_rng(71)
+
+    def tick():
+        import torch
+        chunks = {}
+        for t in streams:
+            store = fleet.group_of(t).engine.store
+            lens = rng.integers(1, CHUNK + 1, size=rows)
+            chunks[t] = {sid: streams[t][k][
+                store.get(f"{t}/{sid}").steps:][:int(lens[k])]
+                for k, sid in enumerate(sids)}
+        reset_launches()
+        res = fleet.step(chunks)
+        torch.cuda.synchronize()
+        for name, v in read_launches().items():
+            counts[name] += v
+        want = solo.step({f"night/{s}": c
+                          for s, c in chunks["night"].items()})
+        _ctrl_same(res["night"], {s: want[f"night/{s}"]
+                                     for s in chunks["night"]},
+                      f"fleet tick {fleet.tick - 1}, night against solo")
+
+    for _ in range(CTRL_WARM + CTRL_WINDOW):
+        tick()
+    warm = [m.duration_s for m in fleet.metrics
+            if m.tenant == "ward"][-CTRL_WINDOW:]
+    warm_p95 = percentile(warm, 95)
+    slo = SLOPolicy(p95_tick_s=CTRL_SLO * warm_p95, min_samples=CTRL_FLOOR)
+    fleet.specs["ward"] = dataclasses.replace(fleet.specs["ward"], slo=slo)
+    config = ServingConfig(n_samples=S, chunk_capacity=CHUNK)
+    ctrl = FleetController(fleet, knobs={"ward": KnobSpace.around(
+        config, precisions=(None, "bf16"))}, window=CTRL_WINDOW)
+    if set(ctrl.controllers) != {"ward"}:
+        raise RuntimeError(f"5g: the fleet controller manages "
+                           f"{sorted(ctrl.controllers)}")
+    for _ in range(CTRL_TICKS):
+        tick()
+        ctrl.maybe_reconfigure()
+    decisions = ctrl.decisions
+    applied = [r for r in decisions if r.applied]
+    if not applied or {r.tenant for r in decisions} != {"ward"}:
+        raise RuntimeError("5g fleet: decisions " + json.dumps(
+            [dataclasses.asdict(r) for r in decisions]))
+    if fleet.group_of("night").engine is not night or \
+            fleet.group_of("ward").engine.n_samples != \
+            applied[-1].winner["n_samples"]:
+        raise RuntimeError("5g fleet: the wrong tenant was reconfigured")
+    ward = [m for m in fleet.metrics if m.tenant == "ward"
+            and m.tick > applied[0].tick]
+    if not ward or any(m.compiles for m in ward):
+        raise RuntimeError("5g fleet: ward captured after its swap: "
+                           f"{[m.compiles for m in ward]}")
+    return {"rows": rows, "warm_p95_ms": warm_p95 * 1e3,
+            "slo_p95_ms": slo.p95_tick_s * 1e3,
+            "decisions": [{"tick": r.tick, "tenant": r.tenant,
+                           "reason": r.reason, "applied": r.applied,
+                           "winner": r.winner,
+                           "predicted_ms": (None if r.predicted_s is None
+                                            else r.predicted_s * 1e3),
+                           "observed_p95_ms":
+                               r.observed["duration_s_p95"] * 1e3}
+                          for r in decisions],
+            "ward_after_ms_p50": percentile([m.duration_s for m in ward],
+                                            50) * 1e3,
+            "ward_first_tick_after": {"ms": ward[0].duration_s * 1e3,
+                                      "compiles": ward[0].compiles}
+            if ward else None,
+            "night_bit_equal_to_solo": True}
+
+
+def _predict_cell(cfg, params, dev, counts):
+    """5g (d): ``predict`` fold against scan at the classifier's width."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bayesian, classifier as clf
+    from repro_torch.launch.stream import build_streams
+    streams, _ = build_streams(SESSIONS, 1, seed=80)
+    x = torch.from_numpy(np.stack(streams)).to(dev)
+
+    def run(strategy, backend="cuda_seq"):
+        return bayesian.predict(
+            lambda p, xx, r: clf.apply(p, xx, r, cfg, backend=backend,
+                                       device=dev),
+            params, x, cfg.mcd, strategy=strategy)
+
+    out, launches = {}, {}
+    for strategy in ("fold", "scan"):
+        reset_launches()
+        out[strategy] = run(strategy)
+        torch.cuda.synchronize()
+        launches[strategy] = read_launches()
+        for name, v in launches[strategy].items():
+            counts[name] += v
+    want = {"fold": cfg.num_layers, "scan": S * cfg.num_layers}
+    for strategy, got in launches.items():
+        _ctrl_launch_check(f"predict {strategy}", [], 0, got,
+                           want[strategy])
+    fold, scan = out["fold"], out["scan"]
+    if fold.shape != (S, SESSIONS, cfg.num_classes) or \
+            not torch.equal(fold, scan):
+        raise RuntimeError("5g predict: fold and scan differ")
+    ref = run("fold", "reference")
+    err = {s: max_abs_diff(out[s], ref, f"5g predict {s}")
+           for s in out}
+    if max(err.values()) > TOL:
+        raise RuntimeError(f"5g predict: against the reference {err}")
+    rec = {"batch": SESSIONS, "S": S, "T": T_BEAT, "max_abs_err": err,
+           "bit_equal_fold_scan": True}
+    for strategy in out:
+        rec[strategy] = {
+            "launches": launches[strategy]["mcd_lstm_seq"],
+            "device_ms": device_ms(lambda s=strategy: run(s), 3,
+                                   "mcd_lstm_seq_kernel"),
+            "call_ms": cuda_time_ms(lambda s=strategy: run(s), 5)}
+    return rec
+
+
+def controller_phase(report, dev):
+    """Phase 5g: the co-design loop on the card, at the classifier's full
+    width (I = 1, H = 8, NL = 3, YNY, p = 0.125, S = 30, ``cuda_seq``,
+    through the tick graphs).  (a) The roofline calibrated against prewarmed
+    engines at CAL_SESSIONS sessions, capacity "auto" over (8, 16, 20),
+    ragged chunks in blocks of bounds CAL_BOUNDS: ``fit_roofline`` on the
+    pooled window and on each engine's, with the raw roofline of each
+    (rows, rung) shape beside its observed p50.  (b) An attached
+    ``CoDesignController`` on 64 sessions (and CTRL_QUEUED queued tickets),
+    its SLO CTRL_SLO x the p95 of a warm-up window in this process,
+    ``min_samples`` CTRL_FLOOR, knobs ``KnobSpace.around(config,
+    precisions=(None, "bf16"))``: an applied slo-breach downshift to
+    CTRL_FLOOR <= S < 30, no capture after the swap, the queue and its
+    order kept, no row drawn twice, every post-swap summary and the final
+    carries bit-equal to a prewarmed engine at the winner's config fed the
+    converted pre-swap sessions, the JSONL trail one line a decision.  (c)
+    A ``FleetController`` over a fleet of the classifier LSTM (fp32
+    ``cuda_seq``, an SLO from its own warm-up) and the classifier GRU (bf16
+    ``cuda_step``, no SLO): only the first reconfigured, no capture on its
+    ticks after the swap, the second's engine object kept and its summaries bit-equal to an engine of its own
+    ticked in turns, every record tagged.  (d) ``predict`` fold (one
+    1920-row launch a layer) against scan (30 launches of 64 rows a layer):
+    bit-equal, each within TOL of the ``reference`` backend; launches and
+    device ms of each."""
+    cfg, params, per_layer = ecg_model("classifier", "lstm", dev)
+    total = {name: 0 for name in ALL_KERNELS}
+    times = {}
+    t0 = time.perf_counter()
+    rec = {"card": report["card"],
+           "calibration": _calibration(cfg, params, dev, total, per_layer)}
+    times["a"] = time.perf_counter() - t0
+    rec["controller"] = _controlled(report, cfg, params, dev, total,
+                                    per_layer)
+    times["b"] = time.perf_counter() - t0 - sum(times.values())
+    rec["fleet"] = _fleet_controlled(cfg, params, dev, total)
+    times["c"] = time.perf_counter() - t0 - sum(times.values())
+    rec["predict"] = _predict_cell(cfg, params, dev, total)
+    times["d"] = time.perf_counter() - t0 - sum(times.values())
+    rec["seconds"] = times
+    rec["launches"] = {k: v for k, v in total.items() if v}
+    report["codesign"] = rec
+    print("codesign " + json.dumps(rec), flush=True)
+    return total
+
+
 # -- the LM decode path -----------------------------------------------------
 
 def _lm_rows(dev, n):
@@ -4432,7 +4930,7 @@ def main(argv=None) -> int:
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
             ("5b", precision_serving_phase), ("5c", graph_phase),
             ("5d", durable_phase), ("5e", student_phase),
-            ("5f", fleet_phase),
+            ("5f", fleet_phase), ("5g", controller_phase),
             ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):

@@ -13,6 +13,13 @@ them all a tick (see :func:`load_fleet`).  ``--chunk-len``, ``--ragged``,
 ``--metrics-out``, ``--snapshot-*``, ``--resume`` and ``--device`` apply
 fleet-wide.
 
+``--controller`` runs the online co-design loop on the single-tenant engine
+(``serve.controller.CoDesignController``): after each tick it calibrates
+the GPU roofline against the observed ticks and, when the SLO
+(``--slo-p95-ms``, ``--min-tokens-per-sec``, the ``--min-samples`` floor)
+is breached, swaps in a prewarmed engine at a smaller S, sessions intact;
+``--decisions-out`` appends its decisions as JSON lines.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 4 \
       --chunk-len 20 --samples 8 --beats 2
@@ -32,6 +39,10 @@ Usage:
       --samples 8 --early-exit-threshold 1e-3 --min-samples 2
   PYTHONPATH=src python -m repro_torch.launch.stream --tenants fleet.json \
       --chunk-len 20 --metrics-out fleet.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.stream --sessions 64 \
+      --samples 30 --beats 4 --ragged --capacity auto --prewarm \
+      --controller --slo-p95-ms 3 --min-samples 8 \
+      --decisions-out decisions.jsonl
 """
 
 from __future__ import annotations
@@ -47,8 +58,9 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint
 from repro_torch.core import autoencoder as ae, classifier as clf, mcd
 from repro_torch.data import ecg
-from repro_torch.serve import (FleetEngine, JsonlSink, StreamingEngine,
-                               TenantSpec, pow2_ladder, prewarm, summarize)
+from repro_torch.serve import (CoDesignController, FleetEngine, JsonlSink,
+                               SLOPolicy, StreamingEngine, TenantSpec,
+                               pow2_ladder, prewarm, summarize)
 
 #: The reference's backend names, as a fleet table written for it names
 #: them (a snapshot's backend name is not checked either).
@@ -266,9 +278,22 @@ def main(argv=None):
                     "capture; needs --capacity fixed or auto")
     ap.add_argument("--metrics-out", default=None,
                     help="append per-tick TickMetrics as JSON lines here")
+    ap.add_argument("--controller", action="store_true",
+                    help="run the online co-design controller: calibrate "
+                    "the GPU roofline against observed ticks and "
+                    "reconfigure S at tick boundaries to hold the SLO "
+                    "(serve.controller)")
+    ap.add_argument("--slo-p95-ms", type=float, default=50.0,
+                    help="SLO: p95 tick latency bound in milliseconds")
+    ap.add_argument("--min-tokens-per-sec", type=float, default=0.0,
+                    help="SLO: minimum delivered chain-timesteps/sec (p50)")
+    ap.add_argument("--decisions-out", default=None,
+                    help="append controller DecisionRecords as JSON lines "
+                    "(default: in-memory ring only)")
     ap.add_argument("--min-samples", type=int, default=1,
-                    help="uncertainty floor: early exit never takes a "
-                    "session below this many chains")
+                    help="uncertainty floor: neither the controller nor "
+                    "early exit ever takes a session below this many "
+                    "chains")
     ap.add_argument("--early-exit-threshold", type=float, default=None,
                     metavar="DELTA",
                     help="retire a session's surplus MC chains once halving "
@@ -289,6 +314,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.resume and not args.snapshot_dir:
         ap.error("--resume requires --snapshot-dir")
+    if args.tenants and (args.controller or args.decisions_out):
+        ap.error("--controller and --decisions-out drive the single-engine "
+                 "path; a fleet's per-tenant loops are "
+                 "serve.FleetController's, which --tenants does not run")
 
     device = resolve_device(args.device)
     if args.tenants:
@@ -315,6 +344,17 @@ def main(argv=None):
         caps = prewarm(eng)
         print(f"prewarmed capacities {caps} in "
               f"{time.perf_counter() - t0:.2f}s")
+    ctrl = None
+    if args.controller:
+        slo = SLOPolicy(p95_tick_s=args.slo_p95_ms / 1e3,
+                        min_tokens_per_sec=args.min_tokens_per_sec,
+                        min_samples=args.min_samples)
+        trail = (JsonlSink(args.decisions_out) if args.decisions_out
+                 else None)
+        ctrl = CoDesignController(eng, slo, decision_sink=trail)
+        print(f"controller on: SLO p95<={args.slo_p95_ms}ms "
+              f"tokens/s>={args.min_tokens_per_sec} "
+              f"S>={args.min_samples} | knobs S{list(ctrl.knobs.samples)}")
     # Streams are regenerated from their generation params, which ride the
     # snapshot; the per-stream cursor lives in the session (steps served).
     done: set[str] = set()
@@ -367,6 +407,13 @@ def main(argv=None):
             if m.reclaimed_rows:
                 stat += f" -{m.reclaimed_rows}"
         print(f"tick {m.tick:3d} [{stat}] | " + " | ".join(line))
+        if ctrl is not None:
+            rec = ctrl.maybe_reconfigure()
+            if rec is not None:
+                print(f"  controller[{rec.reason}] applied={rec.applied} "
+                      f"winner={rec.winner} "
+                      f"p95={rec.observed['duration_s_p95'] * 1e3:.2f}ms")
+            eng = ctrl.engine       # maybe a prewarmed replacement
         for sid in list(eng.active_sessions):
             k = int(sid.split("-")[1])
             if eng.store.get(sid).steps >= len(streams[k]):
@@ -394,6 +441,13 @@ def main(argv=None):
     if args.early_exit_threshold is not None:
         print(f"early exit: {agg['reclaimed_rows']} chain(s) retired | "
               f"mean active chains {agg['active_chains_mean']:.1f}")
+    if ctrl is not None:
+        n_applied = sum(1 for r in ctrl.decisions if r.applied)
+        print(f"controller: {len(ctrl.decisions)} decision(s), "
+              f"{n_applied} applied | final config {ctrl.config}")
+        if args.decisions_out:
+            ctrl.decision_sink.close()
+            print(f"decision trail -> {args.decisions_out}")
     if args.metrics_out:
         eng.metrics_sink.close()
         print(f"tick metrics -> {args.metrics_out}")

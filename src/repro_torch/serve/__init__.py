@@ -4,13 +4,17 @@ priority queue, and the fleet's weighted-fair queue), ``scheduler``
 (adaptive launch shapes, tick metrics and ``prewarm``), ``graphs`` (a
 serving step captured as one CUDA graph), ``persistence`` (crash-safe
 snapshots in the reference's format), ``fleet`` (heterogeneous tenants in
-one tick) and ``controller`` (the data plane of a reconfiguration)."""
+one tick) and ``controller`` (online co-design: the calibrated DSE over
+the live knobs, applied through prewarmed config swaps under an SLO)."""
 
 from repro_torch.serve.admission import (AdmissionQueue, DrainRejected,
                                          FleetTicket, QueueFull, Ticket,
                                          WeightedFairQueue)
-from repro_torch.serve.controller import (ServingConfig, carry_dtypes,
-                                          convert_session)
+from repro_torch.serve.controller import (CoDesignController,
+                                          DecisionRecord, FleetController,
+                                          KnobSpace, ServingConfig,
+                                          SimulatedLoadSink, SLOPolicy,
+                                          carry_dtypes, convert_session)
 from repro_torch.serve.fleet import FleetEngine, TenantSpec
 from repro_torch.serve.graphs import StaticStep
 from repro_torch.serve.persistence import (FLEET_FORMAT_VERSION,
@@ -27,12 +31,14 @@ from repro_torch.serve.stream import (ChunkResult, JsonlSink, MetricsSink,
                                       RingBufferSink, StreamingEngine)
 
 __all__ = ["AdmissionQueue", "AdaptiveTickScheduler", "CapacityError",
-           "ChunkResult", "DrainRejected", "FLEET_FORMAT_VERSION",
-           "FORMAT_VERSION", "FleetEngine", "FleetTicket", "JsonlSink",
-           "MetricsSink", "QueueFull", "RingBufferSink",
-           "ServingConfig", "Session", "SessionStore", "StaticStep",
-           "StreamingEngine", "TenantSpec", "Ticket", "TickMetrics",
-           "WeightedFairQueue", "carry_dtypes", "convert_session",
-           "load_any_snapshot_meta", "load_fleet_meta",
-           "load_snapshot_meta", "pow2_ladder", "prewarm", "restore_fleet",
-           "restore_store", "snapshot_fleet", "snapshot_store", "summarize"]
+           "ChunkResult", "CoDesignController", "DecisionRecord",
+           "DrainRejected", "FLEET_FORMAT_VERSION", "FORMAT_VERSION",
+           "FleetController", "FleetEngine", "FleetTicket", "JsonlSink",
+           "KnobSpace", "MetricsSink", "QueueFull", "RingBufferSink",
+           "SLOPolicy", "ServingConfig", "Session", "SessionStore",
+           "SimulatedLoadSink", "StaticStep", "StreamingEngine",
+           "TenantSpec", "Ticket", "TickMetrics", "WeightedFairQueue",
+           "carry_dtypes", "convert_session", "load_any_snapshot_meta",
+           "load_fleet_meta", "load_snapshot_meta", "pow2_ladder", "prewarm",
+           "restore_fleet", "restore_store", "snapshot_fleet",
+           "snapshot_store", "summarize"]

@@ -65,7 +65,9 @@ class TenantSpec:
     ``n_samples`` overrides ``cfg.mcd.n_samples``: the tenant's chain
     ceiling.  ``weight`` is its share of admissions under overload.
     ``max_sessions`` caps the tenant's live sessions even inside a shared
-    launch group.  ``early_exit_threshold`` / ``min_samples`` and
+    launch group.  ``slo`` (an ``SLOPolicy``) is opaque to the engine: a
+    ``FleetController`` reads it.  ``early_exit_threshold`` /
+    ``min_samples`` and
     ``student`` / ``student_escalate_threshold`` are the engine's options
     of those names, part of the launch-group signature.
     """
@@ -79,6 +81,7 @@ class TenantSpec:
     backend: str = "cuda_seq"
     max_sessions: int = 64
     chunk_capacity: int | str | None = None
+    slo: Any = None                # SLOPolicy, read by FleetController
     early_exit_threshold: float | None = None
     min_samples: int = 1
     student: Any = None
@@ -459,7 +462,8 @@ class FleetEngine:
         its own; its former group-mates are untouched.  Both stores' row
         cursors advance past every row the transfer drew.  The new engine,
         as the reference's, takes no student heads, and has no captured
-        graph yet: its first tick captures one.  A config with ``shards``
+        graph yet: its first tick captures one
+        (``FleetController`` prewarms it first).  A config with ``shards``
         other than 1 is refused: the mesh is not ported (ROADMAP A8).
         """
         if getattr(new, "shards", 1) != 1:

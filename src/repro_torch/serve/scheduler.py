@@ -47,6 +47,9 @@ class TickMetrics:
     pad_waste: float       # 1 - live_chain_steps/padded_steps
     duration_s: float      # wall clock of the tick, ended by a device sync
     tokens_per_sec: float  # live chain-timesteps / duration
+    shards: int = 1        # data-parallel width the tick launched across
+                           # (always 1: the mesh is not ported, ROADMAP
+                           # A8); dse.calibrate prices the tick with it
     queue_wait_s: float = 0.0  # oldest-pending admission age at the drain
     launches: int = 0      # layer-kernel launches this tick (one per layer
                            # on the kernel backend; 0 on the reference)
@@ -101,6 +104,10 @@ class AdaptiveTickScheduler:
                              f"got {percentile}")
         self.percentile = float(percentile)
         self._window: deque[int] = deque(maxlen=int(window))
+
+    @property
+    def max_capacity(self) -> int:
+        return self.ladder[-1]
 
     def plan(self, lens: Iterable[int]) -> int:
         """Record this tick's chunk lengths; return the capacity to launch."""

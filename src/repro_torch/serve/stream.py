@@ -270,6 +270,7 @@ class StreamingEngine:
             raise ValueError(f"chunk_capacity must be an int, None or "
                              f"'auto', got {chunk_capacity!r}")
         self._fixed = chunk_capacity is not None
+        self.graphs = bool(graphs)
         # (capacity, chunk dtype) -> _TickStep; None serves eagerly.
         self._graphs: dict | None = (
             {} if graphs and self._fixed and backend != "reference"

@@ -26,8 +26,12 @@ tests/test_torch_cuda_graphs.py``.
 * The fleet: group engines replaying their graphs equal the same fleet
   served eagerly, and every tenant equals an engine of its own holding
   its sessions on the same rows, bit for bit.
+* The co-design controller: a swap's prewarmed engine captures nothing
+  after it and equals the converted-attach twin bit for bit.
 * A capture that fails raises, and leaves the launch counts as they were.
 """
+
+import dataclasses
 
 import pytest
 
@@ -562,6 +566,68 @@ def test_fleet_equals_solo_on_the_card(dev, backend):
     for tenant, eng in solo.items():
         for sess in fleet.sessions_of(tenant):
             _same_session(sess, eng.store.get(sess.sid))
+
+
+@pytest.mark.parametrize("new", [dict(n_samples=2),
+                                 dict(n_samples=S, precision="bf16")])
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+def test_controller_swap_on_the_card(dev, backend, new):
+    """An attached controller's swap: the new engine, prewarmed by
+    ``apply_config``, captures no graph on any tick after it, and its
+    ticks equal a prewarmed engine at the new config fed the converted
+    pre-swap sessions, bit for bit."""
+    from repro_torch.serve.controller import (CoDesignController,
+                                              ServingConfig, SLOPolicy,
+                                              carry_dtypes, convert_session)
+    cfg, params = _model("classifier", "lstm", dev)
+    rng = np.random.default_rng(11)
+    sigs = [rng.normal(size=(60, 1)).astype(np.float32) for _ in range(3)]
+    sids = [f"s{k}" for k in range(3)]
+    # pow2_ladder(12): the ladder a swap to chunk_capacity 12 keeps, so
+    # the scheduler's window crosses the swap.
+    eng = StreamingEngine(params, cfg, backend=backend, max_sessions=4,
+                          chunk_capacity="auto", ladder=(8, 12),
+                          device=dev)
+    prewarm(eng)
+    for sid in sids:
+        eng.open_session(sid)
+    plan = rng.integers(1, 13, size=(3, 3))
+    for t in range(3):
+        eng.step({sid: sigs[k][eng.store.get(sid).steps:][:plan[k, t]]
+                  for k, sid in enumerate(sids)})
+    ctrl = CoDesignController(eng, SLOPolicy(p95_tick_s=1.0))
+    new = ServingConfig(chunk_capacity=12, **new)
+    swapped = ctrl.apply_config(new)
+    assert swapped.device == eng.device and swapped._graphs is not None
+    assert swapped._scheduler.ladder == eng._scheduler.ladder
+    assert all(e.step.ready and (dev.type != "cuda"
+                                 or e.step.graph is not None)
+               for e in swapped._graphs.values())
+    twin = StreamingEngine(
+        params, dataclasses.replace(cfg, mcd=cfg.mcd.replace(
+            n_samples=new.n_samples)),
+        backend=backend, max_sessions=4, chunk_capacity="auto",
+        ladder=(8, 12), precision=new.precision, device=dev)
+    prewarm(twin)
+    twin._scheduler.load_state(eng._scheduler.state())
+    dts = carry_dtypes("lstm", new.precision, backend)
+    for sess in ctrl.last_swap["old_sessions"]:
+        twin.attach_session(convert_session(sess, n_samples=new.n_samples,
+                                            part_dtypes=dts))
+    for t in range(3):
+        chunks = {sid: sigs[k][swapped.store.get(sid).steps:][:4 + t]
+                  for k, sid in enumerate(sids)}
+        got, want = swapped.step(chunks), twin.step(chunks)
+        for sid in sids:
+            for a, b in zip(got[sid].summary, want[sid].summary,
+                            strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    post = [m for m in swapped.metrics if m.tick >= ctrl.last_swap["tick"]]
+    assert len(post) == 3 and all(m.compiles == 0 for m in post)
+    assert [m.launches for m in post] == \
+        [m.launches for m in twin.metrics]
+    for sid in sids:
+        _same_session(swapped.store.get(sid), twin.store.get(sid))
 
 
 def test_a_dead_engine_is_not_freed_during_a_capture(dev):

@@ -137,8 +137,30 @@ def test_fleet_reconfigure_to_shards_raises():
         with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
             fleet.reconfigure_tenant("a", new)
     assert [list(g.tenants) for g in fleet.groups.values()] == groups
-    with pytest.raises(TypeError):
-        ServingConfig(n_samples=2, shards=4)
+    # ServingConfig carries the reference's ``shards`` knob since the
+    # controller's port (a detached plan prices it); serving it is refused.
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
+        fleet.reconfigure_tenant("a", ServingConfig(n_samples=2, shards=4))
+    assert [list(g.tenants) for g in fleet.groups.values()] == groups
+
+
+def test_dse_and_predict_are_port_files():
+    """``dse/`` and ``core/bayesian.py`` fall under the import rule above,
+    and the GPU roofline states the H100's peaks, no TPU constant."""
+    port = ROOT / "src" / "repro_torch"
+    want = {port / "dse" / f"{name}.py" for name in (
+        "__init__", "fpga_model", "search", "gpu_model", "calibrate")}
+    want.add(port / "core" / "bayesian.py")
+    assert want <= set(PORT_FILES)
+    tree = ast.parse((port / "dse" / "gpu_model.py").read_text())
+    numbers = {node.value for node in ast.walk(tree)
+               if isinstance(node, ast.Constant)
+               and isinstance(node.value, float)}
+    # The reference's roofline (``repro.launch.analysis``): bf16 per chip,
+    # HBM bytes/s, ICI bytes/s per link.
+    assert not numbers & {197e12, 819e9, 50e9}
+    from repro_torch.dse import gpu_model
+    assert (gpu_model.PEAK_FLOPS, gpu_model.HBM_BW) == (67e12, 3.35e12)
 
 
 def test_cpu_when_asked(no_gpu):
