@@ -246,6 +246,33 @@ Phases (each raises on failure; the exit code is then non-zero):
    kernel, split by marker kernels), the plain version, the bound at the
    storage widths and the bf16 cuDNN call (none at int8 / int4).
 
+11. Training on the card (after 7c, before 10; each part in a fresh
+   process of this script, as phase 10 and for its reason): (a) the ECG
+   classifier at the paper's §V settings through ``launch.train``'s own
+   ``setup`` (its ``make_ecg_loss`` and ``ecg_batches``: batch 64, whole
+   140-step beats, H 8, NL 3, YNY, p 0.125, lr 1e-3), TRAIN_STEPS
+   ``Trainer`` steps on the card: synced step seconds (p50 / p95 of the
+   unprofiled ones), the loss a step, peak memory, the aten ops of a
+   step (forward and backward apart, under a counting
+   ``TorchDispatchMode``, on the CPU), device busy ms and idle share from one
+   profile of the last TRAIN_PROFILE_STEPS steps (marker launches split
+   it by step; the steps' records must agree); the first
+   TRAIN_GATE_STEPS steps run again on the CPU from the same params
+   within TRAIN_LOSS_TOL / TRAIN_PARAM_TOL.  (b) The autoencoder
+   (``ecg-ae``: H 16, NL 2, YNYN, normal beats), the same records and
+   gate.  (c) Kill -> resume: a child process runs ``launch.train.main``
+   for the classifier with ``--ckpt-dir`` and a checkpoint every 2 steps,
+   is killed (SIGKILL) once its step-4 checkpoint is on disk, and the
+   same command relaunched finishes 8 steps: its params bit-equal to
+   (a)'s after 8 steps.  (d) qwen3-1.7b and mamba2-370m at full width
+   through ``launch.train.main --task lm --no-reduced`` at its defaults
+   (batch 64, seq 64, fp32, remat), 3 steps each: step seconds, tokens/s,
+   peak GB, the loss a step (finite).  (e)
+   ``repro_torch.examples.quickstart`` and ``ecg_monitoring --smoke``,
+   each a child process that must exit 0; their kernel launches join the
+   serving phases' (training reaches no kernel: no kernel has a
+   backward).
+
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
 phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
@@ -1596,7 +1623,7 @@ GRAPH_CELLS = (
     ("classifier", "lstm", "cuda_seq", "int8", "auto"),
     ("autoencoder", "gru", "cuda_seq", "int4", CHUNK),
 )
-GRAPH_RUNS = 3      # runs a side, graph and eager in turns
+GRAPH_RUNS = 2      # runs a side, graph and eager in turns
 GRAPH_TICKS = 12    # every beat in 12 ragged chunks
 TICK_PARTS = ("assemble", "to_device", "apply", "summaries", "store",
               "sync")
@@ -4578,7 +4605,7 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     return counts
 
 
-LM_GRAPH_RUNS = 3   # generate runs a side, graph and eager in turns
+LM_GRAPH_RUNS = 2   # generate runs a side, graph and eager in turns
 
 
 def int8_kv_phase(report, dev):
@@ -4875,6 +4902,432 @@ def profile_ticks(params, cfg, streams, dev, kernel_match,
             "device_idle_share": 1.0 - dev_us / wall_us}
 
 
+# -- phase 11: training on the card -------------------------------------------
+
+TRAIN_STEPS = {"ecg-clf": 10,   # paper §V: B 64, whole 140-step beats,
+               "ecg-ae": 5}     # lr 1e-3, p 0.125 (an AE step ~4 s)
+TRAIN_GATE_STEPS = 3   # run again on the CPU from the same params
+TRAIN_LOSS_TOL = 1e-5  # card vs CPU, the loss at each gated step
+TRAIN_PARAM_TOL = 1e-4  # card vs CPU, params after the gated steps: a
+                       # tenth of one step's AdamW update (lr 1e-3); the
+                       # two devices' exp / tanh and sum orders differ in
+                       # the last bits, which AdamW's normalization can
+                       # lift where a gradient element is near zero
+TRAIN_PROFILE_STEPS = 2  # the last steps of a cell, in one profile
+TRAIN_PROFILES = 3     # profiles tried for one whose steps agree
+KILL_STEP = 4          # the child is killed after its step-4 checkpoint
+KILL_STEPS = 8         # ... and the relaunch finishes this many
+LM_TRAIN = ("qwen3-1.7b", "mamba2-370m")
+LM_TRAIN_STEPS = 3
+TRAIN_CHILD_TIMEOUT = 600   # seconds a child of phase 11 may take
+PHASE11_EXAMPLES = (("quickstart",), ("ecg_monitoring", "--smoke"))
+
+
+def _train_args(task, *extra):
+    from repro_torch.launch import train
+    return train.parser().parse_args(["--task", task, *extra])
+
+
+def _leaves_cpu(tree):
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def _aten_ops(loss_fn, params, batch):
+    """aten ops a training step dispatches, forward (the loss) and
+    backward (``torch.autograd.grad``) apart, under a counting
+    ``TorchDispatchMode``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.ckpt.checkpoint import tree_leaves, tree_unflatten
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with Count():
+        loss, _ = loss_fn(tree_unflatten(params, live), batch, 0)
+    fwd = Count.n
+    with Count():
+        torch.autograd.grad(loss, live)
+    return {"forward": fwd, "backward": Count.n - fwd}
+
+
+def _profile_steps(step):
+    """Device busy us, wall us and device records a step of
+    TRAIN_PROFILE_STEPS calls of ``step`` (each synced at its end) in one
+    torch.profiler profile (CUDA activity), each step behind a marker
+    launch (``segmented_device_us``'s MARKER, not counted in its
+    wrapper's launches) that splits the records by step; the profile
+    opens with a spin and LEAD_MARKERS markers, as that one's does.  The records are
+    read from the kineto events themselves: a training step launches
+    ~10^5 kernels, and ``key_averages`` over such a profile takes minutes.
+    A profile counts when its steps' records agree within LOOSE_RECORDS
+    (a lost record reads as time that did not pass); else it is taken
+    again, over the next steps, up to TRAIN_PROFILES times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import bernoulli_mask
+    wrapper = bernoulli_mask.masked_activation
+    xm = torch.zeros((1, 4), device="cuda")
+    rm = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    launches = wrapper.launches
+
+    def marker():
+        wrapper(xm, rm, 1, 0.5)
+
+    marker()
+    for attempt in range(TRAIN_PROFILES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_SLEEP)   # the profile's first records
+            for _ in range(LEAD_MARKERS):   # may be lost
+                marker()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILE_STEPS):
+                marker()
+                step()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        evs = sorted((e.start_ns(), e.duration_ns(), e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+        segs, cur = [], None
+        for _, ns, name in evs:
+            if MARKER in name:
+                cur = [0, 0]
+                segs.append(cur)
+            elif cur is not None:
+                cur[0] += ns
+                cur[1] += 1
+        segs = segs[-TRAIN_PROFILE_STEPS:]
+        counts = [n for _, n in segs]
+        if (len(segs) == TRAIN_PROFILE_STEPS and min(counts) > 0
+                and max(counts) - min(counts)
+                <= LOOSE_RECORDS * max(counts)):
+            wrapper.launches = launches
+            return sum(ns for ns, _ in segs) / 1e3, wall_us, counts
+        print(f"training profile {attempt + 1} of {TRAIN_PROFILES}: "
+              f"records a step {counts}; taking it again", flush=True)
+    raise RuntimeError(f"no training profile of {TRAIN_PROFILE_STEPS} "
+                       f"agreeing steps in {TRAIN_PROFILES}")
+
+
+def _train_cell(task, dev):
+    """(a) / (b): TRAIN_STEPS[task] launcher steps of one ECG task on the
+    card, synced step seconds and the loss a step, the last
+    TRAIN_PROFILE_STEPS under torch.profiler (``_profile_steps``); the
+    aten ops of a step; TRAIN_GATE_STEPS steps again on the CPU from the
+    same params.  Returns the record and the card's params after
+    KILL_STEPS steps, if it ran so many (what 11c holds a resumed run
+    to)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.train import trainer
+
+    cpu = torch.device("cpu")
+    args = _train_args(task)
+    loss_fn, params, np_batches, tcfg, cfg = train.setup(args, dev)
+    tcfg = dataclasses.replace(tcfg, log_every=0)
+    init = _leaves_cpu(params)
+    used = []
+
+    def on(device, b):
+        return tuple(torch.as_tensor(a, device=device) for a in b)
+
+    tr = trainer.Trainer(loss_fn, params, tcfg)
+    step_s, losses, captured = [], [], {}
+
+    def step():
+        b = next(np_batches)
+        used.append(b)
+        t0 = time.perf_counter()
+        (h,) = tr.run([on(dev, b)], tr.step + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(h["loss"])
+        if tr.step in (TRAIN_GATE_STEPS, KILL_STEPS):
+            captured[tr.step] = _leaves_cpu(tr.params)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+    t_part = time.perf_counter()
+    plain = TRAIN_STEPS[task] - TRAIN_PROFILE_STEPS
+    for _ in range(plain):
+        step()
+    parts["steps"] = time.perf_counter() - t_part
+    busy_us, wall_us, records = _profile_steps(step)
+    parts["profile"] = time.perf_counter() - t_part - parts["steps"]
+    t_part = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"11 {task}: non-finite loss {losses}")
+    # The gate: the same params and batches on the CPU.
+    _, cparams, _, _, _ = train.setup(args, cpu)
+    # The aten ops of a step, counted on the CPU (as ROADMAP B2.14 counts
+    # them; the card's forward dispatches 16 more, its moves of x and
+    # rows): one launch each on the card.
+    ops = _aten_ops(loss_fn, cparams, on(cpu, used[0]))
+    parts["aten_ops"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    if any(not torch.equal(a, b) for a, b in zip(init,
+                                                  _leaves_cpu(cparams))):
+        raise RuntimeError(f"11 {task}: the CPU's initial params are not "
+                           "the card's")
+    ctr = trainer.Trainer(loss_fn, cparams, tcfg)
+    t0 = time.perf_counter()
+    chist = ctr.run([on(cpu, b) for b in used[:TRAIN_GATE_STEPS]],
+                    TRAIN_GATE_STEPS)
+    cpu_step_s = (time.perf_counter() - t0) / TRAIN_GATE_STEPS
+    parts["cpu_gate"] = time.perf_counter() - t_part
+    loss_err = max(abs(a - h["loss"]) for a, h in zip(losses, chist))
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(captured[TRAIN_GATE_STEPS], _leaves_cpu(ctr.params),
+                        strict=True))
+    if loss_err > TRAIN_LOSS_TOL or param_err > TRAIN_PARAM_TOL:
+        raise RuntimeError(
+            f"11 {task}: the card's first {TRAIN_GATE_STEPS} steps differ "
+            f"from the CPU's: loss {loss_err:.3g} (tol {TRAIN_LOSS_TOL}), "
+            f"params {param_err:.3g} (tol {TRAIN_PARAM_TOL})")
+    st = sorted(step_s[:plain])
+    p50 = st[len(st) // 2]
+    busy_ms = busy_us / TRAIN_PROFILE_STEPS / 1e3
+    rec = {"task": task, "cfg": dataclasses.asdict(cfg),
+           "batch": args.batch, "steps": tr.step, "plain_steps": plain,
+           "step_s": step_s, "step_s_p50": p50,
+           "step_s_p95": st[min(len(st) - 1, int(0.95 * len(st)))],
+           "loss": losses, "aten_ops": ops,
+           "aten_ops_step": ops["forward"] + ops["backward"],
+           "profiled_steps": TRAIN_PROFILE_STEPS,
+           "profiled_records_a_step": records,
+           "device_busy_ms_per_step": busy_ms,
+           "profiled_step_ms": wall_us / TRAIN_PROFILE_STEPS / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "device_idle_share_of_p50": 1.0 - busy_ms / (p50 * 1e3),
+           "peak_gb": peak, "cpu_step_s": cpu_step_s, "parts_s": parts,
+           "cpu_gate": {"steps": TRAIN_GATE_STEPS,
+                        "max_loss_diff": loss_err,
+                        "max_param_diff": param_err,
+                        "loss_tol": TRAIN_LOSS_TOL,
+                        "param_tol": TRAIN_PARAM_TOL}}
+    print(f"11 {task}: step p50 {p50:.3f} s p95 {rec['step_s_p95']:.3f} s "
+          f"(of {plain} unprofiled), {rec['aten_ops_step']} aten ops a "
+          f"step ({ops}), device busy {busy_ms:.1f} ms a step (idle "
+          f"{rec['device_idle_share']:.1%} of a profiled step, "
+          f"{rec['device_idle_share_of_p50']:.1%} of the p50), peak "
+          f"{peak:.3f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"CPU gate loss {loss_err:.3g} params {param_err:.3g}",
+          flush=True)
+    return rec, captured.get(KILL_STEPS)
+
+
+def train_child(ckpt_dir):
+    """11c's child: ``launch.train.main`` for the classifier with
+    ``--ckpt-dir`` and a checkpoint every 2 steps (the launcher saves every
+    50), KILL_STEPS steps."""
+    from repro_torch.launch import train
+    setup = train.setup
+
+    def every_2(args, device):
+        loss, params, batches, tcfg, cfg = setup(args, device)
+        return (loss, params, batches,
+                dataclasses.replace(tcfg, ckpt_every=2), cfg)
+
+    train.setup = every_2
+    train.main(["--task", "ecg-clf", "--steps", str(KILL_STEPS),
+                "--ckpt-dir", ckpt_dir])
+
+
+def _kill_resume(dev, want):
+    """(c): the child killed (SIGKILL) once its step-KILL_STEP checkpoint
+    is on disk, the same command relaunched to KILL_STEPS; the final
+    params bit-equal to ``want`` (the uninterrupted run's)."""
+    import signal
+    import torch
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer
+
+    ckpt = os.path.join(ROOT, "build", "phase11", "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, os.path.abspath(__file__), "--train-child", ckpt]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd)
+    while (checkpoint.latest_step(ckpt) or 0) < KILL_STEP:
+        if child.poll() is not None:
+            raise RuntimeError(f"11c: the child exited ({child.returncode}) "
+                               f"before its step-{KILL_STEP} checkpoint")
+        if time.perf_counter() - t0 > TRAIN_CHILD_TIMEOUT:
+            child.kill()
+            raise RuntimeError("11c: no step-4 checkpoint in time")
+        time.sleep(0.02)
+    child.send_signal(signal.SIGKILL)
+    child.wait()
+    killed_at = checkpoint.latest_step(ckpt)
+    first_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    subprocess.run(cmd, check=True, timeout=TRAIN_CHILD_TIMEOUT)
+    resume_s = time.perf_counter() - t1
+    if checkpoint.latest_step(ckpt) != KILL_STEPS:
+        raise RuntimeError(f"11c: the relaunch ended at step "
+                           f"{checkpoint.latest_step(ckpt)}")
+    _, like, _, _, _ = train.setup(_train_args("ecg-clf"), dev)
+    _, (got, _) = checkpoint.resume_or_none(
+        ckpt, (like, optimizer.init(like)), dev)
+    diff = [i for i, (a, b) in enumerate(zip(_leaves_cpu(got), want,
+                                             strict=True))
+            if not torch.equal(a, b)]
+    if diff:
+        raise RuntimeError(f"11c: resumed params != uninterrupted at "
+                           f"leaves {diff}")
+    shutil.rmtree(os.path.join(ROOT, "build", "phase11"),
+                  ignore_errors=True)
+    print(f"11c kill -> resume: killed after the step-{killed_at} "
+          f"checkpoint, relaunched to step {KILL_STEPS}: params bit-equal "
+          f"({first_s:.1f} s + {resume_s:.1f} s)", flush=True)
+    return {"killed_after_checkpoint": killed_at,
+            "resumed_to": KILL_STEPS, "bit_equal": True,
+            "leaves": len(tree_leaves(got)),
+            "first_child_s": first_s, "relaunch_s": resume_s,
+            "deterministic_algorithms": False}
+
+
+def ecg_train_child(task, out):
+    """11a-c, one task in a fresh process of this script: torch.profiler
+    loses records in every later profile of a process after one of ~10^5
+    records (phase 10's reason; a second cell's profile in one process
+    lost its first step's records), and a fresh process steps as a
+    training job does.  The classifier's child also runs (c).  Writes
+    the records to ``out``."""
+    import torch
+    dev = torch.device("cuda")
+    cell, at_kill = _train_cell(task, dev)
+    rec = {"cell": cell}
+    if task == "ecg-clf":
+        rec["kill_resume"] = _kill_resume(dev, at_kill)
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+def lm_train_child(out):
+    """11d's child: ``launch.train.main`` for the LM task at its defaults
+    on the published configs, one after the other; writes the records to
+    ``out``."""
+    import gc
+    import torch
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    from repro_torch.launch import train
+    recs = []
+    for arch in LM_TRAIN:
+        argv = ["--task", "lm", "--arch", arch, "--no-reduced",
+                "--steps", str(LM_TRAIN_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        tr = res["trainer"]
+        args = train.parser().parse_args(argv)
+        recs.append({
+            "arch": arch, "argv": argv, "batch": args.batch,
+            "seq": args.seq,
+            "params": sum(p.numel() for p in tree_leaves(tr.params)),
+            "step_s": tr.step_times,
+            "tokens_per_s": [args.batch * args.seq / s
+                             for s in tr.step_times],
+            "loss": [h["loss"] for h in res["history"]],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "seconds": time.perf_counter() - t0})
+        del res, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(out, "w") as fh:
+        json.dump(recs, fh)
+
+
+def example_child(spec, out):
+    """11e's child: one example's ``main`` on the card, the kernel
+    launches it made written to ``out``."""
+    import importlib
+    name, *argv = spec.split()
+    reset_launches()
+    importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+    with open(out, "w") as fh:
+        json.dump(read_launches(), fh)
+
+
+def _child(flag, *args):
+    """Run this script with ``flag`` and ``args`` in a fresh process that
+    writes JSON to a file under ``build/``; returns what it wrote."""
+    out = os.path.join(ROOT, "build", "phase11_child.json")
+    if os.path.exists(out):
+        os.remove(out)
+    subprocess.run([sys.executable, os.path.abspath(__file__), flag, *args,
+                    out], check=True, timeout=TRAIN_CHILD_TIMEOUT)
+    with open(out) as fh:
+        got = json.load(fh)
+    os.remove(out)
+    return got
+
+
+def training_phase(report, dev):
+    """Phase 11: (a) the classifier and (b) the autoencoder trained on the
+    card through the launcher's own loss and batches, each held against
+    the CPU, each in a child process, the classifier's with (c) kill ->
+    resume, bit-equal; (d)
+    both LMs at full width through ``launch.train`` in another; (e)
+    ``quickstart`` and ``ecg_monitoring --smoke``, each in its own.
+    Returns the kernel launches of (e), the only part of the phase that
+    reaches a kernel (training runs the plain path)."""
+    import gc
+    import math
+    import torch
+    rec = report["training"] = {"cells": []}
+    for task in TRAIN_STEPS:
+        t0 = time.perf_counter()
+        got = _child("--phase11-ecg-child", task)
+        got["cell"]["child_s"] = time.perf_counter() - t0
+        rec["cells"].append(got["cell"])
+        rec.update({k: v for k, v in got.items() if k != "cell"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["parent_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    rec["lm"] = _child("--lm-train-child")
+    rec["lm_child_s"] = time.perf_counter() - t0
+    for lm in rec["lm"]:
+        if (len(lm["loss"]) != LM_TRAIN_STEPS
+                or not all(math.isfinite(v) for v in lm["loss"])):
+            raise RuntimeError(f"11d {lm['arch']}: losses {lm['loss']}")
+        print(f"11d {lm['arch']}: {lm['params'] / 1e9:.3f} B params, "
+              f"steps {[round(s, 3) for s in lm['step_s']]} s, tokens/s "
+              f"{[round(t) for t in lm['tokens_per_s']]}, peak "
+              f"{lm['peak_gb']:.2f} GB (reserved "
+              f"{lm['peak_reserved_gb']:.2f}), loss {lm['loss']}",
+              flush=True)
+    launches = {name: 0 for name in ALL_KERNELS}
+    rec["examples"] = []
+    for spec in PHASE11_EXAMPLES:
+        t0 = time.perf_counter()
+        counts = _child("--example-child", " ".join(spec))
+        ex = {"example": " ".join(spec), "exit": 0,
+              "seconds": time.perf_counter() - t0,
+              "launches": {k: v for k, v in counts.items() if v}}
+        rec["examples"].append(ex)
+        print(f"11e {ex['example']}: exit 0 in {ex['seconds']:.1f} s, "
+              f"launches {ex['launches']}", flush=True)
+        for k, v in counts.items():
+            launches[k] += v
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4883,6 +5336,16 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # the child of phase10_child
     ap.add_argument("--phase5d-child", default=None,
                     help=argparse.SUPPRESS)   # the restore child of 5d
+    ap.add_argument("--phase11-ecg-child", nargs=2, default=None,
+                    help=argparse.SUPPRESS)   # phase 11a-c: TASK OUT
+    ap.add_argument("--train-child", default=None,
+                    help=argparse.SUPPRESS)   # phase 11c's training child
+    ap.add_argument("--lm-train-child", default=None,
+                    help=argparse.SUPPRESS)   # phase 11d: OUT.json
+    ap.add_argument("--example-child", nargs=2, default=None,
+                    help=argparse.SUPPRESS)   # phase 11e: "NAME ARGS" OUT
+    ap.add_argument("--phase11-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, then phase 11
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4906,6 +5369,23 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.phase5d_child:
         durable_child(args.phase5d_child)
+        return 0
+    if args.phase11_ecg_child:
+        ecg_train_child(*args.phase11_ecg_child)
+        return 0
+    if args.train_child:
+        train_child(args.train_child)
+        return 0
+    if args.lm_train_child:
+        lm_train_child(args.lm_train_child)
+        return 0
+    if args.example_child:
+        example_child(*args.example_child)
+        return 0
+    if args.phase11_only:
+        training_phase(report, dev)
+        report["seconds"] = time.perf_counter() - t0
+        print(json.dumps({"training": report["training"]}))
         return 0
     if args.phase10_out:
         records = precision_kernel_phase({})
@@ -4938,6 +5418,8 @@ def main(argv=None) -> int:
             launches[kernel] += v
             if name in ("7b", "9b", "7c"):
                 launches_bf16[kernel] += v
+    for kernel, v in phase("11", training_phase, report, dev).items():
+        launches[kernel] += v
     lm_bf16_entries(entries, report["lm_kernel_cases"]
                     + report["ssd_kernel_cases"], launches_bf16)
     # Last, in a process of its own (phase10_child).

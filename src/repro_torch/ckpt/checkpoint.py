@@ -185,7 +185,8 @@ def _reinterpret(arr: np.ndarray, want: str, name: str, path: str):
         return arr
     if want == BF16 and arr.dtype.itemsize == 2 and arr.dtype.kind in "Vu":
         bits = np.ascontiguousarray(arr).view("<i2")
-        return torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(bits.astype(np.int16).reshape(
+            arr.shape)).view(torch.bfloat16)
     raise IOError(f"cannot reinterpret {name} in {path} as {want!r}: "
                   f"stored as {arr.dtype}")
 
@@ -195,7 +196,10 @@ def place(leaf, device):
     if device is None:
         return leaf
     if isinstance(leaf, np.ndarray):
-        leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+        # ascontiguousarray returns at least 1-d: keep a 0-d leaf 0-d (an
+        # AdamWState.step, say), as the reference restores it.
+        leaf = torch.from_numpy(np.ascontiguousarray(leaf).reshape(
+            leaf.shape))
     return leaf.to(device)
 
 

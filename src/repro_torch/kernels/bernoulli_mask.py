@@ -85,6 +85,7 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
     ``masked_activation.launches``): fp32, or bf16 (its own kernel, the
     scale rounded to bf16); any other dtype raises.
     """
+    common.refuse_grad("masked_activation", x)
     if common.check_device("masked_activation", x):
         return masked_activation_plain(x, rows, key, p_drop)
     common.check_p(p_drop)

@@ -16,7 +16,9 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   (``SMEM_MAX``, ``SMS``).
 * Operand checks and the launch rule (:func:`launch`): a CUDA tensor
   launches the kernel or raises, nothing falls back, and each launch is
-  counted on its wrapper.
+  counted on its wrapper.  No kernel has a backward: every entry point
+  refuses an operand that requires grad under grad mode
+  (:func:`refuse_grad`), on every device.
 * The card's mask factors (:func:`kernel_mask_factors`), for holding the
   kernels' bits against the plain stream.
 * The serving precisions' operand rules: factors and the launch scale in
@@ -379,6 +381,30 @@ def check(name, t, device, dtype, shape):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _needs_grad(t) -> bool:
+    if isinstance(t, torch.Tensor):
+        return t.requires_grad
+    if isinstance(t, (tuple, list)):
+        return any(_needs_grad(u) for u in t)
+    return False
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise when autograd would record through a kernel entry point.
+
+    The wrappers launch into preallocated outputs, so no gradient flows
+    through a kernel, and neither this package nor the reference has a
+    backward kernel.  The check runs on every device -- the CPU's plain
+    versions would differentiate, and a test there must see what the card
+    would do.  ``operands`` may hold None and (nested) tuples."""
+    if torch.is_grad_enabled() and _needs_grad(operands):
+        raise RuntimeError(
+            f"{name}: an operand requires grad under grad mode, and no "
+            "kernel has a backward (in this package or the reference); "
+            "train on backend=\"reference\", or call the kernels under "
+            "torch.no_grad()")
 
 
 def check_device(name: str, t: torch.Tensor) -> bool:

@@ -156,6 +156,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (``pos >= S``: every position; ``pos < 0``: zeros, as the TPU kernel).
     The kernel reads no position past ``pos``.
     """
+    common.refuse_grad("decode_attention", q, k_cache, v_cache)
     if common.check_device("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if q.ndim != 3 or k_cache.ndim != 4:

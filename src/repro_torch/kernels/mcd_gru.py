@@ -90,6 +90,7 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
     the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
     path for H that divides 32, else the block path.
     """
+    common.refuse_grad("mcd_gru_step", x, h, wx, wh, b)
     if common.check_device("mcd_gru_step", x):
         return mcd_gru_step_plain(x, h, wx, wh, b, rows, keys, p_drop)
     common.check_p(p_drop)

@@ -89,6 +89,8 @@ def mcd_gru_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *, h0=None,
     """
     qkw = dict(weight_bits=weight_bits, wx_scale=wx_scale,
                wh_scale=wh_scale)
+    common.refuse_grad("mcd_gru_seq", x_seq, wx, wh, b, h0, wx_scale,
+                       wh_scale)
     if common.check_device("mcd_gru_seq", x_seq):
         return mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop,
                                  h0=h0, lengths=lengths, **qkw)

@@ -88,6 +88,7 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
     the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
     path for H that divides 32, else the block path.
     """
+    common.refuse_grad("mcd_lstm_step", x, h, c, wx, wh, b)
     if common.check_device("mcd_lstm_step", x):
         return mcd_lstm_step_plain(x, h, c, wx, wh, b, rows, keys, p_drop)
     common.check_p(p_drop)

@@ -101,6 +101,8 @@ def mcd_lstm_seq(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
     """
     qkw = dict(weight_bits=weight_bits, wx_scale=wx_scale,
                wh_scale=wh_scale)
+    common.refuse_grad("mcd_lstm_seq", x_seq, wx, wh, b, h0, c0, wx_scale,
+                       wh_scale)
     if common.check_device("mcd_lstm_seq", x_seq):
         return mcd_lstm_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop,
                                   h0=h0, c0=c0, lengths=lengths, **qkw)

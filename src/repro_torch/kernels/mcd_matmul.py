@@ -124,6 +124,7 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
     ``scratch_words``, allocated here.  The plan of the last launch, made
     from the real pointers' alignment, is ``mcd_matmul.last_plan``.
     """
+    common.refuse_grad("mcd_matmul", x, w)
     if common.check_device("mcd_matmul", x):
         return mcd_matmul_plain(x, w, rows, key, p_drop, out_dtype)
     common.check_p(p_drop)

@@ -25,7 +25,9 @@ how they map to the reference's ``LSTM_BACKENDS`` (``repro/kernels/ops.py``):
   layer with the masks rebuilt in-kernel; the reference's ``"pallas_seq"``.
 
 On CPU tensors both kernel backends, and the three LM wrappers, run the
-kernels' plain versions.
+kernels' plain versions.  Every entry point refuses an operand that
+requires grad under grad mode (``common.refuse_grad``): no kernel has a
+backward, and training runs the ``reference`` backend.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ import functools
 import torch
 
 from repro_torch.core import cells, mcd
-from repro_torch.kernels import (bernoulli_mask, decode_attn, mcd_gru,
-                                 mcd_gru_seq, mcd_lstm, mcd_lstm_seq,
-                                 mcd_matmul, quantize, ssd_chunk)
+from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
+                                 mcd_gru, mcd_gru_seq, mcd_lstm,
+                                 mcd_lstm_seq, mcd_matmul, quantize,
+                                 ssd_chunk)
 
 LSTM_BACKENDS = ("reference", "cuda_step", "cuda_seq")
 
@@ -60,6 +63,7 @@ def site_key(seed: int, layer: int, site: int) -> int:
 def flash_decode_attention(q, k_cache, v_cache, pos):
     """Fused decode attention: q [B, H, hd] over the caches [B, S, KV, hd],
     positions ``<= pos``."""
+    common.refuse_grad("flash_decode_attention", q, k_cache, v_cache)
     return decode_attn.decode_attention(q, k_cache, v_cache, pos)
 
 
@@ -67,12 +71,14 @@ def mcd_dense(x, w, rows, seed, layer: int, site: int, p_drop: float,
               out_dtype=None):
     """Fused masked dense: ``y = (x ⊙ z/(1-p)) @ W`` with the site-keyed
     stream; x [M, K], w [K, N], rows [M]."""
+    common.refuse_grad("mcd_dense", x, w)
     key = site_key(int(seed), int(layer), int(site))
     return mcd_matmul.mcd_matmul(x, w, rows, key, p_drop, out_dtype)
 
 
 def mcd_mask_apply(x, rows, seed, layer: int, site: int, p_drop: float):
     """``x ⊙ z/(1-p)`` with the site-keyed stream; x [B, F], rows [B]."""
+    common.refuse_grad("mcd_mask_apply", x)
     key = site_key(int(seed), int(layer), int(site))
     return bernoulli_mask.masked_activation(x, rows, key, p_drop)
 
@@ -86,6 +92,7 @@ def ssd_scan(x, dt, a, bm, cm, d_skip, chunk: int):
     = 0 on the padded steps leaves ``y[:, :L]`` and the final state as they
     are).  Returns (y [B, L, H, P] in x's dtype, h_final [B, H, P, N] fp32).
     """
+    common.refuse_grad("ssd_scan", x, dt, a, bm, cm, d_skip)
     B, L, H, P = x.shape
     if bm.shape[2] != 1:
         raise NotImplementedError(
@@ -154,6 +161,7 @@ def fused_lstm_layer(wx4, wh4, b, x_seq, rows, seed, layer: int,
     each row's state at its own chunk length, outside the kernel.
     Returns (outputs [B, T, H] in x_seq's dtype, (h_T, c_T fp32)).
     """
+    common.refuse_grad("fused_lstm_layer", wx4, wh4, b, x_seq, h0, c0)
     B, T, _ = x_seq.shape
     H = wh4.shape[0]
     keys = _gate_keys("lstm", int(seed), int(layer))
@@ -184,6 +192,8 @@ def fused_lstm_seq(wx4, wh4, b, x_seq, rows, seed, layer: int,
     [4, H] fp32 scales (dequantized in the kernel).
     Returns (outputs [B, T, H], (h_T, c_T fp32)).
     """
+    common.refuse_grad("fused_lstm_seq", wx4, wh4, b, x_seq, h0, c0,
+                       wx_scale, wh_scale)
     keys = _gate_keys("lstm", int(seed), int(layer))
     ys, hT, cT = mcd_lstm_seq.mcd_lstm_seq(
         x_seq, wx4, wh4, b, rows, keys, p_drop,
@@ -206,6 +216,7 @@ def lstm_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
     weights (:func:`_precision_weights`): int8/int4 hand the sequence
     kernel the codes and the step kernel the dequantized values.
     """
+    common.refuse_grad("lstm_stack_layer", wx, wh, b, x_seq, initial_state)
     wx4, wh4, b = cells.gate_stacked(cells.LSTMParams(wx, wh, b))
     wx4, wh4, x_seq, qkw = _precision_weights(wx4, wh4, x_seq, precision,
                                               seq=seq)
@@ -225,6 +236,7 @@ def fused_gru_layer(wx3, wh3, b, x_seq, rows, seed, layer: int,
     its own chunk length, outside the kernel.
     Returns (outputs [B, T, H], (h_T,)) — the GRU's whole carry is ``h``.
     """
+    common.refuse_grad("fused_gru_layer", wx3, wh3, b, x_seq, h0)
     B, T, _ = x_seq.shape
     H = wh3.shape[0]
     keys = _gate_keys("gru", int(seed), int(layer))
@@ -252,6 +264,8 @@ def fused_gru_seq(wx3, wh3, b, x_seq, rows, seed, layer: int,
     [3, H] fp32 scales (dequantized in the kernel).
     Returns (outputs [B, T, H], (h_T,)).
     """
+    common.refuse_grad("fused_gru_seq", wx3, wh3, b, x_seq, h0, wx_scale,
+                       wh_scale)
     keys = _gate_keys("gru", int(seed), int(layer))
     ys, hT = mcd_gru_seq.mcd_gru_seq(
         x_seq, wx3, wh3, b, rows, keys, p_drop,
@@ -271,6 +285,7 @@ def gru_stack_layer(wx, wh, b, x_seq, rows, seed, layer, p_drop: float, *,
     session stores for a GRU layer; ``precision`` as in
     :func:`lstm_stack_layer`.
     """
+    common.refuse_grad("gru_stack_layer", wx, wh, b, x_seq, initial_state)
     wx3, wh3, b = cells.gate_stacked(cells.GRUParams(wx, wh, b))
     wx3, wh3, x_seq, qkw = _precision_weights(wx3, wh3, x_seq, precision,
                                               seq=seq)

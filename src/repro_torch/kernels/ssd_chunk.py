@@ -196,6 +196,7 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256,
     witness's); y is x's dtype otherwise.  (The plain version gives the
     same unrounded y from fp32 inputs: bf16 values are exact in fp32.)
     """
+    common.refuse_grad("ssd_chunk_scan", x, dt, a, bm, cm, d_skip)
     if common.check_device("ssd_chunk_scan", x):
         if y_dtype is not None:
             raise ValueError("y_dtype is the CUDA tensor-core path's; on the "

@@ -6,6 +6,12 @@ beats back to back), and serves them chunk by chunk through the
 uncertainty over the signal so far.  Single tenant, the ECG classifier,
 LSTM or GRU (``--cell``), on any stack backend (``--backend``).
 
+``--overload N`` serves N streams through ``--sessions`` live rows: all
+are admitted up front (earlier streams at higher priority), the first
+``--sessions`` go live and the rest wait in the admission queue until a
+stream finishes.  More than ``--max-pending`` waiting streams are refused
+(``serve.admission.QueueFull``), as in the reference.
+
 ``--tenants fleet.json`` serves a multi-tenant fleet instead: the JSON
 declares heterogeneous tenants (classifier or autoencoder, LSTM or GRU,
 each with its own S, precision and weight) and one ``FleetEngine`` serves
@@ -27,6 +33,8 @@ Usage:
       --cell gru --backend cuda_step
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
       --sessions 2 --samples 4 --beats 1 --ragged --capacity auto
+  PYTHONPATH=src python -m repro_torch.launch.stream --sessions 2 \
+      --overload 6 --capacity auto --snapshot-dir snaps --snapshot-every 3
   PYTHONPATH=src python -m repro_torch.launch.stream --precision int8 \
       --sessions 4 --samples 8 --beats 1
   PYTHONPATH=src python -m repro_torch.launch.stream --capacity auto \
@@ -64,7 +72,7 @@ from repro_torch.serve import (CoDesignController, FleetEngine, JsonlSink,
 
 #: The reference's backend names, as a fleet table written for it names
 #: them (a snapshot's backend name is not checked either).
-_BACKENDS = {"pallas_seq": "cuda_seq", "pallas_step": "cuda_step"}
+REFERENCE_BACKENDS = {"pallas_seq": "cuda_seq", "pallas_step": "cuda_step"}
 
 
 def build_streams(n_sessions: int, beats: int, seed: int):
@@ -143,7 +151,7 @@ def load_fleet(path: str, default_seed: int, device=None):
             name=name, cfg=cfg, params=params_cache[key],
             weight=float(e.get("weight", 1.0)),
             precision=e.get("precision"),
-            backend=_BACKENDS.get(backend, backend),
+            backend=REFERENCE_BACKENDS.get(backend, backend),
             max_sessions=max_sessions,
             early_exit_threshold=None if eet is None else float(eet),
             min_samples=int(e.get("min_samples", 1))))
@@ -247,7 +255,10 @@ def main(argv=None):
                     "load_fleet for the schema); the per-model flags are "
                     "ignored, the serving flags apply fleet-wide")
     ap.add_argument("--sessions", type=int, default=4,
-                    help="concurrently live streams")
+                    help="store capacity: concurrently live streams")
+    ap.add_argument("--overload", type=int, default=None,
+                    help="total streams to serve (> --sessions exercises "
+                    "the admission queue; default: --sessions)")
     ap.add_argument("--chunk-len", type=int, default=20)
     ap.add_argument("--beats", type=int, default=2,
                     help="ECG beats (T=140 each) per session stream")
@@ -272,6 +283,8 @@ def main(argv=None):
                     choices=("fixed", "auto", "dynamic"),
                     help="launch-shape policy: fixed=--chunk-len, "
                     "auto=adaptive ladder, dynamic=per-tick max")
+    ap.add_argument("--max-pending", type=int, default=256,
+                    help="admission-queue backpressure bound")
     ap.add_argument("--prewarm", action="store_true",
                     help="capture every capacity rung's tick graph at boot "
                     "(scheduler.prewarm) so no tick pays a first-use "
@@ -312,6 +325,7 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain-PyTorch paths)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    total = args.overload or args.sessions
     if args.resume and not args.snapshot_dir:
         ap.error("--resume requires --snapshot-dir")
     if args.tenants and (args.controller or args.decisions_out):
@@ -335,6 +349,7 @@ def main(argv=None):
     eng = StreamingEngine(params, cfg, backend=args.backend,
                           max_sessions=args.sessions,
                           chunk_capacity=capacity, ladder=ladder,
+                          max_pending=args.max_pending,
                           metrics_sink=sink, device=device,
                           precision=args.precision,
                           early_exit_threshold=args.early_exit_threshold,
@@ -362,20 +377,25 @@ def main(argv=None):
         extra = eng.restore(args.snapshot_dir)
         done = set(extra.get("done", []))
         gen = extra.get("gen")
-        if gen and (gen["total"], gen["beats"]) != (args.sessions,
-                                                    args.beats):
+        if gen and (gen["total"], gen["beats"]) != (total, args.beats):
             print(f"resume: adopting snapshot stream params "
                   f"total={gen['total']} beats={gen['beats']} "
                   f"(CLI values differ)")
         if gen:
-            args.sessions, args.beats = int(gen["total"]), int(gen["beats"])
+            total, args.beats = int(gen["total"]), int(gen["beats"])
         print(f"resumed tick {eng.tick}: live={eng.active_sessions} "
               f"queued={eng.queued_sessions} done={sorted(done)}")
-    streams, labels = build_streams(args.sessions, args.beats, args.seed)
+    streams, labels = build_streams(total, args.beats, args.seed)
     if not args.resume:
-        for k in range(args.sessions):
-            eng.open_session(f"ecg-{k}")
-    print(f"streaming {args.sessions} sessions x {args.beats} beats "
+        # Admit everything up front: the first --sessions go live, the
+        # rest wait in the queue (earlier streams at higher priority) and
+        # go live as streams finish.
+        for k in range(total):
+            live = eng.admit(f"ecg-{k}", priority=total - k)
+            print(f"admit ecg-{k}: "
+                  f"{'live' if live is not None else 'queued'}")
+    print(f"streaming {total} sessions ({args.sessions} live rows) x "
+          f"{args.beats} beats "
           f"(T={ecg.T_STEPS} each) | S={args.samples} p={cfg.mcd.p} "
           f"B={mcd.placement_str(cfg.mcd.placement)} cell={args.cell} "
           f"backend={args.backend} device={device} "
@@ -400,7 +420,7 @@ def main(argv=None):
                         f"H={float(su.predictive_entropy):5.3f} "
                         f"MI={float(su.mutual_information):6.4f}")
         m = eng.last_metrics
-        stat = (f"cap={m.capacity} launches={m.launches} "
+        stat = (f"cap={m.capacity} q={m.queue_depth} launches={m.launches} "
                 f"compiles={m.compiles} {m.duration_s * 1e3:.2f}ms")
         if args.early_exit_threshold is not None:
             stat += f" chains={m.active_chains}"
@@ -424,7 +444,7 @@ def main(argv=None):
         if args.snapshot_dir and eng.tick % args.snapshot_every == 0:
             path = eng.snapshot(args.snapshot_dir, extra={
                 "done": sorted(done),
-                "gen": {"total": args.sessions, "beats": args.beats,
+                "gen": {"total": total, "beats": args.beats,
                         "seed": args.seed}})
             checkpoint.keep_last(args.snapshot_dir, args.snapshot_keep)
             print(f"  snapshot -> {path}")

@@ -15,7 +15,11 @@ MambaParams}`` for a ``mamba`` block) of stage i, repeat r, pattern
 position j, and decode caches nest the same way: a (k, v) pair for
 attention, a ``mamba2.MambaState`` for a mamba block.  Entry points:
 
-  forward      full sequence (``collect_caches``, ``return_hidden``)
+  forward      full sequence (``collect_caches``, ``return_hidden``,
+               ``remat``: each repeat's period of blocks checkpointed)
+  loss_fn      next-token cross-entropy (:func:`_chunked_xent`) + aux,
+               the training loss; it runs the ``reference`` backend, as
+               the reference's LM reaches no kernel under grad
   prefill      forward + the decode state (KV caches padded to
                ``max_len``; a Mamba state has no sequence axis)
   decode_step  one token through the caches, updated in place; the
@@ -32,6 +36,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
 from repro_torch.models import layers, mamba2
@@ -192,32 +197,102 @@ class DecodeState(NamedTuple):
     cross: Any = None
 
 
+def _period(sp_r, stage: Stage, cfg: ArchConfig, x, positions,
+            ctx: layers.Ctx, r: int, offset: int, bayes, collect: bool,
+            backend: str):
+    """One repeat's period of blocks (the reference's scan body).  Returns
+    (x, aux, caches of the period)."""
+    aux = 0.0
+    caches = []
+    period = len(stage.pattern)
+    for j, kind in enumerate(stage.pattern):
+        x, a, c = _block_forward(sp_r[j], kind, cfg, x, positions, ctx,
+                                 offset + r * period + j, bayes[j],
+                                 return_cache=collect, backend=backend)
+        aux = aux + a
+        caches.append(c)
+    return x, aux, caches
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
             *, collect_caches: bool = False, return_hidden: bool = False,
-            backend: str = "cuda"):
+            remat: bool = False, backend: str = "cuda"):
     """Full-sequence forward.  tokens: [B, S].  Returns (logits [B, S, V]
-    or the hidden state [B, S, D], aux, caches|None)."""
+    or the hidden state [B, S, D], aux, caches|None).
+
+    ``remat=True`` checkpoints each repeat's period of blocks
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records:
+    the backward recomputes a period's internals instead of keeping them.
+    Masks are functions of ``(seed, rows)``, so the recompute draws the
+    same bits and the gradients are those of ``remat=False``."""
     layers.check_backend(backend)
     check_cfg(cfg)
     x = layers.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    ckpt = remat and torch.is_grad_enabled()
     aux = 0.0
     offset = 0
     all_caches = []
     for sp, st in zip(params["stages"], cfg.stages):
         bayes = _stage_bayes(cfg, offset, st)
-        caches = [[None] * len(st.pattern) for _ in range(st.repeat)]
-        for r, j, kind, layer_id in _stage_layers(st, offset):
-            x, a, caches[r][j] = _block_forward(
-                sp[r][j], kind, cfg, x, positions, ctx, layer_id, bayes[j],
-                return_cache=collect_caches, backend=backend)
+        caches = []
+        for r in range(st.repeat):
+            args = (sp[r], st, cfg, x, positions, ctx, r, offset, bayes,
+                    collect_caches, backend)
+            x, a, c = (_ckpt.checkpoint(_period, *args, use_reentrant=False)
+                       if ckpt else _period(*args))
             aux = aux + a
+            caches.append(c)
         offset += st.num_layers
         all_caches.append(caches)
     out = x if return_hidden else layers.logits(params["embed"], x)
     if collect_caches:
         return out, aux, (all_caches, None)
     return out, aux, None
+
+
+def _xent_chunk(embed_params, h, t):
+    """Summed NLL of one chunk: fp32 logits → log_softmax → the targets'."""
+    logp = torch.log_softmax(layers.logits(embed_params, h).float(), dim=-1)
+    return -torch.gather(logp, -1, t.long()[..., None])[..., 0].sum()
+
+
+def _chunked_xent(embed_params, hidden: torch.Tensor, targets: torch.Tensor,
+                  chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy without keeping the full fp32 logits.
+
+    The sequence splits into chunks of ``c`` positions, the largest divisor
+    of S that is at most ``chunk`` (the reference's rule).  Under autograd
+    each chunk is checkpointed, so its [B, c, V] logits live only inside
+    their (recomputed) segment.  The chunks' sums add in order from an
+    fp32 zero and the total divides by B·S, as the reference's scan."""
+    B, S, _ = hidden.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    ckpt = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        h, t = hidden[:, i:i + c], targets[:, i:i + c]
+        total = total + (_ckpt.checkpoint(_xent_chunk, embed_params, h, t,
+                                          use_reentrant=False)
+                         if ckpt else _xent_chunk(embed_params, h, t))
+    return total / (B * S)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, ctx: layers.Ctx, *, remat: bool = True,
+            xent_chunk: int = 512):
+    """Next-token cross-entropy + aux (targets = tokens shifted).  Returns
+    ``(nll + aux, {"nll": nll, "aux": aux})``, aux a 0-d fp32 tensor (0 for
+    the dense and SSM families).  The forward runs on the ``reference``
+    backend: the kernels have no backward, in this package or the
+    reference's, and the reference's LM loss reaches none of them."""
+    hidden, aux, _ = forward(params, cfg, tokens, ctx, remat=remat,
+                             return_hidden=True, backend="reference")
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
+    nll = _chunked_xent(params["embed"], hidden, targets, xent_chunk)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,

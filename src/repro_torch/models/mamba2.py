@@ -152,9 +152,14 @@ def _ssd_chunked(x, dt, a, bm, cm, d_skip, chunk: int, h0=None):
     # --- intra-chunk (quadratic within Q) --------------------------------
     scores = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)     # [B,nc,G,Q,Q]
     cs_h = cs.permute(0, 1, 3, 2)                            # [B,nc,H,Q]
-    decay = torch.exp(cs_h[..., :, None] - cs_h[..., None, :])
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(tri, decay, torch.zeros((), device=x.device))
+    # The reference exponentiates every (q, k) and zeroes k > q after the
+    # exp; there the log-decay is positive and, summed over a long chunk,
+    # exp() overflows to inf, which the backward multiplies by the zero
+    # cotangent: NaN gradients (0 * inf).  Masking before the exp gives
+    # the same forward values (exp(-inf) = 0) and a finite backward.
+    decay = torch.exp(torch.where(tri, cs_h[..., :, None]
+                                  - cs_h[..., None, :], -torch.inf))
     dh = decay.reshape(B, nc, G, rep, Q, Q)
     dtx_h = dtx.reshape(B, nc, Q, G, rep, P)
     y_intra = torch.einsum("bcgqk,bcgrqk,bckgrp->bcqgrp", scores, dh, dtx_h)

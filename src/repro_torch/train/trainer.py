@@ -4,7 +4,9 @@ checkpoint / auto-resume, straggler watchdog — port of
 
 * **Microbatch accumulation** — the batch's leading axis is split into
   ``microbatches`` chunks; their fp32 gradients are summed in order and
-  divided by the count, as the reference's ``lax.scan`` does.
+  divided by the count, as the reference's ``lax.scan`` does.  The sums
+  and the division run in place on the step's own buffers (the same
+  arithmetic): at qwen3-1.7b's full width a copy of the gradients is 8 GB.
 * **Gradient compression** — optional error-feedback bf16 / int8 cast of
   each gradient leaf before the optimizer; the fp32 residual is carried to
   the next step.
@@ -83,10 +85,10 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
                                          *x.shape[1:])[i], batch)
             live = [p.detach().requires_grad_(True) for p in leaves]
             loss, _ = loss_fn(tree_unflatten(params, live), mb, step)
-            grads = torch.autograd.grad(loss, live)
-            gsum = [a + g.float() for a, g in zip(gsum, grads)]
+            for a, g in zip(gsum, torch.autograd.grad(loss, live)):
+                a.add_(g.float())     # the step's own sums: in place
             lsum = lsum + loss.detach()
-        grads = tree_unflatten(params, [g / nm for g in gsum])
+        grads = tree_unflatten(params, [g.div_(nm) for g in gsum])
         loss = lsum / nm
 
         if cfg.grad_compression != "none":

@@ -102,6 +102,29 @@ def test_entry_points_raise_without_gpu(no_gpu):
         launch_stream.main(["--sessions", "1"])
 
 
+EXAMPLES = ("quickstart", "anomaly_detection", "ecg_monitoring",
+            "fleet_monitoring", "uncertainty_serving", "codesign_search")
+
+
+def test_rules_cover_the_examples_and_the_train_launcher():
+    """The import rule above walks every file of the package: the
+    training launcher and the six examples among them."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    want = ["src/repro_torch/launch/train.py"] + [
+        f"src/repro_torch/examples/{n}.py" for n in EXAMPLES]
+    assert not [w for w in want if w not in names]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_and_train_launcher_raise_without_gpu(no_gpu, name):
+    import importlib
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        importlib.import_module(f"repro_torch.examples.{name}").main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+
+
 def _fleet_specs():
     from repro_torch.serve import TenantSpec
     cfg, params = _cpu_model()
