@@ -273,6 +273,26 @@ Phases (each raises on failure; the exit code is then non-zero):
    serving phases' (training reaches no kernel: no kernel has a
    backward).
 
+12. Sharding (after 5g; ~9 s): the ECG engine on a data mesh that lists
+   the card SHARDS = 4 times (the card is one device: the mesh proves the
+   partition, its launches and what a shard adds to a tick, not
+   placement across cards), 64 sessions x S = 30 over whole beats in 12
+   ragged chunks, graphs on, prewarmed: (a) ``make_data_mesh(1)`` against
+   no mesh (the classifier LSTM, ``cuda_seq``); (b) SHARD_CELLS (the
+   classifier LSTM and the autoencoder GRU on ``cuda_seq``, the
+   classifier GRU on ``cuda_step``) on the 4-entry mesh against the
+   unsharded engine: summaries and carries bit-equal, ``TickMetrics.
+   shards`` 4, 1920 rows, layers x 4 launches a tick (x T on
+   ``cuda_step``), no capture after prewarm; (c) a snapshot of the
+   4-shard engine after 5 ticks restored on an unsharded engine, and the
+   other way round, each bit-equal to the uninterrupted run; (d) the
+   gspmd strategy on a (2 data x 2 model) mesh of the card at the
+   classifier's widths (B 64, T 20), both cells, bit-equal to the
+   unsharded ``reference`` backend; (e) tick p50 / p95 and the host
+   parts of (b)'s classifier cell against the unsharded engine, 2 runs a
+   side in turns.  Prints ``torch.cuda.device_count()``; with two cards
+   or more, (b)'s first cell also runs over real cards, eagerly.
+
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
 phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
@@ -3547,6 +3567,225 @@ def controller_phase(report, dev):
     return total
 
 
+# -- sharding ---------------------------------------------------------------
+
+# (model, cell, backend) of phase 12's engines on a mesh of the card.
+SHARD_CELLS = (("classifier", "lstm", "cuda_seq"),
+               ("autoencoder", "gru", "cuda_seq"),
+               ("classifier", "gru", "cuda_step"))
+SHARDS = 4            # data entries of the mesh that lists the card
+SHARD_TICKS = 12      # every beat in 12 ragged chunks
+SHARD_KILL = 5        # ticks before 12c's snapshot
+SHARD_TURNS = 2       # runs a side of 12e's timing, in turns
+GSPMD_B, GSPMD_T = 64, 20   # 12d: the stack at the classifier's widths
+
+
+def _shard_chunks(eng, streams, plans, sids, t):
+    return {sid: streams[k][eng.store.get(sid).steps:][:plans[k, t]]
+            for k, sid in enumerate(sids)}
+
+
+def _shard_check(run, base, sids, key, kernel, per_layer, shards, seq,
+                 graphs=True):
+    """A mesh run against the unsharded run: summaries and carries bit for
+    bit, ``TickMetrics.shards``, whole sessions a shard, the launches of
+    every tick (layers x shards, x T on the step backend) and no capture
+    after prewarm."""
+    eng, _, counts, _ = run
+    _same_serving(run, base, sids, key)
+    for m in eng.metrics:
+        if m.shards != shards or m.batch_rows % (shards * S):
+            raise RuntimeError(f"{key}: tick {m.tick} shards {m.shards}, "
+                               f"batch rows {m.batch_rows}")
+        if graphs and m.compiles:
+            raise RuntimeError(f"{key}: tick {m.tick} captured after "
+                               "prewarm")
+    _check_launches(key, counts, eng.metrics, kernel,
+                    (lambda m: per_layer * shards) if seq
+                    else (lambda m: per_layer * shards * m.capacity))
+
+
+def _shard_resume(params, cfg, dev, first, second, plans, sids, streams,
+                  tag):
+    """Phase 12c: an engine on ``first`` serves SHARD_KILL ticks and
+    snapshots; a fresh prewarmed engine on ``second`` restores it and
+    serves to the end.  Returns (engine, every tick's results)."""
+    from repro_torch.serve import StreamingEngine, prewarm
+    path = os.path.join(ROOT, "build", "phase12", tag)
+    shutil.rmtree(path, ignore_errors=True)
+    kw = dict(backend="cuda_seq", max_sessions=SESSIONS,
+              chunk_capacity=CHUNK, device=dev)
+    eng = StreamingEngine(params, cfg, mesh=first, **kw)
+    prewarm(eng)
+    for sid in sids:
+        eng.open_session(sid)
+    ticks = [eng.step(_shard_chunks(eng, streams, plans, sids, t))
+             for t in range(SHARD_KILL)]
+    eng.snapshot(path)
+    fresh = StreamingEngine(params, cfg, mesh=second, **kw)
+    prewarm(fresh)
+    fresh.restore(path)
+    ticks += [fresh.step(_shard_chunks(fresh, streams, plans, sids, t))
+              for t in range(SHARD_KILL, plans.shape[1])]
+    if any(m.compiles for m in fresh.metrics):
+        raise RuntimeError(f"12c {tag}: a tick captured after the restore")
+    return fresh, ticks
+
+
+def _gspmd_check(dev, mesh):
+    """Phase 12d: ``run_stack`` under the gspmd strategy (H over the
+    model axis) at the classifier's widths against the unsharded
+    ``reference`` backend, both cells: outputs and carries bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import rnn
+    from repro_torch.launch import rnn_shardings as rs
+    out = {}
+    for cell in ("lstm", "gru"):
+        cfg, params, _ = ecg_model("classifier", cell, dev)
+        enc, hid = params["encoder"], (cfg.hidden,) * cfg.num_layers
+        rng = np.random.default_rng(12)
+        x = torch.from_numpy(rng.standard_normal(
+            (GSPMD_B, GSPMD_T, 1)).astype(np.float32)).to(dev)
+        rows = torch.arange(GSPMD_B, device=dev)
+        lengths = torch.from_numpy(rng.integers(
+            1, GSPMD_T + 1, GSPMD_B).astype(np.int32)).to(dev)
+        kw = dict(rows=rows, seed=cfg.mcd.seed, lengths=lengths,
+                  return_all_states=True, cell=cell, device=dev)
+        t0 = time.perf_counter()
+        want = rnn.run_stack(enc, x, rnn.sample_stack_masks(
+            cfg.mcd, rows, 1, hid, cell=cell), cfg.mcd.p,
+            backend="reference", **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = rnn.run_stack(enc, x, rnn.stack_mask_plan(
+            cfg.mcd, cfg.num_layers), cfg.mcd.p, backend="cuda_seq",
+            mesh=mesh, policy=rs.StackShardingPolicy(strategy="gspmd"),
+            **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same = torch.equal(got[0], want[0]) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for la, lb in zip(got[1], want[1], strict=True)
+            for a, b in zip(la, lb, strict=True))
+        if not same:
+            raise RuntimeError(f"12d gspmd {cell}: not bit-equal to the "
+                               "unsharded reference backend (max diff "
+                               f"{max_abs_diff(got[0], want[0], cell)})")
+        out[cell] = {"B": GSPMD_B, "T": GSPMD_T, "H": cfg.hidden,
+                     "layers": cfg.num_layers, "bit_equal": True,
+                     "specs": [sp.wh for sp in rs.stack_param_specs(
+                         enc, mesh, strategy="gspmd")],
+                     "reference_s": t1 - t0, "gspmd_s": t2 - t1}
+    return out
+
+
+def sharding_phase(report, dev):
+    """Phase 12: the ECG engine on a data mesh that lists the card
+    SHARDS times (the card is one device: the mesh proves the partition,
+    its launches and what a shard adds to a tick, not placement across
+    cards).  (a) ``make_data_mesh(1)`` == no mesh for the classifier LSTM
+    on ``cuda_seq``; (b) SHARD_CELLS on the SHARDS-entry mesh, each
+    bit-equal to the unsharded engine (``_shard_check``); (c) a snapshot
+    of the SHARDS-shard engine restored on a one-shard engine and back,
+    each bit-equal to the uninterrupted run; (d) gspmd on a (2 data x 2
+    model) mesh of the card; (e) tick p50 / p95 of (b)'s classifier cell
+    against the unsharded engine, SHARD_TURNS runs a side in turns.  With
+    two cards or more, (b)'s first cell also runs over real cards
+    (eagerly: a graph holds one card's launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_data_mesh
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f"phase 12: torch.cuda.device_count() = {n_cards}", flush=True)
+    home = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)
+    repeated = make_data_mesh(SHARDS, devices=[home] * SHARDS)
+    streams = _beats()
+    plans = chunk_plans(np.random.default_rng(12), SESSIONS, SHARD_TICKS)
+    sids = [f"m-{k}" for k in range(SESSIONS)]
+    total = {name: 0 for name in ALL_KERNELS}
+    out = {"card": report["card"], "device_count": n_cards,
+           "shards": SHARDS, "sessions": SESSIONS, "chains": S,
+           "cells": {}}
+
+    def run(params, cfg, backend, mesh, graphs=True):
+        r = _graph_run(params, cfg, home, graphs, plans, sids, streams,
+                       backend=backend, chunk_capacity=CHUNK, mesh=mesh)
+        for name, v in r[2].items():
+            total[name] += v
+        return r
+
+    for i, (model, cell, backend) in enumerate(SHARD_CELLS):
+        cfg, params, per_layer = ecg_model(model, cell, home)
+        seq = backend == "cuda_seq"
+        kernel = f"mcd_{cell}_{'seq' if seq else 'step'}"
+        key = f"{model}_{cell}_{backend}"
+        runs = {"plain": [], "mesh": []}
+        order = ((("plain", "mesh"), ("mesh", "plain")) if i == 0
+                 else (("plain", "mesh"),))
+        for turn in order:
+            for side in turn:
+                runs[side].append(run(params, cfg, backend,
+                                      repeated if side == "mesh" else None))
+        base = runs["plain"][0]
+        _check_launches(f"12b {key} plain", base[2], base[0].metrics,
+                        kernel, (lambda m: per_layer) if seq
+                        else (lambda m: per_layer * m.capacity))
+        for k, r in enumerate(runs["mesh"]):
+            _shard_check(r, base, sids, f"12b {key} mesh {k}", kernel,
+                         per_layer, SHARDS, seq)
+        for r in runs["plain"][1:]:
+            _same_serving(r, base, sids, f"12e {key} plain")
+        cell_out = {"model": model, "cell": cell, "backend": backend,
+                    "bit_equal": True,
+                    "launches_per_tick": {
+                        side: [m.launches for m in runs[side][0][0].metrics]
+                        for side in runs},
+                    "batch_rows": {side: runs[side][0][0].metrics[0]
+                                   .batch_rows for side in runs},
+                    "plain": _side_stats(runs["plain"], report["card"]),
+                    "mesh": _side_stats(runs["mesh"], report["card"])}
+        cell_out["host_ms_per_added_shard"] = (
+            cell_out["mesh"]["tick_ms_p50"]
+            - cell_out["plain"]["tick_ms_p50"]) / (SHARDS - 1)
+        if i == 0:
+            one = run(params, cfg, backend, make_data_mesh(1, device=home))
+            _shard_check(one, base, sids, "12a mesh(1)", kernel, per_layer,
+                         1, seq)
+            cell_out["mesh1_bit_equal"] = True
+            cell_out["mesh1_tick_ms_p50"] = _side_stats(
+                [one], report["card"])["tick_ms_p50"]
+            t0 = time.perf_counter()
+            for tag, first, second in (("n_to_1", repeated, None),
+                                       ("1_to_n", None, repeated)):
+                got = _shard_resume(params, cfg, home, first, second, plans,
+                                    sids, streams, tag)
+                _same_serving(got, base, sids, f"12c {tag}")
+            shutil.rmtree(os.path.join(ROOT, "build", "phase12"),
+                          ignore_errors=True)
+            cell_out["snapshot_round_trip"] = {
+                "bit_equal": True, "seconds": time.perf_counter() - t0}
+            if n_cards >= 2:
+                cards = make_data_mesh(min(n_cards, SHARDS), device=home)
+                r = run(params, cfg, backend, cards, graphs=False)
+                _shard_check(r, base, sids, "12b real cards", kernel,
+                             per_layer, cards.size, seq, graphs=False)
+                cell_out["real_cards"] = _side_stats([r], report["card"])
+        out["cells"][key] = cell_out
+    t0 = time.perf_counter()
+    out["gspmd"] = _gspmd_check(home, make_data_mesh(
+        2, model=2, devices=[home] * 4))
+    out["gspmd_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in total.items() if v}
+    out["seconds"] = time.perf_counter() - t_phase
+    report["sharding"] = out
+    print("sharding " + json.dumps(out), flush=True)
+    return total
+
+
 # -- the LM decode path -----------------------------------------------------
 
 def _lm_rows(dev, n):
@@ -5411,7 +5650,7 @@ def main(argv=None) -> int:
             ("5b", precision_serving_phase), ("5c", graph_phase),
             ("5d", durable_phase), ("5e", student_phase),
             ("5f", fleet_phase), ("5g", controller_phase),
-            ("7", lm_serving_phase),
+            ("12", sharding_phase), ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():

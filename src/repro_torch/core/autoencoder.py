@@ -76,7 +76,8 @@ def init(generator: torch.Generator, cfg: AutoencoderConfig,
 def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
           backend: str = "reference", initial_state=None, lengths=None,
           return_state: bool = False, precision: str | None = None,
-          return_decoded: bool = False, device=None, mesh=None):
+          return_decoded: bool = False, device=None, mesh=None,
+          policy=None):
     """Forward pass for one set of MCD masks.
 
     x_seq: [B, T, I]; rows: [B] mask-stream row ids.  ``backend`` selects
@@ -88,12 +89,14 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
     ``precision`` (fp32/bf16/int8/int4, None = native dtypes) serves both
     stacks at that precision, the input cast to the activation dtype up
     front; the head's outputs come out in the activation dtype.  Runs on
-    ``device`` (default CUDA).
+    ``device`` (default CUDA).  ``mesh`` / ``policy`` shard both stacks
+    over a device mesh (``launch.rnn_shardings``; the head runs on
+    ``mesh.home``), bit-equal to the unsharded pass.
 
     Returns (mean [B, W, I], log_var [B, W, I] or None)[, dec_out]
     [, encoder states] with ``W = min(T, cfg.decode_window or T)``.
     """
-    dev = resolve_device(device)
+    dev = rnn.stack_device(device, mesh)
     x_seq = torch.as_tensor(x_seq, device=dev)
     if precision is not None:
         # Cast up front, so the reference masks sample in the dtype the
@@ -117,7 +120,7 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
         return_sequence=False, backend=backend, rows=rows,
         seed=cfg.mcd.seed, initial_state=initial_state, lengths=lengths,
         return_all_states=True, cell=cfg.cell, precision=precision,
-        device=dev, mesh=mesh)
+        device=dev, mesh=mesh, policy=policy)
     h_T = enc_states[-1][0]
     # Repeat the bottleneck over the decode positions; the decoder replays
     # fresh per chunk and inherits `lengths` (capped at the window).
@@ -130,7 +133,7 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: AutoencoderConfig, *,
         params["decoder"], dec_in, dec_masks, cfg.mcd.p, backend=backend,
         rows=rows, seed=cfg.mcd.seed, layer_offset=cfg.num_layers,
         lengths=dec_lengths, cell=cfg.cell, precision=precision,
-        device=dev, mesh=mesh)
+        device=dev, mesh=mesh, policy=policy)
     y = linear.dense(params["head"], dec_out)
     if cfg.heteroscedastic:
         mean, log_var = torch.chunk(y, 2, dim=-1)

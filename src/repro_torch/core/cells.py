@@ -81,7 +81,8 @@ def _gate_sums(views: torch.Tensor, w: torch.Tensor):
 def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
               x: torch.Tensor, zx: torch.Tensor | None,
               zh: torch.Tensor | None, p: float,
-              det: torch.Tensor | None = None):
+              det: torch.Tensor | None = None,
+              span: tuple[int, int] | None = None):
     """One LSTM time step with per-gate MCD masks.
 
     h, c: [B, H] carry; x: [B, I]; zx: [B, 4, I] / zh: [B, 4, H] keep-masks
@@ -89,6 +90,11 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
     Returns (h_new, c_new); the gate sums and c accumulate in fp32, h_new
     returns in h's dtype and c_new in c's (fp32 under a serving
     precision).
+
+    ``span=(lo, H)``: ``params`` hold the output columns ``lo .. lo + n``
+    of every gate and ``c`` those columns of the cell state (``h`` stays
+    whole: it is a contraction operand); returns the slice's ``h_new`` and
+    ``c_new``, each element the unsliced step's (``common.rowwise``).
     """
     wx, wh, b = params
     xr = x[:, None, :].expand(x.shape[0], 4, x.shape[1])
@@ -99,12 +105,12 @@ def lstm_step(params: LSTMParams, h: torch.Tensor, c: torch.Tensor,
         xg = torch.where(det[:, None, None], xr, xg)
         hg = torch.where(det[:, None, None], hr, hg)
     gates = _gate_sums(xg, wx) + _gate_sums(hg, wh) + b.float()
-    i = common.rowwise(torch.sigmoid, gates[:, 0])
-    f = common.rowwise(torch.sigmoid, gates[:, 1])
-    g = common.rowwise(torch.tanh, gates[:, 2])
-    o = common.rowwise(torch.sigmoid, gates[:, 3])
+    i = common.rowwise(torch.sigmoid, gates[:, 0], span)
+    f = common.rowwise(torch.sigmoid, gates[:, 1], span)
+    g = common.rowwise(torch.tanh, gates[:, 2], span)
+    o = common.rowwise(torch.sigmoid, gates[:, 3], span)
     c_new = f * c.float() + i * g
-    h_new = (o * common.rowwise(torch.tanh, c_new)).to(h.dtype)
+    h_new = (o * common.rowwise(torch.tanh, c_new, span)).to(h.dtype)
     return h_new, c_new.to(c.dtype)
 
 
@@ -126,13 +132,17 @@ def init_gru(generator: torch.Generator, in_dim: int, hidden: int,
 
 def gru_step(params: GRUParams, h: torch.Tensor, x: torch.Tensor,
              zx: torch.Tensor | None, zh: torch.Tensor | None, p: float,
-             det: torch.Tensor | None = None) -> torch.Tensor:
+             det: torch.Tensor | None = None,
+             span: tuple[int, int] | None = None) -> torch.Tensor:
     """One GRU time step with per-gate MCD masks (gate order r, z, n).
 
     h: [B, H] carry (the GRU's whole recurrent state); x: [B, I];
     zx: [B, 3, I] / zh: [B, 3, H] keep-masks or None; det: [B] bool — True
     rows run deterministic.  The reset gate scales the recurrent candidate
     sum before the candidate bias is added.  Returns h_new in h's dtype.
+    ``span=(lo, H)``: ``params`` hold the output columns ``lo .. lo + n``
+    of every gate; returns those columns of ``h_new`` (see
+    :func:`lstm_step`).
     """
     wx, wh, b = params
     xr = x[:, None, :].expand(x.shape[0], 3, x.shape[1])
@@ -145,8 +155,9 @@ def gru_step(params: GRUParams, h: torch.Tensor, x: torch.Tensor,
     gx = _gate_sums(xg, wx)
     gh = _gate_sums(hg, wh)
     bf = b.float()
-    r = common.rowwise(torch.sigmoid, gx[:, 0] + gh[:, 0] + bf[0])
-    zt = common.rowwise(torch.sigmoid, gx[:, 1] + gh[:, 1] + bf[1])
-    n = common.rowwise(torch.tanh, gx[:, 2] + r * gh[:, 2] + bf[2])
-    h_new = (1.0 - zt) * n + zt * h.float()
+    r = common.rowwise(torch.sigmoid, gx[:, 0] + gh[:, 0] + bf[0], span)
+    zt = common.rowwise(torch.sigmoid, gx[:, 1] + gh[:, 1] + bf[1], span)
+    n = common.rowwise(torch.tanh, gx[:, 2] + r * gh[:, 2] + bf[2], span)
+    hs = h if span is None else h[:, span[0]:span[0] + n.shape[1]]
+    h_new = (1.0 - zt) * n + zt * hs.float()
     return h_new.to(h.dtype)

@@ -41,7 +41,7 @@ def init(generator: torch.Generator, cfg: ClassifierConfig,
 def apply(params: dict[str, Any], x_seq, rows, cfg: ClassifierConfig, *,
           backend: str = "reference", initial_state=None, lengths=None,
           return_state: bool = False, precision: str | None = None,
-          device=None, mesh=None):
+          device=None, mesh=None, policy=None):
     """Logits [B, num_classes] for one set of MCD masks.
 
     ``backend`` selects the encoder path (``"reference"`` | ``"cuda_step"``
@@ -52,9 +52,11 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: ClassifierConfig, *,
     input to the activation dtype and the encoder's weights as
     ``run_stack`` does; the head runs at the activation dtype too (fp32
     sums rounded to it), so bf16 precisions give bf16 logits, as in the
-    reference.  Runs on ``device`` (default CUDA).
+    reference.  Runs on ``device`` (default CUDA).  ``mesh`` / ``policy``
+    shard the encoder over a device mesh (``launch.rnn_shardings``; the
+    head runs on ``mesh.home``), bit-equal to the unsharded pass.
     """
-    dev = resolve_device(device)
+    dev = rnn.stack_device(device, mesh)
     x_seq = torch.as_tensor(x_seq, device=dev)
     if precision is not None:
         # Cast up front, so the reference masks sample in the dtype the
@@ -71,6 +73,7 @@ def apply(params: dict[str, Any], x_seq, rows, cfg: ClassifierConfig, *,
                               rows=rows, seed=cfg.mcd.seed,
                               initial_state=initial_state, lengths=lengths,
                               return_all_states=True, cell=cfg.cell,
-                              precision=precision, device=dev, mesh=mesh)
+                              precision=precision, device=dev, mesh=mesh,
+                              policy=policy)
     logits = linear.dense(params["head"], states[-1][0])
     return (logits, states) if return_state else logits

@@ -1,5 +1,5 @@
 """Cascaded LSTM / GRU stacks with MCD mask pre-sampling — port of
-``repro.core.rnn`` (unsharded).
+``repro.core.rnn``.
 
 ``run_stack`` has three backends (:data:`repro_torch.kernels.ops.LSTM_BACKENDS`):
 ``"reference"`` runs plain PyTorch cells over pre-sampled masks in the
@@ -8,7 +8,8 @@ reference's wavefront order (all layers advance one step per iteration);
 per time step; ``"cuda_seq"`` runs each layer whole through the
 sequence-fused kernel, one launch per layer.  The kernel backends rebuild
 the masks in-kernel from ``(seed, rows)``.  Both cells run on every
-backend: LSTM layers carry ``(h, c)``, GRU layers ``(h,)``.
+backend: LSTM layers carry ``(h, c)``, GRU layers ``(h,)``.  ``mesh=``
+shards the stack over a device mesh (``launch.rnn_shardings``).
 """
 
 from __future__ import annotations
@@ -79,7 +80,8 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
               rows=None, seed=0, layer_offset: int = 0,
               initial_state=None, lengths=None,
               return_all_states: bool = False, cell: str = "lstm",
-              precision: str | None = None, device=None, mesh=None):
+              precision: str | None = None, device=None, mesh=None,
+              policy=None):
     """Run a cascaded LSTM / GRU stack over a [B, T, I] sequence.
 
     Same contract as the reference's ``run_stack``: ``masks`` from
@@ -105,16 +107,22 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
     1, gives the kernels' ``(q, scale)``).  h travels in the activation
     dtype and the LSTM's c in fp32 on every backend.  The reference
     backend needs ``masks`` sampled in the activation dtype.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) shards the stack: batch rows over its
+    data axes, or, under the ``"gspmd"`` strategy, the hidden units over
+    its model axis (``policy``: a ``launch.rnn_shardings.
+    StackShardingPolicy``; None = the default).  ``rows`` are then
+    required, ``params`` live on the mesh's first device (``mesh.home``,
+    which ``device`` must name when given) and the results come back
+    there.  The sharded run always passes ``lengths`` (full T when None
+    is given) and is bit-equal to the unsharded run given them.
     """
     _check_cell(cell)
-    if mesh is not None:
-        raise NotImplementedError("run_stack(mesh=...) is not ported yet; "
-                                  "see ROADMAP.md")
     quantize.check_precision(precision)
     if backend not in ops.LSTM_BACKENDS:
         raise ValueError(f"backend must be one of {ops.LSTM_BACKENDS}, "
                          f"got {backend!r}")
-    dev = resolve_device(device)
+    dev = stack_device(device, mesh)
     for lp in params:
         if lp.wx.device != dev:
             raise ValueError(f"params live on {lp.wx.device}, run_stack "
@@ -130,6 +138,16 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
         initial_state = [None if s is None else tuple(
             torch.as_tensor(part, device=dev) for part in s)
             for s in initial_state]
+    if mesh is not None:
+        # Deferred: the launch layer imports this module.
+        from repro_torch.launch import rnn_shardings
+        return rnn_shardings.run_stack_sharded(
+            params, x_seq, masks, p, mesh=mesh, policy=policy,
+            backend=backend, return_sequence=return_sequence, rows=rows,
+            seed=seed, layer_offset=layer_offset,
+            initial_state=initial_state, lengths=lengths,
+            return_all_states=return_all_states, cell=cell,
+            precision=precision)
     if backend != "reference":
         return _run_stack_kernel(params, x_seq, masks, p, backend=backend,
                                  return_sequence=return_sequence, rows=rows,
@@ -184,6 +202,21 @@ def run_stack(params: Sequence, x_seq, masks, p: float, *,
             ys.append(inp)
     out = torch.stack(ys, dim=1) if return_sequence else None
     return out, (carries if return_all_states else carries[-1])
+
+
+def stack_device(device, mesh) -> torch.device:
+    """Where a stack runs: ``device`` (default CUDA), or the mesh's first
+    device, which ``device`` must then name when given."""
+    if mesh is None:
+        return resolve_device(device)
+    home = getattr(mesh, "home", None)
+    if not isinstance(home, torch.device):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and resolve_device(device) != home:
+        raise ValueError(f"run_stack on {resolve_device(device)} with a "
+                         f"mesh whose first device is {home}")
+    return home
 
 
 def _seed_carries(params, initial_state, batch, dtype, device, cell="lstm",

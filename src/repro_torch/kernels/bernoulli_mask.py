@@ -103,7 +103,8 @@ def masked_activation(x: torch.Tensor, rows: torch.Tensor, key: int,
                     (x.data_ptr(), rows32.data_ptr(), out.data_ptr(), B, F,
                      int(plan["vec4"]), int(key) & prng.MASK32, thr, scale,
                      masked, common.stream(dev)),
-                    f"masked_activation (B={B}, F={F}, {act})", variant)
+                    f"masked_activation (B={B}, F={F}, {act})", variant,
+                    device=dev)
     return out
 
 

@@ -68,7 +68,8 @@ def largest_divisor(n: int, at_most: int) -> int:
     return d
 
 
-def rowwise(fn, v: torch.Tensor) -> torch.Tensor:
+def rowwise(fn, v: torch.Tensor, span: tuple[int, int] | None = None
+            ) -> torch.Tensor:
     """``fn(v)`` for an elementwise ``fn``, evaluated row by row.
 
     PyTorch's CPU kernels run a flat tensor through a vector loop and its
@@ -78,13 +79,20 @@ def rowwise(fn, v: torch.Tensor) -> torch.Tensor:
     longer than the row), every row of ``v`` [B, ...] takes the same path
     whatever B, so a row's result does not depend on the rows around it —
     the CUDA kernels' property (one thread per row and unit).
+
+    ``span=(lo, width)``: ``v`` [B, n] holds columns ``lo .. lo + n`` of
+    rows ``width`` wide (one model-axis entry's slice of the hidden units,
+    ``launch.rnn_shardings``).  Each element is evaluated at its own column
+    of a row of the full width, so it takes the path it takes unsliced.
     """
     B = v.shape[0]
     flat = v.reshape(B, -1)
-    buf = torch.empty((B, flat.shape[1] + 1), dtype=v.dtype,
-                      device=v.device)[:, :-1]
-    buf.copy_(flat)
-    return fn(buf).reshape(v.shape)
+    n = flat.shape[1]
+    lo, width = (0, n) if span is None else span
+    alloc = torch.empty if width == n else torch.zeros
+    buf = alloc((B, width + 1), dtype=v.dtype, device=v.device)[:, :-1]
+    buf[:, lo:lo + n].copy_(flat)
+    return fn(buf)[:, lo:lo + n].reshape(v.shape)
 
 
 def rows_to_int32(rows: torch.Tensor) -> torch.Tensor:
@@ -464,13 +472,20 @@ def _rnn_argtypes(n_ptr: int, n_int: int) -> tuple:
 
 
 def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str,
-             variant: str = "") -> None:
+             variant: str = "", *, device) -> None:
     """Launch ``csrc/<lib>.cu``'s ``<wrapper name>[_<variant>]_launch``
     entry (``variant`` "bf16": the LM kernels' bf16 entries) with ``args``
-    (declared ``argtypes``), raise on a launch error, and count one launch
-    in ``wrapper.launches``."""
+    (declared ``argtypes``) on ``device``, the operands' card, raise on a
+    launch error, and count one launch in ``wrapper.launches``.
+
+    A ``<<<>>>`` launch, and the entry's ``cudaFuncSetAttribute``, go to
+    the host thread's current device, so the entry runs with ``device``
+    made current: a launch on another card than the current one would
+    otherwise run on the wrong card or fail with an invalid handle."""
     name = wrapper.__name__ + (f"_{variant}" if variant else "")
-    err = c_entry(lib, f"{name}_launch", argtypes)(*args)
+    entry = c_entry(lib, f"{name}_launch", argtypes)
+    with torch.cuda.device(device):
+        err = entry(*args)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -479,16 +494,17 @@ def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str,
 def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
            what: str, act=torch.float32) -> None:
     """Launch the kernel of ``wrapper`` (``csrc/<wrapper.__name__>.cu``'s
-    ``*_launch`` entry) on the current stream of the tensors' device, raise
+    ``*_launch`` entry) on the tensors' device and its current stream, raise
     on a launch error, and count one launch in ``wrapper.launches``.  A
     ``None`` among ``tensors`` passes a null pointer (the scales of
     unquantized weights); the dropout scale is rounded to ``act``."""
     name = wrapper.__name__
     thr, scale, masked = mask_args(p_drop, act)
+    dev = tensors[0].device
     launch_c(wrapper, name, _rnn_argtypes(len(tensors), len(ints)),
              (*[None if t is None else t.data_ptr() for t in tensors], *ints,
-              keys_arg(keys, n_keys), thr, scale, masked,
-              stream(tensors[0].device)), what)
+              keys_arg(keys, n_keys), thr, scale, masked, stream(dev)),
+             what, device=dev)
 
 
 # The mask-export entry of each cell's gate count: the layer kernels of one
@@ -514,9 +530,11 @@ def kernel_mask_factors(keys, rows: torch.Tensor, in_dim: int, hidden: int,
     fx = torch.empty((B, G, in_dim), device=dev)
     fh = torch.empty((B, G, hidden), device=dev)
     thr, sc, masked = mask_args(p_drop, dtype)
-    err = c_entry(lib, f"{lib}_masks_launch", _rnn_argtypes(3, 3))(
-        rows32.data_ptr(), fx.data_ptr(), fh.data_ptr(), B, in_dim, hidden,
-        keys_arg(ks, 2 * G), thr, sc, masked, stream(dev))
+    entry = c_entry(lib, f"{lib}_masks_launch", _rnn_argtypes(3, 3))
+    with torch.cuda.device(dev):
+        err = entry(rows32.data_ptr(), fx.data_ptr(), fh.data_ptr(), B,
+                    in_dim, hidden, keys_arg(ks, 2 * G), thr, sc, masked,
+                    stream(dev))
     if err != 0:
         raise RuntimeError(f"mask export kernel launch failed: CUDA error "
                            f"{err}")

@@ -184,7 +184,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      pos_ptr, B, H, S, KV, hd, pos_val, plan["splits"],
                      plan["run"], hd ** -0.5, common.stream(dev)),
                     f"decode_attention (B={B}, H={H}, KV={KV}, hd={hd}, "
-                    f"S={S}, splits={plan['splits']}, {act})", variant)
+                    f"S={S}, splits={plan['splits']}, {act})", variant,
+                    device=dev)
     return out
 
 

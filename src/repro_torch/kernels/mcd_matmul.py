@@ -159,7 +159,7 @@ def mcd_matmul(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
                     _ARGTYPES_BF16 if variant else _ARGTYPES,
                     (*args, common.stream(dev)),
                     f"mcd_matmul (M={M}, N={N}, K={K}, {plan['tile']}, "
-                    f"{act} -> {out_dtype})", variant)
+                    f"{act} -> {out_dtype})", variant, device=dev)
     mcd_matmul.last_plan = plan
     return out
 

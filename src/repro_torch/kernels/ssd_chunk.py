@@ -234,7 +234,8 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256,
                          bm.data_ptr(), cm.data_ptr(), d_skip.data_ptr(),
                          cs.data_ptr(), y.data_ptr(), h_final.data_ptr(),
                          B, L, H, P, N, Q, int(y.dtype == f32),
-                         common.stream(dev)), what, "bf16_tc")
+                         common.stream(dev)), what, "bf16_tc",
+                        device=dev)
         ssd_chunk_scan.last_plan = plan
         return y, h_final
     scores = torch.empty((plan["scores_bytes"] // 4,), dtype=torch.float32,
@@ -256,7 +257,7 @@ def ssd_chunk_scan(x, dt, a, bm, cm, d_skip, *, q_chunk: int = 256,
                      ct.data_ptr(), cs.data_ptr(), y.data_ptr(),
                      h_final.data_ptr(), *(t.data_ptr() for t in wide),
                      B, L, H, P, N, Q, vec, common.stream(dev)),
-                    what, variant)
+                    what, variant, device=dev)
     ssd_chunk_scan.last_plan = plan
     return y, h_final
 

@@ -16,8 +16,14 @@ stream finishes.  More than ``--max-pending`` waiting streams are refused
 declares heterogeneous tenants (classifier or autoencoder, LSTM or GRU,
 each with its own S, precision and weight) and one ``FleetEngine`` serves
 them all a tick (see :func:`load_fleet`).  ``--chunk-len``, ``--ragged``,
-``--metrics-out``, ``--snapshot-*``, ``--resume`` and ``--device`` apply
-fleet-wide.
+``--metrics-out``, ``--snapshot-*``, ``--resume``, ``--device`` and
+``--shards`` apply fleet-wide.
+
+``--shards N`` serves every launch over a data mesh of N entries
+(``launch.rnn_shardings``): the first N cards, or an error where the
+machine has fewer; with ``--device cpu`` the CPU N times.  The results are
+the unsharded engine's, bit for bit.  It is refused beside
+``--early-exit-threshold`` (sharded launches need one S a session).
 
 ``--controller`` runs the online co-design loop on the single-tenant engine
 (``serve.controller.CoDesignController``): after each tick it calibrates
@@ -47,6 +53,8 @@ Usage:
       --samples 8 --early-exit-threshold 1e-3 --min-samples 2
   PYTHONPATH=src python -m repro_torch.launch.stream --tenants fleet.json \
       --chunk-len 20 --metrics-out fleet.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
+      --sessions 3 --samples 2 --beats 1 --ragged --shards 2
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 64 \
       --samples 30 --beats 4 --ragged --capacity auto --prewarm \
       --controller --slo-p95-ms 3 --min-samples 8 \
@@ -66,6 +74,7 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint
 from repro_torch.core import autoencoder as ae, classifier as clf, mcd
 from repro_torch.data import ecg
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.serve import (CoDesignController, FleetEngine, JsonlSink,
                                SLOPolicy, StreamingEngine, TenantSpec,
                                pow2_ladder, prewarm, summarize)
@@ -168,7 +177,10 @@ def run_fleet(args, device) -> dict:
     ``summarize()`` of its tenant-tagged trail."""
     specs, plans, fleet_kw = load_fleet(args.tenants, args.seed, device)
     sink = JsonlSink(args.metrics_out) if args.metrics_out else None
-    fleet = FleetEngine(specs, metrics_sink=sink, device=device, **fleet_kw)
+    mesh = (make_data_mesh(args.shards, device=device) if args.shards
+            else None)
+    fleet = FleetEngine(specs, metrics_sink=sink, device=device, mesh=mesh,
+                        **fleet_kw)
     for g in fleet.groups.values():
         print(f"launch group {g.name}: tenants={g.tenants}")
     print(f"fleet of {len(specs)} tenant(s) on {device}, "
@@ -285,6 +297,11 @@ def main(argv=None):
                     "auto=adaptive ladder, dynamic=per-tick max")
     ap.add_argument("--max-pending", type=int, default=256,
                     help="admission-queue backpressure bound")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="shard every launch over N devices of --device's "
+                    "kind (batch / data parallel, launch.rnn_shardings; "
+                    "0 = no mesh): the first N cards, an error where there "
+                    "are fewer; with --device cpu the CPU N times")
     ap.add_argument("--prewarm", action="store_true",
                     help="capture every capacity rung's tick graph at boot "
                     "(scheduler.prewarm) so no tick pays a first-use "
@@ -311,7 +328,8 @@ def main(argv=None):
                     metavar="DELTA",
                     help="retire a session's surplus MC chains once halving "
                     "them would move its uncertainty summary by at most "
-                    "DELTA (default: off, every session keeps --samples)")
+                    "DELTA (default: off, every session keeps --samples).  "
+                    "Incompatible with --shards.")
     ap.add_argument("--snapshot-dir", default=None,
                     help="durable session snapshots (crash-safe resume)")
     ap.add_argument("--snapshot-every", type=int, default=5,
@@ -328,6 +346,9 @@ def main(argv=None):
     total = args.overload or args.sessions
     if args.resume and not args.snapshot_dir:
         ap.error("--resume requires --snapshot-dir")
+    if args.early_exit_threshold is not None and args.shards:
+        ap.error("--early-exit-threshold is incompatible with --shards "
+                 "(sharded launches need uniform chains per session)")
     if args.tenants and (args.controller or args.decisions_out):
         ap.error("--controller and --decisions-out drive the single-engine "
                  "path; a fleet's per-tenant loops are "
@@ -345,12 +366,17 @@ def main(argv=None):
     capacity = {"fixed": args.chunk_len, "auto": "auto",
                 "dynamic": None}[args.capacity]
     ladder = pow2_ladder(args.chunk_len) if capacity == "auto" else None
+    mesh = None
+    if args.shards:
+        mesh = make_data_mesh(args.shards, device=device)
+        print(f"sharding launches over {args.shards} devices (data axis): "
+              f"{mesh}")
     sink = JsonlSink(args.metrics_out) if args.metrics_out else None
     eng = StreamingEngine(params, cfg, backend=args.backend,
                           max_sessions=args.sessions,
                           chunk_capacity=capacity, ladder=ladder,
                           max_pending=args.max_pending,
-                          metrics_sink=sink, device=device,
+                          metrics_sink=sink, device=device, mesh=mesh,
                           precision=args.precision,
                           early_exit_threshold=args.early_exit_threshold,
                           min_samples=min(args.min_samples, args.samples))

@@ -36,10 +36,9 @@ The safety contract: a session's outputs across a reconfiguration are
 bit-identical to an uninterrupted engine at the new config resuming from
 the converted carry.
 
-``shards`` other than 1 needs the mesh, which is not ported (ROADMAP A8):
-a detached :meth:`CoDesignController.plan` still prices such candidates
-(arithmetic), but :meth:`CoDesignController.apply_config` and
-:class:`FleetController` refuse them.
+``shards`` is the data-parallel width: a swap to another count builds its
+engine on a data mesh of that many entries over the old engine's devices
+(:func:`reshard_mesh`), or on none at 1.
 """
 
 from __future__ import annotations
@@ -80,10 +79,22 @@ UPSHIFT_MARGIN = 0.5
 HEADROOM = 0.9
 
 
-def _unported_shards(where: str, shards: int):
-    return NotImplementedError(
-        f"{where}: shards={shards} needs mesh sharding, which is not ported "
-        "to repro_torch yet; see ROADMAP.md (A8)")
+def reshard_mesh(engine: StreamingEngine, shards: int):
+    """The mesh of an engine that replaces ``engine`` at ``shards`` data
+    shards: ``engine``'s own when the count is unchanged, none at 1, else
+    ``launch.mesh.data_mesh_like`` over ``engine``'s devices (its one
+    device repeated; else that many cards from its first, or an error:
+    a mesh never shrinks to what there is)."""
+    shards = int(shards)
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    if shards == engine._shards:
+        return engine.mesh
+    if shards == 1:
+        return None
+    # Deferred: serving imports without the launch layer.
+    from repro_torch.launch.mesh import data_mesh_like
+    return data_mesh_like(shards, mesh=engine.mesh, device=engine.device)
 
 
 def _prewarm_fixed(engine: StreamingEngine) -> None:
@@ -125,8 +136,9 @@ class ServingConfig:
     """The live-reconfigurable knobs — the online slice of the DSE space.
 
     ``chunk_capacity`` is the launch-shape budget (the top ladder rung; 0 =
-    keep the engine's own).  ``shards`` is the data-parallel width (only 1
-    is served: ROADMAP A8).  H, NL, placement and cell change the
+    keep the engine's own).  ``shards`` is the data-parallel width (the
+    engine's mesh's data entries; 1 = no mesh).  H, NL, placement and cell
+    change the
     parameters themselves: a deploy, not a reconfiguration.
     """
 
@@ -578,13 +590,14 @@ class CoDesignController:
         ``student=`` heads: a student session comes back an MC session on
         its one flagged row.  ``last_swap`` keeps the pre-swap sessions
         (the anchor a bit-identity check replays from) and the host
-        seconds of the swap's parts.  ``shards`` other than 1 raises
-        ``NotImplementedError`` (ROADMAP A8).
+        seconds of the swap's parts.  A change of ``shards`` makes or drops
+        the mesh (:func:`reshard_mesh`: over the old engine's mesh or
+        device); a meshed engine's early exit is dropped, as sharded
+        launches need every session at one S.
         """
         old = self.engine
-        if new.shards != 1:
-            raise _unported_shards("apply_config", new.shards)
         _quant.check_precision(new.precision)
+        mesh = reshard_mesh(old, new.shards)
         t0 = time.perf_counter()
         model_cfg = dataclasses.replace(
             old.cfg, mcd=old.cfg.mcd.replace(n_samples=new.n_samples))
@@ -604,9 +617,11 @@ class CoDesignController:
             old.params, model_cfg, backend=old.backend,
             max_sessions=old.max_sessions, chunk_capacity=cap_arg,
             ladder=ladder, max_pending=old.queue.max_pending,
-            metrics_sink=old.metrics_sink, device=old.device,
+            metrics_sink=old.metrics_sink, device=old.device, mesh=mesh,
+            policy=old.policy if mesh is not None else None,
             graphs=old.graphs, precision=new.precision,
-            early_exit_threshold=old.early_exit_threshold,
+            early_exit_threshold=(None if mesh is not None
+                                  else old.early_exit_threshold),
             min_samples=floor)
         if (old._scheduler is not None and eng._scheduler is not None
                 and eng._scheduler.ladder == old._scheduler.ladder):
@@ -682,7 +697,7 @@ class CoDesignController:
             cap = 0
         return ServingConfig(n_samples=engine.n_samples,
                              precision=engine.precision,
-                             chunk_capacity=cap, shards=1)
+                             chunk_capacity=cap, shards=engine._shards)
 
     @staticmethod
     def _derive_arch(engine: StreamingEngine,
@@ -715,8 +730,9 @@ class FleetController:
     bit-safely), whose new engine is prewarmed before the tenant's next
     tick, as :meth:`CoDesignController.apply_config`'s is; every decision
     — applied or refused — is emitted to the shared decision sink tagged
-    with ``DecisionRecord.tenant``.  A knob
-    grid with ``shards`` other than 1 is refused (ROADMAP A8).
+    with ``DecisionRecord.tenant``.  A knob grid may hold ``shards``
+    other than the tenant's: an applied change builds the tenant's new
+    engine on a data mesh of that many entries (:func:`reshard_mesh`).
     """
 
     def __init__(self, fleet, *, knobs=None, decision_sink=None,
@@ -742,10 +758,6 @@ class FleetController:
                 slots=engine.max_sessions if engine._fixed else None,
                 knobs=(knobs or {}).get(name),
                 decision_sink=RingBufferSink(4), **ctrl_kwargs)
-            bad = [sh for sh in ctrl.knobs.shards if sh != 1]
-            if bad:
-                raise _unported_shards(f"FleetController tenant {name!r}",
-                                       bad[0])
             self.controllers[name] = ctrl
 
     @property

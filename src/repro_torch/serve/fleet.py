@@ -34,9 +34,10 @@ chains in an order fixed by its chain count), so a tenant served in a
 shared fleet tick is bit-identical to the same sessions in an engine of
 their own.
 
-``device`` (the card unless ``"cpu"`` is asked for), ``graphs`` and
-``ladder`` go to every group engine.  ``mesh`` sharding is not ported
-(ROADMAP A8).
+``device`` (the card unless ``"cpu"`` is asked for), ``graphs``,
+``ladder`` and ``mesh`` / ``policy`` (``launch.rnn_shardings``) go to
+every group engine.  On a mesh S stays in the launch-group signature:
+sharded launches place whole sessions a shard, all at one S.
 """
 
 from __future__ import annotations
@@ -46,12 +47,13 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 
-from repro_torch import resolve_device
 from repro_torch.core import autoencoder as _ae, classifier as _clf
+from repro_torch.core import rnn as _rnn
 from repro_torch.serve import persistence as _persist
 from repro_torch.serve.admission import (DrainRejected, FleetTicket,
                                          WeightedFairQueue)
-from repro_torch.serve.controller import carry_dtypes, convert_session
+from repro_torch.serve.controller import (carry_dtypes, convert_session,
+                                          reshard_mesh)
 from repro_torch.serve.scheduler import TickMetrics, summarize
 from repro_torch.serve.sessions import Session
 from repro_torch.serve.stream import (ChunkResult, MetricsSink,
@@ -131,8 +133,8 @@ class FleetEngine:
       metrics_sink: where the tenant-tagged :class:`TickMetrics` go (each
         group engine keeps a small ring of its own).
       device: where every group serves (default CUDA; ``"cpu"`` runs the
-        plain-PyTorch paths).
-      graphs, ladder: forwarded to every group engine.
+        plain-PyTorch paths; ``mesh.home`` on a mesh).
+      graphs, ladder, mesh, policy: forwarded to every group engine.
 
     Session ids are namespaced ``"tenant/sid"`` inside the groups; the
     public calls take (tenant, bare sid).
@@ -143,22 +145,22 @@ class FleetEngine:
                  admit_per_tick: int | None = None,
                  metrics_window: int = 4096,
                  metrics_sink: MetricsSink | None = None,
-                 device=None, mesh=None, graphs: bool = True, ladder=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetEngine: mesh sharding is not ported to repro_torch "
-                "yet; see ROADMAP.md (A8)")
+                 device=None, mesh=None, policy=None, graphs: bool = True,
+                 ladder=None):
         if not tenants:
             raise ValueError("a fleet needs at least one tenant")
         names = [t.name for t in tenants]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate tenant names in {names}")
-        self.device = resolve_device(device)
+        self.device = _rnn.stack_device(device, mesh)
         self._graphs, self._ladder = graphs, ladder
+        self._mesh, self._policy = mesh, policy
         self.specs: dict[str, TenantSpec] = {t.name: t for t in tenants}
         # Launch-group folding: the same weights object and the same
         # launches (the config with S set to 1, backend, precision, chunk
-        # policy, early-exit policy, student heads) share one engine.
+        # policy, early-exit policy, student heads) share one engine.  A
+        # meshed fleet keeps S in the signature: sharded launches place
+        # whole sessions a shard, all at one S.
         self.groups: dict[str, _Group] = {}
         self._tenant_group: dict[str, str] = {}
         self._group_seq = 0      # names never recycle: a reconfigured
@@ -167,7 +169,7 @@ class FleetEngine:
         by_sig: dict[tuple, list[TenantSpec]] = {}
         for spec in tenants:
             cfg = spec.resolved_cfg()
-            cfg_key = dataclasses.replace(
+            cfg_key = cfg if mesh is not None else dataclasses.replace(
                 cfg, mcd=cfg.mcd.replace(n_samples=1))
             sig = (id(spec.params), cfg_key, spec.backend,
                    spec.precision, spec.chunk_capacity,
@@ -194,6 +196,7 @@ class FleetEngine:
 
     def _engine(self, spec: TenantSpec, cfg, *, max_sessions: int,
                 ceiling: int, **kw) -> StreamingEngine:
+        kw.setdefault("mesh", self._mesh)
         return StreamingEngine(
             spec.params, cfg, backend=spec.backend,
             max_sessions=max_sessions, chunk_capacity=spec.chunk_capacity,
@@ -201,7 +204,7 @@ class FleetEngine:
             device=self.device, precision=spec.precision,
             early_exit_threshold=spec.early_exit_threshold,
             min_samples=min(spec.min_samples, ceiling),
-            graphs=self._graphs, **kw)
+            graphs=self._graphs, policy=self._policy, **kw)
 
     def _make_group(self, members: list[str],
                     engine: StreamingEngine | None = None) -> _Group:
@@ -463,18 +466,20 @@ class FleetEngine:
         cursors advance past every row the transfer drew.  The new engine,
         as the reference's, takes no student heads, and has no captured
         graph yet: its first tick captures one
-        (``FleetController`` prewarms it first).  A config with ``shards``
-        other than 1 is refused: the mesh is not ported (ROADMAP A8).
+        (``FleetController`` prewarms it first).  ``new.shards`` (the
+        tenant's engine's own count when ``new`` has none) sets its mesh:
+        kept when unchanged, none at 1, else a data mesh of that many
+        entries over the old engine's devices (:func:`~repro_torch.serve.
+        controller.reshard_mesh`, which raises where there are too few).
         """
-        if getattr(new, "shards", 1) != 1:
-            raise NotImplementedError(
-                f"reconfigure_tenant: shards={new.shards} needs mesh "
-                "sharding, which is not ported to repro_torch yet; see "
-                "ROADMAP.md (A8)")
         spec = self.specs[tenant]
         old_ceiling = self._resolved_s(tenant)
         old_group = self.group_of(tenant)
         old_engine = old_group.engine
+        # Before anything moves: a mesh that cannot be built leaves the
+        # fleet as it was.
+        mesh = reshard_mesh(old_engine, getattr(new, "shards",
+                                                old_engine._shards))
         new_spec = dataclasses.replace(
             spec, n_samples=int(new.n_samples),
             precision=getattr(new, "precision", spec.precision),
@@ -490,7 +495,7 @@ class FleetEngine:
         new_ceiling = max(1, int(new.n_samples))
         engine = self._engine(new_spec, new_spec.resolved_cfg(),
                               max_sessions=new_spec.max_sessions,
-                              ceiling=new_ceiling)
+                              ceiling=new_ceiling, mesh=mesh)
         cursor = old_engine.store.next_row
         part_dtypes = carry_dtypes(engine.cell, new_spec.precision,
                                    engine.backend)
@@ -614,3 +619,4 @@ class FleetEngine:
         self.tick = engine.tick
         return {"tenants": {tenant: {"group": self._tenant_group[tenant]}},
                 "tick": self.tick, "extra": extra}
+

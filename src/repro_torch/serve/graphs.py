@@ -10,8 +10,9 @@ whatever the static inputs now hold and returns the static outputs.
 * On a CUDA device ``first`` warms the function up on a side stream, as
   ``torch.cuda.graph`` asks (the first call also builds and loads the
   kernel libraries), returns that real run's outputs, and then captures
-  the function once into a graph; ``replay`` replays the graph.  A capture
-  that fails raises: nothing falls back to eager.
+  the function once into a graph; ``replay`` replays the graph.  Both run
+  with the step's device made current, whichever device the host thread
+  had current.  A capture that fails raises: nothing falls back to eager.
 * On the CPU nothing is captured: ``replay`` runs the function and copies
   its results into the outputs of the first run, so the static outputs
   are overwritten in place exactly as a graph's are, and the callers'
@@ -94,6 +95,12 @@ class StaticStep:
             self.outputs = self.fn()
             self.ready = True
             return self.outputs
+        # The warm-up and the capture run with the step's card current:
+        # torch.cuda.graph captures on a stream of the current device.
+        with torch.cuda.device(self.device):
+            return self._capture()
+
+    def _capture(self):
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -126,7 +133,8 @@ class StaticStep:
         if self.graph is None:
             copy_into(self.outputs, self.fn())
             return self.outputs
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for w, n in self.launches.items():
             w.launches += n
         return self.outputs

@@ -48,8 +48,8 @@ class TickMetrics:
     duration_s: float      # wall clock of the tick, ended by a device sync
     tokens_per_sec: float  # live chain-timesteps / duration
     shards: int = 1        # data-parallel width the tick launched across
-                           # (always 1: the mesh is not ported, ROADMAP
-                           # A8); dse.calibrate prices the tick with it
+                           # (the engine mesh's data entries; 1 without a
+                           # mesh); dse.calibrate prices the tick with it
     queue_wait_s: float = 0.0  # oldest-pending admission age at the drain
     launches: int = 0      # layer-kernel launches this tick (one per layer
                            # on the kernel backend; 0 on the reference)

@@ -43,8 +43,11 @@ same launches as the MC rows, decoded by one batched call of the student
 heads; ``student_escalate_threshold`` regrows an uncertain student to S
 fresh MC chains (``SessionStore.grow``).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md): ``mesh``
-sharding (A8).
+``mesh=`` shards every tick's batch rows over a device mesh
+(``launch.rnn_shardings``): session slots round up to a whole number a
+shard, so a session's S chains never cross a shard, and the results are
+bit-equal to the unsharded engine's.  Mask rows stay global coordinates,
+so a snapshot taken on N shards restores on any other count.
 """
 
 from __future__ import annotations
@@ -58,9 +61,8 @@ from typing import Any, Mapping, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.core import autoencoder as _ae, classifier as _clf
-from repro_torch.core import distill as _distill, mcd as _mcd
+from repro_torch.core import distill as _distill, mcd as _mcd, rnn as _rnn
 from repro_torch.core.uncertainty import (ClassificationSummary,
                                           RegressionSummary,
                                           RunningClassificationSummary,
@@ -229,6 +231,15 @@ class StreamingEngine:
         variance for the autoencoder) is above this value regrows to
         ``n_samples`` fresh MC chains from its carry
         (``SessionStore.grow``).  None: students never escalate.
+      mesh, policy: shard every pass over a ``launch.mesh.Mesh``
+        (``launch.rnn_shardings``; policy None = the default).  The engine
+        serves on ``mesh.home`` (``device`` must name it when given);
+        slots pad to a whole number a shard and every session keeps the
+        engine's S, so early exit and students are refused beside a mesh.
+        A mesh that lists only ``mesh.home`` (one card, or the CPU, named
+        once or more) keeps the tick graphs: one capture holds every
+        shard's launches.  A mesh over several cards serves eagerly:
+        a graph a card is not built (ROADMAP.md).
     """
 
     def __init__(self, params, cfg, *, backend: str = "cuda_seq",
@@ -236,7 +247,8 @@ class StreamingEngine:
                  chunk_capacity: int | str | None = None,
                  max_pending: int = 256, ladder=None,
                  metrics_sink: MetricsSink | None = None,
-                 device=None, mesh=None, precision: str | None = None,
+                 device=None, mesh=None, policy=None,
+                 precision: str | None = None,
                  early_exit_threshold: float | None = None,
                  min_samples: int = 1,
                  student=None,
@@ -249,13 +261,31 @@ class StreamingEngine:
         else:
             raise _unported(f"config {type(cfg).__name__} (the classifier "
                             "and the autoencoder are served)")
-        if mesh is not None:
-            raise _unported("mesh sharding")
         _quant.check_precision(precision)
         if backend not in _ops.LSTM_BACKENDS:
             raise ValueError(f"backend must be one of {_ops.LSTM_BACKENDS}, "
                              f"got {backend!r}")
-        self.device = resolve_device(device)
+        self.device = _rnn.stack_device(device, mesh)
+        self.mesh = mesh
+        self.policy = policy
+        if mesh is not None:
+            # Deferred: serving imports without the launch layer.
+            from repro_torch.launch import rnn_shardings as _rs
+            self._shards = _rs.data_size(mesh, policy or _rs.DEFAULT_POLICY)
+            if early_exit_threshold is not None:
+                raise ValueError(
+                    "early_exit_threshold is incompatible with mesh= — "
+                    "ragged per-session chain counts would unbalance the "
+                    "whole-sessions-per-shard placement; run early exit "
+                    "unsharded or disable it on the mesh engine")
+            if student is not None:
+                raise ValueError(
+                    "student= is incompatible with mesh= — single-row "
+                    "student sessions would break the whole-sessions-per-"
+                    "shard placement; serve the distilled fast path "
+                    "unsharded")
+        else:
+            self._shards = 1
         self.params = params
         self.cfg = cfg
         self.cell = cfg.cell
@@ -272,9 +302,13 @@ class StreamingEngine:
         self._fixed = chunk_capacity is not None
         self.graphs = bool(graphs)
         # (capacity, chunk dtype) -> _TickStep; None serves eagerly.
+        # A capture holds one card's launches: a mesh over other devices
+        # than this engine's serves eagerly.
+        one_device = mesh is None or all(d == self.device
+                                         for d in mesh.device_list)
         self._graphs: dict | None = (
             {} if graphs and self._fixed and backend != "reference"
-            else None)
+            and one_device else None)
         self._pool = None
         s = cfg.mcd.n_samples if cfg.mcd.any_bayesian else 1
         self.n_samples = max(1, s)
@@ -326,6 +360,8 @@ class StreamingEngine:
         ``student=`` heads)."""
         if mode == "student":
             self._check_student(sid)
+        else:
+            self._check_chain_count(sid, n_samples)
         return self.store.admit(sid, n_samples=n_samples, mode=mode)
 
     def _check_student(self, sid: str) -> None:
@@ -333,6 +369,16 @@ class StreamingEngine:
             raise ValueError(
                 f"session {sid!r}: mode='student' needs an engine built "
                 "with student= head params (repro_torch.core.distill)")
+
+    def _check_chain_count(self, sid: str, n_samples: int | None) -> None:
+        # A sharded engine places whole sessions a shard, all at one S:
+        # refuse a sub-ceiling admission before it reaches a tick.
+        if (n_samples is not None and self._shards > 1
+                and int(n_samples) != self.n_samples):
+            raise ValueError(
+                f"session {sid!r}: sharded engines serve a uniform "
+                f"{self.n_samples} chains/session; per-session S needs an "
+                "unsharded engine")
 
     def admit(self, sid: str, *, priority: int = 0,
               session: Session | None = None,
@@ -355,8 +401,11 @@ class StreamingEngine:
                 raise ValueError(
                     f"session {sid!r} carries {int(session.rows.shape[0])} "
                     f"MC chains, engine ceiling is {self.n_samples}")
+            self._check_chain_count(sid, int(session.rows.shape[0]))
             if session.mode == "student":
                 self._check_student(sid)
+        elif mode != "student":
+            self._check_chain_count(sid, n_samples)
         self.queue.submit(sid, priority=priority, session=session,
                           n_samples=n_samples, mode=mode)
         try:
@@ -383,6 +432,9 @@ class StreamingEngine:
         """Re-admit an evicted Session (same draw: state + (seed, rows))."""
         if session.mode == "student":
             self._check_student(session.sid)
+        else:
+            self._check_chain_count(session.sid,
+                                    int(session.rows.shape[0]))
         return self.store.attach(session)
 
     def _drain(self):
@@ -434,7 +486,7 @@ class StreamingEngine:
         engine_meta = {"tick": self.tick, "kind": self.kind,
                        "backend": self.backend, "cell": self.cell,
                        "precision": self.precision,
-                       "data_shards": 1,
+                       "data_shards": self._shards,
                        "mcd": {"p": float(self.cfg.mcd.p),
                                "placement":
                                    _mcd.placement_str(self.cfg.mcd.placement)}}
@@ -553,6 +605,11 @@ class StreamingEngine:
             xs.append(x)
             lens.append(x.shape[0])
         s_list = [int(sess.rows.shape[0]) for sess in sessions]
+        if self._shards > 1 and any(si != self.n_samples for si in s_list):
+            raise ValueError(
+                "sharded launches need every session at the engine ceiling "
+                f"({self.n_samples} chains); got {s_list} — per-session S "
+                "would straddle shard boundaries")
 
         if self._scheduler is not None:
             t_max = self._scheduler.plan(lens)
@@ -566,7 +623,8 @@ class StreamingEngine:
         dtype = xs[0].dtype
         slots = self._slot_count(len(sessions))
         live_chains = sum(s_list)
-        nb = slots * self.n_samples if self._fixed else live_chains
+        nb = (slots * self.n_samples if self._fixed or self._shards > 1
+              else live_chains)
         n_pad = nb - live_chains
         # Session-major, chain-minor batch assembled on the host; one
         # transfer per operand per tick.
@@ -711,7 +769,7 @@ class StreamingEngine:
             live_chain_steps=live_chain_steps,
             padded_steps=nb * int(t_max),
             pad_waste=1.0 - live_chain_steps / (nb * int(t_max)),
-            duration_s=dur,
+            duration_s=dur, shards=self._shards,
             tokens_per_sec=live_chain_steps / dur if dur > 0 else 0.0,
             queue_wait_s=queue_wait_s,
             launches=stack_launch_count() - launches_before,
@@ -824,8 +882,11 @@ class StreamingEngine:
         :meth:`step` and :func:`repro_torch.serve.scheduler.prewarm`
         share: fixed-shape modes pad idle slots to ``max_sessions`` so one
         graph a capacity serves every tick; dynamic mode launches the
-        sessions it has."""
-        return self.max_sessions if self._fixed else n_sessions
+        sessions it has.  On a mesh the slots round up to a whole number
+        a shard, so a session's S chains never cross a shard and every
+        shard launches the same shape."""
+        slots = self.max_sessions if self._fixed else n_sessions
+        return -(-slots // self._shards) * self._shards
 
     def _tick_step(self, capacity: int, dtype) -> _TickStep:
         """The tick step of ``(capacity, chunk dtype)``, made on first use
@@ -858,7 +919,8 @@ class StreamingEngine:
         """
         kw = dict(backend=self.backend, initial_state=initial_state,
                   lengths=lengths, return_state=True,
-                  precision=self.precision, device=self.device)
+                  precision=self.precision, device=self.device,
+                  mesh=self.mesh, policy=self.policy)
         if self.kind == "classifier":
             logits, states = _clf.apply(self.params, x_batch, rows, self.cfg,
                                         **kw)

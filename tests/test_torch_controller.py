@@ -16,7 +16,8 @@ CPU.
   of ``last_swap["old_sessions"]``; no tick after the swap captures.
 * **The swap's data plane**: S downshift, upshift, a precision swap,
   queued tickets in order, row disjointness, a student session, the
-  ``graphs`` setting, a failing prewarm raising, ``shards`` refused.
+  ``graphs`` setting, a failing prewarm raising, ``shards`` (a data mesh
+  made and dropped).
 * **Fleet.**  ``FleetController`` downshifts only the breaching tenant
   (the port of ``tests/test_fleet.py::
   test_fleet_controller_downshifts_breaching_tenant_only``), with JAX's
@@ -526,18 +527,30 @@ def test_a_failing_prewarm_raises_and_keeps_the_engine(port_model,
 
 
 def test_shards_are_refused(port_model):
+    """Sharding is ported: ``apply_config`` to ``shards`` 2 builds a data
+    mesh of two entries over the old engine's device (and drops a meshed
+    engine's early exit), back at 1 drops the mesh; the config the
+    controller derives carries the engine's count.  Refused: a count
+    below 1, with the engine kept.  ``FleetController`` takes a knob grid
+    with ``shards`` 2."""
     cfg, params = port_model
-    eng = _engine(params, cfg)
+    eng = _engine(params, cfg, early_exit_threshold=0.5)
     c = tctl.CoDesignController(eng, tctl.SLOPolicy(p95_tick_s=1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
-        c.apply_config(tctl.ServingConfig(n_samples=2, shards=2))
+    with pytest.raises(ValueError, match="shards"):
+        c.apply_config(tctl.ServingConfig(n_samples=2, shards=0))
     assert c.engine is eng
+    two = c.apply_config(tctl.ServingConfig(n_samples=2, shards=2))
+    assert two._shards == 2 and two.early_exit_threshold is None
+    assert two.mesh.device_list == [torch.device("cpu")] * 2
+    assert tctl.CoDesignController._derive_config(two).shards == 2
+    one = c.apply_config(tctl.ServingConfig(n_samples=2, shards=1))
+    assert one.mesh is None and one._shards == 1
     fleet = FleetEngine([TenantSpec(name="t", cfg=cfg, params=params,
                                     slo=tctl.SLOPolicy(p95_tick_s=1.0))],
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
-        tctl.FleetController(fleet, knobs={"t": tctl.KnobSpace(
-            samples=(4, 2), shards=(1, 2))})
+    fc = tctl.FleetController(fleet, knobs={"t": tctl.KnobSpace(
+        samples=(4, 2), shards=(1, 2))})
+    assert fc.controllers["t"].knobs.shards == (1, 2)
     assert set(tctl.FleetController(fleet).controllers) == {"t"}
 
 

@@ -144,27 +144,50 @@ def test_fleet_entry_points_raise_without_gpu(no_gpu, tmp_path):
 
 
 def test_fleet_mesh_raises():
+    """The fleet takes a mesh (sharding is ported); a mesh that is no
+    ``launch.mesh.Mesh`` is refused, and on a mesh S joins the launch-group
+    signature, as in the reference: tenants at S 2 and S 1 fold into one
+    group without a mesh, two on one."""
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.serve import FleetEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         FleetEngine(_fleet_specs(), device="cpu", mesh=object())
+    fleet = FleetEngine(_fleet_specs(), mesh=make_data_mesh(2, device="cpu"))
+    assert fleet.device == torch.device("cpu")
+    assert len(fleet.groups) == 2
+    assert {g.engine._shards for g in fleet.groups.values()} == {2}
 
 
 def test_fleet_reconfigure_to_shards_raises():
+    """``reconfigure_tenant`` to ``shards`` other than 1 builds the
+    tenant's engine on a data mesh of that many entries (the CPU
+    repeated); back at 1 it drops the mesh; a count below 1 raises and
+    leaves the fleet as it was."""
     import types
     from repro_torch.serve import FleetEngine, ServingConfig
     fleet = FleetEngine(_fleet_specs(), device="cpu")
     groups = [list(g.tenants) for g in fleet.groups.values()]
-    for new in (types.SimpleNamespace(n_samples=2, shards=4),
-                types.SimpleNamespace(n_samples=2, precision=None,
-                                      chunk_capacity=0, shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
-            fleet.reconfigure_tenant("a", new)
+    with pytest.raises(ValueError, match="shards"):
+        fleet.reconfigure_tenant("a", types.SimpleNamespace(n_samples=2,
+                                                            shards=0))
     assert [list(g.tenants) for g in fleet.groups.values()] == groups
-    # ServingConfig carries the reference's ``shards`` knob since the
-    # controller's port (a detached plan prices it); serving it is refused.
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
-        fleet.reconfigure_tenant("a", ServingConfig(n_samples=2, shards=4))
-    assert [list(g.tenants) for g in fleet.groups.values()] == groups
+    for new, shards in ((types.SimpleNamespace(n_samples=2, shards=4), 4),
+                        (types.SimpleNamespace(n_samples=2, precision=None,
+                                               chunk_capacity=0, shards=2),
+                         2),
+                        (ServingConfig(n_samples=2, shards=4), 4),
+                        (ServingConfig(n_samples=2), 1)):
+        eng = fleet.reconfigure_tenant("a", new)
+        assert eng._shards == shards
+        assert (eng.mesh is None) == (shards == 1)
+        if shards > 1:
+            assert eng.mesh.device_list == [torch.device("cpu")] * shards
+        assert fleet.group_of("a").engine is eng
+    # A config without ``shards`` keeps the tenant's engine's count.
+    eng = fleet.reconfigure_tenant("b", ServingConfig(n_samples=1,
+                                                      shards=2))
+    assert fleet.reconfigure_tenant(
+        "b", types.SimpleNamespace(n_samples=1))._shards == 2
 
 
 def test_dse_and_predict_are_port_files():
@@ -184,6 +207,16 @@ def test_dse_and_predict_are_port_files():
     assert not numbers & {197e12, 819e9, 50e9}
     from repro_torch.dse import gpu_model
     assert (gpu_model.PEAK_FLOPS, gpu_model.HBM_BW) == (67e12, 3.35e12)
+
+
+def test_sharding_modules_are_port_files():
+    """``launch/mesh.py`` and ``launch/rnn_shardings.py`` fall under the
+    import rule above, and importing them touches no device."""
+    port = ROOT / "src" / "repro_torch" / "launch"
+    assert {port / "mesh.py", port / "rnn_shardings.py"} <= set(PORT_FILES)
+    from repro_torch.launch import mesh, rnn_shardings
+    assert mesh.Mesh(["cpu"] * 2).size == 2
+    assert rnn_shardings.DEFAULT_POLICY.strategy == "auto"
 
 
 def test_cpu_when_asked(no_gpu):
@@ -207,6 +240,19 @@ def test_only_cpu_and_cuda_devices():
     {"early_exit_threshold": 0.1}, {"student": object()}])
 def test_engine_unported_options_raise(kw):
     cfg, params = _cpu_model()
+    if "mesh" in kw:
+        # Sharding is ported: the engine takes a launch.mesh.Mesh, refuses
+        # a mesh that is none, and refuses beside a mesh what the
+        # reference refuses (early exit, students).
+        from repro_torch.launch.mesh import make_data_mesh
+        with pytest.raises(TypeError, match="Mesh"):
+            StreamingEngine(params, cfg, device="cpu", **kw)
+        mesh = make_data_mesh(2, device="cpu")
+        assert StreamingEngine(params, cfg, mesh=mesh)._shards == 2
+        for bad in ({"early_exit_threshold": 0.1}, {"student": object()}):
+            with pytest.raises(ValueError, match="incompatible with mesh"):
+                StreamingEngine(params, cfg, mesh=mesh, **bad)
+        return
     if "precision" in kw:
         # The serving precisions are ported: the engine takes them, and a
         # precision that is none of them is refused.
@@ -252,11 +298,12 @@ def test_engine_unported_calls_raise():
         eng.restore(str(ROOT / "build" / "no-such-snapshot"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingEngine(params, object(), device="cpu")
-    # The GRU is ported; its stack still refuses what is not.
+    # The GRU is ported, and its stack takes a mesh (sharding is ported):
+    # a mesh that is no launch.mesh.Mesh is refused.
     gru = rnn.init_stack(torch.Generator(), 1, (8,), cell="gru",
                          device="cpu")
     plan = rnn.stack_mask_plan(cfg.mcd, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         rnn.run_stack(gru, torch.zeros((2, 3, 1)), plan, 0.125,
                       backend="cuda_seq", rows=torch.arange(2), cell="gru",
                       device="cpu", mesh=object())
