@@ -156,7 +156,8 @@ Phases (each raises on failure; the exit code is then non-zero):
    each case is bit-equal to cuBLAS, and two calls bitwise equal).  ``decode_attention``
    at ATTN_CASES (the serving shape at pos 0, 127 and 159; one prompt's 8
    rows; a 4096-position cache at pos 2047 and 4095; llama3-8b's 32 q / 8
-   KV heads): within ATTN_TOL, no further from a float64 evaluation than
+   KV heads; olmoe-1b-7b's 16 q / 16 KV heads at pos 127 and 159): within
+   ATTN_TOL, no further from a float64 evaluation than
    twice the plain version, two calls, a tensor pos against the int, and
    NaN in the cache past pos each bitwise equal, and at the serving shape
    one CUDA graph of a call with a tensor pos replayed at GRAPH_POSITIONS
@@ -171,7 +172,9 @@ Phases (each raises on failure; the exit code is then non-zero):
    version, ``mcd_matmul``'s fp32 out at decode and prefill within MM_TOL
    on the tensor cores and at M = 65 and 8192, K = 2050, N = 12290 on the
    CUDA cores' narrow and wide tiles (each record's ``path``, the plan the
-   wrapper launched; two calls bitwise equal),
+   wrapper launched; two calls bitwise equal), and at deepseek-v2-lite's
+   products (K = 2048, N = 21888 for layer 0's dense FFN and 5632 for the
+   shared experts, M = 64 and 8192) on the tensor cores,
    ``decode_attention`` at pos 0, 127 and 159
    within ATTN_TOL plus one bf16 ulp (two calls and a tensor pos bitwise
    equal); each record's ``dtype`` is "bf16", its bound at bf16 bytes (a
@@ -225,9 +228,32 @@ Phases (each raises on failure; the exit code is then non-zero):
 7c. qwen3-1.7b with the int8 KV cache: bf16 weights, INT8_STEPS decode
    steps from ``init_decode_state(kv_quant=True)`` on both backends side
    by side, every step within the bf16 tolerances; the cache's bytes.
-   Every main-path run of phases 7–9b and 7c runs inside
+   Every main-path run of phases 7–9b, 7c, 13 and 14 runs inside
    ``no_plain_versions()``: a plain version of an LM kernel called there
    raises.
+13. The MoE family, olmoe-1b-7b at full width in fp32 (16 ``attn.moe``
+   layers, d_model 2048, 16 q / 16 KV heads of 128, 64 experts top-8 of
+   d_ff 1024, vocab 50304; random weights from seed 0), the load of phase
+   7 (8 prompts of 128 x 8 chains, 32 new): the launch counts
+   (``masked_activation`` at every attention and routed-MoE site,
+   ``decode_attention`` a layer a decode step); the run repeated on its
+   own tokens; the same engine decoding eagerly under a ``RouteTap`` (its
+   logits bit-equal to the graph run's); the ``reference`` backend
+   teacher-forced with its routes forced to the kernel run's, within
+   LOGIT_TOL / UNC_TOL on every row, and every token whose own top-k set
+   differs a flip whose probability gap between the k-th and (k+1)-th
+   expert is at most MOE_GAP_BOUND; dropped routes a layer at the prefill
+   and a decode step (equal between the backends in every call without a
+   flip); graph against eager, MOE_GRAPH_RUNS runs a side in turns; times,
+   profiles (top kernels of the prefill and of 5 decode steps), peak
+   memory, and the decode step's byte floor beside its device ms.
+14. deepseek-v2-lite-16b at full width in bf16 (layer 0 ``mla.mlp`` of
+   d_ff 10944, 26 ``mla.moe`` of 64 routed experts top-6 of d_ff 1408 and
+   2 shared; kv_lora 512, rope 64, nope 128, v 128; vocab 102400): the
+   same, at BF16_LOGIT_TOL / BF16_UNC_TOL (no fp32 twin: 63 GB at fp32),
+   ``mcd_matmul`` at layer 0 and every shared expert, the MLA cache's
+   bytes beside per-head K and V.  Both phases free the model before they
+   start and after.
 
 10. Serving precisions, the kernels (last, in a fresh process of this
    script: its profiles hold thousands of records, torch.profiler has
@@ -300,11 +326,12 @@ phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
 each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
 int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
 ``.bf16``, its case at bf16 from phases 6 and 8 with the launches of
-phases 7b, 9b and 7c), the
+phases 7b, 9b, 7c and 14), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
+        python3 chip_smoke.py --moe-only   # the build, phases 6, 13, 14
 """
 
 from __future__ import annotations
@@ -379,6 +406,7 @@ ATTN_CASES = [
     (LM_S, 16, 8, 128, LM_PROMPT + LM_NEW, (159,)),   # one prompt's chains
     (LM_S, 16, 8, 128, 4096, (2047, 4095)),           # a long cache
     (LM_B * LM_S, 32, 8, 128, LM_PROMPT + LM_NEW, (159,)),  # llama3-8b heads
+    (LM_B * LM_S, 16, 16, 128, LM_PROMPT + LM_NEW, (127, 159)),  # olmoe
 ]
 GRAPH_POSITIONS = (0, 63, 127, 159)   # replays of one captured call
 LOGIT_TOL = 1e-3    # the engine on the kernels vs on the reference backend
@@ -3978,6 +4006,11 @@ BF16_MM_CASES = [(LM_B * LM_S, "aligned", "tensor_cores", "tc_narrow"),
                   "tc_wide"),
                  (LM_B * LM_S + 1, "ragged", "cuda_cores", "narrow"),
                  (LM_B * LM_S * LM_PROMPT, "ragged", "cuda_cores", "wide")]
+# deepseek-v2-lite-16b's masked gate/up products (K = 2048, bf16), at
+# decode and prefill M: layer 0's dense FFN and a MoE layer's two shared
+# experts.
+DEEPSEEK_MM_N = ((2 * 10944, "deepseek dense layer 0"),
+                 (2 * 2 * 1408, "deepseek shared experts"))
 BF16_ATTN_POSITIONS = (0, 127, 159)
 
 
@@ -4036,8 +4069,15 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
     w = (torch.randn((D, N), generator=g, device=dev) * D ** -0.5).to(bf)
     w_odd = (torch.randn((D + 2, N + 2), generator=g, device=dev)
              * D ** -0.5).to(bf)
-    for M, which, path, tile in BF16_MM_CASES:
-        wm = w if which == "aligned" else w_odd
+    cases = [(M, w if which == "aligned" else w_odd, path, tile, None)
+             for M, which, path, tile in BF16_MM_CASES]
+    for N_ds, model in DEEPSEEK_MM_N:
+        w_ds = (torch.randn((D, N_ds), generator=g, device=dev)
+                * D ** -0.5).to(bf)
+        cases += [(M, w_ds, "tensor_cores",
+                   mcd_matmul.matmul_plan(M, N_ds, D, 2)["tile"], model)
+                  for M in (LM_B * LM_S, LM_B * LM_S * LM_PROMPT)]
+    for M, wm, path, tile, model in cases:
         K_, N_ = wm.shape
         rows = _lm_rows(dev, M)
         x = torch.randn((M, K_), generator=g, device=dev).to(bf)
@@ -4067,7 +4107,7 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
             "mcd_matmul", dict(M=M, K=K_, N=N_, p=0.1, dtype="bf16",
                                out="float32", path=plan["path"],
                                tile=plan["tile"], smem=plan["smem"],
-                               repeat_bit_equal=True,
+                               repeat_bit_equal=True, model=model,
                                host_ms=host_ms(mm_call)),
             err, mm_call,
             lambda x=x, wm=wm, rows=rows: mcd_matmul.mcd_matmul_plain(
@@ -4076,7 +4116,7 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
             ops=2 * M * K_ * N_, peak=PEAK_BF16_FLOPS,
             library=lambda xm=xm, wm=wm: torch.matmul(xm, wm)))
         del x, got, again, want, xm
-    del w, w_odd
+    del w, w_odd, cases, w_ds
     B, H, S = ATTN_SERVING
     KV, hd = 8, 128
     q, kc, vc = (t.to(bf) for t in attention_inputs(B, H, KV, hd, S))
@@ -4286,11 +4326,14 @@ def lm_kernel_entries(records) -> list[dict]:
         "mcd_matmul": (lambda r: r["M"] == LM_B * LM_S and r["p"] > 0,
                        "SwiGLU gate/up at decode: [64, 2048] @ [2048, "
                        "12288] fp32, p=0.1 (prefill M=8192 in the report)"),
-        "decode_attention": (lambda r: (r["B"], r["H"], r["S"], r["pos"])
-                             == (*ATTN_SERVING, LM_PROMPT + LM_NEW - 1),
+        "decode_attention": (lambda r: (r["B"], r["H"], r["KV"], r["S"],
+                                        r["pos"])
+                             == (*ATTN_SERVING[:2], 8, ATTN_SERVING[2],
+                                 LM_PROMPT + LM_NEW - 1),
                              "B=64, H=16, KV=8, hd=128, cache 160, pos=159 "
                              "(pos 0 and 127, one prompt's 8 rows, a "
-                             "4096-position cache and rep=4 in the report)"),
+                             "4096-position cache, rep=4 and olmoe's "
+                             "KV=16 in the report)"),
     }
     entries = []
     records = [r for r in records if r.get("dtype") != "bf16"]
@@ -4316,11 +4359,11 @@ def lm_bf16_entries(entries, records, launches) -> None:
     entry's own numbers) and ``bf16``, its case at the same shape at bf16
     from phases 6 and 8 (the mask [64, 2048], the decode product, the
     decode attention at pos 159, the SSD scan at its serving shape) with
-    the launches of the bf16 serving phases (7b, 9b, 7c)."""
+    the launches of the bf16 serving phases (7b, 9b, 7c, 14)."""
     picks = {
         "masked_activation": lambda r: (r["M"], r["F"]) == (LM_B * LM_S,
                                                             2048),
-        "mcd_matmul": lambda r: r["M"] == LM_B * LM_S,
+        "mcd_matmul": lambda r: (r["M"], r["N"]) == (LM_B * LM_S, 2 * 6144),
         "decode_attention": lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
         "ssd_chunk_scan": lambda r: r["path"] == "tensor_cores",
     }
@@ -4718,6 +4761,36 @@ def _deviation(a, b, what) -> dict:
                                f"{what} mutual information")}
 
 
+def _served(eng, cfg, prompts, want):
+    """The engine's main-path ``generate`` (LM_NEW tokens, no plain
+    version of a kernel called), its launch counts held to ``want``, its
+    outputs finite and in range, then the run teacher-forced on its own
+    tokens (keeping its logits), which must repeat them.  Returns (the
+    run, its launch counts, the forced run)."""
+    import numpy as np
+    import torch
+    reset_launches()                          # count the main path only
+    with no_plain_versions():
+        res = eng.generate(prompts, LM_NEW)
+    counts = read_launches()
+    if {k: v for k, v in counts.items() if v} != want:
+        raise RuntimeError(f"{cfg.name} serving launched {counts}, expected "
+                           f"{want}")
+    ent, mi = res.predictive_entropy, res.mutual_information
+    if res.tokens.shape != (prompts.shape[0], LM_NEW) or not (
+            torch.isfinite(ent).all() and torch.isfinite(mi).all()):
+        raise RuntimeError(f"{cfg.name} serving gave malformed outputs")
+    if (ent.min() < -1e-5 or ent.max() > np.log(cfg.vocab_size) + 1e-4
+            or mi.min() < -1e-4 or (mi > ent + 1e-4).any()):
+        raise RuntimeError("entropy / mutual information out of range")
+    again = eng.generate(prompts, LM_NEW, teacher_tokens=res.tokens,
+                         keep_logits=True)
+    if not torch.equal(again.tokens, res.tokens):
+        raise RuntimeError(f"{cfg.name}: the kernel run did not repeat its "
+                           "own tokens")
+    return res, counts, again
+
+
 def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
              decode_kernels, key, dtype="fp32"):
     """One LM at full width through ``BayesianEngine.generate``: 8 prompts
@@ -4750,14 +4823,8 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     max_len = prompt_len + LM_NEW
     eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
     want = want_of(cfg.num_layers)
-    reset_launches()                          # count the main path only
-    with no_plain_versions():
-        res = eng.generate(prompts, LM_NEW)
-    counts = read_launches()
+    res, counts, again = _served(eng, cfg, prompts, want)
     peak = torch.cuda.max_memory_allocated()
-    if {k: v for k, v in counts.items() if v} != want:
-        raise RuntimeError(f"{arch} serving launched {counts}, expected "
-                           f"{want}")
     ssd_path = None
     if "ssd_chunk_scan" in prefill_kernels:   # the prefill's scan path
         from repro_torch.kernels import ssd_chunk
@@ -4766,19 +4833,7 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
         if ssd_path not in (None, "tensor_cores" if bf16 else "cuda_cores"):
             raise RuntimeError(f"{arch} prefill's SSD scan took {ssd_path}")
     ent, mi = res.predictive_entropy, res.mutual_information
-    if res.tokens.shape != (LM_B, LM_NEW) or not (
-            torch.isfinite(ent).all() and torch.isfinite(mi).all()):
-        raise RuntimeError("LM serving gave malformed outputs")
-    if (ent.min() < -1e-5 or ent.max() > np.log(cfg.vocab_size) + 1e-4
-            or mi.min() < -1e-4 or (mi > ent + 1e-4).any()):
-        raise RuntimeError("entropy / mutual information out of range")
-
-    # The same inputs again (teacher-forced on this run's tokens): the
-    # kernels repeat the run; the reference backend agrees within tolerance.
-    again = eng.generate(prompts, LM_NEW, teacher_tokens=res.tokens,
-                         keep_logits=True)
-    if not torch.equal(again.tokens, res.tokens):
-        raise RuntimeError("the kernel run did not repeat its own tokens")
+    # The reference backend on the kernel run's tokens, within tolerance.
     ref = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev,
                          backend="reference").generate(
         prompts, LM_NEW, teacher_tokens=res.tokens, keep_logits=True)
@@ -5007,7 +5062,8 @@ def _leaves(tree):
 
 
 def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
-               n_steps: int = 5, graph: bool = False) -> dict:
+               n_steps: int = 5, graph: bool = False,
+               decode: bool = True) -> dict:
     """Device time inside one prefill, then inside ``n_steps`` decode steps
     as ``generate`` makes them (summary, argmax, the decode call, a device
     sync): the device's idle share and the time of each kernel the model
@@ -5017,7 +5073,8 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
     continues from the last position; not part of the launch count.
     ``graph``: the decode call is the replay of the engine's captured
     step (the prefill's state copied into its buffers, as ``generate``
-    does); else ``backbone.decode_step`` eagerly."""
+    does); else ``backbone.decode_step`` eagerly.  ``decode=False``
+    profiles the prefill alone."""
     import torch
     from repro_torch.core import mcd
     from repro_torch.core.uncertainty import classification_summary
@@ -5051,7 +5108,7 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
             return (time.perf_counter() - t0) * 1e6
         return run
 
-    def decode():
+    def decode_span():
         if live["pos"] + n_steps > eng.max_len:
             raise RuntimeError("no cache positions left to profile")
 
@@ -5074,7 +5131,9 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
         return run
 
     spans = [("prefill", prefill, 1, prefill_kernels),
-             ("decode_step", decode, n_steps, decode_kernels)]
+             ("decode_step", decode_span, n_steps, decode_kernels)]
+    if not decode:
+        spans = spans[:1]
     if graph:
         prefill()()                   # the state to decode from, unprofiled
         spans = spans[1:]
@@ -5089,8 +5148,8 @@ def profile_lm(eng, prompts, prefill_kernels, decode_kernels,
             "kernel_device_ms": {n: v / calls / 1e3
                                  for n, v in zip(kernels, us[1:])},
             "device_idle_share": 1.0 - us[0] / wall_us}
-        if what == "prefill":   # what the prefill's device time is made of
-            out["profiled_prefill"]["top_kernels"] = top_kernels(table)
+        # what the span's device time is made of
+        out[f"profiled_{what}"]["top_kernels"] = top_kernels(table)
     return out
 
 
@@ -5139,6 +5198,335 @@ def profile_ticks(params, cfg, streams, dev, kernel_match,
             "device_busy_ms_per_tick": dev_us / n_ticks / 1e3,
             "kernel_ms_per_tick": kern_us / n_ticks / 1e3,
             "device_idle_share": 1.0 - dev_us / wall_us}
+
+
+# -- phases 13, 14: the MoE family --------------------------------------------
+
+# The bound on a route flip: where the reference backend's own top-k set
+# differs from the kernel run's, its probability gap between the k-th and
+# the (k+1)-th expert.  fp32 olmoe: the backends differ by the decode
+# attention's ulps (~1e-7 on probabilities of ~1/64); bf16 deepseek: by a
+# bf16 ulp on a few activations a layer (mcd_matmul's sum order before the
+# rounding), ~1e-4 on the router's probabilities.
+MOE_GAP_BOUND = {"olmoe-1b-7b": 1e-4, "deepseek-v2-lite-16b": 1e-2}
+MOE_GRAPH_RUNS = 1   # generate runs a side, graph and eager in turns
+
+
+class RouteTap:
+    """While entered, ``repro_torch.models.moe._dispatch`` is this object's
+    own: the same routing (``moe._route``, ``moe._assign``) that records,
+    for each call in order, the token's top-k expert set (sorted), its
+    probability gap between the k-th and (k+1)-th expert, and the routes
+    the capacity dropped.  With ``force`` (the calls of a run recorded
+    before, one for one) the dispatch takes that run's experts instead of
+    its own, weighted by its own probabilities renormalised over them: the
+    two runs then route alike, and each token whose own choice differs is
+    a recorded flip.  Only for eager runs: a graph replay calls no Python."""
+
+    def __init__(self, force=None):
+        self.force = force
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved = moe, moe._dispatch
+        moe._dispatch = self.dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch = self.saved
+        return False
+
+    def dispatch(self, flat, flat_router, router_w, cfg, C):
+        import torch
+        moe = self.moe
+        E, K = cfg.num_experts, cfg.top_k
+        probs, gate_vals, gate_idx = moe._route(flat_router, router_w, K)
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True).values
+        counts = torch.zeros((E,), dtype=torch.int64,
+                             device=probs.device).scatter_add_(
+            0, gate_idx.reshape(-1), torch.ones_like(gate_idx.reshape(-1)))
+        rec = {"routes": gate_idx.sort(dim=-1).values,
+               "gap": srt[:, K - 1] - srt[:, K],
+               "dropped": (counts - C).clamp(min=0).sum(),
+               "gate_idx": gate_idx}
+        if self.force is not None:
+            gate_idx = self.force[len(self.calls)]["gate_idx"]
+            gv = probs.gather(1, gate_idx)
+            gate_vals = gv / torch.clamp(gv.sum(dim=-1, keepdim=True),
+                                         min=1e-9)
+        self.calls.append(rec)
+        return (*moe._assign(flat, gate_vals, gate_idx, E, C), probs)
+
+
+def route_flips(kernel_calls, ref_calls, n_moe, prompt_len, bound, what):
+    """Each token whose top-k set differs between the two runs (call by
+    call: the prefill's MoE layers, then each decode step's): its step
+    (-1: the prefill), layer, chain row, position and both runs' gaps.
+    Raises where the reference's gap passes ``bound`` (a flip that is no
+    near-tie) or where a call without flips drops other routes.  Returns
+    (flips, dropped routes [calls] of the kernel run, calls whose dropped
+    routes were held equal)."""
+    import torch
+    if len(kernel_calls) != len(ref_calls):
+        raise RuntimeError(f"{what}: {len(kernel_calls)} MoE calls against "
+                           f"{len(ref_calls)}")
+    flips, dropped, held = [], [], 0
+    for c, (a, b) in enumerate(zip(kernel_calls, ref_calls)):
+        step, layer = c // n_moe - 1, c % n_moe
+        ra, rb = a["routes"].cpu(), b["routes"].cpu()
+        diff = (ra != rb).any(dim=-1)
+        da, db = int(a["dropped"]), int(b["dropped"])
+        dropped.append(da)
+        idx = torch.nonzero(diff).flatten()
+        if not len(idx):
+            held += 1
+            if da != db:
+                raise RuntimeError(f"{what}: step {step} layer {layer} "
+                                   f"dropped {da} routes against {db} with "
+                                   "no flip")
+            continue
+        gaps = zip(a["gap"].cpu()[idx].tolist(), b["gap"].cpu()[idx].tolist())
+        for t, (g_k, g_r) in zip(idx.tolist(), gaps):
+            row, at = ((t // prompt_len, t % prompt_len) if step < 0
+                       else (t, prompt_len + step))
+            flips.append({"step": step, "layer": layer, "row": row,
+                          "position": at, "kernel": ra[t].tolist(),
+                          "reference": rb[t].tolist(), "gap_reference": g_r,
+                          "gap_kernel": g_k})
+    bad = [f for f in flips if f["gap_reference"] > bound]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} route flips past a gap of "
+                           f"{bound}: {bad[:4]}")
+    return flips, dropped, held
+
+
+def flip_summary(flips, bound) -> dict:
+    """Route flips in numbers: how many, at the prefill and a decode step,
+    the reference's gaps (quantiles and largest) and the first few."""
+    import numpy as np
+    gaps = np.asarray([f["gap_reference"] for f in flips])
+    steps = [f["step"] for f in flips]
+    return {"count": len(flips), "gap_bound": bound,
+            "at_prefill": steps.count(-1),
+            "decode_by_step": [steps.count(i) for i in range(LM_NEW)],
+            "gap_reference_quantiles_50_90_99_100": (
+                np.quantile(gaps, [0.5, 0.9, 0.99, 1.0]).tolist()
+                if len(gaps) else None),
+            "first": flips[:6]}
+
+
+def _moe_layers(cfg) -> dict:
+    """Blocks of each kind: attention and MLA mixers, dense and MoE FFNs,
+    and the MoE FFNs with a shared expert."""
+    kinds = [k for st in cfg.stages for k in st.pattern * st.repeat]
+    n = {"attn": 0, "mla": 0, "mlp": 0, "moe": 0}
+    for k in kinds:
+        for part in k.split("."):
+            n[part] += 1
+    n["shared"] = n["moe"] if cfg.moe.num_shared else 0
+    return n
+
+
+def _moe_want(cfg):
+    """Launches of a ``generate`` (a prefill and LM_NEW decode steps): the
+    site mask at every attention / MLA mixer and every routed MoE input,
+    the masked gate/up product at every dense FFN and shared expert, the
+    decode attention at every attention layer a decode step (MLA's latent
+    attention is plain, as in the reference)."""
+    n = _moe_layers(cfg)
+    want = {"masked_activation": (n["attn"] + n["mla"] + n["moe"])
+            * (1 + LM_NEW),
+            "mcd_matmul": (n["mlp"] + n["shared"]) * (1 + LM_NEW),
+            "decode_attention": n["attn"] * LM_NEW}
+    return {k: v for k, v in want.items() if v}
+
+
+def _decode_bytes(params, cfg, rows, positions, elem) -> dict:
+    """The bytes a decode step must move at a cache of ``positions``: every
+    weight once (every expert: the dense batched product reads all E x C
+    slots' experts; of the embedding only the head, or the tied table,
+    and 64 table rows), the caches up to the position, the logits out."""
+    n = _moe_layers(cfg)
+    sizes = {"experts": 0, "shared_and_dense": 0, "mixers": 0}
+    for stage in params["stages"]:
+        for rep in stage:
+            for blk in rep:
+                sizes["mixers"] += sum(t.nbytes for t in _leaves(
+                    blk["mixer"]))
+                f = blk["ffn"]
+                if hasattr(f, "router"):
+                    sizes["experts"] += f.wi.nbytes + f.wo.nbytes \
+                        + f.router.nbytes + f.norm.nbytes
+                    if f.shared is not None:
+                        sizes["shared_and_dense"] += sum(
+                            t.nbytes for t in _leaves(f.shared))
+                else:
+                    sizes["shared_and_dense"] += sum(
+                        t.nbytes for t in _leaves(f))
+    e = params["embed"]
+    head = e.table if e.head is None else e.head
+    sizes["head"] = (head.nbytes + e.final_norm.nbytes
+                     + rows * cfg.d_model * e.table.element_size()
+                     + rows * cfg.vocab_size * 4)
+    if n["attn"]:
+        sizes["cache"] = n["attn"] * 2 * rows * positions * cfg.num_kv_heads \
+            * cfg.head_dim * elem
+    else:
+        sizes["cache"] = n["mla"] * rows * positions * (
+            cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * elem
+    sizes["total"] = sum(sizes.values())
+    sizes["floor_ms"] = sizes["total"] / PEAK_HBM_BYTES * 1e3
+    return sizes
+
+
+def moe_serving_phase(report, dev):
+    """Phase 13: olmoe-1b-7b at full width, fp32."""
+    return serve_moe(report, dev, "olmoe-1b-7b", "fp32", "serving_olmoe")
+
+
+def deepseek_serving_phase(report, dev):
+    """Phase 14: deepseek-v2-lite-16b at full width, bf16."""
+    return serve_moe(report, dev, "deepseek-v2-lite-16b", "bf16",
+                     "serving_deepseek")
+
+
+def serve_moe(report, dev, arch, dtype, key):
+    """A MoE model at full width through ``BayesianEngine.generate``: 8
+    prompts of LM_PROMPT tokens x 8 chains, LM_NEW new tokens; the launch
+    counts (no plain version of a kernel called); the run repeated on its
+    own tokens; the same engine decoding eagerly under a RouteTap (bit-equal
+    to the graph run); the ``reference`` backend teacher-forced on the
+    tokens with its routes forced to the kernel run's (RouteTap(force)):
+    logits, entropy and MI of every row within the tolerances, every token
+    whose own top-k differs a flip under MOE_GAP_BOUND, dropped routes a
+    layer at the prefill and a decode step; graph against eager in turns;
+    times, profiles, peak memory, and the decode step's byte floor beside
+    its device ms."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone, moe
+    from repro_torch.serve.engine import BayesianEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if cfg.mcd.n_samples != LM_S:
+        raise RuntimeError(f"{arch} serves {cfg.mcd.n_samples} chains")
+    bf16 = dtype == "bf16"
+    logit_tol, unc_tol = ((BF16_LOGIT_TOL, BF16_UNC_TOL) if bf16
+                          else (LOGIT_TOL, UNC_TOL))
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=wdtype)
+    n_params = sum(t.numel() for t in _leaves(params))
+    n = _moe_layers(cfg)
+    rows = LM_B * LM_S
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT), dtype=np.int32)
+    max_len = LM_PROMPT + LM_NEW
+    eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
+    want = _moe_want(cfg)
+    res, counts, again = _served(eng, cfg, prompts, want)
+    ent, mi = res.predictive_entropy, res.mutual_information
+    # The kernel backend eagerly, its routes recorded: bit-equal to the
+    # graph run.
+    eager = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev,
+                           graphs=False)
+    with RouteTap() as tap_k, no_plain_versions():
+        forced_k = eager.generate(prompts, LM_NEW, teacher_tokens=res.tokens,
+                                  keep_logits=True)
+    if not torch.equal(forced_k.logits, again.logits):
+        raise RuntimeError(f"{arch}: the eager kernel run's logits differ "
+                           "from the graph run's")
+    del forced_k, eager
+    with RouteTap(force=tap_k.calls) as tap_r:
+        ref = BayesianEngine(params, cfg, max_len=max_len, seed=0,
+                             device=dev, backend="reference").generate(
+            prompts, LM_NEW, teacher_tokens=res.tokens, keep_logits=True)
+    dev_ref = _deviation(again, ref, arch)
+    flips, dropped, held = route_flips(tap_k.calls, tap_r.calls, n["moe"],
+                                       LM_PROMPT, MOE_GAP_BOUND[arch], arch)
+    del tap_k, tap_r
+    flips = flip_summary(flips, MOE_GAP_BOUND[arch])
+    print(f"{key} route flips " + json.dumps(flips), flush=True)
+    if dev_ref["logits"] > logit_tol or max(dev_ref["entropy"],
+                                            dev_ref["mi"]) > unc_tol:
+        raise RuntimeError(f"{arch} serving vs reference (routes forced): "
+                           f"{dev_ref} (tol {logit_tol}, {unc_tol})")
+    greedy_differ = int((ref.tokens != res.tokens).sum())
+    del ref
+    graph_vs_eager = lm_graph_turns(eng, params, cfg, prompts, res, again,
+                                    want, runs=MOE_GRAPH_RUNS)
+    del again
+    peak = torch.cuda.max_memory_allocated()
+
+    steps_ms = np.asarray(res.decode_s) * 1e3
+    decode_s = float(np.sum(res.decode_s))
+    elem = 2 if bf16 else 4
+    floor = _decode_bytes(params, cfg, rows, LM_PROMPT + LM_NEW // 2, elem)
+    drops = np.asarray(dropped).reshape(1 + LM_NEW, n["moe"])
+    out = {"card": report["card"], "arch": cfg.name, "params": n_params,
+           "layers": cfg.num_layers, "moe_layers": n["moe"],
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+           "capacity_prefill": moe.capacity(rows * LM_PROMPT, cfg.moe),
+           "capacity_decode": moe.capacity(rows, cfg.moe),
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": "bfloat16" if bf16 else "float32", "requests": LM_B,
+           "chains": LM_S, "rows": rows, "prompt_len": LM_PROMPT,
+           "new_tokens": LM_NEW, "p": cfg.mcd.p,
+           "launches_by_kernel": {k: v for k, v in counts.items() if v},
+           "prefill_ms": res.prefill_s * 1e3,
+           "decode_ms_per_token_p50": float(np.percentile(steps_ms, 50)),
+           "decode_ms_per_token_p95": float(np.percentile(steps_ms, 95)),
+           "decode_tokens_per_s": LM_B * LM_NEW / decode_s,
+           "max_memory_allocated_gb": peak / 1e9,
+           "max_abs_diff_vs_reference_routes_forced": dev_ref,
+           "tolerance_vs_reference": {"logits": logit_tol,
+                                      "entropy_mi": unc_tol},
+           "route_flips": flips,
+           "calls_dropping_equal_routes": held,
+           "greedy_tokens_differing_in_reference": greedy_differ,
+           "dropped_routes_prefill_by_layer": drops[0].tolist(),
+           "dropped_routes_decode_by_step": drops[1:].sum(1).tolist(),
+           "dropped_routes_decode_by_layer": drops[1:].sum(0).tolist(),
+           "decode_step_bytes": floor,
+           "entropy_mean": float(ent.mean()), "mi_mean": float(mi.mean()),
+           "graph_vs_eager": graph_vs_eager}
+    if n["mla"]:
+        lat = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+        qk = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+        out["mla_cache"] = {
+            "values_per_token_layer": lat,
+            "bytes": n["mla"] * rows * max_len * lat * elem,
+            "gqa_same_heads_bytes": n["mla"] * rows * max_len
+            * cfg.num_heads * (qk + cfg.mla.v_head_dim) * elem,
+            "gqa_2_h_128_bytes": n["mla"] * rows * max_len * 2
+            * cfg.num_heads * 128 * elem}
+    report[key] = out
+    print(f"{key} " + json.dumps(out), flush=True)
+    kernels = [k for k in ("masked_activation", "mcd_matmul")
+               if k in want]
+    out.update(profile_lm(eng, prompts, kernels, kernels, decode=False))
+    graph_vs_eager["profiled_decode_step_graph"] = profile_lm(
+        eng, prompts, kernels,
+        kernels + (["decode_attention"] if n["attn"] else []),
+        graph=True)["profiled_decode_step"]
+    busy = graph_vs_eager["profiled_decode_step_graph"]["device_busy_ms"]
+    out["decode_step_device_ms_vs_floor"] = {
+        "device_busy_ms": busy, "floor_ms": floor["floor_ms"],
+        "ratio": busy / floor["floor_ms"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{key} profile " + json.dumps(out), flush=True)
+    del eng, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase 11: training on the card -------------------------------------------
@@ -5567,6 +5955,29 @@ def training_phase(report, dev):
     return launches
 
 
+def moe_only(report, dev, out=None) -> int:
+    """The build, then phase 6 and phases 13 and 14 alone (a short call
+    that checks the MoE family); no ``kernels`` line."""
+    import torch
+    phase_s = report["phase_s"] = {}
+    for name, fn, *args in (("6", lm_kernel_phase, report),
+                            ("13", moe_serving_phase, report, dev),
+                            ("14", deepseek_serving_phase, report, dev)):
+        t = time.perf_counter()
+        fn(*args)
+        phase_s[name] = time.perf_counter() - t
+    print("phase seconds " + json.dumps(phase_s), flush=True)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump(report, fh, indent=1)
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -5585,6 +5996,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # phase 11e: "NAME ARGS" OUT
     ap.add_argument("--phase11-only", action="store_true",
                     help=argparse.SUPPRESS)   # the build, then phase 11
+    ap.add_argument("--moe-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, 6, 13 and 14
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5626,6 +6039,8 @@ def main(argv=None) -> int:
         report["seconds"] = time.perf_counter() - t0
         print(json.dumps({"training": report["training"]}))
         return 0
+    if args.moe_only:
+        return moe_only(report, dev, args.out)
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -5652,10 +6067,11 @@ def main(argv=None) -> int:
             ("5f", fleet_phase), ("5g", controller_phase),
             ("12", sharding_phase), ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
-            ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase)):
+            ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase),
+            ("13", moe_serving_phase), ("14", deepseek_serving_phase)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
-            if name in ("7b", "9b", "7c"):
+            if name in ("7b", "9b", "7c", "14"):
                 launches_bf16[kernel] += v
     for kernel, v in phase("11", training_phase, report, dev).items():
         launches[kernel] += v

@@ -35,6 +35,10 @@ from repro_torch.core.linear import DenseParams
 from repro_torch.models import backbone
 from repro_torch.models.layers import AttnParams, EmbedParams, MLPParams
 from repro_torch.models.mamba2 import MambaParams
+from repro_torch.models.mla import MLAParams
+from repro_torch.models.moe import MoEParams
+
+_MIXER_PARAMS = {"attn": AttnParams, "mla": MLAParams, "mamba": MambaParams}
 
 _CELL_PARAMS = {3: GRUParams, 4: LSTMParams}
 
@@ -89,29 +93,43 @@ def _leaves(kind, leaves, device, r=None):
                   for a in leaves))
 
 
+def _ffn(kind: str, leaves, device, r):
+    """A block's FFN: ``MLPParams``, or ``MoEParams`` whose ``shared`` is
+    an ``MLPParams`` of its own stacked leaves or None."""
+    if kind.split(".")[-1] == "mlp":
+        return _leaves(MLPParams, leaves, device, r)
+    *arrays, shared = leaves[:4]
+    return MoEParams(*(_tensor(np.asarray(a)[r], device, keep_bf16=True)
+                       for a in arrays),
+                     shared=(None if shared is None
+                             else _leaves(MLPParams, shared, device, r)),
+                     norm=_tensor(np.asarray(leaves[4])[r], device,
+                                  keep_bf16=True))
+
+
 def from_numpy_backbone(tree, cfg, device=None) -> dict:
     """The reference's LM parameters as the port's ``backbone`` params.
 
     ``tree``: ``{"embed": (table, head, final_norm), "stages": [per stage, a
-    tuple over pattern positions of {"mixer": AttnParams fields, "ffn":
-    MLPParams fields} (``{"mixer": MambaParams fields}`` for a ``mamba``
-    block), each leaf stacked [repeat, ...]]}`` with numpy leaves.
+    tuple over pattern positions of {"mixer": AttnParams / MLAParams /
+    MambaParams fields, "ffn": MLPParams / MoEParams fields} (a bare
+    ``mamba`` block has no "ffn"; a MoE's ``shared`` is MLPParams fields or
+    None), each leaf stacked [repeat, ...]]}`` with numpy leaves.
     Returns ``{"embed": EmbedParams, "stages": [[tuple over pattern
     positions of block dicts] per repeat] per stage}`` on ``device``
     (default CUDA): a bfloat16 leaf stays bfloat16 (the reference builds
-    its LMs in bf16), every other leaf is fp32.
+    its LMs in bf16), every other leaf is fp32 (the router among them).
     """
     backbone.check_cfg(cfg)
     dev = resolve_device(device)
     stages = []
     for st, per_pos in zip(cfg.stages, tree["stages"]):
-        mixers = [MambaParams if kind.split(".")[0] == "mamba"
-                  else AttnParams for kind in st.pattern]
         stages.append([tuple(
-            {"mixer": _leaves(mixer, block["mixer"], dev, r),
-             **({"ffn": _leaves(MLPParams, block["ffn"], dev, r)}
+            {"mixer": _leaves(_MIXER_PARAMS[kind.split(".")[0]],
+                              block["mixer"], dev, r),
+             **({"ffn": _ffn(kind, block["ffn"], dev, r)}
                 if "ffn" in block else {})}
-            for mixer, block in zip(mixers, per_pos))
+            for kind, block in zip(st.pattern, per_pos))
             for r in range(st.repeat)])
     return {"embed": _leaves(EmbedParams, tree["embed"], dev),
             "stages": stages}

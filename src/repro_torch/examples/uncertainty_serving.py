@@ -6,14 +6,14 @@ architecture: S MCD chains folded into the batch, masks tied across decode
 steps, per-token predictive entropy + mutual information.
 
     PYTHONPATH=src python -m repro_torch.examples.uncertainty_serving \\
-        [--arch mamba2-370m] [--device cpu]
+        [--arch qwen3-1.7b] [--device cpu]
 
-The default arch is qwen3-1.7b where the reference's is olmoe-1b-7b: the
-MoE blocks wait for ROADMAP.md A9 (an ``--arch`` the port does not build
-raises ``NotImplementedError`` naming it).  The model is the REDUCED
-miniature with random fp32 weights from a ``torch.Generator`` seeded 0 on
-the serving device; on the card ``BayesianEngine`` decodes through the
-kernels (``backend="cuda"``), on the CPU through their plain versions.
+The default arch is olmoe-1b-7b, as the reference's (an ``--arch`` the
+port does not build, jamba's, raises ``NotImplementedError`` naming its
+ROADMAP.md item).  The model is the REDUCED miniature with random fp32
+weights from a ``torch.Generator`` seeded 0 on the serving device; on the
+card ``BayesianEngine`` decodes through the kernels (``backend="cuda"``),
+on the CPU through their plain versions.
 """
 
 import argparse
@@ -29,7 +29,7 @@ from repro_torch.serve.engine import BayesianEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=sorted(ALIASES), default="qwen3-1.7b")
+    ap.add_argument("--arch", choices=sorted(ALIASES), default="olmoe-1b-7b")
     ap.add_argument("--samples", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=12)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")

@@ -9,6 +9,11 @@ Usage (the reduced rehearsal on the CPU, then full width on a GPU):
       --no-reduced --batch 8 --prompt-len 512 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
       --dtype bf16 --batch 8 --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --no-reduced --batch 8 --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --no-reduced --dtype bf16 --batch 8 \\
+      --prompt-len 128 --new-tokens 32
 
 The flags are the reference launcher's, plus ``--device`` and
 ``--dtype``.  ``--reduced`` is on by default and ``--no-reduced`` reaches

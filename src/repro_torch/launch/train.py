@@ -6,7 +6,9 @@ Two modes:
     classifier H 8, NL 3, YNY; the autoencoder --hidden / --layers, YNYN).
   * --task lm --arch <id>   — a zoo architecture on a synthetic token
     stream, REDUCED by default; ``--no-reduced`` trains the published
-    config (qwen3-1.7b and mamba2-370m fit one 80 GB card in fp32).
+    config (qwen3-1.7b and mamba2-370m fit one 80 GB card in fp32;
+    olmoe-1b-7b's weights and AdamW state in fp32, ~110 GB, do not).  A
+    MoE arch's loss carries the routers' load-balance term.
 
 Fault tolerance: --ckpt-dir enables atomic checkpoints (every 50 steps and
 at the end) and auto-resume; kill the process at any step and rerun the
@@ -173,7 +175,7 @@ def setup(args, device):
         return (make_ecg_loss(args.task, cfg), params,
                 ecg_batches(args.task, args.batch, args.seed), tcfg, cfg)
     cfg = get_config(args.arch or "llama3-8b", reduced=args.reduced)
-    backbone.check_cfg(cfg)        # the archs of ROADMAP A9 raise here
+    backbone.check_cfg(cfg)        # jamba (ROADMAP A9) raises here
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = backbone.init_params(cfg, gen, device=device,
                                   dtype=torch.float32)

@@ -1,5 +1,6 @@
-"""The LM backbone over its stages — port of the ``attn.mlp`` and
-``mamba`` subset of ``repro.models.backbone``.
+"""The LM backbone over its stages — port of ``repro.models.backbone`` for
+the ``attn``, ``mla`` and bare ``mamba`` mixers and the ``mlp`` and ``moe``
+FFNs.
 
 A model is an embedding and a sequence of stages; each stage repeats a
 period of blocks (``config.Stage``).  The reference scans stacked
@@ -10,10 +11,13 @@ string indexes the pattern, not the layer, so ``"NY"`` over a one-block
 pattern makes no layer Bayesian, as in the reference).
 
 Parameters are unstacked: ``params["stages"][i][r][j]`` is the block dict
-(``{"mixer": AttnParams, "ffn": MLPParams}``, or ``{"mixer":
-MambaParams}`` for a ``mamba`` block) of stage i, repeat r, pattern
-position j, and decode caches nest the same way: a (k, v) pair for
-attention, a ``mamba2.MambaState`` for a mamba block.  Entry points:
+of stage i, repeat r, pattern position j: ``{"mixer": AttnParams |
+mla.MLAParams, "ffn": MLPParams | moe.MoEParams}``, or ``{"mixer":
+MambaParams}`` for a ``mamba`` block.  Decode caches nest the same way: a
+(k, v) pair for attention, an ``mla.MLACache`` of latents for MLA, a
+``mamba2.MambaState`` for a mamba block.  A MoE FFN returns its
+load-balance loss, which ``forward`` sums as the reference's scan does
+and ``loss_fn`` adds; decode discards it.  Entry points:
 
   forward      full sequence (``collect_caches``, ``return_hidden``,
                ``remat``: each repeat's period of blocks checkpointed)
@@ -26,9 +30,9 @@ attention, a ``mamba2.MambaState`` for a mamba block.  Entry points:
                position is a device int32 scalar, never read on the host,
                so a decode step can be captured as one CUDA graph
 
-Other mixers and FFNs (``mla``, ``moe``, a mamba block with an FFN,
-cross-attention, encoders, patch or frame inputs) are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+A mamba block with an FFN (jamba's), cross-attention, encoders and patch
+or frame inputs are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,15 +43,13 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
-from repro_torch.models import layers, mamba2
+from repro_torch.models import layers, mamba2, mla, moe
 from repro_torch.models.config import ArchConfig, Stage
 
-_MIXERS = ("attn", "mamba")
+_MIXERS = ("attn", "mla", "mamba")
 _NOT_PORTED = {
     "mamba_ffn": "a mamba block with an FFN (jamba's blocks) is queued with "
                  "the hybrid (ROADMAP.md, A9)",
-    "mla": "multi-head latent attention is queued (ROADMAP.md, A9)",
-    "moe": "the MoE FFN is queued (ROADMAP.md, A9)",
     "cross": "cross-attention and encoders are queued (ROADMAP.md, "
              "A9)",
 }
@@ -63,16 +65,12 @@ def _parse(kind: str) -> tuple[str, bool, str | None]:
 
 
 def _check_kind(kind: str) -> None:
-    """Raise for a block this port does not run (only ``attn[.mlp]`` and a
-    bare ``mamba``)."""
+    """Raise for a block this port does not run (it runs ``attn`` and
+    ``mla`` with or without an ``mlp`` / ``moe`` FFN, and a bare
+    ``mamba``)."""
     mixer, has_cross, ffn = _parse(kind)
-    if mixer not in _MIXERS:
-        reason = _NOT_PORTED.get(mixer, _NOT_PORTED["cross"])
-        raise NotImplementedError(f"block {kind!r}: {reason}")
-    if has_cross:
+    if mixer not in _MIXERS or has_cross:
         raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['cross']}")
-    if ffn == "moe":
-        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['moe']}")
     if mixer == "mamba" and ffn is not None:
         raise NotImplementedError(
             f"block {kind!r}: {_NOT_PORTED['mamba_ffn']}")
@@ -91,21 +89,29 @@ def check_cfg(cfg: ArchConfig) -> None:
 def init_block(gen, kind: str, cfg: ArchConfig, dtype,
                device) -> dict[str, Any]:
     _check_kind(kind)
-    if _parse(kind)[0] == "mamba":
+    mixer, _, ffn = _parse(kind)
+    if mixer == "mamba":
         return {"mixer": mamba2.init_mamba(gen, cfg.d_model, cfg.ssm, dtype,
                                            device)}
-    p: dict[str, Any] = {"mixer": layers.init_attn(
-        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-        cfg.qk_norm, dtype, device)}
-    if _parse(kind)[2] == "mlp":
+    if mixer == "mla":
+        p: dict[str, Any] = {"mixer": mla.init_mla(
+            gen, cfg.d_model, cfg.num_heads, cfg.mla, dtype, device)}
+    else:
+        p = {"mixer": layers.init_attn(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.qk_norm, dtype, device)}
+    if ffn == "mlp":
         p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    elif ffn == "moe":
+        p["ffn"] = moe.init_moe(gen, cfg.d_model, cfg.moe, dtype, device)
     return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
                 dtype=torch.float32) -> dict[str, Any]:
     """Random parameters at the reference's init scales (``layers.py``
-    init_attn / init_mlp / init_embed, ``mamba2.py`` init_mamba), drawn
+    init_attn / init_mlp / init_embed, ``mla.py`` init_mla, ``moe.py``
+    init_moe, ``mamba2.py`` init_mamba), drawn
     from ``generator`` on its own device (a CUDA generator draws a
     full-width model on the card) and placed on ``device`` (default CUDA).
     Not the reference's numbers: its ``jax.random`` stream differs;
@@ -122,53 +128,69 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     }
 
 
+def _ffn_forward(p, cfg: ArchConfig, x, ctx: layers.Ctx, layer_id: int,
+                 bayes: bool, backend: str):
+    """The block's FFN, if any, on its residual stream.  Returns (x, aux):
+    the MoE's load-balance loss, 0.0 for a dense FFN or none."""
+    if "ffn" not in p:
+        return x, 0.0
+    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MLP)
+    if isinstance(p["ffn"], moe.MoEParams):
+        y, aux = moe.moe_forward(p["ffn"], x, cfg.moe, m, ctx.cfg.p, backend)
+        return x + y, aux
+    return x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend), 0.0
+
+
 def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
                    ctx: layers.Ctx, layer_id: int, bayes: bool,
                    return_cache: bool = False, backend: str = "cuda"):
     """One block, full sequence.  Returns (x, aux, cache|None)."""
     _check_kind(kind)
-    if _parse(kind)[0] == "mamba":
+    mixer = _parse(kind)[0]
+    if mixer == "mamba":
         m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MIXER)
         res = mamba2.mamba_forward(p["mixer"], x, cfg.ssm, m, ctx.cfg.p,
                                    cfg.d_model, return_state=return_cache,
                                    backend=backend)
-        cache = None
-        if return_cache:
-            res, cache = res
-        return x + res, 0.0, cache
-    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
-    res = layers.attention_forward(p["mixer"], x, positions, cfg.rope_theta,
-                                   causal=True, mask_in=m, p_drop=ctx.cfg.p,
-                                   return_kv=return_cache, backend=backend)
+    elif mixer == "mla":
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+        res = mla.mla_forward(p["mixer"], x, positions, cfg.rope_theta,
+                              cfg.mla, m, ctx.cfg.p,
+                              return_cache=return_cache, backend=backend)
+    else:
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+        res = layers.attention_forward(
+            p["mixer"], x, positions, cfg.rope_theta, causal=True, mask_in=m,
+            p_drop=ctx.cfg.p, return_kv=return_cache, backend=backend)
     cache = None
     if return_cache:
         res, cache = res
-    x = x + res
-    if "ffn" in p:
-        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MLP)
-        x = x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend)
-    return x, 0.0, cache
+    x, aux = _ffn_forward(p, cfg, x + res, ctx, layer_id, bayes, backend)
+    return x, aux, cache
 
 
 def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos,
                   ctx: layers.Ctx, layer_id: int, bayes: bool,
                   backend: str = "cuda"):
     """One block, one token.  Returns (x, cache), the cache updated in
-    place."""
+    place; a MoE's load-balance loss is discarded, as in the reference."""
     _check_kind(kind)
-    if _parse(kind)[0] == "mamba":
+    mixer = _parse(kind)[0]
+    if mixer == "mamba":
         m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MIXER)
         res, cache = mamba2.mamba_decode(p["mixer"], x, cache, cfg.ssm, m,
                                          ctx.cfg.p, cfg.d_model, backend)
-        return x + res, cache
-    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
-    res, cache = layers.attention_decode(p["mixer"], x, cache, pos,
-                                         cfg.rope_theta, m, ctx.cfg.p,
-                                         backend)
-    x = x + res
-    if "ffn" in p:
-        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_MLP)
-        x = x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend)
+    elif mixer == "mla":
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+        res, cache = mla.mla_decode(p["mixer"], x, cache, pos,
+                                    cfg.rope_theta, cfg.mla, m, ctx.cfg.p,
+                                    backend)
+    else:
+        m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
+        res, cache = layers.attention_decode(p["mixer"], x, cache, pos,
+                                             cfg.rope_theta, m, ctx.cfg.p,
+                                             backend)
+    x, _ = _ffn_forward(p, cfg, x + res, ctx, layer_id, bayes, backend)
     return x, cache
 
 
@@ -192,8 +214,8 @@ def _stage_layers(stage: Stage, layer_offset: int):
 class DecodeState(NamedTuple):
     pos: Any          # next position to write: int32 scalar on the device
     caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd],
-                      # the int8 (k_i8, k_scale, v_i8, v_scale), or a
-                      # mamba2.MambaState
+                      # the int8 (k_i8, k_scale, v_i8, v_scale), an
+                      # mla.MLACache or a mamba2.MambaState
     cross: Any = None
 
 
@@ -201,15 +223,15 @@ def _period(sp_r, stage: Stage, cfg: ArchConfig, x, positions,
             ctx: layers.Ctx, r: int, offset: int, bayes, collect: bool,
             backend: str):
     """One repeat's period of blocks (the reference's scan body).  Returns
-    (x, aux, caches of the period)."""
-    aux = 0.0
+    (x, the period's aux terms in order, caches of the period)."""
+    aux = []
     caches = []
     period = len(stage.pattern)
     for j, kind in enumerate(stage.pattern):
         x, a, c = _block_forward(sp_r[j], kind, cfg, x, positions, ctx,
                                  offset + r * period + j, bayes[j],
                                  return_cache=collect, backend=backend)
-        aux = aux + a
+        aux.append(a)
         caches.append(c)
     return x, aux, caches
 
@@ -236,13 +258,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
     for sp, st in zip(params["stages"], cfg.stages):
         bayes = _stage_bayes(cfg, offset, st)
         caches = []
+        stage_aux = 0.0     # the reference's scan carry, one a stage
         for r in range(st.repeat):
             args = (sp[r], st, cfg, x, positions, ctx, r, offset, bayes,
                     collect_caches, backend)
             x, a, c = (_ckpt.checkpoint(_period, *args, use_reentrant=False)
                        if ckpt else _period(*args))
-            aux = aux + a
+            for term in a:
+                stage_aux = stage_aux + term
             caches.append(c)
+        aux = aux + stage_aux
         offset += st.num_layers
         all_caches.append(caches)
     out = x if return_hidden else layers.logits(params["embed"], x)
@@ -284,8 +309,9 @@ def loss_fn(params, cfg: ArchConfig, tokens: torch.Tensor,
             targets: torch.Tensor, ctx: layers.Ctx, *, remat: bool = True,
             xent_chunk: int = 512):
     """Next-token cross-entropy + aux (targets = tokens shifted).  Returns
-    ``(nll + aux, {"nll": nll, "aux": aux})``, aux a 0-d fp32 tensor (0 for
-    the dense and SSM families).  The forward runs on the ``reference``
+    ``(nll + aux, {"nll": nll, "aux": aux})``, aux a 0-d fp32 tensor: the
+    MoE layers' load-balance losses summed (0 for the dense and SSM
+    families).  The forward runs on the ``reference``
     backend: the kernels have no backward, in this package or the
     reference's, and the reference's LM loss reaches none of them."""
     hidden, aux, _ = forward(params, cfg, tokens, ctx, remat=remat,
@@ -301,9 +327,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     """Zero decode state: one (k, v) pair of [B, max_len, KV, hd] per
     attention layer -- with ``kv_quant`` the reference's int8 form (k_i8,
     k_scale, v_i8, v_scale): int8 codes [B, max_len, KV, hd] and bf16
-    scales [B, max_len, KV] (``_block_cache_spec``) -- and a zero
-    ``MambaState`` per mamba layer.  Every tensor is its own: the caches
-    are updated in place."""
+    scales [B, max_len, KV] (``_block_cache_spec``) --, a zero
+    ``mla.MLACache`` per MLA layer (``kv_quant`` does not apply to it, as
+    in the reference) and a zero ``MambaState`` per mamba layer.  Every
+    tensor is its own: the caches are updated in place."""
     check_cfg(cfg)
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -312,8 +339,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     def cache(kind):
-        if _parse(kind)[0] == "mamba":
+        mixer = _parse(kind)[0]
+        if mixer == "mamba":
             return mamba2.init_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
+        if mixer == "mla":
+            return mla.init_cache(batch, max_len, cfg.mla, dtype, dev)
         if kv_quant:
             return tuple(zeros(sh, dt) for sh, dt in
                          ((shape, torch.int8), (shape[:3], torch.bfloat16))
@@ -327,9 +357,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _pad_cache_to(cache, kind: str, max_len: int):
-    """Pad a (k, v) cache [B, S, ...] with zeros up to max_len positions; a
-    Mamba state (no sequence axis) stays as it is."""
-    if _parse(kind)[0] == "mamba":
+    """Pad a (k, v) cache or an ``MLACache`` [B, S, ...] with zeros up to
+    max_len positions; a Mamba state (no sequence axis) stays as it is."""
+    mixer = _parse(kind)[0]
+    if mixer == "mamba":
         return cache
 
     def pad(a):
@@ -337,6 +368,8 @@ def _pad_cache_to(cache, kind: str, max_len: int):
         out[:, :a.shape[1]] = a
         return out
 
+    if mixer == "mla":
+        return mla.MLACache(pad(cache.c_kv), pad(cache.k_rope))
     return (pad(cache[0]), pad(cache[1]))
 
 
@@ -361,11 +394,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
 
 
 def cache_positions(cfg: ArchConfig, caches) -> int | None:
-    """Positions of the attention caches; None for a model without one (a
+    """Positions of the attention or MLA caches (a (k, v) cache's k, an
+    ``MLACache``'s c_kv: [B, Smax, ...]); None for a model without one (a
     Mamba state has no position limit, as in the reference)."""
     for st, stage in zip(cfg.stages, caches):
         for j, kind in enumerate(st.pattern):
-            if _parse(kind)[0] == "attn":
+            if _parse(kind)[0] in ("attn", "mla"):
                 return stage[0][j][0].shape[1]
     return None
 

@@ -10,10 +10,13 @@ next token (greedy), the same token is fed back to every chain, and the
 per-token predictive entropy and mutual information are emitted with it.
 
 ``backend="cuda"`` runs the LM's kernels (the site mask, the masked
-SwiGLU gate/up product, the decode attention, the Mamba2 prefill scan; on
-CPU tensors their plain versions); ``backend="reference"`` runs the plain
-mirrors of the reference's jnp code (``repro_torch.models.layers``,
-``repro_torch.models.mamba2``).
+SwiGLU gate/up product of a dense FFN or a shared expert, the decode
+attention, the Mamba2 prefill scan; on CPU tensors their plain versions);
+``backend="reference"`` runs the plain mirrors of the reference's jnp code
+(``repro_torch.models.layers``, ``mamba2``, ``moe``, ``mla``).  The MoE
+routing and expert products and MLA's latent attention are plain PyTorch
+on both backends, as they are plain jnp in the reference, and read no
+device value on the host, so their decode step is captured too.
 
 On ``backend="cuda"`` a decode step is the replay of one captured CUDA
 graph, the counterpart of the reference's jitted decode: a graph a (S·B
@@ -74,8 +77,8 @@ class _DecodeGraph:
 
 
 class BayesianEngine:
-    """Static-batch S-sample serving engine for the dense and the mamba
-    archs.  ``graphs=False`` runs every decode step eagerly on the
+    """Static-batch S-sample serving engine for the dense, the mamba and
+    the MoE archs (``attn.moe``, ``mla.mlp`` / ``mla.moe``).  ``graphs=False`` runs every decode step eagerly on the
     ``cuda`` backend too (what the graphs are held to)."""
 
     def __init__(self, params, cfg: ArchConfig, *, max_len: int = 512,

@@ -10,9 +10,11 @@ tests/test_torch_cuda_graphs.py``.
 * Every kernel backend and precision: the replayed tick gives the eager
   tick's carries and summaries bit for bit, with the same launches a
   tick; after ``prewarm`` no tick captures (``compiles == 0``).
-* qwen3 and mamba2 (REDUCED): the decode graph gives the eager decode's
+* qwen3, mamba2, olmoe and deepseek (REDUCED; the MoE archs at a
+  capacity that drops routes): the decode graph gives the eager decode's
   tokens, logits, entropy and mutual information bit for bit and the
-  same launch counts, over two ``generate`` calls on one engine.
+  same launch counts, over two ``generate`` calls on one engine; the MoE
+  FFN twice bitwise equal on the card, its routing integers the CPU's.
 * The bf16 ``mcd_matmul`` on the tensor cores: a captured call replays
   bitwise equal to eager calls.
 * Kill -> snapshot -> restore: an engine restored after prewarm replays
@@ -140,14 +142,16 @@ def test_first_tick_captures_and_counts_its_launches(dev):
     assert mcd_lstm_seq.mcd_lstm_seq.launches - before == 3 * cfg.num_layers
 
 
-@pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
-                                             ("mamba2-370m", 40)])
+_DECODE_ARCHS = [("qwen3-1.7b", 6), ("mamba2-370m", 40),
+                 ("olmoe-1b-7b", 6), ("deepseek-v2-lite-16b", 6)]
+
+
+@pytest.mark.parametrize("arch,prompt_len", _DECODE_ARCHS)
 def test_decode_graph_equals_eager(dev, arch, prompt_len):
     _decode_graph_check(dev, arch, prompt_len, torch.float32)
 
 
-@pytest.mark.parametrize("arch,prompt_len", [("qwen3-1.7b", 6),
-                                             ("mamba2-370m", 40)])
+@pytest.mark.parametrize("arch,prompt_len", _DECODE_ARCHS)
 def test_bf16_decode_graph_equals_eager(dev, arch, prompt_len):
     """At bf16: the graph captures the bf16 step (a bf16 KV cache, or a
     bf16 conv state beside the fp32 SSM state) and replays it bit for bit
@@ -160,9 +164,13 @@ def test_bf16_decode_graph_equals_eager(dev, arch, prompt_len):
 def _decode_graph_check(dev, arch, prompt_len, dtype):
     """An engine's decode graph against the same engine served eagerly, at
     ``dtype``: tokens, logits, entropy and MI bitwise equal, the same
-    launch counts (returned)."""
+    launch counts (returned).  A MoE arch runs at capacity factor 0.5, so
+    its decode steps drop routes inside the graph too."""
     cfg = configs.get_config(arch, reduced=True)
     cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=S))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=0.5))
     params = backbone.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
         dtype=dtype)
@@ -197,6 +205,41 @@ def _decode_graph_check(dev, arch, prompt_len, dtype):
         assert cache[0].dtype == dtype
     return counts[0]
 
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_moe_forward_on_the_card_is_deterministic(dev, arch):
+    """``moe_forward`` on the card at a dropping capacity: two calls
+    bitwise equal (no float atomics in the combine), and the routing's
+    integers (``_dispatch``: slots, counts) equal to the CPU's on the same
+    inputs, the output within 1e-5 of it."""
+    from repro_torch.models import layers, moe
+    cfg = configs.get_config(arch, reduced=True)
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=0.5)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg.d_model, mcfg,
+                     torch.float32, "cpu")
+    x = torch.randn((4, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    ctx = layers.Ctx(mcd.sample_rows(2, 2, device=dev), 3, cfg.mcd)
+    m = layers.site_mask(ctx, True, 1, layers.SITE_MLP)
+    pc = moe.MoEParams(*(t if t is None or isinstance(t, tuple)
+                         else t.to(dev) for t in p))
+    if pc.shared is not None:
+        pc = pc._replace(shared=type(pc.shared)(*(t.to(dev)
+                                                  for t in pc.shared)))
+    a = moe.moe_forward(pc, x.to(dev), mcfg, m, 0.1, "cuda")
+    b = moe.moe_forward(pc, x.to(dev), mcfg, m, 0.1, "cuda")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    cctx = layers.Ctx(mcd.sample_rows(2, 2), 3, cfg.mcd)
+    want = moe.moe_forward(p, x, mcfg, layers.site_mask(
+        cctx, True, 1, layers.SITE_MLP), 0.1, "cuda")
+    assert (a[0].cpu() - want[0]).abs().max() <= 1e-5
+    flat = x.reshape(-1, cfg.d_model)
+    C = moe.capacity(flat.shape[0], mcfg)
+    got = moe._dispatch(flat.to(dev), flat.to(dev), pc.router, mcfg, C)
+    ref = moe._dispatch(flat, flat, p.router, mcfg, C)
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[3].cpu(), ref[3])
+    assert int((ref[3] - C).clamp(min=0).sum()) > 0       # routes dropped
 
 
 @pytest.mark.parametrize("M", [64, 8192])

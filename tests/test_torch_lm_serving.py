@@ -118,4 +118,4 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=qwen3-1.7b-reduced S=2" in out and "req 1:" in out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--device", "cpu", "--arch", "olmoe-1b-7b"])
+        tserve.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b"])

@@ -73,7 +73,8 @@ def test_lm_stream_is_the_reference_at_odd_seq():
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="A9"):
-        _train(["--task", "lm", "--arch", "olmoe-1b-7b", "--steps", "1"])
+        _train(["--task", "lm", "--arch", "jamba-1.5-large-398b", "--steps",
+                "1"])
 
 
 class _Crash(Exception):
@@ -343,7 +344,7 @@ def _example(name):
     ("ecg_monitoring", ["--smoke", "--cell", "gru", "--precision", "int8",
                         "--backend", "pallas_step"]),
     ("fleet_monitoring", ["--smoke"]),
-    ("uncertainty_serving", ["--new-tokens", "3"]),
+    ("uncertainty_serving", ["--new-tokens", "3", "--arch", "qwen3-1.7b"]),
     ("uncertainty_serving", ["--new-tokens", "3", "--arch", "mamba2-370m"]),
 ], ids=["quickstart", "codesign_search", "anomaly_detection",
         "ecg_monitoring-smoke", "ecg_monitoring-modes",
@@ -357,7 +358,12 @@ def test_example_runs(name, argv, tmp_path, capsys):
 
 
 def test_uncertainty_serving_olmoe_waits_for_a9():
+    """olmoe-1b-7b no longer waits: the MoE FFN is ported and it is the
+    example's default again, as in the reference; jamba still waits for
+    ROADMAP.md A9."""
+    res = _example("uncertainty_serving").main(["--new-tokens", "2", *CPU])
+    assert res.tokens.shape == (2, 2)
     with pytest.raises(NotImplementedError, match="A9"):
         _example("uncertainty_serving").main(
-            ["--arch", "olmoe-1b-7b", *CPU])
+            ["--arch", "jamba-1.5-large-398b", *CPU])
 
