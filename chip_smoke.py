@@ -179,7 +179,15 @@ Phases (each raises on failure; the exit code is then non-zero):
    within ATTN_TOL plus one bf16 ulp (two calls and a tensor pos bitwise
    equal); each record's ``dtype`` is "bf16", its bound at bf16 bytes (a
    product's operations at the bf16 tensor-core rate), its library call
-   the bf16 one (cuBLAS ``torch.matmul``, SDPA).
+   the bf16 one (cuBLAS ``torch.matmul``, SDPA).  Then the four kernels at
+   the bf16 shapes phases 15 and 16 give them (ZOO_*, each record naming
+   its ``model``): the mask at [64, 8192] and [8192, 8192];
+   ``mcd_matmul`` at K = 8192, N = 49152 (jamba's ``mamba.mlp``) and K =
+   4096, N = 28672 (llama3-8b) at M = 64 and 8192 on the tensor cores;
+   ``decode_attention`` at 64 q heads to 8 KV heads (jamba: the kernel's
+   largest group) and 32 to 8 (llama3-8b) at pos 0 and 159; the SSD scan
+   at jamba's prefill (B = 64, L = 128, H = 256, P = 64, N = 128, Q =
+   128) on the tensor cores.
 7. LM serving: ``BayesianEngine.generate`` on qwen3-1.7b at full width
    (28 layers, random fp32 weights from seed 0), 8 prompts of 128 tokens x
    8 chains (p = 0.1, placement Y), 32 new tokens: the launch counts of the
@@ -228,7 +236,7 @@ Phases (each raises on failure; the exit code is then non-zero):
 7c. qwen3-1.7b with the int8 KV cache: bf16 weights, INT8_STEPS decode
    steps from ``init_decode_state(kv_quant=True)`` on both backends side
    by side, every step within the bf16 tolerances; the cache's bytes.
-   Every main-path run of phases 7–9b, 7c, 13 and 14 runs inside
+   Every main-path run of phases 7–9b, 7c and 13–16 runs inside
    ``no_plain_versions()``: a plain version of an LM kernel called there
    raises.
 13. The MoE family, olmoe-1b-7b at full width in fp32 (16 ``attn.moe``
@@ -254,6 +262,24 @@ Phases (each raises on failure; the exit code is then non-zero):
    ``mcd_matmul`` at layer 0 and every shared expert, the MLA cache's
    bytes beside per-head K and V.  Both phases free the model before they
    start and after.
+15. llama3-8b at full width in bf16 (32 ``attn.mlp`` layers, d_model
+   4096, 32 q / 8 KV heads of 128, d_ff 14336, vocab 128256; 8.03 B
+   parameters, random from seed 0): phase 7b's load and checks
+   (``BayesianEngine.generate``, the launch counts, the ``reference``
+   backend teacher-forced within BF16_LOGIT_TOL / BF16_UNC_TOL beside its
+   own distance from the fp32 weights, graph against eager), peak memory
+   and the decode step's device ms against its byte floor.
+16. jamba-1.5-large-398b cut to its first three layers (``attn.moe``,
+   ``mamba.mlp``, ``mamba.moe``: depth 72 -> 3, printed) at full width in
+   bf16 (d_model 8192, 64 q / 8 KV heads, 16 experts top-2 of d_ff 24576,
+   d_ff 24576, SSD 256 heads of 64, d_state 128, chunk 256; vocab 65536):
+   phase 14's load and checks (routes forced, flips under MOE_GAP_BOUND,
+   dropped routes), all four LM kernels launched (the SSD scan at the
+   prefill's two mamba layers, on the tensor cores), the decode state's
+   (k, v) cache and two ``MambaState``s in one graph replay.
+   Phases 15 and 16 run in a fresh process of this script
+   (``--zoo-child``), as phases 10 and 11 run theirs: late in this one
+   torch.profiler drops the first records of most profiles.
 
 10. Serving precisions, the kernels (last, in a fresh process of this
    script: its profiles hold thousands of records, torch.profiler has
@@ -326,12 +352,14 @@ phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
 each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
 int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
 ``.bf16``, its case at bf16 from phases 6 and 8 with the launches of
-phases 7b, 9b, 7c and 14), the
+phases 7b, 9b, 7c and 14-16; and ``zoo``: its phase 6 cases at the shapes
+of phases 15 and 16 with those phases' launches), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 Usage:  python3 chip_smoke.py [--out results.json]
         python3 chip_smoke.py --moe-only   # the build, phases 6, 13, 14
+        python3 chip_smoke.py --zoo-only   # the build, phases 6, 15, 16
 """
 
 from __future__ import annotations
@@ -1671,7 +1699,8 @@ GRAPH_CELLS = (
     ("classifier", "lstm", "cuda_seq", "int8", "auto"),
     ("autoencoder", "gru", "cuda_seq", "int4", CHUNK),
 )
-GRAPH_RUNS = 2      # runs a side, graph and eager in turns
+GRAPH_RUNS = 1      # runs a side, graph and eager in turns (one: the
+                    # time phases 15 and 16 take)
 GRAPH_TICKS = 12    # every beat in 12 ragged chunks
 TICK_PARTS = ("assemble", "to_device", "apply", "summaries", "store",
               "sync")
@@ -3970,7 +3999,8 @@ def matmul_cases(dev, g, key) -> list[dict]:
 
 def lm_kernel_phase(report) -> list[dict]:
     """The three LM kernels against their plain versions at qwen3-1.7b's
-    serving shapes (the mask at mamba2-370m's too)."""
+    serving shapes (the mask at mamba2-370m's too), then the four at the
+    zoo's bf16 shapes (:func:`zoo_kernel_cases`)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
@@ -3979,7 +4009,37 @@ def lm_kernel_phase(report) -> list[dict]:
     records += matmul_cases(dev, g, key)
     records += attention_cases()
     records += lm_bf16_cases(dev, g, key)
+    records += zoo_kernel_cases(dev, g, key)
     report["lm_kernel_cases"] = records
+    return records
+
+
+def zoo_kernel_cases(dev, g, key) -> list[dict]:
+    """The four LM kernels at bf16 at the shapes llama3-8b and the jamba
+    cut give them (ZOO_*; phases 15 and 16), each held against its plain
+    version as at qwen3's shapes: the mask bitwise, ``mcd_matmul`` at
+    decode and prefill M on the tensor cores within MM_TOL,
+    ``decode_attention`` within ATTN_TOL plus one bf16 ulp, the SSD scan
+    within SSD_TOL plus one bf16 ulp on the tensor cores.  Each record
+    names its ``model``."""
+    import torch
+    from repro_torch.kernels import mcd_matmul
+    bf = torch.bfloat16
+    records = [bf16_mask_case(dev, g, key, M, D, model)
+               for M, D, model in ZOO_MASK_CASES]
+    for K_, N_, model in ZOO_MM_CASES:
+        w = (torch.randn((K_, N_), generator=g, device=dev)
+             * K_ ** -0.5).to(bf)
+        for M in (LM_B * LM_S, LM_B * LM_S * LM_PROMPT):
+            records.append(bf16_matmul_case(
+                dev, g, key, M, w, "tensor_cores",
+                mcd_matmul.matmul_plan(M, N_, K_, 2)["tile"], model))
+        del w
+    for H, model in ZOO_ATTN_CASES:
+        records += bf16_attention_cases(LM_B * LM_S, H, LM_PROMPT + LM_NEW,
+                                        ZOO_ATTN_POSITIONS, model)
+    records += ssd_bf16_cases(ZOO_SSD, [(False, "tensor_cores")],
+                              "jamba-1.5-large prefill")
     return records
 
 
@@ -4012,6 +4072,18 @@ BF16_MM_CASES = [(LM_B * LM_S, "aligned", "tensor_cores", "tc_narrow"),
 DEEPSEEK_MM_N = ((2 * 10944, "deepseek dense layer 0"),
                  (2 * 2 * 1408, "deepseek shared experts"))
 BF16_ATTN_POSITIONS = (0, 127, 159)
+# Phase 6's cases at the shapes phases 15 and 16 give the kernels, bf16:
+# jamba-1.5-large (d_model 8192, 64 q heads to 8 KV heads: the decode
+# kernel's largest group, _MAX_REP; the mamba.mlp gate/up N = 2 x 24576;
+# the SSD scan's 256 heads at a 128-token prompt, Q = 128) and llama3-8b
+# (d_model 4096, 32 q heads to 8, gate/up N = 2 x 14336).
+ZOO_MASK_CASES = ((LM_B * LM_S, 8192, "jamba-1.5-large d_model"),
+                  (LM_B * LM_S * LM_PROMPT, 8192, "jamba-1.5-large d_model"))
+ZOO_MM_CASES = ((8192, 2 * 24576, "jamba-1.5-large mamba.mlp gate/up"),
+                (4096, 2 * 14336, "llama3-8b gate/up"))
+ZOO_ATTN_CASES = ((64, "jamba-1.5-large"), (32, "llama3-8b"))
+ZOO_ATTN_POSITIONS = (0, 159)
+ZOO_SSD = (LM_B * LM_S, LM_PROMPT, 256, 64, 128, 256)
 
 
 def lm_bf16_cases(dev, g, key) -> list[dict]:
@@ -4028,43 +4100,11 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
     int.  Each record: ``dtype`` "bf16", times, the bound at bf16 bytes
     (operations of a product at the bf16 tensor-core rate) and the bf16
     library call (cuBLAS ``torch.matmul``, SDPA)."""
-    import itertools
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import (bernoulli_mask, common, decode_attn,
-                                     mcd_matmul)
+    from repro_torch.kernels import mcd_matmul
     bf = torch.bfloat16
-    records = []
-    for M, D in BF16_MASK_CASES:
-        rows = _lm_rows(dev, M)
-        x = torch.randn((M, D), generator=g, device=dev).to(bf)
-        for p in (MASK_P, 0.0):
-            got = bernoulli_mask.masked_activation(x, rows, key, p)
-            torch.cuda.synchronize()
-            want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
-            if not torch.equal(got.view(torch.int16),
-                               want.view(torch.int16)):
-                raise RuntimeError(f"bf16 masked_activation differs from its "
-                                   f"plain version at M={M} F={D} p={p}")
-        err = max_abs_diff(got.float(), want.float(), "masked_activation")
-        r32 = common.rows_to_int32(rows)
-        iters = 20 if M * D <= 2 ** 20 else 5
-
-        def call(p, x=x, r32=r32):
-            return lambda: bernoulli_mask.masked_activation(x, r32, key, p)
-
-        records.append(_lm_record(
-            "masked_activation",
-            dict(M=M, F=D, p=MASK_P, dtype="bf16", misaligned=False,
-                 plan=bernoulli_mask.mask_plan(M, D, True, 2),
-                 bit_equal=True,
-                 copy_device_ms=device_ms(call(0.0), iters,
-                                          "masked_activation_kernel")),
-            err, call(MASK_P),
-            lambda x=x, rows=rows: bernoulli_mask.masked_activation_plain(
-                x, rows, key, MASK_P),
-            nbytes=2 * 2 * M * D + 4 * M, ops=22 * M * D, iters=iters))
-        del x, got, want
+    records = [bf16_mask_case(dev, g, key, M, D)
+               for M, D in BF16_MASK_CASES]
     D, N = 2048, 2 * 6144
     w = (torch.randn((D, N), generator=g, device=dev) * D ** -0.5).to(bf)
     w_odd = (torch.randn((D + 2, N + 2), generator=g, device=dev)
@@ -4078,50 +4118,113 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
                    mcd_matmul.matmul_plan(M, N_ds, D, 2)["tile"], model)
                   for M in (LM_B * LM_S, LM_B * LM_S * LM_PROMPT)]
     for M, wm, path, tile, model in cases:
-        K_, N_ = wm.shape
-        rows = _lm_rows(dev, M)
-        x = torch.randn((M, K_), generator=g, device=dev).to(bf)
-        got = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
-        plan = mcd_matmul.mcd_matmul.last_plan
-        if (plan["path"], plan["tile"]) != (path, tile):
-            raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_} "
-                               f"launched {plan['path']} {plan['tile']}, "
-                               f"not {path} {tile}")
-        again = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
-        torch.cuda.synchronize()
-        want = mcd_matmul.mcd_matmul_plain(x, wm, rows, key, 0.1,
-                                           torch.float32)
-        err = max_abs_diff(got, want, "bf16 mcd_matmul")
-        if err > MM_TOL or not torch.equal(got, again):
-            raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_}: "
-                               f"{err} from its plain version (tol "
-                               f"{MM_TOL}); two calls equal: "
-                               f"{torch.equal(got, again)}")
-        xm = bernoulli_mask.masked_activation_plain(x, rows, key, 0.1)
-        r32 = common.rows_to_int32(rows)
-
-        def mm_call(x=x, wm=wm, r32=r32):
-            return mcd_matmul.mcd_matmul(x, wm, r32, key, 0.1, torch.float32)
-
-        records.append(_lm_record(
-            "mcd_matmul", dict(M=M, K=K_, N=N_, p=0.1, dtype="bf16",
-                               out="float32", path=plan["path"],
-                               tile=plan["tile"], smem=plan["smem"],
-                               repeat_bit_equal=True, model=model,
-                               host_ms=host_ms(mm_call)),
-            err, mm_call,
-            lambda x=x, wm=wm, rows=rows: mcd_matmul.mcd_matmul_plain(
-                x, wm, rows, key, 0.1, torch.float32),
-            nbytes=2 * (M * K_ + K_ * N_) + 4 * M * N_ + 4 * M,
-            ops=2 * M * K_ * N_, peak=PEAK_BF16_FLOPS,
-            library=lambda xm=xm, wm=wm: torch.matmul(xm, wm)))
-        del x, got, again, want, xm
+        records.append(bf16_matmul_case(dev, g, key, M, wm, path, tile,
+                                        model))
     del w, w_odd, cases, w_ds
     B, H, S = ATTN_SERVING
+    records += bf16_attention_cases(B, H, S, BF16_ATTN_POSITIONS)
+    return records
+
+
+def bf16_mask_case(dev, g, key, M, D, model=None) -> dict:
+    """bf16 ``masked_activation`` of [M, D]: bitwise equal to its plain
+    version at p = 0.1 and p = 0; its record with the p = 0 copy's device
+    ms (the floor for a launch of this size) and the bound at bf16
+    bytes."""
+    import torch
+    from repro_torch.kernels import bernoulli_mask, common
+    rows = _lm_rows(dev, M)
+    x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
+    for p in (MASK_P, 0.0):
+        got = bernoulli_mask.masked_activation(x, rows, key, p)
+        torch.cuda.synchronize()
+        want = bernoulli_mask.masked_activation_plain(x, rows, key, p)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise RuntimeError(f"bf16 masked_activation differs from its "
+                               f"plain version at M={M} F={D} p={p}")
+    err = max_abs_diff(got.float(), want.float(), "masked_activation")
+    r32 = common.rows_to_int32(rows)
+    iters = 20 if M * D <= 2 ** 20 else 5
+
+    def call(p):
+        return lambda: bernoulli_mask.masked_activation(x, r32, key, p)
+
+    return _lm_record(
+        "masked_activation",
+        dict(M=M, F=D, p=MASK_P, dtype="bf16", misaligned=False,
+             model=model, plan=bernoulli_mask.mask_plan(M, D, True, 2),
+             bit_equal=True,
+             copy_device_ms=device_ms(call(0.0), iters,
+                                      "masked_activation_kernel")),
+        err, call(MASK_P),
+        lambda: bernoulli_mask.masked_activation_plain(x, rows, key, MASK_P),
+        nbytes=2 * 2 * M * D + 4 * M, ops=22 * M * D, iters=iters)
+
+
+def bf16_matmul_case(dev, g, key, M, wm, path, tile, model) -> dict:
+    """One bf16 ``mcd_matmul`` case (fp32 out, p = 0.1) at M rows of
+    ``wm``'s K: the plan the wrapper launched must be (``path``,
+    ``tile``), the product within MM_TOL of its plain version, two calls
+    bitwise equal; its record with the host ms, the bound at bf16 bytes
+    and the tensor-core rate, and cuBLAS ``torch.matmul``."""
+    import torch
+    from repro_torch.kernels import bernoulli_mask, common, mcd_matmul
+    K_, N_ = wm.shape
+    rows = _lm_rows(dev, M)
+    x = torch.randn((M, K_), generator=g, device=dev).to(torch.bfloat16)
+    got = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
+    plan = mcd_matmul.mcd_matmul.last_plan
+    if (plan["path"], plan["tile"]) != (path, tile):
+        raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_} "
+                           f"launched {plan['path']} {plan['tile']}, "
+                           f"not {path} {tile}")
+    again = mcd_matmul.mcd_matmul(x, wm, rows, key, 0.1, torch.float32)
+    torch.cuda.synchronize()
+    want = mcd_matmul.mcd_matmul_plain(x, wm, rows, key, 0.1, torch.float32)
+    err = max_abs_diff(got, want, "bf16 mcd_matmul")
+    if err > MM_TOL or not torch.equal(got, again):
+        raise RuntimeError(f"bf16 mcd_matmul at M={M} K={K_} N={N_}: "
+                           f"{err} from its plain version (tol "
+                           f"{MM_TOL}); two calls equal: "
+                           f"{torch.equal(got, again)}")
+    del got, again, want
+    xm = bernoulli_mask.masked_activation_plain(x, rows, key, 0.1)
+    r32 = common.rows_to_int32(rows)
+
+    def mm_call():
+        return mcd_matmul.mcd_matmul(x, wm, r32, key, 0.1, torch.float32)
+
+    return _lm_record(
+        "mcd_matmul", dict(M=M, K=K_, N=N_, p=0.1, dtype="bf16",
+                           out="float32", path=plan["path"],
+                           tile=plan["tile"], smem=plan["smem"],
+                           repeat_bit_equal=True, model=model,
+                           host_ms=host_ms(mm_call)),
+        err, mm_call,
+        lambda: mcd_matmul.mcd_matmul_plain(x, wm, rows, key, 0.1,
+                                            torch.float32),
+        nbytes=2 * (M * K_ + K_ * N_) + 4 * M * N_ + 4 * M,
+        ops=2 * M * K_ * N_, peak=PEAK_BF16_FLOPS,
+        library=lambda: torch.matmul(xm, wm))
+
+
+def bf16_attention_cases(B, H, S, positions, model=None) -> list[dict]:
+    """bf16 ``decode_attention`` of B rows, H query heads to 8 KV heads of
+    128, an S-position cache, at each of ``positions``: within ATTN_TOL
+    plus one bf16 ulp of its plain version, two calls and a tensor pos
+    bitwise equal to the int; records with the bound at bf16 bytes and
+    SDPA's time."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
     KV, hd = 8, 128
+    records = []
     q, kc, vc = (t.to(bf) for t in attention_inputs(B, H, KV, hd, S))
     inputs = attention_rotation(q, kc, vc)
-    for pos in BF16_ATTN_POSITIONS:
+    for pos in positions:
         got = decode_attn.decode_attention(q, kc, vc, pos)
         again = decode_attn.decode_attention(q, kc, vc, pos)
         got_t = decode_attn.decode_attention(
@@ -4144,6 +4247,7 @@ def lm_bf16_cases(dev, g, key) -> list[dict]:
         records.append(_lm_record(
             "decode_attention",
             dict(B=B, H=H, KV=KV, hd=hd, S=S, pos=pos, dtype="bf16",
+                 model=model,
                  plan=decode_attn.decode_plan(B, H, KV, hd, S, 2),
                  blocks_per_sm=decode_attn.blocks_per_sm(H, KV, hd, bf),
                  timed_copies=len(inputs), repeat_bit_equal=True,
@@ -4359,19 +4463,22 @@ def lm_bf16_entries(entries, records, launches) -> None:
     entry's own numbers) and ``bf16``, its case at the same shape at bf16
     from phases 6 and 8 (the mask [64, 2048], the decode product, the
     decode attention at pos 159, the SSD scan at its serving shape) with
-    the launches of the bf16 serving phases (7b, 9b, 7c, 14)."""
+    the launches of the bf16 serving phases (7b, 9b, 7c, 14, 15, 16)."""
     picks = {
         "masked_activation": lambda r: (r["M"], r["F"]) == (LM_B * LM_S,
                                                             2048),
         "mcd_matmul": lambda r: (r["M"], r["N"]) == (LM_B * LM_S, 2 * 6144),
-        "decode_attention": lambda r: r["pos"] == LM_PROMPT + LM_NEW - 1,
-        "ssd_chunk_scan": lambda r: r["path"] == "tensor_cores",
+        "decode_attention": lambda r: (r["pos"], r["H"]) == (
+            LM_PROMPT + LM_NEW - 1, ATTN_SERVING[1]),
+        "ssd_chunk_scan": lambda r: (r["path"], r["H"]) == (
+            "tensor_cores", SSD_CASES[0][2]),
     }
     for e in entries:
         if e["name"] not in LM_KERNELS:
             continue
         (rec,) = [r for r in records if r["kernel"] == e["name"]
-                  and r.get("dtype") == "bf16" and picks[e["name"]](r)]
+                  and r.get("dtype") == "bf16" and not r.get("model")
+                  and picks[e["name"]](r)]
         keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms", "max_abs_err")
         e["precisions"] = {
@@ -4394,6 +4501,31 @@ def lm_bf16_entries(entries, records, launches) -> None:
         if not e["precisions"]["bf16"]["launches"]:
             raise RuntimeError(f"{e['name']} was never launched at bf16 on "
                                "a serving path")
+
+
+def zoo_entries(entries, records, launches) -> None:
+    """Each LM ``kernels`` entry gains ``zoo``: its phase 6 cases at the
+    shapes of phases 15 and 16 (ZOO_*, bf16; each with the model it
+    serves, its shape, times, bound and library time) and the launches of
+    those two phases."""
+    shape_keys = ("M", "F", "K", "N", "B", "H", "KV", "hd", "S", "pos", "L",
+                  "P", "Q", "path", "tile")
+    for e in entries:
+        if e["name"] not in LM_KERNELS:
+            continue
+        cases = [{"model": r["model"],
+                  **{k: r[k] for k in shape_keys if k in r},
+                  "ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                  "max_abs_err": r["max_abs_err"]}
+                 for r in records if r["kernel"] == e["name"]
+                 and str(r.get("model")).startswith(("jamba", "llama3"))]
+        if not cases or not launches[e["name"]]:
+            raise RuntimeError(f"{e['name']}: {len(cases)} zoo cases, "
+                               f"{launches[e['name']]} zoo launches")
+        e["zoo"] = {"dtype": "bf16", "cases": cases,
+                    "launches": launches[e["name"]]}
 
 
 # -- the Mamba2 SSD scan ------------------------------------------------------
@@ -4538,7 +4670,8 @@ def top_kernels(table, n: int = 5) -> list:
     return [[k[:120], us / 1e3, calls] for k, (us, calls) in got[:n]]
 
 
-def ssd_bf16_cases() -> list[dict]:
+def ssd_bf16_cases(shape=None, cases=SSD_BF16_CASES,
+                   model=None) -> list[dict]:
     """``ssd_chunk_scan`` at bf16 (x, B and C bf16; dt, a and D fp32) at the
     serving shape, on each path of SSD_BF16_CASES: the plan's path
     (``last_plan``) and the profiled kernels (``_bf16_tc`` on the
@@ -4549,12 +4682,13 @@ def ssd_bf16_cases() -> list[dict]:
     +25%.  The bound: the scan's bytes at the storage widths against its
     operations at the dense bf16 rate; beside it the tensor-core design's
     own floor (its wgmma work at that rate) and the host ms of an eager
-    call."""
+    call.  ``shape``: (B, L, H, P, N, q_chunk), the serving shape
+    SSD_CASES[0] if None; ``model`` names another model's shape."""
     import torch
     from repro_torch.kernels import ssd_chunk
-    B, L, H, P, N, q = SSD_CASES[0]
+    B, L, H, P, N, q = shape or SSD_CASES[0]
     records = []
-    for misaligned, path in SSD_BF16_CASES:
+    for misaligned, path in cases:
         ins = ssd_inputs(B, L, H, P, N, seed=L + H + 1)
         for i in (0, 3, 4):
             ins[i] = ins[i].to(torch.bfloat16)
@@ -4581,7 +4715,8 @@ def ssd_bf16_cases() -> list[dict]:
         names = sorted(n for n in kernels if "ssd_chunk_scan_kernel" in n)
         tc = any("ssd_chunk_scan_kernel_bf16_tc" in n for n in names)
         case = dict(B=B, L=L, H=H, P=P, N=N, q_chunk=q, Q=plan["Q"],
-                    dtype="bf16", path=plan["path"], misaligned=misaligned,
+                    dtype="bf16", model=model, path=plan["path"],
+                    misaligned=misaligned,
                     smem=plan["smem"], kernel_names=names,
                     max_abs_err_y=err_y, max_abs_err_h=err_h,
                     y_excess_past_tol_and_ulp=excess,
@@ -4701,6 +4836,55 @@ def mamba_bf16_serving_phase(report, dev):
     """mamba2-370m at full width in bf16, the fp32 cell's traffic."""
     return serve_lm(report, dev, "mamba2-370m", MB_PROMPT, _mamba_want,
                     *MAMBA_KERNELS, "serving_mamba_bf16", dtype="bf16")
+
+
+ZOO_CHILD_TIMEOUT = 600   # seconds; phases 15 and 16 take ~80 on the card
+
+
+def zoo_serving_phases(report, dev):
+    """Phases 15 and 16 in a fresh process of this script
+    (``--zoo-child``), as phases 10 and 11 run theirs: late in this
+    process torch.profiler drops the first records of most profiles (the
+    llama3 decode profile then counts 159 of 160 mask launches each time
+    it is taken again, until the cache has no positions left), and a
+    fresh process profiles as the first phases of this one do.  The
+    child resets and reads the launch counts around each main path as
+    this process does; its records, seconds and summed launches come
+    back here."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()            # the jamba cut peaks at ~63 GB
+    got = _child("--zoo-child", timeout=ZOO_CHILD_TIMEOUT)
+    report.update(got["report"])
+    report["phase_s"].update(got["phase_s"])
+    return got["launches"]
+
+
+def zoo_child(out):
+    """``--zoo-child``'s body: phases 15 and 16; writes their records,
+    launch counts and seconds to ``out``."""
+    import torch
+    dev = torch.device("cuda")
+    report = {"card": card_line()}
+    launches = {name: 0 for name in ALL_KERNELS}
+    phase_s = {}
+    for name, fn in (("15", llama3_serving_phase),
+                     ("16", jamba_serving_phase)):
+        t = time.perf_counter()
+        for kernel, v in fn(report, dev).items():
+            launches[kernel] += v
+        phase_s[name] = time.perf_counter() - t
+    del report["card"]
+    with open(out, "w") as fh:
+        json.dump({"report": report, "launches": launches,
+                   "phase_s": phase_s}, fh)
+
+
+def llama3_serving_phase(report, dev):
+    """Phase 15: llama3-8b at full width in bf16, phase 7b's traffic."""
+    return serve_lm(report, dev, "llama3-8b", LM_PROMPT, _qwen3_want,
+                    *QWEN3_KERNELS, "serving_llama3", dtype="bf16")
 
 
 # The kernels' plain versions, by module: none may run on a main path on
@@ -4865,6 +5049,8 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
 
     steps_ms = np.asarray(res.decode_s) * 1e3
     decode_s = float(np.sum(res.decode_s))
+    floor = _decode_bytes(params, cfg, LM_B * S_LM, prompt_len + LM_NEW // 2,
+                          2 if bf16 else 4)
     out = {"card": report["card"], "arch": cfg.name, "params": n_params,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size,
@@ -4881,6 +5067,9 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
            "tokens_per_s_with_prefill":
                LM_B * LM_NEW / (decode_s + res.prefill_s),
            "max_memory_allocated_gb": peak / 1e9,
+           "card_memory_gb": torch.cuda.get_device_properties(
+               dev).total_memory / 1e9,
+           "decode_step_bytes": floor,
            "max_abs_diff_vs_reference": {"logits": d_logits,
                                          "entropy": d_ent, "mi": d_mi},
            "tolerance_vs_reference": {"logits": logit_tol,
@@ -4895,11 +5084,16 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     graph_vs_eager["profiled_decode_step_graph"] = profile_lm(
         eng, prompts, prefill_kernels, decode_kernels,
         graph=True)["profiled_decode_step"]
+    busy = graph_vs_eager["profiled_decode_step_graph"]["device_busy_ms"]
+    out["decode_step_device_ms_vs_floor"] = {
+        "device_busy_ms": busy, "floor_ms": floor["floor_ms"],
+        "ratio": busy / floor["floor_ms"]}
     print(f"{key} profile " + json.dumps(out), flush=True)
     return counts
 
 
-LM_GRAPH_RUNS = 2   # generate runs a side, graph and eager in turns
+LM_GRAPH_RUNS = 1   # generate runs a side, graph and eager in turns (one,
+                    # as GRAPH_RUNS)
 
 
 def int8_kv_phase(report, dev):
@@ -5207,8 +5401,11 @@ def profile_ticks(params, cfg, streams, dev, kernel_match,
 # the (k+1)-th expert.  fp32 olmoe: the backends differ by the decode
 # attention's ulps (~1e-7 on probabilities of ~1/64); bf16 deepseek: by a
 # bf16 ulp on a few activations a layer (mcd_matmul's sum order before the
-# rounding), ~1e-4 on the router's probabilities.
-MOE_GAP_BOUND = {"olmoe-1b-7b": 1e-4, "deepseek-v2-lite-16b": 1e-2}
+# rounding), ~1e-4 on the router's probabilities.  bf16 jamba: the same
+# bf16 ulps, and the SSD scan's and the decode attention's other sum
+# orders before the MoE layer at position 2, at the bound deepseek has.
+MOE_GAP_BOUND = {"olmoe-1b-7b": 1e-4, "deepseek-v2-lite-16b": 1e-2,
+                 "jamba-1.5-large-398b": 1e-2}
 MOE_GRAPH_RUNS = 1   # generate runs a side, graph and eager in turns
 
 
@@ -5317,28 +5514,30 @@ def flip_summary(flips, bound) -> dict:
 
 
 def _moe_layers(cfg) -> dict:
-    """Blocks of each kind: attention and MLA mixers, dense and MoE FFNs,
-    and the MoE FFNs with a shared expert."""
+    """Blocks of each kind: attention, MLA and mamba mixers, dense and MoE
+    FFNs, and the MoE FFNs with a shared expert."""
     kinds = [k for st in cfg.stages for k in st.pattern * st.repeat]
-    n = {"attn": 0, "mla": 0, "mlp": 0, "moe": 0}
+    n = {"attn": 0, "mla": 0, "mamba": 0, "mlp": 0, "moe": 0}
     for k in kinds:
         for part in k.split("."):
             n[part] += 1
-    n["shared"] = n["moe"] if cfg.moe.num_shared else 0
+    n["shared"] = n["moe"] if cfg.moe and cfg.moe.num_shared else 0
     return n
 
 
 def _moe_want(cfg):
     """Launches of a ``generate`` (a prefill and LM_NEW decode steps): the
-    site mask at every attention / MLA mixer and every routed MoE input,
-    the masked gate/up product at every dense FFN and shared expert, the
-    decode attention at every attention layer a decode step (MLA's latent
-    attention is plain, as in the reference)."""
+    site mask at every attention / MLA / mamba mixer and every routed MoE
+    input, the masked gate/up product at every dense FFN and shared
+    expert, the decode attention at every attention layer a decode step
+    (MLA's latent attention is plain, as in the reference), the SSD scan
+    at every mamba layer of the prefill (its decode update is plain)."""
     n = _moe_layers(cfg)
-    want = {"masked_activation": (n["attn"] + n["mla"] + n["moe"])
-            * (1 + LM_NEW),
+    want = {"masked_activation": (n["attn"] + n["mla"] + n["mamba"]
+                                  + n["moe"]) * (1 + LM_NEW),
             "mcd_matmul": (n["mlp"] + n["shared"]) * (1 + LM_NEW),
-            "decode_attention": n["attn"] * LM_NEW}
+            "decode_attention": n["attn"] * LM_NEW,
+            "ssd_chunk_scan": n["mamba"]}
     return {k: v for k, v in want.items() if v}
 
 
@@ -5346,7 +5545,10 @@ def _decode_bytes(params, cfg, rows, positions, elem) -> dict:
     """The bytes a decode step must move at a cache of ``positions``: every
     weight once (every expert: the dense batched product reads all E x C
     slots' experts; of the embedding only the head, or the tied table,
-    and 64 table rows), the caches up to the position, the logits out."""
+    and 64 table rows), the caches up to the position, each mamba layer's
+    state read and written, the logits out."""
+    import torch
+    from repro_torch.models import mamba2
     n = _moe_layers(cfg)
     sizes = {"experts": 0, "shared_and_dense": 0, "mixers": 0}
     for stage in params["stages"]:
@@ -5354,7 +5556,9 @@ def _decode_bytes(params, cfg, rows, positions, elem) -> dict:
             for blk in rep:
                 sizes["mixers"] += sum(t.nbytes for t in _leaves(
                     blk["mixer"]))
-                f = blk["ffn"]
+                f = blk.get("ffn")
+                if f is None:
+                    continue
                 if hasattr(f, "router"):
                     sizes["experts"] += f.wi.nbytes + f.wo.nbytes \
                         + f.router.nbytes + f.norm.nbytes
@@ -5369,12 +5573,17 @@ def _decode_bytes(params, cfg, rows, positions, elem) -> dict:
     sizes["head"] = (head.nbytes + e.final_norm.nbytes
                      + rows * cfg.d_model * e.table.element_size()
                      + rows * cfg.vocab_size * 4)
-    if n["attn"]:
-        sizes["cache"] = n["attn"] * 2 * rows * positions * cfg.num_kv_heads \
-            * cfg.head_dim * elem
-    else:
-        sizes["cache"] = n["mla"] * rows * positions * (
+    sizes["cache"] = n["attn"] * 2 * rows * positions * cfg.num_kv_heads \
+        * cfg.head_dim * elem
+    if n["mla"]:
+        sizes["cache"] += n["mla"] * rows * positions * (
             cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * elem
+    if n["mamba"]:
+        st = mamba2.init_state(rows, cfg.d_model, cfg.ssm,
+                               torch.bfloat16 if elem == 2 else
+                               torch.float32, "meta")
+        sizes["mamba_state"] = n["mamba"] * 2 * (st.ssm.nbytes
+                                                 + st.conv.nbytes)
     sizes["total"] = sum(sizes.values())
     sizes["floor_ms"] = sizes["total"] / PEAK_HBM_BYTES * 1e3
     return sizes
@@ -5391,6 +5600,24 @@ def deepseek_serving_phase(report, dev):
                      "serving_deepseek")
 
 
+def jamba_serving_phase(report, dev):
+    """Phase 16: jamba-1.5-large's first period cut to its first three
+    layers (``attn.moe``, ``mamba.mlp``, ``mamba.moe``: one of each block
+    kind) at full width, bf16.  The whole model (72 layers, ~796 GB at
+    bf16) fits neither one card nor four."""
+    from repro_torch.configs import jamba_1p5_large_398b as jamba
+    from repro_torch.models.config import Stage
+    cfg = jamba.CONFIG.replace(stages=(Stage(pattern=jamba._PERIOD[:3],
+                                             repeat=1),))
+    print(f"reduced: depth {jamba.CONFIG.num_layers} → {cfg.num_layers}",
+          flush=True)
+    counts = serve_moe(report, dev, cfg, "bf16", "serving_jamba")
+    report["serving_jamba"]["reduced"] = {
+        "depth": [jamba.CONFIG.num_layers, cfg.num_layers],
+        "layers": list(cfg.stages[0].pattern)}
+    return counts
+
+
 def serve_moe(report, dev, arch, dtype, key):
     """A MoE model at full width through ``BayesianEngine.generate``: 8
     prompts of LM_PROMPT tokens x 8 chains, LM_NEW new tokens; the launch
@@ -5402,7 +5629,9 @@ def serve_moe(report, dev, arch, dtype, key):
     whose own top-k differs a flip under MOE_GAP_BOUND, dropped routes a
     layer at the prefill and a decode step; graph against eager in turns;
     times, profiles, peak memory, and the decode step's byte floor beside
-    its device ms."""
+    its device ms.  ``arch``: a registry name or an ``ArchConfig`` (a cut
+    of one); with mamba blocks the prefill's SSD scan must take the
+    tensor cores at bf16."""
     import gc
     import numpy as np
     import torch
@@ -5413,7 +5642,8 @@ def serve_moe(report, dev, arch, dtype, key):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
     if cfg.mcd.n_samples != LM_S:
         raise RuntimeError(f"{arch} serves {cfg.mcd.n_samples} chains")
     bf16 = dtype == "bf16"
@@ -5433,6 +5663,12 @@ def serve_moe(report, dev, arch, dtype, key):
     eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
     want = _moe_want(cfg)
     res, counts, again = _served(eng, cfg, prompts, want)
+    ssd_path = None
+    if n["mamba"]:
+        from repro_torch.kernels import ssd_chunk
+        ssd_path = ssd_chunk.ssd_chunk_scan.last_plan["path"]
+        if ssd_path != ("tensor_cores" if bf16 else "cuda_cores"):
+            raise RuntimeError(f"{arch} prefill's SSD scan took {ssd_path}")
     ent, mi = res.predictive_entropy, res.mutual_information
     # The kernel backend eagerly, its routes recorded: bit-equal to the
     # graph run.
@@ -5473,6 +5709,7 @@ def serve_moe(report, dev, arch, dtype, key):
     drops = np.asarray(dropped).reshape(1 + LM_NEW, n["moe"])
     out = {"card": report["card"], "arch": cfg.name, "params": n_params,
            "layers": cfg.num_layers, "moe_layers": n["moe"],
+           "mamba_layers": n["mamba"], "ssd_path": ssd_path,
            "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
            "capacity_prefill": moe.capacity(rows * LM_PROMPT, cfg.moe),
            "capacity_decode": moe.capacity(rows, cfg.moe),
@@ -5486,6 +5723,8 @@ def serve_moe(report, dev, arch, dtype, key):
            "decode_ms_per_token_p95": float(np.percentile(steps_ms, 95)),
            "decode_tokens_per_s": LM_B * LM_NEW / decode_s,
            "max_memory_allocated_gb": peak / 1e9,
+           "card_memory_gb": torch.cuda.get_device_properties(
+               dev).total_memory / 1e9,
            "max_abs_diff_vs_reference_routes_forced": dev_ref,
            "tolerance_vs_reference": {"logits": logit_tol,
                                       "entropy_mi": unc_tol},
@@ -5512,7 +5751,8 @@ def serve_moe(report, dev, arch, dtype, key):
     print(f"{key} " + json.dumps(out), flush=True)
     kernels = [k for k in ("masked_activation", "mcd_matmul")
                if k in want]
-    out.update(profile_lm(eng, prompts, kernels, kernels, decode=False))
+    out.update(profile_lm(eng, prompts, kernels + (
+        ["ssd_chunk_scan"] if n["mamba"] else []), kernels, decode=False))
     graph_vs_eager["profiled_decode_step_graph"] = profile_lm(
         eng, prompts, kernels,
         kernels + (["decode_attention"] if n["attn"] else []),
@@ -5890,14 +6130,14 @@ def example_child(spec, out):
         json.dump(read_launches(), fh)
 
 
-def _child(flag, *args):
+def _child(flag, *args, timeout=TRAIN_CHILD_TIMEOUT):
     """Run this script with ``flag`` and ``args`` in a fresh process that
     writes JSON to a file under ``build/``; returns what it wrote."""
-    out = os.path.join(ROOT, "build", "phase11_child.json")
+    out = os.path.join(ROOT, "build", "child.json")
     if os.path.exists(out):
         os.remove(out)
     subprocess.run([sys.executable, os.path.abspath(__file__), flag, *args,
-                    out], check=True, timeout=TRAIN_CHILD_TIMEOUT)
+                    out], check=True, timeout=timeout)
     with open(out) as fh:
         got = json.load(fh)
     os.remove(out)
@@ -5955,14 +6195,15 @@ def training_phase(report, dev):
     return launches
 
 
-def moe_only(report, dev, out=None) -> int:
-    """The build, then phase 6 and phases 13 and 14 alone (a short call
-    that checks the MoE family); no ``kernels`` line."""
+def phases_only(report, dev, serving, out=None) -> int:
+    """The build, then phase 6 and the ``serving`` phases alone (a short
+    call: ``--moe-only`` 13 and 14, ``--zoo-only`` 15 and 16); no
+    ``kernels`` line."""
     import torch
     phase_s = report["phase_s"] = {}
     for name, fn, *args in (("6", lm_kernel_phase, report),
-                            ("13", moe_serving_phase, report, dev),
-                            ("14", deepseek_serving_phase, report, dev)):
+                            *((name, fn, report, dev)
+                              for name, fn in serving)):
         t = time.perf_counter()
         fn(*args)
         phase_s[name] = time.perf_counter() - t
@@ -5998,6 +6239,10 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # the build, then phase 11
     ap.add_argument("--moe-only", action="store_true",
                     help=argparse.SUPPRESS)   # the build, 6, 13 and 14
+    ap.add_argument("--zoo-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, 6, 15 and 16
+    ap.add_argument("--zoo-child", default=None,
+                    help=argparse.SUPPRESS)   # phases 15 and 16: OUT.json
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6034,13 +6279,22 @@ def main(argv=None) -> int:
     if args.example_child:
         example_child(*args.example_child)
         return 0
+    if args.zoo_child:
+        zoo_child(args.zoo_child)
+        return 0
     if args.phase11_only:
         training_phase(report, dev)
         report["seconds"] = time.perf_counter() - t0
         print(json.dumps({"training": report["training"]}))
         return 0
     if args.moe_only:
-        return moe_only(report, dev, args.out)
+        return phases_only(report, dev, (("13", moe_serving_phase),
+                                         ("14", deepseek_serving_phase)),
+                           args.out)
+    if args.zoo_only:
+        return phases_only(report, dev, (("15", llama3_serving_phase),
+                                         ("16", jamba_serving_phase)),
+                           args.out)
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -6059,6 +6313,7 @@ def main(argv=None) -> int:
     entries.append(ssd_kernel_entry(phase("8", ssd_kernel_phase, report)))
     launches = {name: 0 for name in ALL_KERNELS}
     launches_bf16 = {name: 0 for name in ALL_KERNELS}
+    launches_zoo = {name: 0 for name in ALL_KERNELS}
     for name, fn, *rest in (
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
@@ -6068,15 +6323,19 @@ def main(argv=None) -> int:
             ("12", sharding_phase), ("7", lm_serving_phase),
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase),
-            ("13", moe_serving_phase), ("14", deepseek_serving_phase)):
+            ("13", moe_serving_phase), ("14", deepseek_serving_phase),
+            ("15+16", zoo_serving_phases)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
-            if name in ("7b", "9b", "7c", "14"):
+            if name in ("7b", "9b", "7c", "14", "15+16"):
                 launches_bf16[kernel] += v
+            if name == "15+16":
+                launches_zoo[kernel] += v
     for kernel, v in phase("11", training_phase, report, dev).items():
         launches[kernel] += v
     lm_bf16_entries(entries, report["lm_kernel_cases"]
                     + report["ssd_kernel_cases"], launches_bf16)
+    zoo_entries(entries, report["lm_kernel_cases"], launches_zoo)
     # Last, in a process of its own (phase10_child).
     precision_entries(entries, phase("10", phase10_child, report))
     print("phase seconds " + json.dumps(phase_s), flush=True)

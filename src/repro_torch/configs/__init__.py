@@ -3,10 +3,10 @@
 
 Each module exports CONFIG (the exact published configuration) and REDUCED
 (a same-family miniature for CPU tests), copied verbatim from the reference
-(data only).  The port serves the dense ``attn.mlp`` archs, mamba2-370m
-and the MoE family (olmoe-1b-7b's ``attn.moe``, deepseek-v2-lite-16b's
-``mla.mlp`` / ``mla.moe``); jamba's blocks raise ``NotImplementedError``
-in ``repro_torch.models.backbone``.
+(data only).  The port serves every one of them: the dense ``attn.mlp``
+archs, mamba2-370m, the MoE family (olmoe-1b-7b's ``attn.moe``,
+deepseek-v2-lite-16b's ``mla.mlp`` / ``mla.moe``) and jamba's hybrid
+(``attn.moe``, ``mamba.mlp``, ``mamba.moe``).
 """
 
 from __future__ import annotations

@@ -8,11 +8,10 @@ steps, per-token predictive entropy + mutual information.
     PYTHONPATH=src python -m repro_torch.examples.uncertainty_serving \\
         [--arch qwen3-1.7b] [--device cpu]
 
-The default arch is olmoe-1b-7b, as the reference's (an ``--arch`` the
-port does not build, jamba's, raises ``NotImplementedError`` naming its
-ROADMAP.md item).  The model is the REDUCED miniature with random fp32
-weights from a ``torch.Generator`` seeded 0 on the serving device; on the
-card ``BayesianEngine`` decodes through the kernels (``backend="cuda"``),
+The default arch is olmoe-1b-7b, as the reference's; every ``--arch`` of
+the registry runs, jamba's hybrid among them.  The model is the REDUCED
+miniature with random fp32 weights from a ``torch.Generator`` seeded 0 on
+the serving device; on the card ``BayesianEngine`` decodes through the kernels (``backend="cuda"``),
 on the CPU through their plain versions.
 """
 

@@ -96,8 +96,9 @@ def ssd_scan(x, dt, a, bm, cm, d_skip, chunk: int):
     B, L, H, P = x.shape
     if bm.shape[2] != 1:
         raise NotImplementedError(
-            f"ssd_scan takes n_groups = 1, got {bm.shape[2]}; the grouped "
-            "scan comes with jamba (ROADMAP.md, A9)")
+            f"ssd_scan takes n_groups = 1, got {bm.shape[2]}; no "
+            "configuration has more; the reference backend runs a grouped "
+            "scan (models/mamba2._ssd_chunked)")
     Q = min(chunk, L)
     pad = (-L) % Q
 

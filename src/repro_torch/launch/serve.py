@@ -14,6 +14,14 @@ Usage (the reduced rehearsal on the CPU, then full width on a GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --no-reduced --dtype bf16 --batch 8 \\
       --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --no-reduced --dtype bf16 --batch 8 --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --device cpu
+
+Every arch of the registry runs; jamba-1.5-large-398b's published config
+(72 layers, ~796 GB at bf16) fits no card, so ``--no-reduced`` is for
+the others (``chip_smoke.py`` phase 16 serves its first three layers).
 
 The flags are the reference launcher's, plus ``--device`` and
 ``--dtype``.  ``--reduced`` is on by default and ``--no-reduced`` reaches

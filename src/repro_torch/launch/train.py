@@ -12,7 +12,10 @@ Two modes:
 
 Fault tolerance: --ckpt-dir enables atomic checkpoints (every 50 steps and
 at the end) and auto-resume; kill the process at any step and rerun the
-same command to continue.
+same command to continue.  A checkpoint of either package's launcher
+resumes in the other's: an LM's holds the reference's leaves (each
+stage's repeats stacked, ``backbone.stack_repeats``), unstacked into the
+port's layout at restore.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ecg-clf \\
@@ -175,7 +178,7 @@ def setup(args, device):
         return (make_ecg_loss(args.task, cfg), params,
                 ecg_batches(args.task, args.batch, args.seed), tcfg, cfg)
     cfg = get_config(args.arch or "llama3-8b", reduced=args.reduced)
-    backbone.check_cfg(cfg)        # jamba (ROADMAP A9) raises here
+    backbone.check_cfg(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = backbone.init_params(cfg, gen, device=device,
                                   dtype=torch.float32)
@@ -188,7 +191,10 @@ def main(argv=None):
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
     loss, params, np_batches, tcfg, _ = setup(args, device)
-    tr = trainer.Trainer(loss, params, tcfg)
+    # An LM checkpoint holds the reference's stacked [repeat, ...] leaves.
+    layout = ((backbone.stack_repeats, backbone.unstack_repeats)
+              if args.task == "lm" else None)
+    tr = trainer.Trainer(loss, params, tcfg, layout)
     # A resumed run goes on with the batches the checkpointed steps left.
     batches = (tuple(torch.as_tensor(a, device=device) for a in b)
                for b in itertools.islice(np_batches, tr.step, None))

@@ -1,5 +1,5 @@
 """The LM backbone over its stages — port of ``repro.models.backbone`` for
-the ``attn``, ``mla`` and bare ``mamba`` mixers and the ``mlp`` and ``moe``
+the ``attn``, ``mla`` and ``mamba`` mixers and the ``mlp`` and ``moe``
 FFNs.
 
 A model is an embedding and a sequence of stages; each stage repeats a
@@ -12,12 +12,14 @@ pattern makes no layer Bayesian, as in the reference).
 
 Parameters are unstacked: ``params["stages"][i][r][j]`` is the block dict
 of stage i, repeat r, pattern position j: ``{"mixer": AttnParams |
-mla.MLAParams, "ffn": MLPParams | moe.MoEParams}``, or ``{"mixer":
-MambaParams}`` for a ``mamba`` block.  Decode caches nest the same way: a
-(k, v) pair for attention, an ``mla.MLACache`` of latents for MLA, a
-``mamba2.MambaState`` for a mamba block.  A MoE FFN returns its
-load-balance loss, which ``forward`` sums as the reference's scan does
-and ``loss_fn`` adds; decode discards it.  Entry points:
+mla.MLAParams | MambaParams, "ffn": MLPParams | moe.MoEParams}``, with no
+``"ffn"`` for a bare ``mamba`` block (mamba2's).  Decode caches nest the
+same way: a (k, v) pair for attention, an ``mla.MLACache`` of latents for
+MLA, a ``mamba2.MambaState`` for a mamba block (jamba's stage holds both
+kinds).  A checkpoint holds the reference's stacked layout instead
+(:func:`stack_repeats`).  A MoE FFN returns its load-balance loss, which
+``forward`` sums as the reference's scan does and ``loss_fn`` adds;
+decode discards it.  Entry points:
 
   forward      full sequence (``collect_caches``, ``return_hidden``,
                ``remat``: each repeat's period of blocks checkpointed)
@@ -30,9 +32,8 @@ and ``loss_fn`` adds; decode discards it.  Entry points:
                position is a device int32 scalar, never read on the host,
                so a decode step can be captured as one CUDA graph
 
-A mamba block with an FFN (jamba's), cross-attention, encoders and patch
-or frame inputs are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+Cross-attention, encoders and patch or frame inputs are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,16 +44,12 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
+from repro_torch.ckpt.checkpoint import tree_leaves, tree_map
 from repro_torch.models import layers, mamba2, mla, moe
 from repro_torch.models.config import ArchConfig, Stage
 
 _MIXERS = ("attn", "mla", "mamba")
-_NOT_PORTED = {
-    "mamba_ffn": "a mamba block with an FFN (jamba's blocks) is queued with "
-                 "the hybrid (ROADMAP.md, A9)",
-    "cross": "cross-attention and encoders are queued (ROADMAP.md, "
-             "A9)",
-}
+_NOT_PORTED = "cross-attention and encoders are queued (ROADMAP.md, A9)"
 
 
 def _parse(kind: str) -> tuple[str, bool, str | None]:
@@ -65,15 +62,11 @@ def _parse(kind: str) -> tuple[str, bool, str | None]:
 
 
 def _check_kind(kind: str) -> None:
-    """Raise for a block this port does not run (it runs ``attn`` and
-    ``mla`` with or without an ``mlp`` / ``moe`` FFN, and a bare
-    ``mamba``)."""
-    mixer, has_cross, ffn = _parse(kind)
+    """Raise for a block this port does not run (it runs ``attn``, ``mla``
+    and ``mamba``, each with or without an ``mlp`` / ``moe`` FFN)."""
+    mixer, has_cross, _ = _parse(kind)
     if mixer not in _MIXERS or has_cross:
-        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED['cross']}")
-    if mixer == "mamba" and ffn is not None:
-        raise NotImplementedError(
-            f"block {kind!r}: {_NOT_PORTED['mamba_ffn']}")
+        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED}")
 
 
 def check_cfg(cfg: ArchConfig) -> None:
@@ -83,7 +76,7 @@ def check_cfg(cfg: ArchConfig) -> None:
         for kind in st.pattern:
             _check_kind(kind)
     if cfg.encoder_stages or cfg.num_patches:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['cross']}")
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED}")
 
 
 def init_block(gen, kind: str, cfg: ArchConfig, dtype,
@@ -91,10 +84,10 @@ def init_block(gen, kind: str, cfg: ArchConfig, dtype,
     _check_kind(kind)
     mixer, _, ffn = _parse(kind)
     if mixer == "mamba":
-        return {"mixer": mamba2.init_mamba(gen, cfg.d_model, cfg.ssm, dtype,
-                                           device)}
-    if mixer == "mla":
-        p: dict[str, Any] = {"mixer": mla.init_mla(
+        p: dict[str, Any] = {"mixer": mamba2.init_mamba(
+            gen, cfg.d_model, cfg.ssm, dtype, device)}
+    elif mixer == "mla":
+        p = {"mixer": mla.init_mla(
             gen, cfg.d_model, cfg.num_heads, cfg.mla, dtype, device)}
     else:
         p = {"mixer": layers.init_attn(
@@ -126,6 +119,36 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
                           for kind in st.pattern)
                     for _ in range(st.repeat)] for st in cfg.stages],
     }
+
+
+def _host_stack(xs):
+    return torch.stack([x.detach().cpu() for x in xs])
+
+
+def stack_repeats(tree, stack=_host_stack):
+    """A parameter tree of the port (or one of its shape: AdamW's moments)
+    in the reference's layout, the one an LM checkpoint holds:
+    ``tree["stages"][i][j]`` is pattern position j's block with every leaf
+    stacked ``[repeat, ...]`` (the reference's ``init_stage``).  ``stack``
+    joins one leaf's repeats: by default on the host, so checkpointing a
+    full-width model takes no device memory."""
+    return {**tree, "stages": [
+        tuple(tree_map(lambda *xs: stack(xs), *(rep[j] for rep in sp))
+              for j in range(len(sp[0])))
+        for sp in tree["stages"]]}
+
+
+def unstack_repeats(tree, place=lambda a: a):
+    """:func:`stack_repeats` undone: repeat r of position j takes leaf
+    ``[r]`` of the stacked block; ``place`` puts every leaf in place."""
+    def repeats(st):
+        return tree_leaves(st[0])[0].shape[0]
+
+    return {**tree_map(place, {k: v for k, v in tree.items()
+                               if k != "stages"}), "stages": [
+        [tuple(tree_map(lambda a, r=r: place(a[r]), blk) for blk in st)
+         for r in range(repeats(st))]
+        for st in tree["stages"]]}
 
 
 def _ffn_forward(p, cfg: ArchConfig, x, ctx: layers.Ctx, layer_id: int,

@@ -119,13 +119,11 @@ def _ssd_chunked(x, dt, a, bm, cm, d_skip, chunk: int, h0=None):
     PyTorch: chunks of ``min(chunk, L)`` steps, L padded with zeros.
 
     x: [B, L, H, P]; dt: [B, L, H] (post-softplus); a: [H] (negative);
-    bm, cm: [B, L, G, N].  Returns (y [B, L, H, P], h_final [B, H, P, N]).
+    bm, cm: [B, L, G, N]; h0: the state carried in, [B, H, P, N] (zeros
+    when None), widened to fp32 as the reference's ``h_init``.  Returns (y
+    [B, L, H, P], h_final [B, H, P, N]).  ``ops.ssd_scan`` and its kernel
+    take no ``h0``, as the TPU kernel takes none.
     """
-    if h0 is not None:
-        raise NotImplementedError(
-            "_ssd_chunked's h0 (a carried-in state) is not ported: the model "
-            "never passes it; it comes with chunked prefill (ROADMAP.md, "
-            "A9)")
     B, L, H, P = x.shape
     G, N = bm.shape[2], bm.shape[3]
     rep = H // G
@@ -173,7 +171,8 @@ def _ssd_chunked(x, dt, a, bm, cm, d_skip, chunk: int, h0=None):
     chunk_decay = torch.exp(cs[:, :, -1, :])                 # [B,nc,H]
 
     # --- inter-chunk recurrence, the state *before* each chunk ----------
-    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    h = (torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)

@@ -183,15 +183,34 @@ def _combine(y_exp, slot_token, slot_weight, T: int, K: int):
     return out
 
 
+# fp32 copies of the experts' gate/up weights held at once: a bf16 MoE
+# layer widens its experts this many bytes at a time (jamba-1.5-large's 16
+# experts are 25.8 GB in fp32; deepseek-v2-lite's 64 and olmoe's fp32
+# experts take one product).
+WIDEN_BYTES = 4 << 30
+
+
 def _experts(x_exp: torch.Tensor, p: MoEParams) -> torch.Tensor:
     """x_exp [E, n, D] → [E, n, D]: SwiGLU per expert, batched over E; the
     gate/up product in fp32 (the fp32 views' product: the reference's
     ``preferred_element_type``), ``silu(g)·u`` rounded to x's dtype, the
-    down product in x's dtype."""
+    down product in x's dtype.  Where the fp32 copy of every expert's
+    ``wi`` passes ``WIDEN_BYTES``, the experts are widened and multiplied
+    a few at a time: each expert's product is the same fp32 product."""
     E, n, D = x_exp.shape
     dt = x_exp.dtype
     wi = p.wi.to(dt).reshape(E, D, -1)
-    gu = torch.bmm(x_exp.float(), wi.float()).reshape(E, n, 2, -1)
+    xf = x_exp.float()
+    step = E if wi.dtype == torch.float32 else max(
+        1, WIDEN_BYTES // (wi[0].numel() * 4))
+    if step >= E:
+        gu = torch.bmm(xf, wi.float())
+    else:
+        gu = xf.new_empty((E, n, wi.shape[-1]))
+        for e in range(0, E, step):
+            torch.bmm(xf[e:e + step], wi[e:e + step].float(),
+                      out=gu[e:e + step])
+    gu = gu.reshape(E, n, 2, -1)
     g, u = gu[..., 0, :], gu[..., 1, :]
     act = g * torch.sigmoid(g) * u
     return torch.bmm(act.to(dt), p.wo.to(dt))

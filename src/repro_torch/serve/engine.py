@@ -77,9 +77,12 @@ class _DecodeGraph:
 
 
 class BayesianEngine:
-    """Static-batch S-sample serving engine for the dense, the mamba and
-    the MoE archs (``attn.moe``, ``mla.mlp`` / ``mla.moe``).  ``graphs=False`` runs every decode step eagerly on the
-    ``cuda`` backend too (what the graphs are held to)."""
+    """Static-batch S-sample serving engine for every arch of the
+    registry: dense, mamba, the MoE family (``attn.moe``, ``mla.mlp`` /
+    ``mla.moe``) and jamba's hybrid, whose decode state holds (k, v) caches
+    and ``MambaState``s side by side.  ``graphs=False`` runs every decode
+    step eagerly on the ``cuda`` backend too (what the graphs are held
+    to)."""
 
     def __init__(self, params, cfg: ArchConfig, *, max_len: int = 512,
                  seed: int = 0, device=None, backend: str = "cuda",

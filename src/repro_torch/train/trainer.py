@@ -13,9 +13,10 @@ checkpoint / auto-resume, straggler watchdog — port of
 * **Fault tolerance** — atomic checkpoints of ``(params, AdamWState)``
   every ``ckpt_every`` steps in the reference's format and leaf names
   (``ckpt.checkpoint``), so a checkpoint of either package resumes in the
-  other; auto-resume from the latest valid step; a per-step wall-clock
-  watchdog that records stragglers (> ``straggler_factor`` x the running
-  median).
+  other (an LM's through ``layout``: the reference stacks a stage's
+  repeats, the port keeps one block a repeat); auto-resume from the
+  latest valid step; a per-step wall-clock watchdog that records
+  stragglers (> ``straggler_factor`` x the running median).
 
 Gradients come from ``torch.autograd``.  The step runs eagerly: the
 reference jits it, and the port's trained parts (two dense heads) gain
@@ -107,11 +108,23 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
     return step_fn
 
 
-class Trainer:
-    """Runs steps, checkpoints, resumes and watches for stragglers."""
+# A checkpoint layout that writes the tree as it is.
+_AS_IS = (lambda tree, stack=None: tree,
+          lambda tree, place: tree_map(place, tree))
 
-    def __init__(self, loss_fn, params, cfg: TrainConfig):
+
+class Trainer:
+    """Runs steps, checkpoints, resumes and watches for stragglers.
+
+    ``layout``: ``(to_ckpt, from_ckpt)``, how a parameter tree (the params
+    and AdamW's ``m`` and ``v``) is laid out in a checkpoint and back:
+    ``to_ckpt(tree[, stack])``, ``from_ckpt(tree, place)``
+    (``backbone.stack_repeats`` / ``unstack_repeats`` for an LM); None
+    writes the tree as it is."""
+
+    def __init__(self, loss_fn, params, cfg: TrainConfig, layout=None):
         self.cfg = cfg
+        self.layout = layout or _AS_IS
         self.params = params
         self.opt_state = optimizer.init(params)
         self.err = (tree_map(lambda p: torch.zeros(
@@ -125,11 +138,7 @@ class Trainer:
         self.step_times: list[float] = []
         self.straggler_events: list[int] = []
         if cfg.ckpt_dir:
-            device = tree_leaves(params)[0].device
-            resumed = checkpoint.resume_or_none(
-                cfg.ckpt_dir, (self.params, self.opt_state), device)
-            if resumed is not None:
-                self.step, (self.params, self.opt_state) = resumed
+            self._resume(tree_leaves(params)[0].device)
 
     def run(self, batches, num_steps: int, log=print):
         it = iter(batches)
@@ -157,9 +166,30 @@ class Trainer:
             self._save()
         return history
 
+    @staticmethod
+    def _each_tree(fn, params, opt_state):
+        return fn(params), opt_state._replace(m=fn(opt_state.m),
+                                              v=fn(opt_state.v))
+
+    def _resume(self, device):
+        to_ckpt, from_ckpt = self.layout
+        like = self._each_tree(lambda t: to_ckpt(t, lambda xs: xs[0]),
+                               self.params, self.opt_state)
+        resumed = checkpoint.resume_or_none(self.cfg.ckpt_dir, like)
+        if resumed is None:
+            return
+
+        def place(a):
+            return checkpoint.place(a, device)
+
+        self.step, (params, opt_state) = resumed
+        self.params, opt_state = self._each_tree(
+            lambda t: from_ckpt(t, place), params, opt_state)
+        self.opt_state = opt_state._replace(step=place(opt_state.step))
+
     def _save(self):
-        checkpoint.save(self.cfg.ckpt_dir, self.step,
-                        (self.params, self.opt_state))
+        checkpoint.save(self.cfg.ckpt_dir, self.step, self._each_tree(
+            self.layout[0], self.params, self.opt_state))
         checkpoint.keep_last(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
 
     def _watchdog(self, dt: float):

@@ -10,11 +10,13 @@ tests/test_torch_cuda_graphs.py``.
 * Every kernel backend and precision: the replayed tick gives the eager
   tick's carries and summaries bit for bit, with the same launches a
   tick; after ``prewarm`` no tick captures (``compiles == 0``).
-* qwen3, mamba2, olmoe and deepseek (REDUCED; the MoE archs at a
+* qwen3, mamba2, olmoe, deepseek and jamba (REDUCED; the MoE archs at a
   capacity that drops routes): the decode graph gives the eager decode's
   tokens, logits, entropy and mutual information bit for bit and the
   same launch counts, over two ``generate`` calls on one engine; the MoE
-  FFN twice bitwise equal on the card, its routing integers the CPU's.
+  FFN twice bitwise equal on the card, its routing integers the CPU's;
+  jamba's decode graph, its experts widened one at a time, the same bits
+  from two engines.
 * The bf16 ``mcd_matmul`` on the tensor cores: a captured call replays
   bitwise equal to eager calls.
 * Kill -> snapshot -> restore: an engine restored after prewarm replays
@@ -143,7 +145,8 @@ def test_first_tick_captures_and_counts_its_launches(dev):
 
 
 _DECODE_ARCHS = [("qwen3-1.7b", 6), ("mamba2-370m", 40),
-                 ("olmoe-1b-7b", 6), ("deepseek-v2-lite-16b", 6)]
+                 ("olmoe-1b-7b", 6), ("deepseek-v2-lite-16b", 6),
+                 ("jamba-1.5-large-398b", 40)]
 
 
 @pytest.mark.parametrize("arch,prompt_len", _DECODE_ARCHS)
@@ -203,10 +206,49 @@ def _decode_graph_check(dev, arch, prompt_len, dtype):
         assert (cache.conv.dtype, cache.ssm.dtype) == (dtype, torch.float32)
     else:
         assert cache[0].dtype == dtype
+    if arch == "jamba-1.5-large-398b":     # (k, v) and Mamba states
+        for state in entry.state.caches[0][0][1:]:
+            assert (state.conv.dtype, state.ssm.dtype) == (dtype,
+                                                           torch.float32)
     return counts[0]
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jamba_decode_graph_is_deterministic(dev, dtype, monkeypatch):
+    """jamba REDUCED (one period: attention, mamba and MoE blocks in one
+    stage) with its bf16 experts widened one at a time
+    (``moe.WIDEN_BYTES``, as at full width): two engines' decode graphs,
+    each replayed over two ``generate`` calls, give the same tokens,
+    logits, entropy and MI bit for bit, and the SSD scan and the decode
+    attention both launch."""
+    from repro_torch.models import moe
+    cfg = configs.get_config("jamba-1.5-large-398b", reduced=True)
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=S))
+    monkeypatch.setattr(moe, "WIDEN_BYTES", 1)
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=dtype)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    runs = []
+    for _ in range(2):
+        eng = BayesianEngine(params, cfg, max_len=46, seed=2, device=dev)
+        for _ in range(2):
+            ssd_chunk.ssd_chunk_scan.launches = 0
+            decode_attn.decode_attention.launches = 0
+            runs.append(eng.generate(prompts, 5, keep_logits=True))
+            assert ssd_chunk.ssd_chunk_scan.launches == 7
+            assert decode_attn.decode_attention.launches == 5
+        assert len(eng._graphs) == 1
+    for res in runs[1:]:
+        for a, b in ((res.tokens, runs[0].tokens),
+                     (res.logits, runs[0].logits),
+                     (res.predictive_entropy, runs[0].predictive_entropy),
+                     (res.mutual_information, runs[0].mutual_information)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b"])
 def test_moe_forward_on_the_card_is_deterministic(dev, arch):
     """``moe_forward`` on the card at a dropping capacity: two calls
     bitwise equal (no float atomics in the combine), and the routing's

@@ -866,6 +866,32 @@ def test_mcd_matmul_bf16_tensor_cores_match_plain(dev, M, N, K, p, out):
         assert _within_bf16_ulp(got, want, MM_ATOL)
 
 
+# The zoo's gate/up products at decode and prefill: jamba-1.5-large's
+# mamba.mlp (K 8192, N 49152) and llama3-8b's (K 4096, N 28672).
+@pytest.mark.parametrize("M", [64, 8192])
+@pytest.mark.parametrize("K,N", [(8192, 49152), (4096, 28672)])
+def test_mcd_matmul_bf16_zoo_shapes_match_plain(dev, M, K, N):
+    """On the tensor cores (the narrow tile at decode, the wide one at a
+    prefill), fp32 out within MM_ATOL of the plain version at K = 8192 and
+    4096, two calls bitwise equal, one launch a call."""
+    plan = mm.matmul_plan(M, N, K, 2)
+    assert (plan["path"], plan["tile"]) == (
+        "tensor_cores", "tc_narrow" if M == 64 else "tc_wide")
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).bfloat16()
+    rows = _lm_rows(dev, M)
+    before = mm.mcd_matmul.launches
+    got = mm.mcd_matmul(x, w, rows, 12345, 0.1, out_dtype=torch.float32)
+    again = mm.mcd_matmul(x, w, rows, 12345, 0.1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mm.mcd_matmul.launches == before + 2
+    assert mm.mcd_matmul.last_plan == plan
+    want = mm.mcd_matmul_plain(x, w, rows, 12345, 0.1, torch.float32)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= MM_ATOL
+
+
 @pytest.mark.parametrize("M,K,N,tile", [(64, 2048, 256, "narrow"),
                                         (8192, 64, 1000, "wide")])
 @pytest.mark.parametrize("operand", ["x", "w"])
@@ -902,7 +928,8 @@ def test_mcd_matmul_bf16_misaligned_takes_the_cuda_cores(dev, M, K, N, tile,
 
 
 @pytest.mark.parametrize("B,H,KV,hd,S", [(3, 4, 2, 16, 40)] + ATTN_SHAPES[:4]
-                         + [(1, 8, 1, 256, 70)])
+                         + [(1, 8, 1, 256, 70), (64, 64, 8, 128, 160),
+                            (64, 32, 8, 128, 160)])
 def test_decode_attention_bf16_matches_plain(dev, B, H, KV, hd, S):
     """bf16 q and caches, split and unsplit plans (the merge kernel
     writing bf16): within 1e-5 plus one bf16 ulp of the plain version
@@ -927,6 +954,7 @@ def test_decode_attention_bf16_matches_plain(dev, B, H, KV, hd, S):
     (1, 400, 2, 20, 100, 256, False, "widen"),             # P, N ragged
     (64, 512, 32, 64, 128, 256, False, "tensor_cores"),    # serving
     (8, 320, 32, 64, 128, 256, False, "tensor_cores"),     # Q = 160
+    (64, 128, 256, 64, 128, 256, False, "tensor_cores"),   # jamba, Q = 128
     (2, 320, 4, 64, 128, 256, True, "widen")])             # x off 16 bytes
 def test_ssd_chunk_scan_bf16_matches_plain(dev, B, L, H, P, N, q, misaligned,
                                            path):

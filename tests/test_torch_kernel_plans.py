@@ -403,7 +403,8 @@ def _score_tiles(Q, tile):
                                          (8, 320, 32, 64, 128, 256),
                                          (3, 40, 2, 8, 16, 16),
                                          (2, 150, 3, 40, 72, 64),
-                                         (1, 400, 2, 20, 100, 256)])
+                                         (1, 400, 2, 20, 100, 256),
+                                         (64, 128, 256, 64, 128, 256)])
 def test_ssd_plan_covers_every_output_once(B, L, H, P, N, q):
     plan = ssd_chunk.ssd_plan(B, L, H, P, N, q)
     Q = plan["Q"]
@@ -490,6 +491,7 @@ SSD_BF16_PATHS = [
     (2, 64, 2, 64, 100, 64, True, "widen"),
     (2, 64, 2, 60, 128, 64, True, "widen"),
     SERVING_SSD + (False, "widen"),
+    (64, 128, 256, 64, 128, 256, True, "tensor_cores"),   # jamba's prefill
 ]
 
 
@@ -582,7 +584,7 @@ ATTN_SERVING = (64, 16, 8, 128, 160)           # qwen3-1.7b decode, 8 x 8 rows
 ATTN_SHAPES = [ATTN_SERVING, (8, 16, 8, 128, 160), (8, 16, 8, 128, 4096),
                (64, 32, 8, 128, 160), (3, 4, 2, 16, 40), (1, 8, 1, 256, 70),
                (2, 40, 8, 12, 33), (70, 16, 8, 128, 100), (1, 1, 1, 4, 1),
-               (1, 64, 8, 256, 65536)]
+               (1, 64, 8, 256, 65536), (64, 64, 8, 128, 160)]
 
 
 def _attn_source():
@@ -1017,7 +1019,9 @@ def test_matmul_bf16_tiles_match_the_cuda_source():
 
 @pytest.mark.parametrize("B,H,KV,hd,S", [(64, 16, 8, 128, 160),
                                          (8, 16, 8, 128, 4096),
-                                         (3, 8, 1, 64, 40)])
+                                         (3, 8, 1, 64, 40),
+                                         (64, 64, 8, 128, 160),
+                                         (64, 32, 8, 128, 160)])
 def test_decode_plan_bf16_matches_the_cuda_source(B, H, KV, hd, S):
     """The bf16 plan covers the tiles as the fp32 one (the same grid,
     splits and runs: the plan never depends on the dtype but for the ring's
@@ -1049,9 +1053,11 @@ def test_ssd_bf16_entry_takes_the_wrappers_arguments():
 
 # -- the bf16 product on the tensor cores -------------------------------------
 
-# qwen3-1.7b's and llama3-8b's SwiGLU gate/up products, decode and prefill
+# qwen3-1.7b's, llama3-8b's and jamba-1.5-large's (mamba.mlp) SwiGLU
+# gate/up products, decode and prefill
 TC_SERVING = [(64, 12288, 2048), (8192, 12288, 2048),
-              (64, 28672, 4096), (8192, 28672, 4096)]
+              (64, 28672, 4096), (8192, 28672, 4096),
+              (64, 49152, 8192), (8192, 49152, 8192)]
 
 
 @pytest.mark.parametrize("M,N,K", TC_SERVING)
@@ -1166,3 +1172,59 @@ def test_matmul_plan_fp32_is_unchanged(M, N, K, aligned):
     plan = mm.matmul_plan(M, N, K, 4, aligned)
     assert plan.pop("path") == "cuda_cores"
     assert plan == _matmul_plan_before(M, N, K)
+
+
+# -- the zoo's shapes: llama3-8b and the jamba-1.5-large cut ------------------
+
+JAMBA_SSD = (64, 128, 256, 64, 128, 256)   # 8 x 8 rows, a 128-token prompt
+
+
+@pytest.mark.parametrize("H", [64, 32], ids=["jamba", "llama3"])
+def test_decode_plan_at_the_zoo_shapes(H):
+    """jamba's 64 q heads to 8 KV heads are the kernel's largest group
+    (``_MAX_REP``, the source's kMaxRep) and llama3-8b's 32 to 8 half of
+    it: 512 (row, KV head) blocks, one split of the 160-position cache,
+    the bf16 ring plus the group's fp32 outputs in shared memory, several
+    blocks an SM; a group past kMaxRep is refused."""
+    consts, _ = _attn_source()
+    rep = H // 8
+    assert (rep == consts["kMaxRep"]) == (H == 64)
+    plan = decode_attn.decode_plan(64, H, 8, 128, 160, 2)
+    assert plan["grid"] == (512, 1) and plan["splits"] == 1
+    assert plan["smem"] == 2 * consts["kStages"] * 2 * consts["kTS"] * 128 \
+        + 4 * rep * 128
+    assert 4 * plan["smem"] <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="at most 8"):
+        decode_attn.decode_plan(64, 8 * (consts["kMaxRep"] + 1), 8, 128,
+                                160, 2)
+
+
+def test_ssd_tensor_core_plan_at_the_jamba_prefill():
+    """256 heads at a 128-token prompt: Q = 128 (the whole prompt, one
+    chunk of the configured 256), 16384 blocks of one an SM in the
+    source's kTcSmem; per (b, h) 3 causal tile pairs x (8 + 4 x 3) and the
+    state update's 2 x 2 x 4 x 2 m64n64k16 products, no inter term."""
+    plan = ssd_chunk.ssd_plan(*JAMBA_SSD, 2)
+    assert plan["path"] == "tensor_cores" and plan["Q"] == 128
+    assert plan["chunks"] == 1 and plan["tiles"] == 2
+    assert plan["blocks"] == 64 * 256 and plan["blocks_per_sm"] == 1
+    assert plan["smem"] == ssd_chunk._TC_SMEM <= SMEM_LIMIT
+    assert plan["wgmma_flop"] == 64 * 256 * (3 * 20 + 2 * 2 * 4 * 2) \
+        * 2 * 64 * 64 * 16
+    fp32 = ssd_chunk.ssd_plan(*JAMBA_SSD)
+    assert fp32["Q"] == 128 and fp32["blocks"] == plan["blocks"]
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 49152, 8192), (64, 28672, 4096)],
+                         ids=["jamba", "llama3"])
+def test_matmul_tc_plan_at_the_zoo_decode(M, N, K):
+    """The decode products take the narrow tensor-core tile: a block of
+    96 columns each (ceil(N / 96) blocks, one an SM: its shared memory is
+    over half the SM's), the keep bits of K = 8192 / 4096 padded to 4
+    words a row."""
+    plan = mm.matmul_plan(M, N, K, 2)
+    assert (plan["path"], plan["tile"], plan["block"]) == (
+        "tensor_cores", "tc_narrow", (64, 96))
+    assert plan["blocks"] == -(-N // 96) and plan["grid"] == (-(-N // 96), 1)
+    assert SMEM_LIMIT // 2 < plan["smem"] <= SMEM_LIMIT
+    assert plan["scratch_words"] == M * K // 32

@@ -175,24 +175,20 @@ def test_configs_equal_the_reference(arch):
             dataclasses.asdict(jconfigs.get_config(arch, reduced))
 
 
-@pytest.mark.parametrize("arch", ["mamba.mlp", "jamba-1.5-large-398b",
-                                  "moe_sharding axis"])
+@pytest.mark.parametrize("arch", ["attn.cross.mlp", "moe_sharding axis"])
 def test_unported_blocks_raise(arch):
-    """What is not ported raises naming ROADMAP.md: jamba's mamba blocks
-    with an FFN, and a MoE expert or token mesh axis (the MoE FFN and MLA
-    themselves are ported: tests/test_torch_moe.py, test_torch_mla.py,
-    test_torch_lm_moe.py)."""
+    """What is not ported raises naming ROADMAP.md: a block with
+    cross-attention, and a MoE expert or token mesh axis (the MoE FFN, MLA
+    and jamba's mamba blocks with an FFN are ported: tests/test_torch_moe.py,
+    test_torch_mla.py, test_torch_lm_moe.py, test_torch_lm_hybrid.py)."""
     if arch == "moe_sharding axis":
         from repro_torch.models import moe as tmoe
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             with tmoe.moe_sharding(expert_axis="model"):
                 pass
         return
-    if arch == "mamba.mlp":         # a mamba block with an FFN (jamba's)
-        cfg = tconfigs.get_config("mamba2-370m", reduced=True).replace(
-            stages=(Stage(("mamba.mlp",), 1),), d_ff=128)
-    else:
-        cfg = tconfigs.get_config(arch, reduced=True)
+    cfg = tconfigs.get_config("qwen3-1.7b", reduced=True).replace(
+        stages=(Stage((arch,), 1),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbb.init_params(cfg, torch.Generator(), device="cpu")
 

@@ -117,5 +117,8 @@ def test_launcher_serves_on_cpu(capsys):
     assert res.tokens.shape == (2, 3)
     out = capsys.readouterr().out
     assert "arch=qwen3-1.7b-reduced S=2" in out and "req 1:" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b"])
+    res = tserve.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b",
+                       "--batch", "2", "--prompt-len", "5", "--new-tokens",
+                       "2", "--samples", "2"])
+    assert res.tokens.shape == (2, 2)
+    assert "arch=jamba-reduced S=2" in capsys.readouterr().out

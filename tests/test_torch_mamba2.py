@@ -9,6 +9,8 @@
 * The port's ``_ssd_chunked`` and ``ops.ssd_scan`` against JAX
   ``mamba2._ssd_chunked`` at L = 40 with chunk 16 (padded to 48, three
   chunks).
+* ``_ssd_chunked(..., h0=...)`` against JAX's at mamba2 REDUCED's SSD
+  widths across a padded last chunk (``ops.ssd_scan`` takes no ``h0``).
 * ``_causal_conv``; ``mamba_forward`` with ``return_state`` and three
   ``mamba_decode`` steps on parameters bridged from JAX
   ``mamba2.init_mamba``, on both port backends ("cuda", which on CPU
@@ -135,10 +137,49 @@ def test_chunked_scan_matches_jax(chunked, fn):
 
 
 def test_ssd_chunked_h0_raises():
+    """``_ssd_chunked`` takes a carried-in state (below); ``ops.ssd_scan``
+    and its kernel take none, as the TPU kernel takes none."""
     x, dt, a, bm, cm, d = _t(*_scan_inputs(1, 8, 2, 4, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmamba._ssd_chunked(x, dt, a, bm[:, :, None], cm[:, :, None], d, 4,
-                            h0=torch.zeros((1, 2, 4, 4)))
+    with pytest.raises(TypeError, match="h0"):
+        tops.ssd_scan(x, dt, a, bm[:, :, None], cm[:, :, None], d, 4,
+                      h0=torch.zeros((1, 2, 4, 4)))
+
+
+@pytest.fixture(scope="module")
+def chunked_h0():
+    """JAX ``_ssd_chunked(..., h0=...)`` at mamba2 REDUCED's SSD widths,
+    L = 40 at its chunk (pads the last chunk), from a random state."""
+    H, P = SSM.expand * D // SSM.head_dim, SSM.head_dim
+    x, dt, a, bm, cm, d = _scan_inputs(2, L, H, P, SSM.d_state, seed=5)
+    ins = (x, dt, a, bm[:, :, None, :], cm[:, :, None, :], d)
+    h0 = np.random.default_rng(6).standard_normal(
+        (2, H, P, SSM.d_state)).astype(np.float32)
+    y, h = jmamba._ssd_chunked(*(jnp.asarray(v) for v in ins), SSM.chunk,
+                               h0=jnp.asarray(h0))
+    return ins, h0, np.asarray(y), np.asarray(h)
+
+
+def test_ssd_chunked_h0_matches_jax(chunked_h0):
+    """The carried-in state starts the inter-chunk recurrence, as the
+    reference's ``h_init``; a zero state is no state, bit for bit, and a
+    scan split in two with the first part's final state carried in ends
+    where the whole scan ends."""
+    ins, h0, want_y, want_h = chunked_h0
+    assert L % SSM.chunk
+    t = _t(*ins)
+    y, h = tmamba._ssd_chunked(*t, SSM.chunk, h0=torch.from_numpy(h0))
+    _close(y, want_y)
+    _close(h, want_h)
+    y0, h_0 = tmamba._ssd_chunked(*t, SSM.chunk)
+    yz, hz = tmamba._ssd_chunked(*t, SSM.chunk, h0=torch.zeros_like(h_0))
+    assert torch.equal(y0, yz) and torch.equal(h_0, hz)
+    cut = 2 * SSM.chunk
+    first = [v[:, :cut] if v.dim() > 1 else v for v in t]
+    rest = [v[:, cut:] if v.dim() > 1 else v for v in t]
+    y1, h1 = tmamba._ssd_chunked(*first, SSM.chunk)
+    y2, h2 = tmamba._ssd_chunked(*rest, SSM.chunk, h0=h1)
+    _close(torch.cat([y1, y2], dim=1), y0)
+    _close(h2, h_0)
 
 
 def test_causal_conv_matches_jax():
