@@ -232,7 +232,7 @@ Phases (each raises on failure; the exit code is then non-zero):
    backend teacher-forced within BF16_LOGIT_TOL / BF16_UNC_TOL, printed
    beside the reference's own distance from fp32 on the same weights
    (held in fp32), LM_GRAPH_RUNS_BF16 runs a side of graph and eager
-   (bit-equal), times and profiles.
+   (bit-equal; phase 15 LM_GRAPH_RUNS_ZOO), times and profiles.
 7c. qwen3-1.7b with the int8 KV cache: bf16 weights, INT8_STEPS decode
    steps from ``init_decode_state(kv_quant=True)`` on both backends side
    by side, every step within the bf16 tolerances; the cache's bytes.
@@ -280,6 +280,35 @@ Phases (each raises on failure; the exit code is then non-zero):
    Phases 15 and 16 run in a fresh process of this script
    (``--zoo-child``), as phases 10 and 11 run theirs: late in this one
    torch.profiler drops the first records of most profiles.
+17. The LM planning stack (``launch.{analysis,specs,dryrun}``): (a) the
+   dry run on the 16 x 16 production mesh over fake tensors
+   (``dryrun.run_cell``: the whole step and the probes counted, the
+   residency of the spec trees, the H100 model's terms) of every arch's
+   decode, long and prefill cells and DRY_TRAIN's train cells (the cut:
+   a train cell's count takes 70-120 s there), in DRY_WORKERS spawned
+   processes at the lowest CPU priority, started beside phases 15 and
+   16's child and all counted before (b) starts: each cell ``ok`` or
+   ``skipped`` exactly where ``shape_applicable`` says, no error.  (b)
+   Then, on the card (``dryrun.measure_probes``): MEASURED's
+   probes (llama3-8b ``decode_32k`` at batch 128, mamba2-370m
+   ``long_500k`` at batch 1, qwen3-1.7b ``prefill_32k`` cut to batch 1)
+   built at full width, each count equal to its fake-tensor count
+   exactly, each timed (CUDA events, PROBE_ITERS calls) beside its bound
+   at the H100 peaks (the counted flops, the bytes of its inputs and
+   outputs) and the roofline of its counted, unfused work; and llama3's
+   decode probe on the ``cuda`` backend, its cache of 32768 positions at
+   random with DOMINANT keys a row scaled by DOMINANT_SCALE, so that a
+   few positions spread over the cache carry the softmax, pos 32767: one
+   launch each of ``masked_activation``, ``mcd_matmul`` and
+   ``decode_attention``; the block output, and the attention sublayer's
+   own output (the kernel's and wo's part of the block), each within
+   PLAN_ATT_ULPS bf16 ulps of its largest value from the ``reference``
+   backend, the sublayer's a tolerance that a kernel returning zeros or
+   losing the dominant keys of the cache's second half breaks many times
+   over;
+   both backends timed.  (c) The counted composition against
+   ``gpu_model.step_model`` at data = model = 1: flop and byte ratios,
+   printed only.
 
 10. Serving precisions, the kernels (last, in a fresh process of this
    script: its profiles hold thousands of records, torch.profiler has
@@ -352,7 +381,7 @@ phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
 each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
 int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
 ``.bf16``, its case at bf16 from phases 6 and 8 with the launches of
-phases 7b, 9b, 7c and 14-16; and ``zoo``: its phase 6 cases at the shapes
+phases 7b, 9b, 7c, 14-16 and 17; and ``zoo``: its phase 6 cases at the shapes
 of phases 15 and 16 with those phases' launches), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -360,6 +389,7 @@ card's name and power limit, and as the last line ``{"ok": true, "device":
 Usage:  python3 chip_smoke.py [--out results.json]
         python3 chip_smoke.py --moe-only   # the build, phases 6, 13, 14
         python3 chip_smoke.py --zoo-only   # the build, phases 6, 15, 16
+        python3 chip_smoke.py --plan-only  # the build, phase 17
 """
 
 from __future__ import annotations
@@ -450,7 +480,10 @@ UNC_TOL = 1e-4      # (cuBLAS), 28 (48) layers deep: per-step logits and
 # reference itself moves from fp32 on the same weights.
 BF16_LOGIT_TOL = 0.25
 BF16_UNC_TOL = 0.05
-LM_GRAPH_RUNS_BF16 = 2   # generate runs a side, graph and eager, at bf16
+LM_GRAPH_RUNS_BF16 = 1   # generate runs a side, graph and eager, at bf16
+                         # in 7b and 9b (one since phase 17: its time came
+                         # from here)
+LM_GRAPH_RUNS_ZOO = 2    # the same in phase 15 (llama3-8b)
 INT8_STEPS = 48          # phase 7c: decode steps from an int8 zero state
 # mamba2-370m serving: 8 prompts x 8 chains, 512-token prompts (two chunks
 # of 256), 32 new tokens.
@@ -4841,7 +4874,7 @@ def mamba_bf16_serving_phase(report, dev):
 ZOO_CHILD_TIMEOUT = 600   # seconds; phases 15 and 16 take ~80 on the card
 
 
-def zoo_serving_phases(report, dev):
+def zoo_serving_phases(report, dev, dry=None):
     """Phases 15 and 16 in a fresh process of this script
     (``--zoo-child``), as phases 10 and 11 run theirs: late in this
     process torch.profiler drops the first records of most profiles (the
@@ -4855,6 +4888,8 @@ def zoo_serving_phases(report, dev):
     import torch
     gc.collect()
     torch.cuda.empty_cache()            # the jamba cut peaks at ~63 GB
+    if dry is not None:
+        dry.start()                     # phase 17a beside the child
     got = _child("--zoo-child", timeout=ZOO_CHILD_TIMEOUT)
     report.update(got["report"])
     report["phase_s"].update(got["phase_s"])
@@ -4884,7 +4919,8 @@ def zoo_child(out):
 def llama3_serving_phase(report, dev):
     """Phase 15: llama3-8b at full width in bf16, phase 7b's traffic."""
     return serve_lm(report, dev, "llama3-8b", LM_PROMPT, _qwen3_want,
-                    *QWEN3_KERNELS, "serving_llama3", dtype="bf16")
+                    *QWEN3_KERNELS, "serving_llama3", dtype="bf16",
+                    graph_runs=LM_GRAPH_RUNS_ZOO)
 
 
 # The kernels' plain versions, by module: none may run on a main path on
@@ -4976,14 +5012,16 @@ def _served(eng, cfg, prompts, want):
 
 
 def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
-             decode_kernels, key, dtype="fp32"):
+             decode_kernels, key, dtype="fp32", graph_runs=None):
     """One LM at full width through ``BayesianEngine.generate``: 8 prompts
     of ``prompt_len`` tokens x the config's chains, LM_NEW new tokens, the
     launch counts ``want_of(layers)`` (no plain version of a kernel called
     meanwhile), the run repeated on its own tokens, the reference backend
     teacher-forced within LOGIT_TOL / UNC_TOL (at bf16 BF16_LOGIT_TOL /
     BF16_UNC_TOL, printed beside the reference's own distance from fp32 on
-    the same weights), times, peak memory and profiles."""
+    the same weights), times, peak memory and profiles; ``graph_runs``
+    runs a side of graph and eager (default LM_GRAPH_RUNS, at bf16
+    LM_GRAPH_RUNS_BF16)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -5044,7 +5082,7 @@ def serve_lm(report, dev, arch, prompt_len, want_of, prefill_kernels,
     del ref
     graph_vs_eager = lm_graph_turns(
         eng, params, cfg, prompts, res, again, want,
-        runs=LM_GRAPH_RUNS_BF16 if bf16 else LM_GRAPH_RUNS)
+        runs=graph_runs or (LM_GRAPH_RUNS_BF16 if bf16 else LM_GRAPH_RUNS))
     del again
 
     steps_ms = np.asarray(res.decode_s) * 1e3
@@ -6195,13 +6233,312 @@ def training_phase(report, dev):
     return launches
 
 
-def phases_only(report, dev, serving, out=None) -> int:
-    """The build, then phase 6 and the ``serving`` phases alone (a short
-    call: ``--moe-only`` 13 and 14, ``--zoo-only`` 15 and 16); no
+# Phase 17: the LM planning stack (launch.{analysis,specs,dryrun}) on the
+# card.  (a) The dry run on fake tensors, its cells counted in DRY_WORKERS
+# processes at the lowest CPU priority on the host's spare cores, started
+# beside phases 15 and 16's child (GPU-bound, one core) and collected
+# before (b), the card's measurements, whose probes it would slow.
+DRY_WORKERS = 6          # of the host's 8 cores; 2 left to the zoo child
+DRY_TIMEOUT = 600        # seconds to wait for the last cell
+# The matrix cut to every arch's decode and prefill cells and two train
+# cells (a train cell's count takes ~70-120 s on the card's host, the
+# whole matrix ~870 CPU-s there); the CPU dry run covers all 24 cells.
+DRY_TRAIN = ("qwen3-1.7b", "olmoe-1b-7b")
+# (b) --measure: (arch, shape, batch, the cut); each probe built on the
+# card at full width, counted (== its fake count, exactly) and timed.
+MEASURED = (("llama3-8b", "decode_32k", None, None),
+            ("mamba2-370m", "long_500k", None, None),
+            ("qwen3-1.7b", "prefill_32k", 1, "batch 32 -> 1"))
+PROBE_ITERS = 3          # timed calls a probe, after one warm-up call
+# The llama3 decode probe on the ``cuda`` backend against ``reference``:
+# the block output and, on its own, the attention sublayer (the residual
+# dominates the block) each within PLAN_ATT_ULPS bf16 ulps of its own
+# largest value: each rounds once to bf16, and the TPU kernel's fp32
+# softmax weights differ from the reference's bf16-rounded ones in the
+# last bits.  The sublayer's tolerance is at most 1 / PLAN_ATT_MARGIN of
+# what a kernel returning zeros, or one losing the dominant keys of the
+# cache's second half (a split it failed to merge), would be off by.
+# With the cache at N(0, 1) alone the softmax spreads over 32768 keys and
+# the sublayer is ~0.01 of the block, so DOMINANT keys a row, spread over
+# the cache at random, are scaled by DOMINANT_SCALE (a power of two:
+# exact in bf16): each scores ~N(0, 256) against ~N(0, 1) for the rest.
+PLAN_ATT_ULPS = 2
+PLAN_ATT_MARGIN = 8
+DOMINANT = 8
+DOMINANT_SCALE = 16.0
+PLAN_CUDA_WANT = {"masked_activation": 1, "mcd_matmul": 1,
+                  "decode_attention": 1}
+
+
+def _dry_cells():
+    """17a's (arch, shape) cells, the costliest counts first: every
+    arch's decode, long and prefill cells, DRY_TRAIN's train cells."""
+    from repro_torch.configs import ALIASES
+    from repro_torch.models.config import SHAPES
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    return sorted(((a, s) for a in sorted(ALIASES) for s in sorted(SHAPES)
+                   if SHAPES[s].kind != "train" or a in DRY_TRAIN),
+                  key=lambda c: order[SHAPES[c[1]].kind])
+
+
+class DryRun:
+    """17a's cells counting in a pool of spawned processes at the lowest
+    CPU priority: ``start`` submits them all, ``collect`` waits for their
+    records."""
+
+    def __init__(self):
+        self.pool = self.futures = None
+
+    def start(self):
+        import concurrent.futures
+        import multiprocessing
+        from repro_torch.launch import dryrun
+        if self.pool is not None:
+            return
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(DRY_WORKERS, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(19,))
+        self.futures = [self.pool.submit(dryrun.run_cell, a, s, False,
+                                         verbose=False)
+                        for a, s in _dry_cells()]
+
+    def collect(self) -> tuple[list, float]:
+        try:
+            records = [f.result(timeout=DRY_TIMEOUT) for f in self.futures]
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+        return records, time.perf_counter() - self.t0
+
+
+def _check_dry(records) -> None:
+    """17a's gate: each cell ok or skipped exactly where shape_applicable
+    says, no error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import shape_applicable
+    bad = []
+    for r in records:
+        want = ("ok" if shape_applicable(get_config(r["arch"]),
+                                         r["shape"])[0] else "skipped")
+        if r["status"] != want:
+            bad.append((r["arch"], r["shape"], r["status"],
+                        r.get("error", "")))
+    if bad:
+        raise RuntimeError(f"17a: dry-run cells not as applicable: {bad}")
+
+
+def _model_ratios(records) -> list[dict]:
+    """17c: the counted composition against ``gpu_model.step_model`` at
+    data = model = 1 (one program, every chip's work): flops and bytes
+    ratios.  Printed only; they gate nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.dse import gpu_model
+    from repro_torch.models.config import SHAPES
+    out = []
+    hw = gpu_model.GpuHwConfig(data=1, model=1)
+    for r in records:
+        if r["status"] != "ok":
+            continue
+        m = gpu_model.step_model(get_config(r["arch"]), SHAPES[r["shape"]],
+                                 hw)
+        out.append({"arch": r["arch"], "shape": r["shape"],
+                    "flops_ratio": r["composition_flops"] / m["flops"],
+                    "bytes_ratio": r["composition_bytes"] / m["bytes"]})
+    return out
+
+
+def _ulps_of_largest(t) -> float:
+    """PLAN_ATT_ULPS bf16 ulps (8 significant bits) of t's largest
+    magnitude."""
+    import math
+    top = t.float().abs().max().item()
+    return PLAN_ATT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _attention_sublayer(dev, pr, cfg, bayes, hot) -> dict:
+    """17b: the attention sublayer of llama3's decode probe
+    (``layers.attention_decode``, the kernel's and wo's part of the block)
+    on the ``cuda`` backend against ``reference`` on the same inputs,
+    within PLAN_ATT_ULPS bf16 ulps of its largest value; beside it what a
+    kernel returning zeros, and one losing the dominant keys of the
+    cache's second half (``hot``: each row's dominant positions), would
+    be off by (each at least PLAN_ATT_MARGIN tolerances).  Its launches
+    compare a kernel with the plain path: they are no main path's."""
+    import torch
+    from repro_torch.models import layers
+    params, x, cache, cross, pos, ctx = pr.args
+    m = layers.site_mask(ctx, bayes, 0, layers.SITE_ATTN)
+
+    def attn(backend):
+        return layers.attention_decode(params["mixer"], x, cache, pos,
+                                       cfg.rope_theta, m, ctx.cfg.p,
+                                       backend)[0].float()
+
+    with no_plain_versions():
+        got = attn("cuda")
+    want = attn("reference")
+    err = max_abs_diff(got, want, "17b attention sublayer")
+    top = want.abs().max().item()
+    tol = _ulps_of_largest(want)
+    k = cache[0]
+    rows = torch.arange(k.shape[0], device=dev)[:, None].expand_as(hot)
+    late = hot >= k.shape[1] // 2
+    k[rows[late], hot[late]] /= DOMINANT_SCALE
+    lost = max_abs_diff(attn("reference"), want, "17b lost keys")
+    k[rows[late], hot[late]] *= DOMINANT_SCALE
+    rec = {"max_abs_err": err, "tol": tol, "largest": top,
+           "zeros_err": top, "lost_keys_err": lost}
+    print(f"17b llama3-8b attention sublayer cuda vs reference: max err "
+          f"{err:.4g} (tol {tol:.4g}: {PLAN_ATT_ULPS} bf16 ulps of its "
+          f"largest {top:.4g}); a kernel returning zeros {top:.4g}, one "
+          f"losing the second half's dominant keys {lost:.4g}", flush=True)
+    if not err <= tol:
+        raise RuntimeError(f"17b: the attention sublayer {err} from the "
+                           f"reference backend (tol {tol})")
+    if min(top, lost) < PLAN_ATT_MARGIN * tol:
+        raise RuntimeError(f"17b: a faulty kernel's error ({top}, {lost}) "
+                           f"is within {PLAN_ATT_MARGIN} tolerances {tol}")
+    return rec
+
+
+def _cuda_decode_probe(dev) -> dict:
+    """17b: llama3-8b's decode probe (batch 128, the cache of 32768
+    positions filled at random, DOMINANT keys a row scaled by
+    DOMINANT_SCALE, pos 32767) on the ``cuda`` backend against the
+    ``reference`` backend on the same inputs: one launch of each LM decode
+    kernel, the block output within PLAN_ATT_ULPS bf16 ulps of its
+    largest value, the attention sublayer as :func:`_attention_sublayer`
+    holds it; both timed beside
+    the bound (the counted flops, the bytes of the probe's inputs and
+    outputs) and the roofline of the plain path's counted, unfused
+    work."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis, mesh as mesh_lib, specs
+    from repro_torch.models import backbone
+    cfg = get_config("llama3-8b")
+    pm = mesh_lib.make_production_mesh()
+    pr = next(p for p in specs.probe_jobs(cfg, "decode_32k", pm,
+                                          device=dev, fake=False)
+              if p.name.startswith("dec"))
+    params, x, cache, cross, pos, ctx = pr.args
+    g = torch.Generator(device=dev).manual_seed(1)
+    for t in cache:
+        t.normal_(generator=g)
+    k = cache[0]
+    hot = torch.randint(0, k.shape[1] - 1, (k.shape[0], DOMINANT),
+                        generator=g, device=dev)
+    k[torch.arange(k.shape[0], device=dev)[:, None], hot] *= DOMINANT_SCALE
+    kind = pr.name.split(":", 1)[1]
+    bayes = backbone._stage_bayes(cfg, 0, cfg.stages[0])[0]
+    cuda_fn = specs._block_decode_fn(kind, cfg, bayes, backend="cuda")
+    plain = analysis.count(pr.fn, *pr.args)
+    want = plain.out[0]
+    io = analysis.io_bytes(pr.args, plain.out)
+    reset_launches()
+    with no_plain_versions():
+        got = cuda_fn(*pr.args)[0]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    wanted = {k: PLAN_CUDA_WANT.get(k, 0) for k in counts}
+    if counts != wanted:
+        raise RuntimeError(f"17b: the cuda decode probe launched {counts}, "
+                           f"{wanted} wanted")
+    err = max_abs_diff(got.float(), want.float(), "17b cuda probe")
+    tol = _ulps_of_largest(want)
+    if not err <= tol:
+        raise RuntimeError(f"17b: cuda probe {err} from the reference "
+                           f"backend (tol {tol})")
+    sub = _attention_sublayer(dev, pr, cfg, bayes, hot)
+    unfused = analysis.roofline(plain.flops, plain.bytes)
+    floor = analysis.roofline(plain.flops, io)
+    rec = {"probe": pr.name, "batch": x.shape[0], "pos": int(pos),
+           "launches": counts, "max_abs_err": err, "tol": tol,
+           "largest": want.float().abs().max().item(), "attention": sub,
+           "plain_ms": cuda_time_ms(lambda: pr.fn(*pr.args), PROBE_ITERS),
+           "cuda_ms": cuda_time_ms(lambda: cuda_fn(*pr.args), PROBE_ITERS),
+           "bound_ms": floor.t_bound * 1e3, "bound_by": floor.bottleneck,
+           "io_bytes": io, "t_unfused_ms": unfused.t_bound * 1e3,
+           "unfused_by": unfused.bottleneck,
+           "flops": plain.flops, "bytes": plain.bytes}
+    print(f"17b llama3-8b {pr.name} cuda: launches {counts}, block max err "
+          f"{err:.3g} (tol {tol:.3g}), plain {rec['plain_ms']:.3f} "
+          f"ms, cuda {rec['cuda_ms']:.3f} ms, bound {rec['bound_ms']:.3f} "
+          f"ms ({floor.bottleneck}, {io / 1e9:.2f} GB in and out), the "
+          f"plain path's unfused count {rec['t_unfused_ms']:.3f} ms "
+          f"({plain.bytes / 1e9:.1f} GB)", flush=True)
+    del pr, params, x, cache, plain, want, got
+    return rec
+
+
+def _measured(dev) -> list[dict]:
+    """17b: MEASURED's probes on the card (``dryrun.measure_probes``):
+    every count equal to its fake-tensor count, exactly."""
+    import torch
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape, batch, cut in MEASURED:
+        t = time.perf_counter()
+        recs = dryrun.measure_probes(arch, shape, batch=batch, device=dev,
+                                     iters=PROBE_ITERS)
+        for m in recs:
+            print(f"17b {arch} {shape} {m['probe']} x{m['multiplier']} "
+                  f"(batch {m['batch']}): {m['ms']:.3f} ms, bound "
+                  f"{m['bound_ms']:.3f} ms ({m['bound_by']}), unfused "
+                  f"count {m['t_unfused_ms']:.3f} ms ({m['unfused_by']}), "
+                  f"counts equal: {m['equal']}", flush=True)
+            if not m["equal"]:
+                raise RuntimeError(f"17b {arch} {shape} {m['probe']}: the "
+                                   f"card's count {m['real']} is not the "
+                                   f"fake count {m['fake']}")
+        out.append({"arch": arch, "shape": shape, "cut": cut,
+                    "seconds": time.perf_counter() - t, "probes": recs})
+        torch.cuda.empty_cache()
+    return out
+
+
+def planning_phase(report, dev, dry=None):
+    """Phase 17: (a) ``dry``'s cells (started here if it was not beside
+    phases 15 and 16) collected, all counted before (b) the card measures
+    MEASURED's probes and llama3's decode probe on the ``cuda`` backend;
+    (c) the counted composition against the H100 model.  Returns the
+    cuda probe's launches."""
+    import torch
+    dry = dry or DryRun()
+    dry.start()
+    rec = report["planning"] = {}
+    records, rec["dry_s"] = dry.collect()
+    for r in records:
+        r.pop("probes", None)         # the composition's sums are kept
+    rec["dry_run"] = records
+    rec["dry_cut"] = ("train_4k only for " + ", ".join(DRY_TRAIN)
+                      + " (the CPU dry run covers all 24 cells)")
+    _check_dry(records)
+    n_ok = sum(r["status"] == "ok" for r in records)
+    print(f"17a dry run: {n_ok} ok, {len(records) - n_ok} skipped, 0 errors "
+          f"({len(records)} cells, 16x16; cut: {rec['dry_cut']}), "
+          f"{rec['dry_s']:.1f} s from its start", flush=True)
+    rec["measured"] = _measured(dev)
+    rec["cuda_probe"] = _cuda_decode_probe(dev)
+    torch.cuda.empty_cache()
+    rec["model_ratios"] = _model_ratios(records)
+    for m in rec["model_ratios"]:
+        print(f"17c {m['arch']} {m['shape']}: counted / gpu_model flops "
+              f"{m['flops_ratio']:.4g}, bytes {m['bytes_ratio']:.4g}",
+              flush=True)
+    return rec["cuda_probe"]["launches"]
+
+
+def phases_only(report, dev, serving, out=None, kernels=True) -> int:
+    """The build, then phase 6 (unless not ``kernels``) and the
+    ``serving`` phases alone (a short call: ``--moe-only`` 13 and 14,
+    ``--zoo-only`` 15 and 16, ``--plan-only`` 17 without 6); no
     ``kernels`` line."""
     import torch
     phase_s = report["phase_s"] = {}
-    for name, fn, *args in (("6", lm_kernel_phase, report),
+    for name, fn, *args in (*((("6", lm_kernel_phase, report),)
+                              if kernels else ()),
                             *((name, fn, report, dev)
                               for name, fn in serving)):
         t = time.perf_counter()
@@ -6243,6 +6580,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # the build, 6, 15 and 16
     ap.add_argument("--zoo-child", default=None,
                     help=argparse.SUPPRESS)   # phases 15 and 16: OUT.json
+    ap.add_argument("--plan-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, 6 and 17
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6295,6 +6634,9 @@ def main(argv=None) -> int:
         return phases_only(report, dev, (("15", llama3_serving_phase),
                                          ("16", jamba_serving_phase)),
                            args.out)
+    if args.plan_only:
+        return phases_only(report, dev, (("17", planning_phase),), args.out,
+                           kernels=False)
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -6314,6 +6656,7 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in ALL_KERNELS}
     launches_bf16 = {name: 0 for name in ALL_KERNELS}
     launches_zoo = {name: 0 for name in ALL_KERNELS}
+    dry = DryRun()          # phase 17a: started beside 15 and 16's child
     for name, fn, *rest in (
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
             ("4 gru", autoencoder_phase, "gru"), ("5", step_backend_phase),
@@ -6324,10 +6667,11 @@ def main(argv=None) -> int:
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase),
             ("13", moe_serving_phase), ("14", deepseek_serving_phase),
-            ("15+16", zoo_serving_phases)):
+            ("15+16", zoo_serving_phases, dry),
+            ("17", planning_phase, dry)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
-            if name in ("7b", "9b", "7c", "14", "15+16"):
+            if name in ("7b", "9b", "7c", "14", "15+16", "17"):
                 launches_bf16[kernel] += v
             if name == "15+16":
                 launches_zoo[kernel] += v

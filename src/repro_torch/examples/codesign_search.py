@@ -1,22 +1,45 @@
-"""The co-design framework (paper §IV / Fig. 7), the FPGA target — port of
-``examples/codesign_search.py``.
+"""The co-design framework end-to-end (paper §IV / Fig. 7), both targets —
+port of ``examples/codesign_search.py``.
 
 FPGA target: scan reuse factors under the ZC706 DSP budget for the paper's
-best models.  The reference's second half, mesh factorizations of a zoo
-LM under a TPU's HBM budget (``tpu_model.search_hw``), waits for the LM
-half of the hardware model (ROADMAP.md, A9).
+best models.  GPU target (the reference's TPU half): scan mesh
+factorizations of 256 H100s (falling back to 2 pods) under one card's
+80 GB of HBM for three zoo architectures at ``train_4k``
+(``dse.gpu_model.search_hw``).
 
     PYTHONPATH=src python -m repro_torch.examples.codesign_search
 
 The search is host arithmetic; ``--device`` is taken for a uniform
-interface and resolved as every entry point resolves it.
+interface and resolved as every entry point resolves it.  The H100 peaks
+are ``launch.analysis``'s (data sheet), not a measurement.
 """
 
 import argparse
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.dse import fpga_model as fm
-from repro_torch.dse import search
+from repro_torch.dse import gpu_model, search
+from repro_torch.models.config import SHAPES
+
+MESH_ARCHS = ("llama3-8b", "olmoe-1b-7b", "jamba-1.5-large-398b")
+
+
+def mesh_picks(hbm_limit: float = 80e9) -> dict:
+    """Each of MESH_ARCHS at ``train_4k``: the fastest feasible split of
+    256 cards, else of 2 pods of 256; ``{arch: (pods, row) | None}``."""
+    out = {}
+    for arch in MESH_ARCHS:
+        cfg = get_config(arch)
+        best = None
+        for pods in (1, 2):
+            rows = gpu_model.search_hw(cfg, SHAPES["train_4k"], chips=256,
+                                       hbm_limit=hbm_limit, pod=pods)
+            best = next((r for r in rows if r["feasible"]), None)
+            if best is not None:
+                break
+        out[arch] = None if best is None else (pods, best)
+    return out
 
 
 def main(argv=None):
@@ -50,8 +73,19 @@ def main(argv=None):
               f"R=({got.hw.r_x},{got.hw.r_h},{got.hw.r_d}) "
               f"lat={got.latency_s*1e3:.2f} ms "
               f"DSPs={fm.dsp_usage(got.arch, got.hw):.0f}/900")
-    print("\n(the mesh half, tpu_model.search_hw over zoo LMs, is not "
-          "ported: ROADMAP.md, A9)")
+    print("\n=== GPU DSE: mesh factorizations under the 80 GB HBM budget "
+          "===")
+    meshes = picks["mesh"] = mesh_picks()
+    for arch, got in meshes.items():
+        if got is None:
+            print(f"{arch:24s} infeasible even at 2 pods")
+            continue
+        pods, best = got
+        hw = best["hw"]
+        print(f"{arch:24s} → pods={pods} mesh=({hw.data}×{hw.model}) "
+              f"mb={hw.microbatches} fsdp={hw.fsdp} "
+              f"mem={best['mem']/1e9:.1f} GB t_step={best['t_step']:.2f}s "
+              f"bound={'C' if best['t_compute']==best['t_step'] else 'M/X'}")
     return picks
 
 

@@ -89,12 +89,25 @@ class Mesh:
         return f"Mesh({names}; {', '.join(devs)})"
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256- and 512-chip TPU pod meshes have no
-    counterpart here."""
-    raise NotImplementedError(
-        f"make_production_mesh(multi_pod={multi_pod}): the TPU pod meshes "
-        "come with launch/shardings.py; see ROADMAP.md (A9)")
+#: The abstract device the production meshes list: the planning stack
+#: (``launch.specs``, ``launch.dryrun``) builds its programs on fake
+#: tensors and never places a tensor on a mesh entry.
+ABSTRACT_DEVICE = torch.device("meta")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's pod meshes: 16 × 16 = 256 entries over
+    ``("data", "model")``, or 2 × 16 × 16 = 512 over ``("pod", "data",
+    "model")`` ("pod" is the slow dimension; only data parallelism, the
+    gradient reduce, crosses it).  Every entry is :data:`ABSTRACT_DEVICE`:
+    the port plans for 256 or 512 cards on a machine with one or none,
+    as the reference lowers for them on forced host devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    return Mesh([ABSTRACT_DEVICE] * n, axes, shape)
 
 
 def make_host_mesh(*, device="cpu") -> Mesh:

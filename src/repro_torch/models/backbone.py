@@ -344,6 +344,25 @@ def loss_fn(params, cfg: ArchConfig, tokens: torch.Tensor,
     return nll + aux, {"nll": nll, "aux": aux}
 
 
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     dtype=torch.float32, kv_quant: bool = False,
+                     device=None):
+    """One block's zero decode cache (see :func:`init_decode_state`)."""
+    _check_kind(kind)
+    dev = resolve_device(device)
+    mixer = _parse(kind)[0]
+    if mixer == "mamba":
+        return mamba2.init_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
+    if mixer == "mla":
+        return mla.init_cache(batch, max_len, cfg.mla, dtype, dev)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quant:
+        return tuple(torch.zeros(sh, dtype=dt, device=dev) for sh, dt in
+                     ((shape, torch.int8), (shape[:3], torch.bfloat16)) * 2)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.float32, kv_quant: bool = False,
                       device=None) -> DecodeState:
@@ -356,26 +375,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     tensor is its own: the caches are updated in place."""
     check_cfg(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-
-    def zeros(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    def cache(kind):
-        mixer = _parse(kind)[0]
-        if mixer == "mamba":
-            return mamba2.init_state(batch, cfg.d_model, cfg.ssm, dtype, dev)
-        if mixer == "mla":
-            return mla.init_cache(batch, max_len, cfg.mla, dtype, dev)
-        if kv_quant:
-            return tuple(zeros(sh, dt) for sh, dt in
-                         ((shape, torch.int8), (shape[:3], torch.bfloat16))
-                         * 2)
-        return (zeros(shape, dtype), zeros(shape, dtype))
-
     return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=dev),
                        caches=[
-        [[cache(kind) for kind in st.pattern] for _ in range(st.repeat)]
+        [[init_block_cache(cfg, kind, batch, max_len, dtype, kv_quant, dev)
+          for kind in st.pattern] for _ in range(st.repeat)]
         for st in cfg.stages])
 
 

@@ -29,6 +29,7 @@ element (b, s, d) draws stream index ``rows[b]·D + d`` as in the reference.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -209,6 +210,28 @@ def _qk_normalize(q, k, p: AttnParams):
     return q, k
 
 
+_ATTN_OVERRIDE: dict = {}
+
+
+@contextlib.contextmanager
+def attention_override(q_block: int | None = None,
+                       kv_block: int | None = None):
+    """Override the tiling of :func:`blockwise_attention` inside the
+    block, as the reference's.  The roofline probes use bigger blocks so
+    that a count dispatches at most 64 block bodies.  The reference also
+    takes ``unroll`` (XLA counts a scanned body once); here every body
+    runs and is counted, so the port has no such option."""
+    old = dict(_ATTN_OVERRIDE)
+    _ATTN_OVERRIDE.update({k: v for k, v in (("q_block", q_block),
+                                             ("kv_block", kv_block))
+                           if v is not None})
+    try:
+        yield
+    finally:
+        _ATTN_OVERRIDE.clear()
+        _ATTN_OVERRIDE.update(old)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, q_block: int = 512,
                         kv_block: int = 1024) -> torch.Tensor:
@@ -216,10 +239,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blockwise form (its blocks, its update order) in plain PyTorch.  The
     scores and the P·V product are fp32 sums of the operands' fp32 views
     (the reference's ``preferred_element_type=float32``: a product of two
-    bf16 values is exact in fp32), P rounded to V's dtype first.
+    bf16 values is exact in fp32), P rounded to V's dtype first.  The
+    blocks are :func:`attention_override`'s where it set them.
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] (GQA: H = KV · rep).
     """
+    q_block = _ATTN_OVERRIDE.get("q_block", q_block)
+    kv_block = _ATTN_OVERRIDE.get("kv_block", kv_block)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     hdv = v.shape[-1]

@@ -29,8 +29,8 @@ the same sums:
   calls, and a graph against eager, differ in the last bits).
 
 ``moe_sharding(groups=G)`` routes within each of G token groups (capacity
-a group), as the reference's; an expert or token mesh axis is refused
-(the pod shardings of ``launch/shardings.py``, ROADMAP.md A9).
+a group), as the reference's; its expert and token mesh axes are accepted
+and, on the port's one device, the identity.
 """
 
 from __future__ import annotations
@@ -51,12 +51,11 @@ _MOE_OVERRIDE: dict = {}
 def moe_sharding(expert_axis=None, token_axes=None, groups: int = 1):
     """groups > 1: group-local dispatch, tokens routed within each of
     ``groups`` contiguous token groups (each with its own capacity), as the
-    reference's.  Mesh axes are not ported: a non-None ``expert_axis`` or
-    ``token_axes`` raises."""
-    if expert_axis is not None or token_axes is not None:
-        raise NotImplementedError(
-            "moe_sharding's expert and token mesh axes are the pod "
-            "shardings of launch/shardings.py, queued (ROADMAP.md, A9)")
+    reference's.  ``expert_axis`` / ``token_axes`` name the mesh axes the
+    reference constrains the dispatch buffers to (experts over tp,
+    capacity over dp); the port has no partitioner, so on its one device
+    they are the identity, as ``with_sharding_constraint`` is on the
+    reference's one-device host mesh: they change no number."""
     old = dict(_MOE_OVERRIDE)
     _MOE_OVERRIDE.update(groups=groups)
     try:
@@ -208,8 +207,7 @@ def _experts(x_exp: torch.Tensor, p: MoEParams) -> torch.Tensor:
     else:
         gu = xf.new_empty((E, n, wi.shape[-1]))
         for e in range(0, E, step):
-            torch.bmm(xf[e:e + step], wi[e:e + step].float(),
-                      out=gu[e:e + step])
+            gu[e:e + step] = torch.bmm(xf[e:e + step], wi[e:e + step].float())
     gu = gu.reshape(E, n, 2, -1)
     g, u = gu[..., 0, :], gu[..., 1, :]
     act = g * torch.sigmoid(g) * u

@@ -178,14 +178,17 @@ def test_configs_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", ["attn.cross.mlp", "moe_sharding axis"])
 def test_unported_blocks_raise(arch):
     """What is not ported raises naming ROADMAP.md: a block with
-    cross-attention, and a MoE expert or token mesh axis (the MoE FFN, MLA
-    and jamba's mamba blocks with an FFN are ported: tests/test_torch_moe.py,
-    test_torch_mla.py, test_torch_lm_moe.py, test_torch_lm_hybrid.py)."""
+    cross-attention (the MoE FFN, MLA and jamba's mamba blocks with an FFN
+    are ported: tests/test_torch_moe.py, test_torch_mla.py,
+    test_torch_lm_moe.py, test_torch_lm_hybrid.py).  A MoE expert or token
+    mesh axis no longer raises: since the planning stack
+    (launch/shardings.py) the axes are accepted and are the identity on
+    the port's one device (tests/test_torch_moe.py)."""
     if arch == "moe_sharding axis":
         from repro_torch.models import moe as tmoe
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            with tmoe.moe_sharding(expert_axis="model"):
-                pass
+        with tmoe.moe_sharding(expert_axis="model", token_axes=("data",)):
+            assert tmoe._MOE_OVERRIDE == {"groups": 1}
+        assert tmoe._MOE_OVERRIDE == {}
         return
     cfg = tconfigs.get_config("qwen3-1.7b", reduced=True).replace(
         stages=(Stage((arch,), 1),))

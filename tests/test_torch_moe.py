@@ -251,10 +251,19 @@ def test_moe_forward_bf16_matches_jax(ref, backend):
 
 
 def test_mesh_axes_raise():
+    """The expert and token mesh axes no longer raise (the planning stack
+    ports them): on the port's one device they are accepted and are the
+    identity, as ``with_sharding_constraint`` on JAX's one-device mesh --
+    ``moe_forward``'s output and aux bit-equal with and without them."""
+    cfg = tconfigs.get_config("olmoe-1b-7b", reduced=True)
+    gen = torch.Generator().manual_seed(3)
+    p = tmoe.init_moe(gen, cfg.d_model, cfg.moe, torch.float32, "cpu")
+    x = torch.randn((2, 5, cfg.d_model), generator=gen)
+    want = tmoe.moe_forward(p, x, cfg.moe, None, 0.0, "reference")
     for kw in ({"expert_axis": "model"}, {"token_axes": ("data",)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            with tmoe.moe_sharding(**kw):
-                pass
+        with tmoe.moe_sharding(**kw):
+            got = tmoe.moe_forward(p, x, cfg.moe, None, 0.0, "reference")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_capacity_matches_jax():

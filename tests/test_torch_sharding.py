@@ -340,8 +340,15 @@ def test_meshes_and_their_refusals(monkeypatch):
     assert listed.shape == (2, 1)
     with pytest.raises(ValueError, match="needs 4"):
         tmesh.make_data_mesh(2, model=2, devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh.make_production_mesh()
+    # The pod meshes (the planning stack's): the reference's 16 x 16 and
+    # 2 x 16 x 16 grids over one abstract device.
+    pod1, pod2 = (tmesh.make_production_mesh(multi_pod=m)
+                  for m in (False, True))
+    assert (pod1.shape, pod1.axis_names) == ((16, 16), ("data", "model"))
+    assert (pod2.shape, pod2.axis_names) == ((2, 16, 16),
+                                             ("pod", "data", "model"))
+    assert {str(d) for d in pod2.device_list} == {"meta"}
+    assert tmesh.dp_axes(pod2) == ("pod", "data") and pod2.size == 512
     # A CUDA mesh takes that many cards and never shrinks to what there is.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
