@@ -187,7 +187,10 @@ Phases (each raises on failure; the exit code is then non-zero):
    ``decode_attention`` at 64 q heads to 8 KV heads (jamba: the kernel's
    largest group) and 32 to 8 (llama3-8b) at pos 0 and 159; the SSD scan
    at jamba's prefill (B = 64, L = 128, H = 256, P = 64, N = 128, Q =
-   128) on the tensor cores.
+   128) on the tensor cores.  Then the mask and ``mcd_matmul`` at bf16 at
+   the rows phase 18's prefill gives them (64 x 1500 in the encoder, 64 x
+   272 in the VLM; d_model 2048, gate/up N = 12288; the model's name on
+   each record).
 7. LM serving: ``BayesianEngine.generate`` on qwen3-1.7b at full width
    (28 layers, random fp32 weights from seed 0), 8 prompts of 128 tokens x
    8 chains (p = 0.1, placement Y), 32 new tokens: the launch counts of the
@@ -354,6 +357,39 @@ Phases (each raises on failure; the exit code is then non-zero):
    serving phases' (training reaches no kernel: no kernel has a
    backward).
 
+18. The encoder–decoder and VLM paths (in phases 15 and 16's child,
+   after them) at qwen3-1.7b's published widths (d_model 2048, 16 q / 8
+   KV heads of 128, qk_norm, d_ff 6144, vocab 151936) in bf16, seeded
+   random weights, the audio / vlm fields set here (neither package's
+   registry has such a config): (a) ENCDEC_LAYERS ``enc_attn.mlp``
+   encoder layers over ENCODER_SEQ = 1500 seeded frames (Whisper's
+   encoder output for 30 s of audio) and ENCDEC_LAYERS
+   ``dec_attn.cross.mlp`` decoder layers (depth 28 -> 2 + 2, printed);
+   (b) ENCDEC_LAYERS ``attn.mlp`` layers behind VLM_PATCHES = 256
+   seeded patch embeddings (PaliGemma's image tokens at 224 px; depth 28
+   -> 2).  Each: 8 prompts of 16 tokens x 8 chains, 8 new tokens through
+   ``BayesianEngine.generate``; ``masked_activation`` (every site mask,
+   the encoder's and the cross site's among them), ``mcd_matmul``
+   (every MLP's gate/up, at prefill 96000 rows for the encoder) and
+   ``decode_attention`` launched as ``_encdec_want`` counts; the run
+   repeated on its own tokens; the ``reference`` backend teacher-forced
+   within BF16_LOGIT_TOL / BF16_UNC_TOL; the decode graph against eager
+   bit for bit, and again for a second request with other frames
+   (patches), whose prefill must refill the graph's static cross K/V;
+   greedy tokens, prefill ms, decode ms a token p50 / p95, the graph
+   step's device ms (CUDA events over back-to-back replays) and peak
+   memory beside the card line; for (a) also a decoder cross block's
+   plain blockwise pass at decode against ``decode_attention`` at pos
+   1499 on the same K/V (times and distance: ROADMAP B2).  Then, outside
+   the launch counts: the prefill's state (the cross K/V, every cache) on
+   the ``cuda`` backend against ``reference``, each tensor within
+   ENCDEC_STATE_ULPS bf16 ulps of its largest value, and again with each
+   kernel's wrapper returning zeros at the rows the path newly gives it
+   (64 x 1500 in the encoder, 64 x 272 in the VLM prefill), which must
+   fall outside it (both distances and the prefill logits' printed).
+   Phase 6 holds the mask and ``mcd_matmul`` at those rows
+   (``encdec_kernel_cases``; in the ``kernels`` line's ``encdec``).
+
 12. Sharding (after 5g; ~9 s): the ECG engine on a data mesh that lists
    the card SHARDS = 4 times (the card is one device: the mesh proves the
    partition, its launches and what a shard adds to a tick, not
@@ -381,8 +417,10 @@ phases that run it.  Prints the ``kernels`` JSON line (one entry a kernel;
 each recurrent entry with its ``precisions``: the same pass at fp32, bf16,
 int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
 ``.bf16``, its case at bf16 from phases 6 and 8 with the launches of
-phases 7b, 9b, 7c, 14-16 and 17; and ``zoo``: its phase 6 cases at the shapes
-of phases 15 and 16 with those phases' launches), the
+phases 7b, 9b, 7c, 14-18; ``zoo``: its phase 6 cases at the shapes
+of phases 15 and 16 with those phases' launches; and ``encdec``: phase
+18's launches of ``masked_activation``, ``mcd_matmul`` and
+``decode_attention`` and its cases at the prefill rows), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -390,6 +428,7 @@ Usage:  python3 chip_smoke.py [--out results.json]
         python3 chip_smoke.py --moe-only   # the build, phases 6, 13, 14
         python3 chip_smoke.py --zoo-only   # the build, phases 6, 15, 16
         python3 chip_smoke.py --plan-only  # the build, phase 17
+        python3 chip_smoke.py --encdec-only  # the build, phases 6, 18
 """
 
 from __future__ import annotations
@@ -557,6 +596,30 @@ PROFILE_ATTEMPTS = 12  # the profiler drops some or all records of a
 LOOSE_RECORDS = 0.002   # share of records a "loose" match may lose
 
 
+def counts_agree(counts, seen, loose=()) -> bool:
+    """Whether a whole profile's kernel record ``counts`` count, against
+    the counts of the earlier whole profiles ``seen`` (oldest first): an
+    earlier one had the same counts, entry for entry, and none taken
+    since had more.  A record lost in one profile of an alternating pair
+    never counts (53, 52, 53 counts the second 53; 52, 53, 52 not the
+    second 52), and a first profile holding one-off launches more (the
+    qwen3 prefill's 3433 records, 3422 in every later profile) does not
+    stop the steady ones from counting.  The entries whose indices are
+    in ``loose`` agree within LOOSE_RECORDS of the earlier count, and
+    exceed it beyond that share."""
+    def same(i, n, m):
+        return abs(n - m) <= LOOSE_RECORDS * m if i in loose else n == m
+
+    def at_most(i, n, m):
+        return m <= n + (LOOSE_RECORDS * n if i in loose else 0)
+
+    return any(
+        all(same(i, n, m) for i, (n, m) in enumerate(zip(counts, earlier)))
+        and all(at_most(i, n, m) for later in seen[k + 1:]
+                for i, (n, m) in enumerate(zip(counts, later)))
+        for k, earlier in enumerate(seen))
+
+
 def profiled_us(prepare, matches, calls=None, loose=(), table=False):
     """Profile one call under torch.profiler (CUDA activity): ``prepare()``
     runs outside the profile and returns the call, which makes ``calls``
@@ -568,19 +631,20 @@ def profiled_us(prepare, matches, calls=None, loose=(), table=False):
     The profiler now and then loses kernel records -- a whole profile's, or
     some of them -- and a lost record reads as time that did not pass.  So
     a profile counts only when every entry of ``matches`` has records, a
-    number of them divisible by ``calls``, and the same numbers as the
-    profile taken just before it with a fresh profiler; the profile is
-    taken again until two agree, and after ``PROFILE_ATTEMPTS`` profiles
-    this raises.  A time that was not measured is never reported.
+    number of them divisible by ``calls``, and its counts agree with an
+    earlier whole profile's, none taken since having more
+    (:func:`counts_agree`; each profile with a fresh profiler).  The
+    profile is taken again until one counts, and after
+    ``PROFILE_ATTEMPTS`` profiles this raises.
 
     The entries whose indices are in ``loose`` (every kernel of an LM
     decode step: ~2,200 records a step, of which the profiler drops a few
     in most profiles) need only records, and a count within LOOSE_RECORDS
-    of the previous profile's: their time may lack that share of records.
+    of the earlier profile's: their time may lack that share of records.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
-    last = None
+    seen = []               # the counts of each whole profile so far
     for attempt in range(PROFILE_ATTEMPTS):
         call = prepare()
         torch.cuda.synchronize()
@@ -594,20 +658,18 @@ def profiled_us(prepare, matches, calls=None, loose=(), table=False):
         whole = all(n > 0 and (calls is None or i in loose
                                or n % calls == 0)
                     for i, n in enumerate(counts))
-        agree = last is not None and all(
-            abs(n - m) <= LOOSE_RECORDS * m if i in loose else n == m
-            for i, (n, m) in enumerate(zip(counts, last)))
-        if whole and agree:
+        if whole and counts_agree(counts, seen, loose):
             return ([us for us, _ in got], out) + ((kernels,) if table
                                                    else ())
-        if last is not None or not whole:
+        if seen or not whole:
             print(f"profile {attempt + 1} of {PROFILE_ATTEMPTS} for "
-                  f"{matches}: kernel records {counts} (previous {last}); "
-                  "taking it again", flush=True)
-        last = counts if whole else None
-    raise RuntimeError(f"torch.profiler gave no two whole, agreeing profiles "
-                       f"of the kernels matching {matches} in "
-                       f"{PROFILE_ATTEMPTS} attempts")
+                  f"{matches}: kernel records {counts} (earlier whole "
+                  f"{seen}); taking it again", flush=True)
+        if whole:
+            seen.append(counts)
+    raise RuntimeError(f"torch.profiler gave no whole profile of the "
+                       f"kernels matching {matches} agreeing with an "
+                       f"earlier one in {PROFILE_ATTEMPTS} attempts")
 
 
 def device_ms(fn, iters: int, match=None) -> float:
@@ -1052,11 +1114,11 @@ def segmented_device_us(calls, iters: int, per_call=None):
     profile opens with a spin kernel and LEAD_MARKERS more markers, whose
     records may be lost; the last ``len(calls)`` segments are the calls'.  A profile counts when
     every segment holds ``per_call`` records a call (when given) or
-    records in a multiple of ``iters``, the same numbers as the last whole
-    profile taken before it (``profiled_us``'s rule against lost records;
-    a profile that lost records in between does not reset it: late in a
-    process every other profile may lose its first records); else it is
-    taken again, and after PROFILE_ATTEMPTS this raises.  The marker
+    records in a multiple of ``iters``, and counts that agree with an
+    earlier whole profile's, none taken since having more
+    (:func:`counts_agree`, ``profiled_us``'s rule against lost records:
+    late in a process every other profile may lose its first records);
+    else it is taken again, and after PROFILE_ATTEMPTS this raises.  The marker
     launches are not counted in ``masked_activation.launches``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1072,7 +1134,7 @@ def segmented_device_us(calls, iters: int, per_call=None):
     marker()
     for call in calls:                       # warm: allocator, cuDNN plans
         call()
-    last = None
+    seen = []
     for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1103,17 +1165,17 @@ def segmented_device_us(calls, iters: int, per_call=None):
         whole = (len(segs) == len(calls)
                  and all(n > 0 and (n == per_call * iters if per_call
                                     else n % iters == 0) for n in counts))
-        if whole and counts == last:
+        if whole and counts_agree(counts, seen):
             wrapper.launches = launches
             return [(us / iters, n // iters) for us, n in segs]
-        if last is not None or not whole:
+        if seen or not whole:
             print(f"segmented profile {attempt + 1} of {PROFILE_ATTEMPTS}: "
                   f"{len(segs)} segments of {len(calls)}, records {counts} "
-                  f"(last whole {last}); taking it again", flush=True)
+                  f"(earlier whole {seen}); taking it again", flush=True)
         if whole:
-            last = counts
-    raise RuntimeError("torch.profiler gave no two whole, agreeing "
-                       "segmented profiles")
+            seen.append(counts)
+    raise RuntimeError("torch.profiler gave no whole segmented profile "
+                       "agreeing with an earlier one")
 
 
 def precision_check(name, d, keys, p, where) -> dict:
@@ -4033,7 +4095,8 @@ def matmul_cases(dev, g, key) -> list[dict]:
 def lm_kernel_phase(report) -> list[dict]:
     """The three LM kernels against their plain versions at qwen3-1.7b's
     serving shapes (the mask at mamba2-370m's too), then the four at the
-    zoo's bf16 shapes (:func:`zoo_kernel_cases`)."""
+    zoo's bf16 shapes (:func:`zoo_kernel_cases`) and phase 18's prefill
+    rows (:func:`encdec_kernel_cases`)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
@@ -4043,6 +4106,7 @@ def lm_kernel_phase(report) -> list[dict]:
     records += attention_cases()
     records += lm_bf16_cases(dev, g, key)
     records += zoo_kernel_cases(dev, g, key)
+    records += encdec_kernel_cases(dev, g, key)
     report["lm_kernel_cases"] = records
     return records
 
@@ -4496,7 +4560,7 @@ def lm_bf16_entries(entries, records, launches) -> None:
     entry's own numbers) and ``bf16``, its case at the same shape at bf16
     from phases 6 and 8 (the mask [64, 2048], the decode product, the
     decode attention at pos 159, the SSD scan at its serving shape) with
-    the launches of the bf16 serving phases (7b, 9b, 7c, 14, 15, 16)."""
+    the launches of the bf16 serving phases (7b, 9b, 7c, 14-18)."""
     picks = {
         "masked_activation": lambda r: (r["M"], r["F"]) == (LM_B * LM_S,
                                                             2048),
@@ -4534,6 +4598,30 @@ def lm_bf16_entries(entries, records, launches) -> None:
         if not e["precisions"]["bf16"]["launches"]:
             raise RuntimeError(f"{e['name']} was never launched at bf16 on "
                                "a serving path")
+
+
+def encdec_entries(entries, records, launches) -> None:
+    """Each kernel of phase 18's main paths gains ``encdec``: the
+    launches of the encoder–decoder and VLM serving (bf16), each of which
+    must have launched, and its phase 6 cases at the prefill rows of
+    those paths (``encdec_kernel_cases``; none for ``decode_attention``)."""
+    keys = ("M", "F", "K", "N", "path", "tile")
+    names = tuple(encdec_config(f).name for f in ("audio", "vlm"))
+    for e in entries:
+        if e["name"] not in ("masked_activation", "mcd_matmul",
+                             "decode_attention"):
+            continue
+        if not launches[e["name"]]:
+            raise RuntimeError(f"{e['name']} was never launched in phase 18")
+        e["encdec"] = {"dtype": "bf16", "launches": launches[e["name"]],
+                       "cases": [
+            {"model": r["model"], **{k: r[k] for k in keys if k in r},
+             "ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "max_abs_err": r["max_abs_err"]}
+            for r in records if r["kernel"] == e["name"]
+            and str(r.get("model")).startswith(names)]}
 
 
 def zoo_entries(entries, records, launches) -> None:
@@ -4875,15 +4963,17 @@ ZOO_CHILD_TIMEOUT = 600   # seconds; phases 15 and 16 take ~80 on the card
 
 
 def zoo_serving_phases(report, dev, dry=None):
-    """Phases 15 and 16 in a fresh process of this script
+    """Phases 15 and 16, then 18, in a fresh process of this script
     (``--zoo-child``), as phases 10 and 11 run theirs: late in this
     process torch.profiler drops the first records of most profiles (the
     llama3 decode profile then counts 159 of 160 mask launches each time
     it is taken again, until the cache has no positions left), and a
-    fresh process profiles as the first phases of this one do.  The
-    child resets and reads the launch counts around each main path as
-    this process does; its records, seconds and summed launches come
-    back here."""
+    fresh process profiles as the first phases of this one do; phase 18
+    rides along to run beside phase 17a too.  The child resets and reads
+    the launch counts around each main path as this process does; its
+    records and seconds come back here, its launches summed (15 and 16's
+    also as ``report["zoo_launches"]``, 18's as
+    ``report["encdec_launches"]``)."""
     import gc
     import torch
     gc.collect()
@@ -4893,22 +4983,28 @@ def zoo_serving_phases(report, dev, dry=None):
     got = _child("--zoo-child", timeout=ZOO_CHILD_TIMEOUT)
     report.update(got["report"])
     report["phase_s"].update(got["phase_s"])
-    return got["launches"]
+    report["zoo_launches"] = got["launches"]["zoo"]
+    report["encdec_launches"] = got["launches"]["encdec"]
+    return {k: v + report["encdec_launches"][k]
+            for k, v in report["zoo_launches"].items()}
 
 
 def zoo_child(out):
-    """``--zoo-child``'s body: phases 15 and 16; writes their records,
-    launch counts and seconds to ``out``."""
+    """``--zoo-child``'s body: phases 15 and 16, then 18; writes their
+    records, launch counts (15 and 16's as ``zoo``, 18's as ``encdec``)
+    and seconds to ``out``."""
     import torch
     dev = torch.device("cuda")
     report = {"card": card_line()}
-    launches = {name: 0 for name in ALL_KERNELS}
+    launches = {group: {name: 0 for name in ALL_KERNELS}
+                for group in ("zoo", "encdec")}
     phase_s = {}
-    for name, fn in (("15", llama3_serving_phase),
-                     ("16", jamba_serving_phase)):
+    for name, fn, group in (("15", llama3_serving_phase, "zoo"),
+                            ("16", jamba_serving_phase, "zoo"),
+                            ("18", encdec_serving_phase, "encdec")):
         t = time.perf_counter()
         for kernel, v in fn(report, dev).items():
-            launches[kernel] += v
+            launches[group][kernel] += v
         phase_s[name] = time.perf_counter() - t
     del report["card"]
     with open(out, "w") as fh:
@@ -4921,6 +5017,343 @@ def llama3_serving_phase(report, dev):
     return serve_lm(report, dev, "llama3-8b", LM_PROMPT, _qwen3_want,
                     *QWEN3_KERNELS, "serving_llama3", dtype="bf16",
                     graph_runs=LM_GRAPH_RUNS_ZOO)
+
+
+# -- phase 18: the encoder–decoder and VLM paths ---------------------------
+
+# qwen3-1.7b's published widths with the audio / vlm fields set here (a
+# fixture: neither package's registry has such a config), bf16, 8 prompts
+# x the config's 8 chains, 16-token prompts, 8 new tokens.
+ENCDEC_PROMPT, ENCDEC_NEW = 16, 8
+ENCDEC_LAYERS = 2       # of qwen3-1.7b's 28: the depth cut, each side
+ENCODER_SEQ = 1500      # Whisper's encoder output for 30 s of audio
+                        # (Radford et al. 2022, "Robust Speech Recognition
+                        # via Large-Scale Weak Supervision")
+VLM_PATCHES = 256       # PaliGemma's image tokens at 224 px (Beyer et al.
+                        # 2024)
+ENCDEC_GRAPH_RUNS = 1   # generate runs a side, graph and eager in turns
+ENCDEC_STEP_ITERS = 20  # back-to-back graph replays timed by CUDA events
+# The prefill's state (the cross K/V, every cache) on the ``cuda`` backend
+# against ``reference``: the backends differ only where mcd_matmul's fp32
+# gate/up sums, in another order than cuBLAS's, round to another bf16
+# activation, a 1-ulp flip here and there through 2 layers; each tensor
+# within this many bf16 ulps of its largest magnitude.
+ENCDEC_STATE_ULPS = 4
+
+
+def encdec_config(family):
+    """qwen3-1.7b's config with its depth cut to ENCDEC_LAYERS and the
+    ``audio`` (encoder stages, ``encoder_seq``) or ``vlm``
+    (``num_patches``) fields set."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Stage
+    base = get_config("qwen3-1.7b")
+    if family == "audio":
+        return base.replace(
+            name=f"{base.name}-encdec", family="audio",
+            stages=(Stage(("dec_attn.cross.mlp",), ENCDEC_LAYERS),),
+            encoder_stages=(Stage(("enc_attn.mlp",), ENCDEC_LAYERS),),
+            encoder_seq=ENCODER_SEQ)
+    return base.replace(name=f"{base.name}-vlm", family="vlm",
+                        stages=(Stage(("attn.mlp",), ENCDEC_LAYERS),),
+                        num_patches=VLM_PATCHES)
+
+
+def _encdec_want(cfg):
+    """Launches of an encoder–decoder or VLM ``generate``: the prefill
+    masks every block's attention site (the encoder's too) and a cross
+    block's cross site, and runs every MLP's gate/up product; each decode
+    step masks a decoder block's sites, runs its MLP and its decode
+    attention."""
+    enc = sum(st.num_layers for st in cfg.encoder_stages)
+    dec = cfg.num_layers
+    sites = dec * (2 if cfg.encoder_stages else 1)
+    return {"masked_activation": enc + sites * (1 + ENCDEC_NEW),
+            "mcd_matmul": enc + dec * (1 + ENCDEC_NEW),
+            "decode_attention": dec * ENCDEC_NEW}
+
+
+def _encdec_inputs(cfg, rng, dev, dtype):
+    """A request's frames [LM_B, encoder_seq, D] or patches [LM_B,
+    num_patches, D]: seeded normal draws, as the reference launcher's, in
+    the model's dtype on the card."""
+    import torch
+    name, n = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+               else ("patches", cfg.num_patches))
+    a = rng.normal(size=(LM_B, n, cfg.d_model)).astype("float32")
+    return {name: torch.as_tensor(a).to(dev, dtype)}
+
+
+def _second_request(eng, params, cfg, prompts, inputs, first) -> dict:
+    """Another request's frames (patches) on the engine whose graph holds
+    the first request's state: the prefill must refill the static cross
+    K/V and caches, so the replays equal an eager engine on the same
+    request bit for bit, and the logits are not the first request's."""
+    import torch
+    from repro_torch.serve.engine import BayesianEngine
+    eager = BayesianEngine(params, cfg, max_len=eng.max_len, seed=0,
+                           device=eng.device, graphs=False)
+    with no_plain_versions():
+        g = eng.generate(prompts, ENCDEC_NEW, keep_logits=True, **inputs)
+        e = eager.generate(prompts, ENCDEC_NEW, keep_logits=True, **inputs)
+    for what, a, b in (("tokens", g.tokens, e.tokens),
+                       ("logits", g.logits, e.logits),
+                       ("entropy", g.predictive_entropy,
+                        e.predictive_entropy),
+                       ("MI", g.mutual_information, e.mutual_information)):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{cfg.name} second request: graph {what} "
+                               "differ from eager")
+    if torch.equal(g.logits, first.logits):
+        raise RuntimeError(f"{cfg.name}: the second request gave the first "
+                           "request's logits")
+    return {"bit_equal_graph_vs_eager": True,
+            "greedy_tokens": g.tokens.cpu().tolist(),
+            "tokens_differing_from_first": int(
+                (g.tokens != first.tokens).sum())}
+
+
+def _cross_vs_decode_attention(cfg, kv) -> dict:
+    """ROADMAP B2: a decode step's cross-attention is a plain blockwise
+    pass over all encoder_seq keys, which computes what
+    ``decode_attention`` computes at pos = encoder_seq - 1.  Both on one
+    cross block's K/V from the serving state, q a seeded draw: their
+    times (CUDA events) and distance.  Outside any launch count."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    k, v = kv
+    g = torch.Generator(device=k.device).manual_seed(1)
+    q = torch.randn((k.shape[0], cfg.num_heads, cfg.head_dim), generator=g,
+                    device=k.device).to(k.dtype)
+
+    def plain():
+        return layers.blockwise_attention(q[:, None], k, v, causal=False)
+
+    def kernel():
+        return ops.flash_decode_attention(q, k, v, k.shape[1] - 1)
+
+    err = max_abs_diff(plain()[:, 0].float(), kernel().float(),
+                       "cross-attention vs decode_attention")
+    return {"rows": k.shape[0], "keys": k.shape[1], "dtype": str(k.dtype),
+            "plain_blockwise_ms": cuda_time_ms(plain, ENCDEC_STEP_ITERS),
+            "decode_attention_ms": cuda_time_ms(kernel, ENCDEC_STEP_ITERS),
+            "max_abs_diff": err}
+
+
+def encdec_prefill_rows(cfg) -> int:
+    """The rows phase 18's prefill newly gives the mask and ``mcd_matmul``:
+    the encoder's 64 x encoder_seq, the VLM prefill's 64 x (patches +
+    prompt)."""
+    return LM_B * LM_S * (cfg.encoder_seq if cfg.family == "audio"
+                          else ENCDEC_PROMPT + cfg.num_patches)
+
+
+def encdec_kernel_cases(dev, g, key) -> list[dict]:
+    """Phase 6's bf16 cases at the rows phase 18's prefill gives the
+    kernels (``encdec_prefill_rows``: 64 x 1500, 64 x 272):
+    ``masked_activation`` of [rows, d_model] bitwise equal to its plain
+    version; ``mcd_matmul``'s gate/up product (K d_model, N 2 d_ff, fp32
+    out) within MM_TOL of its plain version on the tile its plan picks.
+    Each record names its config's prefill as its ``model``."""
+    import torch
+    from repro_torch.kernels import mcd_matmul
+    records = []
+    for family in ("audio", "vlm"):
+        cfg = encdec_config(family)
+        rows, model = encdec_prefill_rows(cfg), f"{cfg.name} prefill"
+        records.append(bf16_mask_case(dev, g, key, rows, cfg.d_model, model))
+        K_, N_ = cfg.d_model, 2 * cfg.d_ff
+        w = (torch.randn((K_, N_), generator=g, device=dev)
+             * K_ ** -0.5).to(torch.bfloat16)
+        records.append(bf16_matmul_case(
+            dev, g, key, rows, w, "tensor_cores",
+            mcd_matmul.matmul_plan(rows, N_, K_, 2)["tile"], model))
+        del w
+    return records
+
+
+class zeroed_at_rows:
+    """Within the block the wrapper ``ops.<name>`` returns zeros for every
+    call on ``rows`` rows (its kernel still launched): a kernel gone wrong
+    at one shape of the path."""
+
+    def __init__(self, name, rows):
+        self.name, self.rows = name, rows
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.fn = fn = getattr(ops, self.name)
+
+        def zeroed(x, *args, **kw):
+            out = fn(x, *args, **kw)
+            return out.zero_() if x.shape[0] == self.rows else out
+        setattr(ops, self.name, zeroed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        setattr(ops, self.name, self.fn)
+        return False
+
+
+def _prefill_state_check(eng, cfg, prompts, inputs, rows) -> dict:
+    """The prefill's DecodeState -- an encoder–decoder's cross K/V (what
+    the encoder hands the decoder) and every cache -- on the ``cuda``
+    backend against the ``reference`` backend's for the same request:
+    each tensor within ENCDEC_STATE_ULPS bf16 ulps of its largest
+    magnitude; the prefill's logits printed beside BF16_LOGIT_TOL.  Then
+    the same with each kernel's wrapper returning zeros at the ``rows``
+    this path newly gives it (the encoder's, the VLM prefill's): its
+    state's distance, in tolerances, and its logits', printed beside the
+    kernels'; each must be past the tolerance (the check sees it).  These
+    launches compare the path with its plain version: no main path's."""
+    import torch
+    from repro_torch.models import backbone
+    ctx = eng._ctx(LM_B, LM_S)
+    tokens = eng._tile(prompts, LM_S)
+    tiled = {k: eng._tile(v, LM_S) for k, v in inputs.items()}
+
+    def run(backend):
+        lg, st = backbone.prefill(eng.params, cfg, tokens, ctx, eng.max_len,
+                                  **tiled, backend=backend)
+        return lg.float(), list(_leaves([st.caches, st.cross]))
+
+    want_lg, want = run("reference")
+    tols = [_ulps_of_largest(t, ENCDEC_STATE_ULPS) for t in want]
+
+    def distance(what, wrapper=None):
+        with no_plain_versions():
+            if wrapper is None:
+                lg, got = run("cuda")
+            else:
+                with zeroed_at_rows(wrapper, rows):
+                    lg, got = run("cuda")
+        return {"state_in_tolerances": max(
+                    max_abs_diff(a.float(), b.float(),
+                                 f"{cfg.name} prefill state {what}") / tol
+                    for a, b, tol in zip(got, want, tols)),
+                "prefill_logits": max_abs_diff(lg, want_lg,
+                                               f"{cfg.name} {what} logits")}
+
+    out = {"state_ulps": ENCDEC_STATE_ULPS, "state_tensors": len(want),
+           "logit_tol": BF16_LOGIT_TOL, "zeroed_at_rows": rows,
+           "cuda": distance("cuda")}
+    for kernel, wrapper in (("masked_activation", "mcd_mask_apply"),
+                            ("mcd_matmul", "mcd_dense")):
+        out[f"{kernel}_zeroed"] = distance(f"{kernel} zeroed", wrapper)
+    print(f"{cfg.name} prefill state vs reference " + json.dumps(out),
+          flush=True)
+    if out["cuda"]["state_in_tolerances"] > 1:
+        raise RuntimeError(f"{cfg.name}: the prefill state is "
+                           f"{out['cuda']} tolerances from the reference "
+                           "backend's")
+    for kernel in ("masked_activation", "mcd_matmul"):
+        if out[f"{kernel}_zeroed"]["state_in_tolerances"] <= 1:
+            raise RuntimeError(f"{cfg.name}: {kernel} zeroed at {rows} rows "
+                               "leaves the prefill state within tolerance")
+    return out
+
+
+def serve_encdec(report, dev, family, key):
+    """Phase 18a (``audio``) or 18b (``vlm``): see the module docstring.
+    Returns the main path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.models import backbone
+    from repro_torch.serve.engine import BayesianEngine
+
+    cfg = encdec_config(family)
+    if cfg.mcd.n_samples != LM_S:
+        raise RuntimeError(f"{cfg.name} serves {cfg.mcd.n_samples} chains")
+    torch.cuda.reset_peak_memory_stats()
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_B, ENCDEC_PROMPT),
+                           dtype=np.int32)
+    inputs = _encdec_inputs(cfg, rng, dev, torch.bfloat16)
+    other = _encdec_inputs(cfg, rng, dev, torch.bfloat16)
+    start = ENCDEC_PROMPT + cfg.num_patches * (family == "vlm")
+    max_len = start + ENCDEC_NEW
+    eng = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev)
+    want = _encdec_want(cfg)
+    res, counts, again = _served(eng, cfg, prompts, want, ENCDEC_NEW,
+                                 inputs)
+    peak = torch.cuda.max_memory_allocated()
+    ref = BayesianEngine(params, cfg, max_len=max_len, seed=0, device=dev,
+                         backend="reference").generate(
+        prompts, ENCDEC_NEW, teacher_tokens=res.tokens, keep_logits=True,
+        **inputs)
+    dev_ref = _deviation(again, ref, key)
+    if (dev_ref["logits"] > BF16_LOGIT_TOL
+            or max(dev_ref["entropy"], dev_ref["mi"]) > BF16_UNC_TOL):
+        raise RuntimeError(f"{cfg.name} vs reference: {dev_ref} (tol "
+                           f"{BF16_LOGIT_TOL}, {BF16_UNC_TOL})")
+    flips = int((ref.tokens != res.tokens).sum())
+    del ref
+    graph_vs_eager = lm_graph_turns(eng, params, cfg, prompts, res, again,
+                                    want, runs=ENCDEC_GRAPH_RUNS,
+                                    n_new=ENCDEC_NEW, inputs=inputs)
+    second = _second_request(eng, params, cfg, prompts, other, again)
+    del again
+    (entry,) = eng._graphs.values()
+
+    def step():             # one decode step at the last position served
+        entry.state.pos.fill_(max_len - 1)
+        entry.step.replay()
+
+    step_ms = cuda_time_ms(step, ENCDEC_STEP_ITERS)
+    steps_ms = np.asarray(res.decode_s) * 1e3
+    state_check = _prefill_state_check(eng, cfg, prompts, inputs,
+                                       encdec_prefill_rows(cfg))
+    depth = (f"depth 28 -> {cfg.num_layers} + "
+             f"{sum(st.num_layers for st in cfg.encoder_stages)}"
+             if family == "audio" else f"depth 28 -> {cfg.num_layers}")
+    out = {"card": report["card"], "arch": cfg.name, "family": family,
+           "reduced": depth, "params": n_params, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": "bfloat16",
+           "encoder_seq": cfg.encoder_seq, "num_patches": cfg.num_patches,
+           "requests": LM_B, "chains": LM_S, "rows": LM_B * LM_S,
+           "prompt_len": ENCDEC_PROMPT, "new_tokens": ENCDEC_NEW,
+           "max_len": max_len, "p": cfg.mcd.p,
+           "launches_by_kernel": counts,
+           "prefill_ms": res.prefill_s * 1e3,
+           "decode_ms_per_token_p50": float(np.percentile(steps_ms, 50)),
+           "decode_ms_per_token_p95": float(np.percentile(steps_ms, 95)),
+           "decode_step_graph_device_ms": step_ms,
+           "max_memory_allocated_gb": peak / 1e9,
+           "max_abs_diff_vs_reference": dev_ref,
+           "tolerance_vs_reference": {"logits": BF16_LOGIT_TOL,
+                                      "entropy_mi": BF16_UNC_TOL},
+           "greedy_tokens_differing_in_reference": flips,
+           "greedy_tokens": res.tokens.cpu().tolist(),
+           "entropy_mean": float(res.predictive_entropy.mean()),
+           "mi_mean": float(res.mutual_information.mean()),
+           "graph_vs_eager": graph_vs_eager, "second_request": second,
+           "prefill_state_vs_reference": state_check}
+    if family == "audio":
+        out["decode_cross_attention"] = _cross_vs_decode_attention(
+            cfg, entry.state.cross[0][0][0])
+    report[key] = out
+    print(f"{key} " + json.dumps(out), flush=True)
+    return counts
+
+
+def encdec_serving_phase(report, dev):
+    """Phase 18: the encoder–decoder (18a), then the VLM (18b); their
+    summed launch counts."""
+    import gc
+    import torch
+    counts = {}
+    for key, family in (("serving_encdec", "audio"), ("serving_vlm", "vlm")):
+        for kernel, v in serve_encdec(report, dev, family, key).items():
+            counts[kernel] = counts.get(kernel, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 # The kernels' plain versions, by module: none may run on a main path on
@@ -4981,30 +5414,32 @@ def _deviation(a, b, what) -> dict:
                                f"{what} mutual information")}
 
 
-def _served(eng, cfg, prompts, want):
-    """The engine's main-path ``generate`` (LM_NEW tokens, no plain
-    version of a kernel called), its launch counts held to ``want``, its
-    outputs finite and in range, then the run teacher-forced on its own
-    tokens (keeping its logits), which must repeat them.  Returns (the
-    run, its launch counts, the forced run)."""
+def _served(eng, cfg, prompts, want, n_new=LM_NEW, inputs=None):
+    """The engine's main-path ``generate`` (``n_new`` tokens, no plain
+    version of a kernel called; ``inputs`` its frames or patches), its
+    launch counts held to ``want``, its outputs finite and in range, then
+    the run teacher-forced on its own tokens (keeping its logits), which
+    must repeat them.  Returns (the run, its launch counts, the forced
+    run)."""
     import numpy as np
     import torch
+    inputs = inputs or {}
     reset_launches()                          # count the main path only
     with no_plain_versions():
-        res = eng.generate(prompts, LM_NEW)
+        res = eng.generate(prompts, n_new, **inputs)
     counts = read_launches()
     if {k: v for k, v in counts.items() if v} != want:
         raise RuntimeError(f"{cfg.name} serving launched {counts}, expected "
                            f"{want}")
     ent, mi = res.predictive_entropy, res.mutual_information
-    if res.tokens.shape != (prompts.shape[0], LM_NEW) or not (
+    if res.tokens.shape != (prompts.shape[0], n_new) or not (
             torch.isfinite(ent).all() and torch.isfinite(mi).all()):
         raise RuntimeError(f"{cfg.name} serving gave malformed outputs")
     if (ent.min() < -1e-5 or ent.max() > np.log(cfg.vocab_size) + 1e-4
             or mi.min() < -1e-4 or (mi > ent + 1e-4).any()):
         raise RuntimeError("entropy / mutual information out of range")
-    again = eng.generate(prompts, LM_NEW, teacher_tokens=res.tokens,
-                         keep_logits=True)
+    again = eng.generate(prompts, n_new, teacher_tokens=res.tokens,
+                         keep_logits=True, **inputs)
     if not torch.equal(again.tokens, res.tokens):
         raise RuntimeError(f"{cfg.name}: the kernel run did not repeat its "
                            "own tokens")
@@ -5224,10 +5659,11 @@ def int8_kv_phase(report, dev):
 
 
 def lm_graph_turns(eng, params, cfg, prompts, res, forced, want,
-                   runs=LM_GRAPH_RUNS) -> dict:
+                   runs=LM_GRAPH_RUNS, n_new=LM_NEW, inputs=None) -> dict:
     """The decode step as the replay of one captured graph (``eng``, which
     captured it on its first decode step) against the same engine decoding
-    eagerly, ``runs`` ``generate`` runs a side in turns: every run's
+    eagerly, ``runs`` ``generate`` runs a side in turns (``n_new``
+    tokens, ``inputs`` the frames or patches): every run's
     tokens equal to ``res.tokens``, its logits, entropy and mutual
     information bit-equal to ``forced`` (the graph run teacher-forced on
     them, keeping its logits), its launch counts ``want``.  Times: decode ms
@@ -5245,7 +5681,8 @@ def lm_graph_turns(eng, params, cfg, prompts, res, forced, want,
             e = eng if side == "graph" else eager
             reset_launches()
             with no_plain_versions():
-                run = e.generate(prompts, LM_NEW, keep_logits=True)
+                run = e.generate(prompts, n_new, keep_logits=True,
+                                 **(inputs or {}))
             counts = {k: v for k, v in read_launches().items() if v}
             if counts != want:
                 raise RuntimeError(f"{cfg.name} {side} run launched "
@@ -6348,12 +6785,12 @@ def _model_ratios(records) -> list[dict]:
     return out
 
 
-def _ulps_of_largest(t) -> float:
-    """PLAN_ATT_ULPS bf16 ulps (8 significant bits) of t's largest
+def _ulps_of_largest(t, ulps=PLAN_ATT_ULPS) -> float:
+    """``ulps`` bf16 ulps (8 significant bits) of t's largest
     magnitude."""
     import math
     top = t.float().abs().max().item()
-    return PLAN_ATT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
 def _attention_sublayer(dev, pr, cfg, bayes, hot) -> dict:
@@ -6582,6 +7019,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # phases 15 and 16: OUT.json
     ap.add_argument("--plan-only", action="store_true",
                     help=argparse.SUPPRESS)   # the build, 6 and 17
+    ap.add_argument("--encdec-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, 6 and 18
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6637,6 +7076,9 @@ def main(argv=None) -> int:
     if args.plan_only:
         return phases_only(report, dev, (("17", planning_phase),), args.out,
                            kernels=False)
+    if args.encdec_only:
+        return phases_only(report, dev, (("18", encdec_serving_phase),),
+                           args.out)
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -6655,7 +7097,6 @@ def main(argv=None) -> int:
     entries.append(ssd_kernel_entry(phase("8", ssd_kernel_phase, report)))
     launches = {name: 0 for name in ALL_KERNELS}
     launches_bf16 = {name: 0 for name in ALL_KERNELS}
-    launches_zoo = {name: 0 for name in ALL_KERNELS}
     dry = DryRun()          # phase 17a: started beside 15 and 16's child
     for name, fn, *rest in (
             ("3", serving_phase), ("4 lstm", autoencoder_phase, "lstm"),
@@ -6667,19 +7108,19 @@ def main(argv=None) -> int:
             ("9", mamba_serving_phase), ("7b", lm_bf16_serving_phase),
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase),
             ("13", moe_serving_phase), ("14", deepseek_serving_phase),
-            ("15+16", zoo_serving_phases, dry),
+            ("15+16+18", zoo_serving_phases, dry),
             ("17", planning_phase, dry)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
-            if name in ("7b", "9b", "7c", "14", "15+16", "17"):
+            if name in ("7b", "9b", "7c", "14", "15+16+18", "17"):
                 launches_bf16[kernel] += v
-            if name == "15+16":
-                launches_zoo[kernel] += v
     for kernel, v in phase("11", training_phase, report, dev).items():
         launches[kernel] += v
     lm_bf16_entries(entries, report["lm_kernel_cases"]
                     + report["ssd_kernel_cases"], launches_bf16)
-    zoo_entries(entries, report["lm_kernel_cases"], launches_zoo)
+    zoo_entries(entries, report["lm_kernel_cases"], report["zoo_launches"])
+    encdec_entries(entries, report["lm_kernel_cases"],
+                   report["encdec_launches"])
     # Last, in a process of its own (phase10_child).
     precision_entries(entries, phase("10", phase10_child, report))
     print("phase seconds " + json.dumps(phase_s), flush=True)

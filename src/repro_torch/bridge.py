@@ -38,7 +38,9 @@ from repro_torch.models.mamba2 import MambaParams
 from repro_torch.models.mla import MLAParams
 from repro_torch.models.moe import MoEParams
 
-_MIXER_PARAMS = {"attn": AttnParams, "mla": MLAParams, "mamba": MambaParams}
+_MIXER_PARAMS = {"attn": AttnParams, "enc_attn": AttnParams,
+                 "dec_attn": AttnParams, "mla": MLAParams,
+                 "mamba": MambaParams}
 
 _CELL_PARAMS = {3: GRUParams, 4: LSTMParams}
 
@@ -107,29 +109,46 @@ def _ffn(kind: str, leaves, device, r):
                                   keep_bf16=True))
 
 
+def _stages(stages, tree_stages, device):
+    """Stacked stages as the port's ``[[tuple of block dicts] per repeat]
+    per stage``."""
+    out = []
+    for st, per_pos in zip(stages, tree_stages):
+        out.append([tuple(
+            {"mixer": _leaves(_MIXER_PARAMS[kind.split(".")[0]],
+                              block["mixer"], device, r),
+             **({"cross": _leaves(AttnParams, block["cross"], device, r)}
+                if "cross" in block else {}),
+             **({"ffn": _ffn(kind, block["ffn"], device, r)}
+                if "ffn" in block else {})}
+            for kind, block in zip(st.pattern, per_pos))
+            for r in range(st.repeat)])
+    return out
+
+
 def from_numpy_backbone(tree, cfg, device=None) -> dict:
     """The reference's LM parameters as the port's ``backbone`` params.
 
     ``tree``: ``{"embed": (table, head, final_norm), "stages": [per stage, a
     tuple over pattern positions of {"mixer": AttnParams / MLAParams /
-    MambaParams fields, "ffn": MLPParams / MoEParams fields} (a bare
-    ``mamba`` block has no "ffn"; a MoE's ``shared`` is MLPParams fields or
-    None), each leaf stacked [repeat, ...]]}`` with numpy leaves.
-    Returns ``{"embed": EmbedParams, "stages": [[tuple over pattern
-    positions of block dicts] per repeat] per stage}`` on ``device``
+    MambaParams fields, "cross": AttnParams fields, "ffn": MLPParams /
+    MoEParams fields} (a bare ``mamba`` block has no "ffn", only a
+    ``.cross`` block has "cross"; a MoE's ``shared`` is MLPParams fields
+    or None), each leaf stacked [repeat, ...]]}`` with numpy leaves, and
+    for an encoder–decoder ``"encoder_stages"`` (the same nesting) and
+    ``"encoder_norm"`` [D].  Returns ``{"embed": EmbedParams, "stages":
+    [[tuple over pattern positions of block dicts] per repeat] per
+    stage}`` (and ``"encoder_stages"``, ``"encoder_norm"``) on ``device``
     (default CUDA): a bfloat16 leaf stays bfloat16 (the reference builds
     its LMs in bf16), every other leaf is fp32 (the router among them).
     """
     backbone.check_cfg(cfg)
     dev = resolve_device(device)
-    stages = []
-    for st, per_pos in zip(cfg.stages, tree["stages"]):
-        stages.append([tuple(
-            {"mixer": _leaves(_MIXER_PARAMS[kind.split(".")[0]],
-                              block["mixer"], dev, r),
-             **({"ffn": _ffn(kind, block["ffn"], dev, r)}
-                if "ffn" in block else {})}
-            for kind, block in zip(st.pattern, per_pos))
-            for r in range(st.repeat)])
-    return {"embed": _leaves(EmbedParams, tree["embed"], dev),
-            "stages": stages}
+    out = {"embed": _leaves(EmbedParams, tree["embed"], dev),
+           "stages": _stages(cfg.stages, tree["stages"], dev)}
+    if cfg.encoder_stages:
+        out["encoder_stages"] = _stages(cfg.encoder_stages,
+                                        tree["encoder_stages"], dev)
+        out["encoder_norm"] = _tensor(tree["encoder_norm"], dev,
+                                      keep_bf16=True)
+    return out

@@ -19,7 +19,13 @@ Usage (the reduced rehearsal on the CPU, then full width on a GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --device cpu
 
-Every arch of the registry runs; jamba-1.5-large-398b's published config
+Every arch of the registry runs, and so does an encoder–decoder
+(``family="audio"``: frames of ``[batch, encoder_seq, d_model]``) or a
+VLM (``family="vlm"``: patches of ``[batch, num_patches, d_model]``,
+counted in ``max_len``), their embeddings drawn from ``--seed`` after
+the prompts as the reference launcher draws them (in the parameters'
+dtype); the registry holds no such config yet.
+jamba-1.5-large-398b's published config
 (72 layers, ~796 GB at bf16) fits no card, so ``--no-reduced`` is for
 the others (``chip_smoke.py`` phase 16 serves its first three layers).
 
@@ -69,18 +75,27 @@ def main(argv=None):
     mcd_cfg = cfg.mcd.replace(n_samples=args.samples,
                               **({"p": args.p} if args.p is not None else {}))
     cfg = cfg.replace(mcd=mcd_cfg)
-    backbone.check_cfg(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     params = backbone.init_params(cfg, gen, device=dev, dtype=dtype)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    kw = {}
+    if cfg.family == "audio":
+        kw["frames"] = torch.as_tensor(rng.normal(
+            size=(args.batch, cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32), dtype=dtype)
+    if cfg.family == "vlm":
+        kw["patches"] = torch.as_tensor(rng.normal(
+            size=(args.batch, cfg.num_patches, cfg.d_model)).astype(
+                np.float32), dtype=dtype)
 
     eng = BayesianEngine(params, cfg,
-                         max_len=args.prompt_len + args.new_tokens,
+                         max_len=args.prompt_len + args.new_tokens
+                         + (cfg.num_patches if cfg.family == "vlm" else 0),
                          seed=args.seed, device=dev)
-    res = eng.generate(prompts, args.new_tokens)
+    res = eng.generate(prompts, args.new_tokens, **kw)
     placement = cfg.mcd.placement and mcd.placement_str(cfg.mcd.placement)
     print(f"arch={cfg.name} S={args.samples} p={cfg.mcd.p} B={placement} "
           f"dtype={args.dtype}")

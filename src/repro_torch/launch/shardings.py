@@ -35,8 +35,6 @@ from repro_torch.models import backbone, layers, mamba2, mla, moe
 from repro_torch.models.config import ArchConfig, Stage
 from repro_torch.train.optimizer import AdamWState
 
-_NOT_PORTED = "cross-attention and encoders are queued (ROADMAP.md, A9)"
-
 
 class P:
     """A partition spec: one entry a dim — a mesh axis name, a tuple of
@@ -176,15 +174,15 @@ def spec_mamba(cfg: ArchConfig, po: Policy) -> mamba2.MambaParams:
 def spec_block(kind: str, cfg: ArchConfig, po: Policy) -> dict:
     """One block's specs, ``backbone.init_block``'s structure."""
     mixer, has_cross, ffn = backbone._parse(kind)
-    if has_cross or mixer in ("enc_attn", "dec_attn"):
-        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED}")
     out = {}
-    if mixer == "attn":
+    if mixer in ("attn", "enc_attn", "dec_attn"):
         out["mixer"] = spec_attn(cfg, po)
     elif mixer == "mla":
         out["mixer"] = spec_mla(cfg, po)
     elif mixer == "mamba":
         out["mixer"] = spec_mamba(cfg, po)
+    if has_cross:
+        out["cross"] = spec_attn(cfg, po)
     if ffn == "mlp":
         out["ffn"] = spec_mlp(cfg, po, cfg.d_ff)
     elif ffn == "moe":
@@ -199,16 +197,19 @@ def spec_stage(stage: Stage, cfg: ArchConfig, po: Policy) -> list:
 
 
 def param_specs(cfg: ArchConfig, po: Policy) -> dict:
-    if cfg.encoder_stages:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED}")
     V, D = cfg.vocab_size, cfg.d_model
-    return {
+    specs = {
         "embed": layers.EmbedParams(
             table=P(po.tp_if(V), po.fsdp_if(D)),
             head=None if cfg.tie_embeddings else P(po.fsdp_if(D), po.tp_if(V)),
             final_norm=P()),
         "stages": [spec_stage(s, cfg, po) for s in cfg.stages],
     }
+    if cfg.encoder_stages:
+        specs["encoder_stages"] = [spec_stage(s, cfg, po)
+                                   for s in cfg.encoder_stages]
+        specs["encoder_norm"] = P()
+    return specs
 
 
 class Stacked:
@@ -285,7 +286,7 @@ def block_cache_spec(cfg: ArchConfig, po: Policy, kind: str, b,
     """One block's decode-cache specs (``backbone.init_block_cache``'s
     structure); ``b`` the batch dim's spec."""
     mixer = backbone._parse(kind)[0]
-    if mixer == "attn":
+    if mixer in ("attn", "dec_attn"):
         # [B, Smax, KV, hd]: prefer head sharding; else shard the
         # sequence (flash-decoding style — partial softmax + all-reduce).
         if cfg.num_kv_heads % max(po.tp_size(), 1) == 0:
@@ -305,21 +306,29 @@ def block_cache_spec(cfg: ArchConfig, po: Policy, kind: str, b,
         return mamba2.MambaState(
             ssm=P(b, po.tp_if(n_heads), None, None),
             conv=P(b, None, po.tp_if(conv_dim)))
-    raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED}")
+    return None
+
+
+def block_cross_spec(cfg: ArchConfig, po: Policy, kind: str, b):
+    """A ``.cross`` block's encoder (k, v) specs, [B, encoder_seq, KV,
+    hd]: heads over the tp axis where they divide; None for a block
+    without cross-attention."""
+    if not backbone._parse(kind)[1]:
+        return None
+    kv = P(b, None, po.tp_if(cfg.num_kv_heads), None)
+    return (kv, kv)
 
 
 def cache_specs(cfg: ArchConfig, po: Policy, batch: int,
                 kv_quant: bool = False) -> backbone.DecodeState:
     """Specs mirroring ``backbone.init_decode_state``'s structure (one
-    block's caches a repeat; no cross-attention caches: not ported)."""
+    block's caches a repeat, and the cross blocks' encoder K/V)."""
     b = batch_spec(batch, po)
-    for st in cfg.stages:
-        for kind in st.pattern:
-            if backbone._parse(kind)[1]:
-                raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED}")
     return backbone.DecodeState(pos=P(), caches=[
         [[block_cache_spec(cfg, po, kind, b, kv_quant) for kind in st.pattern]
-         for _ in range(st.repeat)] for st in cfg.stages])
+         for _ in range(st.repeat)] for st in cfg.stages],
+        cross=backbone.cross_tree(
+            cfg, lambda kind: block_cross_spec(cfg, po, kind, b)))
 
 
 def shard_factor(spec: P, axes: dict) -> int:

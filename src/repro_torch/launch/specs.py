@@ -36,7 +36,6 @@ from repro_torch.train import optimizer, trainer
 
 DTYPE = torch.bfloat16       # the reference builds its jobs in bf16
 BACKEND = "reference"
-_NOT_PORTED = "cross-attention and encoders are queued (ROADMAP.md, A9)"
 
 
 @dataclasses.dataclass
@@ -114,24 +113,32 @@ def make_policy(mesh, cfg: ArchConfig) -> shardings.Policy:
     return shardings.Policy(axes=axes, dp=dp, tp="model", fsdp=big, zero=True)
 
 
-def _check_inputs(cfg: ArchConfig) -> None:
-    if cfg.family in ("audio", "vlm") or cfg.encoder_stages:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED}")
-
-
 def model_input_specs(cfg: ArchConfig, batch: int, seq: int, *,
                       with_targets: bool, po: shardings.Policy, build=None):
-    """(args dict of token tensors, specs dict of :class:`P`): ``build`` a
-    :class:`_Build` (default fake tensors on the CPU).  Frame and patch
-    inputs are not ported."""
-    _check_inputs(cfg)
+    """(args dict of tensors, specs dict of :class:`P`): ``build`` a
+    :class:`_Build` (default fake tensors on the CPU).  An audio config
+    also takes ``frames`` [batch, encoder_seq, D]; a VLM ``patches``
+    [batch, num_patches, D], its tokens (and targets) then ``seq -
+    num_patches`` long, as the reference's."""
     build = build or _Build()
     b = shardings.batch_spec(batch, po)
+    toks = seq
+    extras, espec = {}, {}
     with build.mode:
-        args = {"tokens": build.tokens((batch, seq), cfg.vocab_size)}
+        if cfg.family == "audio":
+            extras["frames"] = build.normal((batch, cfg.encoder_seq,
+                                             cfg.d_model))
+            espec["frames"] = P(b, None, None)
+        if cfg.family == "vlm":
+            toks = seq - cfg.num_patches
+            extras["patches"] = build.normal((batch, cfg.num_patches,
+                                              cfg.d_model))
+            espec["patches"] = P(b, None, None)
+        args = {"tokens": build.tokens((batch, toks), cfg.vocab_size),
+                **extras}
         if with_targets:
-            args["targets"] = build.tokens((batch, seq), cfg.vocab_size)
-    spec = {"tokens": P(b, None)}
+            args["targets"] = build.tokens((batch, toks), cfg.vocab_size)
+    spec = {"tokens": P(b, None), **espec}
     if with_targets:
         spec["targets"] = P(b, None)
     return args, spec
@@ -165,7 +172,9 @@ def train_job(cfg: ArchConfig, shape_name: str, mesh, microbatches: int = 1,
         ctx = layers.Ctx(rows=torch.arange(b["tokens"].shape[0],
                                            device=b["tokens"].device),
                          seed=seed, cfg=cfg.mcd)
-        return backbone.loss_fn(params, cfg, b["tokens"], b["targets"], ctx)
+        return backbone.loss_fn(params, cfg, b["tokens"], b["targets"], ctx,
+                                frames=b.get("frames"),
+                                patches=b.get("patches"))
 
     raw_step = trainer.make_train_step(loss, tcfg)
 
@@ -201,7 +210,8 @@ def prefill_job(cfg: ArchConfig, shape_name: str, mesh, *,
 
     def prefill_step(params, b_in, ctx):
         return backbone.prefill(params, cfg, b_in["tokens"], ctx, seq,
-                                backend=BACKEND)
+                                frames=b_in.get("frames"),
+                                patches=b_in.get("patches"), backend=BACKEND)
 
     return LoweringJob(name=f"{cfg.name}:{shape_name}", fn=prefill_step,
                        args=(params, batch_args, ctx),
@@ -255,8 +265,8 @@ def _attn_blocks_for(seq: int):
     return dict(q_block=qb, kv_block=kb)
 
 
-def _stage_offsets(stages):
-    off = 0
+def _stage_offsets(stages, first: int = 0):
+    off = first
     for st in stages:
         yield off
         off += st.num_layers
@@ -273,11 +283,16 @@ def _block_train_fn(kind, cfg, bayes):
             pos = torch.arange(x_.shape[1], device=x_.device)
             out, aux, _ = backbone._block_forward(
                 tree_unflatten(p, leaves_), kind, cfg, x_, pos, ctx, 0,
-                bayes, backend=BACKEND)
+                bayes, backend=BACKEND, enc_kv=ekv)
             return torch.sum(out.float()) + aux
 
         loss = _ckpt.checkpoint(f, leaves, x_in, use_reentrant=False)
-        return torch.autograd.grad(loss, [*leaves, x_in])
+        wrt = [*leaves, x_in]
+        # a cross block's wk / wv are unused here: the probe is given
+        # its encoder K/V (zero gradients, as the reference's jax.grad)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        return tuple(torch.zeros_like(t) if g is None else g
+                     for g, t in zip(grads, wrt))
     return fn
 
 
@@ -285,7 +300,8 @@ def _block_fwd_fn(kind, cfg, bayes):
     def fn(p, x, ekv, ctx):
         pos = torch.arange(x.shape[1], device=x.device)
         out, _, _ = backbone._block_forward(p, kind, cfg, x, pos, ctx, 0,
-                                            bayes, backend=BACKEND)
+                                            bayes, backend=BACKEND,
+                                            enc_kv=ekv)
         return out
     return fn
 
@@ -293,21 +309,33 @@ def _block_fwd_fn(kind, cfg, bayes):
 def _block_decode_fn(kind, cfg, bayes, backend=BACKEND):
     def fn(p, x, cache, cross, pos, ctx):
         return backbone._block_decode(p, kind, cfg, x, cache, pos, ctx, 0,
-                                      bayes, backend=backend)
+                                      bayes, backend=backend, cross_kv=cross)
     return fn
+
+
+def _cross_inputs(cfg: ArchConfig, kind: str, build: _Build, batch: int,
+                  b, po: shardings.Policy):
+    """A ``.cross`` block's encoder (k, v) [batch, encoder_seq, KV, hd] and
+    their specs; (None, None) for a block without cross-attention."""
+    spec = shardings.block_cross_spec(cfg, po, kind, b)
+    if spec is None:
+        return None, None
+    shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    return (build.normal(shape), build.normal(shape)), spec
 
 
 def probe_jobs(cfg: ArchConfig, shape_name: str, mesh,
                kv_quant: bool = False, *, batch: int | None = None,
                device=None, fake: bool = True) -> list[Probe]:
     """The reference's probes: ``blk{si}.{j}:{kind}`` (train: grad of the
-    checkpointed block; prefill: its forward) or ``dec{si}.{j}:{kind}``
-    (one token through the block's cache at position seq - 1), each
-    ``× repeat``; ``head:embed+xent`` (train) or ``head:embed+logits``;
+    checkpointed block; prefill: its forward), then an encoder's
+    ``enc{si}.{j}:{kind}`` at ``encoder_seq`` positions, or
+    ``dec{si}.{j}:{kind}`` (one token through the block's cache at
+    position seq - 1), each ``× repeat``, a ``.cross`` block given
+    encoder K/V; ``head:embed+xent`` (train) or ``head:embed+logits``;
     ``opt:adamw`` (train).  Each block takes the Bayesian placement it has
     in the whole step.  ``batch`` cuts the cell's batch."""
     cell = SHAPES[shape_name]
-    _check_inputs(cfg)
     po = make_policy(mesh, cfg)
     batch, seq = batch or cell.global_batch, cell.seq_len
     kind_step = cell.kind
@@ -318,36 +346,45 @@ def probe_jobs(cfg: ArchConfig, shape_name: str, mesh,
     x_spec = P(b, None, None)
     with build.mode:
         ctx = build.ctx(cfg, batch)
-        for si, (st, off) in enumerate(zip(cfg.stages,
-                                           _stage_offsets(cfg.stages))):
-            bayes = backbone._stage_bayes(cfg, off, st)
-            for j, kind in enumerate(st.pattern):
-                bl_specs = shardings.spec_block(kind, cfg, po)
-                params = build.block(cfg, kind)
-                x = build.normal((batch, x_seq, cfg.d_model))
-                if kind_step == "decode":
-                    cache = backbone.init_block_cache(
-                        cfg, kind, batch, seq, DTYPE, kv_quant, build.dev)
-                    cache_sp = shardings.block_cache_spec(
-                        cfg, po, kind, b, kv_quant)
-                    pos = torch.full((), seq - 1, dtype=torch.int32,
-                                     device=build.dev)
+
+        def add_block_probes(stages, tag, block_seq, first):
+            for si, (st, off) in enumerate(zip(
+                    stages, _stage_offsets(stages, first))):
+                bayes = backbone._stage_bayes(cfg, off, st)
+                for j, kind in enumerate(st.pattern):
+                    bl_specs = shardings.spec_block(kind, cfg, po)
+                    params = build.block(cfg, kind)
+                    x = build.normal((batch, block_seq, cfg.d_model))
+                    ekv, ekv_sp = _cross_inputs(cfg, kind, build, batch, b,
+                                                po)
+                    if kind_step == "decode":
+                        cache = backbone.init_block_cache(
+                            cfg, kind, batch, seq, DTYPE, kv_quant,
+                            build.dev)
+                        cache_sp = shardings.block_cache_spec(
+                            cfg, po, kind, b, kv_quant)
+                        pos = torch.full((), seq - 1, dtype=torch.int32,
+                                         device=build.dev)
+                        fn = _block_decode_fn(kind, cfg, bayes[j])
+                        args = (params, x, cache, ekv, pos, ctx)
+                        in_specs = (bl_specs, x_spec, cache_sp, ekv_sp, P(),
+                                    P(b))
+                    else:
+                        make = (_block_train_fn if kind_step == "train"
+                                else _block_fwd_fn)
+                        fn = make(kind, cfg, bayes[j])
+                        args = (params, x, ekv, ctx)
+                        in_specs = (bl_specs, x_spec, ekv_sp, P(b))
                     probes.append(Probe(
-                        name=f"dec{si}.{j}:{kind}",
-                        fn=_block_decode_fn(kind, cfg, bayes[j]),
-                        args=(params, x, cache, None, pos, ctx),
-                        in_specs=(bl_specs, x_spec, cache_sp, None, P(),
-                                  P(b)),
-                        multiplier=st.repeat))
-                else:
-                    make = (_block_train_fn if kind_step == "train"
-                            else _block_fwd_fn)
-                    probes.append(Probe(
-                        name=f"blk{si}.{j}:{kind}",
-                        fn=make(kind, cfg, bayes[j]),
-                        args=(params, x, None, ctx),
-                        in_specs=(bl_specs, x_spec, None, P(b)),
-                        multiplier=st.repeat))
+                        name=f"{tag}{si}.{j}:{kind}", fn=fn, args=args,
+                        in_specs=in_specs, multiplier=st.repeat))
+
+        # --- blocks ---
+        add_block_probes(cfg.stages, "dec" if kind_step == "decode"
+                         else "blk", x_seq, 0)
+        if cfg.encoder_stages and kind_step != "decode":
+            add_block_probes(cfg.encoder_stages, "enc", cfg.encoder_seq,
+                             backbone.ENCODER_LAYER_OFFSET)
 
         # --- embedding + head ---
         embed = build.embed(cfg)

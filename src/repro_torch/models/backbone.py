@@ -1,6 +1,8 @@
-"""The LM backbone over its stages — port of ``repro.models.backbone`` for
-the ``attn``, ``mla`` and ``mamba`` mixers and the ``mlp`` and ``moe``
-FFNs.
+"""The LM backbone over its stages — port of ``repro.models.backbone``: the
+``attn``, ``enc_attn`` / ``dec_attn``, ``mla`` and ``mamba`` mixers, the
+cross-attention of a ``.cross`` block, the ``mlp`` and ``moe`` FFNs, the
+encoder stages of an encoder–decoder (``family="audio"``) and the patch
+inputs of a VLM (``family="vlm"``).
 
 A model is an embedding and a sequence of stages; each stage repeats a
 period of blocks (``config.Stage``).  The reference scans stacked
@@ -12,28 +14,37 @@ pattern makes no layer Bayesian, as in the reference).
 
 Parameters are unstacked: ``params["stages"][i][r][j]`` is the block dict
 of stage i, repeat r, pattern position j: ``{"mixer": AttnParams |
-mla.MLAParams | MambaParams, "ffn": MLPParams | moe.MoEParams}``, with no
-``"ffn"`` for a bare ``mamba`` block (mamba2's).  Decode caches nest the
-same way: a (k, v) pair for attention, an ``mla.MLACache`` of latents for
-MLA, a ``mamba2.MambaState`` for a mamba block (jamba's stage holds both
-kinds).  A checkpoint holds the reference's stacked layout instead
-(:func:`stack_repeats`).  A MoE FFN returns its load-balance loss, which
-``forward`` sums as the reference's scan does and ``loss_fn`` adds;
-decode discards it.  Entry points:
+mla.MLAParams | MambaParams, "cross": AttnParams, "ffn": MLPParams |
+moe.MoEParams}``, with no ``"ffn"`` for a bare ``mamba`` block (mamba2's)
+and ``"cross"`` only in a ``.cross`` block.  An encoder–decoder also has
+``params["encoder_stages"]`` (the same nesting) and
+``params["encoder_norm"]``.  Decode caches nest the same way: a (k, v)
+pair for attention, an ``mla.MLACache`` of latents for MLA, a
+``mamba2.MambaState`` for a mamba block (jamba's stage holds both kinds),
+and ``DecodeState.cross`` a cross block's encoder (k, v).  A checkpoint
+holds the reference's stacked layout instead (:func:`stack_repeats`).  A
+MoE FFN returns its load-balance loss, which ``forward`` sums as the
+reference's scan does and ``loss_fn`` adds; decode discards it.  Entry
+points:
 
   forward      full sequence (``collect_caches``, ``return_hidden``,
-               ``remat``: each repeat's period of blocks checkpointed)
+               ``remat``: each repeat's period of blocks checkpointed);
+               ``frames`` [B, encoder_seq, D] feed the encoder, whose
+               normed output gives each cross block its K/V; ``patches``
+               [B, num_patches, D] are prepended to the token embeddings
   loss_fn      next-token cross-entropy (:func:`_chunked_xent`) + aux,
                the training loss; it runs the ``reference`` backend, as
                the reference's LM reaches no kernel under grad
   prefill      forward + the decode state (KV caches padded to
-               ``max_len``; a Mamba state has no sequence axis)
+               ``max_len``; a Mamba state has no sequence axis; the
+               position counts the patches)
   decode_step  one token through the caches, updated in place; the
                position is a device int32 scalar, never read on the host,
                so a decode step can be captured as one CUDA graph
 
-Cross-attention, encoders and patch or frame inputs are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+The encoder's blocks take layer ids from :data:`ENCODER_LAYER_OFFSET` on
+(the reference's distinct mask-stream namespace) and RoPE positions
+``0..encoder_seq-1``; its self-attention is bidirectional.
 """
 
 from __future__ import annotations
@@ -48,8 +59,9 @@ from repro_torch.ckpt.checkpoint import tree_leaves, tree_map
 from repro_torch.models import layers, mamba2, mla, moe
 from repro_torch.models.config import ArchConfig, Stage
 
-_MIXERS = ("attn", "mla", "mamba")
-_NOT_PORTED = "cross-attention and encoders are queued (ROADMAP.md, A9)"
+_MIXERS = ("attn", "enc_attn", "dec_attn", "mla", "mamba")
+#: The encoder's first layer id: its masks draw from their own streams.
+ENCODER_LAYER_OFFSET = 10_000
 
 
 def _parse(kind: str) -> tuple[str, bool, str | None]:
@@ -62,27 +74,31 @@ def _parse(kind: str) -> tuple[str, bool, str | None]:
 
 
 def _check_kind(kind: str) -> None:
-    """Raise for a block this port does not run (it runs ``attn``, ``mla``
-    and ``mamba``, each with or without an ``mlp`` / ``moe`` FFN)."""
-    mixer, has_cross, _ = _parse(kind)
-    if mixer not in _MIXERS or has_cross:
-        raise NotImplementedError(f"block {kind!r}: {_NOT_PORTED}")
+    """Raise for a mixer the reference does not know (its ``init_block``
+    raises the same)."""
+    mixer = _parse(kind)[0]
+    if mixer not in _MIXERS:
+        raise ValueError(f"unknown mixer {mixer!r} in block {kind!r}")
 
 
 def check_cfg(cfg: ArchConfig) -> None:
-    """Raise unless every block of ``cfg`` is one this port runs (no
-    encoder stages: frame and patch inputs are not ported either)."""
-    for st in cfg.stages:
+    """Raise unless every block of ``cfg``, decoder and encoder, has a
+    mixer the port runs."""
+    for st in (*cfg.stages, *cfg.encoder_stages):
         for kind in st.pattern:
             _check_kind(kind)
-    if cfg.encoder_stages or cfg.num_patches:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED}")
+
+
+def _init_attn(gen, cfg: ArchConfig, dtype, device) -> layers.AttnParams:
+    return layers.init_attn(gen, cfg.d_model, cfg.num_heads,
+                            cfg.num_kv_heads, cfg.head_dim, cfg.qk_norm,
+                            dtype, device)
 
 
 def init_block(gen, kind: str, cfg: ArchConfig, dtype,
                device) -> dict[str, Any]:
     _check_kind(kind)
-    mixer, _, ffn = _parse(kind)
+    mixer, has_cross, ffn = _parse(kind)
     if mixer == "mamba":
         p: dict[str, Any] = {"mixer": mamba2.init_mamba(
             gen, cfg.d_model, cfg.ssm, dtype, device)}
@@ -90,9 +106,9 @@ def init_block(gen, kind: str, cfg: ArchConfig, dtype,
         p = {"mixer": mla.init_mla(
             gen, cfg.d_model, cfg.num_heads, cfg.mla, dtype, device)}
     else:
-        p = {"mixer": layers.init_attn(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.qk_norm, dtype, device)}
+        p = {"mixer": _init_attn(gen, cfg, dtype, device)}
+    if has_cross:
+        p["cross"] = _init_attn(gen, cfg, dtype, device)
     if ffn == "mlp":
         p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
     elif ffn == "moe":
@@ -112,43 +128,59 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     over."""
     check_cfg(cfg)
     dev = resolve_device(device)
-    return {
+
+    def stages(sts):
+        return [[tuple(init_block(generator, kind, cfg, dtype, dev)
+                       for kind in st.pattern)
+                 for _ in range(st.repeat)] for st in sts]
+
+    params = {
         "embed": layers.init_embed(generator, cfg.vocab_size, cfg.d_model,
                                    cfg.tie_embeddings, dtype, dev),
-        "stages": [[tuple(init_block(generator, kind, cfg, dtype, dev)
-                          for kind in st.pattern)
-                    for _ in range(st.repeat)] for st in cfg.stages],
+        "stages": stages(cfg.stages),
     }
+    if cfg.encoder_stages:
+        params["encoder_stages"] = stages(cfg.encoder_stages)
+        params["encoder_norm"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
+    return params
 
 
 def _host_stack(xs):
     return torch.stack([x.detach().cpu() for x in xs])
 
 
+#: The keys of a parameter tree that hold stages of blocks.
+_STAGED = ("stages", "encoder_stages")
+
+
 def stack_repeats(tree, stack=_host_stack):
     """A parameter tree of the port (or one of its shape: AdamW's moments)
     in the reference's layout, the one an LM checkpoint holds:
-    ``tree["stages"][i][j]`` is pattern position j's block with every leaf
-    stacked ``[repeat, ...]`` (the reference's ``init_stage``).  ``stack``
-    joins one leaf's repeats: by default on the host, so checkpointing a
-    full-width model takes no device memory."""
-    return {**tree, "stages": [
-        tuple(tree_map(lambda *xs: stack(xs), *(rep[j] for rep in sp))
-              for j in range(len(sp[0])))
-        for sp in tree["stages"]]}
+    ``tree["stages"][i][j]`` (and ``tree["encoder_stages"][i][j]``) is
+    pattern position j's block with every leaf stacked ``[repeat, ...]``
+    (the reference's ``init_stage``).  ``stack`` joins one leaf's repeats:
+    by default on the host, so checkpointing a full-width model takes no
+    device memory."""
+    def stage(sp):
+        return tuple(tree_map(lambda *xs: stack(xs), *(rep[j] for rep in sp))
+                     for j in range(len(sp[0])))
+
+    return {**tree, **{k: [stage(sp) for sp in tree[k]]
+                       for k in _STAGED if k in tree}}
 
 
 def unstack_repeats(tree, place=lambda a: a):
     """:func:`stack_repeats` undone: repeat r of position j takes leaf
     ``[r]`` of the stacked block; ``place`` puts every leaf in place."""
-    def repeats(st):
-        return tree_leaves(st[0])[0].shape[0]
+    def stage(st):
+        repeats = tree_leaves(st[0])[0].shape[0]
+        return [tuple(tree_map(lambda a, r=r: place(a[r]), blk)
+                      for blk in st) for r in range(repeats)]
 
     return {**tree_map(place, {k: v for k, v in tree.items()
-                               if k != "stages"}), "stages": [
-        [tuple(tree_map(lambda a, r=r: place(a[r]), blk) for blk in st)
-         for r in range(repeats(st))]
-        for st in tree["stages"]]}
+                               if k not in _STAGED}),
+            **{k: [stage(st) for st in tree[k]]
+               for k in _STAGED if k in tree}}
 
 
 def _ffn_forward(p, cfg: ArchConfig, x, ctx: layers.Ctx, layer_id: int,
@@ -164,10 +196,23 @@ def _ffn_forward(p, cfg: ArchConfig, x, ctx: layers.Ctx, layer_id: int,
     return x + layers.mlp_forward(p["ffn"], x, m, ctx.cfg.p, backend), 0.0
 
 
+def _cross_forward(p, x, enc_kv, ctx: layers.Ctx, layer_id: int,
+                   bayes: bool, backend: str):
+    """A ``.cross`` block's cross-attention term on its residual stream,
+    over the encoder's (k, v); the identity for a block without one."""
+    if "cross" not in p:
+        return x
+    m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_CROSS)
+    return x + layers.cross_attention(p["cross"], x, *enc_kv, m, ctx.cfg.p,
+                                      backend)
+
+
 def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
                    ctx: layers.Ctx, layer_id: int, bayes: bool,
-                   return_cache: bool = False, backend: str = "cuda"):
-    """One block, full sequence.  Returns (x, aux, cache|None)."""
+                   return_cache: bool = False, backend: str = "cuda",
+                   enc_kv=None):
+    """One block, full sequence; ``enc_kv`` the encoder's (k, v) for a
+    ``.cross`` block.  Returns (x, aux, cache|None)."""
     _check_kind(kind)
     mixer = _parse(kind)[0]
     if mixer == "mamba":
@@ -183,20 +228,23 @@ def _block_forward(p, kind: str, cfg: ArchConfig, x, positions,
     else:
         m = layers.site_mask(ctx, bayes, layer_id, layers.SITE_ATTN)
         res = layers.attention_forward(
-            p["mixer"], x, positions, cfg.rope_theta, causal=True, mask_in=m,
-            p_drop=ctx.cfg.p, return_kv=return_cache, backend=backend)
+            p["mixer"], x, positions, cfg.rope_theta,
+            causal=mixer != "enc_attn", mask_in=m, p_drop=ctx.cfg.p,
+            return_kv=return_cache, backend=backend)
     cache = None
     if return_cache:
         res, cache = res
-    x, aux = _ffn_forward(p, cfg, x + res, ctx, layer_id, bayes, backend)
+    x = _cross_forward(p, x + res, enc_kv, ctx, layer_id, bayes, backend)
+    x, aux = _ffn_forward(p, cfg, x, ctx, layer_id, bayes, backend)
     return x, aux, cache
 
 
 def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos,
                   ctx: layers.Ctx, layer_id: int, bayes: bool,
-                  backend: str = "cuda"):
-    """One block, one token.  Returns (x, cache), the cache updated in
-    place; a MoE's load-balance loss is discarded, as in the reference."""
+                  backend: str = "cuda", cross_kv=None):
+    """One block, one token; ``cross_kv`` the encoder's (k, v) for a
+    ``.cross`` block.  Returns (x, cache), the cache updated in place; a
+    MoE's load-balance loss is discarded, as in the reference."""
     _check_kind(kind)
     mixer = _parse(kind)[0]
     if mixer == "mamba":
@@ -213,7 +261,8 @@ def _block_decode(p, kind: str, cfg: ArchConfig, x, cache, pos,
         res, cache = layers.attention_decode(p["mixer"], x, cache, pos,
                                              cfg.rope_theta, m, ctx.cfg.p,
                                              backend)
-    x, _ = _ffn_forward(p, cfg, x + res, ctx, layer_id, bayes, backend)
+    x = _cross_forward(p, x + res, cross_kv, ctx, layer_id, bayes, backend)
+    x, _ = _ffn_forward(p, cfg, x, ctx, layer_id, bayes, backend)
     return x, cache
 
 
@@ -239,52 +288,48 @@ class DecodeState(NamedTuple):
     caches: Any       # caches[i][r][j] = (k, v), each [B, Smax, KV, hd],
                       # the int8 (k_i8, k_scale, v_i8, v_scale), an
                       # mla.MLACache or a mamba2.MambaState
-    cross: Any = None
+    cross: Any = None  # cross[i][r][j] = the encoder's (k, v), each
+                       # [B, encoder_seq, KV, hd], for a .cross block;
+                       # None without an encoder
 
 
 def _period(sp_r, stage: Stage, cfg: ArchConfig, x, positions,
             ctx: layers.Ctx, r: int, offset: int, bayes, collect: bool,
-            backend: str):
-    """One repeat's period of blocks (the reference's scan body).  Returns
+            backend: str, enc_kv_r=None):
+    """One repeat's period of blocks (the reference's scan body);
+    ``enc_kv_r`` the repeat's encoder (k, v) a pattern position.  Returns
     (x, the period's aux terms in order, caches of the period)."""
     aux = []
     caches = []
     period = len(stage.pattern)
     for j, kind in enumerate(stage.pattern):
-        x, a, c = _block_forward(sp_r[j], kind, cfg, x, positions, ctx,
-                                 offset + r * period + j, bayes[j],
-                                 return_cache=collect, backend=backend)
+        x, a, c = _block_forward(
+            sp_r[j], kind, cfg, x, positions, ctx, offset + r * period + j,
+            bayes[j], return_cache=collect, backend=backend,
+            enc_kv=None if enc_kv_r is None else enc_kv_r[j])
         aux.append(a)
         caches.append(c)
     return x, aux, caches
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
-            *, collect_caches: bool = False, return_hidden: bool = False,
-            remat: bool = False, backend: str = "cuda"):
-    """Full-sequence forward.  tokens: [B, S].  Returns (logits [B, S, V]
-    or the hidden state [B, S, D], aux, caches|None).
-
-    ``remat=True`` checkpoints each repeat's period of blocks
-    (``torch.utils.checkpoint``, non-reentrant) when autograd records:
-    the backward recomputes a period's internals instead of keeping them.
-    Masks are functions of ``(seed, rows)``, so the recompute draws the
-    same bits and the gradients are those of ``remat=False``."""
-    layers.check_backend(backend)
-    check_cfg(cfg)
-    x = layers.embed(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+def _run_stages(stage_params, stages, cfg: ArchConfig, x, positions,
+                ctx: layers.Ctx, offset: int, *, enc_kv=None,
+                collect: bool = False, remat: bool = False,
+                backend: str = "cuda"):
+    """Every repeat of every stage from layer id ``offset`` on (the
+    reference's ``run_stage_forward`` a stage).  Returns (x, aux, caches
+    [i][r][j])."""
     ckpt = remat and torch.is_grad_enabled()
     aux = 0.0
-    offset = 0
     all_caches = []
-    for sp, st in zip(params["stages"], cfg.stages):
+    for i, (sp, st) in enumerate(zip(stage_params, stages)):
         bayes = _stage_bayes(cfg, offset, st)
         caches = []
         stage_aux = 0.0     # the reference's scan carry, one a stage
         for r in range(st.repeat):
             args = (sp[r], st, cfg, x, positions, ctx, r, offset, bayes,
-                    collect_caches, backend)
+                    collect, backend,
+                    None if enc_kv is None else enc_kv[i][r])
             x, a, c = (_ckpt.checkpoint(_period, *args, use_reentrant=False)
                        if ckpt else _period(*args))
             for term in a:
@@ -293,9 +338,67 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
         aux = aux + stage_aux
         offset += st.num_layers
         all_caches.append(caches)
+    return x, aux, all_caches
+
+
+def _encoder_forward(params, cfg: ArchConfig, frames: torch.Tensor,
+                     ctx: layers.Ctx, backend: str) -> torch.Tensor:
+    """The whisper encoder over frame embeddings [B, encoder_seq, D]:
+    bidirectional blocks from layer id :data:`ENCODER_LAYER_OFFSET`,
+    positions ``arange(encoder_seq)``, then ``encoder_norm``."""
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    x, _, _ = _run_stages(params["encoder_stages"], cfg.encoder_stages, cfg,
+                          frames, positions, ctx, ENCODER_LAYER_OFFSET,
+                          backend=backend)
+    return layers.rmsnorm(params["encoder_norm"], x)
+
+
+def _cross_kvs(params, cfg: ArchConfig, enc_out: torch.Tensor):
+    """Each cross block's (k, v) from the normed encoder output
+    (``layers.cross_kv``; the reference's ``_stacked_cross_kv``),
+    ``[i][r][j]`` as the port's parameters, None for a block without
+    cross-attention."""
+    return [[tuple(layers.cross_kv(rep[j]["cross"], enc_out)
+                   if _parse(kind)[1] else None
+                   for j, kind in enumerate(st.pattern)) for rep in sp]
+            for sp, st in zip(params["stages"], cfg.stages)]
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
+            *, frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None,
+            collect_caches: bool = False, return_hidden: bool = False,
+            remat: bool = False, backend: str = "cuda"):
+    """Full-sequence forward.  tokens: [B, S]; ``frames`` [B,
+    encoder_seq, D] for an encoder–decoder; ``patches`` [B, num_patches,
+    D] for a VLM, prepended to the token embeddings (cast to their
+    dtype).  Returns (logits [B, P + S, V] or the hidden state [B, P + S,
+    D], aux, caches|None); with ``collect_caches`` the caches are
+    ``(caches [i][r][j], cross K/V [i][r][j] or None)``.
+
+    ``remat=True`` checkpoints each repeat's period of decoder blocks
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records:
+    the backward recomputes a period's internals instead of keeping them
+    (the encoder is not checkpointed, as in the reference).  Masks are
+    functions of ``(seed, rows)``, so the recompute draws the same bits
+    and the gradients are those of ``remat=False``."""
+    layers.check_backend(backend)
+    check_cfg(cfg)
+    x = layers.embed(params["embed"], tokens)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    enc_kv = None
+    if cfg.encoder_stages:
+        enc_kv = _cross_kvs(params, cfg,
+                            _encoder_forward(params, cfg, frames, ctx,
+                                             backend))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux, all_caches = _run_stages(
+        params["stages"], cfg.stages, cfg, x, positions, ctx, 0,
+        enc_kv=enc_kv, collect=collect_caches, remat=remat, backend=backend)
     out = x if return_hidden else layers.logits(params["embed"], x)
     if collect_caches:
-        return out, aux, (all_caches, None)
+        return out, aux, (all_caches, enc_kv)
     return out, aux, None
 
 
@@ -329,16 +432,22 @@ def _chunked_xent(embed_params, hidden: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params, cfg: ArchConfig, tokens: torch.Tensor,
-            targets: torch.Tensor, ctx: layers.Ctx, *, remat: bool = True,
+            targets: torch.Tensor, ctx: layers.Ctx, *,
+            frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None, remat: bool = True,
             xent_chunk: int = 512):
-    """Next-token cross-entropy + aux (targets = tokens shifted).  Returns
-    ``(nll + aux, {"nll": nll, "aux": aux})``, aux a 0-d fp32 tensor: the
-    MoE layers' load-balance losses summed (0 for the dense and SSM
-    families).  The forward runs on the ``reference``
+    """Next-token cross-entropy + aux (targets = tokens shifted), over the
+    text positions only (a VLM's patch positions are dropped first).
+    Returns ``(nll + aux, {"nll": nll, "aux": aux})``, aux a 0-d fp32
+    tensor: the MoE layers' load-balance losses summed (0 for the dense
+    and SSM families).  The forward runs on the ``reference``
     backend: the kernels have no backward, in this package or the
     reference's, and the reference's LM loss reaches none of them."""
-    hidden, aux, _ = forward(params, cfg, tokens, ctx, remat=remat,
+    hidden, aux, _ = forward(params, cfg, tokens, ctx, frames=frames,
+                             patches=patches, remat=remat,
                              return_hidden=True, backend="reference")
+    if patches is not None:
+        hidden = hidden[:, patches.shape[1]:]
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
     nll = _chunked_xent(params["embed"], hidden, targets, xent_chunk)
     return nll + aux, {"nll": nll, "aux": aux}
@@ -371,15 +480,33 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     k_scale, v_i8, v_scale): int8 codes [B, max_len, KV, hd] and bf16
     scales [B, max_len, KV] (``_block_cache_spec``) --, a zero
     ``mla.MLACache`` per MLA layer (``kv_quant`` does not apply to it, as
-    in the reference) and a zero ``MambaState`` per mamba layer.  Every
-    tensor is its own: the caches are updated in place."""
+    in the reference) and a zero ``MambaState`` per mamba layer; where a
+    block has cross-attention, ``cross`` holds zero encoder (k, v) of
+    ``[B, encoder_seq, KV, hd]`` for each (else ``cross`` is None).
+    Every tensor is its own: the caches are updated in place."""
     check_cfg(cfg)
     dev = resolve_device(device)
+
+    def cross_kv(kind):
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
     return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=dev),
                        caches=[
         [[init_block_cache(cfg, kind, batch, max_len, dtype, kv_quant, dev)
           for kind in st.pattern] for _ in range(st.repeat)]
-        for st in cfg.stages])
+        for st in cfg.stages], cross=cross_tree(cfg, cross_kv))
+
+
+def cross_tree(cfg: ArchConfig, leaf):
+    """``DecodeState.cross``'s structure, ``[i][r][j]`` as the decoder's
+    blocks: ``leaf(kind)`` for a cross block, None for a block without
+    cross-attention; None when no block has it."""
+    if not any(_parse(kind)[1] for st in cfg.stages for kind in st.pattern):
+        return None
+    return [[[leaf(kind) if _parse(kind)[1] else None for kind in st.pattern]
+             for _ in range(st.repeat)] for st in cfg.stages]
 
 
 def _pad_cache_to(cache, kind: str, max_len: int):
@@ -400,23 +527,26 @@ def _pad_cache_to(cache, kind: str, max_len: int):
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, ctx: layers.Ctx,
-            max_len: int, *, backend: str = "cuda"):
-    """Process the prompt; return (last-position logits [B, 1, V],
-    DecodeState).  The masks drawn here are the ones every later
+            max_len: int, *, frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None, backend: str = "cuda"):
+    """Process the prompt (after a VLM's patches; an encoder–decoder's
+    frames through the encoder); return (last-position logits [B, 1, V],
+    DecodeState at position patches + prompt, its ``cross`` the cross
+    blocks' encoder K/V).  The masks drawn here are the ones every later
     decode_step draws again (tied across the whole request)."""
-    if tokens.shape[1] > max_len:
-        raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
+    seq = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    if seq > max_len:
+        raise ValueError(f"prompt of {seq} positions exceeds "
                          f"max_len={max_len}")
-    hidden, _, (caches, _) = forward(params, cfg, tokens, ctx,
-                                     collect_caches=True, return_hidden=True,
-                                     backend=backend)
+    hidden, _, (caches, cross) = forward(
+        params, cfg, tokens, ctx, frames=frames, patches=patches,
+        collect_caches=True, return_hidden=True, backend=backend)
     lg = layers.logits(params["embed"], hidden[:, -1:])
     padded = [[[_pad_cache_to(c, kind, max_len)
                 for c, kind in zip(rep, st.pattern)] for rep in stage]
               for st, stage in zip(cfg.stages, caches)]
-    pos = torch.full((), tokens.shape[1], dtype=torch.int32,
-                     device=tokens.device)
-    return lg, DecodeState(pos=pos, caches=padded)
+    pos = torch.full((), seq, dtype=torch.int32, device=tokens.device)
+    return lg, DecodeState(pos=pos, caches=padded, cross=cross)
 
 
 def cache_positions(cfg: ArchConfig, caches) -> int | None:
@@ -425,7 +555,7 @@ def cache_positions(cfg: ArchConfig, caches) -> int | None:
     Mamba state has no position limit, as in the reference)."""
     for st, stage in zip(cfg.stages, caches):
         for j, kind in enumerate(st.pattern):
-            if _parse(kind)[0] in ("attn", "mla"):
+            if _parse(kind)[0] in ("attn", "dec_attn", "mla"):
                 return stage[0][j][0].shape[1]
     return None
 
@@ -441,13 +571,15 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     pos = torch.as_tensor(state.pos, dtype=torch.int32, device=token.device)
     x = layers.embed(params["embed"], token)
     offset = 0
-    for sp, st, stage_caches in zip(params["stages"], cfg.stages,
-                                    state.caches):
+    for i, (sp, st, stage_caches) in enumerate(zip(
+            params["stages"], cfg.stages, state.caches)):
         bayes = _stage_bayes(cfg, offset, st)
         for r, j, kind, layer_id in _stage_layers(st, offset):
             x, stage_caches[r][j] = _block_decode(
                 sp[r][j], kind, cfg, x, stage_caches[r][j], pos, ctx,
-                layer_id, bayes[j], backend)
+                layer_id, bayes[j], backend,
+                cross_kv=None if state.cross is None
+                else state.cross[i][r][j])
         offset += st.num_layers
     lg = layers.logits(params["embed"], x)
     return lg, DecodeState(pos=pos + 1, caches=state.caches,

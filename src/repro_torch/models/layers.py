@@ -1,6 +1,6 @@
 """Transformer building blocks with MC-dropout sites — port of the dense
-subset of ``repro.models.layers`` (GQA attention with qk-norm, SwiGLU,
-RoPE, RMSNorm, embedding and head).
+subset of ``repro.models.layers`` (GQA attention with qk-norm, the
+decoder's cross-attention, SwiGLU, RoPE, RMSNorm, embedding and head).
 
 Every function takes a ``backend``:
 
@@ -16,8 +16,9 @@ Every function takes a ``backend``:
 
 The q/k/v/o projections, the MLP down projection and the head are
 ``torch.matmul`` on both backends (the reference leaves them to XLA,
-outside any Pallas kernel), and so is the prefill attention
-(:func:`blockwise_attention`, a plain mirror of the reference's).
+outside any Pallas kernel), and so are the prefill attention, the
+encoder's bidirectional attention and the cross-attention, prefill and
+decode (:func:`blockwise_attention`, a plain mirror of the reference's).
 
 A site's mask is passed as its coordinates (:class:`SiteMask`: the context,
 the layer and the site), not as bits: the reference backend draws the bits
@@ -401,6 +402,34 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache,
                                        posv)
     o = o.reshape(B, 1, *o.shape[1:]).to(x.dtype)
     return _out_proj(o, p.wo), cache
+
+
+def cross_attention(p: AttnParams, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, mask_in: SiteMask | None,
+                    p_drop: float, backend: str = "cuda") -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (whisper): the
+    pre-norm, the ``SITE_CROSS`` mask, the q projection (``q_scale``'s
+    norm where qk_norm is on, no RoPE), non-causal
+    :func:`blockwise_attention` over all encoder positions and ``wo``.
+    x: [B, S, D]; enc_k, enc_v: [B, S_enc, KV, hd].  The same plain pass
+    at prefill and at each decode step, as in the reference."""
+    h = rmsnorm(p.norm, x)
+    h = apply_site_mask(h, mask_in, p_drop, backend)
+    q = _proj(h, p.wq)
+    if p.q_scale is not None:
+        q = rmsnorm(p.q_scale, q)
+    o = blockwise_attention(q, enc_k, enc_v, causal=False)
+    return _out_proj(o, p.wo)
+
+
+def cross_kv(p: AttnParams, enc_out: torch.Tensor):
+    """A cross block's encoder K/V from the (normed) encoder output
+    [B, S_enc, D]: ``(k, v)``, each [B, S_enc, KV, hd], k through
+    ``k_scale``'s norm where qk_norm is on."""
+    k, v = _proj(enc_out, p.wk), _proj(enc_out, p.wv)
+    if p.k_scale is not None:
+        k = rmsnorm(p.k_scale, k)
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -21,10 +21,12 @@ device value on the host, so their decode step is captured too.
 On ``backend="cuda"`` a decode step is the replay of one captured CUDA
 graph, the counterpart of the reference's jitted decode: a graph a (S·B
 rows, ``max_len``, token dtype), captured on the first decode step over a
-static token buffer and a static decode state (the caches and the device
-position, which the graph advances itself); each ``generate`` copies its
-prefill's state into them (``serve.graphs.StaticStep``; on the CPU the
-same buffers, run without capture).  The prefill stays eager (it is
+static token buffer and a static decode state (the caches, an
+encoder–decoder's cross K/V -- ``[S·B, encoder_seq, KV, hd]`` a cross
+block, fixed by the config -- and the device position, which the graph
+advances itself); each ``generate`` copies its prefill's state into them
+(``serve.graphs.StaticStep``; on the CPU the same buffers, run without
+capture).  The prefill stays eager (it is
 nearly all device time), and ``backend="reference"`` stays eager as the
 oracle.
 """
@@ -80,9 +82,10 @@ class BayesianEngine:
     """Static-batch S-sample serving engine for every arch of the
     registry: dense, mamba, the MoE family (``attn.moe``, ``mla.mlp`` /
     ``mla.moe``) and jamba's hybrid, whose decode state holds (k, v) caches
-    and ``MambaState``s side by side.  ``graphs=False`` runs every decode
-    step eagerly on the ``cuda`` backend too (what the graphs are held
-    to)."""
+    and ``MambaState``s side by side; and for an encoder–decoder
+    (``frames``) or a VLM (``patches``) config.  ``graphs=False`` runs
+    every decode step eagerly on the ``cuda`` backend too (what the graphs
+    are held to)."""
 
     def __init__(self, params, cfg: ArchConfig, *, max_len: int = 512,
                  seed: int = 0, device=None, backend: str = "cuda",
@@ -142,9 +145,20 @@ class BayesianEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def generate(self, prompts, n_new: int, *, teacher_tokens=None,
+    def _tile(self, a, s: int):
+        """``a`` [B, ...] on the device, repeated for the S chains as the
+        prompts are: [S·B, ...]."""
+        a = torch.as_tensor(a, device=self.device)
+        return a[None].expand(s, *a.shape).reshape(s * a.shape[0],
+                                                   *a.shape[1:])
+
+    def generate(self, prompts, n_new: int, *, frames=None, patches=None,
+                 teacher_tokens=None,
                  keep_logits: bool = False) -> GenerationResult:
         """prompts: [B, L] → greedy decode of n_new tokens with uncertainty.
+        ``frames`` [B, encoder_seq, D] (an encoder–decoder) and
+        ``patches`` [B, num_patches, D] (a VLM) are broadcast over the S
+        chains, as the reference's.
 
         As the reference: n_new decode calls, each step summarising the
         logits over the S chains and feeding the argmax to every chain.
@@ -155,12 +169,12 @@ class BayesianEngine:
         each step (summary, argmax and decode call) are taken with the
         device synchronised.
 
-        Each of the n_new steps decodes one position, so prompt length +
-        n_new must not pass ``max_len``: the step past the cache raises
-        ``ValueError`` (``backbone.decode_step``).  The JAX engine differs
-        here: it clamps that step's cache write to the last slot and goes
-        on, so its tokens from that step on are computed over an
-        overwritten cache.
+        Each of the n_new steps decodes one position, so the patches +
+        prompt length + n_new must not pass ``max_len``: the step past the
+        cache raises ``ValueError`` (``backbone.decode_step``).  The JAX
+        engine differs here: it clamps that step's cache write to the last
+        slot and goes on, so its tokens from that step on are computed over
+        an overwritten cache.
         """
         cfg = self.cfg
         prompts = torch.as_tensor(prompts, device=self.device)
@@ -169,10 +183,15 @@ class BayesianEngine:
         graph = (None if self._graphs is None
                  else self._decode_graph(B, s, prompts.dtype))
         ctx = self._ctx(B, s) if graph is None else graph.ctx
-        tiled = prompts[None].expand(s, *prompts.shape).reshape(s * B, -1)
+        tiled = self._tile(prompts, s)
+        inputs = {k: self._tile(v, s) for k, v in
+                  (("frames", frames), ("patches", patches))
+                  if v is not None}
+        start = L + (0 if patches is None else inputs["patches"].shape[1])
         t0 = time.perf_counter()
         logits, state = backbone.prefill(self.params, cfg, tiled, ctx,
-                                         self.max_len, backend=self.backend)
+                                         self.max_len, **inputs,
+                                         backend=self.backend)
         if graph is not None:
             self._adopt(graph, state)
         self._sync()
@@ -183,8 +202,8 @@ class BayesianEngine:
         probs = None
         for i in range(n_new):
             t0 = time.perf_counter()
-            if smax is not None and L + i >= smax:
-                raise ValueError(f"decode position {L + i} is past the "
+            if smax is not None and start + i >= smax:
+                raise ValueError(f"decode position {start + i} is past the "
                                  f"cache's {smax} positions")
             if keep_logits:
                 # A copy: a replay overwrites the step's logits in place.

@@ -10,6 +10,9 @@ tests/test_torch_cuda_graphs.py``.
 * Every kernel backend and precision: the replayed tick gives the eager
   tick's carries and summaries bit for bit, with the same launches a
   tick; after ``prewarm`` no tick captures (``compiles == 0``).
+* qwen3 as an encoder–decoder and as a VLM (REDUCED): the decode graph
+  bit-equal to eager over two ``generate`` calls with other frames or
+  patches, whose prefill refills the graph's static cross K/V.
 * qwen3, mamba2, olmoe, deepseek and jamba (REDUCED; the MoE archs at a
   capacity that drops routes): the decode graph gives the eager decode's
   tokens, logits, entropy and mutual information bit for bit and the
@@ -211,6 +214,60 @@ def _decode_graph_check(dev, arch, prompt_len, dtype):
             assert (state.conv.dtype, state.ssm.dtype) == (dtype,
                                                            torch.float32)
     return counts[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["audio", "vlm"])
+def test_encdec_decode_graph_equals_eager(dev, family, dtype):
+    """qwen3 REDUCED as an encoder–decoder (2 ``enc_attn.mlp`` encoder
+    layers over 12 frames, 2 ``dec_attn.cross.mlp`` decoder layers) or a
+    VLM (5 patches): one engine's decode graph against an eager engine
+    over two ``generate`` calls with other frames (patches), bit for bit
+    with the same launches: the second prefill refills the graph's
+    static cross K/V."""
+    from repro_torch.models.config import Stage
+    base = configs.get_config("qwen3-1.7b", reduced=True)
+    if family == "audio":
+        cfg = base.replace(family="audio",
+                           stages=(Stage(("dec_attn.cross.mlp",), 2),),
+                           encoder_stages=(Stage(("enc_attn.mlp",), 2),),
+                           encoder_seq=12)
+        name, n = "frames", 12
+    else:
+        cfg = base.replace(family="vlm", num_patches=5)
+        name, n = "patches", 5
+    cfg = cfg.replace(mcd=cfg.mcd.replace(n_samples=S))
+    params = backbone.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=dtype)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 6))
+    requests = [{name: torch.as_tensor(rng.standard_normal(
+        (2, n, cfg.d_model)), dtype=dtype, device=dev)} for _ in range(2)]
+    kw = dict(max_len=6 + 5 + cfg.num_patches, seed=1, device=dev)
+    g = BayesianEngine(params, cfg, **kw)
+    e = BayesianEngine(params, cfg, graphs=False, **kw)
+    names = (bernoulli_mask.masked_activation, mcd_matmul.mcd_matmul,
+             decode_attn.decode_attention)
+    logits = []
+    for req in requests:
+        runs, counts = [], []
+        for eng in (e, g):
+            for fn in names:
+                fn.launches = 0
+            runs.append(eng.generate(prompts, 5, keep_logits=True, **req))
+            counts.append([fn.launches for fn in names])
+        want, res = runs
+        for a, b in ((res.tokens, want.tokens), (res.logits, want.logits),
+                     (res.predictive_entropy, want.predictive_entropy),
+                     (res.mutual_information, want.mutual_information)):
+            assert torch.equal(a, b)
+        assert counts[0] == counts[1] and counts[0][2] == 2 * 5
+        logits.append(res.logits)
+    assert not torch.equal(*logits)
+    (entry,) = g._graphs.values()
+    assert entry.step.graph is not None
+    assert (entry.state.cross is None) == (family == "vlm")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,8 +16,8 @@ Tolerance: 1e-5 absolute on fp32 (matmuls and transcendentals round at
 other places in XLA and PyTorch).  Also: the configs of all six archs
 equal the reference's field for field, the attention site's kernel path
 equals the reference's ``apply_site_mask`` up to the sign of zero, and
-what is not ported raises.  One JAX init and one pass per context, cached
-for the module.
+a ``.cross`` block, which once raised, matches JAX.  One JAX init and one
+pass per context, cached for the module.
 """
 
 import dataclasses
@@ -177,23 +177,41 @@ def test_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["attn.cross.mlp", "moe_sharding axis"])
 def test_unported_blocks_raise(arch):
-    """What is not ported raises naming ROADMAP.md: a block with
-    cross-attention (the MoE FFN, MLA and jamba's mamba blocks with an FFN
-    are ported: tests/test_torch_moe.py, test_torch_mla.py,
-    test_torch_lm_moe.py, test_torch_lm_hybrid.py).  A MoE expert or token
-    mesh axis no longer raises: since the planning stack
-    (launch/shardings.py) the axes are accepted and are the identity on
-    the port's one device (tests/test_torch_moe.py)."""
+    """Two cases that once raised, naming ROADMAP.md, and no longer do.
+    A block with cross-attention (on an ``attn`` mixer, as the
+    reference's ``init_block`` allows) is built with one ``enc_attn.mlp``
+    encoder layer and matches JAX's forward over the same frames
+    (tests/test_torch_lm_encdec.py holds the whole encoder–decoder path).
+    A MoE expert or token mesh axis is accepted since the planning stack
+    (launch/shardings.py) and is the identity on the port's one device
+    (tests/test_torch_moe.py)."""
     if arch == "moe_sharding axis":
         from repro_torch.models import moe as tmoe
         with tmoe.moe_sharding(expert_axis="model", token_axes=("data",)):
             assert tmoe._MOE_OVERRIDE == {"groups": 1}
         assert tmoe._MOE_OVERRIDE == {}
         return
-    cfg = tconfigs.get_config("qwen3-1.7b", reduced=True).replace(
-        stages=(Stage((arch,), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbb.init_params(cfg, torch.Generator(), device="cpu")
+    from repro.models.config import Stage as JStage
+    kw = dict(encoder_seq=4)
+    jcfg = CFG.replace(stages=(JStage((arch,), 1),),
+                       encoder_stages=(JStage(("enc_attn.mlp",), 1),), **kw)
+    tcfg = TCFG.replace(stages=(Stage((arch,), 1),),
+                        encoder_stages=(Stage(("enc_attn.mlp",), 1),), **kw)
+    jp = jbb.init_params(jax.random.key(1), jcfg, jnp.float32)
+    tp = bridge.from_numpy_backbone(jax.tree.map(np.asarray, jp), tcfg,
+                                    device="cpu")
+    assert set(tp["stages"][0][0][0]) == {"mixer", "cross", "ffn"}
+    frames = np.random.default_rng(2).standard_normal(
+        (S * B, 4, CFG.d_model)).astype(np.float32)
+    want = _np(jbb.forward(
+        jp, jcfg, jnp.asarray(TOKENS),
+        jlayers.Ctx(jmcd.sample_rows(B, S), SEED, CFG.mcd),
+        frames=jnp.asarray(frames))[0])
+    for backend in ("cuda", "reference"):
+        got = tbb.forward(tp, tcfg, torch.from_numpy(TOKENS), _ctx(),
+                          frames=torch.from_numpy(frames),
+                          backend=backend)[0]
+        _close(got.numpy(), want)
 
 
 def test_int8_kv_cache_raises(port):
