@@ -24,6 +24,18 @@ Phases (each raises on failure; the exit code is then non-zero):
    float64 witness shows why the wide layer's weights shrink with fan-in: at
    the unshrunk scale the GRU's fp32 evaluations part over T, and the kernel
    must stay as close to float64 as the plain version.
+   Then, after phases 6 and 8, the wide cases (WIDE_CASES, "2 wide" in
+   the phase seconds): each
+   recurrent kernel on the layers the warp and block paths refuse -- the
+   served wide classifier's (I, H) = (1, 2048) and (2048, 2048), (64, 1100)
+   with a ragged last slice of units, (512, 8192), and the inputs (20000,
+   8) and (60000, 24) -- at B = 64 and 33, T = 8 for the sequence kernels,
+   fp32, bf16, int8 and int4, p = 0.125 and 0: on the sequence kernels'
+   cluster path and the step kernels' split path (their warp path at H =
+   8), each case's plan recorded, every output bit-equal to the plain
+   version and the mask bits the plain stream's; the kernel's ms (CUDA
+   events), the plain version's, the bound and, at fp32, the cuDNN call
+   at p = 0.
 3. Serving, the classifier (LSTM, ``cuda_seq``): ``StreamingEngine`` serves
    the ECG classifier at full width (I = 1, H = 8, NL = 3, YNY, p = 0.125,
    S = 30) for 64 sessions over whole 140-step beats in ragged chunks of up
@@ -409,6 +421,18 @@ Phases (each raises on failure; the exit code is then non-zero):
    parts of (b)'s classifier cell against the unsharded engine, 2 runs a
    side in turns.  Prints ``torch.cuda.device_count()``; with two cards
    or more, (b)'s first cell also runs over real cards, eagerly.
+19. Wide recurrent layers (after 17, in a fresh process of this script
+   whose launch counts are the main path's): the classifier as
+   ``launch/stream.py --hidden 2048 --layers 2 --placement YN`` builds it
+   (I = 1, p = 0.125), 8 sessions x S = 8 (64 rows), every stream 40
+   steps in ragged chunks of
+   1 to 10, LSTM and GRU at fp32 and bf16 on ``cuda_seq`` (the sequence
+   kernels' cluster path: one launch a layer a tick) and ``cuda_step``
+   (the split path: the tick's T a layer), graph and eager: graph ==
+   eager with no capture after prewarm, ``cuda_step`` == ``cuda_seq`` and
+   chunked == one unchunked pass, bit for bit; at fp32 the summaries
+   within SUMMARY_TOL of the ``reference`` backend.  Records each run's
+   tick p50 and a tick's device busy ms.
 
 Every count of kernel launches is set to 0 just before a serving phase and
 read just after it; each kernel's ``launches`` is the sum over the serving
@@ -420,7 +444,8 @@ int8 and int4 from phase 10; each LM entry with ``precisions.fp32`` and
 phases 7b, 9b, 7c, 14-18; ``zoo``: its phase 6 cases at the shapes
 of phases 15 and 16 with those phases' launches; and ``encdec``: phase
 18's launches of ``masked_activation``, ``mcd_matmul`` and
-``decode_attention`` and its cases at the prefill rows), the
+``decode_attention`` and its cases at the prefill rows; ``wide`` on the
+first entry of each recurrent kernel: its phase 2 wide cases), the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -429,6 +454,7 @@ Usage:  python3 chip_smoke.py [--out results.json]
         python3 chip_smoke.py --zoo-only   # the build, phases 6, 15, 16
         python3 chip_smoke.py --plan-only  # the build, phase 17
         python3 chip_smoke.py --encdec-only  # the build, phases 6, 18
+        python3 chip_smoke.py --wide-only  # the build, 2's wide cases, 19
 """
 
 from __future__ import annotations
@@ -818,9 +844,9 @@ def library_call(name, d, dtype=None):
     return call
 
 
-def library_ms(name, d) -> tuple[float, float, float]:
-    """``library_call`` in fp32: (call ms, device ms, max abs diff to the
-    kernel)."""
+def library_ms(name, d, device=True) -> tuple[float, float, float]:
+    """``library_call`` in fp32: (call ms, device ms -- None without
+    ``device`` --, max abs diff to the kernel)."""
     gates, seq, _, _ = KERNELS[name]
     call = library_call(name, d)
     out = call()
@@ -828,7 +854,8 @@ def library_ms(name, d) -> tuple[float, float, float]:
     keys = _keys(name, 0)
     ours = kernel_calls(name, d, keys, 0.0)[0]()[0]
     diff = max_abs_diff(lib_out, ours, f"{name} vs its library call")
-    return cuda_time_ms(call, iters=20), device_ms(call, 10), diff
+    return (cuda_time_ms(call, iters=20),
+            device_ms(call, 10) if device else None, diff)
 
 
 def kernel_cases():
@@ -1482,6 +1509,353 @@ def precision_serving_phase(report, dev):
     return total
 
 
+# -- wide recurrent layers: the cluster and split paths (phases 2, 19) -------
+
+# Phase 2's wide cases, for each recurrent kernel: (I, H, B, precision, p).
+# The served wide classifier's layers (1, 2048) and (2048, 2048); H = 1100,
+# not a multiple of 32 or of the units a block, so the last slice is
+# ragged; the top of the range, (512, 8192); and the two inputs the block
+# path refuses, (20000, 8) and (60000, 24).  B = 64, and 33 (a tile not
+# filled); every shape at both dropout rates across its cases, and every
+# precision at each served layer and at H = 1100.  The sequence kernels run
+# WIDE_T steps with ragged lengths, non-zero h0 / c0 and student rows.  The
+# plain versions cost 2I launches a layer and 2H a step on the card.
+WIDE_T = 8
+WIDE_CASES = [
+    (1, 2048, 64, "fp32", 0.125), (1, 2048, 33, "bf16", 0.0),
+    (1, 2048, 64, "int8", 0.125), (1, 2048, 33, "int4", 0.125),
+    (2048, 2048, 64, "fp32", 0.0), (2048, 2048, 33, "bf16", 0.125),
+    (2048, 2048, 33, "int8", 0.0), (2048, 2048, 64, "int4", 0.125),
+    (64, 1100, 33, "fp32", 0.125), (64, 1100, 64, "bf16", 0.125),
+    (64, 1100, 64, "int8", 0.0), (64, 1100, 33, "int4", 0.0),
+    (512, 8192, 64, "fp32", 0.125), (512, 8192, 33, "int4", 0.0),
+    (20000, 8, 64, "fp32", 0.0), (20000, 8, 33, "int8", 0.125),
+    (60000, 24, 64, "fp32", 0.125),
+]
+WIDE_PATHS = {True: ("cluster",), False: ("split", "warp")}   # seq, step
+
+
+def wide_inputs(B, T, I, H, gates, seed, ragged=True):
+    """``layer_inputs``' operands made on the card (a (512, 8192) layer's
+    weights are 1.1 GB), the weights at 1/sqrt(fan-in), as the models' own
+    init scales them, so a gate sum stays O(1) at any width."""
+    import torch
+    from repro_torch.core import mcd
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * k
+
+    rows = torch.arange(B, dtype=torch.int64, device="cuda") + 1000
+    rows[::16] |= mcd.STUDENT_ROW_FLAG
+    lens = (torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+            if ragged else torch.full((B,), T, device="cuda"))
+    kw = (I + H) ** -0.5
+    return dict(x=r(B, T, I), wx=r(I, gates, H, k=kw),
+                wh=r(H, gates, H, k=kw), b=r(gates, H, k=0.1), rows=rows,
+                h0=r(B, H, k=0.5), c0=r(B, H, k=0.5),
+                lengths=lens.to(torch.int32))
+
+
+def wide_kernel_cases(report) -> list[dict]:
+    """Phase 2's wide cases: each recurrent kernel on WIDE_CASES, on the
+    wide path (the sequence kernels' cluster path; the step kernels' split
+    path, or their warp path where H divides 32), every output bit-equal to
+    its plain version at its precision and the mask bits the plain
+    stream's, or this raises.  Records each case's path and plan, the
+    kernel's ms (CUDA events over back-to-back launches, no profiler: its
+    profiles lose records on this card's host, phase 10's note), its
+    plain version's ms, its bound, and at fp32 the PyTorch
+    call (cuDNN ``torch.nn.LSTM`` / ``GRU`` / ``LSTMCell`` / ``GRUCell``,
+    TF32 off) on the same shape at p = 0, full lengths and no students,
+    with its distance to the kernel there."""
+    import torch
+    from repro_torch.kernels import common
+    records = []
+    for name, (gates, seq, _, _) in KERNELS.items():
+        for n, (I, H, B, prec, p) in enumerate(WIDE_CASES):
+            T = WIDE_T if seq else 1
+            base = wide_inputs(B, T, I, H, gates, seed=900 + n, ragged=seq)
+            keys = _keys(name, 40 + n)
+            d = precision_operands(name, base, prec)
+            where = f"{name} {prec} at B={B} T={T} I={I} H={H} p={p}"
+            act_bytes = 4 if prec == "fp32" else 2
+            plan = (common.seq_plan(gates, B, I, H, act_bytes) if seq
+                    else common.step_plan(gates, B, I, H))
+            if plan["path"] not in WIDE_PATHS[seq]:
+                raise RuntimeError(f"{where}: on the {plan['path']} path")
+            rec = dict(kernel=name, precision=prec, B=B, T=T, I=I, H=H, p=p,
+                       path=plan["path"], plan=plan)
+            rec.update(precision_check(name, d, keys, p, where))
+            d32 = dict(d, rows=common.rows_to_int32(d["rows"]))
+            call, _ = kernel_calls(name, d32,
+                                   tuple(keys.reshape(-1).tolist()), p)
+            # CUDA events over back-to-back launches: a launch takes 0.15
+            # to 200 ms here, so the host's part hides behind the card's
+            rec["kernel_ms"] = cuda_time_ms(call, iters=3, warmup=0)
+            rec["bound_ms"], rec["bound_by"] = bound(name, d, p, prec)
+            rec["library_ms"] = rec["library_max_abs_diff"] = None
+            if prec == "fp32":           # no students, full lengths
+                dl = dict(base, rows=base["rows"] % 2 ** 31,
+                          lengths=torch.full_like(base["lengths"], T))
+                rec["library_ms"], _, rec["library_max_abs_diff"] = (
+                    library_ms(name, dl, device=False))
+            records.append(rec)
+            print("wide kernel case " + json.dumps(rec), flush=True)
+    report["wide_kernel_cases"] = records
+    return records
+
+
+def wide_entries(entries, records) -> None:
+    """Each recurrent ``kernels`` entry (the first of its name) gains
+    ``wide``: its phase 2 wide cases, one row a case."""
+    seen = set()
+    for e in entries:
+        if e["name"] not in KERNELS or e["name"] in seen:
+            continue
+        seen.add(e["name"])
+        e["wide"] = [
+            {k: r[k] for k in ("I", "H", "B", "T", "precision", "p", "path",
+                               "kernel_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
+            for r in records if r["kernel"] == e["name"]]
+
+
+# Phase 19: the wide classifier as ``launch/stream.py --hidden 2048
+# --layers 2 --placement YN`` builds it (I = 1, p = 0.125), 8 sessions x
+# S = 8 chains (64 rows), every stream WIDE_STEPS steps in ragged chunks of
+# 1 to WIDE_CHUNK, on both kernel backends, at fp32 and bf16, graph and
+# eager.
+WIDE_HIDDEN, WIDE_LAYERS, WIDE_SESSIONS, WIDE_S = 2048, 2, 8, 8
+WIDE_STEPS, WIDE_CHUNK = 40, 10
+
+
+def _wide_plans(rng) -> list[list[int]]:
+    """Per session, chunk lengths in [1, WIDE_CHUNK] summing to
+    WIDE_STEPS."""
+    plans = []
+    for _ in range(WIDE_SESSIONS):
+        left, out = WIDE_STEPS, []
+        while left:
+            out.append(min(left, int(rng.integers(1, WIDE_CHUNK + 1))))
+            left -= out[-1]
+        plans.append(out)
+    return plans
+
+
+def _wide_run(params, cfg, dev, backend, precision, graphs, streams, plans,
+              sids):
+    """One engine over ``plans``: (engine, every tick's results, launches,
+    prewarm capacities)."""
+    import torch
+    from repro_torch.serve import StreamingEngine, prewarm
+    eng = StreamingEngine(params, cfg, backend=backend, precision=precision,
+                          max_sessions=WIDE_SESSIONS,
+                          chunk_capacity=WIDE_CHUNK, graphs=graphs,
+                          device=dev)
+    caps = prewarm(eng) if graphs else None
+    for sid in sids:
+        eng.open_session(sid)
+    reset_launches()                          # count the main path only
+    ticks = []
+    for t in range(max(len(p) for p in plans)):
+        chunks = {}
+        for k, sid in enumerate(sids):
+            if t < len(plans[k]):
+                pos = eng.store.get(sid).steps
+                chunks[sid] = streams[k][pos:pos + plans[k][t]]
+        ticks.append(eng.step(chunks))
+    torch.cuda.synchronize()
+    return eng, ticks, read_launches(), caps
+
+
+def _wide_last(ticks, sids) -> dict:
+    """Each session's summary from the last tick that served it."""
+    out = {}
+    for res in ticks:
+        for sid in sids:
+            if sid in res:
+                out[sid] = res[sid].summary
+    return out
+
+
+def wide_serving_phase(report, dev):
+    """Phase 19: the wide classifier (H = 2048, two layers) served on
+    ``cuda_seq`` (the sequence kernels' cluster path) and ``cuda_step``
+    (the step kernels' split path), fp32 and bf16, graph and eager, LSTM
+    and GRU.  Checks one launch a layer a tick on ``cuda_seq`` and the
+    tick's T a layer on ``cuda_step``; graph == eager (carries and every
+    tick's summaries) with no capture after prewarm; ``cuda_step`` ==
+    ``cuda_seq``; chunked == one unchunked pass (the carries); and at fp32
+    the summaries within SUMMARY_TOL of the port's ``reference`` backend.
+    Records tick p50 of each run and, on the fp32 ``cuda_seq`` graph
+    engine, the device busy ms of a tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import classifier as clf, mcd
+    from repro_torch.core.uncertainty import classification_summary
+    from repro_torch.serve import StreamingEngine, prewarm
+
+    rng = np.random.default_rng(19)
+    streams = [rng.standard_normal((WIDE_STEPS, 1)).astype(np.float32)
+               for _ in range(WIDE_SESSIONS)]
+    plans = _wide_plans(rng)
+    sids = [f"w{k}" for k in range(WIDE_SESSIONS)]
+    out, total = {"plans": plans}, {name: 0 for name in ALL_KERNELS}
+    x = torch.from_numpy(np.concatenate(
+        [np.repeat(s[None], WIDE_S, 0) for s in streams])).to(dev)
+    full = torch.full((len(x),), WIDE_STEPS, device=dev)
+    for cell in ("lstm", "gru"):
+        cfg = clf.ClassifierConfig(
+            input_dim=1, hidden=WIDE_HIDDEN, num_layers=WIDE_LAYERS,
+            cell=cell, mcd=mcd.MCDConfig(p=0.125, placement="YN",
+                                         n_samples=WIDE_S, seed=0))
+        params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+        for precision in (None, "bf16"):
+            prec = precision or "fp32"
+            t_group = time.perf_counter()
+            runs = {}
+            for backend in ("cuda_seq", "cuda_step"):
+                seq = backend == "cuda_seq"
+                kernel = f"mcd_{cell}_{'seq' if seq else 'step'}"
+                for graphs in (True, False):
+                    what = (f"wide {cell} {prec} {backend} "
+                            f"{'graph' if graphs else 'eager'}")
+                    run = _wide_run(params, cfg, dev, backend, precision,
+                                    graphs, streams, plans, sids)
+                    eng, _, counts, _ = run
+                    _check_launches(
+                        what, counts, eng.metrics, kernel,
+                        (lambda m: cfg.num_layers) if seq else
+                        (lambda m: cfg.num_layers * m.capacity))
+                    for k, v in counts.items():
+                        total[k] += v
+                    if graphs and sum(m.compiles for m in eng.metrics):
+                        raise RuntimeError(f"{what}: captured after "
+                                           "prewarm")
+                    runs[(backend, graphs)] = run
+            base = runs[("cuda_seq", True)]
+            for key, run in runs.items():
+                if key != ("cuda_seq", True):
+                    _same_serving(base, run, sids,
+                                  f"wide {cell} {prec} {key} vs cuda_seq "
+                                  "graph")
+            eng = base[0]
+            rows = torch.from_numpy(np.concatenate(
+                [eng.store.get(sid).rows for sid in sids]).astype(
+                    np.int64)).to(dev)
+            logits, states = clf.apply(params, x, rows, cfg,
+                                       backend="cuda_seq", lengths=full,
+                                       return_state=True, device=dev,
+                                       precision=precision)
+            for li, layer in enumerate(states):
+                for k, sid in enumerate(sids):
+                    for part, whole in zip(eng.store.get(sid).state[li],
+                                           layer, strict=True):
+                        if not torch.equal(
+                                part, whole[k * WIDE_S:(k + 1) * WIDE_S]):
+                            raise RuntimeError(
+                                f"wide {cell} {prec}: chunked != unchunked "
+                                f"for {sid} at layer {li}")
+            rec = {"cell": cell, "precision": prec,
+                   "tick_ms_p50": {f"{b} {'graph' if g else 'eager'}":
+                                   _serve_stats(r[0].metrics,
+                                                report["card"])[
+                                       "tick_ms_p50"]
+                                   for (b, g), r in runs.items()},
+                   "ticks": len(base[1]),
+                   "launches": {f"{b} {'graph' if g else 'eager'}":
+                                sum(m.launches for m in r[0].metrics)
+                                for (b, g), r in runs.items()},
+                   "bit_equal": True, "chunked_equals_unchunked": True}
+            if precision is None:
+                ref = clf.apply(params, x, rows, cfg, backend="reference",
+                                lengths=full, device=dev)
+                ref_sum = classification_summary(
+                    ref.reshape(WIDE_SESSIONS, WIDE_S, -1).transpose(0, 1))
+                got = _wide_last(base[1], sids)
+                d_ref = 0.0
+                for k, sid in enumerate(sids):
+                    for v, r in zip(got[sid], ref_sum, strict=True):
+                        d_ref = max(d_ref, max_abs_diff(
+                            v, r[k], f"wide {cell} summary of {sid}"))
+                if d_ref > SUMMARY_TOL:
+                    raise RuntimeError(f"wide {cell}: summaries {d_ref} from "
+                                       f"the reference backend (tol "
+                                       f"{SUMMARY_TOL})")
+                rec["summary_diff_vs_reference"] = d_ref
+                rec.update(_wide_busy(params, cfg, dev, streams, sids))
+            rec["seconds"] = time.perf_counter() - t_group
+            out[f"{cell} {prec}"] = rec
+            print("wide serving " + json.dumps(rec), flush=True)
+    out["card"] = report["card"]
+    report["wide_serving"] = out
+    return total
+
+
+PHASE19_TIMEOUT = 600   # seconds; phase 19 takes ~30 on the card
+
+
+def wide_serving_child(report, dev) -> dict:
+    """Phase 19 in a fresh process of this script (its tick profile comes
+    after phase 17, where a late profile of this process loses records,
+    as phases 15, 16 and 10 run in children for), which writes its report
+    and its launch counts as JSON under ``build/`` (ignored by git) and
+    exits; waited for here.  Returns the counts: phase 19 serves, so its
+    launches are the main path's."""
+    path = os.path.join(ROOT, "build", "phase19.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--phase19-out", path], check=True,
+                   timeout=PHASE19_TIMEOUT)
+    with open(path) as fh:
+        out = json.load(fh)
+    os.remove(path)
+    report["wide_serving"] = out["wide_serving"]
+    return out["launches"]
+
+
+def _wide_busy(params, cfg, dev, streams, sids, n_ticks=4) -> dict:
+    """Device busy ms of a tick of the fp32 ``cuda_seq`` graph engine
+    (torch.profiler, every kernel of the tick), over ``n_ticks`` ticks of
+    WIDE_CHUNK / 2 steps a session; not part of the launch count."""
+    import torch
+    from repro_torch.serve import StreamingEngine, prewarm
+    n = WIDE_CHUNK // 2                  # steps a session a tick
+
+    def prepare():
+        eng = StreamingEngine(params, cfg, backend="cuda_seq",
+                              max_sessions=WIDE_SESSIONS,
+                              chunk_capacity=WIDE_CHUNK, device=dev)
+        prewarm(eng)
+        for sid in sids:
+            eng.open_session(sid)
+
+        def tick(t):
+            eng.step({sid: streams[k][t * n:(t + 1) * n]
+                      for k, sid in enumerate(sids)})
+
+        tick(0)
+
+        def run():
+            t0 = time.perf_counter()
+            for t in range(1, n_ticks + 1):
+                tick(t)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+        return run
+
+    (dev_us, kern_us), wall_us = profiled_us(
+        prepare, [None, f"mcd_{cfg.cell}_seq_kernel"])
+    return {"busy_ticks": n_ticks, "busy_steps_a_tick": n,
+            "busy_tick_ms": wall_us / n_ticks / 1e3,
+            "device_busy_ms_per_tick": dev_us / n_ticks / 1e3,
+            "kernel_ms_per_tick": kern_us / n_ticks / 1e3,
+            "device_idle_share": 1.0 - dev_us / wall_us}
+
+
 # -- serving --------------------------------------------------------------
 
 def reset_launches():
@@ -1850,7 +2224,8 @@ def _graph_run(params, cfg, dev, graphs, plans, sids, streams, **kw):
 
 
 def _same_serving(a, b, sids, what):
-    """Carries and every tick's summaries of two runs, bit for bit."""
+    """Carries and every tick's summaries of two runs, bit for bit (a tick
+    serves the sessions that had a chunk)."""
     import torch
     ea, ta = a[:2]
     eb, tb = b[:2]
@@ -1861,7 +2236,9 @@ def _same_serving(a, b, sids, what):
                 if x.dtype != y.dtype or not torch.equal(x, y):
                     raise RuntimeError(f"{what}: carry of {sid} differs")
     for t, (ra, rb) in enumerate(zip(ta, tb, strict=True)):
-        for sid in sids:
+        if ra.keys() != rb.keys():
+            raise RuntimeError(f"{what}: tick {t} served other sessions")
+        for sid in ra:
             for x, y in zip(ra[sid].summary, rb[sid].summary, strict=True):
                 max_abs_diff(x, y, f"{what} tick {t} summary of {sid}")
                 if not torch.equal(x, y):
@@ -7021,6 +7398,10 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # the build, 6 and 17
     ap.add_argument("--encdec-only", action="store_true",
                     help=argparse.SUPPRESS)   # the build, 6 and 18
+    ap.add_argument("--wide-only", action="store_true",
+                    help=argparse.SUPPRESS)   # the build, 2 wide and 19
+    ap.add_argument("--phase19-out", default=None,
+                    help=argparse.SUPPRESS)   # the child of phase 19
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7079,6 +7460,17 @@ def main(argv=None) -> int:
     if args.encdec_only:
         return phases_only(report, dev, (("18", encdec_serving_phase),),
                            args.out)
+    if args.wide_only:
+        return phases_only(report, dev, (
+            ("2 wide", lambda rep, _dev: wide_kernel_cases(rep)),
+            ("19", wide_serving_phase)), args.out, kernels=False)
+    if args.phase19_out:
+        rep = {"card": card}
+        counts = wide_serving_phase(rep, dev)
+        with open(args.phase19_out, "w") as fh:
+            json.dump({"wide_serving": rep["wide_serving"],
+                       "launches": counts}, fh)
+        return 0
     if args.phase10_out:
         records = precision_kernel_phase({})
         with open(args.phase10_out, "w") as fh:
@@ -7095,6 +7487,9 @@ def main(argv=None) -> int:
     entries = kernel_entries(phase("2", kernel_phase, report))
     entries += lm_kernel_entries(phase("6", lm_kernel_phase, report))
     entries.append(ssd_kernel_entry(phase("8", ssd_kernel_phase, report)))
+    # Phase 2's wide cases after 6 and 8, whose profiles of short launches
+    # are the ones that lose records
+    wide_entries(entries, phase("2 wide", wide_kernel_cases, report))
     launches = {name: 0 for name in ALL_KERNELS}
     launches_bf16 = {name: 0 for name in ALL_KERNELS}
     dry = DryRun()          # phase 17a: started beside 15 and 16's child
@@ -7109,7 +7504,7 @@ def main(argv=None) -> int:
             ("9b", mamba_bf16_serving_phase), ("7c", int8_kv_phase),
             ("13", moe_serving_phase), ("14", deepseek_serving_phase),
             ("15+16+18", zoo_serving_phases, dry),
-            ("17", planning_phase, dry)):
+            ("17", planning_phase, dry), ("19", wide_serving_child)):
         for kernel, v in phase(name, fn, report, dev, *rest).items():
             launches[kernel] += v
             if name in ("7b", "9b", "7c", "14", "15+16+18", "17"):

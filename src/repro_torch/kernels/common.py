@@ -10,10 +10,10 @@ and, for the mask rule, the checks and :func:`launch_c`, the LM's
   then h side): 8 for the LSTM, 6 for the GRU.
 * The kernels' operand forms: int32 rows (:func:`rows_to_int32`), keys and
   mask constants as launch arguments, the row tile of the block-per-rows
-  kernels (:func:`tile_rows`), the sequence kernels' and the LSTM step
-  kernel's launch plans (warp or block path, :func:`seq_plan`,
-  :func:`step_plan`), and the card's limits the launch plans respect
-  (``SMEM_MAX``, ``SMS``).
+  kernels (:func:`tile_rows`), the sequence and step kernels' launch
+  plans (warp, block, or the wide path's cluster / split,
+  :func:`seq_plan`, :func:`step_plan`, :func:`wide_plan`), and the card's
+  limits the launch plans respect (``SMEM_MAX``, ``SMS``).
 * Operand checks and the launch rule (:func:`launch`): a CUDA tensor
   launches the kernel or raises, nothing falls back, and each launch is
   counted on its wrapper.  No kernel has a backward: every entry point
@@ -185,6 +185,27 @@ def masked_view(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return m.float() if m.dtype == torch.bfloat16 else m
 
 
+def x_side_sums(x: torch.Tensor, fx: torch.Tensor,
+                wx: torch.Tensor) -> torch.Tensor:
+    """The plain versions' x-side gate sums: for x ``[B, I]`` (one step) or
+    ``[B, T, I]`` (every step of a sequence at once), the rows' factors
+    ``fx [B, G, I]`` and ``wx [I, G, H]``, the masked views
+    (:func:`masked_view`) times the weights, added in index order from 0 by
+    elementwise fp32 operations: ``[B, G, H]`` or ``[B, T, G, H]``.  The x
+    side does not read h, so a sequence's steps are summed together, 2I
+    launches a layer on the card instead of 2I a step; every element is the
+    same chain of products and sums either way."""
+    lead = x.shape[:-1]
+    B, G, I = fx.shape
+    f = fx.reshape(B, *([1] * (x.ndim - 2)), G, I)
+    xg = x.unsqueeze(-2) * f                  # [..., G, I]
+    xg = xg.float() if xg.dtype == torch.bfloat16 else xg
+    acc = torch.zeros((*lead, G, wx.shape[-1]), device=x.device)
+    for i in range(wx.shape[0]):
+        acc = acc + xg[..., i, None] * wx[i]
+    return acc
+
+
 def plain_weights(wx, wh, act, hidden: int, weight_bits=None, wx_scale=None,
                   wh_scale=None):
     """The gate weights a plain version computes with: fp32 tensors holding
@@ -260,23 +281,88 @@ def check_act(name: str, t: torch.Tensor):
     return t.dtype
 
 
-def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
-    """Batch rows per block: ~128 threads, shrunk to fit shared memory."""
-    if hidden > 1024:
-        raise NotImplementedError(
-            f"hidden={hidden} > 1024: one block holds whole rows (one thread "
-            "per hidden unit); a cluster split of H is queued (ROADMAP.md, "
-            "wide recurrent layers)")
+def _block_rows(gates: int, in_dim: int, hidden: int) -> int | None:
+    """The block path's rows a block (~128 threads, shrunk to fit shared
+    memory), or None where the block path cannot take the layer."""
+    if hidden > BLOCK_H_MAX:
+        return None
     rows = max(1, _THREADS // hidden)
     per_row = (gates * (in_dim + hidden) + in_dim + hidden) * 4
     while rows > 1 and rows * per_row > _SMEM_DEFAULT:
         rows -= 1
-    if rows * per_row > SMEM_MAX:
+    return None if rows * per_row > SMEM_MAX else rows
+
+
+def tile_rows(gates: int, in_dim: int, hidden: int) -> int:
+    """Batch rows per block on the block path: ~128 threads, shrunk to fit
+    shared memory.  Raises ``NotImplementedError`` for a layer the block
+    path cannot take (H above 1024, one thread per hidden unit; or one
+    row's mask factors, x and h above a block's shared memory): those run
+    on the wide path (:func:`wide_plan`)."""
+    rows = _block_rows(gates, in_dim, hidden)
+    if rows is None:
         raise NotImplementedError(
-            f"I={in_dim}, H={hidden}: one row's mask factors and operands "
-            f"need {per_row} bytes of shared memory, above the block's limit "
-            "(ROADMAP.md, wide recurrent layers)")
+            f"I={in_dim}, H={hidden}: the block path holds whole rows in one "
+            f"block (one thread per hidden unit, H <= {BLOCK_H_MAX}; the "
+            "rows' mask factors, x and h in shared memory); such a layer "
+            "runs on the wide path (common.wide_plan: a cluster split of H "
+            "for the sequence kernels, unit slices for the step kernels)")
     return rows
+
+
+# The wide path (csrc/mcd_wide.cuh): its constants are the source's.
+WIDE_CHUNK = 128          # contraction indices a staged chunk (kWideChunk)
+WIDE_ROWS_THREAD = 2      # rows a thread carries (kWideRowsThread)
+WIDE_THREADS = 1024       # threads a block at most (kWideThreads)
+CLUSTER_MAX = 16          # blocks a cluster (kClusterMax; > 8 non-portable)
+WIDE_UNITS = 128          # target hidden units a block
+WIDE_ROW_GROUPS = 8       # row groups a block at most: <= 16 rows a tile
+WIDE_H_MAX = CLUSTER_MAX * WIDE_THREADS   # 16384: one unit a thread
+BLOCK_H_MAX = 1024        # the block path: one thread per hidden unit
+
+
+def wide_plan(gates: int, batch: int, in_dim: int, hidden: int,
+              path: str) -> dict:
+    """The wide path of the recurrent kernels (``csrc/mcd_wide.cuh``): the
+    sequence kernels' ``"cluster"`` path and the step kernels' ``"split"``
+    path, for every layer the warp and block paths refuse.
+
+    H is cut into ``cluster`` slices of ``units`` contiguous units, one
+    slice a block (``cluster`` the least power of two, up to CLUSTER_MAX,
+    that makes a slice at most WIDE_UNITS units; so H up to WIDE_H_MAX
+    takes one unit a thread, and no slice is empty), the
+    rows into tiles of ``rows`` (WIDE_ROWS_THREAD a thread, up to
+    WIDE_ROW_GROUPS row groups a block, no more than the batch needs).  A
+    block has ``threads`` = units x row groups threads, each owning one
+    unit (``thread_units``) and WIDE_ROWS_THREAD rows (``thread_rows``).
+    On the cluster path the ``cluster`` blocks of a tile are one thread
+    block cluster and ``blocks`` = tiles x cluster; each block's shared
+    memory holds its units' masked h ([rows][G][units] floats) and a staged
+    chunk ([rows][G][WIDE_CHUNK]).  On the split path the blocks are
+    independent (the same grid) and hold the chunk alone.  Neither I nor
+    the batch is bounded; H above WIDE_H_MAX raises
+    ``NotImplementedError``.
+    """
+    if path not in ("cluster", "split"):
+        raise ValueError(f"path must be 'cluster' or 'split', got {path!r}")
+    if hidden > WIDE_H_MAX:
+        raise NotImplementedError(
+            f"H={hidden} > {WIDE_H_MAX}: the wide path takes one hidden unit "
+            f"a thread in clusters of at most {CLUSTER_MAX} blocks of "
+            f"{WIDE_THREADS} threads (ROADMAP.md, B1.3)")
+    cluster = 1
+    while cluster < min(CLUSTER_MAX, -(-hidden // WIDE_UNITS)):
+        cluster *= 2
+    units = -(-hidden // cluster)
+    groups = max(1, min(WIDE_THREADS // units, WIDE_ROW_GROUPS,
+                        -(-batch // WIDE_ROWS_THREAD)))
+    rows = groups * WIDE_ROWS_THREAD
+    pub = units if path == "cluster" else 0
+    return {"path": path, "rows": rows, "threads": units * groups,
+            "blocks": -(-batch // rows) * cluster, "cluster": cluster,
+            "units": units, "thread_units": 1,
+            "thread_rows": WIDE_ROWS_THREAD,
+            "smem": 4 * rows * gates * (pub + WIDE_CHUNK)}
 
 
 _WARP_BLOCKS = (4, 2, 1)   # warps a block on the warp path, largest first
@@ -302,8 +388,10 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int,
     held as fp32 values, a bf16 value being exact in fp32, so its plan does
     not depend on the precision), and so does an input too wide for the
     warp path's shared memory (its wx alone: ``act_bytes * gates * I * H``
-    bytes); both paths compute the same bits.  Raises
-    ``NotImplementedError`` where neither fits.
+    bytes).  Every layer the block path cannot take (H above 1024, or a
+    row's mask factors, x and h above a block's shared memory) takes the
+    cluster path (:func:`wide_plan`), whose plan does not depend on the
+    precision either.  All three compute the same bits.
     """
     if min(batch, in_dim, hidden) < 1:
         raise ValueError(f"empty layer: B={batch}, I={in_dim}, H={hidden}")
@@ -323,7 +411,7 @@ def seq_plan(gates: int, batch: int, in_dim: int, hidden: int,
                                    fits[-1])
             return {"path": "warp", "rows": rows, "threads": 32 * wpb,
                     "blocks": -(-batch // rows), "smem": smem}
-    return _block_plan(gates, batch, in_dim, hidden)
+    return _block_plan(gates, batch, in_dim, hidden, "cluster")
 
 
 @functools.cache
@@ -336,7 +424,8 @@ def step_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
     H that divides 32 takes the warp path: a row's H units are H lanes of
     one warp, ``32 // H`` rows a warp, ``STEP_WARPS`` warps a block (fewer
     when the batch has fewer), and no shared memory.  Every other H takes
-    the block path (:func:`_block_plan`).  Both paths compute the same
+    the block path (:func:`_block_plan`), and a layer the block path cannot
+    take the split path (:func:`wide_plan`).  All three compute the same
     bits.
     """
     if min(batch, in_dim, hidden) < 1:
@@ -347,14 +436,18 @@ def step_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
         rows = wpb * per_warp
         return {"path": "warp", "rows": rows, "threads": 32 * wpb,
                 "blocks": -(-batch // rows), "smem": 0}
-    return _block_plan(gates, batch, in_dim, hidden)
+    return _block_plan(gates, batch, in_dim, hidden, "split")
 
 
-def _block_plan(gates: int, batch: int, in_dim: int, hidden: int) -> dict:
+def _block_plan(gates: int, batch: int, in_dim: int, hidden: int,
+                wide: str) -> dict:
     """The block path of the recurrent kernels: one thread per (row, unit),
     :func:`tile_rows` rows a block, the rows' mask factors, x and h in
-    shared memory."""
-    rows = tile_rows(gates, in_dim, hidden)
+    shared memory; or, where that does not fit, the ``wide`` path
+    (:func:`wide_plan`)."""
+    rows = _block_rows(gates, in_dim, hidden)
+    if rows is None:
+        return wide_plan(gates, batch, in_dim, hidden, wide)
     return {"path": "block", "rows": rows, "threads": rows * hidden,
             "blocks": -(-batch // rows),
             "smem": 4 * rows * (gates * (in_dim + hidden) + in_dim + hidden)}
@@ -370,13 +463,39 @@ def seq_launch(wrapper, tensors, batch: int, steps: int, in_dim: int,
     code, nbytes = ACT_DTYPES[act]
     plan = seq_plan(gates, batch, in_dim, hidden, nbytes)
     bits = weight_bits or 8 * nbytes
+    what = (f"{wrapper.__name__} (B={batch}, T={steps}, I={in_dim}, "
+            f"H={hidden}, {plan['path']} path, R={plan['rows']}, {act}, "
+            f"{bits}-bit weights)")
+    if plan["path"] == "cluster":
+        launch(wrapper, tensors,
+               (batch, steps, in_dim, hidden, plan["rows"], plan["cluster"],
+                plan["units"], plan["smem"], code, bits), keys, 2 * gates,
+               p_drop, what, act, variant="cluster")
+        return
     launch(wrapper, tensors,
            (batch, steps, in_dim, hidden, plan["rows"],
             int(plan["path"] == "warp"), plan["smem"], code, bits), keys,
-           2 * gates, p_drop,
-           f"{wrapper.__name__} (B={batch}, T={steps}, I={in_dim}, "
-           f"H={hidden}, {plan['path']} path, R={plan['rows']}, {act}, "
-           f"{bits}-bit weights)", act)
+           2 * gates, p_drop, what, act)
+
+
+def step_launch(wrapper, tensors, batch: int, in_dim: int, hidden: int,
+                gates: int, keys, p_drop: float, act=torch.float32) -> None:
+    """Launch a step kernel (``wrapper``: ``mcd_lstm_step`` or
+    ``mcd_gru_step``) on the path :func:`step_plan` picks, for activations
+    and weights of dtype ``act``."""
+    plan = step_plan(gates, batch, in_dim, hidden)
+    code = ACT_DTYPES[act][0]
+    what = (f"{wrapper.__name__} (B={batch}, I={in_dim}, H={hidden}, "
+            f"{plan['path']} path, R={plan['rows']}, {act})")
+    if plan["path"] == "split":
+        launch(wrapper, tensors,
+               (batch, in_dim, hidden, plan["rows"], plan["cluster"],
+                plan["units"], code), keys, 2 * gates, p_drop, what, act,
+               variant="split")
+        return
+    launch(wrapper, tensors,
+           (batch, in_dim, hidden, plan["rows"], int(plan["path"] == "warp"),
+            code), keys, 2 * gates, p_drop, what, act)
 
 
 def check(name, t, device, dtype, shape):
@@ -474,7 +593,8 @@ def _rnn_argtypes(n_ptr: int, n_int: int) -> tuple:
 def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str,
              variant: str = "", *, device) -> None:
     """Launch ``csrc/<lib>.cu``'s ``<wrapper name>[_<variant>]_launch``
-    entry (``variant`` "bf16": the LM kernels' bf16 entries) with ``args``
+    entry (``variant`` "bf16": the LM kernels' bf16 entries; "cluster" /
+    "split": the recurrent kernels' wide path) with ``args``
     (declared ``argtypes``) on ``device``, the operands' card, raise on a
     launch error, and count one launch in ``wrapper.launches``.
 
@@ -492,19 +612,21 @@ def launch_c(wrapper, lib: str, argtypes: tuple, args, what: str,
 
 
 def launch(wrapper, tensors, ints, keys, n_keys: int, p_drop: float,
-           what: str, act=torch.float32) -> None:
+           what: str, act=torch.float32, variant: str = "") -> None:
     """Launch the kernel of ``wrapper`` (``csrc/<wrapper.__name__>.cu``'s
-    ``*_launch`` entry) on the tensors' device and its current stream, raise
-    on a launch error, and count one launch in ``wrapper.launches``.  A
-    ``None`` among ``tensors`` passes a null pointer (the scales of
-    unquantized weights); the dropout scale is rounded to ``act``."""
+    ``*_launch`` entry, or its ``*_<variant>_launch`` entry: the wide
+    path's ``cluster`` / ``split``) on the tensors' device and its current
+    stream, raise on a launch error, and count one launch in
+    ``wrapper.launches``.  A ``None`` among ``tensors`` passes a null
+    pointer (the scales of unquantized weights); the dropout scale is
+    rounded to ``act``."""
     name = wrapper.__name__
     thr, scale, masked = mask_args(p_drop, act)
     dev = tensors[0].device
     launch_c(wrapper, name, _rnn_argtypes(len(tensors), len(ints)),
              (*[None if t is None else t.data_ptr() for t in tensors], *ints,
               keys_arg(keys, n_keys), thr, scale, masked, stream(dev)),
-             what, device=dev)
+             what, variant, device=dev)
 
 
 # The mask-export entry of each cell's gate count: the layer kernels of one

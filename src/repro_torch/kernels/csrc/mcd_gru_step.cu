@@ -46,6 +46,14 @@
 //    block owns R whole rows, one thread per (row, unit); the block writes
 //    its rows' mask factors, x and the full h rows into shared memory, one
 //    barrier, then each thread runs mcd_cells.cuh's gru_unit.
+//  * Split path (mcd_wide.cuh), for every layer the block path refuses
+//    (H above 1024; a row's mask factors, x and h above a block's shared
+//    memory): a grid of (row tiles x unit slices), a block R rows of a
+//    slice of units, a thread one unit and two rows.  h_{t-1} comes from
+//    global memory, so the blocks are independent: each stages its rows'
+//    masked x and masked h a chunk of 128 at a time (the factors from the
+//    hash) and runs mcd_gru_seq.cu's cluster-path chains, bit for bit.
+//    A launch reads each weight once for every tile of R rows.
 // The host picks the path, the rows a block and the threads
 // (kernels/common.py::step_plan) and passes them in; the entry checks them.
 //
@@ -62,6 +70,7 @@
 
 #include "mcd_cells.cuh"
 #include "mcd_mask.cuh"
+#include "mcd_wide.cuh"
 
 namespace {
 
@@ -466,6 +475,81 @@ int launch_typed_q(const void* xv, const void* hv, const void* wxv,
   return (int)cudaGetLastError();
 }
 
+
+// -- the split path: layers the warp and block paths refuse ----------------
+//
+// H above 1024 or an input too wide for the block path's shared memory
+// (mcd_wide.cuh): a grid of (row tiles x unit slices), block (tile, q)
+// owning units [q * units, (q + 1) * units) of the tile's R rows, a thread
+// one unit and kWideRowsThread rows.  A step reads h_{t-1} from global
+// memory, so no block needs another's: each stages its rows' masked x and
+// masked h a chunk at a time (the factors from the hash, as
+// mcd_gru_seq.cu's cluster path draws them) and runs the same chains
+// in the same order, so the two agree bit for bit.  fp32 and bf16 run this
+// one template.
+template <typename A>
+__global__ void __launch_bounds__(mcd::kWideThreads)
+mcd_gru_step_kernel_split(
+    const A* __restrict__ x,          // [B, I]
+    const A* __restrict__ h,          // [B, H]
+    const A* __restrict__ wx,         // [I, 3, H]
+    const A* __restrict__ wh,         // [H, 3, H]
+    const float* __restrict__ bias,   // [3, H]
+    const int32_t* __restrict__ rows, // [B]
+    A* __restrict__ h_out,            // [B, H]
+    int B, int I, int H, int R, int units, int slices, mcd::GateKeys keys,
+    uint32_t thr, float scale, int masked) {
+  constexpr int kR = mcd::kWideRowsThread;
+  const int slice = (int)blockIdx.x % slices;
+  const int row0 = (int)blockIdx.x / slices * R;
+  extern __shared__ float smem[];
+  float* buf = smem;                    // [R][3][kWideChunk]
+  const mcd::WideThread th(units, slice, H);
+  const int jc = th.unit_ok ? th.j : H - 1;     // a unit to address
+  const mcd::Column<A, A, kGates> cx(wx, nullptr, jc, H),
+      ch(wh, nullptr, jc, H);
+  float ax[kR][kGates], ah[kR][kGates];
+#pragma unroll
+  for (int q = 0; q < kR; ++q)
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) ax[q][g] = ah[q][g] = 0.0f;
+  for (int d0 = 0; d0 < I; d0 += mcd::kWideChunk) {
+    const int n = I - d0 < mcd::kWideChunk ? I - d0 : mcd::kWideChunk;
+    __syncthreads();                    // buf free
+    mcd::stage_masked<A, kGates>(buf, x, (size_t)I, rows, row0, R, B, I, d0,
+                                 n, keys, 0, thr, scale, masked);
+    __syncthreads();
+    if (th.unit_ok) mcd::accumulate(ax, buf, th.r0, cx, d0, n);
+  }
+  for (int d0 = 0; d0 < H; d0 += mcd::kWideChunk) {
+    const int n = H - d0 < mcd::kWideChunk ? H - d0 : mcd::kWideChunk;
+    __syncthreads();
+    mcd::stage_masked<A, kGates>(buf, h, (size_t)H, rows, row0, R, B, H, d0,
+                                 n, keys, kGates, thr, scale, masked);
+    __syncthreads();
+    if (th.unit_ok) mcd::accumulate(ah, buf, th.r0, ch, d0, n);
+  }
+  if (!th.unit_ok) return;
+  float bj[kGates];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + th.j];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    const int br = row0 + th.r0 + q;
+    if (br >= B) continue;
+    const float h_own = mcd::to_f(h[(size_t)br * H + th.j]);
+    h_out[(size_t)br * H + th.j] = mcd::from_f<A>(mcd::gru_tail(
+        ax[q][0], ax[q][1], ax[q][2], ah[q][0], ah[q][1], ah[q][2], bj,
+        h_own));
+  }
+}
+
+// The split path's shared memory: buf [R][3][kWideChunk] floats
+// (kernels/common.py::wide_plan).
+size_t split_smem_bytes(int R) {
+  return (size_t)R * kGates * mcd::kWideChunk * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
@@ -492,6 +576,46 @@ int mcd_gru_step_launch(const void* x, const void* h, const void* wx,
                      static_cast<const float*>(wh), bias, rows,
                      static_cast<float*>(h_out), B, I, H, R, warp, keys6, thr,
                      scale, masked, stream);
+}
+
+// Launches one step on the split path (kernels/common.py::wide_plan): a
+// grid of (row tiles of R rows) x (`slices` slices of `units` hidden
+// units), for activations and weights `act` (0: fp32, 1: bf16).  Returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when the plan
+// does not fit the path.
+int mcd_gru_step_split_launch(const void* x, const void* h,
+                              const void* wx, const void* wh,
+                              const float* bias, const int32_t* rows,
+                              void* h_out, int B, int I, int H, int R,
+                              int slices, int units, int act,
+                              const uint32_t* keys6, uint32_t thr,
+                              float scale, int masked, void* stream) {
+  const mcd::GateKeys keys = mcd::to_keys(keys6, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || I < 1 || H < 1 || !mcd::wide_plan_ok(H, R, slices, units))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (B + R - 1) / R;
+  const int threads = units * (R / mcd::kWideRowsThread);
+  const size_t smem = split_smem_bytes(R);
+#define MCD_GRU_SPLIT(AA)                                                \
+  {                                                                      \
+    if (smem > 48 * 1024) {                                              \
+      cudaError_t err = cudaFuncSetAttribute(                            \
+          mcd_gru_step_kernel_split<AA>,                                 \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
+      if (err != cudaSuccess) return (int)err;                           \
+    }                                                                    \
+    mcd_gru_step_kernel_split<AA><<<tiles * slices, threads, smem, s>>>( \
+        static_cast<const AA*>(x), static_cast<const AA*>(h),            \
+        static_cast<const AA*>(wx), static_cast<const AA*>(wh), bias,    \
+        rows, static_cast<AA*>(h_out), B, I, H, R, units, slices,        \
+        keys, thr, scale, masked);                                       \
+    return (int)cudaGetLastError();                                      \
+  }
+  if (act == 0) MCD_GRU_SPLIT(float)
+  if (act == 1) MCD_GRU_SPLIT(bf16)
+#undef MCD_GRU_SPLIT
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -47,9 +47,26 @@
 //    owns R whole rows, one thread per (row, unit); h of the tile in shared
 //    memory and two block barriers a step separate the reads of h_{t-1}
 //    from the writes of h_t; weights read through the read-only path.
-// The host picks the path, the rows a block and the shared memory
-// (kernels/mcd_lstm_seq.py::lstm_seq_plan) and passes them in; the entry
-// checks the shared memory against what the path needs.
+//  * Cluster path (mcd_wide.cuh), for every layer the block path refuses:
+//    H above 1024 (its one thread a unit), or a row's mask factors, x and
+//    h above a block's shared memory (I = 20000 at H = 8).  A thread block
+//    cluster of C <= 16 blocks owns a tile of R rows, each block a slice of
+//    `units` hidden units, a thread one unit and two rows.  Each step every
+//    owner publishes its masked h (one value a gate) in its own shared
+//    memory, and every block reads the tile's whole masked h_{t-1} from its
+//    peers through distributed shared memory, a chunk of 128 units at a
+//    time, between two cluster barriers; the x side is staged the same
+//    way, its factors recomputed from the hash at each chunk, so no width
+//    is bounded by shared memory (H <= 16384: C * 1024 threads; I any).
+//    The weights stream through the read-only path every step, a code
+//    dequantized at each read: a cluster reads each weight once a step
+//    for its R rows (R = 16 at H = 2048, 4 at H = 8192), so a layer reads
+//    its weights ceil(B / R) times a step.
+// The host picks the path, the rows a block (a cluster) and the shared
+// memory (kernels/mcd_lstm_seq.py::lstm_seq_plan) and passes them in; the
+// entry checks the shared memory against what the path needs, and the
+// cluster path's launch checks that such a cluster can be resident
+// (cudaOccupancyMaxActiveClusters) and raises through its error if not.
 // Serving precisions (the TPU kernel's `weight_bits` branch, l.56-91, and
 // its bf16 operands): the fp32 kernels stay as they were, so their code
 // does not change, and the `_q` kernels after them are templates over the
@@ -70,7 +87,12 @@
 // fp32 path's.  Rounding points as in mcd_cells.cuh: the masked views, the
 // dequantized weights and h on every write -- so every instantiation is
 // bit-equal to the plain version at its precision.
-// Left for a later PR: tensor cores for large H, a cluster split of H.
+// The cluster path is right first: at (I, H) = (2048, 2048), B = 64, T = 8
+// it runs ~50x its bound of fp32 operations (PERF.md, the kernel table).
+// Left for a later PR: tensor cores for large H; on the cluster path,
+// the row groups of a block reading the same weights from L2 (each warp
+// holds one row group, so a block re-reads its slice once a group) and a
+// chunk's block barriers.
 //
 // The mask stream (mcd_mask.cuh) and the cell body (mcd_cells.cuh) are
 // shared with the GRU and step kernels.
@@ -83,6 +105,7 @@
 #include "mcd_async.cuh"
 #include "mcd_cells.cuh"
 #include "mcd_mask.cuh"
+#include "mcd_wide.cuh"
 
 namespace {
 
@@ -735,6 +758,164 @@ int launch_typed_q(const void* x, const void* wx, const void* wh,
                             masked, s);
 }
 
+
+// -- the cluster path: layers the warp and block paths refuse --------------
+//
+// H above 1024 or an input too wide for the block path's shared memory
+// (mcd_wide.cuh).  A cluster of C blocks owns a tile of R rows; block q of
+// the cluster owns units [q * units, (q + 1) * units) of every row of the
+// tile, a thread one unit and kWideRowsThread rows.  Each step the owner of
+// unit k publishes its masked h_{t-1} (h * f_g, rounded to A, one value a
+// gate) in its own shared memory (pub), and every block reads the whole
+// masked h_{t-1} of the tile from its peers through distributed shared
+// memory (stage_peers), a chunk at a time.  Two cluster barriers a step
+// separate the reads of h_{t-1} from the writes of h_t, as the block path's
+// two block barriers do; the x side of step t, which does not read h, runs
+// before the first.  Every (A, W) instantiation, fp32 included, runs this
+// one template.
+template <typename A, typename W>
+__global__ void __launch_bounds__(mcd::kWideThreads)
+mcd_lstm_seq_kernel_cluster(
+    const A* __restrict__ x,          // [B, T, I]
+    const typename mcd::Storage<W>::type* __restrict__ wx,  // [I, 4, H(/2)]
+    const typename mcd::Storage<W>::type* __restrict__ wh,  // [H, 4, H(/2)]
+    const float* __restrict__ sx, const float* __restrict__ sh,
+    const float* __restrict__ bias, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ lens, const A* __restrict__ h0,
+    const float* __restrict__ c0, A* __restrict__ ys, A* __restrict__ hT,
+    float* __restrict__ cT, int B, int T, int I, int H, int R, int units,
+    mcd::GateKeys keys, uint32_t thr, float scale, int masked) {
+  constexpr int kR = mcd::kWideRowsThread;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slice = (int)cluster.block_rank();
+  const int row0 = (int)(blockIdx.x / cluster.num_blocks()) * R;
+  extern __shared__ float smem[];
+  float* pub = smem;                            // [R][4][units]  masked h
+  float* buf = pub + (size_t)R * kGates * units;  // [R][4][kWideChunk]
+
+  const mcd::WideThread th(units, slice, H);
+  const int jc = th.unit_ok ? th.j : H - 1;     // a unit to address
+  float h[kR], c[kR], bj[kGates];
+  int len[kR];
+  int32_t rid[kR];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    const int br = row0 + th.r0 + q;
+    const bool live = br < B && th.unit_ok;
+    h[q] = live ? mcd::to_f(h0[(size_t)br * H + th.j]) : 0.0f;
+    c[q] = live ? c0[(size_t)br * H + th.j] : 0.0f;
+    len[q] = br < B ? lens[br] : 0;
+    rid[q] = br < B ? rows[br] : -1;
+  }
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) bj[g] = bias[g * H + jc];
+  const mcd::Column<A, W, kGates> cx(wx, sx, jc, H), ch(wh, sh, jc, H);
+
+  // The unit's masked h of the thread's rows into pub.
+  auto publish = [&]() {
+    if (!th.unit_ok) return;
+#pragma unroll
+    for (int q = 0; q < kR; ++q)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g)
+        pub[((th.r0 + q) * kGates + g) * units + th.ug] =
+            mcd::round_to<A>(__fmul_rn(
+                h[q], mcd::mask_factor(keys.k[kGates + g], rid[q], H, th.j,
+                                       thr, scale, masked)));
+  };
+
+  publish();
+  for (int t = 0; t < T; ++t) {
+    float a[kR][kGates];
+#pragma unroll
+    for (int q = 0; q < kR; ++q)
+#pragma unroll
+      for (int g = 0; g < kGates; ++g) a[q][g] = 0.0f;
+    for (int d0 = 0; d0 < I; d0 += mcd::kWideChunk) {
+      const int n = I - d0 < mcd::kWideChunk ? I - d0 : mcd::kWideChunk;
+      __syncthreads();                  // buf free
+      mcd::stage_masked<A, kGates>(buf, x + (size_t)t * I, (size_t)T * I,
+                                   rows, row0, R, B, I, d0, n, keys, 0, thr,
+                                   scale, masked);
+      __syncthreads();
+      if (th.unit_ok) mcd::accumulate(a, buf, th.r0, cx, d0, n);
+    }
+    cluster.sync();                     // every block's h_{t-1} published
+    for (int d0 = 0; d0 < H; d0 += mcd::kWideChunk) {
+      const int n = H - d0 < mcd::kWideChunk ? H - d0 : mcd::kWideChunk;
+      __syncthreads();
+      mcd::stage_peers<kGates>(buf, pub, R, units, d0, n);
+      __syncthreads();
+      if (th.unit_ok) mcd::accumulate(a, buf, th.r0, ch, d0, n);
+    }
+    cluster.sync();                     // every block has read h_{t-1}
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      float c_new = c[q];
+      const float h_new = mcd::round_to<A>(
+          mcd::lstm_tail(a[q][0], a[q][1], a[q][2], a[q][3], bj, c_new));
+      if (t < len[q]) {
+        h[q] = h_new;
+        c[q] = c_new;
+      }
+      const int br = row0 + th.r0 + q;
+      if (th.unit_ok && br < B)
+        ys[((size_t)br * T + t) * H + th.j] = mcd::from_f<A>(h[q]);
+    }
+    if (t + 1 < T) publish();
+  }
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    const int br = row0 + th.r0 + q;
+    if (th.unit_ok && br < B) {
+      hT[(size_t)br * H + th.j] = mcd::from_f<A>(h[q]);
+      cT[(size_t)br * H + th.j] = c[q];
+    }
+  }
+}
+
+// The cluster path's shared memory: pub [R][4][units] and buf
+// [R][4][kWideChunk] floats (kernels/common.py::wide_plan).
+size_t cluster_smem_bytes(int R, int units) {
+  return (size_t)R * kGates * (units + mcd::kWideChunk) * sizeof(float);
+}
+
+template <typename A, typename W>
+int launch_cluster_q(const Args<A, W>& o, int B, int T, int I, int H, int R,
+                     int C, int units, size_t smem,
+                     const mcd::GateKeys& keys, uint32_t thr, float scale,
+                     int masked, cudaStream_t s) {
+  if (!mcd::wide_plan_ok(H, R, C, units) || C > mcd::kClusterMax ||
+      smem < cluster_smem_bytes(R, units))
+    return (int)cudaErrorInvalidValue;
+  return mcd::launch_cluster(
+      mcd_lstm_seq_kernel_cluster<A, W>, (B + R - 1) / R, C,
+      units * (R / mcd::kWideRowsThread), smem, s, o.x, o.wx, o.wh, o.sx,
+      o.sh, o.bias, o.rows, o.lens, o.h0, o.c0, o.ys, o.hT, o.cT, B, T, I, H,
+      R, units, keys, thr, scale, masked);
+}
+
+template <typename A, typename W>
+int launch_cluster_typed(const void* x, const void* wx, const void* wh,
+                         const float* sx, const float* sh, const float* bias,
+                         const int32_t* rows, const int32_t* lens,
+                         const void* h0, const float* c0, void* ys, void* hT,
+                         float* cT, int B, int T, int I, int H, int R, int C,
+                         int units, size_t smem, const mcd::GateKeys& keys,
+                         uint32_t thr, float scale, int masked,
+                         cudaStream_t s) {
+  using WT = typename mcd::Storage<W>::type;
+  if (!std::is_same<W, A>::value && (sx == nullptr || sh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args<A, W> o{static_cast<const A*>(x), static_cast<const WT*>(wx),
+                     static_cast<const WT*>(wh), sx, sh, bias, rows, lens,
+                     static_cast<const A*>(h0), c0, static_cast<A*>(ys),
+                     static_cast<A*>(hT), cT};
+  return launch_cluster_q<A, W>(o, B, T, I, H, R, C, units, smem, keys, thr,
+                                scale, masked, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -773,6 +954,37 @@ int mcd_lstm_seq_launch(const void* x, const void* wx, const void* wh,
                      static_cast<float*>(ys), static_cast<float*>(hT), cT, B,
                      T, I, H, R, warp, smem_bytes, keys8, thr, scale, masked,
                      stream);
+}
+
+// Launches one layer on the cluster path (kernels/common.py::wide_plan):
+// clusters of C blocks, each cluster a tile of R rows and each block
+// `units` hidden units of them, `smem` bytes of shared memory a block; the
+// activations and weights as mcd_lstm_seq_launch takes them.  Returns
+// cudaGetLastError() (0 = launched), cudaErrorInvalidValue when the plan or
+// the types do not fit, cudaErrorInvalidConfiguration when such a cluster
+// cannot be resident on the card.
+int mcd_lstm_seq_cluster_launch(
+    const void* x, const void* wx, const void* wh, const float* sx,
+    const float* sh, const float* bias, const int32_t* rows,
+    const int32_t* lens, const void* h0, const float* c0, void* ys, void* hT,
+    float* cT, int B, int T, int I, int H, int R, int C, int units,
+    int smem_bytes, int act, int wbits, const uint32_t* keys8, uint32_t thr,
+    float scale, int masked, void* stream) {
+  const size_t smem = (size_t)smem_bytes;
+  const mcd::GateKeys keys = mcd::to_keys(keys8, 2 * kGates);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || T < 1 || I < 1 || H < 1) return (int)cudaErrorInvalidValue;
+#define MCD_LSTM_CLUSTER(AA, WW)                                           \
+  return launch_cluster_typed<AA, WW>(x, wx, wh, sx, sh, bias, rows, lens, \
+                                      h0, c0, ys, hT, cT, B, T, I, H, R, C, \
+                                      units, smem, keys, thr, scale,       \
+                                      masked, s);
+  if (act == 0 && wbits == 32) MCD_LSTM_CLUSTER(float, float)
+  if (act == 1 && wbits == 16) MCD_LSTM_CLUSTER(bf16, bf16)
+  if (act == 1 && wbits == 8) MCD_LSTM_CLUSTER(bf16, int8_t)
+  if (act == 1 && wbits == 4) MCD_LSTM_CLUSTER(bf16, mcd::Int4)
+#undef MCD_LSTM_CLUSTER
+  return (int)cudaErrorInvalidValue;
 }
 
 // Writes the mask factors of every row: fx [B,4,I], fh [B,4,H].  Every

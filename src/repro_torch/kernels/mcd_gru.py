@@ -29,7 +29,7 @@ def gate_keys(seed, layer) -> torch.Tensor:
     return torch.stack([prng.as_u32(k) for k in ks]).reshape(1, 6)
 
 
-def gru_update_plain(x, h, h_prev, fx, fh, wx, wh, b):
+def gru_update_plain(x, h, h_prev, fx, fh, wx, wh, b, gx=None):
     """The kernels' GRU body on mask factors, in plain PyTorch.
 
     x [B, I]; h [B, H] feeds the recurrent products (the full row); h_prev
@@ -45,14 +45,14 @@ def gru_update_plain(x, h, h_prev, fx, fh, wx, wh, b):
     order; ``r * gh[2]`` and ``z * h_prev`` are fp32 products of the
     activation-dtype h; the activations run row by row
     (:func:`repro_torch.kernels.common.rowwise`), so every row's result is
-    the same whatever the batch around it.  Returns h_new in h_prev's
-    dtype (rounded once, at the end).
+    the same whatever the batch around it.  ``gx``: the x-side sums
+    already taken (:func:`repro_torch.kernels.common.x_side_sums`, as the
+    sequence's plain version takes them for every step at once).  Returns
+    h_new in h_prev's dtype (rounded once, at the end).
     """
-    xg = common.masked_view(x, fx)              # [B, 3, I]
+    if gx is None:
+        gx = common.x_side_sums(x, fx, wx)      # [B, 3, H]
     hg = common.masked_view(h, fh)              # [B, 3, H]
-    gx = torch.zeros((x.shape[0], 3, wh.shape[0]), device=x.device)
-    for i in range(wx.shape[0]):
-        gx = gx + xg[:, :, i, None] * wx[i]
     gh = torch.zeros_like(gx)
     for k in range(wh.shape[0]):
         gh = gh + hg[:, :, k, None] * wh[k]
@@ -88,7 +88,8 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
     CPU tensors run :func:`mcd_gru_step_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_gru_step.launches``) on
     the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
-    path for H that divides 32, else the block path.
+    path for H that divides 32, else the block path, and the split path
+    for a layer the block path cannot take.
     """
     common.refuse_grad("mcd_gru_step", x, h, wx, wh, b)
     if common.check_device("mcd_gru_step", x):
@@ -107,14 +108,9 @@ def mcd_gru_step(x, h, wx, wh, b, rows, keys, p_drop: float):
                                   ("b", b, torch.float32, (3, H))):
         common.check(name, t, dev, dtype, shape)
     rows32 = common.rows_arg(rows, B, dev)
-    plan = common.step_plan(GATES, B, I, H)
     h_out = torch.empty((B, H), dtype=act, device=dev)
-    common.launch(mcd_gru_step, (x, h, wx, wh, b, rows32, h_out),
-                  (B, I, H, plan["rows"], int(plan["path"] == "warp"),
-                   common.ACT_DTYPES[act][0]),
-                  keys, 6, p_drop,
-                  f"mcd_gru_step (B={B}, I={I}, H={H}, {plan['path']} "
-                  f"path, R={plan['rows']}, {act})", act)
+    common.step_launch(mcd_gru_step, (x, h, wx, wh, b, rows32, h_out), B, I,
+                       H, GATES, keys, p_drop, act)
     return h_out
 
 

@@ -9,8 +9,10 @@ reaches the plain version: it launches the kernel or raises.
 The GRU's whole recurrent state is ``h``: one carried operand in, one out.
 :func:`gru_seq_plan` (:func:`repro_torch.kernels.common.seq_plan`, shared
 with the LSTM) picks the kernel's path (a warp per 32/H rows for H that
-divides 32, else a block per row tile), the rows a block and the shared
-memory.  The kernel's design notes are at the top of the ``.cu``
+divides 32, else a block per row tile, and for a layer no block holds --
+H above 1024, or an input too wide for a block's shared memory -- a
+thread block cluster per row tile, the cluster split of H), the rows a
+block and the shared memory.  The kernel's design notes are at the top of the ``.cu``
 source.
 """
 
@@ -46,9 +48,11 @@ def mcd_gru_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
     wx, wh = common.plain_weights(wx, wh, act, H, weight_bits, wx_scale,
                                   wh_scale)
     b = b.float()
+    gx = common.x_side_sums(x_seq, fx, wx)     # every step's x side
     ys = []
     for t in range(T):
-        h_new = gru_update_plain(x_seq[:, t], h, h, fx, fh, wx, wh, b)
+        h_new = gru_update_plain(x_seq[:, t], h, h, fx, fh, wx, wh, b,
+                                 gx=gx[:, t])
         h = torch.where((t < lens)[:, None], h_new, h)
         ys.append(h)
     return torch.stack(ys, dim=1), h

@@ -30,7 +30,7 @@ def gate_keys(seed, layer) -> torch.Tensor:
     return torch.stack([prng.as_u32(k) for k in ks]).reshape(1, 8)
 
 
-def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b):
+def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b, gx=None):
     """One step of the kernels' LSTM body on mask factors, in plain PyTorch.
 
     x [B, I]; h [B, H] in the activation dtype (fp32 or bf16); c [B, H]
@@ -43,13 +43,12 @@ def lstm_cell_plain(x, h, c, fx, fh, wx, wh, b):
     side, then h side, then the bias), the kernels' order, and the
     activations run row by row (:func:`repro_torch.kernels.common.rowwise`),
     so every row's result is the same whatever the batch around it.
-    Returns (h_new in h's dtype, c_new fp32).
+    ``gx``: the x-side sums already taken (:func:`repro_torch.kernels.
+    common.x_side_sums`, as the sequence's plain version takes them for
+    every step at once).  Returns (h_new in h's dtype, c_new fp32).
     """
-    xg = common.masked_view(x, fx)              # [B, 4, I]
+    acc = common.x_side_sums(x, fx, wx) if gx is None else gx
     hg = common.masked_view(h, fh)              # [B, 4, H]
-    acc = torch.zeros((x.shape[0], 4, wh.shape[0]), device=x.device)
-    for i in range(wx.shape[0]):
-        acc = acc + xg[:, :, i, None] * wx[i]
     for k in range(wh.shape[0]):
         acc = acc + hg[:, :, k, None] * wh[k]
     gates = acc + b
@@ -86,7 +85,8 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
     CPU tensors run :func:`mcd_lstm_step_plain`; CUDA tensors launch the
     kernel on the current stream (counted in ``mcd_lstm_step.launches``) on
     the path :func:`repro_torch.kernels.common.step_plan` picks: the warp
-    path for H that divides 32, else the block path.
+    path for H that divides 32, else the block path, and the split path
+    for a layer the block path cannot take.
     """
     common.refuse_grad("mcd_lstm_step", x, h, c, wx, wh, b)
     if common.check_device("mcd_lstm_step", x):
@@ -107,16 +107,11 @@ def mcd_lstm_step(x, h, c, wx, wh, b, rows, keys, p_drop: float):
                                   ("b", b, f32, (4, H))):
         common.check(name, t, dev, dtype, shape)
     rows32 = common.rows_arg(rows, B, dev)
-    plan = common.step_plan(GATES, B, I, H)
     h_out = torch.empty((B, H), dtype=act, device=dev)
     c_out = torch.empty((B, H), device=dev)
-    common.launch(mcd_lstm_step,
-                  (x, h, c, wx, wh, b, rows32, h_out, c_out),
-                  (B, I, H, plan["rows"], int(plan["path"] == "warp"),
-                   common.ACT_DTYPES[act][0]),
-                  keys, 8, p_drop,
-                  f"mcd_lstm_step (B={B}, I={I}, H={H}, {plan['path']} "
-                  f"path, R={plan['rows']}, {act})", act)
+    common.step_launch(mcd_lstm_step,
+                       (x, h, c, wx, wh, b, rows32, h_out, c_out), B, I, H,
+                       GATES, keys, p_drop, act)
     return h_out, c_out
 
 

@@ -8,8 +8,10 @@ reaches the plain version: it launches the kernel or raises.
 
 :func:`lstm_seq_plan` (:func:`repro_torch.kernels.common.seq_plan`, shared
 with the GRU) picks the kernel's path (a warp per 32/H rows for H that
-divides 32, else a block per row tile), the rows a block and the shared
-memory.  The kernel's design notes (what bounds it on an H100 and what is
+divides 32, else a block per row tile, and for a layer no block holds --
+H above 1024, or an input too wide for a block's shared memory -- a
+thread block cluster per row tile, the cluster split of H), the rows a
+block and the shared memory.  The kernel's design notes (what bounds it on an H100 and what is
 left for a later PR) are at the top of the ``.cu`` source.
 """
 
@@ -48,9 +50,11 @@ def mcd_lstm_seq_plain(x_seq, wx, wh, b, rows, keys, p_drop: float, *,
     wx, wh = common.plain_weights(wx, wh, act, H, weight_bits, wx_scale,
                                   wh_scale)
     b = b.float()
+    gx = common.x_side_sums(x_seq, fx, wx)     # every step's x side
     ys = []
     for t in range(T):
-        h_new, c_new = lstm_cell_plain(x_seq[:, t], h, c, fx, fh, wx, wh, b)
+        h_new, c_new = lstm_cell_plain(x_seq[:, t], h, c, fx, fh, wx, wh, b,
+                                       gx=gx[:, t])
         live = (t < lens)[:, None]
         h = torch.where(live, h_new, h)
         c = torch.where(live, c_new, c)
@@ -71,8 +75,9 @@ def lstm_seq_plan(batch: int, in_dim: int, hidden: int,
                   act_bytes: int = 4) -> dict:
     """How ``csrc/mcd_lstm_seq.cu`` runs a layer (:func:`common.seq_plan`
     with the LSTM's 4 gates) at an activation width of ``act_bytes``: its
-    path (warp for H that divides 32, else block), the rows a block, the
-    threads and blocks, and the shared memory a block needs."""
+    path (warp for H that divides 32, else block, else cluster), the rows
+    a block, the threads and blocks, and the shared memory a block
+    needs."""
     return common.seq_plan(GATES, batch, in_dim, hidden, act_bytes)
 
 

@@ -15,8 +15,10 @@ strategies over a ``(data, model)`` :class:`~repro_torch.launch.mesh.Mesh`:
   model-axis entry computes its columns of every gate, runs the cell on
   them and hands back its slice of ``h_t`` (and ``c_t``); the slices are
   put together in order and copied to every entry before step ``t + 1``.
-  No reduction is split.  This is how a stack wider than the kernels take
-  (``kernels.common.tile_rows``: H above 1024) runs on several devices.
+  No reduction is split.  This is how a wide stack's H is tiled across
+  *devices* (the kernels themselves take any H up to 16384 on one: the
+  sequence kernels' cluster split of H, the step kernels' unit slices,
+  ``kernels.common.wide_plan``).
 
 No process group and no collective: one process drives every device of
 the mesh in order and puts the results back together on the mesh's first
@@ -54,9 +56,11 @@ from repro_torch.core import cells, mcd, rnn
 from repro_torch.kernels import quantize
 from repro_torch.launch import mesh as mesh_lib
 
-#: H above which ``"auto"`` stops running the kernels on whole layers:
-#: the kernels' block path holds one thread a hidden unit and refuses H
-#: above 1024 (``kernels.common.tile_rows``, ROADMAP B1.3).
+#: H above which ``"auto"`` tiles H across the mesh's ``model`` axis
+#: (``"gspmd"``), the reference's value and reason: H-tiling across
+#: devices belongs to gspmd.  Unsharded, or on a data mesh, the kernels
+#: run such a layer whole on one device (their wide path,
+#: ``kernels.common.wide_plan``).
 WIDE_H_DEFAULT = 1024
 
 STRATEGIES = ("auto", "data", "gspmd")
@@ -117,7 +121,7 @@ def resolve_strategy(mesh, policy: StackShardingPolicy, backend: str,
     if backend == "reference":
         return "gspmd"              # the reference cells split by columns
     if max(hiddens) > policy.wide_h and model_size(mesh, policy) > 1:
-        return "gspmd"              # wider than the kernels take
+        return "gspmd"              # H tiled across the model axis
     return "data"
 
 

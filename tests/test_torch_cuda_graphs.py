@@ -133,6 +133,40 @@ def test_tick_graph_equals_eager(dev, model, cell, backend, precision,
     assert summarize(g.metrics)["compiles"] == 0
 
 
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("backend", ["cuda_seq", "cuda_step"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_wide_tick_graph_equals_eager(dev, cell, backend, precision):
+    """A wide classifier (H = 2048, two layers: the sequence kernels'
+    cluster path, the step kernels' split path) captured in the tick's
+    graph replays the eager ticks bit for bit, with the same launches."""
+    cfg = clf.ClassifierConfig(
+        hidden=2048, num_layers=2, num_classes=4, cell=cell,
+        mcd=mcd.MCDConfig(p=0.125, placement="YN", n_samples=2, seed=3))
+    params = clf.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(1)
+    sigs = [rng.standard_normal((12, 1)).astype(np.float32)
+            for _ in range(3)]
+    plan = [[3, 2, 4], [4, 1, 3], [2, 5, 1]]
+    kw = dict(backend=backend, precision=precision, max_sessions=4,
+              chunk_capacity=6, device=dev)
+    g = StreamingEngine(params, cfg, **kw)
+    e = StreamingEngine(params, cfg, graphs=False, **kw)
+    prewarm(g)
+    rg, re = _serve(g, sigs, plan), _serve(e, sigs, plan)
+    for sid in g.active_sessions:
+        for la, lb in zip(g.store.get(sid).state, e.store.get(sid).state,
+                          strict=True):
+            for a, b in zip(la, lb, strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    for ta, tb in zip(rg, re, strict=True):
+        for sid in ta:
+            for a, b in zip(ta[sid].summary, tb[sid].summary, strict=True):
+                assert torch.equal(a, b)
+    assert [m.launches for m in g.metrics] == [m.launches for m in e.metrics]
+    assert summarize(g.metrics)["compiles"] == 0
+
+
 def test_first_tick_captures_and_counts_its_launches(dev):
     cfg, params = _model("classifier", "lstm", dev)
     eng = StreamingEngine(params, cfg, max_sessions=2, chunk_capacity=8,

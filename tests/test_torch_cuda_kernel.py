@@ -464,6 +464,130 @@ def test_seq_wrapper_rejects_what_the_kernel_does_not_take(dev):
             (4, 8), device=dev), **d["qkw"])
 
 
+# -- the wide path: the cluster split of H, the step kernels' slices -------
+
+def _wide_layer(dev, cell, precision, B, T, I, H, seq, seed=0):
+    """A wide layer's operands (weights scaled by 1/sqrt(fan-in), so a gate
+    sum stays O(1)) at ``precision`` as the stack hands them to the kernel;
+    fp32 as it is."""
+    from repro_torch.kernels import ops
+    G = 4 if cell == "lstm" else 3
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, k=1.0):
+        return (torch.randn(shape, generator=g) * k).to(dev)
+
+    k = (I + H) ** -0.5
+    rows = torch.arange(B, dtype=torch.int64) * 3 + 5
+    rows[::7] |= mcd.STUDENT_ROW_FLAG
+    lens = torch.randint(1, T + 1, (B,), generator=g).to(torch.int32)
+    d = dict(x=r(B, T, I), wx=r(I, G, H, k=k), wh=r(H, G, H, k=k),
+             b=r(G, H, k=0.1), rows=rows.to(dev), h0=r(B, H, k=0.5),
+             c0=r(B, H, k=0.5), lengths=lens.to(dev), qkw={})
+    if precision == "fp32":
+        return d
+    wx, wh, x, qkw = ops._precision_weights(d["wx"], d["wh"], d["x"],
+                                            precision, seq=seq)
+    return dict(d, x=x, wx=wx, wh=wh, h0=d["h0"].bfloat16(), qkw=qkw)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", ("fp32",) + PRECISIONS)
+@pytest.mark.parametrize("B,T,I,H", [(33, 5, 64, 1100), (16, 4, 1, 2048),
+                                     (8, 3, 2048, 2048), (9, 3, 20000, 8)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_seq_wide_path_bit_equal(dev, cell, precision, B, T, I, H, p):
+    """The sequence kernels' cluster path (H above 1024, a ragged last
+    slice at H = 1100; an input too wide for the block path at I = 20000)
+    at every precision bit-equal to the plain versions: one launch, ys,
+    h_T (and the LSTM's c_T), ragged lengths, student rows, non-zero
+    h0 / c0."""
+    gates = 4 if cell == "lstm" else 3
+    act_bytes = 4 if precision == "fp32" else 2
+    assert common.seq_plan(gates, B, I, H, act_bytes)["path"] == "cluster"
+    d = _wide_layer(dev, cell, precision, B, T, I, H, seq=True, seed=I + H)
+    mod = seq if cell == "lstm" else gseq
+    fn = mod.mcd_lstm_seq if cell == "lstm" else mod.mcd_gru_seq
+    plain = (mod.mcd_lstm_seq_plain if cell == "lstm"
+             else mod.mcd_gru_seq_plain)
+    keys = (mcd_lstm if cell == "lstm" else mcd_gru).gate_keys(3, 1)
+    kw = dict(h0=d["h0"], lengths=d["lengths"], **d["qkw"])
+    if cell == "lstm":
+        kw["c0"] = d["c0"]
+    args = (d["x"], d["wx"], d["wh"], d["b"], d["rows"], keys, p)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for g, r in zip(got, plain(*args, **kw), strict=True):
+        assert g.dtype == r.dtype and torch.isfinite(g).all()
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", ("fp32",) + PRECISIONS)
+@pytest.mark.parametrize("B,I,H", [(33, 64, 1100), (16, 1, 2048),
+                                   (9, 20000, 24)])
+@pytest.mark.parametrize("p", [0.0, 0.125])
+def test_step_wide_path_bit_equal(dev, cell, precision, B, I, H, p):
+    """The step kernels' split path (the int8 / int4 weights dequantized
+    outside, as the reference hands them) bit-equal to their plain
+    versions."""
+    gates = 4 if cell == "lstm" else 3
+    assert common.step_plan(gates, B, I, H)["path"] == "split"
+    d = _wide_layer(dev, cell, precision, B, 1, I, H, seq=False, seed=I)
+    x = d["x"][:, 0].contiguous()
+    if cell == "lstm":
+        step, plain = mcd_lstm.mcd_lstm_step, mcd_lstm.mcd_lstm_step_plain
+        args = (x, d["h0"], d["c0"], d["wx"], d["wh"], d["b"], d["rows"],
+                mcd_lstm.gate_keys(3, 1), p)
+    else:
+        step, plain = mcd_gru.mcd_gru_step, mcd_gru.mcd_gru_step_plain
+        args = (x, d["h0"], d["wx"], d["wh"], d["b"], d["rows"],
+                mcd_gru.gate_keys(3, 1), p)
+    before = step.launches
+    got = step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    for g, r in zip(_outs(got), _outs(plain(*args)), strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("precision", [None, "bf16", "int4"])
+def test_step_backend_agrees_with_seq_backend_wide(dev, cell, precision):
+    """Two H = 1100 layers: the step kernels' split path (T launches a
+    layer) and the sequence kernels' cluster path (one) bitwise equal."""
+    params = rnn.init_stack(torch.Generator().manual_seed(2), 1,
+                            (1100, 1100), cell=cell, device=dev)
+    cfg = mcd.MCDConfig(p=0.125, placement="YN", seed=4)
+    d = _layer(dev, 20, 7, 1, 8)
+    outs = {}
+    for backend in ("cuda_step", "cuda_seq"):
+        outs[backend] = rnn.run_stack(
+            params, d["x"], rnn.stack_mask_plan(cfg, 2), cfg.p,
+            backend=backend, rows=d["rows"], seed=cfg.seed,
+            lengths=d["lengths"], return_all_states=True, cell=cell,
+            precision=precision, device=dev)
+    (ys, st), (yq, sq) = outs["cuda_step"], outs["cuda_seq"]
+    assert torch.isfinite(ys.float()).all() and torch.equal(ys, yq)
+    for a, b in zip(st, sq, strict=True):
+        for u, v in zip(a, b, strict=True):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_kernel_mask_bits_equal_wide(dev, cell):
+    """The card's mask factors at a wide H and a wide input: the plain
+    stream's bits."""
+    rows = torch.tensor([0, 1, 2 ** 31 + 3, 77], device=dev)
+    keys = (mcd_lstm if cell == "lstm" else mcd_gru).gate_keys(9, 2)
+    for I, H in ((64, 2048), (60000, 24)):
+        kx, kh = common.kernel_mask_factors(keys, rows, I, H, 0.125)
+        px, ph = common.gate_mask_factors(keys, rows, I, H, 0.125)
+        assert torch.equal(kx, px) and torch.equal(kh, ph)
+
+
 def _lm_rows(dev, n):
     return torch.tensor((LM_ROWS * n)[:n], dtype=torch.int64, device=dev)
 

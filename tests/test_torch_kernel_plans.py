@@ -161,8 +161,14 @@ def test_gru_wide_input_takes_the_block_path():
 
 @pytest.mark.parametrize("I,H", [(8, 2048), (20000, 8), (60000, 24)])
 def test_gru_plan_refuses_what_fits_no_path(I, H):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gseq.gru_seq_plan(4, I, H)
+    """What fitted neither the warp nor the block path (H above 1024; a
+    row's mask factors, x and h above a block's shared memory) takes the
+    cluster path; the block path's own rule still refuses it."""
+    plan = gseq.gru_seq_plan(4, I, H)
+    assert plan == common.wide_plan(3, 4, I, H, "cluster")
+    assert plan["path"] == "cluster" and plan["smem"] <= SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="wide path"):
+        common.tile_rows(3, I, H)
 
 
 # -- mcd_lstm_seq: the GRU's plan with four gates ----------------------------
@@ -230,8 +236,13 @@ def test_lstm_wide_input_takes_the_block_path():
 
 @pytest.mark.parametrize("I,H", [(8, 2048), (20000, 8), (50000, 24)])
 def test_lstm_plan_refuses_what_fits_no_path(I, H):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lseq.lstm_seq_plan(4, I, H)
+    """What fitted neither the warp nor the block path takes the cluster
+    path; the block path's own rule still refuses it."""
+    plan = lseq.lstm_seq_plan(4, I, H)
+    assert plan == common.wide_plan(4, 4, I, H, "cluster")
+    assert plan["path"] == "cluster" and plan["smem"] <= SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="wide path"):
+        lseq.tile_rows(I, H)
 
 
 # -- the serving precisions: plans at each activation width ------------------
@@ -871,8 +882,9 @@ def test_step_plan_matches_the_cuda_source(gates, source):
     is the source's kWarpMaxThreads, the warp kernels are instantiated for
     every H that divides 32 (by the fp32 launcher and by the bf16 one), the
     block path's shared memory is the source's block_smem_bytes, the entry
-    takes the plan's rows and warp flag, and both paths' kernels, fp32 and
-    bf16 (``_q``), hold the name a profile matches."""
+    takes the plan's rows and warp flag, and every path's kernels, fp32 and
+    bf16 (``_q``), and the split path's, hold the name a profile
+    matches."""
     src = (build.CSRC / source).read_text()
     stem = source.removesuffix(".cu")
     assert re.search(rf"constexpr int kGates = {gates};", src)
@@ -889,7 +901,8 @@ def test_step_plan_matches_the_cuda_source(gates, source):
         assert plan["smem"] == 4 * R * (gates * (I + H) + I + H)
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", src)
-    assert len(kernels) == 4
+    assert len(kernels) == 5                # and the split path's
+    assert f"{stem}_kernel_split" in kernels
     assert all(f"{stem}_kernel" in k for k in kernels)
 
 
@@ -1228,3 +1241,197 @@ def test_matmul_tc_plan_at_the_zoo_decode(M, N, K):
     assert plan["blocks"] == -(-N // 96) and plan["grid"] == (-(-N // 96), 1)
     assert SMEM_LIMIT // 2 < plan["smem"] <= SMEM_LIMIT
     assert plan["scratch_words"] == M * K // 32
+
+
+# -- the wide path: the cluster split of H and the step kernels' slices -----
+
+WIDE_SEQ_SOURCES = [pytest.param(4, "mcd_lstm_seq.cu", id="lstm"),
+                    pytest.param(3, "mcd_gru_seq.cu", id="gru")]
+# (I, H): the served classifier's layers, a ragged last slice, the top of
+# H, the two inputs the block path refuses, the extremes of the range.
+WIDE_SHAPES = [(1, 2048), (2048, 2048), (64, 1100), (512, 8192),
+               (20000, 8), (60000, 24), (1, 1025), (3, 1100), (1, 16384),
+               (65536, 16384), (65536, 1), (8192, 1024), (65536, 256)]
+
+
+def _wide_cu_constants():
+    src = (build.CSRC / "mcd_wide.cuh").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_wide_plan_matches_the_header():
+    """The plan's constants are mcd_wide.cuh's: the chunk, the rows a
+    thread, the threads a block and the blocks a cluster; H up to 16384
+    takes one unit a thread."""
+    k = _wide_cu_constants()
+    assert k["kWideChunk"] == common.WIDE_CHUNK
+    assert k["kWideRowsThread"] == common.WIDE_ROWS_THREAD
+    assert k["kWideThreads"] == common.WIDE_THREADS
+    assert k["kClusterMax"] == common.CLUSTER_MAX
+    assert common.WIDE_H_MAX == 16384
+
+
+@pytest.mark.parametrize("gates,source", WIDE_SEQ_SOURCES)
+def test_cluster_entry_matches_the_plan(gates, source):
+    """The sequence source's cluster kernel (one template, named as the
+    profile matches), its shared memory (pub [R][G][units] and the chunk
+    [R][G][kWideChunk] floats, the plan's ``smem``), its entry's plan
+    arguments after (B, T, I, H), and every precision the block path
+    takes, fp32 included."""
+    src = (build.CSRC / source).read_text()
+    stem = source.removesuffix(".cu")
+    assert re.findall(r"__global__ void __launch_bounds__\(mcd::kWideThreads\)"
+                      r"\s+(\w+)\(", src) == [f"{stem}_kernel_cluster"]
+    assert ("(size_t)R * kGates * (units + mcd::kWideChunk) * sizeof(float)"
+            in src)
+    args = r",\s+".join(f"int {a}" for a in (
+        "B", "T", "I", "H", "R", "C", "units", "smem_bytes", "act", "wbits"))
+    assert re.search(rf"int {stem}_cluster_launch\([^)]*{args},", src)
+    for act, bits in ((0, 32), (1, 16), (1, 8), (1, 4)):
+        assert f"act == {act} && wbits == {bits}) MCD_" \
+               f"{'LSTM' if gates == 4 else 'GRU'}_CLUSTER" in src
+    plan = common.seq_plan(gates, 64, 2048, 2048)
+    R, U = plan["rows"], plan["units"]
+    assert plan["smem"] == R * gates * (U + common.WIDE_CHUNK) * 4
+
+
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
+def test_split_entry_matches_the_plan(gates, source):
+    """The step source's split entry takes (B, I, H, R, slices, units,
+    act) and sizes the chunk [R][G][kWideChunk] floats, the plan's
+    ``smem``."""
+    src = (build.CSRC / source).read_text()
+    stem = source.removesuffix(".cu")
+    args = r",\s+".join(f"int {a}" for a in (
+        "B", "I", "H", "R", "slices", "units", "act"))
+    assert re.search(rf"int {stem}_split_launch\([^)]*{args},", src)
+    assert "(size_t)R * kGates * mcd::kWideChunk * sizeof(float)" in src
+    plan = common.step_plan(gates, 64, 2048, 2048)
+    assert plan["path"] == "split"
+    assert plan["smem"] == plan["rows"] * gates * common.WIDE_CHUNK * 4
+
+
+@pytest.mark.parametrize("path", ["cluster", "split"])
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("B", [1, 3, 33, 64, 1920])
+@pytest.mark.parametrize("I,H", WIDE_SHAPES)
+def test_wide_plan_covers_every_row_and_unit_once(I, H, B, gates, path):
+    """Every (row, unit) is one thread's: tiles of ``rows`` rows
+    (WIDE_ROWS_THREAD a thread), slices of ``units`` units (one a thread,
+    none empty, the last ragged), ``threads`` = units x row groups <=
+    1024, at most CLUSTER_MAX blocks a cluster, ``blocks`` = tiles x
+    slices, shared memory within the H100's 227 KB."""
+    plan = common.wide_plan(gates, B, I, H, path)
+    R, C, U = plan["rows"], plan["cluster"], plan["units"]
+    groups = R // common.WIDE_ROWS_THREAD
+    assert R % common.WIDE_ROWS_THREAD == 0
+    assert plan["threads"] == U * groups <= common.WIDE_THREADS
+    assert (plan["thread_units"], plan["thread_rows"]) == (
+        1, common.WIDE_ROWS_THREAD)
+    assert 1 <= C <= common.CLUSTER_MAX
+    assert np.all(_coverage(H, U, C) == 1)
+    tiles = plan["blocks"] // C
+    assert plan["blocks"] == tiles * C
+    assert np.all(_coverage(B, R, tiles) == 1) and (tiles - 1) * R < B
+    assert R <= 2 * max(B, 1) or groups == 1   # no idle row group past B
+    pub = U if path == "cluster" else 0
+    assert plan["smem"] == 4 * R * gates * (pub + common.WIDE_CHUNK)
+    assert 0 < plan["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_wide_plans_refuse_no_layer_up_to_16384(gates):
+    """seq_plan and step_plan (at every activation width) refuse no layer
+    with H <= 16384 and I <= 65536; H above 16384 raises, naming
+    ROADMAP.md."""
+    Hs = sorted({*range(1, 1100, 37), *range(1000, 16385, 331), 1024, 1025,
+                 2048, 8192, 16383, 16384})
+    for H in Hs:
+        for I in (1, 7, 4096, 20000, 65536):
+            for B in (1, 64):
+                for act_bytes in (4, 2):
+                    plan = common.seq_plan(gates, B, I, H, act_bytes)
+                    assert plan["path"] in ("warp", "block", "cluster")
+                    assert plan["smem"] <= SMEM_LIMIT
+                step = common.step_plan(gates, B, I, H)
+                assert step["path"] in ("warp", "block", "split")
+                for wide in (plan, step):
+                    if wide["path"] in ("cluster", "split"):
+                        assert np.all(_coverage(H, wide["units"],
+                                                wide["cluster"]) == 1)
+                if H > common.BLOCK_H_MAX:
+                    assert (plan["path"], step["path"]) == ("cluster",
+                                                            "split")
+    for fn in (lambda: common.seq_plan(gates, 4, 8, 16385),
+               lambda: common.step_plan(gates, 4, 8, 16385)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn()
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_wide_path_takes_only_what_the_block_path_refuses(gates):
+    """Nothing the warp or block path took moves: a layer takes the wide
+    path exactly where the warp path does not take it and the block path's
+    own rule (``tile_rows``) refuses it; the block path's plans are the
+    rows ``tile_rows`` gives."""
+    for H in (*range(1, 130, 3), 255, 256, 512, 1000, 1023, 1024):
+        for I in (1, 8, 16, 128, 1024, 2048, 4096, 8192, 16384):
+            for B in (1, 33, 1920):
+                seq = common.seq_plan(gates, B, I, H)
+                step = common.step_plan(gates, B, I, H)
+                try:
+                    rows = common.tile_rows(gates, I, H)
+                except NotImplementedError:
+                    rows = None
+                for plan, wide in ((seq, "cluster"), (step, "split")):
+                    if plan["path"] == "block":
+                        assert plan["rows"] == rows
+                    elif plan["path"] == wide:
+                        assert rows is None
+                    else:
+                        assert plan["path"] == "warp" and 32 % H == 0
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("precision,act,bits", [
+    ("fp32", 0, 32), ("bf16", 1, 16), ("int8", 1, 8), ("int4", 1, 4)])
+def test_seq_wrapper_launches_the_cluster_plan(monkeypatch, gates,
+                                               precision, act, bits):
+    """At a wide H the sequence wrapper launches the ``cluster`` entry with
+    (B, T, I, H) and the plan's rows, cluster, units and shared memory,
+    then the activation code and the weight bits."""
+    calls = []
+    monkeypatch.setattr(common, "check_device", lambda name, t: False)
+    monkeypatch.setattr(
+        common, "launch",
+        lambda wrapper, tensors, ints, keys, n, p, what, act_dtype,
+        variant="": calls.append((wrapper, ints, variant)))
+    fn, args, kw, _ = _seq_call(gates, precision, B=5, T=2, I=3, H=1100)
+    fn(*args, **kw)
+    (wrapper, ints, variant), = calls
+    plan = common.seq_plan(gates, 5, 3, 1100, 4 if act == 0 else 2)
+    assert wrapper is fn and variant == "cluster"
+    assert ints == (5, 2, 3, 1100, plan["rows"], plan["cluster"],
+                    plan["units"], plan["smem"], act, bits)
+
+
+@pytest.mark.parametrize("gates,source", STEP_CELLS)
+@pytest.mark.parametrize("B,I,H", [(33, 64, 1100), (3, 20000, 24),
+                                   (64, 1, 2048)])
+def test_step_wrapper_launches_the_split_plan(monkeypatch, B, I, H, gates,
+                                              source):
+    """At a layer the block path refuses the step wrapper launches the
+    ``split`` entry with (B, I, H) and the plan's rows, slices and units,
+    then the activation code."""
+    calls = []
+    monkeypatch.setattr(common, "check_device", lambda name, t: False)
+    monkeypatch.setattr(
+        common, "launch",
+        lambda wrapper, tensors, ints, *rest, variant="": calls.append(
+            (wrapper, ints, variant)))
+    fn, args = _step_call(gates, B, I, H)
+    fn(*args)
+    plan = common.step_plan(gates, B, I, H)
+    assert calls == [(fn, (B, I, H, plan["rows"], plan["cluster"],
+                           plan["units"], 0), "split")]
